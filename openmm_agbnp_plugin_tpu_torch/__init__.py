@@ -6,7 +6,9 @@ tested against), with the same module names:
   models/agbnp_torch.py   AGBNPModel, energy_forces, prepare_arrays
   ops/tree.py             the flattened Gaussian overlap tree
   ops/born.py             dense pair phases (the plain route)
-  ops/kernels/pairs.py    the three pair sweeps: CUDA kernels + plain twins
+  ops/kernels/pairs.py    the three pair sweeps on the dense tile grid, and
+  ops/kernels/tiles.py    over interacting-tile lists: CUDA kernels + twins
+  ops/neighbors.py        half neighbor lists, the cell grid
   md/simulation.py        Langevin MD with rebuild windows
   runtime/build.py        builds csrc/*.cu with nvcc at first kernel use
 

@@ -8,7 +8,10 @@
 //   agbnp_gb_pair       GB pair energy, Y accumulators, direct forces,
 //                       optionally with the OPLS LJ + Coulomb sum fused in
 //   agbnp_descreening   W_j/U_j column sums + direct descreening forces
-//                       from the saved Q/dQ
+//                       from the saved Q/dQ, or with the spline recomputed
+//
+// These sweep the dense tile grid; tiles.cu holds the same sweeps over
+// interacting-tile lists.
 //
 // Layouts are the JAX wrappers' (openmm_agbnp_plugin_tpu/ops/pallas/pairs.py):
 // positions [3, NP] (Morton-permuted rows, NP padded) and [3, NHP]
@@ -24,46 +27,11 @@
 // Each host function launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() (0 on success).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
-#define AGBNP_NA 16          // spline nodes (models/constants.py)
 #define WARPS_PER_BLOCK 8
 #define COL_THREADS 128
 #define ROW_CHUNK 64
-
-// spline grid step h = AGBNP_I4LOOKUP_MAXA / (NA - 1) = 2 / 15 nm, and the
-// derived constants in the order the JAX kernel forms them
-__device__ __forceinline__ float spline_h() { return (float)(2.0 / 15.0); }
-__device__ __forceinline__ float spline_inv_h() { return 7.5f; }
-__device__ __forceinline__ float spline_hh() {
-  return (float)((2.0 / 15.0) * (2.0 / 15.0));
-}
-__device__ __forceinline__ float spline_h6() { return (float)((2.0 / 15.0) / 6.0); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;  // complete in lane 0
-}
-
-// Minimum image of dx = pos_j - pos_i.  box_mode 0: none; 1: orthorhombic
-// box[0..2]; 2: reduced triclinic rows a;b;c in box[0..8], wrapped along c,
-// then b, then a (ops/born.py::min_image).  rintf rounds half to even like
-// jnp.round / torch.round.
-__device__ __forceinline__ void min_image(int box_mode, const float* box,
-                                          float& dx, float& dy, float& dz) {
-  if (box_mode == 1) {
-    dx -= box[0] * rintf(dx * (1.0f / box[0]));
-    dy -= box[1] * rintf(dy * (1.0f / box[1]));
-    dz -= box[2] * rintf(dz * (1.0f / box[2]));
-  } else if (box_mode == 2) {
-    float k = rintf(dz * (1.0f / box[8]));
-    dx -= k * box[6]; dy -= k * box[7]; dz -= k * box[8];
-    k = rintf(dy * (1.0f / box[4]));
-    dx -= k * box[3]; dy -= k * box[4];
-    dx -= box[0] * rintf(dx * (1.0f / box[0]));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Born sums.  Replaces _born_kernel / born_sums
@@ -92,37 +60,21 @@ __global__ void born_rows_kernel(const float* __restrict__ pos, int np,
                                  float* __restrict__ q_out,
                                  float* __restrict__ dq_out) {
   extern __shared__ float tab[];  // y [ntab] then y2 [ntab]
-  for (int k = threadIdx.x; k < ntab; k += blockDim.x) {
-    tab[k] = yval[k];
-    tab[ntab + k] = y2val[k];
-  }
+  stage_tables(tab, yval, y2val, ntab);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * WARPS_PER_BLOCK + warp;
   if (i >= np) return;
   const float xi = pos[i], yi = pos[np + i], zi = pos[2 * np + i];
   const int tbase = trow[i] * ntj;
-  const bool row_ok = i < n;
-  const float h = spline_h(), inv_h = spline_inv_h();
   float acc = 0.0f;
   for (int j = lane; j < nhp; j += 32) {
     float dx = posh[j] - xi, dy = posh[nhp + j] - yi, dz = posh[2 * nhp + j] - zi;
     min_image(box_mode, box, dx, dy, dz);
     const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-    const int gj = hids[j];
     float qv = 0.0f, dqv = 0.0f;
-    if (row_ok && gj >= 0 && gj != i && d < horizon) {
-      int seg = (int)(d * inv_h);
-      seg = min(max(seg, 0), AGBNP_NA - 2);
-      const int base = (tbase + tcol[j]) * AGBNP_NA + seg;
-      const float y0 = tab[base], y1 = tab[base + 1];
-      const float y20 = tab[ntab + base], y21 = tab[ntab + base + 1];
-      const float a = ((float)seg * h + h - d) * inv_h;
-      const float b = 1.0f - a;
-      qv = a * y0 + b * y1
-           + ((a * a * a - a) * y20 + (b * b * b - b) * y21) * spline_hh() / 6.0f;
-      dqv = (y1 - y0) * inv_h
-            + ((3.0f * b * b - 1.0f) * y21 - (3.0f * a * a - 1.0f) * y20) * spline_h6();
+    if (born_pair_live(i, hids[j], n, d, horizon)) {
+      spline_qdq(tab, ntab, tbase + tcol[j], d, qv, dqv);
       acc += qv * s[j];
     }
     if (q_out != nullptr) {
@@ -263,22 +215,27 @@ extern "C" int agbnp_gb_pair(const float* pos, int np, const float* charge,
 }
 
 // ---------------------------------------------------------------------------
-// Descreening from the saved Q/dQ.  Replaces _descreen_qd_kernel /
-// descreening (openmm_agbnp_plugin_tpu/ops/pallas/pairs.py:654-757).
+// Descreening.  Replaces descreening (openmm_agbnp_plugin_tpu/ops/pallas/
+// pairs.py:699-757) in both of its variants: _descreen_qd_kernel, which
+// reloads the Born pass's saved Q/dQ, and _descreen_kernel (:600-651), which
+// re-evaluates the spline (qd=None: Q/dQ would not fit the 1 GB budget, or
+// sharing is switched off).
 //
-// Bound on the H100: it streams Q and dQ (9.4 MB at 1li2 shapes, L2
-// resident after the Born pass) twice, once per orientation, with a few
-// flops per pair: memory/latency bound.  Design: the TPU kernel keeps the
-// [1, NHP] column accumulators resident across its serial grid; here the
-// row forces come from one warp per row (as in the Born sweep), and the
-// column sums (W, U, force on the screeners) from one thread per column
-// over a chunk of ROW_CHUNK rows, writing [chunks, 5, NHP] partials that a
-// third kernel adds in chunk order.  Q and dQ reads are coalesced in both.
+// Bound on the H100: the reloading variant streams Q and dQ (163 MB at 2clr
+// shapes NP 6144 x NHP 3328; 9.4 MB and L2 resident at 1li2's) twice, once
+// per orientation, with a few flops per pair: memory bound.  The recomputing
+// variant reads no [NP, NHP] array and evaluates the spline twice per pair
+// (rows pass and columns pass): issue bound, like the Born sweep.  Design:
+// the TPU kernel keeps the [1, NHP] column accumulators resident across its
+// serial grid; here the row forces come from one warp per row (as in the
+// Born sweep), and the column sums (W, U, force on the screeners) from one
+// thread per column over a chunk of ROW_CHUNK rows, writing [chunks, 5, NHP]
+// partials that a third kernel adds in chunk order.  Q and dQ reads are
+// coalesced in both.  The two variants are one template each: RECOMPUTE
+// stages the spline tables in shared memory and replaces the Q/dQ loads with
+// the Born sweep's own mask and spline.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float inv_or_zero(float d) {
-  return d > 0.0f ? 1.0f / d : 0.0f;
-}
-
+template <bool RECOMPUTE>
 __global__ void descreen_rows_kernel(const float* __restrict__ pos, int np,
                                      const float* __restrict__ posh, int nhp,
                                      const float* __restrict__ dq,
@@ -287,20 +244,39 @@ __global__ void descreen_rows_kernel(const float* __restrict__ pos, int np,
                                      const float* __restrict__ bru,
                                      int box_mode,
                                      const float* __restrict__ box,
+                                     SplineRefs sp,
                                      float* __restrict__ f_rows) {
+  extern __shared__ float tab[];  // RECOMPUTE: y [ntab] then y2 [ntab]
+  if (RECOMPUTE) {
+    stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
+    __syncthreads();
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * WARPS_PER_BLOCK + warp;
   if (i >= np) return;
   const float xi = pos[i], yi = pos[np + i], zi = pos[2 * np + i];
   const float bsum = brw[i] + bru[i];
+  const int tbase = RECOMPUTE ? sp.trow[i] * sp.ntj : 0;
   float fx = 0.0f, fy = 0.0f, fz = 0.0f;
   for (int j = lane; j < nhp; j += 32) {
-    const float dqv = dq[(size_t)i * nhp + j];
-    if (dqv == 0.0f) continue;
+    float dqv = 0.0f;
+    if (!RECOMPUTE) {
+      dqv = dq[(size_t)i * nhp + j];
+      if (dqv == 0.0f) continue;
+    }
     float dx = posh[j] - xi, dy = posh[nhp + j] - yi, dz = posh[2 * nhp + j] - zi;
     min_image(box_mode, box, dx, dy, dz);
     const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-    const float c = bsum * s[j] * dqv * inv_or_zero(d);
+    float inv_d;
+    if (RECOMPUTE) {
+      if (!born_pair_live(i, sp.hids[j], sp.n, d, sp.horizon)) continue;
+      float qv;
+      spline_qdq(tab, sp.ntab, tbase + sp.tcol[j], d, qv, dqv);
+      inv_d = 1.0f / d;
+    } else {
+      inv_d = inv_or_zero(d);
+    }
+    const float c = bsum * s[j] * dqv * inv_d;
     fx += c * dx;
     fy += c * dy;
     fz += c * dz;
@@ -315,6 +291,7 @@ __global__ void descreen_rows_kernel(const float* __restrict__ pos, int np,
   }
 }
 
+template <bool RECOMPUTE>
 __global__ void descreen_cols_kernel(const float* __restrict__ pos, int np,
                                      const float* __restrict__ posh, int nhp,
                                      const float* __restrict__ q,
@@ -324,25 +301,46 @@ __global__ void descreen_cols_kernel(const float* __restrict__ pos, int np,
                                      const float* __restrict__ bru,
                                      int box_mode,
                                      const float* __restrict__ box,
+                                     SplineRefs sp,
                                      float* __restrict__ partial) {
+  extern __shared__ float tab[];  // RECOMPUTE: y [ntab] then y2 [ntab]
+  if (RECOMPUTE) {
+    stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
+    __syncthreads();
+  }
   const int j = blockIdx.x * COL_THREADS + threadIdx.x;
   const int chunk = blockIdx.y;
   if (j >= nhp) return;
   const float xj = posh[j], yj = posh[nhp + j], zj = posh[2 * nhp + j];
   const float sj = s[j];
+  const int gj = RECOMPUTE ? sp.hids[j] : 0;
+  const int tcj = RECOMPUTE ? sp.tcol[j] : 0;
   float w = 0.0f, u = 0.0f, fx = 0.0f, fy = 0.0f, fz = 0.0f;
   const int i1 = min(np, (chunk + 1) * ROW_CHUNK);
   for (int i = chunk * ROW_CHUNK; i < i1; ++i) {
-    const float qv = q[(size_t)i * nhp + j];
-    const float dqv = dq[(size_t)i * nhp + j];
     const float bw = brw[i], bu = bru[i];
-    w += bw * qv;
-    u += bu * qv;
-    if (dqv == 0.0f) continue;
+    float qv = 0.0f, dqv = 0.0f;
+    if (!RECOMPUTE) {
+      qv = q[(size_t)i * nhp + j];
+      dqv = dq[(size_t)i * nhp + j];
+      w += bw * qv;
+      u += bu * qv;
+      if (dqv == 0.0f) continue;
+    }
     float dx = xj - pos[i], dy = yj - pos[np + i], dz = zj - pos[2 * np + i];
     min_image(box_mode, box, dx, dy, dz);
     const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-    const float c = (bw + bu) * sj * dqv * inv_or_zero(d);
+    float inv_d;
+    if (RECOMPUTE) {
+      if (!born_pair_live(i, gj, sp.n, d, sp.horizon)) continue;
+      spline_qdq(tab, sp.ntab, sp.trow[i] * sp.ntj + tcj, d, qv, dqv);
+      w += bw * qv;
+      u += bu * qv;
+      inv_d = 1.0f / d;
+    } else {
+      inv_d = inv_or_zero(d);
+    }
+    const float c = (bw + bu) * sj * dqv * inv_d;
     fx -= c * dx;
     fy -= c * dy;
     fz -= c * dz;
@@ -378,26 +376,53 @@ extern "C" int agbnp_descreen_chunks(int np) {
   return (np + ROW_CHUNK - 1) / ROW_CHUNK;
 }
 
+template <bool RECOMPUTE>
+static int launch_descreening(const float* pos, int np, const float* posh,
+                              int nhp, const float* q, const float* dq,
+                              const float* s, const float* brw,
+                              const float* bru, int box_mode, const float* box,
+                              SplineRefs sp, float* partial, float* f_rows,
+                              cudaStream_t st) {
+  const size_t smem = RECOMPUTE ? 2 * (size_t)sp.ntab * sizeof(float) : 0;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(descreen_rows_kernel<RECOMPUTE>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(descreen_cols_kernel<RECOMPUTE>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  const int row_blocks = (np + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  descreen_rows_kernel<RECOMPUTE><<<row_blocks, 32 * WARPS_PER_BLOCK, smem, st>>>(
+      pos, np, posh, nhp, dq, s, brw, bru, box_mode, box, sp, f_rows);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  dim3 grid((nhp + COL_THREADS - 1) / COL_THREADS, agbnp_descreen_chunks(np));
+  descreen_cols_kernel<RECOMPUTE><<<grid, COL_THREADS, smem, st>>>(
+      pos, np, posh, nhp, q, dq, s, brw, bru, box_mode, box, sp, partial);
+  return (int)cudaGetLastError();
+}
+
+// q == nullptr selects the recomputing variant, which then reads hids, trow,
+// tcol, the tables, n and horizon; the reloading variant ignores them.
 extern "C" int agbnp_descreening(const float* pos, int np, const float* posh,
                                  int nhp, const float* q, const float* dq,
                                  const float* s, const float* brw,
                                  const float* bru, int box_mode,
-                                 const float* box, float* partial,
-                                 float* w_out, float* u_out, float* f_rows,
-                                 float* f_cols, void* stream) {
+                                 const float* box, const int* hids,
+                                 const int* trow, const int* tcol,
+                                 const float* yval, const float* y2val,
+                                 int nti, int ntj, int n, float horizon,
+                                 float* partial, float* w_out, float* u_out,
+                                 float* f_rows, float* f_cols, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int row_blocks = (np + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  descreen_rows_kernel<<<row_blocks, 32 * WARPS_PER_BLOCK, 0, st>>>(
-      pos, np, posh, nhp, dq, s, brw, bru, box_mode, box, f_rows);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const int nchunks = agbnp_descreen_chunks(np);
-  dim3 grid((nhp + COL_THREADS - 1) / COL_THREADS, nchunks);
-  descreen_cols_kernel<<<grid, COL_THREADS, 0, st>>>(
-      pos, np, posh, nhp, q, dq, s, brw, bru, box_mode, box, partial);
-  err = (int)cudaGetLastError();
+  const SplineRefs sp{hids, trow, tcol, yval, y2val, nti * ntj * AGBNP_NA, ntj,
+                      n, horizon};
+  int err = q == nullptr
+      ? launch_descreening<true>(pos, np, posh, nhp, q, dq, s, brw, bru,
+                                 box_mode, box, sp, partial, f_rows, st)
+      : launch_descreening<false>(pos, np, posh, nhp, q, dq, s, brw, bru,
+                                  box_mode, box, sp, partial, f_rows, st);
   if (err != 0) return err;
   descreen_reduce_kernel<<<(nhp + 127) / 128, 128, 0, st>>>(
-      partial, nchunks, nhp, w_out, u_out, f_cols);
+      partial, agbnp_descreen_chunks(np), nhp, w_out, u_out, f_cols);
   return (int)cudaGetLastError();
 }

@@ -2,21 +2,23 @@
 
 Counterpart of the JAX package's md/simulation.py for the configuration
 its MD benchmark runs (bench.py): AGBNP version 1 with the pair sweeps on
-the kernel route and the MM dense LJ + Coulomb sum fused into the GB sweep,
-rebuild windows (a half neighbor list and an overlap-tree topology every
-`neighbor_every` steps, fixed-topology rescans in between), and the WU
-gamma-rescan force pass every step.  The JAX runner's `lax.scan` over the
-steps of a window is a Python loop here; per-step overflow counts stay on
-the device and the host reads them once per window.
+the kernel route (over interacting-tile lists by default, as in JAX) and
+the MM dense LJ + Coulomb sum fused into the GB sweep, rebuild windows (a
+half neighbor list, through a cell grid above 3000 atoms, and an
+overlap-tree topology every `neighbor_every` steps, fixed-topology rescans
+in between), and the WU gamma-rescan force pass every step.  The JAX
+runner's `lax.scan` over the steps of a window is a Python loop here;
+per-step overflow counts (tree levels and tile lists) stay on the device
+and the host reads them once per window.
 
 What lies outside this configuration (versions 0/2, MTS, constraints,
-virtual sites, the vdW-compact WU topology, WU impulses, mesh sharding,
-cell grids) is not ported: there is no option for it, and version != 1
-raises.
+virtual sites, the vdW-compact WU topology, WU impulses, mesh sharding)
+is not ported: there is no option for it, and version != 1 raises.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -25,8 +27,8 @@ import torch
 from ..models.agbnp_torch import AGBNPModel, energy_forces
 from ..models.params import AGBNPParams
 from ..ops import tree as T
-from ..ops.neighbors import half_neighbor_pairs, host_max_neighbors, \
-    tree_pair_cutoff
+from ..ops.neighbors import CellGrid, cell_neighbor_pairs, \
+    half_neighbor_pairs, host_max_neighbors, tree_pair_cutoff
 from .forces import MMForceField
 from .integrators import langevin_middle_step
 
@@ -38,13 +40,16 @@ class Simulation:
 
     device: where every array lives and every step runs (no default);
     dtype: float64 for CPU parity work, float32 on the GPU (the CUDA pair
-    kernels take float32 only).
+    kernels take float32 only).  pair_tiles and share_qd go to AGBNPModel
+    (interacting-tile-list budgets, None = sized from the initial
+    positions; Q/dQ sharing between the Born and descreening sweeps).
     """
 
     def __init__(self, dms, *, device, version: int = 1,
                  cutoff: float | None = None, dtype=torch.float64,
                  caps=None, skin: float = 0.15, kmax: int | None = None,
-                 descreen_horizon=None):
+                 descreen_horizon=None, pair_tiles=None,
+                 share_qd: bool = True):
         if version != 1:
             raise ValueError(f"version {version}: MD is ported for "
                              "AGBNP version 1 only")
@@ -57,7 +62,8 @@ class Simulation:
         self.agbnp = AGBNPModel(params, device=self.device, dtype=dtype,
                                 version=1, cutoff=cutoff, caps=caps,
                                 positions=dms.positions,
-                                descreen_horizon=descreen_horizon)
+                                descreen_horizon=descreen_horizon,
+                                pair_tiles=pair_tiles, share_qd=share_qd)
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         self.mm = MMForceField.from_dms(dms, cutoff=cutoff, dtype=np_dtype)
         self.masses = torch.as_tensor(dms.masses, dtype=dtype,
@@ -77,6 +83,15 @@ class Simulation:
             kmax = int(np.ceil(seen * 1.5 / 16) * 16)
         self.kmax = kmax
         self.heavy_mask = torch.as_tensor(heavy, device=self.device)
+        # O(N) cell-grid neighbor build above the dense-rebuild crossover
+        # (the analogue of OpenMM's cell-based tiles the reference rides)
+        self.grid = None
+        if params.n > 3000:
+            self.grid = CellGrid(np.asarray(dms.positions), self.rcut_list,
+                                 heavy_mask=heavy)
+        self.neighbor_fn = (functools.partial(cell_neighbor_pairs,
+                                              grid=self.grid)
+                            if self.grid is not None else half_neighbor_pairs)
 
     def ff_state(self) -> dict:
         """Force-field tensors the MD step reads: the AGBNP arrays, the MM
@@ -93,13 +108,15 @@ class Simulation:
                         device=self.device))
 
     def force_fn(self, pairs=None, topology=None, ff=None):
-        """Returns fn(pos) -> (energy, force, tree_counts).
+        """Returns fn(pos) -> (energy, force, counts).
 
         AGBNP1 energy + analytic forces with the OPLS dense LJ + Coulomb
         sum riding the GB sweep; bonded terms and 1-4 pairs by autograd.
-        pairs: (pairs_i, pairs_j, pairs_valid) from half_neighbor_pairs
-        (the tree's 2-body candidates); topology: a tree_topology() of an
-        earlier build (fixed-topology rescans)."""
+        pairs: (pairs_i, pairs_j, pairs_valid) from the neighbor list (the
+        tree's 2-body candidates); topology: a tree_topology() of an
+        earlier build (fixed-topology rescans).  counts: the tree-level
+        counts, followed by the in-range Born and GB tile counts when the
+        sweeps run on interacting-tile lists."""
         ff = self.ff_state() if ff is None else ff
         m = self.agbnp
         a = ff["a"]
@@ -116,10 +133,18 @@ class Simulation:
                                 topology=topology, box=m.box,
                                 pair_pad=m.pair_pad,
                                 pair_rows=pairs is not None, mm_nb=mm_nb,
-                                descreen_horizon=m.descreen_horizon)
+                                descreen_horizon=m.descreen_horizon,
+                                pair_tiles=m.pair_tiles,
+                                share_qd=m.share_qd)
             energy = out["energy"] + out["details"]["e_mm_nb"]
             e_mm, f_mm = self.mm.bonded_and_14_forces(pos, ff["mm"])
-            return energy + e_mm, out["force"] + f_mm, out["diag"]["counts"]
+            counts = out["diag"]["counts"].long()
+            ptc = out["diag"].get("pair_tile_counts")
+            if ptc is not None:
+                # the tile-list counts ride the tree counts' overflow
+                # channel (split off again in overflow_report)
+                counts = torch.cat([counts, ptc.long()])
+            return energy + e_mm, out["force"] + f_mm, counts
 
         return fn
 
@@ -128,8 +153,8 @@ class Simulation:
         """Returns run(pos, vel, nsteps, generator=None, noise=None) ->
         (pos, vel, energies [nsteps], (counts, neighbor_max, sibling_max)).
 
-        Every `neighbor_every` steps the half neighbor list and the
-        overlap-tree topology are rebuilt; the steps of the window run
+        Every `neighbor_every` steps the half neighbor list (neighbor_fn)
+        and the overlap-tree topology are rebuilt; the steps of the window run
         fixed-topology rescans.  The Langevin noise comes
         from `generator` or, when given, from noise [nsteps, N, 3].  The
         window's overflow counts are read once at its end; a window that
@@ -140,6 +165,7 @@ class Simulation:
             raise ValueError("neighbor_every must be > 0 (rebuild windows)")
         masses, rcut, kmax = self.masses, self.rcut_list, self.kmax
         heavy = self.heavy_mask
+        neighbor_fn = self.neighbor_fn
         caps = self.agbnp.caps
         roffset = self.agbnp.params.roffset
         ff = self.ff_state()
@@ -153,7 +179,7 @@ class Simulation:
             done = 0
             while done < nsteps:
                 ninner = min(neighbor_every, nsteps - done)
-                pi, pj, pv, nbmax = half_neighbor_pairs(pos, heavy, rcut, kmax)
+                pi, pj, pv, nbmax = neighbor_fn(pos, heavy, rcut, kmax)
                 lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
                                      a["gamma"] / roffset, a["ishydrogen"])
                 levels, bdiag = T.build_tree(lvl1, pi, pj, caps,
@@ -233,7 +259,9 @@ class Simulation:
     def overflow_report(self, counts, nbmax, sibs) -> dict:
         """Which PanicButton channels overflowed: {channel: (seen, cap)}.
         Empty dict = clean run.  Channels: tree level caps, sibling
-        enumeration windows, neighbor kmax."""
+        enumeration windows, neighbor kmax (which also carries a cell-grid
+        capacity overflow as kmax + 1), and the interacting-tile-list
+        budgets (tile_list_born, tile_list_gb)."""
         rep = {}
         counts = np.asarray(torch.as_tensor(counts).cpu())
         sibs = np.asarray(torch.as_tensor(sibs).cpu())
@@ -248,6 +276,15 @@ class Simulation:
                 rep[f"sibling_window{i + 1}"] = (int(sb) - 1, int(o0))
         if int(nbmax) > self.kmax:
             rep["neighbor_kmax"] = (int(nbmax), int(self.kmax))
+        ncaps = len(caps.caps)
+        if counts.shape[0] > ncaps and self.agbnp.pair_tiles is not None:
+            # trailing entries: interacting-tile-list in-range counts
+            cb, cg = counts[ncaps:ncaps + 2]
+            lb, lg = self.agbnp.pair_tiles
+            if int(cb) > int(lb):
+                rep["tile_list_born"] = (int(cb), int(lb))
+            if lg is not None and int(cg) > int(lg):
+                rep["tile_list_gb"] = (int(cg), int(lg))
         return rep
 
     def _regrow(self, counts, nbmax, sibs, headroom: float = 1.3):
@@ -255,13 +292,17 @@ class Simulation:
         3598-3634): rebuild the model with capacities covering the measured
         maxima plus headroom.  Runners built before this call are stale."""
         old = self.agbnp.caps
+        counts = np.asarray(counts)
+        # trailing tile-list counts: grow the model's budgets before the
+        # rebuild below copies them over
+        if counts.shape[0] > len(old.caps):
+            self.agbnp.grow_pair_tiles(counts[len(old.caps):len(old.caps) + 2])
 
         def r(x, align=128):
             return max(align, int(np.ceil(x / align)) * align)
 
         # a truncated level hides its children, so measured counts
         # underestimate deeper levels: overflowed levels at least double
-        counts = np.asarray(counts)
         caps = tuple(max(c0, 2 * c0 if int(c) > c0 else c0,
                          r(int(c) * headroom))
                      for c0, c in zip(old.caps, counts[:len(old.caps)]))
@@ -270,10 +311,19 @@ class Simulation:
                          int(np.ceil(max(int(sb) - 1, 1) * headroom)))
                      for o0, sb in zip(old.offs, sibs[:-1]))
         if int(nbmax) > self.kmax:
+            if self.grid is not None:
+                # a cell-capacity overflow reports kmax+1 through this
+                # channel; regrow the grid capacity alongside kmax
+                self.grid = self.grid.grown()
+                self.neighbor_fn = functools.partial(cell_neighbor_pairs,
+                                                     grid=self.grid)
             self.kmax = int(np.ceil(int(nbmax) * 1.5 / 16) * 16)
         m = self.agbnp
         self.agbnp = AGBNPModel(m.params, device=self.device, dtype=self.dtype,
                                 caps=T.TreeCaps(caps=caps, offs=offs),
                                 version=m.version, cutoff=m.cutoff,
                                 positions=np.asarray(self.dms.positions),
-                                descreen_horizon=m.descreen_horizon)
+                                descreen_horizon=m.descreen_horizon,
+                                pair_tiles=(m.pair_tiles if m.pair_tiles
+                                            is not None else False),
+                                share_qd=m.share_qd)

@@ -12,10 +12,12 @@ PyTorch on any device:
 Forces are the same closed-form reverse chain the reference derives by hand
 (reference ReferenceAGBNPKernels.cpp:152-795).  The pair phases take one of
 two routes: the kernel route (`pair_pad > 0`, the default) runs the three
-sweeps of ops/kernels/pairs.py in Morton-permuted row space with
-heavy-packed screener columns — CUDA kernels on the GPU, their plain twins
-on the CPU; the plain route (`AGBNPModel(pair_kernel=False)`) runs the
-dense [N, N] phases of ops/born.py in atom order.
+sweeps in Morton-permuted row space with heavy-packed screener columns —
+CUDA kernels on the GPU, their plain twins on the CPU — over
+interacting-tile lists (ops/kernels/tiles.py, the default whenever the
+model gets positions) or the dense tile grid (ops/kernels/pairs.py); the
+plain route (`AGBNPModel(pair_kernel=False)`) runs the dense [N, N] phases
+of ops/born.py in atom order.
 """
 
 from __future__ import annotations
@@ -27,15 +29,19 @@ import torch.nn.functional as F
 from ..ops import born as B
 from ..ops import tree as T
 from ..ops.kernels import pairs as PK
-from .constants import AGBNP_I4LOOKUP_NA, DIELECTRIC_FACTOR, PIFAC, \
-    sphere_volume
+from ..ops.kernels import tiles as TL
+from ..ops.neighbors import CellGrid, cell_neighbor_pairs, \
+    half_neighbor_pairs, host_max_neighbors, tree_pair_cutoff
+from .constants import AGBNP_I4LOOKUP_MAXA, AGBNP_I4LOOKUP_NA, \
+    DIELECTRIC_FACTOR, PIFAC, sphere_volume
 from .i4_tables import I4LookupTables
 from .params import AGBNPParams
 
-# the kernel route keeps Q/dQ [NP, NHP] between the Born and descreening
-# sweeps (models/agbnp_jax.py:250-251); above this many bytes for the pair
-# the TPU recomputes the spline in its descreening kernel instead, which is
-# not ported yet
+# the kernel route shares Q/dQ between the Born and descreening sweeps
+# when they fit this many bytes, counted at 8 per pair as the JAX package
+# counts them (models/agbnp_jax.py:251, :276): [NP, NHP] on the dense grid,
+# [lmax, T, T] on the lists.  Above it, or with share_qd=False, the
+# descreening sweep recomputes the spline.
 QD_BYTES_LIMIT = 1 << 30
 
 # integer arrays the CUDA kernels read as int32; every other integer array
@@ -209,14 +215,23 @@ def tree_passes(a: dict, pos, caps: T.TreeCaps, roffset: float,
 
 
 def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
-                        horizon=None, mm_nb=None):
-    """Born/GB/descreening pair phases through the three sweeps of
-    ops/kernels/pairs.py (counterpart of `_pair_phases_pallas` with the
-    dense tile grid).  The block runs in Morton-permuted row space with
-    heavy-packed screener columns; row outputs are gathered back to atom
-    order at the end.  With mm_nb (sigma, epsq, excl_rows_perm), the OPLS
-    LJ + Coulomb sum rides the GB sweep."""
+                        horizon=None, mm_nb=None, pair_tiles=None,
+                        share_qd: bool = True):
+    """Born/GB/descreening pair phases through the sweeps of
+    ops/kernels (counterpart of `_pair_phases_pallas`).  The block runs in
+    Morton-permuted row space with heavy-packed screener columns; row
+    outputs are gathered back to atom order at the end.  With mm_nb
+    (sigma, epsq, excl_rows_perm), the OPLS LJ + Coulomb sum rides the GB
+    sweep.
+
+    pair_tiles: None for the dense tile grid, or the (lmax_born, lmax_gb)
+    budgets of the interacting-tile lists built here per evaluation;
+    lmax_gb None keeps the GB sweep dense (no cutoff, no distance bound).
+    The in-range tile counts come back as "tile_counts".  Q/dQ are shared
+    between the Born and descreening sweeps under share_qd and
+    QD_BYTES_LIMIT; otherwise descreening recomputes the spline."""
     n = pos.shape[0]
+    tile = PK.pick_tile(n)
     rperm, rinv = a["rperm"], a["rinv"]
     pos_pad = F.pad(pos[rperm], (0, 0, 0, pair_pad - n)).T.contiguous()
     hids = a["hids_pad"]
@@ -224,44 +239,72 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     hclip = torch.clamp(hids, min=0)
     pos_hpad = (pos[hclip] * hvalid[:, None]).T.contiguous()
     nhpad = hids.shape[0]
-    if pair_pad * nhpad * 8 > QD_BYTES_LIMIT:
-        raise ValueError(
-            f"Q/dQ [{pair_pad}, {nhpad}] exceed the {QD_BYTES_LIMIT}-byte "
-            "budget; the recomputing descreening kernel for systems this "
-            "large is not ported yet")
 
     def padv(x):
         return F.pad(x, (0, pair_pad - n))
 
     s_h = torch.where(hvalid, s_factor[hclip], 0.0)
-    raw, q, dq = PK.born_sums(pos_pad, pos_hpad, a["hids_perm_pad"],
-                              a["type_rows_pad"], a["type_cols_hpad"],
-                              a["ytab"], a["y2tab"], s_h, n, box=box,
-                              horizon=horizon, save_qd=True)
+    spline = PK.SplineArgs(a["hids_perm_pad"], a["type_rows_pad"],
+                           a["type_cols_hpad"], a["ytab"], a["y2tab"], n,
+                           horizon)
+    born_args = (pos_pad, pos_hpad, *spline[:5], s_h, n)
+    tile_counts = None
+    if pair_tiles is not None:
+        lb, lg = pair_tiles
+        rvalid = torch.arange(pair_pad, device=pos.device) < n
+        c_r, r_r = TL.tile_bounds(pos_pad, rvalid, tile)
+        c_h, r_h = TL.tile_bounds(pos_hpad, hvalid, tile)
+        tl_b, nv_b, cnt_b = TL.build_tile_list(c_r, r_r, c_h, r_h,
+                                               PK._horizon(horizon), lb,
+                                               box=box)
+        cnt_g = torch.zeros((), dtype=torch.int32, device=pos.device)
+        if lg is not None:
+            tl_g, nv_g, cnt_g = TL.build_tile_list(c_r, r_r, c_r, r_r,
+                                                   float(cutoff), lg,
+                                                   triangular=True, box=box)
+        tile_counts = torch.stack([cnt_b, cnt_g])
+        save_qd = share_qd and lb * tile * tile * 8 <= QD_BYTES_LIMIT
+        born_out = TL.born_sums_tiles(nv_b, tl_b, *born_args, tile, box=box,
+                                      horizon=horizon, save_qd=save_qd)
+    else:
+        save_qd = share_qd and pair_pad * nhpad * 8 <= QD_BYTES_LIMIT
+        born_out = PK.born_sums(*born_args, box=box, horizon=horizon,
+                                save_qd=save_qd)
+    raw, qd = (born_out[0], born_out[1:]) if save_qd else (born_out, None)
     # perm-space per-atom chain: Born radii, GB self, vdW dispersion
     beta = 1.0 / a["radii_vdw_perm"] - PIFAC * raw[:n]
     filt, fp = B.agbnp_swf_invbr(beta)
     br_p = 1.0 / filt
     charge_p = a["charge_pad"][:n]
 
-    sig_pad = epsq_pad = excl_pad = None
+    mm_kw = {}
     if mm_nb is not None:
-        sig_pad = padv(mm_nb["sigma"][rperm])
-        epsq_pad = padv(mm_nb["epsq"][rperm])
-        excl_pad = F.pad(mm_nb["excl_rows_perm"], (0, 0, 0, pair_pad - n),
-                         value=-1)
-    erow, yrow, gbf, mmrow = PK.gb_pair(pos_pad, a["charge_pad"], padv(br_p),
-                                        n, box=box, cutoff=cutoff,
-                                        sig_pad=sig_pad, epsq_pad=epsq_pad,
-                                        excl_rows_pad=excl_pad)
+        mm_kw = dict(sig_pad=padv(mm_nb["sigma"][rperm]),
+                     epsq_pad=padv(mm_nb["epsq"][rperm]),
+                     excl_rows_pad=F.pad(mm_nb["excl_rows_perm"],
+                                         (0, 0, 0, pair_pad - n), value=-1))
+    gb_args = (pos_pad, a["charge_pad"], padv(br_p), n)
+    if pair_tiles is not None and pair_tiles[1] is not None:
+        erow, yrow, gbf, mmrow = TL.gb_pair_tiles(nv_g, tl_g, *gb_args, tile,
+                                                  box=box, cutoff=cutoff,
+                                                  **mm_kw)
+    else:
+        erow, yrow, gbf, mmrow = PK.gb_pair(*gb_args, box=box, cutoff=cutoff,
+                                            **mm_kw)
     gb_self = torch.sum(DIELECTRIC_FACTOR * charge_p * charge_p / br_p)
     gb_pair_e = torch.sum(erow[:n])
     e_vdw = B.vdw_energy(a["alpha_perm"], br_p)
     evdw_der_brw, egb_der_bru = B.born_chain_factors(
         a["alpha_perm"], charge_p, br_p, fp, yrow[:n])
-    w_h, u_h, swf_r, swf_c = PK.descreening(
-        pos_pad, pos_hpad, s_h, padv(evdw_der_brw), padv(egb_der_bru),
-        (q, dq), box=box)
+    desc_args = (pos_pad, pos_hpad, s_h, padv(evdw_der_brw),
+                 padv(egb_der_bru), qd)
+    desc_sp = None if save_qd else spline
+    if pair_tiles is not None:
+        w_h, u_h, swf_r, swf_c = TL.descreening_tiles(
+            nv_b, tl_b, *desc_args, tile, box=box, spline=desc_sp)
+    else:
+        w_h, u_h, swf_r, swf_c = PK.descreening(*desc_args, box=box,
+                                                spline=desc_sp)
 
     # back to atom order (gathers; every heavy atom owns one packed column)
     col = a["hinv"]
@@ -275,13 +318,18 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
                egb_der_U=torch.where(heavy, u_h[cclip], 0.0))
     if mm_nb is not None:
         out["e_mm_nb"] = 0.5 * torch.sum(mmrow[:n])
+    if tile_counts is not None:
+        out["tile_counts"] = tile_counts
     return out
 
 
 def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
                   roffset: float, ntypes_j: int, cutoff=None, topology=None,
                   box=None, pair_pad: int = 0, pair_rows: bool = False,
-                  mm_nb=None, descreen_horizon=None):
+                  mm_nb=None, descreen_horizon=None,
+                  neighbor_rcut: float = 0.0, neighbor_kmax: int = 0,
+                  neighbor_grid=None, pair_tiles=None,
+                  share_qd: bool = True):
     """Full GVolSA (version 0) / AGBNP1 (version 1) energy + analytic forces.
 
     a: arrays_from_numpy dict; pos [N, 3] on the same device.  With box
@@ -290,13 +338,33 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     overlap tree keeps raw deltas like every reference backend.
     descreen_horizon < 2 nm truncates the Born-radius/descreening sums at
     that distance (the reference OpenCL backend's cutoff mode); None keeps
-    the 2 nm table horizon.  pair_pad > 0 selects the kernel route.
+    the 2 nm table horizon.  pair_pad > 0 selects the kernel route, and
+    pair_tiles its interacting-tile-list budgets (None: the dense grid);
+    share_qd=False makes descreening recompute the spline.
+
+    With neighbor_kmax > 0 the tree's 2-body candidates are built on the
+    device from a half neighbor list within neighbor_rcut (through the
+    cell grid when neighbor_grid is given) instead of the arrays' pair
+    list; the diag then carries neighbor_max and neighbor_kmax.
 
     Returns dict(energy, force, diag, details).
     """
+    if neighbor_kmax > 0:
+        heavy = a["ishydrogen"] == 0
+        if neighbor_grid is not None:
+            pi, pj, pv, nbmax = cell_neighbor_pairs(
+                pos, heavy, neighbor_rcut, neighbor_kmax, grid=neighbor_grid)
+        else:
+            pi, pj, pv, nbmax = half_neighbor_pairs(pos, heavy, neighbor_rcut,
+                                                    neighbor_kmax)
+        a = {**a, "pairs_i": pi, "pairs_j": pj, "pairs_valid": pv}
+        pair_rows = True
     e_cav, f_cav, self_volume, levels_vdw, lvl1_vdw, diag, red1, red2 = \
         tree_passes(a, pos, caps, roffset, topology=topology,
                     pair_rows=pair_rows)
+    if neighbor_kmax > 0:
+        diag = {**diag, "neighbor_max": nbmax,
+                "neighbor_kmax": torch.tensor(neighbor_kmax)}
     details = dict(e_vol1=red1["energy"], e_vol2=red2["energy"], e_cav=e_cav)
     if version == 0:
         return dict(energy=e_cav, force=f_cav, diag=diag, details=details)
@@ -306,12 +374,19 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     e_mm_nb = None
     if pair_pad > 0:
         pp = _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad,
-                                 horizon=descreen_horizon, mm_nb=mm_nb)
+                                 horizon=descreen_horizon, mm_nb=mm_nb,
+                                 pair_tiles=pair_tiles, share_qd=share_qd)
         gb_self, gb_pair_e, e_vdw = pp["gb_self"], pp["gb_pair"], pp["e_vdw"]
         br = pp["born_radius"]
         pair_force = pp["pair_force"]
         evdw_der_W, egb_der_U = pp["evdw_der_W"], pp["egb_der_U"]
         e_mm_nb = pp.get("e_mm_nb")
+        if "tile_counts" in pp:
+            diag = {**diag, "pair_tile_counts": pp["tile_counts"],
+                    "pair_tile_budgets": np.asarray(
+                        [pair_tiles[0],
+                         -1 if pair_tiles[1] is None else pair_tiles[1]],
+                        np.int32)}
     else:
         if mm_nb is not None:
             raise ValueError("the fused MM sum rides the kernel route only")
@@ -355,26 +430,31 @@ class AGBNPModel:
     device: where the arrays live and the evaluation runs (no default).
     pair_kernel: version 1 pair phases through the kernel route (CUDA
     kernels on a GPU, their plain twins on the CPU); False takes the dense
-    ops/born.py route.  Tree capacities start from TreeCaps.for_natoms and
-    grow through check_and_grow (the PanicButton).
+    ops/born.py route.  pair_tiles: the kernel route's interacting-tile-list
+    budgets — None (auto: sized from `positions` when given, else the dense
+    grid), False (the dense grid) or (lmax_born, lmax_gb) with lmax_gb None
+    for a dense GB sweep.  share_qd=False makes descreening recompute the
+    spline instead of reloading the Born sweep's Q/dQ (the JAX package's
+    AGBNP_TILES_NO_QD=1).  Above 2000 atoms with positions given, the
+    tree's candidate pairs are rebuilt on the device at every evaluation
+    (through a cell grid above 3000 atoms).  Tree capacities start from
+    TreeCaps.for_natoms; they, the neighbor width and the tile budgets grow
+    through check_and_grow (the PanicButton).
     """
 
     def __init__(self, params: AGBNPParams, *, device, dtype=torch.float64,
                  caps: T.TreeCaps | None = None, version: int = 1,
                  cutoff: float | None = None, positions=None, box=None,
-                 pair_kernel: bool = True, descreen_horizon=None):
+                 pair_kernel: bool = True, descreen_horizon=None,
+                 pair_tiles=None, share_qd: bool = True):
         if version not in (0, 1):
             raise ValueError(f"version {version}: only 0 and 1 are ported")
-        if params.n > 2000:
-            raise ValueError(
-                f"{params.n} atoms: the all-pairs tree candidates serve up to "
-                "2000 atoms; the on-device neighbor-list path for larger "
-                "systems is not ported yet")
         self.params = params
         self.version = version
         self.cutoff = cutoff
         self.device = torch.device(device)
         self.dtype = dtype
+        self.share_qd = bool(share_qd)
         if descreen_horizon == "cutoff":
             descreen_horizon = cutoff
         self.descreen_horizon = descreen_horizon
@@ -385,12 +465,76 @@ class AGBNPModel:
         self.pair_kernel = bool(pair_kernel) and version == 1
         self.pair_pad = (PK.pad_to(params.n, PK.pick_tile(params.n))
                          if self.pair_kernel else 0)
+        # large systems: the tree's candidate pairs are built on the device
+        # per evaluation (an all-pairs list is N^2/2 rows); small ones keep
+        # the exact triangular list
+        self.neighbor_rcut = 0.0
+        self.neighbor_kmax = 0
+        self.neighbor_grid = None
+        pairs = None
+        if positions is not None and params.n > 2000:
+            self.neighbor_rcut = tree_pair_cutoff(params.radii_large) + 0.05
+            heavy = np.asarray(params.ishydrogen) == 0
+            seen = host_max_neighbors(np.asarray(positions), heavy,
+                                      self.neighbor_rcut)
+            self.neighbor_kmax = int(np.ceil(seen * 1.5 / 16) * 16)
+            if params.n > 3000:
+                self.neighbor_grid = CellGrid(np.asarray(positions),
+                                              self.neighbor_rcut,
+                                              heavy_mask=heavy)
+            pairs = (np.zeros(1, np.int32), np.zeros(1, np.int32),
+                     np.zeros(1, bool))  # placeholder; rebuilt on device
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
-        self.arrays_np = prepare_arrays(params, dtype=np_dtype,
+        self._init_positions = (None if positions is None
+                                else np.asarray(positions))
+        self.arrays_np = prepare_arrays(params, dtype=np_dtype, pairs=pairs,
                                         pair_pad=self.pair_pad,
                                         positions=positions)
         self.arrays = arrays_from_numpy(self.arrays_np, self.device, dtype)
         self.ntypes_j = int(np.max(self.arrays_np["type_j"]) + 1)
+        if pair_tiles is None:
+            pair_tiles = self._init_positions is not None
+        if pair_tiles is True:
+            pair_tiles = self._sized_pair_tiles() if self.pair_kernel else None
+        self.pair_tiles = (tuple(pair_tiles)
+                           if pair_tiles and self.pair_kernel else None)
+
+    def _sized_pair_tiles(self):
+        """Initial (lmax_born, lmax_gb) tile-list budgets: the in-range
+        tile count on the initial configuration x1.5 headroom (8-aligned,
+        at most every tile pair), overflow-detected through the diag like
+        the neighbor kmax (models/agbnp_jax.py:625-662)."""
+        n = self.params.n
+        tile = PK.pick_tile(n)
+        pos = self._init_positions
+        a = self.arrays_np
+        pos_p = np.zeros((3, self.pair_pad))
+        pos_p[:, :n] = pos[a["rperm"]].T
+        rvalid = np.arange(self.pair_pad) < n
+        hids = a["hids_pad"]
+        hvalid = hids >= 0
+        pos_h = np.zeros((3, hids.shape[0]))
+        pos_h[:, hvalid] = pos[hids[hvalid]].T
+        boxv = (None if self.box is None
+                else self.box.double().cpu().numpy())
+        heff = (AGBNP_I4LOOKUP_MAXA if self.descreen_horizon is None
+                else min(self.descreen_horizon, AGBNP_I4LOOKUP_MAXA))
+
+        def budget(count, ntot):
+            return int(min(max(8, np.ceil(count * 1.5 / 8) * 8), ntot))
+
+        nti = self.pair_pad // tile
+        ntj = pos_h.shape[1] // tile
+        cb = TL.host_tile_count(pos_p, rvalid, pos_h, hvalid, tile, heff,
+                                box=boxv)
+        lb = budget(cb, nti * ntj)
+        lg = None
+        if self.cutoff is not None:
+            cg = TL.host_tile_count(pos_p, rvalid, pos_p, rvalid, tile,
+                                    float(self.cutoff), triangular=True,
+                                    box=boxv)
+            lg = budget(cg, nti * (nti + 1) // 2)
+        return (lb, lg)
 
     def energy_forces(self, pos, with_details: bool = False):
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
@@ -399,18 +543,57 @@ class AGBNPModel:
                             roffset=self.params.roffset,
                             ntypes_j=self.ntypes_j, cutoff=self.cutoff,
                             box=self.box, pair_pad=self.pair_pad,
-                            descreen_horizon=self.descreen_horizon)
+                            descreen_horizon=self.descreen_horizon,
+                            neighbor_rcut=self.neighbor_rcut,
+                            neighbor_kmax=self.neighbor_kmax,
+                            neighbor_grid=self.neighbor_grid,
+                            pair_tiles=self.pair_tiles,
+                            share_qd=self.share_qd)
         if with_details:
             return out["energy"], out["force"], out
         return out["energy"], out["force"]
 
     def check_and_grow(self, diag) -> bool:
-        """PanicButton: grow capacities if the last evaluation overflowed.
-        Returns True if a re-evaluation is needed."""
+        """PanicButton: grow capacities if the last evaluation overflowed
+        (tree levels, sibling windows, neighbor width, tile budgets).
+        Returns True if a re-evaluation is needed.
+
+        A neighbor overflow also doubles the cell grid's capacity: the grid
+        reports a cell overflow as kmax + 1 through the same channel, and
+        growing kmax alone would never clear it (the JAX model keeps its
+        grid there; its Simulation grows it, md/simulation.py:935-942)."""
         ov = T.check_overflow(diag)
-        if not ov["any"]:
+        nb_over = ("neighbor_max" in diag
+                   and int(diag["neighbor_max"]) > self.neighbor_kmax > 0)
+        tiles_over = self.grow_pair_tiles(diag.get("pair_tile_counts"))
+        if not ov["any"] and not nb_over and not tiles_over:
             return False
-        self.caps = self.caps.grow(
-            [bool(c) for c in ov["cap_overflow"]],
-            [bool(s) for s in ov["sib_overflow"][:-1]])
+        if ov["any"]:
+            self.caps = self.caps.grow(
+                [bool(c) for c in ov["cap_overflow"]],
+                [bool(s) for s in ov["sib_overflow"][:-1]])
+        if nb_over:
+            if self.neighbor_grid is not None:
+                self.neighbor_grid = self.neighbor_grid.grown()
+            self.neighbor_kmax = int(np.ceil(
+                int(diag["neighbor_max"]) * 1.5 / 16) * 16)
         return True
+
+    def grow_pair_tiles(self, counts) -> bool:
+        """Grow the interacting-tile-list budgets past measured in-range
+        counts [born, gb].  Returns True (and updates self.pair_tiles) on
+        overflow."""
+        if self.pair_tiles is None or counts is None:
+            return False
+        cb, cg = (int(x) for x in np.asarray(torch.as_tensor(counts).cpu()))
+        lb, lg = self.pair_tiles
+        over = False
+        if cb > lb:
+            lb = max(8, int(np.ceil(cb * 1.5 / 8) * 8))
+            over = True
+        if lg is not None and cg > lg:
+            lg = max(8, int(np.ceil(cg * 1.5 / 8) * 8))
+            over = True
+        if over:
+            self.pair_tiles = (lb, lg)
+        return over

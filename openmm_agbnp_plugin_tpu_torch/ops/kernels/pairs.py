@@ -12,16 +12,19 @@ radius-type ids and the [Ti, Tj, NA] y/y2 spline tables.
   gb_pair       GB pair energy rows, Y rows, direct forces (+ OPLS LJ and
                 Coulomb with in-kernel exclusion lists)
   descreening   W_j/U_j column sums + direct descreening forces from the
-                saved Q/dQ
+                saved Q/dQ, or (qd=None) with the spline recomputed
 
 Each wrapper routes by the device of its tensors: on the CPU it returns its
 plain twin (`*_reference`); on a CUDA device it checks every argument,
 launches its kernel from csrc/pairs.cu on the current stream, raises if the
-launch failed, and adds one to its `launches` count.  There is no fallback
-from the kernel to the twin.
+launch failed, and adds one to its count in LAUNCHES.  There is no fallback
+from the kernel to the twin.  tiles.py holds the same sweeps over
+interacting-tile lists, counted here too.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -50,18 +53,49 @@ def _horizon(horizon):
             else min(float(horizon), AGBNP_I4LOOKUP_MAXA))
 
 
+# launches of each CUDA kernel (one per wrapper call on a CUDA device); the
+# two descreening variants of each route are counted apart
+LAUNCHES = dict.fromkeys((
+    "born_sums", "gb_pair", "descreening", "descreening_recompute",
+    "born_sums_tiles", "gb_pair_tiles", "descreening_tiles",
+    "descreening_tiles_recompute"), 0)
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class SplineArgs(NamedTuple):
+    """What a recomputing descreening sweep (qd=None) needs to re-evaluate
+    the Born sweep's masked spline: born_sums' ids, types, tables, n and
+    horizon."""
+    hids_perm: torch.Tensor
+    type_rows: torch.Tensor
+    type_cols: torch.Tensor
+    yval: torch.Tensor
+    y2val: torch.Tensor
+    n: int
+    horizon: float | None = None
+
+
 # ---------------------------------------------------------------------------
 # Plain twins
 # ---------------------------------------------------------------------------
 
 def _pair_geom(pos_r, pos_c, box):
-    """Deltas dx, dy, dz [R, C] = pos_c - pos_r (min-image if box), d2.
+    """Deltas dx, dy, dz [..., R, C] = pos_c - pos_r (min-image if box), d2,
+    from pos_r [3, ..., R] and pos_c [3, ..., C].
 
     box: None, [3] orthorhombic lengths, or [3, 3] reduced triclinic rows
     (sequential c/b/a wrap, ops/born.py::min_image)."""
-    dx = pos_c[0][None, :] - pos_r[0][:, None]
-    dy = pos_c[1][None, :] - pos_r[1][:, None]
-    dz = pos_c[2][None, :] - pos_r[2][:, None]
+    dx = pos_c[0][..., None, :] - pos_r[0][..., :, None]
+    dy = pos_c[1][..., None, :] - pos_r[1][..., :, None]
+    dz = pos_c[2][..., None, :] - pos_r[2][..., :, None]
     if box is not None and box.dim() == 1:
         dx = dx - box[0] * torch.round(dx * (1.0 / box[0]))
         dy = dy - box[1] * torch.round(dy * (1.0 / box[1]))
@@ -92,20 +126,26 @@ def _spline(d, ti, tj, yval, y2val):
     return q, dq
 
 
+def _born_qdq(d, gi, gj, n, horizon, trow, tcol, yval, y2val):
+    """The Born sweep's masked Q and dQ/dd and its pair mask, for row ids
+    gi, screener permuted-row ids gj and radius types broadcasting against
+    the distances d."""
+    mask = (gi != gj) & (gi < n) & (gj >= 0) & (d < _horizon(horizon))
+    q, dq = _spline(d, trow, tcol, yval, y2val)
+    return torch.where(mask, q, 0.0), torch.where(mask, dq, 0.0), mask
+
+
 def born_sums_reference(pos_pad, pos_hpad, hids_perm, type_rows, type_cols,
                         yval, y2val, s_hpad, n, box=None, horizon=None,
                         save_qd=False):
     """Plain twin of born_sums (same arguments and results)."""
     npad = pos_pad.shape[1]
-    dx, dy, dz, d2 = _pair_geom(pos_pad, pos_hpad, box)
+    _, _, _, d2 = _pair_geom(pos_pad, pos_hpad, box)
     d = torch.sqrt(d2)
-    gi = torch.arange(npad, device=pos_pad.device)[:, None]
-    gj = hids_perm.long()[None, :]
-    mask = (gi != gj) & (gi < n) & (gj >= 0) & (d < _horizon(horizon))
-    q, dq = _spline(d, type_rows.long()[:, None], type_cols.long()[None, :],
-                    yval, y2val)
-    q = torch.where(mask, q, 0.0)
-    dq = torch.where(mask, dq, 0.0)
+    q, dq, _ = _born_qdq(d, torch.arange(npad, device=pos_pad.device)[:, None],
+                         hids_perm.long()[None, :], n, horizon,
+                         type_rows.long()[:, None], type_cols.long()[None, :],
+                         yval, y2val)
     raw = torch.sum(q * s_hpad[None, :], dim=1)
     if save_qd:
         return raw, q, dq
@@ -158,20 +198,44 @@ def gb_pair_reference(pos_pad, charge_pad, born_pad, n, box=None,
 
 
 def descreening_reference(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd,
-                          box=None):
+                          box=None, spline=None):
     """Plain twin of descreening (same arguments and results)."""
-    q, dq = qd
     dx, dy, dz, d2 = _pair_geom(pos_pad, pos_hpad, box)
     d = torch.sqrt(d2)
-    w = torch.sum(brw_pad[:, None] * q, dim=0)
-    u = torch.sum(bru_pad[:, None] * q, dim=0)
-    inv_d = torch.where(d > 0.0, 1.0 / torch.where(d > 0.0, d, 1.0), 0.0)
-    c = (brw_pad + bru_pad)[:, None] * s_hpad[None, :] * dq * inv_d
+    if qd is None:
+        sp = need_spline(spline)
+        q, dq, mask = _born_qdq(
+            d, torch.arange(pos_pad.shape[1], device=d.device)[:, None],
+            sp.hids_perm.long()[None, :], sp.n, sp.horizon,
+            sp.type_rows.long()[:, None], sp.type_cols.long()[None, :],
+            sp.yval, sp.y2val)
+    else:
+        q, dq = qd
+        mask = d > 0.0
+    return _descreen_sums(dx, dy, dz, d, mask, q, dq, s_hpad, brw_pad,
+                          bru_pad)
+
+
+def need_spline(spline):
+    if spline is None:
+        raise ValueError("qd=None needs spline=SplineArgs(...) to recompute "
+                         "the Born sweep's spline")
+    return spline
+
+
+def _descreen_sums(dx, dy, dz, d, mask, q, dq, s_cols, brw_rows, bru_rows):
+    """Descreening over [..., R, C] pairs: W and U column sums, and the
+    direct forces c_ij * dist_ij on rows (+) and columns (-), with
+    c_ij = (BrW + BrU)_i s_j dQ_ij / d_ij (1/d taken only where mask)."""
+    inv_d = torch.where(mask, 1.0 / torch.where(mask, d, 1.0), 0.0)
+    w = torch.sum(brw_rows[..., :, None] * q, dim=-2)
+    u = torch.sum(bru_rows[..., :, None] * q, dim=-2)
+    c = (brw_rows + bru_rows)[..., :, None] * s_cols[..., None, :] * dq * inv_d
     cx, cy, cz = c * dx, c * dy, c * dz
-    f_rows = torch.stack([torch.sum(cx, dim=1), torch.sum(cy, dim=1),
-                          torch.sum(cz, dim=1)], dim=1)
-    f_cols = torch.stack([-torch.sum(cx, dim=0), -torch.sum(cy, dim=0),
-                          -torch.sum(cz, dim=0)], dim=1)
+    f_rows = torch.stack([torch.sum(cx, dim=-1), torch.sum(cy, dim=-1),
+                          torch.sum(cz, dim=-1)], dim=-1)
+    f_cols = torch.stack([-torch.sum(cx, dim=-2), -torch.sum(cy, dim=-2),
+                          -torch.sum(cz, dim=-2)], dim=-1)
     return w, u, f_rows, f_cols
 
 
@@ -266,13 +330,11 @@ def born_sums(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
         int(n), _horizon(horizon), box_mode, _ptr(box_t), raw.data_ptr(),
         _ptr(q), _ptr(dq), stream)
     _launch_check("born_sums", rc)
-    born_sums.launches += 1
+    LAUNCHES["born_sums"] += 1
     if save_qd:
         return raw, q, dq
     return raw
 
-
-born_sums.launches = 0
 
 
 def gb_pair(pos_pad, charge_pad, born_pad, n, box=None, cutoff=None,
@@ -319,36 +381,66 @@ def gb_pair(pos_pad, charge_pad, born_pad, n, box=None, cutoff=None,
         _ptr(box_t), DIELECTRIC_FACTOR, KE, erow.data_ptr(), yrow.data_ptr(),
         force.data_ptr(), _ptr(mmrow), stream)
     _launch_check("gb_pair", rc)
-    gb_pair.launches += 1
+    LAUNCHES["gb_pair"] += 1
     return erow, yrow, force, mmrow
 
 
-gb_pair.launches = 0
+
+def _check_spline(spline, npad, nhpad, dev):
+    """Check a SplineArgs for the CUDA kernels; returns (nti, ntj)."""
+    need_spline(spline)
+    nti, ntj = spline.yval.shape[0], spline.yval.shape[1]
+    _check("hids_perm", spline.hids_perm, torch.int32, (nhpad,), dev)
+    _check("type_rows", spline.type_rows, torch.int32, (npad,), dev)
+    _check("type_cols", spline.type_cols, torch.int32, (nhpad,), dev)
+    _check("yval", spline.yval, torch.float32, (nti, ntj, _NA), dev)
+    _check("y2val", spline.y2val, torch.float32, (nti, ntj, _NA), dev)
+    return nti, ntj
 
 
-def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None):
+def _spline_ptrs(spline, qd):
+    """The recomputing kernels' spline arguments (null when qd is given)."""
+    if qd is not None:
+        return (None,) * 5 + (0, 0, 0, 0.0)
+    sp = spline
+    return (sp.hids_perm.data_ptr(), sp.type_rows.data_ptr(),
+            sp.type_cols.data_ptr(), sp.yval.data_ptr(), sp.y2val.data_ptr(),
+            sp.yval.shape[0], sp.yval.shape[1], int(sp.n),
+            _horizon(sp.horizon))
+
+
+def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
+                spline=None):
     """Descreening derivative sweep (reference
     ReferenceAGBNPKernels.cpp:555-586, VdWGBDerBorn
-    AGBNPBornRadii.cl:872-1280) over the heavy-packed screener columns,
-    reloading born_sums' saved qd = (Q, dQ).
+    AGBNPBornRadii.cl:872-1280) over the heavy-packed screener columns.
+
+    With qd = (Q, dQ) from born_sums(save_qd=True) it reloads them; with
+    qd=None it re-evaluates the Born sweep's masked spline from
+    spline=SplineArgs(...) (the JAX package's _descreen_kernel, for when
+    Q/dQ would exceed the memory budget or sharing is off).
 
     Returns (W [NHP], U [NHP], force_rows [NP, 3], force_cols [NHP, 3]);
     the column-side quantities are in packed heavy layout.
     """
     if pos_pad.device.type == "cpu":
         return descreening_reference(pos_pad, pos_hpad, s_hpad, brw_pad,
-                                     bru_pad, qd, box=box)
+                                     bru_pad, qd, box=box, spline=spline)
     dev = pos_pad.device
     f32 = torch.float32
     npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
-    q, dq = qd
     _check("pos_pad", pos_pad, f32, (3, npad), dev)
     _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
     _check("s_hpad", s_hpad, f32, (nhpad,), dev)
     _check("brw_pad", brw_pad, f32, (npad,), dev)
     _check("bru_pad", bru_pad, f32, (npad,), dev)
-    _check("Q", q, f32, (npad, nhpad), dev)
-    _check("dQ", dq, f32, (npad, nhpad), dev)
+    if qd is None:
+        _check_spline(spline, npad, nhpad, dev)
+        q = dq = None
+    else:
+        q, dq = qd
+        _check("Q", q, f32, (npad, nhpad), dev)
+        _check("dQ", dq, f32, (npad, nhpad), dev)
     box_mode, box_t = _box_arg(box, dev)
     lib = _cuda_lib()
     partial = torch.empty((lib.agbnp_descreen_chunks(npad), 5, nhpad),
@@ -359,25 +451,11 @@ def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None):
     f_cols = torch.empty((nhpad, 3), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.agbnp_descreening(
-        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad, q.data_ptr(),
-        dq.data_ptr(), s_hpad.data_ptr(), brw_pad.data_ptr(),
-        bru_pad.data_ptr(), box_mode, _ptr(box_t), partial.data_ptr(),
+        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad, _ptr(q),
+        _ptr(dq), s_hpad.data_ptr(), brw_pad.data_ptr(), bru_pad.data_ptr(),
+        box_mode, _ptr(box_t), *_spline_ptrs(spline, qd), partial.data_ptr(),
         w.data_ptr(), u.data_ptr(), f_rows.data_ptr(), f_cols.data_ptr(),
         stream)
     _launch_check("descreening", rc)
-    descreening.launches += 1
+    LAUNCHES["descreening" if qd is not None else "descreening_recompute"] += 1
     return w, u, f_rows, f_cols
-
-
-descreening.launches = 0
-
-KERNELS = (born_sums, gb_pair, descreening)
-
-
-def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-def reset_launch_counts():
-    for k in KERNELS:
-        k.launches = 0

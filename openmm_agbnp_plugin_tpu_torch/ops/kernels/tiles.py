@@ -1,0 +1,417 @@
+"""Interacting-tile lists and the three pair sweeps over them: CUDA kernels
+and their plain PyTorch twins.
+
+Counterpart of the tile-list half of the JAX package's Pallas kernels
+(openmm_agbnp_plugin_tpu/ops/pallas/pairs.py:230-346 and 760-1125).  Per
+evaluation, each [tile] block of Morton-permuted rows and of heavy-packed
+screener columns is bounded by its AABB; tile pairs whose AABB lower
+distance bound is inside the interaction range are compacted into an
+i-major (ti; tj) list of static length lmax (the budget), and the sweeps
+visit the list instead of the whole tile grid.  The in-range count stays on
+the device and rides the diagnostics, so the PanicButton regrows the budget
+when it overflows (the reference's neighbor-tile rebind,
+OpenCLAGBNPKernels.cpp:3521-3530).
+
+  tile_bounds, build_tile_list   torch ops on the device
+  host_tile_count                numpy, for sizing the budget at model init
+  born_sums_tiles                born_sums over the list, optionally saving
+                                 per-entry [lmax, T, T] Q/dQ tiles
+  gb_pair_tiles                  gb_pair over the triangular list
+  descreening_tiles              descreening over the Born list, reloading
+                                 the saved tiles or (qd=None) recomputing
+
+The sweeps take the same arguments as their dense counterparts in pairs.py
+with (nv, tl) in front and the tile size after n, and return the same
+results.  Each wrapper runs its plain twin on CPU tensors and its kernel
+from csrc/tiles.cu on CUDA tensors, counted in pairs.LAUNCHES.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...models.constants import DIELECTRIC_FACTOR
+from ..born import min_image
+from .pairs import (KE, LAUNCHES, _born_qdq, _box_arg, _check, _check_spline,
+                    _cuda_lib, _descreen_sums, _horizon, _launch_check,
+                    _NA, _pair_geom, _ptr, _spline_ptrs, need_spline)
+
+
+# ---------------------------------------------------------------------------
+# The lists
+# ---------------------------------------------------------------------------
+
+def tile_bounds(pos_pad, valid, tile: int):
+    """Per-tile AABB (center [3, NT], half-diagonal radius [NT]) of the
+    valid atoms in each contiguous block of `tile` packed columns.  Empty
+    tiles get radius -1e30 so every distance test excludes them."""
+    nt = pos_pad.shape[1] // tile
+    p = pos_pad.reshape(3, nt, tile)
+    v = valid.reshape(1, nt, tile)
+    big = 1e30
+    lo = torch.amin(torch.where(v, p, big), dim=2)
+    hi = torch.amax(torch.where(v, p, -big), dim=2)
+    has = torch.any(v[0], dim=1)
+    lo = torch.where(has[None, :], lo, 0.0)
+    hi = torch.where(has[None, :], hi, 0.0)
+    center = 0.5 * (lo + hi)
+    rad = torch.where(has, 0.5 * torch.sqrt(torch.sum((hi - lo) ** 2, dim=0)),
+                      -big)
+    return center, rad
+
+
+def build_tile_list(ci, ri, cj, rj, rng_dist: float, lmax: int,
+                    triangular: bool = False, box=None):
+    """Compact the in-range tile pairs into an i-major list, on the device.
+
+    ci/ri, cj/rj: tile_bounds of the row and column packings.  A tile pair
+    survives iff |c_i - c_j| - r_i - r_j (min-image on centers when box is
+    given) is < rng_dist; conservative, it never drops a pair the sweeps'
+    own masks would accept.  With triangular, only tj >= ti pairs are
+    listed (the GB sweep's unordered pairs).
+
+    Returns (tl [2, lmax] int32 (ti; tj), nv [1] int32 = min(count, lmax),
+    count [] int32).  Entries past nv are (0; 0).  count > lmax means the
+    budget overflowed; nothing here reads it on the host.
+    """
+    nti, ntj = ri.shape[0], rj.shape[0]
+    dev = ri.device
+    dc = ci.T[:, None, :] - cj.T[None, :, :]
+    if box is not None:
+        dc = min_image(dc, box)
+    dmin = torch.sqrt(torch.sum(dc * dc, dim=-1)) - ri[:, None] - rj[None, :]
+    ok = dmin < rng_dist
+    if triangular:
+        ok = ok & (torch.arange(ntj, device=dev)[None, :]
+                   >= torch.arange(nti, device=dev)[:, None])
+    ntot = nti * ntj
+    key = torch.where(ok.reshape(-1),
+                      torch.arange(ntot, dtype=torch.int32, device=dev), ntot)
+    if ntot < lmax:
+        key = F.pad(key, (0, lmax - ntot), value=ntot)
+    order = torch.sort(key, stable=True).values[:lmax]
+    count = torch.sum(ok).to(torch.int32)
+    order = torch.where(order < ntot, order, 0)
+    tl = torch.stack([order // ntj, order % ntj]).to(torch.int32).contiguous()
+    return tl, torch.clamp(count, max=lmax).reshape(1), count
+
+
+def host_tile_count(pos_row, valid_row, pos_col, valid_col, tile: int,
+                    rng_dist: float, triangular: bool = False,
+                    box=None) -> int:
+    """NumPy twin of build_tile_list's count, for sizing the static budget
+    from the initial configuration at model init."""
+
+    def bounds(p, v):
+        nt = p.shape[1] // tile
+        pp = p.reshape(3, nt, tile)
+        vv = v.reshape(1, nt, tile)
+        lo = np.min(np.where(vv, pp, 1e30), axis=2)
+        hi = np.max(np.where(vv, pp, -1e30), axis=2)
+        has = np.any(vv[0], axis=1)
+        lo = np.where(has[None], lo, 0.0)
+        hi = np.where(has[None], hi, 0.0)
+        c = 0.5 * (lo + hi)
+        r = np.where(has, 0.5 * np.sqrt(((hi - lo) ** 2).sum(0)), -1e30)
+        return c, r
+
+    ci, ri = bounds(np.asarray(pos_row, np.float64), np.asarray(valid_row))
+    cj, rj = bounds(np.asarray(pos_col, np.float64), np.asarray(valid_col))
+    dc = ci.T[:, None, :] - cj.T[None, :, :]
+    if box is not None:
+        b = np.asarray(box, np.float64).reshape(-1, 3)
+        if b.shape[0] == 1:
+            b = b[0]
+            dc = dc - b * np.round(dc / b)
+        else:
+            a_, b_, c_ = b
+            dc = dc - np.round(dc[..., 2:3] / c_[2]) * c_
+            dc = dc - np.round(dc[..., 1:2] / b_[1]) * b_
+            dc = dc - np.round(dc[..., 0:1] / a_[0]) * a_
+    dmin = np.sqrt((dc ** 2).sum(-1)) - ri[:, None] - rj[None, :]
+    ok = dmin < rng_dist
+    if triangular:
+        ok &= (np.arange(rj.shape[0])[None, :]
+               >= np.arange(ri.shape[0])[:, None])
+    return int(ok.sum())
+
+
+# ---------------------------------------------------------------------------
+# Plain twins: every list entry as one [T, T] block of a batched sweep
+# ---------------------------------------------------------------------------
+
+def _entries(nv, tl, tile):
+    """Global row and column ids [L, T] of each entry, and which entries
+    are valid (l < nv) as [L, 1, 1]."""
+    r = torch.arange(tile, device=tl.device)
+    rows = tl[0].long()[:, None] * tile + r
+    cols = tl[1].long()[:, None] * tile + r
+    live = torch.arange(tl.shape[1], device=tl.device) < nv[0]
+    return rows, cols, live[:, None, None]
+
+
+def _tile_sum(x, ids, size):
+    """Add the per-entry sums x [L, T(, 3)] into a zero [size(, 3)] at
+    ids [L, T]."""
+    out = x.new_zeros((size,) + tuple(x.shape[2:]))
+    return out.index_add_(0, ids.reshape(-1), x.reshape((-1,) + out.shape[1:]))
+
+
+def born_sums_tiles_reference(nv, tl, pos_pad, pos_hpad, hids_perm,
+                              type_rows, type_cols, yval, y2val, s_hpad, n,
+                              tile, box=None, horizon=None, save_qd=False):
+    """Plain twin of born_sums_tiles (same arguments and results)."""
+    rows, cols, live = _entries(nv, tl, tile)
+    _, _, _, d2 = _pair_geom(pos_pad[:, rows], pos_hpad[:, cols], box)
+    d = torch.sqrt(d2)
+    q, dq, mask = _born_qdq(d, rows[:, :, None],
+                            hids_perm.long()[cols][:, None, :], n, horizon,
+                            type_rows.long()[rows][:, :, None],
+                            type_cols.long()[cols][:, None, :], yval, y2val)
+    q = torch.where(live, q, 0.0)
+    dq = torch.where(live, dq, 0.0)
+    raw = _tile_sum(torch.sum(q * s_hpad[cols][:, None, :], dim=2), rows,
+                    pos_pad.shape[1])
+    if save_qd:
+        return raw, q, dq
+    return raw
+
+
+def gb_pair_tiles_reference(nv, tl, pos_pad, charge_pad, born_pad, n, tile,
+                            box=None, cutoff=None, sig_pad=None,
+                            epsq_pad=None, excl_rows_pad=None):
+    """Plain twin of gb_pair_tiles: each entry's pairs deposited on both
+    its row and its column tile."""
+    npad = pos_pad.shape[1]
+    dt = pos_pad.dtype
+    rows, cols, live = _entries(nv, tl, tile)
+    dx, dy, dz, d2 = _pair_geom(pos_pad[:, rows], pos_pad[:, cols], box)
+    gi, gj = rows[:, :, None], cols[:, None, :]
+    mask = (gi < gj) & (gj < n) & live
+    if cutoff is not None:
+        mask = mask & (d2 < cutoff * cutoff)
+    fm = mask.to(dt)
+    bb = born_pad[rows][:, :, None] * born_pad[cols][:, None, :]
+    bb_safe = torch.where(mask, bb, 1.0)
+    etij = torch.exp(-0.25 * torch.where(mask, d2, 0.0) / bb_safe)
+    fgb = fm / torch.sqrt(torch.where(mask, d2 + bb * etij, 1.0))
+    qq_f = charge_pad[rows][:, :, None] * charge_pad[cols][:, None, :]
+    qq = DIELECTRIC_FACTOR * qq_f
+    epair = qq * fgb
+    fgb3 = fgb * fgb * fgb
+    mw = -2.0 * qq * (1.0 - 0.25 * etij) * fgb3
+    ypair = qq_f * (bb + 0.25 * d2) * etij * fgb3
+    mmpair = None
+    if sig_pad is not None:
+        ex = excl_rows_pad.long()[rows]
+        excluded = torch.zeros_like(mask)
+        for e in range(ex.shape[2]):
+            excluded = excluded | (ex[:, :, e:e + 1] == gj)
+        fmm = fm * (~excluded).to(dt)
+        d2s = torch.where(mask, d2, 1.0)
+        inv2 = fmm / d2s
+        sr2 = (sig_pad[rows][:, :, None] * sig_pad[cols][:, None, :]) * inv2
+        sr6 = sr2 * sr2 * sr2
+        epsij = epsq_pad[rows][:, :, None] * epsq_pad[cols][:, None, :]
+        ecoul = KE * qq_f * (fmm / torch.sqrt(d2s))
+        mmpair = 4.0 * epsij * (sr6 * sr6 - sr6) + ecoul
+        dmm = (4.0 * epsij * (-6.0 * sr6 * sr6 + 3.0 * sr6)
+               - 0.5 * ecoul) * inv2
+        mw = mw + 2.0 * dmm
+    c = torch.stack([dx * mw, dy * mw, dz * mw], dim=-1)
+
+    def both(x, sign=1.0):
+        return (_tile_sum(torch.sum(x, dim=2), rows, npad)
+                + sign * _tile_sum(torch.sum(x, dim=1), cols, npad))
+
+    mmrow = None if mmpair is None else both(mmpair)
+    return both(epair), both(ypair), both(c, -1.0), mmrow
+
+
+def descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad,
+                                bru_pad, qd, tile, box=None, spline=None):
+    """Plain twin of descreening_tiles (same arguments and results)."""
+    rows, cols, live = _entries(nv, tl, tile)
+    dx, dy, dz, d2 = _pair_geom(pos_pad[:, rows], pos_hpad[:, cols], box)
+    d = torch.sqrt(d2)
+    if qd is None:
+        sp = need_spline(spline)
+        q, dq, mask = _born_qdq(d, rows[:, :, None],
+                                sp.hids_perm.long()[cols][:, None, :], sp.n,
+                                sp.horizon,
+                                sp.type_rows.long()[rows][:, :, None],
+                                sp.type_cols.long()[cols][:, None, :],
+                                sp.yval, sp.y2val)
+    else:
+        q, dq = qd
+        mask = d > 0.0
+    q = torch.where(live, q, 0.0)
+    dq = torch.where(live, dq, 0.0)
+    w, u, f_rows, f_cols = _descreen_sums(dx, dy, dz, d, mask, q, dq,
+                                          s_hpad[cols], brw_pad[rows],
+                                          bru_pad[rows])
+    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    return (_tile_sum(w, cols, nhpad), _tile_sum(u, cols, nhpad),
+            _tile_sum(f_rows, rows, npad), _tile_sum(f_cols, cols, nhpad))
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _check_list(nv, tl, tile, dev, *extents):
+    """Check the list and the tile size against the padded extents; returns
+    lmax."""
+    if tile % 32 or not 32 <= tile <= 256:
+        raise ValueError(f"tile {tile}: a multiple of 32 up to 256")
+    lmax = tl.shape[1] if tl.dim() == 2 else -1
+    _check("tl", tl, torch.int32, (2, max(lmax, 1)), dev)
+    _check("nv", nv, torch.int32, (1,), dev)
+    for e in extents:
+        if e % tile:
+            raise ValueError(f"padded extent {e} is not a multiple of the "
+                             f"tile {tile}")
+    return lmax
+
+
+def born_sums_tiles(nv, tl, pos_pad, pos_hpad, hids_perm, type_rows,
+                    type_cols, yval, y2val, s_hpad, n, tile, box=None,
+                    horizon=None, save_qd=False):
+    """born_sums over the compacted interacting-tile list (tl, nv) from
+    build_tile_list.  Returns raw [NP], or (raw, Q, dQ) with save_qd where
+    Q/dQ are [lmax, T, T] per-entry tiles that descreening_tiles reloads by
+    list index: the spline value where the Born mask accepts a pair, zero
+    everywhere else, and all zero for an entry past nv."""
+    if pos_pad.device.type == "cpu":
+        return born_sums_tiles_reference(
+            nv, tl, pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
+            y2val, s_hpad, n, tile, box=box, horizon=horizon, save_qd=save_qd)
+    dev = pos_pad.device
+    f32, i32 = torch.float32, torch.int32
+    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    nti, ntj = yval.shape[0], yval.shape[1]
+    lmax = _check_list(nv, tl, tile, dev, npad, nhpad)
+    _check("pos_pad", pos_pad, f32, (3, npad), dev)
+    _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
+    _check("hids_perm", hids_perm, i32, (nhpad,), dev)
+    _check("type_rows", type_rows, i32, (npad,), dev)
+    _check("type_cols", type_cols, i32, (nhpad,), dev)
+    _check("yval", yval, f32, (nti, ntj, _NA), dev)
+    _check("y2val", y2val, f32, (nti, ntj, _NA), dev)
+    _check("s_hpad", s_hpad, f32, (nhpad,), dev)
+    box_mode, box_t = _box_arg(box, dev)
+    prow = torch.empty((lmax, tile), dtype=f32, device=dev)
+    raw = torch.empty(npad, dtype=f32, device=dev)
+    q = dq = None
+    if save_qd:
+        q = torch.empty((lmax, tile, tile), dtype=f32, device=dev)
+        dq = torch.empty((lmax, tile, tile), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _cuda_lib().agbnp_born_sums_tiles(
+        nv.data_ptr(), tl.data_ptr(), lmax, tile, pos_pad.data_ptr(), npad,
+        pos_hpad.data_ptr(), nhpad, hids_perm.data_ptr(),
+        type_rows.data_ptr(), type_cols.data_ptr(), yval.data_ptr(),
+        y2val.data_ptr(), nti, ntj, s_hpad.data_ptr(), int(n),
+        _horizon(horizon), box_mode, _ptr(box_t), prow.data_ptr(),
+        raw.data_ptr(), _ptr(q), _ptr(dq), stream)
+    _launch_check("born_sums_tiles", rc)
+    LAUNCHES["born_sums_tiles"] += 1
+    if save_qd:
+        return raw, q, dq
+    return raw
+
+
+def gb_pair_tiles(nv, tl, pos_pad, charge_pad, born_pad, n, tile, box=None,
+                  cutoff=None, sig_pad=None, epsq_pad=None,
+                  excl_rows_pad=None):
+    """gb_pair over the compacted triangular interacting-tile list (each
+    unordered pair once, deposited on both sides).  Same contract as
+    gb_pair."""
+    if pos_pad.device.type == "cpu":
+        return gb_pair_tiles_reference(nv, tl, pos_pad, charge_pad, born_pad,
+                                       n, tile, box=box, cutoff=cutoff,
+                                       sig_pad=sig_pad, epsq_pad=epsq_pad,
+                                       excl_rows_pad=excl_rows_pad)
+    dev = pos_pad.device
+    f32 = torch.float32
+    npad = pos_pad.shape[1]
+    lmax = _check_list(nv, tl, tile, dev, npad)
+    _check("pos_pad", pos_pad, f32, (3, npad), dev)
+    _check("charge_pad", charge_pad, f32, (npad,), dev)
+    _check("born_pad", born_pad, f32, (npad,), dev)
+    with_mm = sig_pad is not None
+    ne = 0
+    if with_mm:
+        ne = excl_rows_pad.shape[1]
+        _check("sig_pad", sig_pad, f32, (npad,), dev)
+        _check("epsq_pad", epsq_pad, f32, (npad,), dev)
+        _check("excl_rows_pad", excl_rows_pad, torch.int32, (npad, ne), dev)
+    box_mode, box_t = _box_arg(box, dev)
+    prow = torch.empty((lmax, 6, tile), dtype=f32, device=dev)
+    pcol = torch.empty((lmax, 6, tile), dtype=f32, device=dev)
+    erow = torch.empty(npad, dtype=f32, device=dev)
+    yrow = torch.empty(npad, dtype=f32, device=dev)
+    force = torch.empty((npad, 3), dtype=f32, device=dev)
+    mmrow = torch.empty(npad, dtype=f32, device=dev) if with_mm else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _cuda_lib().agbnp_gb_pair_tiles(
+        nv.data_ptr(), tl.data_ptr(), lmax, tile, pos_pad.data_ptr(), npad,
+        charge_pad.data_ptr(), born_pad.data_ptr(), _ptr(sig_pad),
+        _ptr(epsq_pad), _ptr(excl_rows_pad), ne, int(n),
+        -1.0 if cutoff is None else float(cutoff) * float(cutoff), box_mode,
+        _ptr(box_t), DIELECTRIC_FACTOR, KE, prow.data_ptr(), pcol.data_ptr(),
+        erow.data_ptr(), yrow.data_ptr(), force.data_ptr(), _ptr(mmrow),
+        stream)
+    _launch_check("gb_pair_tiles", rc)
+    LAUNCHES["gb_pair_tiles"] += 1
+    return erow, yrow, force, mmrow
+
+
+def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
+                      qd, tile, box=None, spline=None):
+    """Descreening sweep over the same list as born_sums_tiles (identical
+    geometry and horizon, so the list is shared).  Same contract as
+    descreening: qd = (Q, dQ) [lmax, T, T] from born_sums_tiles(
+    save_qd=True) is reloaded; with qd=None the spline is recomputed from
+    spline=SplineArgs(...)."""
+    if pos_pad.device.type == "cpu":
+        return descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad,
+                                           brw_pad, bru_pad, qd, tile,
+                                           box=box, spline=spline)
+    dev = pos_pad.device
+    f32 = torch.float32
+    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    lmax = _check_list(nv, tl, tile, dev, npad, nhpad)
+    _check("pos_pad", pos_pad, f32, (3, npad), dev)
+    _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
+    _check("s_hpad", s_hpad, f32, (nhpad,), dev)
+    _check("brw_pad", brw_pad, f32, (npad,), dev)
+    _check("bru_pad", bru_pad, f32, (npad,), dev)
+    if qd is None:
+        _check_spline(spline, npad, nhpad, dev)
+        q = dq = None
+    else:
+        q, dq = qd
+        _check("Q", q, f32, (lmax, tile, tile), dev)
+        _check("dQ", dq, f32, (lmax, tile, tile), dev)
+    box_mode, box_t = _box_arg(box, dev)
+    prow = torch.empty((lmax, 3, tile), dtype=f32, device=dev)
+    pcol = torch.empty((lmax, 5, tile), dtype=f32, device=dev)
+    w = torch.empty(nhpad, dtype=f32, device=dev)
+    u = torch.empty(nhpad, dtype=f32, device=dev)
+    f_rows = torch.empty((npad, 3), dtype=f32, device=dev)
+    f_cols = torch.empty((nhpad, 3), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _cuda_lib().agbnp_descreening_tiles(
+        nv.data_ptr(), tl.data_ptr(), lmax, tile, pos_pad.data_ptr(), npad,
+        pos_hpad.data_ptr(), nhpad, _ptr(q), _ptr(dq), s_hpad.data_ptr(),
+        brw_pad.data_ptr(), bru_pad.data_ptr(), box_mode, _ptr(box_t),
+        *_spline_ptrs(spline, qd), prow.data_ptr(), pcol.data_ptr(),
+        w.data_ptr(), u.data_ptr(), f_rows.data_ptr(), f_cols.data_ptr(),
+        stream)
+    _launch_check("descreening_tiles", rc)
+    LAUNCHES["descreening_tiles" if qd is not None
+             else "descreening_tiles_recompute"] += 1
+    return w, u, f_rows, f_cols

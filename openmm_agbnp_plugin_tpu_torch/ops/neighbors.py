@@ -5,7 +5,9 @@ candidates (reference GVolOverlapTree.cl:127-313).  Here the analogue is a
 fixed-width half list [N, kmax] rebuilt on the device: candidate (i, j>i)
 pairs within rcut, heavy atoms only (hydrogen Gaussians carry zero volume
 and can never form a surviving overlap, gaussvol.cpp:132), padded with a
-validity mask and an overflow indicator.
+validity mask and an overflow indicator.  `half_neighbor_pairs` tests all
+pairs; `cell_neighbor_pairs` scans the 27 cells around each atom of a
+static `CellGrid` (the O(N) build for large systems).
 
 The tree's 2-body survival criterion implies a hard geometric cutoff:
 s(V12) V12 > MIN_GVOL requires V12 > VOLMINA, i.e.
@@ -48,6 +50,117 @@ def host_max_neighbors(pos, heavy, rcut, chunk: int = 2048):
               & heavy[s:e, None] & heavy[None, :])
         best = max(best, int(ok.sum(axis=1).max()))
     return best
+
+
+class CellGrid:
+    """Static cell-grid plan for the O(N) neighbor build (counterpart of the
+    JAX package's ops/neighbors.py:40-89).
+
+    The grid's dimensions and cell capacity are static (sized on the host
+    from initial positions, like the reference's CPU sizing pre-pass) while
+    its origin follows the solute on the device (the min of the current
+    heavy-atom positions), so rigid drift never invalidates the plan.  Atoms
+    beyond the static extent clamp to edge cells: clamping only reduces
+    cell-index separation, so no close pair is missed, but it can overflow
+    a cell's capacity, which cell_neighbor_pairs reports through the
+    neighbor-overflow channel for the PanicButton to regrow.
+    """
+
+    def __init__(self, positions, rcut: float, margin: float = 0.5,
+                 ccap: int | None = None, heavy_mask=None):
+        pos = np.asarray(positions)
+        pos_h = pos[np.asarray(heavy_mask)] if heavy_mask is not None else pos
+        lo = pos.min(axis=0) - margin
+        hi = pos.max(axis=0) + margin
+        self.rcut = float(rcut)
+        self.margin = float(margin)
+        self.origin = lo
+        self.dims = np.maximum(np.ceil((hi - lo) / rcut).astype(int), 1)
+        if ccap is None:
+            # measured occupancy on the initial configuration + headroom
+            c = np.clip(((pos_h - lo) / rcut).astype(int), 0, self.dims - 1)
+            cid = (c[:, 0] * self.dims[1] + c[:, 1]) * self.dims[2] + c[:, 2]
+            seen = int(np.bincount(cid).max()) if len(cid) else 1
+            ccap = max(8, int(np.ceil(seen * 1.5 / 8) * 8))
+        self.ccap = int(ccap)
+        self.ncells = int(self.dims.prod())
+        # static 27-cell stencil
+        self.stencil = np.array([(dx, dy, dz) for dx in (-1, 0, 1)
+                                 for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
+                                np.int32)
+
+    def grown(self) -> "CellGrid":
+        """Doubled cell capacity (PanicButton regrow)."""
+        g = CellGrid.__new__(CellGrid)
+        g.rcut, g.origin, g.dims = self.rcut, self.origin, self.dims
+        g.margin = self.margin
+        g.ccap = self.ccap * 2
+        g.ncells, g.stencil = self.ncells, self.stencil
+        return g
+
+
+def cell_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int,
+                        grid: CellGrid):
+    """O(N) half neighbor list through the cell grid.
+
+    Same contract as half_neighbor_pairs: flat i-major (pairs_i, pairs_j,
+    pairs_valid, max_neighbors) with invalid slots j == i; max_neighbors
+    is at least kmax + 1 when a cell overflowed its capacity (pairs may
+    then be missing, so the window must be retried).
+    """
+    n = pos.shape[0]
+    dev = pos.device
+    dims = torch.as_tensor(grid.dims, dtype=torch.int64, device=dev)
+    ncells, ccap = grid.ncells, grid.ccap
+
+    # solute-following origin: rigid drift costs nothing; only expansion
+    # beyond the static extent clamps (and overflow-detects)
+    origin = torch.amin(torch.where(heavy_mask[:, None], pos,
+                                    torch.amax(pos, dim=0)[None, :]),
+                        dim=0) - grid.margin
+    c = ((pos - origin[None, :]) / grid.rcut).to(torch.int64)
+    c = torch.minimum(torch.clamp(c, min=0), dims[None, :] - 1)
+    cid = (c[:, 0] * dims[1] + c[:, 1]) * dims[2] + c[:, 2]
+    # hydrogens go to a trash cell: they never appear as candidates
+    cid = torch.where(heavy_mask, cid, ncells)
+
+    counts = torch.bincount(cid, minlength=ncells + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    order = torch.argsort(cid, stable=True)
+    cid_o = cid[order]
+    rank = torch.arange(n, device=dev) - starts[cid_o]
+    # a clamped rank can only collide in an overflowing cell, which the
+    # flag below reports for a retry with a grown capacity
+    slot = cid_o * ccap + torch.clamp(rank, max=ccap - 1)
+    table = torch.full(((ncells + 1) * ccap,), n, dtype=torch.int64,
+                       device=dev)
+    table[slot] = order
+    table = table.reshape(ncells + 1, ccap)
+    table[ncells] = n
+
+    # 27-cell stencil; out-of-grid stencil cells point at the trash row
+    nbr = c[:, None, :] + torch.as_tensor(grid.stencil, dtype=torch.int64,
+                                          device=dev)[None, :, :]
+    in_grid = torch.all((nbr >= 0) & (nbr < dims[None, None, :]), dim=-1)
+    nbr_cid = (nbr[..., 0] * dims[1] + nbr[..., 1]) * dims[2] + nbr[..., 2]
+    nbr_cid = torch.where(in_grid, nbr_cid, ncells)
+
+    cand = table[nbr_cid].reshape(n, 27 * ccap)
+    jj = torch.arange(n, device=dev)
+    delta = pos[torch.clamp(cand, max=n - 1)] - pos[:, None, :]
+    d2 = torch.sum(delta * delta, dim=-1)
+    ok = ((cand < n) & (cand > jj[:, None]) & (d2 < rcut * rcut)
+          & heavy_mask[:, None])
+
+    key = torch.where(ok, cand, n)
+    pj = torch.sort(key, dim=1).values[:, :kmax]
+    valid = pj < n
+    pi = jj[:, None].expand(n, pj.shape[1])
+    pj = torch.where(valid, pj, pi)
+    cell_over = torch.max(counts[:ncells]) > ccap
+    max_neighbors = torch.maximum(torch.max(torch.sum(ok, dim=1)),
+                                  torch.where(cell_over, kmax + 1, 0))
+    return pi.reshape(-1), pj.reshape(-1), valid.reshape(-1), max_neighbors
 
 
 def half_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int):

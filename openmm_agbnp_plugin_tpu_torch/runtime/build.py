@@ -1,14 +1,18 @@
 """Build the CUDA sources in csrc/ at first use and load them with ctypes.
 
-The sources have a plain C interface and include no PyTorch headers, so one
-`nvcc` call builds them in seconds:
+The sources have a plain C interface and include no PyTorch headers.  Each
+`.cu` file compiles to an object in its own `nvcc` process, all started
+together, and one more `nvcc` call links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build dir>/libagbnp_pairs.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <build dir>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o <build dir>/libagbnp_pairs.so <build dir>/*.o
 
 The library lands in `_build/<hash>/` inside this package (listed in
-.gitignore), keyed by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one is reused.  Nothing here runs at import time.
+.gitignore), keyed by a hash of the sources, headers and flags, so a changed
+source rebuilds and an unchanged one is reused.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 LIB_NAME = "libagbnp_pairs.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,7 +45,15 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P),
     "agbnp_descreen_chunks": (_I,),
     "agbnp_descreening": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                          _P, _P, _P, _P),
+                          _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    "agbnp_born_sums_tiles": (_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
+                              _P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P, _P,
+                              _P),
+    "agbnp_gb_pair_tiles": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                            _F, _I, _P, _F, _F, _P, _P, _P, _P, _P, _P, _P),
+    "agbnp_descreening_tiles": (_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
+                                _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _F, _P, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -65,27 +77,52 @@ def _sources():
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _check(proc, cmd, out):
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> tuple[pathlib.Path, str]:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    Returns (library path, compiler output; empty when reused)."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source, in parallel, then a link.  Returns (library path,
+    compiler output; empty when reused)."""
     out = library_path()
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        # nvcc picks the input type from the extension: keep ".o" last
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(text)
+        _check(proc, cmd, text)
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+           *(str(o) for _, o, _ in jobs)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    log.append(proc.stdout)
+    _check(proc, cmd, proc.stdout)
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return out, "".join(log)
 
 
 @functools.lru_cache(maxsize=1)

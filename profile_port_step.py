@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one MD step of the PyTorch/CUDA port goes, on one GPU.
 
-    python3 profile_port_step.py [--steps 40] [--out TABLE.txt]
+    python3 profile_port_step.py [SYSTEM] [--dense] [--steps 40]
+                                 [--out TABLE.txt]
 
-Runs the port's 1li2 MD configuration (AGBNP1 + OPLS, f32, 1 nm cutoff and
-descreening horizon, rebuild every 40 steps) and prints:
+Runs the port's MD configuration on SYSTEM (a name under benchmarks/data,
+1li2 by default, e.g. 2clr; or a path to a .dms file): AGBNP1 + OPLS, f32,
+1 nm cutoff and descreening horizon, rebuild every 40 steps, the pair
+sweeps on interacting-tile lists (--dense: on the dense grid), tree
+capacities sized first by single evaluations.  It prints:
 
   * per-phase wall time of each part of a step, synchronised around every
     call (the eager step is launch-bound, so host time is what it costs);
@@ -32,13 +36,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port_step: no CUDA device", file=sys.stderr)
         return 1
-    from openmm_agbnp_plugin_tpu_torch import Simulation, load_dms
+    from openmm_agbnp_plugin_tpu_torch import AGBNPModel, AGBNPParams, \
+        Simulation, load_dms
     from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
     from openmm_agbnp_plugin_tpu_torch.ops import tree as T
-    from openmm_agbnp_plugin_tpu_torch.ops.neighbors import \
-        half_neighbor_pairs
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("system", nargs="?", default="1li2",
+                    help="name under benchmarks/data or a .dms path")
+    ap.add_argument("--dense", action="store_true",
+                    help="pair sweeps on the dense grid, not tile lists")
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--out", help="file for the full profiler table")
     args = ap.parse_args()
@@ -46,10 +53,22 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    d = load_dms(os.path.join(HERE, "benchmarks", "data", "1li2_agbnp1.dms"))
-    sim = Simulation(d, device=dev, version=1, cutoff=1.0,
-                     dtype=torch.float32, skin=0.25,
-                     descreen_horizon="cutoff")
+    path = (args.system if args.system.endswith(".dms") else os.path.join(
+        HERE, "benchmarks", "data", f"{args.system}_agbnp1.dms"))
+    d = load_dms(path)
+    kw = dict(cutoff=1.0, descreen_horizon="cutoff",
+              pair_tiles=False if args.dense else None)
+    # size the tree capacities on the initial configuration first
+    sizing = AGBNPModel(AGBNPParams(
+        radius=d.agbnp_radius, gamma=d.agbnp_gamma, alpha=d.agbnp_alpha,
+        charge=d.charges, ishydrogen=d.ishydrogen), device=dev,
+        dtype=torch.float32, positions=d.positions, **kw)
+    for _ in range(8):
+        out = sizing.energy_forces(d.positions, with_details=True)[2]
+        if not sizing.check_and_grow(out["diag"]):
+            break
+    sim = Simulation(d, device=dev, version=1, dtype=torch.float32,
+                     skin=0.25, caps=sizing.caps, **kw)
     m = sim.agbnp
     ff = sim.ff_state()
     a = ff["a"]
@@ -66,7 +85,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3
 
-    pairs = half_neighbor_pairs(pos, sim.heavy_mask, sim.rcut_list, sim.kmax)
+    pairs = sim.neighbor_fn(pos, sim.heavy_mask, sim.rcut_list, sim.kmax)
     lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
                          a["gamma"] / m.params.roffset, a["ishydrogen"])
 
@@ -79,21 +98,22 @@ def main() -> int:
            "pairs_valid": pairs[2]}
     passes = M.tree_passes(ap_, pos, m.caps, m.params.roffset, topology=topo)
     s_factor = passes[2] / a["vol_vdw_all"]
+    pair_kw = dict(horizon=m.descreen_horizon, mm_nb=mm_nb,
+                   pair_tiles=m.pair_tiles, share_qd=m.share_qd)
     pp = M._pair_phases_kernel(a, pos, s_factor, m.cutoff, None, m.pair_pad,
-                               horizon=m.descreen_horizon, mm_nb=mm_nb)
+                               **pair_kw)
     gamma_wu = (pp["evdw_der_W"] + pp["egb_der_U"]) / a["vol_vdw_all"]
     lvl1_wu = {**passes[4], "gamma1i": gamma_wu}
     fn = sim.force_fn(pairs=pairs[:3], topology=topo, ff=ff)
     phases = {
-        "neighbor list (per window)": lambda: half_neighbor_pairs(
+        "neighbor list (per window)": lambda: sim.neighbor_fn(
             pos, sim.heavy_mask, sim.rcut_list, sim.kmax),
         "tree build (per window)": build,
         "tree passes: rescan2 + reduce2": lambda: M.tree_passes(
             ap_, pos, m.caps, m.params.roffset, topology=topo),
         "pair phases: 3 kernels + per-atom chain": lambda:
             M._pair_phases_kernel(a, pos, s_factor, m.cutoff, None,
-                                  m.pair_pad, horizon=m.descreen_horizon,
-                                  mm_nb=mm_nb),
+                                  m.pair_pad, **pair_kw),
         "WU pass: rescan_gammas + reduce": lambda: T.reduce_tree(
             T.rescan_gammas(passes[3], lvl1_wu), lvl1_wu,
             with_selfvol=False),
@@ -101,8 +121,9 @@ def main() -> int:
             pos, ff["mm"]),
         "whole force_fn": lambda: fn(pos),
     }
-    print(f"card: {card}; 1li2 {d.n} atoms, f32; wall ms per call, "
-          "synchronised:", flush=True)
+    print(f"card: {card}; {os.path.basename(path)} {d.n} atoms, f32, "
+          f"pair_tiles {m.pair_tiles}, cell grid {sim.grid is not None}, "
+          f"caps {m.caps}; wall ms per call, synchronised:", flush=True)
     for name, f in phases.items():
         print(f"  {name:42s} {wall_ms(f):9.3f}", flush=True)
 

@@ -15,15 +15,18 @@ import pytest
 import torch
 
 from openmm_agbnp_plugin_tpu_torch import AGBNPModel, AGBNPParams, \
-    load_gaussvol_dat
+    TreeCaps, load_dms, load_gaussvol_dat
 from openmm_agbnp_plugin_tpu_torch.models.agbnp_torch import \
     _pair_phases_kernel
 from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
 
 pytestmark = pytest.mark.cuda
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "gaussvol.dat")
+CLR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "benchmarks", "data", "2clr_agbnp1.dms")
 
 
 @pytest.fixture(scope="module")
@@ -111,19 +114,28 @@ def test_kernels_match_twins(cuda, fixture_system, horizon, cutoff):
         assert rel(x, y) <= 1e-5
     after = PK.launch_counts()
     assert {k: after[k] - before[k] for k in after} == dict(
-        born_sums=1, gb_pair=2, descreening=1)
+        dict.fromkeys(after, 0), born_sums=1, gb_pair=2, descreening=1)
 
 
-def test_pair_phases_route_through_kernels(cuda, fixture_system):
+@pytest.mark.parametrize("route", ["dense", "lists"])
+@pytest.mark.parametrize("share_qd", [True, False])
+def test_pair_phases_route_through_kernels(cuda, fixture_system, route,
+                                           share_qd):
     params, pos = fixture_system
     m = AGBNPModel(params, device=cuda, dtype=torch.float32, version=1,
-                   positions=pos)
+                   positions=pos, cutoff=1.0)
     p = torch.as_tensor(pos, dtype=torch.float32, device=cuda)
+    tiles = m.pair_tiles if route == "lists" else None
     before = PK.launch_counts()
     _pair_phases_kernel(m.arrays, p, torch.ones(params.n, device=cuda),
-                        None, None, m.pair_pad)
+                        1.0, None, m.pair_pad, pair_tiles=tiles,
+                        share_qd=share_qd)
     after = PK.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    sfx = "" if route == "dense" else "_tiles"
+    desc = "descreening" + sfx + ("" if share_qd else "_recompute")
+    want = {"born_sums" + sfx, "gb_pair" + sfx, desc}
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in want) for k in after}
 
 
 def test_wrappers_reject_bad_inputs(cuda, fixture_system):
@@ -160,3 +172,144 @@ def test_md_window_bitwise_repeatable(cuda):
     for x, y in zip(outs[0][:3], outs[1][:3]):
         assert torch.equal(x, y)
     assert bool(torch.isfinite(outs[0][2]).all())
+
+
+def sweep_inputs(params, pos, dev, cutoff):
+    """Sweep inputs in the model's layouts: real positions, types and
+    tables, seeded screening factors, Born radii, chain factors, LJ
+    parameters and chain-neighbor exclusions."""
+    m = AGBNPModel(params, device=dev, dtype=torch.float32, version=1,
+                   positions=pos, cutoff=cutoff, pair_tiles=False,
+                   caps=TreeCaps.for_natoms(params.n))
+    a, n, npad = m.arrays, params.n, m.pair_pad
+    rng = np.random.default_rng(5)
+    p = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    pos_pad = torch.nn.functional.pad(p[a["rperm"]],
+                                      (0, 0, 0, npad - n)).T.contiguous()
+    hv = a["hids_pad"] >= 0
+    pos_h = (p[a["hids_pad"].clamp(min=0)] * hv[:, None]).T.contiguous()
+    rows = torch.arange(npad, device=dev) < n
+
+    def rand(lo, hi, mask):
+        x = torch.as_tensor(rng.uniform(lo, hi, mask.shape[0]),
+                            dtype=torch.float32, device=dev)
+        return torch.where(mask, x, 0.0)
+
+    excl = torch.full((npad, 24), -1, dtype=torch.int32, device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    for k in range(1, 13):
+        excl[:n - k, 2 * k - 2] = ids[k:]
+        excl[k:n, 2 * k - 1] = ids[:n - k]
+    spline = PK.SplineArgs(a["hids_perm_pad"], a["type_rows_pad"],
+                           a["type_cols_hpad"], a["ytab"], a["y2tab"], n, 1.0)
+    return dict(n=n, tile=PK.pick_tile(n), pos_pad=pos_pad, pos_h=pos_h,
+                rvalid=rows, hvalid=hv, s_h=rand(0.3, 1.0, hv),
+                born=rand(0.12, 0.45, rows), charge=a["charge_pad"],
+                brw=rand(-5.0, 5.0, rows), bru=rand(-50.0, 50.0, rows),
+                mm=dict(sig_pad=rand(0.2, 0.4, rows),
+                        epsq_pad=rand(0.1, 0.9, rows), excl_rows_pad=excl),
+                spline=spline)
+
+
+BOXES = {"nobox": None, "ortho": (4.0, 4.2, 4.4),
+         "triclinic": ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0), (0.4, -0.3, 4.4))}
+
+
+def box_tensor(name, dev):
+    box = BOXES[name]
+    return None if box is None else torch.tensor(box, device=dev)
+
+
+def headroom_list(L, rng_dist, triangular=False, box=None):
+    """A list built on the card with 8 entries of budget headroom, so
+    entries past nv are exercised."""
+    tile = L["tile"]
+    rb = TL.tile_bounds(L["pos_pad"], L["rvalid"], tile)
+    cb = rb if triangular else TL.tile_bounds(L["pos_h"], L["hvalid"], tile)
+    count = int(TL.build_tile_list(*rb, *cb, rng_dist, 1,
+                                   triangular=triangular, box=box)[2])
+    tl, nv, _ = TL.build_tile_list(*rb, *cb, rng_dist, count + 8,
+                                   triangular=triangular, box=box)
+    assert int(nv[0]) == count < tl.shape[1]
+    return tl, nv
+
+
+@pytest.fixture(scope="module", params=["fixture", "2clr"])
+def shapes(request, cuda, fixture_system):
+    if request.param == "fixture":
+        params, pos = fixture_system
+    else:
+        d = load_dms(CLR)
+        params = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                             alpha=d.agbnp_alpha, charge=d.charges,
+                             ishydrogen=d.ishydrogen)
+        pos = d.positions
+    return sweep_inputs(params, pos, cuda, 1.0)
+
+
+def assert_outputs(outs, refs):
+    for x, y in zip(outs, refs):
+        if y is None:
+            assert x is None
+        else:
+            assert x.shape == y.shape and rel(x, y) <= 1e-5
+
+
+@pytest.mark.parametrize("box", list(BOXES))
+@pytest.mark.parametrize("horizon", [1.0, None])
+def test_list_born_and_descreening_match_twins(cuda, shapes, horizon, box):
+    L = shapes
+    n, tile = L["n"], L["tile"]
+    box = box_tensor(box, cuda)
+    sp = L["spline"]._replace(horizon=horizon)
+    tl, nv = headroom_list(L, 1.0 if horizon else 2.0, box=box)
+    args = (nv, tl, L["pos_pad"], L["pos_h"], *sp[:5], L["s_h"], n, tile)
+    before = PK.launch_counts()
+    out = TL.born_sums_tiles(*args, box=box, horizon=horizon, save_qd=True)
+    ref = TL.born_sums_tiles_reference(*args, box=box, horizon=horizon,
+                                       save_qd=True)
+    assert_outputs(out, ref)
+    nvv = int(nv[0])
+    assert not out[1][nvv:].any() and not out[2][nvv:].any()
+    dargs = (nv, tl, L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"])
+    for qd_k, qd_r, spl in ((out[1:], ref[1:], None), (None, None, sp)):
+        assert_outputs(TL.descreening_tiles(*dargs, qd_k, tile, box=box,
+                                            spline=spl),
+                       TL.descreening_tiles_reference(*dargs, qd_r, tile,
+                                                      box=box, spline=spl))
+    dense = (L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"], None)
+    assert_outputs(PK.descreening(*dense, box=box, spline=sp),
+                   PK.descreening_reference(*dense, box=box, spline=sp))
+    after = PK.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(after, 0), born_sums_tiles=1, descreening_tiles=1,
+        descreening_tiles_recompute=1, descreening_recompute=1)
+
+
+@pytest.mark.parametrize("box", list(BOXES))
+@pytest.mark.parametrize("with_mm", [False, True])
+def test_list_gb_pair_matches_twin(cuda, shapes, with_mm, box):
+    L = shapes
+    box = box_tensor(box, cuda)
+    tl, nv = headroom_list(L, 1.0, triangular=True, box=box)
+    args = (nv, tl, L["pos_pad"], L["charge"], L["born"], L["n"], L["tile"])
+    kw = dict(cutoff=1.0, box=box, **(L["mm"] if with_mm else {}))
+    assert_outputs(TL.gb_pair_tiles(*args, **kw),
+                   TL.gb_pair_tiles_reference(*args, **kw))
+
+
+def test_lists_match_dense_on_card(cuda, fixture_system):
+    """The model on lists, with and without Q/dQ sharing, against the
+    dense grid, f32 on the card; repeatable bit for bit."""
+    params, pos = fixture_system
+    kw = dict(device=cuda, dtype=torch.float32, version=1, positions=pos,
+              cutoff=1.0, descreen_horizon="cutoff")
+    e0, f0 = AGBNPModel(params, pair_tiles=False, **kw).energy_forces(pos)
+    for share in (True, False):
+        m = AGBNPModel(params, share_qd=share, **kw)
+        assert m.pair_tiles is not None
+        e1, f1 = m.energy_forces(pos)
+        assert abs(float(e1) - float(e0)) <= 1e-5 * abs(float(e0))
+        assert rel(f1, f0) <= 1e-5
+        e2, f2 = m.energy_forces(pos)
+        assert torch.equal(e1, e2) and torch.equal(f1, f2)

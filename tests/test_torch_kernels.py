@@ -110,7 +110,7 @@ def test_born_sums_and_descreening_match_pallas(layouts, horizon, box):
     ref = PK.born_sums_reference(*args, box=box_t, horizon=horizon,
                                  save_qd=True)
     assert all(torch.equal(x, y) for x, y in zip((raw, q, dq), ref))
-    assert PK.born_sums.launches == 0
+    assert PK.launch_counts()["born_sums"] == 0
 
     w_j, u_j, fr_j, fc_j = JPK.descreening(
         j(L["pos_pad"]), j(L["pos_h"]), j(aj["hids_perm_pad"]),
@@ -123,7 +123,7 @@ def test_born_sums_and_descreening_match_pallas(layouts, horizon, box):
     for name, x, y in (("W", w, w_j), ("U", u, u_j), ("f_rows", fr, fr_j),
                        ("f_cols", fc, fc_j)):
         assert_close(x, y, name)
-    assert PK.descreening.launches == 0
+    assert PK.launch_counts()["descreening"] == 0
 
 
 @pytest.mark.parametrize("cutoff,with_mm", [(None, False), (1.0, False),
@@ -148,4 +148,4 @@ def test_gb_pair_matches_pallas(layouts, cutoff, with_mm):
         assert_close(out[3], out_j[3], "mmrow")
     else:
         assert out[3] is None and out_j[3] is None
-    assert PK.gb_pair.launches == 0
+    assert PK.launch_counts()["gb_pair"] == 0
