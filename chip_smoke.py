@@ -23,12 +23,26 @@ Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
   5. checks that two evaluations of 1li2, and of 2clr, are bitwise equal;
   6. runs the port's Simulation on 1li2 on the dense grid (f32, 400
      Langevin steps at 1 fs, neighbor list and tree topology rebuilt every
-     40 steps) and checks that every energy is finite, no capacity
-     overflow remains, and every dense kernel launched at least once per
-     step;
+     40 steps, the vdW-compact WU pass: bench.py's strict run on the dense
+     route) and checks that every energy is finite, no capacity overflow
+     remains, and every dense kernel launched at least once per step;
   7. runs 2clr MD on the tile lists with the cell-grid neighbor build
      (caps sized first by single evaluations, then 200 timed steps after a
-     200-step warm-up) with the same checks for the list kernels.
+     200-step warm-up) with the same checks for the list kernels;
+  8. bench.py's headline configuration on 1li2 (mts_wu4: the WU pass as
+     an r-RESPA impulse every 4 steps, vdW-compact, tile lists): the
+     compacted WU force against the full pass at a window start, a window
+     of k=1 impulse blocks against the plain fused step, then 400 timed
+     steps after an equal warm-up with the checks of 6-7;
+  9. bench.py's mts4fs_constraints configuration on 1li2 (4 fs outer
+     step, 2 bonded substeps, SHAKE/RATTLE, rebuilds every 10 outer
+     steps): 100 timed outer steps after an equal warm-up, the SHAKE
+     residual channel clean and the final constraint violation within the
+     float32 floor 3.6e-6;
+ 10. checks that SHAKE, RATTLE and the WU compaction make no host sync
+     (torch.cuda.set_sync_debug_mode("error"));
+ 11. checks that run_md resumed from its step-40 checkpoint reproduces the
+     uninterrupted 80-step trajectory bitwise.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -65,6 +79,10 @@ GOLDEN_TOL = 0.01     # kJ/mol (benchmarks/validate_parity.py)
 PARITY_TOL = 1e-5     # relative, f32 on the card vs the JAX f64 result
 MD_STEPS = 400
 MD_STEPS_2CLR = 200
+MTS_WU4_STEPS = 400   # [8], after an equal warm-up
+MTS4_STEPS = 100      # [9], 4 fs outer steps, after an equal warm-up
+RESUME_STEPS = 40     # [11]: the checkpoint's step, and the steps resumed
+SHAKE_LIMIT = 3.6e-6  # 30 eps of float32, the constraint tolerance floor
 NEIGHBOR_EVERY = 40
 
 
@@ -468,26 +486,42 @@ def phase_parity(dev):
     return recompute
 
 
-def run_md(dev, card, name, steps, label, **kw):
-    import numpy as np
+def md_sim(dev, name, **kw):
+    """The port's Simulation of a system in bench.py's setting: f32,
+    CutoffNonPeriodic 1 nm, descreening horizon at the cutoff, skin
+    0.25 nm."""
     import torch
 
     from openmm_agbnp_plugin_tpu_torch import Simulation
-    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
 
     d, _ = system(name)
-    sim = Simulation(d, device=dev, version=1, cutoff=1.0,
-                     dtype=torch.float32, skin=0.25,
-                     descreen_horizon="cutoff", **kw)
+    return Simulation(d, device=dev, version=1, cutoff=1.0,
+                      dtype=torch.float32, skin=0.25,
+                      descreen_horizon="cutoff", **kw)
+
+
+def run_md(dev, card, name, steps, label, sim=None, bench=None, **kw):
+    """benchmark_langevin (warm-up + timed run of `steps`) on a fresh
+    Simulation (or `sim`), with the launch counts of the whole call.
+    bench: benchmark_langevin options beyond bench.py's strict run."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    sim = md_sim(dev, name, **kw) if sim is None else sim
+    bench = {**dict(dt=0.001, neighbor_every=NEIGHBOR_EVERY), **(bench or {})}
     PK.reset_launch_counts()
-    r = sim.benchmark_langevin(nsteps=steps, dt=0.001, temperature=300.0,
-                               friction=1.0, neighbor_every=NEIGHBOR_EVERY,
-                               max_regrow=3)
+    r = sim.benchmark_langevin(nsteps=steps, temperature=300.0,
+                               friction=1.0, max_regrow=3, **bench)
     counts = PK.launch_counts()
     energies = r["energies"]
     ms_step = r["elapsed_s"] / steps * 1e3
-    log(f"{label} {name} MD: {steps} steps x2 (warm-up + timed), regrows "
-        f"{r['regrows']}, overflow {r['overflow']}, pair_tiles "
+    wu = ("vdW-compact WU pass" if bench.get("vdw_compact", True)
+          else "full WU pass")
+    log(f"{label} {name} MD {bench}, {wu}: {steps} steps x2 (warm-up + "
+        f"timed), regrows {r['regrows']}, overflow {r['overflow']}, "
+        f"pair_tiles "
         f"{sim.agbnp.pair_tiles}, cell grid {sim.grid is not None}, "
         f"E first/last {energies[0]:.2f}/{energies[-1]:.2f}")
     log(f"    kernel launches {counts}")
@@ -500,15 +534,16 @@ def run_md(dev, card, name, steps, label, **kw):
         raise AssertionError("non-finite or missing MD energies")
     if not bool(torch.isfinite(r["final_pos"]).all()):
         raise AssertionError("non-finite final positions")
-    return sim, counts
+    return sim, counts, r
 
 
 def phase_md(dev, card):
-    """Phases 6-7: 1li2 on the dense grid, 2clr on the lists."""
+    """Phases 6-7: 1li2 on the dense grid, 2clr on the lists (both with
+    the vdW-compact WU pass, the runners' default as in JAX)."""
     import torch
 
-    _, counts_1li2 = run_md(dev, card, "1li2", MD_STEPS, "[6]",
-                            pair_tiles=False)
+    _, counts_1li2, _ = run_md(dev, card, "1li2", MD_STEPS, "[6]",
+                               pair_tiles=False)
     for name in ("born_sums", "gb_pair", "descreening"):
         if counts_1li2[name] < MD_STEPS:
             raise AssertionError(f"{name}: {counts_1li2[name]} launches < "
@@ -519,8 +554,8 @@ def phase_md(dev, card):
     d, p = system("2clr")
     m, _, _ = sized_model(dev, p, d.positions, cutoff=1.0,
                           descreen_horizon="cutoff")
-    sim, counts_2clr = run_md(dev, card, "2clr", MD_STEPS_2CLR, "[7]",
-                              caps=m.caps)
+    sim, counts_2clr, _ = run_md(dev, card, "2clr", MD_STEPS_2CLR, "[7]",
+                                 caps=m.caps)
     if sim.grid is None or sim.agbnp.pair_tiles is None \
             or sim.agbnp.pair_tiles[1] is None:
         raise AssertionError("2clr MD must run on both lists and the grid")
@@ -530,6 +565,182 @@ def phase_md(dev, card):
                                  f"{MD_STEPS_2CLR} steps")
     torch.cuda.synchronize()
     return counts_1li2, counts_2clr
+
+
+def check_list_launches(counts, steps, label):
+    """Every list kernel launched at least once per (outer) step."""
+    for name in ("born_sums_tiles", "gb_pair_tiles", "descreening_tiles"):
+        if counts[name] < steps:
+            raise AssertionError(f"{label} {name}: {counts[name]} launches "
+                                 f"< {steps} steps")
+
+
+def window_start(sim, pos):
+    """What the MD runner builds at a rebuild: neighbor list, tree
+    topology, vdW rescan and the compacted WU topology at pos."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    a = sim.agbnp.arrays
+    pairs = sim.neighbor_fn(pos, sim.heavy_mask, sim.rcut_list, sim.kmax)[:3]
+    gdr = a["gamma"] / sim.agbnp.params.roffset
+    lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"], gdr,
+                         a["ishydrogen"])
+    levels, _ = T.build_tree(lvl1, pairs[0], pairs[1], sim.agbnp.caps,
+                             pairs_valid=pairs[2], pair_rows=True)
+    topo = T.tree_topology(levels)
+    lvl1v = T.make_level1(pos, a["radii_vdw"], a["vol_vdw"], -gdr,
+                          a["ishydrogen"])
+    lv = T.rescan_volumes(topo, lvl1v)
+    caps = sim._ensure_vdw_caps()
+    vt, counts = T.compact_topology(lv, caps)
+    return dict(pairs=pairs, topology=topo, levels_vdw=lv, vdw_caps=caps,
+                vdw_topology=vt, vdw_counts=counts)
+
+
+def phase_mts_wu4(dev, card):
+    """Phase 8: bench.py's headline configuration (mts_wu4) on 1li2 on the
+    tile lists.  Returns the sized Simulation."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.md.integrators import (
+        langevin_middle_step, wu_impulse_langevin_block)
+
+    sim = md_sim(dev, "1li2")
+    pos0, vel0 = sim.positions, sim.velocities
+    w = window_start(sim, pos0)
+    mk = dict(pairs=w["pairs"], topology=w["topology"], ff=sim.ff_state())
+    vt = w["vdw_topology"]
+    fwu_c = sim.force_fn(wu_mode="split", vdw_topology=vt, **mk)(pos0)[2]
+    fwu_f = sim.force_fn(wu_mode="split", **mk)(pos0)[2]
+    rel, _ = rel_err(fwu_c, fwu_f)
+    kept = int(w["vdw_counts"].sum())
+    rows = sum(int(t["valid"].sum()) for t in w["topology"])
+    log(f"[8] compacted WU pass at a window start: {kept} of {rows} tree "
+        f"rows kept (caps {w['vdw_caps']}); force_wu vs the full pass "
+        f"max|d|/max|ref| = {rel:.3e}")
+    if not rel <= KERNEL_TOL:
+        raise AssertionError(f"compacted WU force differs: {rel:.3e}")
+
+    # one window of WU impulse blocks with k=1 against the plain fused
+    # step, on the same noise
+    gen = torch.Generator(device=dev).manual_seed(1)
+    noise = [torch.randn(pos0.shape, generator=gen, dtype=pos0.dtype,
+                         device=dev) for _ in range(NEIGHBOR_EVERY)]
+    args = (sim.masses, 0.001, 300.0, 1.0)
+    plain = langevin_middle_step(sim.force_fn(vdw_topology=vt, **mk), *args)
+    block = wu_impulse_langevin_block(
+        sim.force_fn(wu_mode="split", vdw_topology=vt, **mk),
+        sim.force_fn(wu_mode="skip", vdw_topology=vt, **mk), *args, 1)
+    p0, v0, p1, v1 = pos0, vel0, pos0, vel0
+    for xi in noise:
+        p0, v0, *_ = plain(p0, v0, xi)
+        p1, v1, *_ = block(p1, v1, [xi])
+    rel_p, _ = rel_err(p1, p0)
+    rel_v, _ = rel_err(v1, v0)
+    bitwise = bool(torch.equal(p0, p1)) and bool(torch.equal(v0, v1))
+    log(f"[8] {NEIGHBOR_EVERY} steps of WU impulse blocks (k=1) vs the plain "
+        f"fused step: pos {rel_p:.3e}, vel {rel_v:.3e}, bitwise {bitwise}")
+    if not (rel_p <= KERNEL_TOL and rel_v <= KERNEL_TOL):
+        raise AssertionError("the k=1 WU impulse block left the plain step")
+
+    sim, counts, _ = run_md(dev, card, "1li2", MTS_WU4_STEPS, "[8]",
+                            sim=sim, bench=dict(wu_every=4))
+    if sim.agbnp.pair_tiles is None or sim._vdw_caps is None:
+        raise AssertionError("mts_wu4 must run on the lists, vdW-compact")
+    check_list_launches(counts, MTS_WU4_STEPS, "[8]")
+    return sim
+
+
+def phase_mts4_constraints(dev, card):
+    """Phase 9: bench.py's mts4fs_constraints configuration on 1li2."""
+    sim = md_sim(dev, "1li2", constraints=True)
+    sim, counts, r = run_md(dev, card, "1li2", MTS4_STEPS, "[9]", sim=sim,
+                            bench=dict(dt=0.004, mts_inner=2,
+                                       neighbor_every=10))
+    cons = sim.constraints
+    viol = float(cons.max_violation(r["final_pos"].double()))
+    log(f"[9] (times per 4 fs outer step) SHAKE: {cons.n_constraints} "
+        f"constraints, {cons.sweeps} Newton sweeps, largest window residual "
+        f"{r['shake_residual']:.3e} (tolerance "
+        f"{cons.tolerance(r['final_pos'].dtype):.3e}); final max violation "
+        f"{viol:.3e} (limit {SHAKE_LIMIT})")
+    if not viol <= SHAKE_LIMIT:
+        raise AssertionError(f"constraint violation {viol:.3e}")
+    check_list_launches(counts, MTS4_STEPS, "[9]")
+
+
+def phase_no_sync(dev, sim):
+    """Phase 10: SHAKE, RATTLE and the WU compaction at the 1li2 shapes
+    make no host sync (after one warm-up call outside the check)."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.md.constraints import Constraints
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    cons = Constraints.from_dms(sim.dms, device=dev)
+    pos = sim.positions
+    gen = torch.Generator(device=dev).manual_seed(2)
+    noisy = pos + 0.002 * torch.randn(pos.shape, generator=gen,
+                                      dtype=pos.dtype, device=dev)
+    vel = torch.randn(pos.shape, generator=gen, dtype=pos.dtype, device=dev)
+    w = window_start(sim, pos)
+
+    def calls():
+        x = cons.positions(noisy, pos)
+        return x, cons.velocities(x, vel), T.compact_topology(
+            w["levels_vdw"], w["vdw_caps"])[1]
+
+    calls()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, _, counts = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[10] Constraints.positions, Constraints.velocities and "
+        f"compact_topology ran under set_sync_debug_mode('error'): no host "
+        f"sync (max violation {float(cons.max_violation(x)):.2e}, kept rows "
+        f"{counts.tolist()})")
+
+
+def phase_resume(dev, sim):
+    """Phase 11: run_md resumed from its step-40 checkpoint reproduces the
+    uninterrupted 80-step trajectory bitwise on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.io.checkpoint import \
+        load_checkpoint, restore_generator
+
+    kw = dict(neighbor_every=NEIGHBOR_EVERY, report_interval=RESUME_STEPS,
+              seed=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "md.ckpt.npz")
+        first = os.path.join(tmp, "md.step40.npz")
+
+        def keep_first(step, pos, vel):
+            if step == RESUME_STEPS:
+                shutil.copyfile(path, first)
+
+        full = sim.run_md(2 * RESUME_STEPS, checkpoint_path=path,
+                          reporter=keep_first, **kw)
+        ck = load_checkpoint(first)
+        rest = sim.run_md(RESUME_STEPS, pos=ck["positions"],
+                          vel=ck["velocities"],
+                          generator=restore_generator(ck, dev), **kw)
+    same = (bool(torch.equal(rest["final_pos"], full["final_pos"]))
+            and bool(torch.equal(rest["final_vel"], full["final_vel"]))
+            and np.array_equal(rest["energies"],
+                               full["energies"][RESUME_STEPS:]))
+    log(f"[11] run_md {2 * RESUME_STEPS} steps vs resumed from the step-"
+        f"{ck['step']} checkpoint ({ck['generator_device']} generator): "
+        f"bitwise {same}; regrows {full['regrows']}/{rest['regrows']}")
+    if ck["step"] != RESUME_STEPS or not same:
+        raise AssertionError("the resumed trajectory differs")
 
 
 def main() -> int:
@@ -551,6 +762,10 @@ def main() -> int:
     phase_goldens(dev)
     counts = dict(share_off=phase_parity(dev))
     counts["md_1li2"], counts["md_2clr"] = phase_md(dev, card)
+    sim_1li2 = phase_mts_wu4(dev, card)
+    phase_mts4_constraints(dev, card)
+    phase_no_sync(dev, sim_1li2)
+    phase_resume(dev, sim_1li2)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     record = []

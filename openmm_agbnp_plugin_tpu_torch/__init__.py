@@ -9,7 +9,12 @@ tested against), with the same module names:
   ops/kernels/pairs.py    the three pair sweeps on the dense tile grid, and
   ops/kernels/tiles.py    over interacting-tile lists: CUDA kernels + twins
   ops/neighbors.py        half neighbor lists, the cell grid
-  md/simulation.py        Langevin MD with rebuild windows
+  md/simulation.py        Simulation: Langevin (with the vdW-compact and
+                          impulse WU pass, r-RESPA MTS), Verlet, run_md
+  md/integrators.py       Langevin, MTS, WU-impulse and Verlet steps
+  md/constraints.py       SHAKE/RATTLE; md/vsites.py virtual sites;
+  md/minimize.py          FIRE
+  io/checkpoint.py        exact-resume checkpoints; io/dcd.py trajectories
   runtime/build.py        builds csrc/*.cu with nvcc at first kernel use
 
 This package imports torch and numpy only; nothing is built at import.

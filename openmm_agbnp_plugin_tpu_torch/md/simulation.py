@@ -1,19 +1,32 @@
-"""Langevin MD of a DMS system with AGBNP1 implicit solvent + OPLS.
+"""MD of a DMS system with AGBNP1 implicit solvent + OPLS.
 
-Counterpart of the JAX package's md/simulation.py for the configuration
-its MD benchmark runs (bench.py): AGBNP version 1 with the pair sweeps on
-the kernel route (over interacting-tile lists by default, as in JAX) and
-the MM dense LJ + Coulomb sum fused into the GB sweep, rebuild windows (a
-half neighbor list, through a cell grid above 3000 atoms, and an
-overlap-tree topology every `neighbor_every` steps, fixed-topology rescans
-in between), and the WU gamma-rescan force pass every step.  The JAX
-runner's `lax.scan` over the steps of a window is a Python loop here;
-per-step overflow counts (tree levels and tile lists) stay on the device
-and the host reads them once per window.
+Counterpart of the JAX package's md/simulation.py for AGBNP version 1: the
+pair sweeps on the kernel route (over interacting-tile lists by default, as
+in JAX) with the MM dense LJ + Coulomb sum fused into the GB sweep, and
+every MD configuration of the JAX package's benchmark (bench.py):
 
-What lies outside this configuration (versions 0/2, MTS, constraints,
-virtual sites, the vdW-compact WU topology, WU impulses, mesh sharding)
-is not ported: there is no option for it, and version != 1 raises.
+  * rebuild windows: a half neighbor list (through a cell grid above 3000
+    atoms) and an overlap-tree topology every `neighbor_every` steps,
+    fixed-topology rescans in between (`rebuild_topology=False`: a tree
+    build every step from the window's list; `neighbor_every <= 0`: the
+    all-pairs evaluation every step);
+  * the vdW-compact WU topology (`vdw_compact=True`, the default): the WU
+    gamma-rescan force pass runs over the ancestor closure of the vdW-live
+    tree rows, extracted at each rebuild (ops/tree.py::compact_topology);
+  * the WU pass as an r-RESPA impulse every `wu_every` steps (mts_wu);
+  * r-RESPA MTS (`mts_inner`: AGBNP + MM nonbonded as the slow impulse,
+    bonded + 1-4 substeps), SHAKE/RATTLE X-H constraints, virtual sites;
+  * velocity Verlet, FIRE (md/minimize.py), and `run_md` with the
+    PanicButton retry, trajectory frames and exact-resume checkpoints.
+
+The JAX runner's `lax.scan` over the steps of a window is a Python loop
+here.  Per-step overflow counts (tree levels, tile lists, WU-compact rows)
+and the SHAKE residual stay on the device, and the host reads them once
+per window; a window that overflowed (or whose SHAKE missed tolerance)
+stops the run, and its counts come back for the PanicButton regrow.
+
+Not ported here: versions 0/2 (version != 1 raises), mesh sharding, and
+`mixed=True`.
 """
 
 from __future__ import annotations
@@ -24,13 +37,26 @@ import time
 import numpy as np
 import torch
 
+from ..io.checkpoint import save_checkpoint
 from ..models.agbnp_torch import AGBNPModel, energy_forces
 from ..models.params import AGBNPParams
 from ..ops import tree as T
 from ..ops.neighbors import CellGrid, cell_neighbor_pairs, \
     half_neighbor_pairs, host_max_neighbors, tree_pair_cutoff
+from .constraints import Constraints
 from .forces import MMForceField
-from .integrators import langevin_middle_step
+from .integrators import langevin_middle_step, maxwell_boltzmann_velocities, \
+    mts_langevin_step, running_max, velocity_verlet_step, \
+    wu_impulse_langevin_block
+from .vsites import project_positions, spread_forces
+
+
+def _kmax_for(seen: int) -> int:
+    return int(np.ceil(seen * 1.5 / 16) * 16)
+
+
+def _align(x, align: int = 128) -> int:
+    return max(align, int(np.ceil(x / align)) * align)
 
 
 class Simulation:
@@ -43,13 +69,17 @@ class Simulation:
     kernels take float32 only).  pair_tiles and share_qd go to AGBNPModel
     (interacting-tile-list budgets, None = sized from the initial
     positions; Q/dQ sharing between the Born and descreening sweeps).
+    constraints=True applies the DMS X-H constraint tables
+    (md/constraints.py) in every integrator; vsites: a VirtualSites table
+    (md/vsites.py) projected before and spread after every evaluation.
     """
 
     def __init__(self, dms, *, device, version: int = 1,
                  cutoff: float | None = None, dtype=torch.float64,
                  caps=None, skin: float = 0.15, kmax: int | None = None,
                  descreen_horizon=None, pair_tiles=None,
-                 share_qd: bool = True):
+                 share_qd: bool = True, constraints: bool = False,
+                 vsites=None):
         if version != 1:
             raise ValueError(f"version {version}: MD is ported for "
                              "AGBNP version 1 only")
@@ -72,26 +102,96 @@ class Simulation:
                                          device=self.device)
         self.velocities = torch.as_tensor(dms.velocities, dtype=dtype,
                                           device=self.device)
+        self.vsites = (vsites.arrays(dtype, device=self.device)
+                       if vsites is not None and vsites.count > 0 else None)
+        # Desmond X-H constraint tables -> SHAKE/RATTLE in the MD loop (the
+        # reference gets these through DesmondDMSFile.createSystem)
+        self.constraints = (Constraints.from_dms(dms, device=self.device)
+                            if constraints else None)
+        # per-level WU-compact capacities (relax, caps), sized lazily
+        self._vdw_caps = None
 
         # neighbor-list sizing pass (the analogue of the reference's CPU
         # GaussVol pre-pass, OpenCLAGBNPKernels.cpp:566-617)
         self.rcut_list = tree_pair_cutoff(params.radii_large) + skin
         heavy = np.asarray(params.ishydrogen) == 0
         if kmax is None:
-            seen = host_max_neighbors(np.asarray(dms.positions), heavy,
-                                      self.rcut_list)
-            kmax = int(np.ceil(seen * 1.5 / 16) * 16)
+            kmax = _kmax_for(host_max_neighbors(np.asarray(dms.positions),
+                                                heavy, self.rcut_list))
         self.kmax = kmax
         self.heavy_mask = torch.as_tensor(heavy, device=self.device)
-        # O(N) cell-grid neighbor build above the dense-rebuild crossover
-        # (the analogue of OpenMM's cell-based tiles the reference rides)
-        self.grid = None
-        if params.n > 3000:
-            self.grid = CellGrid(np.asarray(dms.positions), self.rcut_list,
-                                 heavy_mask=heavy)
-        self.neighbor_fn = (functools.partial(cell_neighbor_pairs,
-                                              grid=self.grid)
-                            if self.grid is not None else half_neighbor_pairs)
+        self._set_grid(np.asarray(dms.positions))
+
+    def _set_grid(self, positions, grid=None):
+        """The neighbor build: an O(N) cell grid above the dense-rebuild
+        crossover (the analogue of OpenMM's cell-based tiles the reference
+        rides), the all-pairs half list below it."""
+        if grid is None and self.agbnp.params.n > 3000:
+            grid = CellGrid(positions, self.rcut_list,
+                            heavy_mask=np.asarray(self.heavy_mask.cpu()))
+        self.grid = grid
+        self.neighbor_fn = (functools.partial(cell_neighbor_pairs, grid=grid)
+                            if grid is not None else half_neighbor_pairs)
+
+    def resize_caps_to_current(self, positions=None, caps_boost: float = 1.3):
+        """Shrink-to-fit: re-size every capacity (tree caps and sibling
+        windows, neighbor kmax, cell grid, WU-compact caps, tile budgets)
+        from a fresh sizing pass on the CURRENT configuration, discarding
+        the regrow history (JAX md/simulation.py:126-160).
+
+        The tree sizing here is one evaluation on the device, grown until
+        clean, with the native pre-pass's headroom rules (JAX
+        runtime/native.py:182-207): caps = counts x caps_boost (128-
+        aligned), sibling windows = (largest sibling group - 1) x
+        max(caps_boost, 1.6), at least 4, so a window can never come out
+        degenerate.  Runners built before this call are stale; if the lean
+        capacities prove too small the PanicButton grows them back."""
+        pos = (self.positions if positions is None else torch.as_tensor(
+            positions, dtype=self.dtype, device=self.device))
+        pos_np = pos.detach().cpu().numpy()
+        m = self.agbnp
+        probe = AGBNPModel(m.params, device=self.device, dtype=self.dtype,
+                           version=1, cutoff=m.cutoff, positions=pos_np,
+                           descreen_horizon=m.descreen_horizon,
+                           pair_tiles=False, share_qd=m.share_qd)
+        for _ in range(8):
+            diag = probe.energy_forces(pos, with_details=True)[2]["diag"]
+            if not probe.check_and_grow(diag):
+                break
+        else:
+            raise RuntimeError("tree sizing did not converge")
+        counts = diag["counts"].cpu().numpy()
+        sibs = diag["max_siblings"].cpu().numpy()
+        offs_boost = max(caps_boost, 1.6)
+        caps = T.TreeCaps(
+            caps=tuple(_align(int(c) * caps_boost) for c in counts),
+            offs=tuple(int(max(4, np.ceil(max(int(s) - 1, 1) * offs_boost)))
+                       for s in sibs[:-1]))
+        self.agbnp = AGBNPModel(m.params, device=self.device,
+                                dtype=self.dtype, version=1, caps=caps,
+                                cutoff=m.cutoff, positions=pos_np,
+                                descreen_horizon=m.descreen_horizon,
+                                pair_tiles=(None if m.pair_tiles is not None
+                                            else False),
+                                share_qd=m.share_qd)
+        self.kmax = _kmax_for(host_max_neighbors(
+            pos_np, np.asarray(self.heavy_mask.cpu()), self.rcut_list))
+        if self.grid is not None:
+            self._set_grid(pos_np)
+        # the lazy WU-compact sizing pass reads self.positions; point it at
+        # the configuration being sized from
+        self.positions = pos
+        self._vdw_caps = None
+
+    def set_velocities_to_temperature(self, temperature, seed: int = 0):
+        """Maxwell-Boltzmann velocities at `temperature` (OpenMM's
+        Context.setVelocitiesToTemperature analogue), COM motion removed,
+        drawn from a generator on the simulation's device seeded with
+        `seed`."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.velocities = maxwell_boltzmann_velocities(self.masses,
+                                                       temperature, gen)
+        return self.velocities
 
     def ff_state(self) -> dict:
         """Force-field tensors the MD step reads: the AGBNP arrays, the MM
@@ -107,26 +207,46 @@ class Simulation:
                         epm[a["rperm"]].astype(np.int32),
                         device=self.device))
 
-    def force_fn(self, pairs=None, topology=None, ff=None):
+    def force_fn(self, pairs=None, topology=None, ff=None,
+                 split: bool = False, vdw_topology=None,
+                 wu_mode: str = "fused"):
         """Returns fn(pos) -> (energy, force, counts).
 
         AGBNP1 energy + analytic forces with the OPLS dense LJ + Coulomb
         sum riding the GB sweep; bonded terms and 1-4 pairs by autograd.
         pairs: (pairs_i, pairs_j, pairs_valid) from the neighbor list (the
-        tree's 2-body candidates); topology: a tree_topology() of an
-        earlier build (fixed-topology rescans).  counts: the tree-level
-        counts, followed by the in-range Born and GB tile counts when the
-        sweeps run on interacting-tile lists."""
+        tree's 2-body candidates; None: the model's all-pairs list);
+        topology: a tree_topology() of an earlier build (fixed-topology
+        rescans); vdw_topology: the window's compacted WU topology.  counts:
+        the tree-level counts, followed by the in-range Born and GB tile
+        counts when the sweeps run on interacting-tile lists.
+
+        wu_mode "split" makes fn return (energy, force_without_wu,
+        force_wu, counts) and "skip" leaves the WU pass out (the WU impulse
+        block's two evaluations).  With split=True, returns (slow_fn,
+        fast_fn) for the r-RESPA integrators instead: slow_fn(pos) ->
+        (e, f, counts) is AGBNP + the fused MM nonbonded sum, fast_fn(pos)
+        -> (e, f) the stiff bonded + 1-4 class."""
+        if wu_mode != "fused" and split:
+            raise ValueError("wu_mode split/skip (mts_wu) does not combine "
+                             "with MTS")
         ff = self.ff_state() if ff is None else ff
         m = self.agbnp
+        if pairs is None and m.neighbor_kmax > 0:
+            raise ValueError("the all-pairs evaluation (no neighbor list) "
+                             "holds for systems up to 2000 atoms")
         a = ff["a"]
         if pairs is not None:
             a = {**a, "pairs_i": pairs[0], "pairs_j": pairs[1],
                  "pairs_valid": pairs[2]}
-        mm_nb = dict(sigma=ff["mm"]["sigma"], epsq=ff["mm"]["epsq"],
+        mm = ff["mm"]
+        mm_nb = dict(sigma=mm["sigma"], epsq=mm["epsq"],
                      excl_rows_perm=ff["excl_rows_perm"])
+        vs = self.vsites
 
-        def fn(pos):
+        def agbnp_part(pos):
+            # the WU force comes back apart and is added last, so the fused
+            # force is bit for bit what the WU impulse block adds up at k=1
             out = energy_forces(a, pos, caps=m.caps, version=m.version,
                                 roffset=m.params.roffset,
                                 ntypes_j=m.ntypes_j, cutoff=m.cutoff,
@@ -135,77 +255,277 @@ class Simulation:
                                 pair_rows=pairs is not None, mm_nb=mm_nb,
                                 descreen_horizon=m.descreen_horizon,
                                 pair_tiles=m.pair_tiles,
-                                share_qd=m.share_qd)
+                                share_qd=m.share_qd,
+                                vdw_topology=vdw_topology,
+                                wu_mode="skip" if wu_mode == "skip"
+                                else "split")
             energy = out["energy"] + out["details"]["e_mm_nb"]
-            e_mm, f_mm = self.mm.bonded_and_14_forces(pos, ff["mm"])
             counts = out["diag"]["counts"].long()
             ptc = out["diag"].get("pair_tile_counts")
             if ptc is not None:
                 # the tile-list counts ride the tree counts' overflow
                 # channel (split off again in overflow_report)
                 counts = torch.cat([counts, ptc.long()])
-            return energy + e_mm, out["force"] + f_mm, counts
+            return energy, out["force"], out["details"].get("force_wu"), \
+                counts
+
+        def spread(f):
+            return f if vs is None else spread_forces(f, vs)
+
+        def project(pos):
+            return pos if vs is None else project_positions(pos, vs)
+
+        if split:
+            def slow_fn(pos):
+                energy, force, f_wu, counts = agbnp_part(project(pos))
+                return energy, spread(force + f_wu), counts
+
+            def fast_fn(pos):
+                e, f = self.mm.bonded_and_14_forces(project(pos), mm)
+                return e, spread(f)
+
+            return slow_fn, fast_fn
+
+        def fn(pos):
+            pos = project(pos)
+            energy, force, f_wu, counts = agbnp_part(pos)
+            e_mm, f_mm = self.mm.bonded_and_14_forces(pos, mm)
+            energy = energy + e_mm
+            force = spread(force + f_mm)
+            if wu_mode == "split":
+                return energy, force, spread(f_wu), counts
+            if wu_mode == "fused":
+                force = force + spread(f_wu)
+            return energy, force, counts
 
         return fn
 
-    def make_langevin_runner(self, dt=0.001, temperature=300.0, friction=1.0,
-                             neighbor_every: int = 10):
-        """Returns run(pos, vel, nsteps, generator=None, noise=None) ->
-        (pos, vel, energies [nsteps], (counts, neighbor_max, sibling_max)).
+    def _ensure_vdw_caps(self, relax: float = 0.5, boost: float = 1.5):
+        """Static per-level capacities of the compacted WU topology
+        (ops/tree.py::compact_topology), sized from the kept-row counts of
+        one build + vdW rescan on the current positions (the compaction
+        analogue of the neighbor-list sizing pass).  Cached per relax
+        value; _regrow updates the cache on overflow."""
+        cached = self._vdw_caps
+        if cached is not None and cached[0] == relax:
+            return cached[1]
+        a = self.agbnp.arrays
+        pos = self.positions
+        pi, pj, pv, _ = self.neighbor_fn(pos, self.heavy_mask,
+                                         self.rcut_list, self.kmax)
+        gdr = a["gamma"] / self.agbnp.params.roffset
+        lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"], gdr,
+                             a["ishydrogen"])
+        levels, _ = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
+                                 pairs_valid=pv, pair_rows=True)
+        lvl1v = T.make_level1(pos, a["radii_vdw"], a["vol_vdw"], -gdr,
+                              a["ishydrogen"])
+        lv = T.rescan_volumes(T.tree_topology(levels), lvl1v)
+        counts = T.compact_topology(lv, [l["valid"].shape[0] for l in lv],
+                                    relax=relax)[1].cpu().numpy()
+        wu = tuple(max(8, int(np.ceil(int(k) * boost / 8) * 8))
+                   for k in counts)
+        self._vdw_caps = (relax, wu)
+        return wu
 
-        Every `neighbor_every` steps the half neighbor list (neighbor_fn)
-        and the overlap-tree topology are rebuilt; the steps of the window run
-        fixed-topology rescans.  The Langevin noise comes
-        from `generator` or, when given, from noise [nsteps, N, 3].  The
-        window's overflow counts are read once at its end; a window that
-        overflowed stops the run (its forces are invalid) and its counts
-        come back for the PanicButton regrow.
+    def _noise_source(self, pos, generator, noise):
+        """draw(count) -> a list of `count` standard-normal [N, 3] draws:
+        the next entries of `noise` or fresh draws from `generator`, one
+        per (sub)step in the order JAX's key splits consume them."""
+        if (generator is None) == (noise is None):
+            raise ValueError("give exactly one of generator and noise")
+        used = 0
+
+        def draw(count: int):
+            nonlocal used
+            if noise is not None:
+                out = [noise[used + i] for i in range(count)]
+            else:
+                out = [torch.randn(pos.shape, generator=generator,
+                                   dtype=pos.dtype, device=pos.device)
+                       for _ in range(count)]
+            used += count
+            return out
+
+        return draw
+
+    def _no_window_diag(self, counts, shake):
+        z = torch.zeros(7, dtype=torch.int64, device=self.device)
+        return (counts, torch.zeros((), dtype=torch.int64,
+                                    device=self.device), z, z, shake)
+
+    def make_langevin_runner(self, dt=0.001, temperature=300.0, friction=1.0,
+                             neighbor_every: int = 10,
+                             rebuild_topology: bool = True,
+                             mts_inner: int = 0, vdw_compact: bool = True,
+                             vdw_relax: float = 0.5, wu_every: int = 1):
+        """Returns run(pos, vel, nsteps, generator=None, noise=None) ->
+        (pos, vel, energies [nsteps], diag) with diag = (counts,
+        neighbor_max, sibling_max, wu_compact_counts, shake_residual), the
+        maxima over the run's windows (shake_residual None without
+        constraints).
+
+        Every `neighbor_every` steps the half neighbor list and, with
+        rebuild_topology, the overlap-tree topology are rebuilt; the steps
+        of the window run fixed-topology rescans (rebuild_topology=False:
+        a tree build every step from the window's list).  With
+        neighbor_every <= 0 every step runs the all-pairs evaluation, and
+        the counts are read once, at the end of the run.
+
+        vdw_compact (with rebuild_topology, the default as in JAX): each
+        rebuild also extracts the compacted WU topology, and the WU force
+        pass of every step runs over it (exact at the rebuild point).
+        wu_every > 1 applies the WU force as an r-RESPA impulse every
+        wu_every steps (a remainder block closes a window that wu_every
+        does not divide).  mts_inner > 0 makes each step an r-RESPA outer
+        step of length dt with mts_inner bonded substeps; nsteps and
+        neighbor_every then count outer steps.
+
+        The Langevin noise comes from `generator` or, when given, from
+        noise [nsteps * max(mts_inner, 1), N, 3], one draw per (sub)step.
+        The window's diagnostics are read once at its end; a window that
+        overflowed, or whose SHAKE missed tolerance, stops the run (its
+        forces are invalid) and its counts come back for the regrow.
         """
-        if neighbor_every <= 0:
-            raise ValueError("neighbor_every must be > 0 (rebuild windows)")
+        if wu_every > 1 and (mts_inner or neighbor_every <= 0):
+            raise ValueError("wu_every > 1 (mts_wu) requires rebuild-window "
+                             "MD without MTS")
         masses, rcut, kmax = self.masses, self.rcut_list, self.kmax
         heavy = self.heavy_mask
         neighbor_fn = self.neighbor_fn
         caps = self.agbnp.caps
         roffset = self.agbnp.params.roffset
+        cons = self.constraints
         ff = self.ff_state()
         a = ff["a"]
+        nsub = max(mts_inner, 1)
+        use_vdwc = vdw_compact and rebuild_topology and neighbor_every > 0
+        vdw_caps = self._ensure_vdw_caps(vdw_relax) if use_vdwc else None
+
+        def make_step(pairs=None, topology=None, vdw_topology=None):
+            if mts_inner:
+                slow, fast = self.force_fn(pairs=pairs, topology=topology,
+                                           ff=ff, split=True,
+                                           vdw_topology=vdw_topology)
+                return mts_langevin_step(slow, fast, masses, dt, temperature,
+                                         friction, mts_inner,
+                                         constraints=cons)
+            return langevin_middle_step(
+                self.force_fn(pairs=pairs, topology=topology, ff=ff,
+                              vdw_topology=vdw_topology),
+                masses, dt, temperature, friction, constraints=cons)
+
+        def step_noise(draw):
+            xi = draw(nsub)
+            return xi if mts_inner else xi[0]
+
+        if neighbor_every <= 0:
+            def run_strict(pos, vel, nsteps: int, generator=None,
+                           noise=None):
+                draw = self._noise_source(pos, generator, noise)
+                step = make_step()
+                energies, counts, shake = [], None, None
+                for _ in range(nsteps):
+                    pos, vel, e, c, sh = step(pos, vel, step_noise(draw))
+                    energies.append(e)
+                    counts = running_max(counts, c)
+                    shake = running_max(shake, sh)
+                return (pos, vel, torch.stack(energies),
+                        self._no_window_diag(counts, shake))
+
+            return run_strict
+
+        def window(pos, vel, ninner, draw):
+            """One rebuild window: (pos, vel, energies, window diag)."""
+            pi, pj, pv, nbmax = neighbor_fn(pos, heavy, rcut, kmax)
+            pairs = (pi, pj, pv)
+            topo = build_counts = vdw_topo = None
+            zeros7 = torch.zeros(7, dtype=torch.int64, device=pos.device)
+            sib_max = vdw_counts = zeros7
+            if rebuild_topology:
+                gdr = a["gamma"] / roffset
+                lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
+                                     gdr, a["ishydrogen"])
+                levels, bdiag = T.build_tree(lvl1, pi, pj, caps,
+                                             pairs_valid=pv, pair_rows=True)
+                topo = T.tree_topology(levels)
+                build_counts = bdiag["counts"]
+                sib_max = bdiag["max_siblings"]
+                if use_vdwc:
+                    # the window's compacted WU topology: the ancestor
+                    # closure of the vdW-live rows of this build
+                    lvl1v = T.make_level1(pos, a["radii_vdw"], a["vol_vdw"],
+                                          -gdr, a["ishydrogen"])
+                    vdw_topo, vdw_counts = T.compact_topology(
+                        T.rescan_volumes(topo, lvl1v), vdw_caps,
+                        relax=vdw_relax)
+            energies, counts, shake = [], None, None
+            if wu_every > 1:
+                mk = dict(pairs=pairs, topology=topo, ff=ff,
+                          vdw_topology=vdw_topo)
+                split_fn = self.force_fn(wu_mode="split", **mk)
+                skip_fn = self.force_fn(wu_mode="skip", **mk)
+                nblk, remk = divmod(ninner, wu_every)
+                blocks = {}
+                for k in [wu_every] * nblk + ([remk] if remk else []):
+                    if k not in blocks:
+                        blocks[k] = wu_impulse_langevin_block(
+                            split_fn, skip_fn, masses, dt, temperature,
+                            friction, k, constraints=cons)
+                    pos, vel, es, c, sh = blocks[k](pos, vel, draw(k))
+                    energies.extend(es.unbind(0))
+                    counts = running_max(counts, c)
+                    shake = running_max(shake, sh)
+            else:
+                step = make_step(pairs, topo, vdw_topo)
+                for _ in range(ninner):
+                    pos, vel, e, c, sh = step(pos, vel, step_noise(draw))
+                    energies.append(e)
+                    counts = running_max(counts, c)
+                    shake = running_max(shake, sh)
+            if build_counts is not None:
+                counts = T.merge_counts(counts, build_counts)
+            return pos, vel, energies, (counts, nbmax, sib_max, vdw_counts,
+                                        shake)
 
         def run(pos, vel, nsteps: int, generator=None, noise=None):
-            if (generator is None) == (noise is None):
-                raise ValueError("give exactly one of generator and noise")
+            draw = self._noise_source(pos, generator, noise)
             energies = []
             diag = None
             done = 0
             while done < nsteps:
                 ninner = min(neighbor_every, nsteps - done)
-                pi, pj, pv, nbmax = neighbor_fn(pos, heavy, rcut, kmax)
-                lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
-                                     a["gamma"] / roffset, a["ishydrogen"])
-                levels, bdiag = T.build_tree(lvl1, pi, pj, caps,
-                                             pairs_valid=pv, pair_rows=True)
-                topo = T.tree_topology(levels)
-                step = langevin_middle_step(
-                    self.force_fn(pairs=(pi, pj, pv), topology=topo, ff=ff),
-                    masses, dt, temperature, friction)
-                wcounts = []
-                for s in range(ninner):
-                    xi = (noise[done + s] if noise is not None else
-                          torch.randn(pos.shape, generator=generator,
-                                      dtype=pos.dtype, device=pos.device))
-                    pos, vel, e, counts = step(pos, vel, xi)
-                    energies.append(e)
-                    wcounts.append(counts)
-                wmax = T.merge_counts(
-                    torch.max(torch.stack(wcounts), dim=0).values,
-                    bdiag["counts"])
-                wdiag = (wmax, nbmax, bdiag["max_siblings"])
+                pos, vel, es, wdiag = window(pos, vel, ninner, draw)
+                energies.extend(es)
                 diag = wdiag if diag is None else tuple(
-                    torch.maximum(x, y) for x, y in zip(diag, wdiag))
+                    running_max(x, y) for x, y in zip(diag, wdiag))
                 done += ninner
-                if self._check_overflow(*wdiag):
+                if self._check_overflow(*wdiag):  # the window's host read
                     break
             return pos, vel, torch.stack(energies), diag
+
+        return run
+
+    def make_verlet_runner(self, dt=0.001):
+        """Returns run(pos, vel, nsteps) -> (pos, vel, pe [nsteps],
+        ke [nsteps], diag): velocity Verlet (SHAKE/RATTLE with constraints)
+        on the all-pairs evaluation every step; diag as the Langevin
+        runner's (counts and the SHAKE residual, read by the caller)."""
+        fn = self.force_fn()
+        step = velocity_verlet_step(fn, self.masses, dt,
+                                    constraints=self.constraints)
+
+        def run(pos, vel, nsteps: int):
+            _, force, _ = fn(pos)
+            pe, ke, counts, shake = [], [], None, None
+            for _ in range(nsteps):
+                pos, vel, force, e, k, c, sh = step(pos, vel, force)
+                pe.append(e)
+                ke.append(k)
+                counts = running_max(counts, c)
+                shake = running_max(shake, sh)
+            return (pos, vel, torch.stack(pe), torch.stack(ke),
+                    self._no_window_diag(counts, shake))
 
         return run
 
@@ -215,20 +535,25 @@ class Simulation:
 
     def benchmark_langevin(self, nsteps=1000, dt=0.001, temperature=300.0,
                            friction=1.0, seed=0, warmup=True,
-                           neighbor_every: int = 10, max_regrow: int = 3):
+                           neighbor_every: int = 10,
+                           rebuild_topology: bool = True,
+                           mts_inner: int = 0, max_regrow: int = 3,
+                           vdw_compact: bool = True, wu_every: int = 1):
         """Timed Langevin MD, reference-benchmark style.  Returns dict with
         ns/day and the energy trace.  If a capacity overflow is detected
         (PanicButton, reference OpenCLAGBNPKernels.cpp:3598-3634) the caps
         are regrown and the whole timed run repeats, up to max_regrow
         times, so the numbers come from a clean run.  The noise generator
         is seeded from `seed` for the warm-up and again for the timed run.
-
-        The JAX runner's vdw_compact, wu_every and mts_inner options are
-        not ported: this is its vdw_compact=False, wu_every=1, mts_inner=0
-        path."""
+        The defaults are the JAX package's (vdw_compact=True, wu_every=1,
+        mts_inner=0): bench.py's strict run; wu_every=4 is its headline
+        mts_wu4 run, and dt=0.004, mts_inner=2 with constraints=True and
+        neighbor_every=10 its mts4fs_constraints run."""
         for attempt in range(max_regrow + 1):
-            run = self.make_langevin_runner(dt, temperature, friction,
-                                            neighbor_every=neighbor_every)
+            run = self.make_langevin_runner(
+                dt, temperature, friction, neighbor_every=neighbor_every,
+                rebuild_topology=rebuild_topology, mts_inner=mts_inner,
+                vdw_compact=vdw_compact, wu_every=wu_every)
             pos, vel = self.positions, self.velocities
             if warmup:
                 gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -236,32 +561,35 @@ class Simulation:
                 self._sync()
             gen = torch.Generator(device=self.device).manual_seed(seed)
             t0 = time.perf_counter()
-            pos, vel, energies, (counts, nbmax, sibs) = run(
-                pos, vel, nsteps, generator=gen)
+            pos, vel, energies, diag = run(pos, vel, nsteps, generator=gen)
             self._sync()
             elapsed = time.perf_counter() - t0
-            counts = counts.cpu().numpy()
-            nbmax = int(nbmax)
-            sibs = sibs.cpu().numpy()
-            overflow = self._check_overflow(counts, nbmax, sibs)
+            overflow = self._check_overflow(*diag)
             if not overflow or attempt == max_regrow:
                 break
-            self._regrow(counts, nbmax, sibs)
+            self._regrow(*diag)
+        counts, nbmax, shake = diag[0], diag[1], diag[4]
         return dict(ns_day=nsteps * dt * 1e-3 / elapsed * 86400.0,
                     elapsed_s=elapsed, steps_per_s=nsteps / elapsed,
-                    final_pos=pos, final_vel=vel, tree_counts_max=counts,
-                    neighbor_max=nbmax, overflow=overflow, regrows=attempt,
-                    energies=energies.cpu().numpy())
+                    final_pos=pos, final_vel=vel,
+                    tree_counts_max=counts.cpu().numpy(),
+                    neighbor_max=int(nbmax), overflow=overflow,
+                    regrows=attempt, energies=energies.cpu().numpy(),
+                    shake_residual=None if shake is None else float(shake))
 
-    def _check_overflow(self, counts, nbmax, sibs) -> bool:
-        return bool(self.overflow_report(counts, nbmax, sibs))
+    def _check_overflow(self, counts, nbmax, sibs, wu=None,
+                        shake=None) -> bool:
+        return bool(self.overflow_report(counts, nbmax, sibs, wu, shake))
 
-    def overflow_report(self, counts, nbmax, sibs) -> dict:
+    def overflow_report(self, counts, nbmax, sibs, wu=None,
+                        shake=None) -> dict:
         """Which PanicButton channels overflowed: {channel: (seen, cap)}.
         Empty dict = clean run.  Channels: tree level caps, sibling
         enumeration windows, neighbor kmax (which also carries a cell-grid
-        capacity overflow as kmax + 1), and the interacting-tile-list
-        budgets (tile_list_born, tile_list_gb)."""
+        capacity overflow as kmax + 1), the compacted-WU per-level caps
+        (wu_compact_level*), the interacting-tile-list budgets
+        (tile_list_born, tile_list_gb), and the SHAKE residual against the
+        constraint tolerance (shake_residual)."""
         rep = {}
         counts = np.asarray(torch.as_tensor(counts).cpu())
         sibs = np.asarray(torch.as_tensor(sibs).cpu())
@@ -276,6 +604,14 @@ class Simulation:
                 rep[f"sibling_window{i + 1}"] = (int(sb) - 1, int(o0))
         if int(nbmax) > self.kmax:
             rep["neighbor_kmax"] = (int(nbmax), int(self.kmax))
+        if wu is not None and self._vdw_caps is not None:
+            # a WU kept-row count past its compact capacity means live rows
+            # were truncated out of the WU force pass
+            for i, (k, o) in enumerate(zip(
+                    np.asarray(torch.as_tensor(wu).cpu()),
+                    self._vdw_caps[1])):
+                if int(k) > int(o):
+                    rep[f"wu_compact_level{i + 1}"] = (int(k), int(o))
         ncaps = len(caps.caps)
         if counts.shape[0] > ncaps and self.agbnp.pair_tiles is not None:
             # trailing entries: interacting-tile-list in-range counts
@@ -285,39 +621,54 @@ class Simulation:
                 rep["tile_list_born"] = (int(cb), int(lb))
             if lg is not None and int(cg) > int(lg):
                 rep["tile_list_gb"] = (int(cg), int(lg))
+        if shake is not None and self.constraints is not None:
+            tol = self.constraints.tolerance(self.dtype)
+            resid = float(shake)
+            if not resid <= tol:
+                rep["shake_residual"] = (resid, tol)
         return rep
 
-    def _regrow(self, counts, nbmax, sibs, headroom: float = 1.3):
+    def _regrow(self, counts, nbmax, sibs, wu=None, shake=None,
+                headroom: float = 1.3):
         """PanicButton resize (reference OpenCLAGBNPKernels.cpp:340-343,
         3598-3634): rebuild the model with capacities covering the measured
-        maxima plus headroom.  Runners built before this call are stale."""
+        maxima plus headroom, grow the WU-compact caps past their kept-row
+        counts, and give SHAKE two more Newton sweeps if it missed its
+        tolerance.  Runners built before this call are stale."""
         old = self.agbnp.caps
-        counts = np.asarray(counts)
+        counts = np.asarray(torch.as_tensor(counts).cpu())
         # trailing tile-list counts: grow the model's budgets before the
         # rebuild below copies them over
         if counts.shape[0] > len(old.caps):
             self.agbnp.grow_pair_tiles(counts[len(old.caps):len(old.caps) + 2])
 
-        def r(x, align=128):
-            return max(align, int(np.ceil(x / align)) * align)
-
         # a truncated level hides its children, so measured counts
         # underestimate deeper levels: overflowed levels at least double
         caps = tuple(max(c0, 2 * c0 if int(c) > c0 else c0,
-                         r(int(c) * headroom))
+                         _align(int(c) * headroom))
                      for c0, c in zip(old.caps, counts[:len(old.caps)]))
-        sibs = np.asarray(sibs)
+        sibs = np.asarray(torch.as_tensor(sibs).cpu())
         offs = tuple(max(o0, 2 * o0 if int(sb) - 1 > o0 else o0,
                          int(np.ceil(max(int(sb) - 1, 1) * headroom)))
                      for o0, sb in zip(old.offs, sibs[:-1]))
+        if wu is not None and self._vdw_caps is not None:
+            relax, old_wu = self._vdw_caps
+            wu = np.asarray(torch.as_tensor(wu).cpu())
+            new_wu = tuple(max(o, 2 * o if int(k) > o else o,
+                               max(8, int(np.ceil(int(k) * headroom / 8) * 8)))
+                           for o, k in zip(old_wu, wu))
+            self._vdw_caps = (relax, new_wu)
+        if (shake is not None and self.constraints is not None
+                and not float(shake) <= self.constraints.tolerance(
+                    self.dtype)):
+            self.constraints.sweeps = min(self.constraints.sweeps + 2,
+                                          self.constraints.max_iter)
         if int(nbmax) > self.kmax:
             if self.grid is not None:
                 # a cell-capacity overflow reports kmax+1 through this
                 # channel; regrow the grid capacity alongside kmax
-                self.grid = self.grid.grown()
-                self.neighbor_fn = functools.partial(cell_neighbor_pairs,
-                                                     grid=self.grid)
-            self.kmax = int(np.ceil(int(nbmax) * 1.5 / 16) * 16)
+                self._set_grid(None, self.grid.grown())
+            self.kmax = _kmax_for(int(nbmax))
         m = self.agbnp
         self.agbnp = AGBNPModel(m.params, device=self.device, dtype=self.dtype,
                                 caps=T.TreeCaps(caps=caps, offs=offs),
@@ -327,3 +678,110 @@ class Simulation:
                                 pair_tiles=(m.pair_tiles if m.pair_tiles
                                             is not None else False),
                                 share_qd=m.share_qd)
+
+    def run_md(self, nsteps, dt=0.001, temperature=300.0, friction=1.0,
+               seed=0, neighbor_every: int = 20, segment: int | None = None,
+               max_regrow: int = 8, pos=None, vel=None, generator=None,
+               mts_inner: int = 0, report_interval: int = 0, reporter=None,
+               checkpoint_path: str | None = None):
+        """Langevin MD with automatic PanicButton recovery.
+
+        Runs in segments; when a segment overflowed any capacity channel
+        (or its SHAKE missed tolerance), its results are discarded, the
+        capacities are regrown from the measured maxima with escalating
+        headroom, and the segment is retried from its starting state
+        (positions, velocities and generator state): the MD-loop form of
+        the reference's PanicButton protocol (OpenCLAGBNPKernels.cpp:
+        3598-3634).  Returns the same dict as benchmark_langevin plus
+        'regrows'.
+
+        report_interval > 0 collects a position snapshot every that many
+        steps (it becomes the segment size): the dict gains 'frames'
+        [F, N, 3] (numpy) and 'frame_steps'; write them with
+        io.dcd.write_dcd.  `reporter(step, pos, vel)` is called per
+        snapshot when given.  Snapshots come only from clean segments.
+
+        checkpoint_path writes an exact-resume checkpoint (io/checkpoint.py)
+        after every clean segment.  Resuming with `ck =
+        load_checkpoint(p); run_md(nsteps - ck['step'],
+        pos=ck['positions'], vel=ck['velocities'],
+        generator=restore_generator(ck), ...)` (same dt, segment and
+        neighbor_every) reproduces the uninterrupted trajectory bitwise.
+        `generator` (advanced in place) overrides the seed.
+        """
+        if report_interval:
+            if segment is not None and segment != report_interval:
+                raise ValueError("segment and report_interval conflict; "
+                                 "give one of them")
+            segment = max(int(report_interval), 1)
+        elif neighbor_every <= 0:
+            # the all-pairs evaluation every step: any segment size works
+            segment = min(nsteps, 50) if segment is None else segment
+        else:
+            if segment is None:
+                segment = min(nsteps, 50 * neighbor_every)
+            segment -= segment % neighbor_every
+            segment = max(segment, min(nsteps, neighbor_every))
+        if segment <= 0:
+            raise ValueError(f"segment {segment} must be positive")
+
+        def runner():
+            return self.make_langevin_runner(
+                dt, temperature, friction, neighbor_every=neighbor_every,
+                mts_inner=mts_inner)
+
+        run = runner()
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        pos = self.positions if pos is None else torch.as_tensor(
+            pos, dtype=self.dtype, device=self.device)
+        vel = self.velocities if vel is None else torch.as_tensor(
+            vel, dtype=self.dtype, device=self.device)
+        energies = []
+        frames, frame_steps = [], []
+        done = 0
+        regrows = 0
+        t0 = time.perf_counter()
+        while done < nsteps:
+            n = min(segment, nsteps - done)
+            state = generator.get_state()
+            new_pos, new_vel, e, diag = run(pos, vel, n, generator=generator)
+            if self._check_overflow(*diag):
+                if regrows >= max_regrow:
+                    raise RuntimeError(
+                        "capacities failed to converge after "
+                        f"{max_regrow} regrows: {self.overflow_report(*diag)}")
+                regrows += 1
+                # escalating headroom: every capacity channel drifts up
+                # together on a thermalizing system, so growing the margin
+                # per retry collapses incremental regrows
+                self._regrow(*diag,
+                             headroom=min(1.3 * 1.25 ** (regrows - 1), 2.6))
+                run = runner()
+                generator.set_state(state)
+                continue  # retry the segment from (pos, vel, generator)
+            pos, vel = new_pos, new_vel
+            energies.append(e.cpu().numpy())
+            done += n
+            if checkpoint_path is not None:
+                save_checkpoint(checkpoint_path, done, pos, vel, generator,
+                                meta=dict(dt=dt, temperature=temperature,
+                                          friction=friction,
+                                          neighbor_every=neighbor_every,
+                                          segment=segment, nsteps=nsteps))
+            if report_interval:
+                frames.append(pos.detach().cpu().numpy())
+                frame_steps.append(done)
+                if reporter is not None:
+                    reporter(done, pos, vel)
+        elapsed = time.perf_counter() - t0
+        out = dict(ns_day=nsteps * dt * 1e-3 / elapsed * 86400.0,
+                   elapsed_s=elapsed, steps_per_s=nsteps / elapsed,
+                   final_pos=pos, final_vel=vel, regrows=regrows,
+                   energies=np.concatenate(energies),
+                   tree_counts_max=diag[0].cpu().numpy(),
+                   neighbor_max=int(diag[1]), overflow=False)
+        if report_interval:
+            out["frames"] = np.stack(frames)
+            out["frame_steps"] = np.asarray(frame_steps)
+        return out

@@ -329,7 +329,8 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
                   mm_nb=None, descreen_horizon=None,
                   neighbor_rcut: float = 0.0, neighbor_kmax: int = 0,
                   neighbor_grid=None, pair_tiles=None,
-                  share_qd: bool = True):
+                  share_qd: bool = True, vdw_topology=None,
+                  wu_mode: str = "fused"):
     """Full GVolSA (version 0) / AGBNP1 (version 1) energy + analytic forces.
 
     a: arrays_from_numpy dict; pos [N, 3] on the same device.  With box
@@ -347,8 +348,17 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     cell grid when neighbor_grid is given) instead of the arrays' pair
     list; the diag then carries neighbor_max and neighbor_kmax.
 
+    The WU gamma-rescan force pass (version 1) runs over the full vdW
+    levels, or over vdw_topology (a T.compact_topology result) when given.
+    wu_mode: "fused" adds its force in; "split" returns it apart as
+    details["force_wu"] (the mts_wu r-RESPA impulse); "skip" leaves the
+    pass out (the impulse integrator's off-steps).  The energy never
+    depends on this pass.
+
     Returns dict(energy, force, diag, details).
     """
+    if wu_mode not in ("fused", "split", "skip"):
+        raise ValueError(f"wu_mode {wu_mode!r}: fused, split or skip")
     if neighbor_kmax > 0:
         heavy = a["ishydrogen"] == 0
         if neighbor_grid is not None:
@@ -404,22 +414,37 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
         pair_force = gb["force"] + sweep["force"]
         evdw_der_W, egb_der_U = sweep["evdw_der_W"], sweep["egb_der_U"]
 
-    # self-volume gradient components via one gamma rescan over
-    # gamma_W + gamma_U (the reference's two passes,
-    # ReferenceAGBNPKernels.cpp:713-747, are linear in gamma)
-    gamma_WU = (evdw_der_W + egb_der_U) / a["vol_vdw_all"]
-    lvl1_WU = {**lvl1_vdw, "gamma1i": gamma_WU}
-    red_WU = T.reduce_tree(T.rescan_gammas(levels_vdw, lvl1_WU), lvl1_WU,
-                           with_selfvol=False)
-
     energy = e_cav + gb_self + gb_pair_e + e_vdw
-    force = f_cav + pair_force - red_WU["dr"]
+    force = f_cav + pair_force
     details.update(gb_self=gb_self, gb_pair=gb_pair_e, e_vdw=e_vdw,
                    born_radius=br, self_volume=self_volume, s_factor=s_factor)
     if e_mm_nb is not None:
         # the dense MM LJ/Coulomb sum rode the GB sweep; its forces are
         # inside pair_force, its energy is reported separately
         details["e_mm_nb"] = e_mm_nb
+    if wu_mode == "skip":
+        return dict(energy=energy, force=force, diag=diag, details=details)
+
+    # self-volume gradient components via one gamma rescan over
+    # gamma_W + gamma_U (the reference's two passes,
+    # ReferenceAGBNPKernels.cpp:713-747, are linear in gamma)
+    gamma_WU = (evdw_der_W + egb_der_U) / a["vol_vdw_all"]
+    if vdw_topology is not None:
+        # compacted WU pass: one rescan_volumes over the ancestor closure of
+        # the vdW-live rows (T.compact_topology) recomputes the volumes and
+        # carries the WU gammas down its packed chain
+        lvl1_WU = T.make_level1(pos, a["radii_vdw"], a["vol_vdw"], gamma_WU,
+                                a["ishydrogen"])
+        red_WU = T.reduce_tree(T.rescan_volumes(vdw_topology, lvl1_WU),
+                               lvl1_WU, with_selfvol=False)
+    else:
+        lvl1_WU = {**lvl1_vdw, "gamma1i": gamma_WU}
+        red_WU = T.reduce_tree(T.rescan_gammas(levels_vdw, lvl1_WU), lvl1_WU,
+                               with_selfvol=False)
+    if wu_mode == "split":
+        details["force_wu"] = -red_WU["dr"]
+    else:
+        force = force - red_WU["dr"]
     return dict(energy=energy, force=force, diag=diag, details=details)
 
 

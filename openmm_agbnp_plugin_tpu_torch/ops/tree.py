@@ -34,7 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..models.constants import MAX_ORDER, PI
+from ..models.constants import MAX_ORDER, PI, VOLMINA
 from .gaussians import atomic_gaussian_exponent, pol_switchfunc, survives
 
 # Levels 2..MAX_ORDER are stored; index l in tuples below is level l+2.
@@ -404,6 +404,60 @@ def tree_topology(levels):
             d["bnd"] = l["bnd"]
         out.append(d)
     return tuple(out)
+
+
+def compact_topology(levels, caps, relax: float = 0.5):
+    """Compact a (rescanned) tree to the ancestor closure of its live rows
+    (counterpart of the JAX package's ops/tree.py::compact_topology).
+
+    The vdW-channel WU gamma-rescan force pass (ReferenceAGBNPKernels.cpp:
+    713-747) runs on the vdW parameterization of the build topology, where
+    only a small share of rows has nonzero switched volume.  A row with zero
+    switched volume and no live descendant contributes exactly 0.0 to every
+    reduction output, so dropping it is exact; keeping rows with raw volume
+    > VOLMINA*relax adds a birth margin for drift within an MD window.
+
+    `levels` carry the vdW volumes (a rescan_volumes result); caps gives the
+    static per-level compact capacities.  Returns (topology, counts): a
+    tree_topology()-shaped tuple with parents remapped to compact slots and
+    monotone pmono boundaries (a stable compaction of a parent-sorted level
+    stays parent-sorted, so the sorted segment sums apply), and counts [7],
+    the pre-truncation kept-row counts (count > cap: live rows were dropped
+    and the window must be regrown).  No host sync.
+    """
+    keep = [l["valid"] & (l["gv"] > VOLMINA * relax) for l in levels]
+    # ancestor closure, bottom-up: a kept row's parent chain stays, so
+    # parent gathers and the downward chains remain intact (integer amax:
+    # order-independent, so deterministic)
+    for li in range(len(levels) - 1, 0, -1):
+        k = keep[li].to(torch.int32)
+        up = torch.zeros(levels[li - 1]["valid"].shape[0], dtype=torch.int32,
+                         device=k.device).scatter_reduce(
+            0, torch.where(keep[li], levels[li]["parent"], 0), k, "amax")
+        keep[li - 1] = keep[li - 1] | ((up > 0) & levels[li - 1]["valid"])
+
+    counts = torch.stack([torch.sum(k) for k in keep])
+    out = []
+    prev_remap = None  # old parent index -> compact slot of previous level
+    prev_cap = None
+    for li, (lvl, kp) in enumerate(zip(levels, keep)):
+        cap = max(int(caps[li]), 8)
+        sel = _nonzero_padded(kp, cap)
+        valid = torch.arange(cap, device=kp.device) < torch.clamp(
+            counts[li], max=cap)
+        atom = torch.where(valid, lvl["atom"][sel], 0)
+        parent = lvl["parent"][sel]
+        if prev_remap is not None:
+            # a parent truncated out of the previous level (an overflowed
+            # window, refused by the counts) still indexes inside it
+            parent = torch.clamp(prev_remap[parent], max=prev_cap - 1)
+        parent = torch.where(valid, parent, 0)
+        out.append(dict(_ints=torch.stack([atom, parent], dim=1),
+                        valid=valid, atom=atom, parent=parent,
+                        bnd=dict(pmono=torch.cummax(parent, dim=0).values)))
+        prev_remap = torch.cumsum(kp.to(torch.int64), dim=0) - 1
+        prev_cap = cap
+    return tuple(out), counts
 
 
 def rescan_volumes(levels, level1):
