@@ -9,10 +9,15 @@ Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
   2. holds each kernel against its plain PyTorch twin on the card, in f32,
      and times both: the dense-grid sweeps at the 1li2 shapes (NP 1536,
      NHP 768, E 24; horizon and cutoff 1 nm, with and without the fused MM
-     terms), the interacting-tile-list sweeps and the recomputing dense
-     descreening at the 2clr shapes (NP 6144, NHP 3328, E 24; Born and
-     descreening lists at horizons 1 and 2 nm, both descreening variants
-     on lists with budget headroom, the GB list with and without MM);
+     terms), the interacting-tile-list sweeps at 1li2's list shapes (T
+     256; also with an orthorhombic and a triclinic box) and at 2clr's,
+     the recomputing dense descreening at the 2clr shapes (NP 6144, NHP
+     3328, E 24; Born and descreening lists at horizons 1 and 2 nm, both
+     descreening variants on lists with budget headroom, the GB list with
+     and without MM; the GB and descreening list kernels launched twice
+     and held bitwise equal); beside each time, the kernel's bound from
+     this run's live pairs and bytes, and for the two redesigned list
+     kernels their PR 3 times;
   3. checks the fixture goldens through AGBNPModel on the card in f32
      (GVolSA 872.514, AGBNP1 -2476.66, within 0.01);
   4. checks 1li2 and 2clr AGBNP1 (no cutoff, 2 nm horizon; 2clr on the
@@ -47,7 +52,9 @@ Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
 output is {"ok": true, "device": {...}}; the line before it is nvidia-smi's
-name/power-limit line, and the one before that the per-kernel JSON record.
+name/power-limit line, and the one before that the per-kernel JSON record
+(times, bound and what sets it, library_ms null, live pairs, launches on
+its path and per step of each MD phase [6]-[9]).
 """
 
 from __future__ import annotations
@@ -75,6 +82,22 @@ KERNELS = {
     "descreening_tiles_recompute": (TILES_SRC, f"{TPU}:1114", "share_off"),
 }
 KERNEL_TOL = 1e-5     # max|kernel - twin| / max|twin|, f32 summation order
+# FP32 operations per live pair, counted from the twins' formulas (each +,
+# -, *, /, sqrt and exp one): distance 9, spline Q and dQ/dd 35, the Born
+# sum 2, the GB pair 37 (+28 with the fused LJ/Coulomb), a descreening
+# pair 18
+OPS_PER_PAIR = dict(born=46, gb=46, gb_mm=74, descreen=27, descreen_spline=62)
+PEAK_FP32 = 67e12     # FLOP/s, H100 SXM data sheet, FP32 outside tensor cores
+PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
+LIBRARY_NONE = ("none: no PyTorch call computes the sweep (a spline lookup, "
+                "an exclusion scan and a deterministic row/column deposit)")
+# device ms at 2clr before the GB and descreening list kernels were
+# redesigned (PERF.md, PR 3 table: NVIDIA H100 80GB HBM3, 700 W)
+PR3_MS = dict(gb_pair_tiles=0.3143, descreening_tiles=0.2352,
+              descreening_tiles_recompute=0.1978)
+LI2_BOXES = (("ortho", (4.0, 4.2, 4.4)),
+             ("triclinic", ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
+                            (0.4, -0.3, 4.4))))
 GOLDEN_TOL = 0.01     # kJ/mol (benchmarks/validate_parity.py)
 PARITY_TOL = 1e-5     # relative, f32 on the card vs the JAX f64 result
 MD_STEPS = 400
@@ -214,7 +237,7 @@ def kernel_inputs(dev, name):
                 valid=(torch.arange(npad, device=dev) < n, hvalid))
 
 
-def tile_list(inp, rng_dist, triangular=False):
+def tile_list(inp, rng_dist, triangular=False, box=None):
     """A list built on the card, with the budget _sized_pair_tiles would
     give it (count x1.5, 8-aligned, at most every tile pair) or, where that
     leaves no headroom, count + 8, so entries past nv are exercised."""
@@ -226,21 +249,74 @@ def tile_list(inp, rng_dist, triangular=False):
     rb = TL.tile_bounds(pos_pad, rvalid, tile)
     cb = rb if triangular else TL.tile_bounds(pos_h, hvalid, tile)
     count = int(TL.build_tile_list(*rb, *cb, rng_dist, 1,
-                                   triangular=triangular)[2])
+                                   triangular=triangular, box=box)[2])
     nti, ntj = rb[1].shape[0], cb[1].shape[0]
     ntot = nti * (nti + 1) // 2 if triangular else nti * ntj
     lmax = int(min(max(8, math.ceil(count * 1.5 / 8) * 8), ntot))
     if lmax <= count:
         lmax = count + 8
     tl, nv, _ = TL.build_tile_list(*rb, *cb, rng_dist, lmax,
-                                   triangular=triangular)
+                                   triangular=triangular, box=box)
     if not int(nv[0]) == count < lmax:
         raise AssertionError(f"list nv {int(nv[0])} count {count} lmax "
                              f"{lmax}")
     return tl, nv, f"nv {count}/lmax {lmax} of {ntot}"
 
 
+def live_pairs(inp, kind, rng_dist):
+    """Pairs this run's data makes live, counted on the card from the
+    twins' own masks: GB's unordered pairs i < j < n within the cutoff
+    (each list or dense sweep needs every one once), the Born sweep's
+    (which both descreening variants share) within the horizon."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    pos_pad, pos_h = inp["born_args"][:2]
+    n = inp["born_args"][-1]
+    ids = torch.arange(pos_pad.shape[1], device=pos_pad.device)
+    if kind == "gb":
+        d2 = PK._pair_geom(pos_pad, pos_pad, None)[3]
+        mask = ((ids[:, None] < ids[None, :]) & (ids[None, :] < n)
+                & (d2 < rng_dist * rng_dist))
+    else:
+        sp = inp["spline"]
+        d2 = PK._pair_geom(pos_pad, pos_h, None)[3]
+        mask = PK._born_qdq(torch.sqrt(d2), ids[:, None],
+                            sp.hids_perm.long()[None, :], n, rng_dist,
+                            sp.type_rows.long()[:, None],
+                            sp.type_cols.long()[None, :], sp.yval,
+                            sp.y2val)[2]
+    return int(mask.sum())
+
+
+def nbytes(*xs) -> int:
+    """Bytes of the tensors among xs (in tuples, lists and dict values)."""
+    import torch
+
+    total = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif isinstance(x, dict):
+            total += nbytes(*x.values())
+    return total
+
+
+def bound_ms(live, ops_per_pair, moved):
+    """(least ms the card could take, "operations" or "bytes"): the larger
+    of live pairs x operations over the FP32 peak and the bytes moved (each
+    input read once, each output written once) over HBM's rate."""
+    t_ops = live * ops_per_pair / PEAK_FP32 * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def phase_kernels(dev):
+    import torch
+
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
 
@@ -266,6 +342,96 @@ def phase_kernels(dev):
         rec = results[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], worst_abs)
 
+    def check_lists(inp, at, boxes=()):
+        """#5-#7 against their twins on inp's lists: Born and descreening
+        (both variants) at horizons 1 and 2 nm, GB with and without MM at
+        cutoff 1 nm, each redesigned kernel twice (bitwise), and with each
+        box at horizon and cutoff 1 nm.  Returns the timed calls at 1 nm."""
+        tile = inp["tile"]
+        born_args, gb_args, mm_kw = inp["born_args"], inp["gb_args"], \
+            inp["mm_kw"]
+        for box_name, box in (("", None), *boxes):
+            box = None if box is None else torch.tensor(box, device=dev)
+            where = f"{at}{' ' + box_name if box_name else ''}"
+            for hz in ((1.0, None) if box is None else (1.0,)):
+                tl, nv, what = tile_list(inp, hz or 2.0, box=box)
+                label = f"{where} h={hz or 2.0} {what}"
+                args = (nv, tl, *born_args, tile)
+                kw = dict(box=box, horizon=hz, save_qd=True)
+                out = TL.born_sums_tiles(*args, **kw)
+                ref = TL.born_sums_tiles_reference(*args, **kw)
+                compare("born_sums_tiles", label, out, ref)
+                sp = inp["spline"]._replace(horizon=hz)
+                dargs = (nv, tl, *inp["desc_args"])
+                for name, qd, spl in (
+                        ("descreening_tiles", ref[1:], sp),
+                        ("descreening_tiles", ref[1:], None),
+                        ("descreening_tiles_recompute", None, sp)):
+                    kw = dict(box=box, spline=spl)
+                    outs = TL.descreening_tiles(*dargs, qd, tile, **kw)
+                    compare(name, label + ("" if spl else " no spline"), outs,
+                            TL.descreening_tiles_reference(*dargs, qd, tile,
+                                                           **kw))
+                    repeatable(name, label, outs,
+                               TL.descreening_tiles(*dargs, qd, tile, **kw))
+                if hz == 1.0 and box is None:
+                    born_tl = (args, ref[1:], dargs, sp)
+            tl_g, nv_g, what = tile_list(inp, 1.0, triangular=True, box=box)
+            gargs = (nv_g, tl_g, *gb_args, tile)
+            for mm, kw in (("MM", mm_kw), ("no MM", dict(cutoff=1.0))):
+                kw = dict(kw, box=box)
+                label = f"{where} c=1 {mm} {what}"
+                outs = TL.gb_pair_tiles(*gargs, **kw)
+                compare("gb_pair_tiles", label, outs,
+                        TL.gb_pair_tiles_reference(*gargs, **kw))
+                repeatable("gb_pair_tiles", label, outs,
+                           TL.gb_pair_tiles(*gargs, **kw))
+        args, qd, dargs, sp = born_tl
+        live_b = live_pairs(inp, "born", 1.0)
+        return {
+            "born_sums_tiles": (
+                lambda: TL.born_sums_tiles(*args, horizon=1.0, save_qd=True),
+                lambda: TL.born_sums_tiles_reference(*args, horizon=1.0,
+                                                     save_qd=True),
+                args, live_b, "born", 0),
+            "gb_pair_tiles": (
+                lambda: TL.gb_pair_tiles(*gargs, **mm_kw),
+                lambda: TL.gb_pair_tiles_reference(*gargs, **mm_kw),
+                (gargs, mm_kw), live_pairs(inp, "gb", 1.0), "gb_mm", 0),
+            "descreening_tiles": (
+                lambda: TL.descreening_tiles(*dargs, qd, tile, spline=sp),
+                lambda: TL.descreening_tiles_reference(*dargs, qd, tile,
+                                                       spline=sp),
+                (dargs, sp.hids_perm), live_b, "descreen", 8 * live_b),
+            "descreening_tiles_recompute": (
+                lambda: TL.descreening_tiles(*dargs, None, tile, spline=sp),
+                lambda: TL.descreening_tiles_reference(*dargs, None, tile,
+                                                       spline=sp),
+                (dargs, sp), live_b, "descreen_spline", 0),
+        }
+
+    def repeatable(name, label, outs, again):
+        if not all(x is None if y is None else torch.equal(x, y)
+                   for x, y in zip(outs, again)):
+            raise AssertionError(f"{name} {label}: two launches differ")
+
+    def measure(timed, at):
+        """Time each kernel and its twin; bound it by this run's data."""
+        out = {}
+        for name, (kern, plain, reads, live, ops, extra) in timed.items():
+            moved = nbytes(reads, kern()) + extra
+            b_ms, b_by = bound_ms(live, OPS_PER_PAIR[ops], moved)
+            rec = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       live_pairs=live)
+            out[name] = rec
+            pr3 = (f", PR 3 {PR3_MS[name]:.4f} ms" if name in PR3_MS
+                   and at == "2clr" else "")
+            log(f"    {at:4s} {name:27s} kernel {rec['ms']:.4f} ms{pr3}, "
+                f"plain {rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}; {live} live pairs, {moved} bytes)")
+        return out
+
     # dense grid, 1li2 shapes
     li2 = kernel_inputs(dev, "1li2")
     log(f"[2] kernels vs plain twins, f32: dense grid at 1li2 "
@@ -288,82 +454,52 @@ def phase_kernels(dev):
             PK.gb_pair(*l_gb), PK.gb_pair_reference(*l_gb))
     compare("descreening", "from Q/dQ",
             PK.descreening(*l_desc), PK.descreening_reference(*l_desc))
-    timed = {
+    live_b = live_pairs(li2, "born", 1.0)
+    timed_1li2 = {
         "born_sums": (lambda: PK.born_sums(*l_born, horizon=1.0,
                                            save_qd=True),
                       lambda: PK.born_sums_reference(*l_born, horizon=1.0,
-                                                     save_qd=True)),
+                                                     save_qd=True),
+                      l_born, live_b, "born", 0),
         "gb_pair": (lambda: PK.gb_pair(*l_gb, **l_mm),
-                    lambda: PK.gb_pair_reference(*l_gb, **l_mm)),
+                    lambda: PK.gb_pair_reference(*l_gb, **l_mm),
+                    (l_gb, l_mm), live_pairs(li2, "gb", 1.0), "gb_mm", 0),
         "descreening": (lambda: PK.descreening(*l_desc),
-                        lambda: PK.descreening_reference(*l_desc)),
+                        lambda: PK.descreening_reference(*l_desc),
+                        li2["desc_args"], live_b, "descreen", 8 * live_b),
     }
+    log(f"[2] kernels vs plain twins, f32: lists at 1li2 {li2['shapes']} "
+        f"(T {li2['tile']}; mts_wu4's route), boxes too")
+    timed_1li2_lists = check_lists(li2, "1li2", LI2_BOXES)
 
     # interacting-tile lists and the recomputing dense sweep, 2clr shapes
     clr = kernel_inputs(dev, "2clr")
     log(f"[2] kernels vs plain twins, f32: lists and recomputing "
-        f"descreening at 2clr {clr['shapes']}")
+        f"descreening at 2clr {clr['shapes']} (T {clr['tile']})")
     if clr["shapes"] != dict(NP=6144, NHP=3328, E=24):
         raise AssertionError(f"unexpected 2clr shapes {clr['shapes']}")
-    tile = clr["tile"]
-    born_args, gb_args, mm_kw = clr["born_args"], clr["gb_args"], \
-        clr["mm_kw"]
     for hz in (1.0, None):
-        tl, nv, what = tile_list(clr, hz or 2.0)
-        label = f"horizon={hz or 2.0}, {what}"
-        args = (nv, tl, *born_args, tile)
-        out = TL.born_sums_tiles(*args, horizon=hz, save_qd=True)
-        ref = TL.born_sums_tiles_reference(*args, horizon=hz, save_qd=True)
-        compare("born_sums_tiles", label, out, ref)
         sp = clr["spline"]._replace(horizon=hz)
-        dargs = (nv, tl, *clr["desc_args"])
-        compare("descreening_tiles", label,
-                TL.descreening_tiles(*dargs, ref[1:], tile),
-                TL.descreening_tiles_reference(*dargs, ref[1:], tile))
-        compare("descreening_tiles_recompute", label,
-                TL.descreening_tiles(*dargs, None, tile, spline=sp),
-                TL.descreening_tiles_reference(*dargs, None, tile,
-                                               spline=sp))
         compare("descreening_recompute", f"horizon={hz or 2.0}",
                 PK.descreening(*clr["desc_args"], None, spline=sp),
                 PK.descreening_reference(*clr["desc_args"], None, spline=sp))
-        if hz == 1.0:
-            born_tl = (tl, nv, args, ref[1:], dargs)
-    tl_g, nv_g, what = tile_list(clr, 1.0, triangular=True)
-    gargs = (nv_g, tl_g, *gb_args, tile)
-    for label, kw in ((f"cutoff=1, MM, {what}", mm_kw),
-                      (f"cutoff=1, no MM, {what}", dict(cutoff=1.0))):
-        compare("gb_pair_tiles", label, TL.gb_pair_tiles(*gargs, **kw),
-                TL.gb_pair_tiles_reference(*gargs, **kw))
-    _, _, args, qd, dargs = born_tl
+    timed_2clr = check_lists(clr, "2clr")
     sp = clr["spline"]
     dense_d = (*clr["desc_args"], None)
-    timed.update({
-        "descreening_recompute": (
-            lambda: PK.descreening(*dense_d, spline=sp),
-            lambda: PK.descreening_reference(*dense_d, spline=sp)),
-        "born_sums_tiles": (
-            lambda: TL.born_sums_tiles(*args, horizon=1.0, save_qd=True),
-            lambda: TL.born_sums_tiles_reference(*args, horizon=1.0,
-                                                 save_qd=True)),
-        "gb_pair_tiles": (
-            lambda: TL.gb_pair_tiles(*gargs, **mm_kw),
-            lambda: TL.gb_pair_tiles_reference(*gargs, **mm_kw)),
-        "descreening_tiles": (
-            lambda: TL.descreening_tiles(*dargs, qd, tile),
-            lambda: TL.descreening_tiles_reference(*dargs, qd, tile)),
-        "descreening_tiles_recompute": (
-            lambda: TL.descreening_tiles(*dargs, None, tile, spline=sp),
-            lambda: TL.descreening_tiles_reference(*dargs, None, tile,
-                                                   spline=sp)),
-    })
-    log("    times: device ms per call, CUDA events behind a device sleep "
-        "(dense at 1li2, the rest at 2clr; horizon and cutoff 1 nm)")
-    for name, (kern, plain) in timed.items():
-        results[name]["ms"] = cuda_time_ms(kern)
-        results[name]["plain_ms"] = cuda_time_ms(plain)
-        log(f"    {name:27s} kernel {results[name]['ms']:.4f} ms, plain "
-            f"{results[name]['plain_ms']:.4f} ms")
+    timed_2clr["descreening_recompute"] = (
+        lambda: PK.descreening(*dense_d, spline=sp),
+        lambda: PK.descreening_reference(*dense_d, spline=sp),
+        (dense_d, sp), live_pairs(clr, "born", 1.0), "descreen_spline", 0)
+    log("    times: device ms per call, CUDA events behind a device sleep, "
+        "horizon and cutoff 1 nm; bound from the H100 SXM peaks (67 TFLOP/s "
+        f"FP32, 3.35 TB/s); library_ms null, {LIBRARY_NONE}")
+    for at, timed in (("1li2", timed_1li2), ("1li2", timed_1li2_lists),
+                      ("2clr", timed_2clr)):
+        for name, rec in measure(timed, at).items():
+            if at == "1li2" and name in timed_1li2_lists:
+                results[name]["lists_1li2"] = rec
+            else:
+                results[name].update(rec)
     return results
 
 
@@ -599,7 +735,8 @@ def window_start(sim, pos):
 
 def phase_mts_wu4(dev, card):
     """Phase 8: bench.py's headline configuration (mts_wu4) on 1li2 on the
-    tile lists.  Returns the sized Simulation."""
+    tile lists.  Returns the sized Simulation and the run's launch
+    counts."""
     import torch
 
     from openmm_agbnp_plugin_tpu_torch.md.integrators import (
@@ -648,7 +785,7 @@ def phase_mts_wu4(dev, card):
     if sim.agbnp.pair_tiles is None or sim._vdw_caps is None:
         raise AssertionError("mts_wu4 must run on the lists, vdW-compact")
     check_list_launches(counts, MTS_WU4_STEPS, "[8]")
-    return sim
+    return sim, counts
 
 
 def phase_mts4_constraints(dev, card):
@@ -667,6 +804,7 @@ def phase_mts4_constraints(dev, card):
     if not viol <= SHAKE_LIMIT:
         raise AssertionError(f"constraint violation {viol:.3e}")
     check_list_launches(counts, MTS4_STEPS, "[9]")
+    return counts
 
 
 def phase_no_sync(dev, sim):
@@ -762,22 +900,37 @@ def main() -> int:
     phase_goldens(dev)
     counts = dict(share_off=phase_parity(dev))
     counts["md_1li2"], counts["md_2clr"] = phase_md(dev, card)
-    sim_1li2 = phase_mts_wu4(dev, card)
-    phase_mts4_constraints(dev, card)
+    sim_1li2, counts["mts_wu4"] = phase_mts_wu4(dev, card)
+    counts["mts4fs"] = phase_mts4_constraints(dev, card)
     phase_no_sync(dev, sim_1li2)
     phase_resume(dev, sim_1li2)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
+    # each MD run counts a warm-up and a timed run of its (outer) steps
+    md_steps = dict(md_1li2=2 * MD_STEPS, md_2clr=2 * MD_STEPS_2CLR,
+                    mts_wu4=2 * MTS_WU4_STEPS, mts4fs=2 * MTS4_STEPS)
     record = []
     for name, (src, replaces, path) in KERNELS.items():
         launches = counts[path][name]
         if launches <= 0:
             raise AssertionError(f"{name}: not launched on its path {path}")
-        record.append(dict(name=name, route="cuda", source=src,
-                           replaces=replaces, launches=launches,
-                           max_abs_err=kernels[name]["max_abs_err"],
-                           ms=kernels[name]["ms"],
-                           plain_ms=kernels[name]["plain_ms"]))
+        k = kernels[name]
+        per_step = {p: counts[p][name] / s for p, s in md_steps.items()}
+        log(f"    {name:27s} launches per (outer) step "
+            f"{ {p: round(v, 3) for p, v in per_step.items()} }")
+        rec = dict(name=name, route="cuda", source=src, replaces=replaces,
+                   launches=launches, max_abs_err=k["max_abs_err"],
+                   ms=k["ms"], plain_ms=k["plain_ms"],
+                   bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                   library_ms=None, library=LIBRARY_NONE,
+                   live_pairs=k["live_pairs"],
+                   launches_per_step=per_step)
+        if "lists_1li2" in k:
+            rec["lists_1li2"] = {x: k["lists_1li2"][x] for x in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "live_pairs")}
+        if name in PR3_MS:
+            rec["pr3_ms"] = PR3_MS[name]
+        record.append(rec)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(dict(kernels=record)))
     print(card)

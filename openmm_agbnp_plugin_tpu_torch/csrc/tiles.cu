@@ -4,37 +4,78 @@
 // pairs instead of the dense tile grid.  The list comes from
 // build_tile_list (ops/kernels/tiles.py), rebuilt on the device at every
 // evaluation: tl [2, lmax] int32 (row tile; column tile, i-major) and
-// nv [1] int32, the number of valid entries.  Each launch has one block per
-// list entry (grid = the static budget lmax); a block reads nv[0] on the
-// device and an entry at l >= nv exits, so the host never waits for the
-// count.
+// nv [1] int32, the number of valid entries.  Every launch is sized by the
+// static budget lmax; work at an entry l >= nv[0] exits on the device, so
+// the host never waits for the count.
 //
 //   agbnp_born_sums_tiles     replaces _born_kernel_tl / born_sums_tiles
 //                             (openmm_agbnp_plugin_tpu/ops/pallas/
-//                             pairs.py:769-857)
+//                             pairs.py:804-857, pallas_call at :842)
 //   agbnp_gb_pair_tiles       replaces _gb_kernel_tl / gb_pair_tiles
-//                             (:860-982), triangular list, MM fused
+//                             (:860-982, pallas_call at :966), triangular
+//                             list, MM fused
 //   agbnp_descreening_tiles   replaces _descreen_qd_kernel_tl and
 //                             _descreen_kernel_tl / descreening_tiles
-//                             (:985-1125)
+//                             (:985-1125, pallas_call at :1114)
 //
 // Determinism without float atomics: the TPU grid is serial and adds each
-// entry into full-width VMEM rows in list order.  Here the entries run in
-// parallel, so each writes its own partial sums, [lmax, K, T] for its row
-// tile and (where the sweep deposits on both sides) [lmax, K, T] for its
-// column tile, and tile_reduce_kernel adds them up: one block per output
-// tile walks the list in order and adds every valid entry whose row (or
-// column) tile is its own.  Results are bitwise repeatable.
+// entry into full-width VMEM rows in list order.  Here the work runs in
+// parallel, so each unit writes its own partial sums and subtile_reduce_
+// kernel adds them up in a fixed order.  Results are bitwise repeatable.
 //
-// Bound on the H100, at 2clr shapes (NP 6144, NHP 3328, T 256, ~300
-// entries, ~20M pairs a sweep): the Born sweep is issue bound on the spline
-// and writes the per-entry Q/dQ tiles (164 MB); the GB sweep is bound by its
-// exp/sqrt/divisions and, with MM, the E-wide exclusion scan per pair; the
-// reloading descreening sweep streams the Q/dQ tiles back but, with one
-// block per entry (~2.4 per SM), its loads are latency bound (~0.7 TB/s
-// measured, slower than the recomputing sweep, which is issue bound like
-// the Born sweep).  Simple first: per-pair scalar code, operands staged in
-// shared memory, no tensor cores.
+// The GB and descreening sweeps (redesigned for the H100).  What held the
+// first versions back (one 256-thread block per list entry): at 2clr the GB
+// block staged 79 KB of shared memory, so two blocks fit an SM and ~290
+// entries ran in two waves; each tile row cost a per-warp shuffle tree;
+// every slot of the 256x256 entry was swept though ~7% are live; every live
+// pair scanned its 24-wide exclusion list; the reloading descreening sweep
+// kept two scalar loads in flight a thread (~0.7 TB/s) and streamed every
+// Q/dQ value; at 1li2 a launch had at most 21 blocks for 132 SMs; and the
+// reduce walked the whole list serially in one block per output tile.
+// What bounds them: the GB sweep and the recomputing descreening sweep
+// are bound by operations (live pairs x ~46-74 FP32 operations, a few us at
+// 2clr); the reload by bytes, 8 of Q/dQ per live pair, and since the Born
+// sweep stores Q/dQ as dense [T, T] tiles, in practice by the 8 KB of each
+// kept 32x32 sub-tile pair.  The design:
+//
+//   * The unit of work is one warp on (entry l, 32-row sub-tile a, column
+//     group grp): it walks the group's T/32/ng column sub-tiles b in
+//     order.  A block is one warp, so the budget lmax gives lmax T/32 ng
+//     independent warps; ng (tiles.py::column_groups, from the budget, the
+//     tile and the card) splits 1li2's <= 21 entries into single sub-tile
+//     pairs (<= 1344 warps for 132 SMs) and cuts 2clr's GB list into
+//     single sub-tile pairs, its descreening list into halves.
+//   * Sub-tile pruning with the list's own rule: each warp forms the
+//     32-atom box of its rows and of each column sub-tile (warp min/max, the
+//     numbers of tile_bounds(pos, valid, 32)) and skips (a, b) when
+//     |c_a - c_b|_minimage - r_a - r_b >= rng + SUBTILE_MARGIN, rng being
+//     the range the list was built with; in a diagonal GB entry it also
+//     skips b < a, which holds no pair with gi < gj.  A skipped pair adds
+//     exactly what the twin adds for it: zero.  tiles.py::subtile_live is
+//     the torch mirror of the decision.
+//   * GB, OpenMM style: each lane holds one row atom and one column atom;
+//     the column data and the column sums rotate through the 32 lanes with
+//     __shfl_sync, the row sums stay in registers.  Exclusions become one
+//     32-bit mask per row and column sub-tile, built once from the E-wide
+//     list, then one bit test per pair.
+//   * Descreening: each lane covers 4 columns (one 16-byte load of Q and
+//     of dQ along j) of 8 rows; the reload reads only the Q/dQ of kept
+//     sub-tiles (the Born sweep wrote zeros everywhere else).  Column sums
+//     (W, U, screener force) add the 4 row groups in a fixed shuffle tree;
+//     row forces stay in registers across b and add the 8 column quads in a
+//     fixed tree at the end.
+//   * Partials: rows [lmax, ng, K, T] per (l, grp) that kept a sub-tile
+//     pair, columns [lmax, T/32, K, T] per (l, a) and kept b, with the kept
+//     bits keep[l, a, grp].  subtile_reduce_kernel has one block per
+//     32-row output sub-tile (192 for 2clr's rows, not 24 tiles): it lists
+//     its terms in list order with a block-wide prefix sum, deals them
+//     round-robin to 8 warps with four loads in flight each, and adds the
+//     warps in order.
+//
+// The Born sweep keeps its first design: one block per entry, one warp per
+// tile row, lanes over the tile's columns, the [T, T] Q/dQ tiles written in
+// full; its row partials go through the same reduce with one warp a block,
+// which adds them in list order exactly as before.
 //
 // Each host function launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() (0 on success).
@@ -42,58 +83,88 @@
 #include "common.cuh"
 
 #define BORN_THREADS 256
+#define SUB 32               // sub-tile edge: one warp's rows, one column block
 #define MAX_K 6
-#define GB_K 6       // GB partial components: E, Y, fx, fy, fz, MM
-#define DS_ROW_K 3   // descreening row side: fx, fy, fz
-#define DS_COL_K 5   // descreening column side: W, U, fx, fy, fz
+#define GB_K 6               // GB partial components: E, Y, fx, fy, fz, MM
+#define DS_ROW_K 3           // descreening row side: fx, fy, fz
+#define DS_COL_K 5           // descreening column side: W, U, fx, fy, fz
+#define REDUCE_WARPS 8
+#define REDUCE_SMEM_MAX (200 * 1024)  // the term list of one output sub-tile
+#define DS_ROWS_IN_FLIGHT 2  // descreening: rows of Q/dQ loads a lane issues
+                             // before it uses them (the compiler may hoist)
+#define FULL_MASK 0xffffffffu
+// nm added to the range before a sub-tile pair is dropped, far above the
+// f32 rounding of the boxes and distances (tiles.py SUBTILE_MARGIN)
+#define SUBTILE_MARGIN 1e-3f
 
-// Where tile_reduce_kernel writes component m of output row g:
+// Where subtile_reduce_kernel writes component m of output row g:
 // p[m][g * stride[m]] (skipped when p[m] is null).
 struct Dest {
   float* p[MAX_K];
   int stride[MAX_K];
 };
 
-// One block per output tile t, one thread per row x of the tile: adds, in
-// list order, the row partials of every valid entry whose row tile is t and
-// the column partials of every valid entry whose column tile is t (row
-// first, as the TPU kernels deposit them).  prow / pcol: [lmax, k, T] or
-// null.  Tiles no entry touches come out zero.
-__global__ void tile_reduce_kernel(const float* __restrict__ prow,
-                                   const float* __restrict__ pcol, int k,
-                                   const int* __restrict__ nv,
-                                   const int* __restrict__ tl, int lmax,
-                                   Dest dst) {
-  const int t = blockIdx.x, x = threadIdx.x, tile = blockDim.x;
-  const int nvl = min(nv[0], lmax);
-  float acc[MAX_K];
-#pragma unroll
-  for (int m = 0; m < MAX_K; ++m) acc[m] = 0.0f;
-  for (int l = 0; l < nvl; ++l) {
-    const size_t base = (size_t)l * k * tile + x;
-    if (prow != nullptr && tl[l] == t) {
-#pragma unroll
-      for (int m = 0; m < MAX_K; ++m)
-        if (m < k) acc[m] += prow[base + (size_t)m * tile];
-    }
-    if (pcol != nullptr && tl[lmax + l] == t) {
-#pragma unroll
-      for (int m = 0; m < MAX_K; ++m)
-        if (m < k) acc[m] += pcol[base + (size_t)m * tile];
-    }
-  }
-  const size_t g = (size_t)t * tile + x;
-#pragma unroll
-  for (int m = 0; m < MAX_K; ++m)
-    if (m < k && dst.p[m] != nullptr) dst.p[m][g * dst.stride[m]] = acc[m];
+// ---------------------------------------------------------------------------
+// Sub-tile boxes and the pruning test
+// ---------------------------------------------------------------------------
+
+// Axis-aligned box of the valid atoms among the warp's 32 (one per lane):
+// center and half-diagonal as tile_bounds forms them, the same in every
+// lane; has is false when no lane holds a valid atom.
+struct SubBox {
+  float cx, cy, cz, r;
+  bool has;
+};
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
 }
 
-static int reduce_tiles(const float* prow, const float* pcol, int k,
-                        const int* nv, const int* tl, int lmax, int tile,
-                        int ntiles, const Dest& dst, cudaStream_t st) {
-  tile_reduce_kernel<<<ntiles, tile, 0, st>>>(prow, pcol, k, nv, tl, lmax,
-                                              dst);
-  return (int)cudaGetLastError();
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+__device__ __forceinline__ SubBox warp_box(float x, float y, float z,
+                                           bool valid) {
+  SubBox b;
+  b.has = __any_sync(FULL_MASK, valid);
+  const float lx = warp_min(valid ? x : 1e30f);
+  const float ly = warp_min(valid ? y : 1e30f);
+  const float lz = warp_min(valid ? z : 1e30f);
+  const float hx = warp_max(valid ? x : -1e30f);
+  const float hy = warp_max(valid ? y : -1e30f);
+  const float hz = warp_max(valid ? z : -1e30f);
+  b.cx = 0.5f * (lx + hx);
+  b.cy = 0.5f * (ly + hy);
+  b.cz = 0.5f * (lz + hz);
+  const float ex = hx - lx, ey = hy - ly, ez = hz - lz;
+  b.r = 0.5f * sqrtf(ex * ex + ey * ey + ez * ez);
+  return b;
+}
+
+// Whether a sub-tile pair may hold a pair within rng (the list's rule
+// with the margin).  Warp-uniform: both boxes are.
+__device__ __forceinline__ bool subtiles_near(const SubBox& a,
+                                              const SubBox& b, float rng,
+                                              int box_mode,
+                                              const float* box) {
+  if (!(a.has && b.has)) return false;
+  float dx = b.cx - a.cx, dy = b.cy - a.cy, dz = b.cz - a.cz;
+  min_image(box_mode, box, dx, dy, dz);
+  return sqrtf(dx * dx + dy * dy + dz * dz) - a.r - b.r
+         < rng + SUBTILE_MARGIN;
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int lane4(const int4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
 static void allow_smem(const void* kernel, size_t bytes) {
@@ -101,6 +172,166 @@ static void allow_smem(const void* kernel, size_t bytes) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The reduce
+// ---------------------------------------------------------------------------
+
+// One output of the reduce: row and column partials (either may be null),
+// k components, extent rows (NP or NHP), at most cap terms an output
+// sub-tile, and where the sums go.
+struct ReduceJob {
+  const float* prow;
+  const float* pcol;
+  int k, extent, cap;
+  Dest dst;
+};
+
+// One block per 32-row output sub-tile s of job j0, then of job j1 (tile
+// t = s / S, sub-tile b = s % S), one lane of each warp per row.  Its
+// terms, in list order: for
+// every valid entry l whose row tile is t, the row partials prow[l, g, m,
+// 32 b + x] of each column group g < ng that kept a sub-tile pair
+// (keep[l, b, g] != 0), then, if its column tile is t, the column partials
+// pcol[l, a, m, 32 b + x] of each row sub-tile a whose group g = b /
+// (S / ng) kept b (bit b of keep[l, a, g]), in order of a.  With keep null
+// every row partial is a term (the Born sweep: ng = 1, no columns).
+//
+// First the block lists the terms in shared memory: each thread takes one
+// entry, counts its terms, and a block-wide prefix sum over the entries
+// places them in list order.  Then warp w adds terms w, w + nw, w + 2 nw,
+// ... (four loads in flight), and the warps' sums are added in warp order.
+// With one warp every term is added in list order.
+__global__ void subtile_reduce_kernel(const ReduceJob j0, const ReduceJob j1,
+                                      const int* __restrict__ keep, int ng,
+                                      const int* __restrict__ nv,
+                                      const int* __restrict__ tl, int lmax,
+                                      int tile) {
+  extern __shared__ int terms[];  // [cap]: (partial index << 1) | column
+  __shared__ int wtot[REDUCE_WARPS];
+  __shared__ float part[REDUCE_WARPS][MAX_K][SUB];
+  const int n0 = j0.extent / SUB;
+  const ReduceJob job = blockIdx.x < n0 ? j0 : j1;
+  const float* __restrict__ prow = job.prow;
+  const float* __restrict__ pcol = job.pcol;
+  const int k = job.k;
+  const int s = blockIdx.x < n0 ? blockIdx.x : blockIdx.x - n0;
+  const int S = tile / SUB;
+  const int t = s / S, b = s - t * S;
+  const int gb = b / (S / ng);  // the column group that holds b
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int nvl = min(nv[0], lmax);
+  int nterms = 0;
+  for (int c0 = 0; c0 < nvl; c0 += blockDim.x) {
+    const int l = c0 + threadIdx.x;
+    unsigned rbits = 0, cbits = 0;
+    if (l < nvl) {
+      if (prow != nullptr && tl[l] == t) {
+        for (int g = 0; g < ng; ++g)
+          if (keep == nullptr || keep[(l * S + b) * ng + g] != 0)
+            rbits |= 1u << g;
+      }
+      if (pcol != nullptr && tl[lmax + l] == t) {
+        for (int a = 0; a < S; ++a)
+          if ((keep[(l * S + a) * ng + gb] >> b) & 1) cbits |= 1u << a;
+      }
+    }
+    const int cnt = __popc(rbits) + __popc(cbits);
+    int inc = cnt;  // inclusive prefix sum over the warp's entries
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(FULL_MASK, inc, o);
+      if (lane >= o) inc += v;
+    }
+    if (lane == 31) wtot[warp] = inc;
+    __syncthreads();
+    int off = nterms + inc - cnt, total = 0;
+    for (int w = 0; w < nw; ++w) {
+      if (w < warp) off += wtot[w];
+      total += wtot[w];
+    }
+    while (rbits != 0) {
+      const int g = __ffs(rbits) - 1;
+      rbits &= rbits - 1;
+      terms[off++] = (l * ng + g) << 1;
+    }
+    while (cbits != 0) {
+      const int a = __ffs(cbits) - 1;
+      cbits &= cbits - 1;
+      terms[off++] = ((l * S + a) << 1) | 1;
+    }
+    nterms += total;
+    __syncthreads();
+  }
+  const size_t x = (size_t)b * SUB + lane;
+  float acc[MAX_K];
+#pragma unroll
+  for (int m = 0; m < MAX_K; ++m) acc[m] = 0.0f;
+  int q = warp;
+  for (; q + 3 * nw < nterms; q += 4 * nw) {
+    float v[4][MAX_K];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int d = terms[q + u * nw];
+      const float* p = (d & 1 ? pcol : prow) + (size_t)(d >> 1) * k * tile + x;
+#pragma unroll
+      for (int m = 0; m < MAX_K; ++m)
+        v[u][m] = m < k ? p[(size_t)m * tile] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int m = 0; m < MAX_K; ++m) acc[m] += v[u][m];
+  }
+  for (; q < nterms; q += nw) {
+    const int d = terms[q];
+    const float* p = (d & 1 ? pcol : prow) + (size_t)(d >> 1) * k * tile + x;
+#pragma unroll
+    for (int m = 0; m < MAX_K; ++m)
+      if (m < k) acc[m] += p[(size_t)m * tile];
+  }
+#pragma unroll
+  for (int m = 0; m < MAX_K; ++m)
+    if (m < k) part[warp][m][lane] = acc[m];
+  __syncthreads();
+  if (warp == 0) {
+    const size_t g = (size_t)t * tile + x;
+#pragma unroll
+    for (int m = 0; m < MAX_K; ++m) {
+      if (m < k && job.dst.p[m] != nullptr) {
+        float sum = 0.0f;
+        for (int w = 0; w < nw; ++w) sum += part[w][m][lane];
+        job.dst.p[m][g * job.dst.stride[m]] = sum;
+      }
+    }
+  }
+}
+
+// A job over extent output rows; nrow_tiles / ncol_tiles, the list's row
+// and column tile counts, bound an output sub-tile's terms: an entry per
+// column tile with the row tile, up to ng terms each, and one per row
+// tile with the column tile, up to T / 32 each.
+static ReduceJob reduce_job(const float* prow, const float* pcol, int k,
+                            int extent, int nrow_tiles, int ncol_tiles,
+                            int ng, int tile, const Dest& dst) {
+  const int cap = (prow != nullptr ? ncol_tiles * ng : 0)
+                  + (pcol != nullptr ? nrow_tiles * (tile / SUB) : 0);
+  return ReduceJob{prow, pcol, k, extent, cap, dst};
+}
+
+// One launch for j0 and j1 (j1.extent 0: none).  warps: 1 adds every term
+// in list order.
+static int reduce_subtiles(const ReduceJob& j0, const ReduceJob& j1,
+                           const int* keep, int ng, const int* nv,
+                           const int* tl, int lmax, int tile, int warps,
+                           cudaStream_t st) {
+  const size_t smem = (size_t)max(max(j0.cap, j1.cap), 1) * sizeof(int);
+  if (smem > REDUCE_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  allow_smem((const void*)subtile_reduce_kernel, smem);
+  subtile_reduce_kernel<<<(j0.extent + j1.extent) / SUB, warps * 32, smem,
+                          st>>>(j0, j1, keep, ng, nv, tl, lmax, tile);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -203,158 +434,167 @@ extern "C" int agbnp_born_sums_tiles(
   Dest dst{};
   dst.p[0] = raw;
   dst.stride[0] = 1;
-  return reduce_tiles(prow, nullptr, 1, nv, tl, lmax, tile, np / tile, dst,
-                      st);
+  return reduce_subtiles(
+      reduce_job(prow, nullptr, 1, np, np / tile, nhp / tile, 1, tile, dst),
+      ReduceJob{}, nullptr, 1, nv, tl, lmax, tile, 1, st);
 }
 
 // ---------------------------------------------------------------------------
 // GB pair sweep over the triangular list (tj >= ti): every unordered pair
 // once, on the entry whose tiles hold it, with gi < gj inside a diagonal
-// entry.  One block per entry, one thread per tile column j, a loop over the
-// tile's rows i (staged in shared memory with their exclusion lists).  The
-// column side accumulates in registers; each row's sums over the block's
-// columns come from a shuffle tree per warp into shared memory, then one
-// thread per row adds the warps in order.  Each pair is deposited on both
-// sides: E, Y and MM with the same sign, the force with opposite signs.
+// entry.  One warp per (entry l, row sub-tile a, column group grp): lane x
+// holds row i = ti T + 32 a + x for the whole walk over the group's column
+// sub-tiles b (b >= a in a diagonal entry) and, for each kept b, starts
+// with column j0 + x.  Step k pairs the lane's row with column j0 + ((x +
+// k) & 31); then every lane takes its right neighbour's column data and
+// column sums, so after 32 steps each column's sums are home.  Each pair is
+// deposited on both sides: E, Y and MM with the same sign, the force with
+// opposite signs.  Reciprocals and reciprocal square roots are the fast
+// approximate ones (a few ulp; the twin's tolerance is 1e-5).
 // ---------------------------------------------------------------------------
-__global__ void gb_tiles_kernel(const int* __restrict__ nv,
-                                const int* __restrict__ tl, int lmax,
-                                const float* __restrict__ pos, int np,
-                                const float* __restrict__ charge,
-                                const float* __restrict__ born,
-                                const float* __restrict__ sig,
-                                const float* __restrict__ epsq,
-                                const int* __restrict__ excl, int ne,
-                                int with_mm, int n, float cutoff2,
-                                int box_mode, const float* __restrict__ box,
-                                float dfac, float ke,
-                                float* __restrict__ prow,
-                                float* __restrict__ pcol) {
-  extern __shared__ float sh[];
-  const int tile = blockDim.x, nw = tile >> 5;
-  float* rx = sh;  // row x, y, z, charge, Born radius, sigma, sqrt(eps)
-  float* ry = rx + tile;
-  float* rz = ry + tile;
-  float* rq = rz + tile;
-  float* rb = rq + tile;
-  float* rsg = rb + tile;
-  float* rep = rsg + tile;
-  float* rowpart = rep + tile;  // [tile][nw][GB_K]
-  int* rex = (int*)(rowpart + (size_t)tile * nw * GB_K);  // [tile][ne]
-  const int l = blockIdx.x, c = threadIdx.x;
+template <bool MM>
+__global__ void __launch_bounds__(32, 24)
+gb_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
+                   int lmax, int tile, int ng,
+                   const float* __restrict__ pos, int np,
+                   const float* __restrict__ charge,
+                   const float* __restrict__ born,
+                   const float* __restrict__ sig,
+                   const float* __restrict__ epsq,
+                   const int* __restrict__ excl, int ne, int n,
+                   float cutoff2, float rng, int box_mode,
+                   const float* __restrict__ box, float dfac, float ke,
+                   float* __restrict__ prow, float* __restrict__ pcol,
+                   int* __restrict__ keep) {
+  const int S = tile / SUB, G = S / ng;
+  const int l = blockIdx.x / (S * ng);
+  const int a = (blockIdx.x / ng) % S, grp = blockIdx.x % ng;
+  const int lane = threadIdx.x;
   if (l >= nv[0]) return;
-  const int i0 = tl[l] * tile, j0 = tl[lmax + l] * tile;
-  {
-    const int i = i0 + c;
-    rx[c] = pos[i];
-    ry[c] = pos[np + i];
-    rz[c] = pos[2 * np + i];
-    rq[c] = charge[i];
-    rb[c] = born[i];
-    rsg[c] = with_mm ? sig[i] : 0.0f;
-    rep[c] = with_mm ? epsq[i] : 0.0f;
-  }
-  if (with_mm) {
-    for (int k = c; k < tile * ne; k += tile) rex[k] = excl[(size_t)i0 * ne + k];
-  }
-  __syncthreads();
-  const int warp = c >> 5, lane = c & 31;
-  const int j = j0 + c;
-  const float xj = pos[j], yj = pos[np + j], zj = pos[2 * np + j];
-  const float qj = charge[j], bj = born[j];
-  const float sgj = with_mm ? sig[j] : 0.0f, epj = with_mm ? epsq[j] : 0.0f;
-  float col[GB_K];
+  const int ti = tl[l], tj = tl[lmax + l];
+  const int i = ti * tile + a * SUB + lane;
+  const float xi = pos[i], yi = pos[np + i], zi = pos[2 * np + i];
+  const float qi = charge[i], bi = born[i];
+  const float sgi = MM ? sig[i] : 0.0f, epi = MM ? epsq[i] : 0.0f;
+  const SubBox rbox = warp_box(xi, yi, zi, i < n);
+  float racc[GB_K];
 #pragma unroll
-  for (int m = 0; m < GB_K; ++m) col[m] = 0.0f;
-  for (int r = 0; r < tile; ++r) {
-    const int i = i0 + r;
-    float dx = xj - rx[r], dy = yj - ry[r], dz = zj - rz[r];
-    min_image(box_mode, box, dx, dy, dz);
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    const bool live = i < j && j < n && (cutoff2 < 0.0f || d2 < cutoff2);
-    float v[GB_K];  // this pair's E, Y, fx, fy, fz, MM (row side)
+  for (int m = 0; m < GB_K; ++m) racc[m] = 0.0f;
+  unsigned kept = 0;
+  const int b0 = grp * G;
+  for (int b = ti == tj ? max(a, b0) : b0; b < b0 + G; ++b) {
+    const int j0 = tj * tile + b * SUB;
+    const int jh = j0 + lane;
+    float xj = pos[jh], yj = pos[np + jh], zj = pos[2 * np + jh];
+    if (!subtiles_near(rbox, warp_box(xj, yj, zj, jh < n), rng, box_mode,
+                       box))
+      continue;
+    kept |= 1u << b;
+    float qj = charge[jh], bj = born[jh];
+    float sgj = MM ? sig[jh] : 0.0f, epj = MM ? epsq[jh] : 0.0f;
+    unsigned exm = 0;  // bit c: row i excludes column j0 + c
+    if (MM) {
+      const int* ex = excl + (size_t)i * ne;
+      for (int e = 0; e < ne; ++e) {
+        const unsigned off = (unsigned)(ex[e] - j0);
+        if (off < SUB) exm |= 1u << off;
+      }
+    }
+    float cacc[GB_K];
 #pragma unroll
-    for (int m = 0; m < GB_K; ++m) v[m] = 0.0f;
-    if (live) {
-      const float bb = rb[r] * bj;
-      const float etij = expf(-0.25f * d2 / bb);
-      const float fgb = 1.0f / sqrtf(d2 + bb * etij);
-      const float qq_f = rq[r] * qj;
-      const float qq = dfac * qq_f;
-      const float fgb3 = fgb * fgb * fgb;
-      float mw = -2.0f * qq * (1.0f - 0.25f * etij) * fgb3;
-      v[0] = qq * fgb;
-      v[1] = qq_f * (bb + 0.25f * d2) * etij * fgb3;
-      if (with_mm) {
-        bool excluded = false;
-        const int* ex = rex + r * ne;
-        for (int k = 0; k < ne; ++k) excluded |= (ex[k] == j);
-        if (!excluded) {
-          const float inv2 = 1.0f / d2;
-          const float sr2 = (rsg[r] * sgj) * inv2;
+    for (int m = 0; m < GB_K; ++m) cacc[m] = 0.0f;
+    const int src = (lane + 1) & 31;
+#pragma unroll 4
+    for (int k = 0; k < SUB; ++k) {
+      const int c = (lane + k) & 31;
+      const int j = j0 + c;
+      float dx = xj - xi, dy = yj - yi, dz = zj - zi;
+      min_image(box_mode, box, dx, dy, dz);
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      const bool live = i < j && j < n && (cutoff2 < 0.0f || d2 < cutoff2);
+      if (live) {
+        const float bb = bi * bj;
+        const float etij = expf(__fdividef(-0.25f * d2, bb));
+        const float fgb = rsqrtf(d2 + bb * etij);
+        const float qq_f = qi * qj;
+        const float qq = dfac * qq_f;
+        const float fgb3 = fgb * fgb * fgb;
+        float mw = -2.0f * qq * (1.0f - 0.25f * etij) * fgb3;
+        const float e_gb = qq * fgb;
+        const float y_gb = qq_f * (bb + 0.25f * d2) * etij * fgb3;
+        float e_mm = 0.0f;
+        if (MM && !((exm >> c) & 1u)) {
+          const float inv2 = __fdividef(1.0f, d2);
+          const float sr2 = (sgi * sgj) * inv2;
           const float sr6 = sr2 * sr2 * sr2;
-          const float epsij = rep[r] * epj;
-          const float ecoul = ke * qq_f * (1.0f / sqrtf(d2));
+          const float epsij = epi * epj;
+          const float ecoul = ke * qq_f * rsqrtf(d2);
           const float elj = 4.0f * epsij * (sr6 * sr6 - sr6);
-          v[5] = elj + ecoul;
+          e_mm = elj + ecoul;
           const float dmm = (4.0f * epsij * (-6.0f * sr6 * sr6 + 3.0f * sr6)
                              - 0.5f * ecoul) * inv2;
           mw = mw + 2.0f * dmm;
         }
+        const float fx = dx * mw, fy = dy * mw, fz = dz * mw;
+        racc[0] += e_gb;
+        racc[1] += y_gb;
+        racc[2] += fx;
+        racc[3] += fy;
+        racc[4] += fz;
+        racc[5] += e_mm;
+        cacc[0] += e_gb;
+        cacc[1] += y_gb;
+        cacc[2] -= fx;
+        cacc[3] -= fy;
+        cacc[4] -= fz;
+        cacc[5] += e_mm;
       }
-      v[2] = dx * mw;
-      v[3] = dy * mw;
-      v[4] = dz * mw;
-    }
-    col[0] += v[0];
-    col[1] += v[1];
-    col[2] -= v[2];
-    col[3] -= v[3];
-    col[4] -= v[4];
-    col[5] += v[5];
-    if (__any_sync(0xffffffffu, live)) {
-#pragma unroll
-      for (int m = 0; m < GB_K; ++m) v[m] = warp_sum(v[m]);
-    }
-    if (lane == 0) {
+      xj = __shfl_sync(FULL_MASK, xj, src);
+      yj = __shfl_sync(FULL_MASK, yj, src);
+      zj = __shfl_sync(FULL_MASK, zj, src);
+      qj = __shfl_sync(FULL_MASK, qj, src);
+      bj = __shfl_sync(FULL_MASK, bj, src);
+      if (MM) {
+        sgj = __shfl_sync(FULL_MASK, sgj, src);
+        epj = __shfl_sync(FULL_MASK, epj, src);
+      }
 #pragma unroll
       for (int m = 0; m < GB_K; ++m)
-        rowpart[((size_t)r * nw + warp) * GB_K + m] = v[m];
+        if (MM || m != 5) cacc[m] = __shfl_sync(FULL_MASK, cacc[m], src);
     }
-  }
-  __syncthreads();
-  float rsum[GB_K];
+    float* pc = pcol + ((size_t)l * S + a) * GB_K * tile + b * SUB + lane;
 #pragma unroll
-  for (int m = 0; m < GB_K; ++m) rsum[m] = 0.0f;
-  for (int w = 0; w < nw; ++w) {
-#pragma unroll
-    for (int m = 0; m < GB_K; ++m)
-      rsum[m] += rowpart[((size_t)c * nw + w) * GB_K + m];
+    for (int m = 0; m < GB_K; ++m) pc[(size_t)m * tile] = cacc[m];
   }
+  if (kept != 0) {
+    float* pr = prow + ((size_t)l * ng + grp) * GB_K * tile + a * SUB + lane;
 #pragma unroll
-  for (int m = 0; m < GB_K; ++m) {
-    prow[((size_t)l * GB_K + m) * tile + c] = rsum[m];
-    pcol[((size_t)l * GB_K + m) * tile + c] = col[m];
+    for (int m = 0; m < GB_K; ++m) pr[(size_t)m * tile] = racc[m];
   }
+  if (lane == 0) keep[(l * S + a) * ng + grp] = (int)kept;
 }
 
+// groups: ng, the column groups of T / 32 / ng sub-tiles each that split
+// every (entry, row sub-tile); prow [lmax, ng, 6, T], pcol [lmax, T/32, 6,
+// T] and keep [lmax, T/32, ng] are scratch.
 extern "C" int agbnp_gb_pair_tiles(
-    const int* nv, const int* tl, int lmax, int tile, const float* pos,
-    int np, const float* charge, const float* born, const float* sig,
-    const float* epsq, const int* excl, int ne, int n, float cutoff2,
-    int box_mode, const float* box, float dfac, float ke, float* prow,
-    float* pcol, float* erow, float* yrow, float* force, float* mmrow,
-    void* stream) {
+    const int* nv, const int* tl, int lmax, int tile, int groups,
+    const float* pos, int np, const float* charge, const float* born,
+    const float* sig, const float* epsq, const int* excl, int ne, int n,
+    float cutoff2, float rng, int box_mode, const float* box, float dfac,
+    float ke, float* prow, float* pcol, int* keep, float* erow, float* yrow,
+    float* force, float* mmrow, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int with_mm = mmrow != nullptr;
-  const int ne_used = with_mm ? ne : 0;
-  const size_t nw = (size_t)tile / 32;
-  const size_t smem = (7 * (size_t)tile + (size_t)tile * nw * GB_K) * sizeof(float)
-                      + (size_t)tile * ne_used * sizeof(int);
-  allow_smem((const void*)gb_tiles_kernel, smem);
-  gb_tiles_kernel<<<lmax, tile, smem, st>>>(
-      nv, tl, lmax, pos, np, charge, born, sig, epsq, excl, ne_used, with_mm,
-      n, cutoff2, box_mode, box, dfac, ke, prow, pcol);
+  const int units = lmax * (tile / SUB) * groups;
+  if (mmrow != nullptr) {
+    gb_subtiles_kernel<true><<<units, SUB, 0, st>>>(
+        nv, tl, lmax, tile, groups, pos, np, charge, born, sig, epsq, excl,
+        ne, n, cutoff2, rng, box_mode, box, dfac, ke, prow, pcol, keep);
+  } else {
+    gb_subtiles_kernel<false><<<units, SUB, 0, st>>>(
+        nv, tl, lmax, tile, groups, pos, np, charge, born, sig, epsq, excl,
+        0, n, cutoff2, rng, box_mode, box, dfac, ke, prow, pcol, keep);
+  }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   Dest dst{};
@@ -364,169 +604,243 @@ extern "C" int agbnp_gb_pair_tiles(
     dst.p[m] = outs[m];
     dst.stride[m] = strides[m];
   }
-  return reduce_tiles(prow, pcol, GB_K, nv, tl, lmax, tile, np / tile, dst,
-                      st);
+  return reduce_subtiles(reduce_job(prow, pcol, GB_K, np, np / tile,
+                                    np / tile, groups, tile, dst),
+                         ReduceJob{}, keep, groups, nv, tl, lmax, tile,
+                         REDUCE_WARPS, st);
 }
 
 // ---------------------------------------------------------------------------
-// Descreening over the Born list.  One block per entry, one thread per
-// screener column j, a loop over the tile's rows i (positions and chain
-// factors staged in shared memory).  The reloading variant reads the
-// entry's saved Q/dQ tile (coalesced along j) and guards only d > 0, as the
-// TPU kernel does; the recomputing variant (RECOMPUTE) re-evaluates the
-// Born mask and spline from the staged tables.  W, U and the screener force
-// accumulate per column in registers; the row force goes through the same
-// per-warp shuffle tree and in-order warp sum as the GB sweep.
+// Descreening over the Born list.  One warp per (entry l, row sub-tile a,
+// column group grp).  For each kept column sub-tile b of the group, lane
+// (g = x >> 3, c4 = x & 7) covers columns j0 + 4 c4 .. + 3 of rows 32 a +
+// g + 4 k, k = 0..7.  The reloading variant reads the entry's saved Q/dQ
+// as one float4 per row (coalesced: 8 lanes cover a 128-byte row) and
+// guards only d > 0, as the TPU kernel does; the recomputing variant
+// (RECOMPUTE) re-evaluates the Born mask and spline from tables staged in
+// shared memory.  Row data sits in shared memory, column data in registers.
 // ---------------------------------------------------------------------------
 template <bool RECOMPUTE>
-__global__ void descreen_tiles_kernel(const int* __restrict__ nv,
-                                      const int* __restrict__ tl, int lmax,
-                                      const float* __restrict__ pos, int np,
-                                      const float* __restrict__ posh, int nhp,
-                                      const float* __restrict__ q,
-                                      const float* __restrict__ dq,
-                                      const float* __restrict__ s,
-                                      const float* __restrict__ brw,
-                                      const float* __restrict__ bru,
-                                      int box_mode,
-                                      const float* __restrict__ box,
-                                      SplineRefs sp,
-                                      float* __restrict__ prow,
-                                      float* __restrict__ pcol) {
+__global__ void __launch_bounds__(32, 16)
+descreen_subtiles_kernel(const int* __restrict__ nv,
+                         const int* __restrict__ tl, int lmax, int tile,
+                         int ng, const float* __restrict__ pos, int np,
+                         const float* __restrict__ posh, int nhp,
+                         const float* __restrict__ q,
+                         const float* __restrict__ dq,
+                         const float* __restrict__ s,
+                         const float* __restrict__ brw,
+                         const float* __restrict__ bru, int box_mode,
+                         const float* __restrict__ box, SplineRefs sp,
+                         float rng, float* __restrict__ prow,
+                         float* __restrict__ pcol, int* __restrict__ keep) {
   extern __shared__ float sh[];
-  const int tile = blockDim.x, nw = tile >> 5;
   float* tab = sh;  // RECOMPUTE: y [ntab], y2 [ntab]
-  float* rx = sh + (RECOMPUTE ? 2 * sp.ntab : 0);  // row x, y, z, BrW, BrU
-  float* ry = rx + tile;
-  float* rz = ry + tile;
-  float* rbw = rz + tile;
-  float* rbu = rbw + tile;
-  float* rowpart = rbu + tile;  // [tile][nw][DS_ROW_K]
-  int* rtype = (int*)(rowpart + (size_t)tile * nw * DS_ROW_K);  // [tile]
-  const int l = blockIdx.x, c = threadIdx.x;
+  float* rx = sh + (RECOMPUTE ? 2 * sp.ntab : 0);  // rows x, y, z, BrW, BrU
+  float* ry = rx + SUB;
+  float* rz = ry + SUB;
+  float* rbw = rz + SUB;
+  float* rbu = rbw + SUB;
+  int* rtype = (int*)(rbu + SUB);
+  const int S = tile / SUB, G = S / ng;
+  const int l = blockIdx.x / (S * ng);
+  const int a = (blockIdx.x / ng) % S, grp = blockIdx.x % ng;
+  const int lane = threadIdx.x;
   if (l >= nv[0]) return;
-  const int i0 = tl[l] * tile, j0 = tl[lmax + l] * tile;
+  const int ti = tl[l], tj = tl[lmax + l];
+  const int r0 = ti * tile + a * SUB;
   if (RECOMPUTE) stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
-  {
-    const int i = i0 + c;
-    rx[c] = pos[i];
-    ry[c] = pos[np + i];
-    rz[c] = pos[2 * np + i];
-    rbw[c] = brw[i];
-    rbu[c] = bru[i];
-    if (RECOMPUTE) rtype[c] = sp.trow[i];
-  }
+  const int ih = r0 + lane;
+  const float xh = pos[ih], yh = pos[np + ih], zh = pos[2 * np + ih];
+  rx[lane] = xh;
+  ry[lane] = yh;
+  rz[lane] = zh;
+  rbw[lane] = brw[ih];
+  rbu[lane] = bru[ih];
+  if (RECOMPUTE) rtype[lane] = sp.trow[ih];
+  const SubBox rbox = warp_box(xh, yh, zh, ih < sp.n);
   __syncthreads();
-  const int warp = c >> 5, lane = c & 31;
-  const int j = j0 + c;
-  const float xj = posh[j], yj = posh[nhp + j], zj = posh[2 * nhp + j];
-  const float sj = s[j];
-  const int gj = RECOMPUTE ? sp.hids[j] : 0;
-  const int tcj = RECOMPUTE ? sp.tcol[j] : 0;
+  const int g = lane >> 3, c4 = lane & 7;
+  float fr[8][DS_ROW_K];  // rows g + 4k, over this lane's columns
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int m = 0; m < DS_ROW_K; ++m) fr[k][m] = 0.0f;
+  unsigned kept = 0;
   const size_t tt = (size_t)tile * tile;
-  const float* qt = RECOMPUTE ? nullptr : q + (size_t)l * tt;
-  const float* dqt = RECOMPUTE ? nullptr : dq + (size_t)l * tt;
-  float w = 0.0f, u = 0.0f, fcx = 0.0f, fcy = 0.0f, fcz = 0.0f;
-  for (int r = 0; r < tile; ++r) {
-    const int i = i0 + r;
-    float dx = xj - rx[r], dy = yj - ry[r], dz = zj - rz[r];
-    min_image(box_mode, box, dx, dy, dz);
-    const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-    float qv = 0.0f, dqv = 0.0f, inv_d = 0.0f;
+  for (int b = grp * G; b < (grp + 1) * G; ++b) {
+    const int j0 = tj * tile + b * SUB;
+    const int jh = j0 + lane;
+    const bool jvalid = sp.hids == nullptr || sp.hids[jh] >= 0;
+    if (!subtiles_near(rbox, warp_box(posh[jh], posh[nhp + jh],
+                                      posh[2 * nhp + jh], jvalid),
+                       rng, box_mode, box))
+      continue;
+    kept |= 1u << b;
+    const int jq = j0 + 4 * c4;
+    const float4 cx = *(const float4*)(posh + jq);
+    const float4 cy = *(const float4*)(posh + nhp + jq);
+    const float4 cz = *(const float4*)(posh + 2 * nhp + jq);
+    const float4 cs = *(const float4*)(s + jq);
+    int4 cg = make_int4(0, 0, 0, 0), ct = make_int4(0, 0, 0, 0);
     if (RECOMPUTE) {
-      if (born_pair_live(i, gj, sp.n, d, sp.horizon)) {
-        spline_qdq(tab, sp.ntab, rtype[r] * sp.ntj + tcj, d, qv, dqv);
-        inv_d = 1.0f / d;
+      cg = *(const int4*)(sp.hids + jq);
+      ct = *(const int4*)(sp.tcol + jq);
+    }
+    float cw[4], cu[4], cfx[4], cfy[4], cfz[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cw[c] = cu[c] = cfx[c] = cfy[c] = cfz[c] = 0.0f;
+    // Q/dQ of row r, columns jq..jq+3 of this entry
+    const size_t qoff = (size_t)l * tt + (size_t)(a * SUB + g) * tile
+                        + b * SUB + 4 * c4;
+#pragma unroll
+    for (int k0 = 0; k0 < 8; k0 += DS_ROWS_IN_FLIGHT) {
+      float4 q4[DS_ROWS_IN_FLIGHT], dq4[DS_ROWS_IN_FLIGHT];
+      if (!RECOMPUTE) {
+#pragma unroll
+        for (int kk = 0; kk < DS_ROWS_IN_FLIGHT; ++kk) {
+          const size_t o = qoff + (size_t)(4 * (k0 + kk)) * tile;
+          q4[kk] = *(const float4*)(q + o);
+          dq4[kk] = *(const float4*)(dq + o);
+        }
       }
-    } else {
-      qv = qt[(size_t)r * tile + c];
-      dqv = dqt[(size_t)r * tile + c];
-      inv_d = inv_or_zero(d);
+#pragma unroll
+      for (int kk = 0; kk < DS_ROWS_IN_FLIGHT; ++kk) {
+        const int k = k0 + kk;
+        const int r = g + 4 * k;
+        const int i = r0 + r;
+        const float xi = rx[r], yi = ry[r], zi = rz[r];
+        const float bw = rbw[r], bu = rbu[r];
+        const int tbase = RECOMPUTE ? rtype[r] * sp.ntj : 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float dx = lane4(cx, c) - xi, dy = lane4(cy, c) - yi,
+                dz = lane4(cz, c) - zi;
+          min_image(box_mode, box, dx, dy, dz);
+          const float d = sqrtf(dx * dx + dy * dy + dz * dz);
+          float qv = 0.0f, dqv = 0.0f, inv_d = 0.0f;
+          if (RECOMPUTE) {
+            if (born_pair_live(i, lane4(cg, c), sp.n, d, sp.horizon)) {
+              spline_qdq(tab, sp.ntab, tbase + lane4(ct, c), d, qv, dqv);
+              inv_d = __fdividef(1.0f, d);
+            }
+          } else {
+            qv = lane4(q4[kk], c);
+            dqv = lane4(dq4[kk], c);
+            inv_d = d > 0.0f ? __fdividef(1.0f, d) : 0.0f;
+          }
+          cw[c] += bw * qv;
+          cu[c] += bu * qv;
+          const float cc = (bw + bu) * lane4(cs, c) * dqv * inv_d;
+          const float fx = cc * dx, fy = cc * dy, fz = cc * dz;
+          cfx[c] -= fx;
+          cfy[c] -= fy;
+          cfz[c] -= fz;
+          fr[k][0] += fx;
+          fr[k][1] += fy;
+          fr[k][2] += fz;
+        }
+      }
     }
-    const float bw = rbw[r], bu = rbu[r];
-    w += bw * qv;
-    u += bu * qv;
-    const float cc = (bw + bu) * sj * dqv * inv_d;
-    float fx = cc * dx, fy = cc * dy, fz = cc * dz;
-    fcx -= fx;
-    fcy -= fy;
-    fcz -= fz;
-    if (__any_sync(0xffffffffu, dqv != 0.0f)) {
-      fx = warp_sum(fx);
-      fy = warp_sum(fy);
-      fz = warp_sum(fz);
+    // column sums: add the 4 row groups (lanes c4, c4 + 8, c4 + 16,
+    // c4 + 24) in a fixed tree; lanes 0-7 write them
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int o = 8; o <= 16; o <<= 1) {
+        cw[c] += __shfl_xor_sync(FULL_MASK, cw[c], o);
+        cu[c] += __shfl_xor_sync(FULL_MASK, cu[c], o);
+        cfx[c] += __shfl_xor_sync(FULL_MASK, cfx[c], o);
+        cfy[c] += __shfl_xor_sync(FULL_MASK, cfy[c], o);
+        cfz[c] += __shfl_xor_sync(FULL_MASK, cfz[c], o);
+      }
     }
-    if (lane == 0) {
-      float* rp = rowpart + ((size_t)r * nw + warp) * DS_ROW_K;
-      rp[0] = fx;
-      rp[1] = fy;
-      rp[2] = fz;
+    if (g == 0) {
+      float* pc = pcol + ((size_t)l * S + a) * DS_COL_K * tile + b * SUB
+                  + 4 * c4;
+      *(float4*)pc = make_float4(cw[0], cw[1], cw[2], cw[3]);
+      *(float4*)(pc + tile) = make_float4(cu[0], cu[1], cu[2], cu[3]);
+      *(float4*)(pc + 2 * (size_t)tile) =
+          make_float4(cfx[0], cfx[1], cfx[2], cfx[3]);
+      *(float4*)(pc + 3 * (size_t)tile) =
+          make_float4(cfy[0], cfy[1], cfy[2], cfy[3]);
+      *(float4*)(pc + 4 * (size_t)tile) =
+          make_float4(cfz[0], cfz[1], cfz[2], cfz[3]);
     }
   }
-  __syncthreads();
-  float f[DS_ROW_K] = {0.0f, 0.0f, 0.0f};
-  for (int wp = 0; wp < nw; ++wp) {
-    const float* rp = rowpart + ((size_t)c * nw + wp) * DS_ROW_K;
-    f[0] += rp[0];
-    f[1] += rp[1];
-    f[2] += rp[2];
+  // row forces: add the 8 column quads (lanes 8g .. 8g + 7) in a fixed
+  // tree; lane c4 == k writes row g + 4k
+  if (kept != 0) {
+    float* pr = prow + ((size_t)l * ng + grp) * DS_ROW_K * tile + a * SUB;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+#pragma unroll
+      for (int m = 0; m < DS_ROW_K; ++m) {
+        float v = fr[k][m];
+        v += __shfl_xor_sync(FULL_MASK, v, 1);
+        v += __shfl_xor_sync(FULL_MASK, v, 2);
+        v += __shfl_xor_sync(FULL_MASK, v, 4);
+        if (c4 == k) pr[(size_t)m * tile + g + 4 * k] = v;
+      }
+    }
   }
-  for (int m = 0; m < DS_ROW_K; ++m)
-    prow[((size_t)l * DS_ROW_K + m) * tile + c] = f[m];
-  const float cols[DS_COL_K] = {w, u, fcx, fcy, fcz};
-  for (int m = 0; m < DS_COL_K; ++m)
-    pcol[((size_t)l * DS_COL_K + m) * tile + c] = cols[m];
+  if (lane == 0) keep[(l * S + a) * ng + grp] = (int)kept;
 }
 
 template <bool RECOMPUTE>
-static int launch_descreen_tiles(const int* nv, const int* tl, int lmax,
-                                 int tile, const float* pos, int np,
-                                 const float* posh, int nhp, const float* q,
-                                 const float* dq, const float* s,
-                                 const float* brw, const float* bru,
-                                 int box_mode, const float* box,
-                                 const SplineRefs& sp, float* prow,
-                                 float* pcol, cudaStream_t st) {
-  const size_t nw = (size_t)tile / 32;
-  const size_t smem = ((RECOMPUTE ? 2 * (size_t)sp.ntab : 0) + 5 * (size_t)tile
-                       + (size_t)tile * nw * DS_ROW_K) * sizeof(float)
-                      + (RECOMPUTE ? (size_t)tile * sizeof(int) : 0);
-  allow_smem((const void*)descreen_tiles_kernel<RECOMPUTE>, smem);
-  descreen_tiles_kernel<RECOMPUTE><<<lmax, tile, smem, st>>>(
-      nv, tl, lmax, pos, np, posh, nhp, q, dq, s, brw, bru, box_mode, box, sp,
-      prow, pcol);
+static int launch_descreen_subtiles(const int* nv, const int* tl, int lmax,
+                                    int tile, int ng, const float* pos,
+                                    int np,
+                                    const float* posh, int nhp,
+                                    const float* q, const float* dq,
+                                    const float* s, const float* brw,
+                                    const float* bru, int box_mode,
+                                    const float* box, const SplineRefs& sp,
+                                    float rng, float* prow, float* pcol,
+                                    int* keep, cudaStream_t st) {
+  const size_t smem = ((RECOMPUTE ? 2 * (size_t)sp.ntab : 0) + 5 * SUB)
+                          * sizeof(float) + SUB * sizeof(int);
+  allow_smem((const void*)descreen_subtiles_kernel<RECOMPUTE>, smem);
+  descreen_subtiles_kernel<RECOMPUTE>
+      <<<lmax * (tile / SUB) * ng, SUB, smem, st>>>(
+          nv, tl, lmax, tile, ng, pos, np, posh, nhp, q, dq, s, brw, bru,
+          box_mode, box, sp, rng, prow, pcol, keep);
   return (int)cudaGetLastError();
 }
 
-// q == nullptr selects the recomputing variant, which then reads hids, trow,
-// tcol, the tables, n and horizon; the reloading variant ignores them.
+// q == nullptr selects the recomputing variant, which reads hids, trow,
+// tcol, the tables, n and horizon.  The reloading variant reads only n
+// (rows i >= n are padding) and hids (null: every column is real) to form
+// the sub-tile boxes.  rng is the range the list was built with.  groups:
+// ng, as for the GB sweep; prow [lmax, ng, 3, T], pcol [lmax, T/32, 5, T]
+// and keep [lmax, T/32, ng] are scratch.
 extern "C" int agbnp_descreening_tiles(
-    const int* nv, const int* tl, int lmax, int tile, const float* pos,
-    int np, const float* posh, int nhp, const float* q, const float* dq,
+    const int* nv, const int* tl, int lmax, int tile, int groups,
+    const float* pos, int np, const float* posh, int nhp, const float* q,
+    const float* dq,
     const float* s, const float* brw, const float* bru, int box_mode,
     const float* box, const int* hids, const int* trow, const int* tcol,
     const float* yval, const float* y2val, int nti, int ntj, int n,
-    float horizon, float* prow, float* pcol, float* w_out, float* u_out,
-    float* f_rows, float* f_cols, void* stream) {
+    float horizon, float rng, float* prow, float* pcol, int* keep,
+    float* w_out, float* u_out, float* f_rows, float* f_cols, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const SplineRefs sp{hids, trow, tcol, yval, y2val, nti * ntj * AGBNP_NA, ntj,
                       n, horizon};
   int err = q == nullptr
-      ? launch_descreen_tiles<true>(nv, tl, lmax, tile, pos, np, posh, nhp, q,
-                                    dq, s, brw, bru, box_mode, box, sp, prow,
-                                    pcol, st)
-      : launch_descreen_tiles<false>(nv, tl, lmax, tile, pos, np, posh, nhp,
-                                     q, dq, s, brw, bru, box_mode, box, sp,
-                                     prow, pcol, st);
+      ? launch_descreen_subtiles<true>(nv, tl, lmax, tile, groups, pos, np,
+                                       posh, nhp, q, dq, s, brw, bru,
+                                       box_mode, box, sp, rng, prow, pcol,
+                                       keep, st)
+      : launch_descreen_subtiles<false>(nv, tl, lmax, tile, groups, pos, np,
+                                        posh, nhp, q, dq, s, brw, bru,
+                                        box_mode, box, sp, rng, prow, pcol,
+                                        keep, st);
   if (err != 0) return err;
   Dest rows{};
   for (int m = 0; m < DS_ROW_K; ++m) {
     rows.p[m] = f_rows + m;
     rows.stride[m] = 3;
   }
-  err = reduce_tiles(prow, nullptr, DS_ROW_K, nv, tl, lmax, tile, np / tile,
-                     rows, st);
-  if (err != 0) return err;
   Dest cols{};
   float* couts[DS_COL_K] = {w_out, u_out, f_cols, f_cols + 1, f_cols + 2};
   const int cstrides[DS_COL_K] = {1, 1, 3, 3, 3};
@@ -534,6 +848,11 @@ extern "C" int agbnp_descreening_tiles(
     cols.p[m] = couts[m];
     cols.stride[m] = cstrides[m];
   }
-  return reduce_tiles(nullptr, pcol, DS_COL_K, nv, tl, lmax, tile,
-                      nhp / tile, cols, st);
+  const int row_tiles = np / tile, col_tiles = nhp / tile;
+  return reduce_subtiles(
+      reduce_job(prow, nullptr, DS_ROW_K, np, row_tiles, col_tiles, groups,
+                 tile, rows),
+      reduce_job(nullptr, pcol, DS_COL_K, nhp, row_tiles, col_tiles, groups,
+                 tile, cols),
+      keep, groups, nv, tl, lmax, tile, REDUCE_WARPS, st);
 }

@@ -298,13 +298,14 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
         a["alpha_perm"], charge_p, br_p, fp, yrow[:n])
     desc_args = (pos_pad, pos_hpad, s_h, padv(evdw_der_brw),
                  padv(egb_der_bru), qd)
-    desc_sp = None if save_qd else spline
     if pair_tiles is not None:
+        # reloading Q/dQ, the list kernel still takes the spline's ids, n
+        # and horizon: they bound the sub-tile pairs it visits
         w_h, u_h, swf_r, swf_c = TL.descreening_tiles(
-            nv_b, tl_b, *desc_args, tile, box=box, spline=desc_sp)
+            nv_b, tl_b, *desc_args, tile, box=box, spline=spline)
     else:
-        w_h, u_h, swf_r, swf_c = PK.descreening(*desc_args, box=box,
-                                                spline=desc_sp)
+        w_h, u_h, swf_r, swf_c = PK.descreening(
+            *desc_args, box=box, spline=None if save_qd else spline)
 
     # back to atom order (gathers; every heavy atom owns one packed column)
     col = a["hinv"]

@@ -19,6 +19,11 @@ OpenCLAGBNPKernels.cpp:3521-3530).
   gb_pair_tiles                  gb_pair over the triangular list
   descreening_tiles              descreening over the Born list, reloading
                                  the saved tiles or (qd=None) recomputing
+  subtile_live, exclusion_bits   torch mirrors of what the GB and
+                                 descreening kernels decide inside: which
+                                 32x32 sub-tile pairs of an entry they visit,
+                                 and the per-row exclusion bit masks
+  column_groups                  how those kernels split their work units
 
 The sweeps take the same arguments as their dense counterparts in pairs.py
 with (nv, tl) in front and the tile size after n, and return the same
@@ -27,6 +32,8 @@ from csrc/tiles.cu on CUDA tensors, counted in pairs.LAUNCHES.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +44,19 @@ from ..born import min_image
 from .pairs import (KE, LAUNCHES, _born_qdq, _box_arg, _check, _check_spline,
                     _cuda_lib, _descreen_sums, _horizon, _launch_check,
                     _NA, _pair_geom, _ptr, _spline_ptrs, need_spline)
+
+SUB = 32              # sub-tile edge of the GB and descreening list kernels
+# nm added to a list's range before the kernels drop a sub-tile pair: far
+# above the f32 rounding of the boxes and of the pair distances (a few ulp
+# of the coordinates; ulp(100 nm) = 7.6e-6 nm), so no pair that a sweep's
+# own mask accepts is dropped (csrc/tiles.cu SUBTILE_MARGIN)
+SUBTILE_MARGIN = 1e-3
+# warps for each SM that the GB and the descreening list kernels aim for
+# (an H100 at 1li2's and 2clr's list shapes: the GB sweep runs fastest cut
+# into single sub-tile pairs, the descreening sweep, held to 16 resident
+# warps an SM by its registers, at about two warps of work a slot)
+GB_WARPS_PER_SM = 128
+DS_WARPS_PER_SM = 32
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +158,64 @@ def host_tile_count(pos_row, valid_row, pos_col, valid_col, tile: int,
     return int(ok.sum())
 
 
+def subtile_live(nv, tl, pos_r, valid_r, pos_c, valid_c, tile: int,
+                 rng_dist, box=None, triangular: bool = False):
+    """Which 32x32 sub-tile pairs of each list entry the GB and descreening
+    kernels visit: [lmax, S, S] bool (S = tile // 32), True where entry l
+    (l < nv) pairs its row sub-tile a with its column sub-tile b.
+
+    The torch mirror of the kernels' in-warp test: the 32-atom boxes of
+    tile_bounds(pos, valid, 32), and the list's own rule with a margin,
+    |c_a - c_b| - r_a - r_b < rng_dist + SUBTILE_MARGIN (min-image on the
+    centers when box is given).  rng_dist is the range the list was built
+    with (None: no range).  A sub-tile without a valid atom is never
+    visited; with triangular (the GB list) neither is a column sub-tile
+    before the row sub-tile, which holds no pair with gi < gj."""
+    s = tile // SUB
+    cr, rr = tile_bounds(pos_r, valid_r, SUB)
+    cc, rc = tile_bounds(pos_c, valid_c, SUB)
+    sub = torch.arange(s, device=tl.device)
+    gi = tl[0].long()[:, None] * s + sub
+    gj = tl[1].long()[:, None] * s + sub
+    dc = (cc.T[gj][:, None, :, :] - cr.T[gi][:, :, None, :])
+    if box is not None:
+        dc = min_image(dc, box)
+    dist = torch.sqrt(torch.sum(dc * dc, dim=-1))
+    live = (rr[gi] >= 0)[:, :, None] & (rc[gj] >= 0)[:, None, :]
+    if rng_dist is not None:
+        live = live & (dist - rr[gi][:, :, None] - rc[gj][:, None, :]
+                       < float(rng_dist) + SUBTILE_MARGIN)
+    if triangular:
+        live = live & (gj[:, None, :] >= gi[:, :, None])
+    entries = torch.arange(tl.shape[1], device=tl.device) < nv[0]
+    return live & entries[:, None, None]
+
+
+def exclusion_bits(excl_rows_pad, tl, tile: int):
+    """The GB kernel's exclusion masks: [lmax, T, S] int64 whose bit c of
+    (entry l, row r, column sub-tile b) is set iff row ti T + r lists
+    column tj T + 32 b + c in its E-wide exclusion row (-1 padded)."""
+    s = tile // SUB
+    rows = tl[0].long()[:, None] * tile + torch.arange(tile, device=tl.device)
+    off = excl_rows_pad.long()[rows] - (tl[1].long() * tile)[:, None, None]
+    inside = (off >= 0) & (off < tile)
+    off = torch.where(inside, off, 0)
+    bits = torch.zeros(rows.shape + (s,), dtype=torch.int64,
+                       device=tl.device)
+    for e in range(off.shape[2]):
+        o = off[:, :, e:e + 1]
+        one = torch.where(inside[:, :, e:e + 1],
+                          torch.bitwise_left_shift(torch.ones_like(o),
+                                                   o % SUB), 0)
+        bits = bits | torch.zeros_like(bits).scatter_(2, o // SUB, one)
+    return bits
+
+
+def _expand_subtiles(keep):
+    """[L, S, S] sub-tile flags as [L, T, T] pair flags."""
+    return keep.repeat_interleave(SUB, 1).repeat_interleave(SUB, 2)
+
+
 # ---------------------------------------------------------------------------
 # Plain twins: every list entry as one [T, T] block of a batched sweep
 # ---------------------------------------------------------------------------
@@ -181,15 +259,19 @@ def born_sums_tiles_reference(nv, tl, pos_pad, pos_hpad, hids_perm,
 
 def gb_pair_tiles_reference(nv, tl, pos_pad, charge_pad, born_pad, n, tile,
                             box=None, cutoff=None, sig_pad=None,
-                            epsq_pad=None, excl_rows_pad=None):
+                            epsq_pad=None, excl_rows_pad=None, keep=None):
     """Plain twin of gb_pair_tiles: each entry's pairs deposited on both
-    its row and its column tile."""
+    its row and its column tile.  keep: optional [lmax, S, S] sub-tile
+    flags (subtile_live) outside which pairs add nothing, as in the
+    kernel."""
     npad = pos_pad.shape[1]
     dt = pos_pad.dtype
     rows, cols, live = _entries(nv, tl, tile)
     dx, dy, dz, d2 = _pair_geom(pos_pad[:, rows], pos_pad[:, cols], box)
     gi, gj = rows[:, :, None], cols[:, None, :]
     mask = (gi < gj) & (gj < n) & live
+    if keep is not None:
+        mask = mask & _expand_subtiles(keep)
     if cutoff is not None:
         mask = mask & (d2 < cutoff * cutoff)
     fm = mask.to(dt)
@@ -231,8 +313,11 @@ def gb_pair_tiles_reference(nv, tl, pos_pad, charge_pad, born_pad, n, tile,
 
 
 def descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad,
-                                bru_pad, qd, tile, box=None, spline=None):
-    """Plain twin of descreening_tiles (same arguments and results)."""
+                                bru_pad, qd, tile, box=None, spline=None,
+                                keep=None):
+    """Plain twin of descreening_tiles (same arguments and results).
+    keep: optional [lmax, S, S] sub-tile flags (subtile_live) outside which
+    pairs add nothing, as in the kernel."""
     rows, cols, live = _entries(nv, tl, tile)
     dx, dy, dz, d2 = _pair_geom(pos_pad[:, rows], pos_hpad[:, cols], box)
     d = torch.sqrt(d2)
@@ -247,6 +332,9 @@ def descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad,
     else:
         q, dq = qd
         mask = d > 0.0
+    if keep is not None:
+        live = live & _expand_subtiles(keep)
+        mask = mask & live
     q = torch.where(live, q, 0.0)
     dq = torch.where(live, dq, 0.0)
     w, u, f_rows, f_cols = _descreen_sums(dx, dy, dz, d, mask, q, dq,
@@ -260,6 +348,26 @@ def descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad,
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def column_groups(lmax: int, tile: int, dev, warps_per_sm: int) -> int:
+    """How many column groups split each (entry, row sub-tile) unit of the
+    GB and descreening list kernels: the least power of two, at most
+    T / 32, that gives warps_per_sm warps for every SM of the card, so a
+    short list (1li2's <= 21 entries: <= 168 units) still reaches every SM
+    and a long one is cut only as far as it pays.  It depends only on the
+    budget, the tile and the card, so a model's sums keep one order."""
+    s = tile // SUB
+    want = warps_per_sm * _sm_count(dev)
+    ng = 1
+    while ng < s and lmax * s * ng < want:
+        ng *= 2
+    return ng
+
 
 def _check_list(nv, tl, tile, dev, *extents):
     """Check the list and the tile size against the padded extents; returns
@@ -328,7 +436,10 @@ def gb_pair_tiles(nv, tl, pos_pad, charge_pad, born_pad, n, tile, box=None,
                   excl_rows_pad=None):
     """gb_pair over the compacted triangular interacting-tile list (each
     unordered pair once, deposited on both sides).  Same contract as
-    gb_pair."""
+    gb_pair.  The kernel visits only the 32x32 sub-tile pairs that
+    subtile_live(nv, tl, pos_pad, rows < n, pos_pad, rows < n, tile, cutoff,
+    box, triangular=True) keeps: the list must have been built with this
+    cutoff (or none)."""
     if pos_pad.device.type == "cpu":
         return gb_pair_tiles_reference(nv, tl, pos_pad, charge_pad, born_pad,
                                        n, tile, box=box, cutoff=cutoff,
@@ -349,21 +460,25 @@ def gb_pair_tiles(nv, tl, pos_pad, charge_pad, born_pad, n, tile, box=None,
         _check("epsq_pad", epsq_pad, f32, (npad,), dev)
         _check("excl_rows_pad", excl_rows_pad, torch.int32, (npad, ne), dev)
     box_mode, box_t = _box_arg(box, dev)
-    prow = torch.empty((lmax, 6, tile), dtype=f32, device=dev)
-    pcol = torch.empty((lmax, 6, tile), dtype=f32, device=dev)
+    ng = column_groups(lmax, tile, dev, GB_WARPS_PER_SM)
+    prow = torch.empty((lmax, ng, 6, tile), dtype=f32, device=dev)
+    pcol = torch.empty((lmax, tile // SUB, 6, tile), dtype=f32, device=dev)
+    keep = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
+                       device=dev)
     erow = torch.empty(npad, dtype=f32, device=dev)
     yrow = torch.empty(npad, dtype=f32, device=dev)
     force = torch.empty((npad, 3), dtype=f32, device=dev)
     mmrow = torch.empty(npad, dtype=f32, device=dev) if with_mm else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_gb_pair_tiles(
-        nv.data_ptr(), tl.data_ptr(), lmax, tile, pos_pad.data_ptr(), npad,
-        charge_pad.data_ptr(), born_pad.data_ptr(), _ptr(sig_pad),
+        nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
+        npad, charge_pad.data_ptr(), born_pad.data_ptr(), _ptr(sig_pad),
         _ptr(epsq_pad), _ptr(excl_rows_pad), ne, int(n),
-        -1.0 if cutoff is None else float(cutoff) * float(cutoff), box_mode,
+        -1.0 if cutoff is None else float(cutoff) * float(cutoff),
+        float("inf") if cutoff is None else float(cutoff), box_mode,
         _ptr(box_t), DIELECTRIC_FACTOR, KE, prow.data_ptr(), pcol.data_ptr(),
-        erow.data_ptr(), yrow.data_ptr(), force.data_ptr(), _ptr(mmrow),
-        stream)
+        keep.data_ptr(), erow.data_ptr(), yrow.data_ptr(), force.data_ptr(),
+        _ptr(mmrow), stream)
     _launch_check("gb_pair_tiles", rc)
     LAUNCHES["gb_pair_tiles"] += 1
     return erow, yrow, force, mmrow
@@ -375,7 +490,13 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
     geometry and horizon, so the list is shared).  Same contract as
     descreening: qd = (Q, dQ) [lmax, T, T] from born_sums_tiles(
     save_qd=True) is reloaded; with qd=None the spline is recomputed from
-    spline=SplineArgs(...)."""
+    spline=SplineArgs(...).
+
+    The kernel visits only the 32x32 sub-tile pairs that subtile_live keeps
+    at the list's range: spline.horizon (2 nm without a spline), rows below
+    spline.n and columns with spline.hids_perm >= 0 (every row and column
+    without a spline).  With qd given, the spline is optional and only
+    bounds those sub-tiles: the Born sweep wrote zero Q/dQ outside them."""
     if pos_pad.device.type == "cpu":
         return descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad,
                                            brw_pad, bru_pad, qd, tile,
@@ -392,25 +513,44 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
     if qd is None:
         _check_spline(spline, npad, nhpad, dev)
         q = dq = None
+        sp_args = _spline_ptrs(spline, None)
     else:
         q, dq = qd
         _check("Q", q, f32, (lmax, tile, tile), dev)
         _check("dQ", dq, f32, (lmax, tile, tile), dev)
+        if spline is None:
+            sp_args = (None,) * 5 + (0, 0, npad, _horizon(None))
+        else:
+            _check("hids_perm", spline.hids_perm, torch.int32, (nhpad,), dev)
+            sp_args = ((spline.hids_perm.data_ptr(),) + (None,) * 4
+                       + (0, 0, int(spline.n), _horizon(spline.horizon)))
+    # the kernel reads these as 16-byte vectors
+    vectors = dict(pos_hpad=pos_hpad, s_hpad=s_hpad, Q=q, dQ=dq)
+    if spline is not None:
+        vectors.update(hids_perm=spline.hids_perm,
+                       type_cols=spline.type_cols)
+    for name, x in vectors.items():
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{name}: data not 16-byte aligned")
     box_mode, box_t = _box_arg(box, dev)
-    prow = torch.empty((lmax, 3, tile), dtype=f32, device=dev)
-    pcol = torch.empty((lmax, 5, tile), dtype=f32, device=dev)
+    ng = column_groups(lmax, tile, dev, DS_WARPS_PER_SM)
+    prow = torch.empty((lmax, ng, 3, tile), dtype=f32, device=dev)
+    pcol = torch.empty((lmax, tile // SUB, 5, tile), dtype=f32, device=dev)
+    keep = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
+                       device=dev)
     w = torch.empty(nhpad, dtype=f32, device=dev)
     u = torch.empty(nhpad, dtype=f32, device=dev)
     f_rows = torch.empty((npad, 3), dtype=f32, device=dev)
     f_cols = torch.empty((nhpad, 3), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_descreening_tiles(
-        nv.data_ptr(), tl.data_ptr(), lmax, tile, pos_pad.data_ptr(), npad,
-        pos_hpad.data_ptr(), nhpad, _ptr(q), _ptr(dq), s_hpad.data_ptr(),
+        nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
+        npad, pos_hpad.data_ptr(), nhpad, _ptr(q), _ptr(dq), s_hpad.data_ptr(),
         brw_pad.data_ptr(), bru_pad.data_ptr(), box_mode, _ptr(box_t),
-        *_spline_ptrs(spline, qd), prow.data_ptr(), pcol.data_ptr(),
-        w.data_ptr(), u.data_ptr(), f_rows.data_ptr(), f_cols.data_ptr(),
-        stream)
+        *sp_args, sp_args[-1],  # the list's range: the horizon
+        prow.data_ptr(), pcol.data_ptr(),
+        keep.data_ptr(), w.data_ptr(), u.data_ptr(), f_rows.data_ptr(),
+        f_cols.data_ptr(), stream)
     _launch_check("descreening_tiles", rc)
     LAUNCHES["descreening_tiles" if qd is not None
              else "descreening_tiles_recompute"] += 1

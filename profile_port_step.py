@@ -3,6 +3,7 @@
 
     python3 profile_port_step.py [SYSTEM] [--dense] [--mts-wu4]
                                  [--steps 40] [--out TABLE.txt]
+    python3 profile_port_step.py [SYSTEM] --list-kernels
 
 Runs the port's MD configuration on SYSTEM (a name under benchmarks/data,
 1li2 by default, e.g. 2clr; or a path to a .dms file): AGBNP1 + OPLS, f32,
@@ -22,8 +23,17 @@ pass as an r-RESPA impulse every 4 steps).  It prints:
   * a torch.profiler trace of one rebuild window: device time by kernel,
     kernel launches per step, and the device's busy and idle share.
 
-With --out, also writes the full profiler table to that file.  Needs a
-CUDA device; imports no JAX.
+With --out, also writes the full profiler table to that file.
+
+With --list-kernels it profiles the interacting-tile-list sweeps alone
+instead, on SYSTEM's lists as chip_smoke.py [2] builds them (Born and
+descreening at horizon 1 nm, GB at cutoff 1 nm, MM fused): the 32x32
+sub-tile pairs the GB and descreening kernels keep, and for each sweep
+the CUDA-event time per call and the profiler's device time of each of
+its kernels (the sweep, the reduce), at the column-group count the
+wrappers pick and at every fixed one.
+
+Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +45,71 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def profile_list_kernels(dev, card, system):
+    """--list-kernels: the list sweeps at each column-group count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import cuda_time_ms, kernel_inputs, tile_list
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
+
+    inp = kernel_inputs(dev, system)
+    tile = inp["tile"]
+    pos_pad, pos_h = inp["born_args"][:2]
+    rvalid, hvalid = inp["valid"]
+    tl, nv, what_b = tile_list(inp, 1.0)
+    tlg, nvg, what_g = tile_list(inp, 1.0, triangular=True)
+    sp = inp["spline"]
+    args = (nv, tl, *inp["born_args"], tile)
+    _, q, dq = TL.born_sums_tiles(*args, horizon=1.0, save_qd=True)
+    dargs = (nv, tl, *inp["desc_args"])
+    gargs = (nvg, tlg, *inp["gb_args"], tile)
+    kept_b = int(TL.subtile_live(nv, tl, pos_pad, rvalid, pos_h, hvalid,
+                                 tile, 1.0).sum())
+    kept_g = int(TL.subtile_live(nvg, tlg, pos_pad, rvalid, pos_pad, rvalid,
+                                 tile, 1.0, triangular=True).sum())
+    print(f"card: {card}; {system} list sweeps, f32, T {tile}: Born list "
+          f"{what_b}, {kept_b} kept 32x32 sub-tile pairs; GB list {what_g}, "
+          f"{kept_g} kept", flush=True)
+    sweeps = {
+        "born_sums_tiles": (None, lambda: TL.born_sums_tiles(
+            *args, horizon=1.0, save_qd=True)),
+        "gb_pair_tiles (MM)": (TL.GB_WARPS_PER_SM, lambda: TL.gb_pair_tiles(
+            *gargs, **inp["mm_kw"])),
+        "descreening_tiles": (TL.DS_WARPS_PER_SM, lambda: TL.descreening_tiles(
+            *dargs, (q, dq), tile, spline=sp)),
+        "descreening_tiles_recompute": (TL.DS_WARPS_PER_SM,
+                                        lambda: TL.descreening_tiles(
+                                            *dargs, None, tile, spline=sp)),
+    }
+    picked = TL.column_groups
+    try:
+        for name, (warps, fn) in sweeps.items():
+            lmax = (tlg if "gb" in name else tl).shape[1]
+            auto = None if warps is None else picked(lmax, tile, dev, warps)
+            for ng in ([None] if warps is None else
+                       [0] + [g for g in (1, 2, 4, 8) if g <= tile // 32]):
+                TL.column_groups = picked if not ng else (
+                    lambda *a, ng=ng: ng)
+                ms = cuda_time_ms(fn, 50)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        fn()
+                    torch.cuda.synchronize()
+                rows = sorted((e for e in prof.key_averages()
+                               if e.device_time_total > 0),
+                              key=lambda e: -e.device_time_total)
+                label = ("" if ng is None else
+                         f" ng={ng}" if ng else f" ng={auto} (picked)")
+                print(f"  {name}{label}: {ms:.4f} ms/call; " + "; ".join(
+                    f"{e.key.split('(')[0].split()[-1]} "
+                    f"{e.device_time_total / 20:.1f} us x{e.count / 20:g}"
+                    for e in rows), flush=True)
+    finally:
+        TL.column_groups = picked
+    return 0
 
 
 def main() -> int:
@@ -60,11 +135,18 @@ def main() -> int:
                          "headline run)")
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--out", help="file for the full profiler table")
+    ap.add_argument("--list-kernels", action="store_true",
+                    help="profile the tile-list sweeps alone, at every "
+                         "column-group count")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
+    if args.list_kernels:
+        from openmm_agbnp_plugin_tpu_torch.runtime import build
+        build.load_library()
+        return profile_list_kernels(dev, card, args.system)
     path = (args.system if args.system.endswith(".dms") else os.path.join(
         HERE, "benchmarks", "data", f"{args.system}_agbnp1.dms"))
     d = load_dms(path)

@@ -25,8 +25,8 @@ pytestmark = pytest.mark.cuda
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "gaussvol.dat")
-CLR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "benchmarks", "data", "2clr_agbnp1.dms")
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "benchmarks", "data")
 
 
 @pytest.fixture(scope="module")
@@ -234,12 +234,14 @@ def headroom_list(L, rng_dist, triangular=False, box=None):
     return tl, nv
 
 
-@pytest.fixture(scope="module", params=["fixture", "2clr"])
+@pytest.fixture(scope="module", params=["fixture", "1li2", "2clr"])
 def shapes(request, cuda, fixture_system):
+    """Sweep inputs at the fixture's shapes, at 1li2's list shapes (T 256,
+    6 row and 3 column tiles: mts_wu4's route) and at 2clr's."""
     if request.param == "fixture":
         params, pos = fixture_system
     else:
-        d = load_dms(CLR)
+        d = load_dms(os.path.join(DATA, f"{request.param}_agbnp1.dms"))
         params = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
                              alpha=d.agbnp_alpha, charge=d.charges,
                              ishydrogen=d.ishydrogen)
@@ -313,3 +315,28 @@ def test_lists_match_dense_on_card(cuda, fixture_system):
         assert rel(f1, f0) <= 1e-5
         e2, f2 = m.energy_forces(pos)
         assert torch.equal(e1, e2) and torch.equal(f1, f2)
+
+
+@pytest.mark.parametrize("box", ["nobox", "triclinic"])
+def test_redesigned_list_kernels_bitwise_repeatable(cuda, shapes, box):
+    """The GB and descreening list kernels add every sum in a fixed order:
+    two launches on the same inputs are equal bit for bit."""
+    L = shapes
+    n, tile = L["n"], L["tile"]
+    box = box_tensor(box, cuda)
+    tl, nv = headroom_list(L, 1.0, box=box)
+    born = TL.born_sums_tiles(nv, tl, L["pos_pad"], L["pos_h"],
+                              *L["spline"][:5], L["s_h"], n, tile, box=box,
+                              horizon=1.0, save_qd=True)
+    dargs = (nv, tl, L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"])
+    tl_g, nv_g = headroom_list(L, 1.0, triangular=True, box=box)
+    gargs = (nv_g, tl_g, L["pos_pad"], L["charge"], L["born"], n, tile)
+    calls = [lambda: TL.gb_pair_tiles(*gargs, cutoff=1.0, box=box, **L["mm"]),
+             lambda: TL.descreening_tiles(*dargs, born[1:], tile, box=box,
+                                          spline=L["spline"]),
+             lambda: TL.descreening_tiles(*dargs, None, tile, box=box,
+                                          spline=L["spline"])]
+    for call in calls:
+        first, second = call(), call()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
