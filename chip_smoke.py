@@ -15,9 +15,12 @@ Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      3328, E 24; Born and descreening lists at horizons 1 and 2 nm, both
      descreening variants on lists with budget headroom, the GB list with
      and without MM; the GB and descreening list kernels launched twice
-     and held bitwise equal); beside each time, the kernel's bound from
-     this run's live pairs and bytes, and for the two redesigned list
-     kernels their PR 3 times;
+     and held bitwise equal); the list kernels are timed at the budgets
+     the model gives its lists; beside each time, the kernel's bound from
+     this run's live pairs and bytes (the Born sweeps' Q/dQ at 8 bytes a
+     live pair, the bytes of their dense layout reported beside), and in
+     the log, for the two redesigned list kernels, their times before
+     the redesign;
   3. checks the fixture goldens through AGBNPModel on the card in f32
      (GVolSA 872.514, AGBNP1 -2476.66, within 0.01);
   4. checks 1li2 and 2clr AGBNP1 (no cutoff, 2 nm horizon; 2clr on the
@@ -92,9 +95,9 @@ PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 LIBRARY_NONE = ("none: no PyTorch call computes the sweep (a spline lookup, "
                 "an exclusion scan and a deterministic row/column deposit)")
 # device ms at 2clr before the GB and descreening list kernels were
-# redesigned (PERF.md, PR 3 table: NVIDIA H100 80GB HBM3, 700 W)
-PR3_MS = dict(gb_pair_tiles=0.3143, descreening_tiles=0.2352,
-              descreening_tiles_recompute=0.1978)
+# redesigned (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700 W)
+BEFORE_MS = dict(gb_pair_tiles=0.3143, descreening_tiles=0.2352,
+                 descreening_tiles_recompute=0.1978)
 LI2_BOXES = (("ortho", (4.0, 4.2, 4.4)),
              ("triclinic", ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
                             (0.4, -0.3, 4.4))))
@@ -237,10 +240,11 @@ def kernel_inputs(dev, name):
                 valid=(torch.arange(npad, device=dev) < n, hvalid))
 
 
-def tile_list(inp, rng_dist, triangular=False, box=None):
+def tile_list(inp, rng_dist, triangular=False, box=None, headroom=True):
     """A list built on the card, with the budget _sized_pair_tiles would
-    give it (count x1.5, 8-aligned, at most every tile pair) or, where that
-    leaves no headroom, count + 8, so entries past nv are exercised."""
+    give it (count x1.5, 8-aligned, at most every tile pair) or, with
+    headroom where that leaves none, count + 8, so entries past nv are
+    exercised."""
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
 
     pos_pad, pos_h = inp["born_args"][:2]
@@ -253,11 +257,11 @@ def tile_list(inp, rng_dist, triangular=False, box=None):
     nti, ntj = rb[1].shape[0], cb[1].shape[0]
     ntot = nti * (nti + 1) // 2 if triangular else nti * ntj
     lmax = int(min(max(8, math.ceil(count * 1.5 / 8) * 8), ntot))
-    if lmax <= count:
+    if headroom and lmax <= count:
         lmax = count + 8
     tl, nv, _ = TL.build_tile_list(*rb, *cb, rng_dist, lmax,
                                    triangular=triangular, box=box)
-    if not int(nv[0]) == count < lmax:
+    if not int(nv[0]) == count <= lmax:
         raise AssertionError(f"list nv {int(nv[0])} count {count} lmax "
                              f"{lmax}")
     return tl, nv, f"nv {count}/lmax {lmax} of {ntot}"
@@ -346,7 +350,8 @@ def phase_kernels(dev):
         """#5-#7 against their twins on inp's lists: Born and descreening
         (both variants) at horizons 1 and 2 nm, GB with and without MM at
         cutoff 1 nm, each redesigned kernel twice (bitwise), and with each
-        box at horizon and cutoff 1 nm.  Returns the timed calls at 1 nm."""
+        box at horizon and cutoff 1 nm.  Returns the calls to time: at 1 nm,
+        without a box, on lists with the budgets the model gives them."""
         tile = inp["tile"]
         born_args, gb_args, mm_kw = inp["born_args"], inp["gb_args"], \
             inp["mm_kw"]
@@ -374,8 +379,6 @@ def phase_kernels(dev):
                                                            **kw))
                     repeatable(name, label, outs,
                                TL.descreening_tiles(*dargs, qd, tile, **kw))
-                if hz == 1.0 and box is None:
-                    born_tl = (args, ref[1:], dargs, sp)
             tl_g, nv_g, what = tile_list(inp, 1.0, triangular=True, box=box)
             gargs = (nv_g, tl_g, *gb_args, tile)
             for mm, kw in (("MM", mm_kw), ("no MM", dict(cutoff=1.0))):
@@ -386,14 +389,23 @@ def phase_kernels(dev):
                         TL.gb_pair_tiles_reference(*gargs, **kw))
                 repeatable("gb_pair_tiles", label, outs,
                            TL.gb_pair_tiles(*gargs, **kw))
-        args, qd, dargs, sp = born_tl
+        tl, nv, what_b = tile_list(inp, 1.0, headroom=False)
+        tl_g, nv_g, what_g = tile_list(inp, 1.0, triangular=True,
+                                       headroom=False)
+        log(f"    {at} lists timed: Born {what_b}, GB {what_g}")
+        args = (nv, tl, *born_args, tile)
+        qd = TL.born_sums_tiles_reference(*args, horizon=1.0,
+                                          save_qd=True)[1:]
+        dargs = (nv, tl, *inp["desc_args"])
+        gargs = (nv_g, tl_g, *gb_args, tile)
+        sp = inp["spline"]._replace(horizon=1.0)
         live_b = live_pairs(inp, "born", 1.0)
         return {
             "born_sums_tiles": (
                 lambda: TL.born_sums_tiles(*args, horizon=1.0, save_qd=True),
                 lambda: TL.born_sums_tiles_reference(*args, horizon=1.0,
                                                      save_qd=True),
-                args, live_b, "born", 0),
+                args, live_b, "born", 8 * live_b),
             "gb_pair_tiles": (
                 lambda: TL.gb_pair_tiles(*gargs, **mm_kw),
                 lambda: TL.gb_pair_tiles_reference(*gargs, **mm_kw),
@@ -416,20 +428,33 @@ def phase_kernels(dev):
             raise AssertionError(f"{name} {label}: two launches differ")
 
     def measure(timed, at):
-        """Time each kernel and its twin; bound it by this run's data."""
+        """Check each kernel against its twin on the inputs it is timed on,
+        time both, and bound the kernel by this run's data.
+        extra: bytes moved beyond the tensors read and returned, such as
+        Q/dQ at 8 bytes a live pair.  The Born sweeps' dense Q/dQ outputs
+        count only that way; their own bytes, zero-fill included, are
+        reported beside as qd_dense_bytes."""
         out = {}
         for name, (kern, plain, reads, live, ops, extra) in timed.items():
-            moved = nbytes(reads, kern()) + extra
+            written = kern()
+            compare(name, f"{at} as timed", written, plain())
+            rec = {}
+            if ops == "born":
+                rec["qd_dense_bytes"] = nbytes(written[1:])
+                written = written[0]
+            moved = nbytes(reads, written) + extra
             b_ms, b_by = bound_ms(live, OPS_PER_PAIR[ops], moved)
-            rec = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
+            rec.update(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
                        live_pairs=live)
             out[name] = rec
-            pr3 = (f", PR 3 {PR3_MS[name]:.4f} ms" if name in PR3_MS
-                   and at == "2clr" else "")
-            log(f"    {at:4s} {name:27s} kernel {rec['ms']:.4f} ms{pr3}, "
+            before = (f", before the redesign {BEFORE_MS[name]:.4f} ms"
+                      if name in BEFORE_MS and at == "2clr" else "")
+            dense = (f"; dense Q/dQ {rec['qd_dense_bytes']} bytes"
+                     if "qd_dense_bytes" in rec else "")
+            log(f"    {at:4s} {name:27s} kernel {rec['ms']:.4f} ms{before}, "
                 f"plain {rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}; {live} live pairs, {moved} bytes)")
+                f"({b_by}; {live} live pairs, {moved} bytes{dense})")
         return out
 
     # dense grid, 1li2 shapes
@@ -460,7 +485,7 @@ def phase_kernels(dev):
                                            save_qd=True),
                       lambda: PK.born_sums_reference(*l_born, horizon=1.0,
                                                      save_qd=True),
-                      l_born, live_b, "born", 0),
+                      l_born, live_b, "born", 8 * live_b),
         "gb_pair": (lambda: PK.gb_pair(*l_gb, **l_mm),
                     lambda: PK.gb_pair_reference(*l_gb, **l_mm),
                     (l_gb, l_mm), live_pairs(li2, "gb", 1.0), "gb_mm", 0),
@@ -925,11 +950,11 @@ def main() -> int:
                    library_ms=None, library=LIBRARY_NONE,
                    live_pairs=k["live_pairs"],
                    launches_per_step=per_step)
+        if "qd_dense_bytes" in k:
+            rec["qd_dense_bytes"] = k["qd_dense_bytes"]
         if "lists_1li2" in k:
-            rec["lists_1li2"] = {x: k["lists_1li2"][x] for x in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "live_pairs")}
-        if name in PR3_MS:
-            rec["pr3_ms"] = PR3_MS[name]
+            rec["lists_1li2"] = {x: v for x, v in k["lists_1li2"].items()
+                                 if x != "library_ms"}
         record.append(rec)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(dict(kernels=record)))

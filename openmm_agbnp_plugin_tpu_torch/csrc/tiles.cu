@@ -41,10 +41,12 @@
 //   * The unit of work is one warp on (entry l, 32-row sub-tile a, column
 //     group grp): it walks the group's T/32/ng column sub-tiles b in
 //     order.  A block is one warp, so the budget lmax gives lmax T/32 ng
-//     independent warps; ng (tiles.py::column_groups, from the budget, the
-//     tile and the card) splits 1li2's <= 21 entries into single sub-tile
-//     pairs (<= 1344 warps for 132 SMs) and cuts 2clr's GB list into
-//     single sub-tile pairs, its descreening list into halves.
+//     independent warps.  The GB sweep always takes ng = T/32, one warp per
+//     sub-tile pair (its fastest split at 1li2's and 2clr's shapes: 1li2's
+//     21 entries give 1344 warps for 132 SMs).  For descreening, ng
+//     (tiles.py::column_groups, from the budget, the tile and the card)
+//     cuts 1li2's 18 entries into single sub-tile pairs and 2clr's list
+//     into halves.
 //   * Sub-tile pruning with the list's own rule: each warp forms the
 //     32-atom box of its rows and of each column sub-tile (warp min/max, the
 //     numbers of tile_bounds(pos, valid, 32)) and skips (a, b) when

@@ -23,7 +23,8 @@ OpenCLAGBNPKernels.cpp:3521-3530).
                                  descreening kernels decide inside: which
                                  32x32 sub-tile pairs of an entry they visit,
                                  and the per-row exclusion bit masks
-  column_groups                  how those kernels split their work units
+  column_groups                  how the descreening kernel splits its work
+                                 units
 
 The sweeps take the same arguments as their dense counterparts in pairs.py
 with (nv, tl) in front and the tile size after n, and return the same
@@ -51,11 +52,10 @@ SUB = 32              # sub-tile edge of the GB and descreening list kernels
 # of the coordinates; ulp(100 nm) = 7.6e-6 nm), so no pair that a sweep's
 # own mask accepts is dropped (csrc/tiles.cu SUBTILE_MARGIN)
 SUBTILE_MARGIN = 1e-3
-# warps for each SM that the GB and the descreening list kernels aim for
-# (an H100 at 1li2's and 2clr's list shapes: the GB sweep runs fastest cut
-# into single sub-tile pairs, the descreening sweep, held to 16 resident
-# warps an SM by its registers, at about two warps of work a slot)
-GB_WARPS_PER_SM = 128
+# warps for each SM that the descreening list kernels aim for (an H100 at
+# 1li2's and 2clr's list shapes: held to 16 resident warps an SM by its
+# registers, it runs fastest at about two warps of work a slot); the GB
+# sweep always runs one warp per sub-tile pair, its fastest split there
 DS_WARPS_PER_SM = 32
 
 
@@ -354,15 +354,15 @@ def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def column_groups(lmax: int, tile: int, dev, warps_per_sm: int) -> int:
+def column_groups(lmax: int, tile: int, dev) -> int:
     """How many column groups split each (entry, row sub-tile) unit of the
-    GB and descreening list kernels: the least power of two, at most
-    T / 32, that gives warps_per_sm warps for every SM of the card, so a
-    short list (1li2's <= 21 entries: <= 168 units) still reaches every SM
-    and a long one is cut only as far as it pays.  It depends only on the
-    budget, the tile and the card, so a model's sums keep one order."""
+    descreening list kernel: the least power of two, at most T / 32, that
+    gives DS_WARPS_PER_SM warps for every SM of the card, so a short list
+    (1li2's 18 entries: 144 units) still reaches every SM and a long one is
+    cut only as far as it pays.  It depends only on the budget, the tile
+    and the card, so a model's sums keep one order."""
     s = tile // SUB
-    want = warps_per_sm * _sm_count(dev)
+    want = DS_WARPS_PER_SM * _sm_count(dev)
     ng = 1
     while ng < s and lmax * s * ng < want:
         ng *= 2
@@ -460,7 +460,7 @@ def gb_pair_tiles(nv, tl, pos_pad, charge_pad, born_pad, n, tile, box=None,
         _check("epsq_pad", epsq_pad, f32, (npad,), dev)
         _check("excl_rows_pad", excl_rows_pad, torch.int32, (npad, ne), dev)
     box_mode, box_t = _box_arg(box, dev)
-    ng = column_groups(lmax, tile, dev, GB_WARPS_PER_SM)
+    ng = tile // SUB  # one warp per sub-tile pair
     prow = torch.empty((lmax, ng, 6, tile), dtype=f32, device=dev)
     pcol = torch.empty((lmax, tile // SUB, 6, tile), dtype=f32, device=dev)
     keep = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
@@ -533,7 +533,7 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
         if x is not None and x.data_ptr() % 16:
             raise ValueError(f"{name}: data not 16-byte aligned")
     box_mode, box_t = _box_arg(box, dev)
-    ng = column_groups(lmax, tile, dev, DS_WARPS_PER_SM)
+    ng = column_groups(lmax, tile, dev)
     prow = torch.empty((lmax, ng, 3, tile), dtype=f32, device=dev)
     pcol = torch.empty((lmax, tile // SUB, 5, tile), dtype=f32, device=dev)
     keep = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,

@@ -30,8 +30,8 @@ instead, on SYSTEM's lists as chip_smoke.py [2] builds them (Born and
 descreening at horizon 1 nm, GB at cutoff 1 nm, MM fused): the 32x32
 sub-tile pairs the GB and descreening kernels keep, and for each sweep
 the CUDA-event time per call and the profiler's device time of each of
-its kernels (the sweep, the reduce), at the column-group count the
-wrappers pick and at every fixed one.
+its kernels (the sweep, the reduce); the descreening sweeps at the
+column-group count the wrapper picks and at every fixed one.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -48,7 +48,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def profile_list_kernels(dev, card, system):
-    """--list-kernels: the list sweeps at each column-group count."""
+    """--list-kernels: the list sweeps, the descreening ones at each
+    column-group count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,23 +75,21 @@ def profile_list_kernels(dev, card, system):
           f"{what_b}, {kept_b} kept 32x32 sub-tile pairs; GB list {what_g}, "
           f"{kept_g} kept", flush=True)
     sweeps = {
-        "born_sums_tiles": (None, lambda: TL.born_sums_tiles(
+        "born_sums_tiles": (False, lambda: TL.born_sums_tiles(
             *args, horizon=1.0, save_qd=True)),
-        "gb_pair_tiles (MM)": (TL.GB_WARPS_PER_SM, lambda: TL.gb_pair_tiles(
+        "gb_pair_tiles (MM)": (False, lambda: TL.gb_pair_tiles(
             *gargs, **inp["mm_kw"])),
-        "descreening_tiles": (TL.DS_WARPS_PER_SM, lambda: TL.descreening_tiles(
+        "descreening_tiles": (True, lambda: TL.descreening_tiles(
             *dargs, (q, dq), tile, spline=sp)),
-        "descreening_tiles_recompute": (TL.DS_WARPS_PER_SM,
-                                        lambda: TL.descreening_tiles(
-                                            *dargs, None, tile, spline=sp)),
+        "descreening_tiles_recompute": (True, lambda: TL.descreening_tiles(
+            *dargs, None, tile, spline=sp)),
     }
     picked = TL.column_groups
+    auto = picked(tl.shape[1], tile, dev)
     try:
-        for name, (warps, fn) in sweeps.items():
-            lmax = (tlg if "gb" in name else tl).shape[1]
-            auto = None if warps is None else picked(lmax, tile, dev, warps)
-            for ng in ([None] if warps is None else
-                       [0] + [g for g in (1, 2, 4, 8) if g <= tile // 32]):
+        for name, (grouped, fn) in sweeps.items():
+            for ng in ([0] + [g for g in (1, 2, 4, 8) if g <= tile // 32]
+                       if grouped else [None]):
                 TL.column_groups = picked if not ng else (
                     lambda *a, ng=ng: ng)
                 ms = cuda_time_ms(fn, 50)

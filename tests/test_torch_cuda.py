@@ -215,8 +215,8 @@ BOXES = {"nobox": None, "ortho": (4.0, 4.2, 4.4),
          "triclinic": ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0), (0.4, -0.3, 4.4))}
 
 
-def box_tensor(name, dev):
-    box = BOXES[name]
+def box_tensor(name, dev, boxes=BOXES):
+    box = boxes[name]
     return None if box is None else torch.tensor(box, device=dev)
 
 
@@ -315,6 +315,164 @@ def test_lists_match_dense_on_card(cuda, fixture_system):
         assert rel(f1, f0) <= 1e-5
         e2, f2 = m.energy_forces(pos)
         assert torch.equal(e1, e2) and torch.equal(f1, f2)
+
+
+SPARSE_RANGE = 1.0    # nm: the GB cutoff and the Born/descreening horizon
+SPARSE_STEP = 1.1     # nm between neighbours on a line, above the range
+SPARSE_BOXES = {"nobox": None, "ortho": (100.0, 104.0, 108.0),
+                "triclinic": ((100.0, 0.0, 0.0), (6.0, 104.0, 0.0),
+                              (4.0, -3.0, 108.0))}
+
+
+def sparse_layout(kind, box_name, ytab, y2tab, dev="cpu", seed=13):
+    """Sweep inputs at T 256 (NP 512, n 500; NHP 512 with 480 screeners,
+    eight of them missing mid-tile) in which every live pair of the list
+    sweep lies 2e-4 to 9e-4 nm inside SPARSE_RANGE, joins two different
+    32-atom sub-tiles, and is the only pair of both its atoms: "gb" pairs
+    rows with rows (the triangular GB list), "born" rows with screeners
+    (the Born/descreening list).
+
+    Each pair couples two sub-tiles whose valid atoms lie on one line,
+    SPARSE_STEP apart, on either side of the pair, so the 32-atom boxes'
+    lower distance bound is the pair's distance itself: a pruning that
+    drops anything near the range drops the pair.  In a box, a third of
+    the couples meet across the x face and a third across the z face
+    (through the triclinic c vector).  The near ends hold row n - 1 and
+    the screener whose row id is 0.  Returns the inputs as sweep_inputs
+    does, with "pairs" [P, 2] (row, column) and "range"."""
+    rng = np.random.default_rng(seed)
+    tile, npad, n, nh = 256, 512, 500, 490
+    nsub = npad // 32
+    box = SPARSE_BOXES[box_name]
+    vec = None if box is None else np.array(box, np.float64)
+    if vec is not None and vec.ndim == 1:
+        vec = np.diag(vec)
+    d_pair = SPARSE_RANGE - rng.uniform(2e-4, 9e-4, nsub)
+    pos_r = np.zeros((npad, 3))
+    rvalid = np.arange(npad) < n
+    if kind == "gb":
+        pos_c, cvalid = pos_r, rvalid
+        couples = np.sort(rng.permutation(nsub).reshape(-1, 2), axis=1)
+    else:
+        pos_c = np.zeros((npad, 3))
+        cvalid = np.arange(npad) < nh
+        cvalid[rng.choice(nh, 8, replace=False)] = False
+        couples = np.stack([np.arange(nsub), rng.permutation(nsub)], 1)
+
+    def lanes(valid, sub, last):
+        """The sub-tile's valid atoms, the near end (last, if valid) first,
+        the rest in a random order."""
+        ids = np.flatnonzero(valid[32 * sub:32 * sub + 32]) + 32 * sub
+        near = last if last in ids else ids[rng.integers(len(ids))]
+        return np.concatenate([[near], rng.permutation(ids[ids != near])])
+
+    pairs = []
+    for p, (a, b) in enumerate(couples):
+        mode = "direct" if vec is None else ("direct", "x", "z")[p % 3]
+        y = 5.0 + 3.0 * p
+        if mode == "direct":
+            u, near, wrap = np.array([1.0, 0, 0]), np.array([40.0, y, 50]), 0
+        elif mode == "x":
+            u, near, wrap = np.array([-1.0, 0, 0]), np.array([0.5, y, 50]), \
+                vec[0]
+        else:
+            u, near, wrap = np.array([0, 0, -1.0]), np.array([45.0, y, 0.5]), \
+                vec[2]
+        ia = lanes(rvalid, a, n - 1)
+        jb = lanes(cvalid, b, n - 1 if kind == "gb" else -1)
+        pos_r[ia] = near - np.arange(len(ia))[:, None] * SPARSE_STEP * u
+        pos_c[jb] = (near + d_pair[p] * u + wrap
+                     + np.arange(len(jb))[:, None] * SPARSE_STEP * u)
+        pairs.append((ia[0], jb[0]))
+    pairs = np.array(pairs)
+    hids = np.where(rvalid, np.arange(npad), -1)
+    if kind == "born":
+        # the screeners' row ids: distinct, 0 at a near end, never the row
+        # of the screener's own pair
+        hids = np.full(npad, -1, np.int64)
+        hids[cvalid] = rng.permutation(np.arange(1, n))[:int(cvalid.sum())]
+        hids[pairs[pairs[:, 0] != 0][0, 1]] = 0
+        spare = cvalid.copy()
+        spare[pairs[:, 1]] = False
+        for i, j in pairs:
+            if hids[j] == i:
+                k = np.flatnonzero(spare)[0]
+                hids[j], hids[k] = hids[k], hids[j]
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
+
+    def rand(lo, hi, valid):
+        return t(np.where(valid, rng.uniform(lo, hi, npad), 0.0))
+
+    nti, ntj = ytab.shape[:2]
+    excl = np.full((npad, 24), -1, np.int64)
+    for k, (i, j) in enumerate(pairs if kind == "gb" else []):
+        if k % 2:  # half the pairs excluded from the MM terms
+            excl[i, 0], excl[j, 0] = j, i
+    excl[:n, 1] = (np.arange(n) + 7) % n
+    sign = np.where(rng.random(npad) < 0.5, -1.0, 1.0)
+    spline = PK.SplineArgs(
+        t(hids, torch.int32), t(rng.integers(0, nti, npad), torch.int32),
+        t(rng.integers(0, ntj, npad), torch.int32), ytab.to(dev),
+        y2tab.to(dev), n, SPARSE_RANGE)
+    pos_pad = t(pos_r.T).contiguous()
+    return dict(
+        n=n, tile=tile, pos_pad=pos_pad, rvalid=t(rvalid, torch.bool),
+        pos_h=pos_pad if kind == "gb" else t(pos_c.T).contiguous(),
+        hvalid=t(cvalid, torch.bool), s_h=rand(0.3, 1.0, cvalid),
+        born=rand(0.12, 0.45, rvalid),
+        charge=t(sign * np.where(rvalid, rng.uniform(0.3, 1.0, npad), 0.0)),
+        brw=rand(-5.0, 5.0, rvalid), bru=rand(-50.0, 50.0, rvalid),
+        mm=dict(sig_pad=rand(0.2, 0.4, rvalid),
+                epsq_pad=rand(0.1, 0.9, rvalid),
+                excl_rows_pad=t(excl, torch.int32)),
+        spline=spline, pairs=torch.as_tensor(pairs), range=SPARSE_RANGE)
+
+
+@pytest.fixture(scope="module")
+def spline_tables(fixture_system):
+    params, pos = fixture_system
+    a = AGBNPModel(params, device="cpu", dtype=torch.float32, version=1,
+                   positions=pos).arrays
+    return a["ytab"], a["y2tab"]
+
+
+@pytest.mark.parametrize("box", list(SPARSE_BOXES))
+@pytest.mark.parametrize("kind", ["gb", "born"])
+def test_list_kernels_keep_the_pairs_at_the_range(cuda, spline_tables, kind,
+                                                  box):
+    """The kernels' own sub-tile pruning on the sparse layout, where each
+    live pair lies just inside the range across two sub-tiles and is its
+    atoms' only pair: a pair the kernel dropped would take away its atoms'
+    whole outputs (tests/test_torch_subtiles.py checks that on the twin),
+    so the GB kernel with and without MM and both descreening variants
+    must match the unpruned twins."""
+    L = sparse_layout(kind, box, *spline_tables, dev=cuda)
+    box = box_tensor(box, cuda, SPARSE_BOXES)
+    rng_dist, tile, n = L["range"], L["tile"], L["n"]
+    if kind == "gb":
+        tl, nv = headroom_list(L, rng_dist, triangular=True, box=box)
+        args = (nv, tl, L["pos_pad"], L["charge"], L["born"], n, tile)
+        for mm in ({}, L["mm"]):
+            kw = dict(cutoff=rng_dist, box=box, **mm)
+            assert_outputs(TL.gb_pair_tiles(*args, **kw),
+                           TL.gb_pair_tiles_reference(*args, **kw))
+        return
+    sp = L["spline"]
+    tl, nv = headroom_list(L, rng_dist, box=box)
+    args = (nv, tl, L["pos_pad"], L["pos_h"], *sp[:5], L["s_h"], n, tile)
+    kw = dict(box=box, horizon=rng_dist, save_qd=True)
+    out = TL.born_sums_tiles(*args, **kw)
+    ref = TL.born_sums_tiles_reference(*args, **kw)
+    assert_outputs(out, ref)
+    dargs = (nv, tl, L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"])
+    for qd_k, qd_r, spl in ((out[1:], ref[1:], sp), (out[1:], ref[1:], None),
+                            (None, None, sp)):
+        assert_outputs(TL.descreening_tiles(*dargs, qd_k, tile, box=box,
+                                            spline=spl),
+                       TL.descreening_tiles_reference(*dargs, qd_r, tile,
+                                                      box=box, spline=spl))
 
 
 @pytest.mark.parametrize("box", ["nobox", "triclinic"])

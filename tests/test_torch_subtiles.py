@@ -12,7 +12,10 @@ orthorhombic and a triclinic box, for the Born/descreening list at horizons
   * the twin restricted to the kept sub-tile pairs equals the twin bit for
     bit;
   * the exclusion bits hold the same excluded set as the E-wide scan;
-  * column_groups splits a short list into enough warps for the card.
+  * column_groups splits a short list into enough warps for the card;
+  * on the sparse layout of tests/test_torch_cuda.py, where the kernels'
+    own pruning is checked on the card, dropping any one live sub-tile
+    pair moves the twin's outputs far beyond the kernels' tolerance.
 """
 
 import os
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_tiles import BOXES as ROD_BOXES
+from test_torch_cuda import SPARSE_BOXES, sparse_layout
 from test_torch_tiles import layouts, rod_models  # noqa: F401  (fixtures)
 
 from openmm_agbnp_plugin_tpu_torch import AGBNPParams, load_dms
@@ -251,19 +255,71 @@ def test_model_lists_keep_every_live_pair(rod_models):  # noqa: F811
         assert not (mask & ~TL._expand_subtiles(keep)).any()
 
 
-@pytest.mark.parametrize("warps", [TL.GB_WARPS_PER_SM, TL.DS_WARPS_PER_SM])
 @pytest.mark.parametrize("tile", [128, 256])
-@pytest.mark.parametrize("lmax", [1, 21, 300, 5000])
-def test_column_groups_fill_the_card(monkeypatch, warps, tile, lmax):
+@pytest.mark.parametrize("lmax", [1, 8, 18, 21, 64, 300, 1000, 5000])
+def test_column_groups_fill_the_card(monkeypatch, tile, lmax):
     """The least power of two, at most T / 32, that gives every SM the
-    kernel's warps: 1li2's short lists are cut into single sub-tiles."""
+    descreening kernel's warps: 1li2's short list is cut into single
+    sub-tiles."""
     sms = 132  # an H100 SXM
     monkeypatch.setattr(TL, "_sm_count", lambda dev: sms)
     s = tile // TL.SUB
-    ng = TL.column_groups(lmax, tile, "cuda", warps)
-    want = warps * sms
+    ng = TL.column_groups(lmax, tile, "cuda")
+    want = TL.DS_WARPS_PER_SM * sms
     assert ng & (ng - 1) == 0 and 1 <= ng <= s
     assert ng == s or lmax * s * ng >= want
     assert ng == 1 or lmax * s * (ng // 2) < want
     if lmax <= 21 and tile == 256:
         assert ng == s
+
+
+@pytest.mark.parametrize("box", list(SPARSE_BOXES))
+@pytest.mark.parametrize("kind", ["gb", "born"])
+def test_sparse_layout_shows_any_dropped_pair(li2, kind, box):
+    """The layout on which test_torch_cuda.py holds the kernels' own
+    pruning against the unpruned twins: its live pairs are the constructed
+    ones, each within 1e-3 nm of the range and across two sub-tiles;
+    subtile_live keeps them; and dropping any one kept sub-tile pair that
+    holds one moves the twin's outputs by over 100x the kernels' 1e-5."""
+    L = sparse_layout(kind, box, *li2["spline"][3:])
+    C = dict(L, spline=tuple(L["spline"][:5]))
+    box = box_of(dict(boxes=SPARSE_BOXES), box)
+    rng_dist, tile = L["range"], L["tile"]
+    nv, tl, keep = model_list(C, kind, rng_dist, box)
+    mask = twin_mask(C, kind, rng_dist, box, nv, tl)
+    rows, cols, _ = TL._entries(nv, tl, tile)
+    l, r, c = mask.nonzero(as_tuple=True)
+    live = torch.stack([rows[l, r], cols[l, c]], 1)
+    assert sorted(live.tolist()) == sorted(L["pairs"].tolist())
+    d2 = PK._pair_geom(L["pos_pad"][:, live[:, 0]],
+                       L["pos_h"][:, live[:, 1]], box)[3]
+    d = torch.sqrt(torch.diagonal(d2))
+    assert bool(((d > rng_dist - 1e-3) & (d < rng_dist)).all())
+    if kind == "gb":
+        assert bool((live[:, 0] // TL.SUB != live[:, 1] // TL.SUB).all())
+    assert not (mask & ~TL._expand_subtiles(keep)).any()
+
+    if kind == "gb":
+        args = (nv, tl, L["pos_pad"], L["charge"], L["born"], L["n"], tile)
+
+        def twin(k):
+            return TL.gb_pair_tiles_reference(*args, box=box,
+                                              cutoff=rng_dist, keep=k,
+                                              **L["mm"])
+    else:
+        _, q, dq = TL.born_sums_tiles_reference(
+            nv, tl, L["pos_pad"], L["pos_h"], *C["spline"], L["s_h"],
+            L["n"], tile, box=box, horizon=rng_dist, save_qd=True)
+        dargs = (nv, tl, L["pos_pad"], L["pos_h"], L["s_h"], L["brw"],
+                 L["bru"])
+
+        def twin(k):
+            return TL.descreening_tiles_reference(*dargs, (q, dq), tile,
+                                                  box=box, keep=k)
+    full = twin(keep)
+    for (li, ri, ci) in zip(l.tolist(), r.tolist(), c.tolist()):
+        dropped = keep.clone()
+        dropped[li, ri // TL.SUB, ci // TL.SUB] = False
+        moved = max(float((x - y).abs().max() / y.abs().max())
+                    for x, y in zip(twin(dropped), full) if y is not None)
+        assert moved > 100 * 1e-5
