@@ -9,17 +9,21 @@ Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
   2. holds each kernel against its plain PyTorch twin on the card, in f32,
      and times both: the dense-grid sweeps at the 1li2 shapes (NP 1536,
      NHP 768, E 24; horizon and cutoff 1 nm, with and without the fused MM
-     terms), the interacting-tile-list sweeps at 1li2's list shapes (T
-     256; also with an orthorhombic and a triclinic box) and at 2clr's,
-     the recomputing dense descreening at the 2clr shapes (NP 6144, NHP
-     3328, E 24; Born and descreening lists at horizons 1 and 2 nm, both
-     descreening variants on lists with budget headroom, the GB list with
-     and without MM; the GB and descreening list kernels launched twice
-     and held bitwise equal); the list kernels are timed at the budgets
-     the model gives its lists; beside each time, the kernel's bound from
-     this run's live pairs and bytes (the Born sweeps' Q/dQ at 8 bytes a
-     live pair, the bytes of their dense layout reported beside), and in
-     the log, for the two redesigned list kernels, their times before
+     terms; the reloading descreening, a list kernel over every tile
+     pair, also with both boxes), the interacting-tile-list sweeps at
+     1li2's list shapes (T 256; also with an orthorhombic and a triclinic
+     box) and at 2clr's, both dense descreening variants at the 2clr
+     shapes (NP 6144, NHP 3328, E 24; Born and descreening lists at
+     horizons 1 and 2 nm, the reload from the Born kernel's Q/dQ and keep
+     bits and from the twin's Q/dQ, the GB list with and without MM; the
+     Born kernel's Q/dQ checked on the sub-tile pairs its keep bits name
+     and the bits against subtile_live; the list kernels and the dense
+     reload launched twice and held bitwise equal); the list kernels are
+     timed at the budgets the model gives its lists; beside each time, the
+     kernel's bound from this run's live pairs and bytes (the Born sweeps'
+     Q/dQ at 8 bytes a live pair, the bytes of their dense layout and,
+     for the list sweep, of its kept sub-tile pairs reported beside), and
+     in the log, for the two kernels redesigned last, their times before
      the redesign;
   3. checks the fixture goldens through AGBNPModel on the card in f32
      (GVolSA 872.514, AGBNP1 -2476.66, within 0.01);
@@ -57,7 +61,9 @@ device it exits non-zero before doing anything.  The last line of standard
 output is {"ok": true, "device": {...}}; the line before it is nvidia-smi's
 name/power-limit line, and the one before that the per-kernel JSON record
 (times, bound and what sets it, library_ms null, live pairs, launches on
-its path and per step of each MD phase [6]-[9]).
+its path and per step of each MD phase [6]-[9]; for the Born and
+descreening sweeps also the kept 32x32 sub-tile pairs and the Q/dQ bytes
+written or read).
 """
 
 from __future__ import annotations
@@ -77,7 +83,7 @@ TPU = "openmm_agbnp_plugin_tpu/ops/pallas/pairs.py"
 KERNELS = {
     "born_sums": (PAIRS_SRC, f"{TPU}:420", "md_1li2"),
     "gb_pair": (PAIRS_SRC, f"{TPU}:569", "md_1li2"),
-    "descreening": (PAIRS_SRC, f"{TPU}:740", "md_1li2"),
+    "descreening": (TILES_SRC, f"{TPU}:740", "md_1li2"),
     "descreening_recompute": (PAIRS_SRC, f"{TPU}:740", "share_off"),
     "born_sums_tiles": (TILES_SRC, f"{TPU}:842", "md_2clr"),
     "gb_pair_tiles": (TILES_SRC, f"{TPU}:966", "md_2clr"),
@@ -94,10 +100,17 @@ PEAK_FP32 = 67e12     # FLOP/s, H100 SXM data sheet, FP32 outside tensor cores
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 LIBRARY_NONE = ("none: no PyTorch call computes the sweep (a spline lookup, "
                 "an exclusion scan and a deterministic row/column deposit)")
-# device ms at 2clr before the GB and descreening list kernels were
-# redesigned (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700 W)
-BEFORE_MS = dict(gb_pair_tiles=0.3143, descreening_tiles=0.2352,
-                 descreening_tiles_recompute=0.1978)
+# device ms of the Born list sweep and the dense reloading descreening
+# before their redesign, by (kernel, shapes) as timed in [2] (PERF.md's
+# kernel table: NVIDIA H100 80GB HBM3, 700 W); for the log only
+BEFORE_MS = {("born_sums_tiles", "2clr"): 0.1075,
+             ("born_sums_tiles", "1li2"): 0.0722,
+             ("descreening", "1li2"): 0.0436}
+# bytes of Q and dQ in one 32x32 sub-tile pair
+QD_SUBTILE_BYTES = 2 * 32 * 32 * 4
+# keys of a kernel's record beyond the contract's, copied into the JSON line
+RECORD_EXTRAS = ("kept_subtile_pairs", "qd_written_bytes", "qd_read_bytes",
+                 "qd_dense_bytes")
 LI2_BOXES = (("ortho", (4.0, 4.2, 4.4)),
              ("triclinic", ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
                             (0.4, -0.3, 4.4))))
@@ -346,12 +359,39 @@ def phase_kernels(dev):
         rec = results[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], worst_abs)
 
+    def compare_born(label, out, ref, nv, live):
+        """#5 against its twin: raw in full, Q/dQ on the sub-tile pairs its
+        keep bits name (undefined elsewhere), where the twin must hold all
+        of its Q/dQ; the keep bits against subtile_live's mirror.  Returns
+        the kept sub-tile pairs."""
+        flags = TL.keep_flags(out[3], nv)
+        if not torch.equal(flags, live):
+            raise AssertionError(f"born_sums_tiles {label}: keep bits differ "
+                                 f"from subtile_live in "
+                                 f"{int((flags != live).sum())} places")
+        kept = TL._expand_subtiles(flags)
+        if bool(ref[1][~kept].any()) or bool(ref[2][~kept].any()):
+            raise AssertionError(f"born_sums_tiles {label}: twin Q/dQ outside "
+                                 "the kept sub-tile pairs")
+        compare("born_sums_tiles", label + " (Q/dQ kept)",
+                (out[0], out[1][kept], out[2][kept]),
+                (ref[0], ref[1][kept], ref[2][kept]))
+        return int(flags.sum())
+
+    def born_live(inp, nv, tl, rng_dist, box=None):
+        pos_pad, pos_h = inp["born_args"][:2]
+        return TL.subtile_live(nv, tl, pos_pad, inp["valid"][0], pos_h,
+                               inp["valid"][1], inp["tile"], rng_dist,
+                               box=box)
+
     def check_lists(inp, at, boxes=()):
         """#5-#7 against their twins on inp's lists: Born and descreening
-        (both variants) at horizons 1 and 2 nm, GB with and without MM at
-        cutoff 1 nm, each redesigned kernel twice (bitwise), and with each
-        box at horizon and cutoff 1 nm.  Returns the calls to time: at 1 nm,
-        without a box, on lists with the budgets the model gives them."""
+        (the reload from the Born kernel's Q/dQ and keep bits and from the
+        twin's Q/dQ, and the recompute) at horizons 1 and 2 nm, GB with and
+        without MM at cutoff 1 nm, each kernel twice (bitwise), and with
+        each box at horizon and cutoff 1 nm.  Returns the calls to time: at
+        1 nm, without a box, on lists with the budgets the model gives
+        them."""
         tile = inp["tile"]
         born_args, gb_args, mm_kw = inp["born_args"], inp["gb_args"], \
             inp["mm_kw"]
@@ -365,18 +405,29 @@ def phase_kernels(dev):
                 kw = dict(box=box, horizon=hz, save_qd=True)
                 out = TL.born_sums_tiles(*args, **kw)
                 ref = TL.born_sums_tiles_reference(*args, **kw)
-                compare("born_sums_tiles", label, out, ref)
+                live = born_live(inp, nv, tl, hz or 2.0, box)
+                compare_born(label, out, ref, nv, live)
+                again = TL.born_sums_tiles(*args, **kw)
+                kept = TL._expand_subtiles(live)
+                nvv = int(nv[0])
+                repeatable("born_sums_tiles", label,
+                           (out[0], out[1][kept], out[2][kept], out[3][:nvv]),
+                           (again[0], again[1][kept], again[2][kept],
+                            again[3][:nvv]))
                 sp = inp["spline"]._replace(horizon=hz)
                 dargs = (nv, tl, *inp["desc_args"])
-                for name, qd, spl in (
-                        ("descreening_tiles", ref[1:], sp),
-                        ("descreening_tiles", ref[1:], None),
-                        ("descreening_tiles_recompute", None, sp)):
+                for name, qd, spl, how in (
+                        ("descreening_tiles", out[1:], sp, "keep bits"),
+                        ("descreening_tiles", ref[1:], sp, "twin Q/dQ"),
+                        ("descreening_tiles", ref[1:], None,
+                         "twin Q/dQ, no spline"),
+                        ("descreening_tiles_recompute", None, sp, "")):
                     kw = dict(box=box, spline=spl)
                     outs = TL.descreening_tiles(*dargs, qd, tile, **kw)
-                    compare(name, label + ("" if spl else " no spline"), outs,
-                            TL.descreening_tiles_reference(*dargs, qd, tile,
-                                                           **kw))
+                    compare(name, f"{label} {how}", outs,
+                            TL.descreening_tiles_reference(
+                                *dargs, None if qd is None else ref[1:],
+                                tile, **kw))
                     repeatable(name, label, outs,
                                TL.descreening_tiles(*dargs, qd, tile, **kw))
             tl_g, nv_g, what = tile_list(inp, 1.0, triangular=True, box=box)
@@ -394,32 +445,43 @@ def phase_kernels(dev):
                                        headroom=False)
         log(f"    {at} lists timed: Born {what_b}, GB {what_g}")
         args = (nv, tl, *born_args, tile)
+        qd_k = TL.born_sums_tiles(*args, horizon=1.0, save_qd=True)[1:]
         qd = TL.born_sums_tiles_reference(*args, horizon=1.0,
                                           save_qd=True)[1:]
         dargs = (nv, tl, *inp["desc_args"])
         gargs = (nv_g, tl_g, *gb_args, tile)
         sp = inp["spline"]._replace(horizon=1.0)
         live_b = live_pairs(inp, "born", 1.0)
+        kept = int(born_live(inp, nv, tl, 1.0).sum())
         return {
-            "born_sums_tiles": (
-                lambda: TL.born_sums_tiles(*args, horizon=1.0, save_qd=True),
-                lambda: TL.born_sums_tiles_reference(*args, horizon=1.0,
-                                                     save_qd=True),
-                args, live_b, "born", 8 * live_b),
-            "gb_pair_tiles": (
-                lambda: TL.gb_pair_tiles(*gargs, **mm_kw),
-                lambda: TL.gb_pair_tiles_reference(*gargs, **mm_kw),
-                (gargs, mm_kw), live_pairs(inp, "gb", 1.0), "gb_mm", 0),
-            "descreening_tiles": (
-                lambda: TL.descreening_tiles(*dargs, qd, tile, spline=sp),
-                lambda: TL.descreening_tiles_reference(*dargs, qd, tile,
-                                                       spline=sp),
-                (dargs, sp.hids_perm), live_b, "descreen", 8 * live_b),
-            "descreening_tiles_recompute": (
-                lambda: TL.descreening_tiles(*dargs, None, tile, spline=sp),
-                lambda: TL.descreening_tiles_reference(*dargs, None, tile,
-                                                       spline=sp),
-                (dargs, sp), live_b, "descreen_spline", 0),
+            "born_sums_tiles": dict(
+                kern=lambda: TL.born_sums_tiles(*args, horizon=1.0,
+                                                save_qd=True),
+                plain=lambda: TL.born_sums_tiles_reference(
+                    *args, horizon=1.0, save_qd=True),
+                reads=args, live=live_b, ops="born", extra=8 * live_b,
+                born_list=(nv, born_live(inp, nv, tl, 1.0))),
+            "gb_pair_tiles": dict(
+                kern=lambda: TL.gb_pair_tiles(*gargs, **mm_kw),
+                plain=lambda: TL.gb_pair_tiles_reference(*gargs, **mm_kw),
+                reads=(gargs, mm_kw), live=live_pairs(inp, "gb", 1.0),
+                ops="gb_mm", extra=0),
+            "descreening_tiles": dict(
+                kern=lambda: TL.descreening_tiles(*dargs, qd_k, tile,
+                                                  spline=sp),
+                plain=lambda: TL.descreening_tiles_reference(
+                    *dargs, qd, tile, spline=sp),
+                reads=(dargs, qd_k[2]), live=live_b, ops="descreen",
+                extra=8 * live_b,
+                info=dict(kept_subtile_pairs=kept,
+                          qd_read_bytes=kept * QD_SUBTILE_BYTES)),
+            "descreening_tiles_recompute": dict(
+                kern=lambda: TL.descreening_tiles(*dargs, None, tile,
+                                                  spline=sp),
+                plain=lambda: TL.descreening_tiles_reference(
+                    *dargs, None, tile, spline=sp),
+                reads=(dargs, sp), live=live_b, ops="descreen_spline",
+                extra=0, info=dict(kept_subtile_pairs=kept)),
         }
 
     def repeatable(name, label, outs, again):
@@ -431,30 +493,41 @@ def phase_kernels(dev):
         """Check each kernel against its twin on the inputs it is timed on,
         time both, and bound the kernel by this run's data.
         extra: bytes moved beyond the tensors read and returned, such as
-        Q/dQ at 8 bytes a live pair.  The Born sweeps' dense Q/dQ outputs
-        count only that way; their own bytes, zero-fill included, are
-        reported beside as qd_dense_bytes."""
+        Q/dQ at 8 bytes a live pair.  The Born sweeps' Q/dQ outputs count
+        only that way; the bytes of their [lmax or NP, T or NHP] arrays
+        are reported beside as qd_dense_bytes, and for the list sweep the
+        bytes it writes (its kept 32x32 sub-tile pairs) as
+        qd_written_bytes."""
         out = {}
-        for name, (kern, plain, reads, live, ops, extra) in timed.items():
-            written = kern()
-            compare(name, f"{at} as timed", written, plain())
-            rec = {}
-            if ops == "born":
-                rec["qd_dense_bytes"] = nbytes(written[1:])
-                written = written[0]
-            moved = nbytes(reads, written) + extra
-            b_ms, b_by = bound_ms(live, OPS_PER_PAIR[ops], moved)
-            rec.update(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                       live_pairs=live)
+        for name, t in timed.items():
+            written = t["kern"]()
+            rec = dict(t.get("info", {}))
+            if "born_list" in t:
+                nv, live = t["born_list"]
+                kept = compare_born(f"{at} as timed", written, t["plain"](),
+                                    nv, live)
+                rec.update(kept_subtile_pairs=kept,
+                           qd_written_bytes=kept * QD_SUBTILE_BYTES,
+                           qd_dense_bytes=nbytes(written[1:3]))
+                written = (written[0], written[3])
+            else:
+                compare(name, f"{at} as timed", written, t["plain"]())
+                if t["ops"] == "born":
+                    rec["qd_dense_bytes"] = nbytes(written[1:])
+                    written = written[0]
+            moved = nbytes(t["reads"], written) + t["extra"]
+            b_ms, b_by = bound_ms(t["live"], OPS_PER_PAIR[t["ops"]], moved)
+            rec.update(ms=cuda_time_ms(t["kern"]),
+                       plain_ms=cuda_time_ms(t["plain"]), bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None, live_pairs=t["live"])
             out[name] = rec
-            before = (f", before the redesign {BEFORE_MS[name]:.4f} ms"
-                      if name in BEFORE_MS and at == "2clr" else "")
-            dense = (f"; dense Q/dQ {rec['qd_dense_bytes']} bytes"
-                     if "qd_dense_bytes" in rec else "")
+            before = (f", before the redesign {BEFORE_MS[name, at]:.4f} ms "
+                      "(PERF.md)" if (name, at) in BEFORE_MS else "")
+            sizes = "".join(f"; {x} {rec[x]}" for x in RECORD_EXTRAS
+                            if x in rec)
             log(f"    {at:4s} {name:27s} kernel {rec['ms']:.4f} ms{before}, "
                 f"plain {rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}; {live} live pairs, {moved} bytes{dense})")
+                f"({b_by}; {t['live']} live pairs, {moved} bytes{sizes})")
         return out
 
     # dense grid, 1li2 shapes
@@ -465,6 +538,7 @@ def phase_kernels(dev):
         raise AssertionError(f"unexpected 1li2 shapes {li2['shapes']}")
     l_born, l_gb, l_mm = li2["born_args"], li2["gb_args"], li2["mm_kw"]
     l_desc = (*li2["desc_args"], li2["qd"])
+    l_sp = li2["spline"]._replace(horizon=1.0)
     for hz in (1.0, None):
         label = f"horizon={hz or 2.0}"
         compare("born_sums", label,
@@ -477,21 +551,41 @@ def phase_kernels(dev):
             PK.gb_pair_reference(*l_gb, cutoff=1.0))
     compare("gb_pair", "no cutoff, no MM",
             PK.gb_pair(*l_gb), PK.gb_pair_reference(*l_gb))
-    compare("descreening", "from Q/dQ",
-            PK.descreening(*l_desc), PK.descreening_reference(*l_desc))
+    for box_name, box in (("", None), *LI2_BOXES):
+        box = None if box is None else torch.tensor(box, device=dev)
+        qd = PK.born_sums(*l_born, box=box, horizon=1.0, save_qd=True)[1:]
+        d_args = (*li2["desc_args"], qd)
+        for spl, how in ((l_sp, "h=1 spline"), (None, "no spline")):
+            label = f"from Q/dQ {box_name} {how}"
+            outs = PK.descreening(*d_args, box=box, spline=spl)
+            compare("descreening", label, outs,
+                    PK.descreening_reference(*d_args, box=box, spline=spl))
+            repeatable("descreening", label, outs,
+                       PK.descreening(*d_args, box=box, spline=spl))
     live_b = live_pairs(li2, "born", 1.0)
+    # the sub-tile pairs the dense reload visits: those of the full-grid
+    # list within the horizon
+    grid_tl, grid_nv = TL.full_grid_list(1536 // li2["tile"],
+                                         768 // li2["tile"], dev)
+    kept = int(born_live(li2, grid_nv, grid_tl, 1.0).sum())
     timed_1li2 = {
-        "born_sums": (lambda: PK.born_sums(*l_born, horizon=1.0,
-                                           save_qd=True),
-                      lambda: PK.born_sums_reference(*l_born, horizon=1.0,
-                                                     save_qd=True),
-                      l_born, live_b, "born", 8 * live_b),
-        "gb_pair": (lambda: PK.gb_pair(*l_gb, **l_mm),
-                    lambda: PK.gb_pair_reference(*l_gb, **l_mm),
-                    (l_gb, l_mm), live_pairs(li2, "gb", 1.0), "gb_mm", 0),
-        "descreening": (lambda: PK.descreening(*l_desc),
-                        lambda: PK.descreening_reference(*l_desc),
-                        li2["desc_args"], live_b, "descreen", 8 * live_b),
+        "born_sums": dict(
+            kern=lambda: PK.born_sums(*l_born, horizon=1.0, save_qd=True),
+            plain=lambda: PK.born_sums_reference(*l_born, horizon=1.0,
+                                                 save_qd=True),
+            reads=l_born, live=live_b, ops="born", extra=8 * live_b),
+        "gb_pair": dict(
+            kern=lambda: PK.gb_pair(*l_gb, **l_mm),
+            plain=lambda: PK.gb_pair_reference(*l_gb, **l_mm),
+            reads=(l_gb, l_mm), live=live_pairs(li2, "gb", 1.0),
+            ops="gb_mm", extra=0),
+        "descreening": dict(
+            kern=lambda: PK.descreening(*l_desc, spline=l_sp),
+            plain=lambda: PK.descreening_reference(*l_desc, spline=l_sp),
+            reads=(li2["desc_args"], l_sp.hids_perm), live=live_b,
+            ops="descreen", extra=8 * live_b,
+            info=dict(kept_subtile_pairs=kept,
+                      qd_read_bytes=kept * QD_SUBTILE_BYTES)),
     }
     log(f"[2] kernels vs plain twins, f32: lists at 1li2 {li2['shapes']} "
         f"(T {li2['tile']}; mts_wu4's route), boxes too")
@@ -499,8 +593,8 @@ def phase_kernels(dev):
 
     # interacting-tile lists and the recomputing dense sweep, 2clr shapes
     clr = kernel_inputs(dev, "2clr")
-    log(f"[2] kernels vs plain twins, f32: lists and recomputing "
-        f"descreening at 2clr {clr['shapes']} (T {clr['tile']})")
+    log(f"[2] kernels vs plain twins, f32: lists and dense descreening at "
+        f"2clr {clr['shapes']} (T {clr['tile']})")
     if clr["shapes"] != dict(NP=6144, NHP=3328, E=24):
         raise AssertionError(f"unexpected 2clr shapes {clr['shapes']}")
     for hz in (1.0, None):
@@ -508,13 +602,19 @@ def phase_kernels(dev):
         compare("descreening_recompute", f"horizon={hz or 2.0}",
                 PK.descreening(*clr["desc_args"], None, spline=sp),
                 PK.descreening_reference(*clr["desc_args"], None, spline=sp))
+    c_desc = (*clr["desc_args"], clr["qd"])
+    c_sp = clr["spline"]._replace(horizon=1.0)
+    compare("descreening", "2clr from Q/dQ h=1 spline",
+            PK.descreening(*c_desc, spline=c_sp),
+            PK.descreening_reference(*c_desc, spline=c_sp))
     timed_2clr = check_lists(clr, "2clr")
     sp = clr["spline"]
     dense_d = (*clr["desc_args"], None)
-    timed_2clr["descreening_recompute"] = (
-        lambda: PK.descreening(*dense_d, spline=sp),
-        lambda: PK.descreening_reference(*dense_d, spline=sp),
-        (dense_d, sp), live_pairs(clr, "born", 1.0), "descreen_spline", 0)
+    timed_2clr["descreening_recompute"] = dict(
+        kern=lambda: PK.descreening(*dense_d, spline=sp),
+        plain=lambda: PK.descreening_reference(*dense_d, spline=sp),
+        reads=(dense_d, sp), live=live_pairs(clr, "born", 1.0),
+        ops="descreen_spline", extra=0)
     log("    times: device ms per call, CUDA events behind a device sleep, "
         "horizon and cutoff 1 nm; bound from the H100 SXM peaks (67 TFLOP/s "
         f"FP32, 3.35 TB/s); library_ms null, {LIBRARY_NONE}")
@@ -950,8 +1050,7 @@ def main() -> int:
                    library_ms=None, library=LIBRARY_NONE,
                    live_pairs=k["live_pairs"],
                    launches_per_step=per_step)
-        if "qd_dense_bytes" in k:
-            rec["qd_dense_bytes"] = k["qd_dense_bytes"]
+        rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})
         if "lists_1li2" in k:
             rec["lists_1li2"] = {x: v for x, v in k["lists_1li2"].items()
                                  if x != "library_ms"}

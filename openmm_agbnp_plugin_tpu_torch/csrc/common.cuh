@@ -22,10 +22,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;  // complete in lane 0
 }
 
-__device__ __forceinline__ float inv_or_zero(float d) {
-  return d > 0.0f ? 1.0f / d : 0.0f;
-}
-
 // Minimum image of dx = pos_j - pos_i.  box_mode 0: none; 1: orthorhombic
 // box[0..2]; 2: reduced triclinic rows a;b;c in box[0..8], wrapped along c,
 // then b, then a (ops/born.py::min_image).  rintf rounds half to even like

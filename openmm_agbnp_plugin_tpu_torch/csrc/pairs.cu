@@ -8,10 +8,11 @@
 //   agbnp_gb_pair       GB pair energy, Y accumulators, direct forces,
 //                       optionally with the OPLS LJ + Coulomb sum fused in
 //   agbnp_descreening   W_j/U_j column sums + direct descreening forces
-//                       from the saved Q/dQ, or with the spline recomputed
+//                       with the spline recomputed
 //
 // These sweep the dense tile grid; tiles.cu holds the same sweeps over
-// interacting-tile lists.
+// interacting-tile lists, and the descreening sweep that reloads the saved
+// Q/dQ, which runs over the dense grid as a list of every tile pair.
 //
 // Layouts are the JAX wrappers' (openmm_agbnp_plugin_tpu/ops/pallas/pairs.py):
 // positions [3, NP] (Morton-permuted rows, NP padded) and [3, NHP]
@@ -215,30 +216,25 @@ extern "C" int agbnp_gb_pair(const float* pos, int np, const float* charge,
 }
 
 // ---------------------------------------------------------------------------
-// Descreening.  Replaces descreening (openmm_agbnp_plugin_tpu/ops/pallas/
-// pairs.py:699-757) in both of its variants: _descreen_qd_kernel, which
-// reloads the Born pass's saved Q/dQ, and _descreen_kernel (:600-651), which
-// re-evaluates the spline (qd=None: Q/dQ would not fit the 1 GB budget, or
-// sharing is switched off).
+// Descreening with the spline recomputed.  Replaces descreening's
+// _descreen_kernel (openmm_agbnp_plugin_tpu/ops/pallas/pairs.py:600-651,
+// pallas_call at :740 with qd=None: Q/dQ would not fit the 1 GB budget, or
+// sharing is switched off).  The variant that reloads the Born pass's saved
+// Q/dQ (_descreen_qd_kernel) runs tiles.cu's sub-tile kernel over the
+// full-grid list (ops/kernels/pairs.py::descreening).
 //
-// Bound on the H100: the reloading variant streams Q and dQ (163 MB at 2clr
-// shapes NP 6144 x NHP 3328; 9.4 MB and L2 resident at 1li2's) twice, once
-// per orientation, with a few flops per pair: memory bound.  The recomputing
-// variant reads no [NP, NHP] array and evaluates the spline twice per pair
-// (rows pass and columns pass): issue bound, like the Born sweep.  Design:
-// the TPU kernel keeps the [1, NHP] column accumulators resident across its
-// serial grid; here the row forces come from one warp per row (as in the
-// Born sweep), and the column sums (W, U, force on the screeners) from one
-// thread per column over a chunk of ROW_CHUNK rows, writing [chunks, 5, NHP]
-// partials that a third kernel adds in chunk order.  Q and dQ reads are
-// coalesced in both.  The two variants are one template each: RECOMPUTE
-// stages the spline tables in shared memory and replaces the Q/dQ loads with
-// the Born sweep's own mask and spline.
+// Bound on the H100: it reads no [NP, NHP] array and evaluates the spline
+// twice per pair (rows pass and columns pass): issue bound, like the Born
+// sweep.  Design: the TPU kernel keeps the [1, NHP] column accumulators
+// resident across its serial grid; here the row forces come from one warp
+// per row (as in the Born sweep), and the column sums (W, U, force on the
+// screeners) from one thread per column over a chunk of ROW_CHUNK rows,
+// writing [chunks, 5, NHP] partials that a third kernel adds in chunk
+// order.  Both stage the spline tables in shared memory and apply the Born
+// sweep's own mask and spline.
 // ---------------------------------------------------------------------------
-template <bool RECOMPUTE>
 __global__ void descreen_rows_kernel(const float* __restrict__ pos, int np,
                                      const float* __restrict__ posh, int nhp,
-                                     const float* __restrict__ dq,
                                      const float* __restrict__ s,
                                      const float* __restrict__ brw,
                                      const float* __restrict__ bru,
@@ -246,37 +242,24 @@ __global__ void descreen_rows_kernel(const float* __restrict__ pos, int np,
                                      const float* __restrict__ box,
                                      SplineRefs sp,
                                      float* __restrict__ f_rows) {
-  extern __shared__ float tab[];  // RECOMPUTE: y [ntab] then y2 [ntab]
-  if (RECOMPUTE) {
-    stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
-    __syncthreads();
-  }
+  extern __shared__ float tab[];  // y [ntab] then y2 [ntab]
+  stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * WARPS_PER_BLOCK + warp;
   if (i >= np) return;
   const float xi = pos[i], yi = pos[np + i], zi = pos[2 * np + i];
   const float bsum = brw[i] + bru[i];
-  const int tbase = RECOMPUTE ? sp.trow[i] * sp.ntj : 0;
+  const int tbase = sp.trow[i] * sp.ntj;
   float fx = 0.0f, fy = 0.0f, fz = 0.0f;
   for (int j = lane; j < nhp; j += 32) {
-    float dqv = 0.0f;
-    if (!RECOMPUTE) {
-      dqv = dq[(size_t)i * nhp + j];
-      if (dqv == 0.0f) continue;
-    }
     float dx = posh[j] - xi, dy = posh[nhp + j] - yi, dz = posh[2 * nhp + j] - zi;
     min_image(box_mode, box, dx, dy, dz);
     const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-    float inv_d;
-    if (RECOMPUTE) {
-      if (!born_pair_live(i, sp.hids[j], sp.n, d, sp.horizon)) continue;
-      float qv;
-      spline_qdq(tab, sp.ntab, tbase + sp.tcol[j], d, qv, dqv);
-      inv_d = 1.0f / d;
-    } else {
-      inv_d = inv_or_zero(d);
-    }
-    const float c = bsum * s[j] * dqv * inv_d;
+    if (!born_pair_live(i, sp.hids[j], sp.n, d, sp.horizon)) continue;
+    float qv, dqv;
+    spline_qdq(tab, sp.ntab, tbase + sp.tcol[j], d, qv, dqv);
+    const float c = bsum * s[j] * dqv * (1.0f / d);
     fx += c * dx;
     fy += c * dy;
     fz += c * dz;
@@ -291,11 +274,8 @@ __global__ void descreen_rows_kernel(const float* __restrict__ pos, int np,
   }
 }
 
-template <bool RECOMPUTE>
 __global__ void descreen_cols_kernel(const float* __restrict__ pos, int np,
                                      const float* __restrict__ posh, int nhp,
-                                     const float* __restrict__ q,
-                                     const float* __restrict__ dq,
                                      const float* __restrict__ s,
                                      const float* __restrict__ brw,
                                      const float* __restrict__ bru,
@@ -303,44 +283,29 @@ __global__ void descreen_cols_kernel(const float* __restrict__ pos, int np,
                                      const float* __restrict__ box,
                                      SplineRefs sp,
                                      float* __restrict__ partial) {
-  extern __shared__ float tab[];  // RECOMPUTE: y [ntab] then y2 [ntab]
-  if (RECOMPUTE) {
-    stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
-    __syncthreads();
-  }
+  extern __shared__ float tab[];  // y [ntab] then y2 [ntab]
+  stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
+  __syncthreads();
   const int j = blockIdx.x * COL_THREADS + threadIdx.x;
   const int chunk = blockIdx.y;
   if (j >= nhp) return;
   const float xj = posh[j], yj = posh[nhp + j], zj = posh[2 * nhp + j];
   const float sj = s[j];
-  const int gj = RECOMPUTE ? sp.hids[j] : 0;
-  const int tcj = RECOMPUTE ? sp.tcol[j] : 0;
+  const int gj = sp.hids[j];
+  const int tcj = sp.tcol[j];
   float w = 0.0f, u = 0.0f, fx = 0.0f, fy = 0.0f, fz = 0.0f;
   const int i1 = min(np, (chunk + 1) * ROW_CHUNK);
   for (int i = chunk * ROW_CHUNK; i < i1; ++i) {
     const float bw = brw[i], bu = bru[i];
-    float qv = 0.0f, dqv = 0.0f;
-    if (!RECOMPUTE) {
-      qv = q[(size_t)i * nhp + j];
-      dqv = dq[(size_t)i * nhp + j];
-      w += bw * qv;
-      u += bu * qv;
-      if (dqv == 0.0f) continue;
-    }
     float dx = xj - pos[i], dy = yj - pos[np + i], dz = zj - pos[2 * np + i];
     min_image(box_mode, box, dx, dy, dz);
     const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-    float inv_d;
-    if (RECOMPUTE) {
-      if (!born_pair_live(i, gj, sp.n, d, sp.horizon)) continue;
-      spline_qdq(tab, sp.ntab, sp.trow[i] * sp.ntj + tcj, d, qv, dqv);
-      w += bw * qv;
-      u += bu * qv;
-      inv_d = 1.0f / d;
-    } else {
-      inv_d = inv_or_zero(d);
-    }
-    const float c = (bw + bu) * sj * dqv * inv_d;
+    if (!born_pair_live(i, gj, sp.n, d, sp.horizon)) continue;
+    float qv, dqv;
+    spline_qdq(tab, sp.ntab, sp.trow[i] * sp.ntj + tcj, d, qv, dqv);
+    w += bw * qv;
+    u += bu * qv;
+    const float c = (bw + bu) * sj * dqv * (1.0f / d);
     fx -= c * dx;
     fy -= c * dy;
     fz -= c * dz;
@@ -376,36 +341,9 @@ extern "C" int agbnp_descreen_chunks(int np) {
   return (np + ROW_CHUNK - 1) / ROW_CHUNK;
 }
 
-template <bool RECOMPUTE>
-static int launch_descreening(const float* pos, int np, const float* posh,
-                              int nhp, const float* q, const float* dq,
-                              const float* s, const float* brw,
-                              const float* bru, int box_mode, const float* box,
-                              SplineRefs sp, float* partial, float* f_rows,
-                              cudaStream_t st) {
-  const size_t smem = RECOMPUTE ? 2 * (size_t)sp.ntab * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(descreen_rows_kernel<RECOMPUTE>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    cudaFuncSetAttribute(descreen_cols_kernel<RECOMPUTE>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  const int row_blocks = (np + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  descreen_rows_kernel<RECOMPUTE><<<row_blocks, 32 * WARPS_PER_BLOCK, smem, st>>>(
-      pos, np, posh, nhp, dq, s, brw, bru, box_mode, box, sp, f_rows);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  dim3 grid((nhp + COL_THREADS - 1) / COL_THREADS, agbnp_descreen_chunks(np));
-  descreen_cols_kernel<RECOMPUTE><<<grid, COL_THREADS, smem, st>>>(
-      pos, np, posh, nhp, q, dq, s, brw, bru, box_mode, box, sp, partial);
-  return (int)cudaGetLastError();
-}
-
-// q == nullptr selects the recomputing variant, which then reads hids, trow,
-// tcol, the tables, n and horizon; the reloading variant ignores them.
+// partial [agbnp_descreen_chunks(np), 5, NHP] is scratch.
 extern "C" int agbnp_descreening(const float* pos, int np, const float* posh,
-                                 int nhp, const float* q, const float* dq,
-                                 const float* s, const float* brw,
+                                 int nhp, const float* s, const float* brw,
                                  const float* bru, int box_mode,
                                  const float* box, const int* hids,
                                  const int* trow, const int* tcol,
@@ -416,11 +354,22 @@ extern "C" int agbnp_descreening(const float* pos, int np, const float* posh,
   cudaStream_t st = (cudaStream_t)stream;
   const SplineRefs sp{hids, trow, tcol, yval, y2val, nti * ntj * AGBNP_NA, ntj,
                       n, horizon};
-  int err = q == nullptr
-      ? launch_descreening<true>(pos, np, posh, nhp, q, dq, s, brw, bru,
-                                 box_mode, box, sp, partial, f_rows, st)
-      : launch_descreening<false>(pos, np, posh, nhp, q, dq, s, brw, bru,
-                                  box_mode, box, sp, partial, f_rows, st);
+  const size_t smem = 2 * (size_t)sp.ntab * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(descreen_rows_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(descreen_cols_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  const int row_blocks = (np + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  descreen_rows_kernel<<<row_blocks, 32 * WARPS_PER_BLOCK, smem, st>>>(
+      pos, np, posh, nhp, s, brw, bru, box_mode, box, sp, f_rows);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  dim3 grid((nhp + COL_THREADS - 1) / COL_THREADS, agbnp_descreen_chunks(np));
+  descreen_cols_kernel<<<grid, COL_THREADS, smem, st>>>(
+      pos, np, posh, nhp, s, brw, bru, box_mode, box, sp, partial);
+  err = (int)cudaGetLastError();
   if (err != 0) return err;
   descreen_reduce_kernel<<<(nhp + 127) / 128, 128, 0, st>>>(
       partial, agbnp_descreen_chunks(np), nhp, w_out, u_out, f_cols);

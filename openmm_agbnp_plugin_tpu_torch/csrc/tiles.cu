@@ -23,30 +23,32 @@
 // parallel, so each unit writes its own partial sums and subtile_reduce_
 // kernel adds them up in a fixed order.  Results are bitwise repeatable.
 //
-// The GB and descreening sweeps (redesigned for the H100).  What held the
-// first versions back (one 256-thread block per list entry): at 2clr the GB
-// block staged 79 KB of shared memory, so two blocks fit an SM and ~290
-// entries ran in two waves; each tile row cost a per-warp shuffle tree;
-// every slot of the 256x256 entry was swept though ~7% are live; every live
-// pair scanned its 24-wide exclusion list; the reloading descreening sweep
-// kept two scalar loads in flight a thread (~0.7 TB/s) and streamed every
-// Q/dQ value; at 1li2 a launch had at most 21 blocks for 132 SMs; and the
-// reduce walked the whole list serially in one block per output tile.
-// What bounds them: the GB sweep and the recomputing descreening sweep
-// are bound by operations (live pairs x ~46-74 FP32 operations, a few us at
-// 2clr); the reload by bytes, 8 of Q/dQ per live pair, and since the Born
-// sweep stores Q/dQ as dense [T, T] tiles, in practice by the 8 KB of each
-// kept 32x32 sub-tile pair.  The design:
+// The three sweeps (redesigned for the H100).  What held the first versions
+// back (one 256-thread block per list entry): at 2clr the GB block staged
+// 79 KB of shared memory, so two blocks fit an SM and ~290 entries ran in
+// two waves; each tile row cost a per-warp shuffle tree; every slot of the
+// 256x256 entry was swept though ~7% are live; every live pair scanned its
+// 24-wide exclusion list; the Born sweep wrote the full [T, T] Q/dQ tiles of
+// every entry, zeros past nv included (164 MB at 2clr, of which the reload
+// reads about half); the reloading descreening sweep kept two scalar loads
+// in flight a thread (~0.7 TB/s) and streamed every Q/dQ value; at 1li2 a
+// launch had at most 21 blocks for 132 SMs; and the reduce walked the whole
+// list serially in one block per output tile.  What bounds them: the GB
+// sweep and the recomputing descreening sweep are bound by operations (live
+// pairs x ~46-74 FP32 operations, a few us at 2clr); the Born sweep and the
+// reload by bytes, 8 of Q/dQ per live pair, in practice by the 8 KB of each
+// kept 32x32 sub-tile pair, which is what the Born sweep stores.  The
+// design:
 //
 //   * The unit of work is one warp on (entry l, 32-row sub-tile a, column
 //     group grp): it walks the group's T/32/ng column sub-tiles b in
-//     order.  A block is one warp, so the budget lmax gives lmax T/32 ng
-//     independent warps.  The GB sweep always takes ng = T/32, one warp per
-//     sub-tile pair (its fastest split at 1li2's and 2clr's shapes: 1li2's
-//     21 entries give 1344 warps for 132 SMs).  For descreening, ng
-//     (tiles.py::column_groups, from the budget, the tile and the card)
-//     cuts 1li2's 18 entries into single sub-tile pairs and 2clr's list
-//     into halves.
+//     order, so the budget lmax gives lmax T/32 ng independent warps.  The
+//     GB sweep always takes ng = T/32, one warp per sub-tile pair (its
+//     fastest split at 1li2's and 2clr's shapes: 1li2's 21 entries give 1344
+//     warps for 132 SMs).  For Born and descreening, ng (tiles.py::
+//     column_groups, from the budget, the tile and the card) cuts 1li2's 18
+//     entries into single sub-tile pairs and 2clr's list into halves; both
+//     take the same ng on the same list.
 //   * Sub-tile pruning with the list's own rule: each warp forms the
 //     32-atom box of its rows and of each column sub-tile (warp min/max, the
 //     numbers of tile_bounds(pos, valid, 32)) and skips (a, b) when
@@ -60,31 +62,40 @@
 //     __shfl_sync, the row sums stay in registers.  Exclusions become one
 //     32-bit mask per row and column sub-tile, built once from the E-wide
 //     list, then one bit test per pair.
+//   * Born: lane x holds row 32 a + x and its sum in a register; the column
+//     data reach it either as shared-memory broadcasts, one column a step
+//     (the default), or rotating through the lanes as in GB (BORN_ROTATE in
+//     tiles.py picks).  Q and dQ/dd of a kept sub-tile pair pass through a
+//     per-warp shared-memory tile so that each store writes whole 32-byte
+//     sectors of Q/dQ rows.  Only kept sub-tile pairs are written: on the
+//     card, Q/dQ outside them are undefined, entries past nv included.  The
+//     keep bits it writes tell the reload which sub-tile pairs hold Q/dQ,
+//     so no second box computation on other validity rules can disagree.
 //   * Descreening: each lane covers 4 columns (one 16-byte load of Q and
-//     of dQ along j) of 8 rows; the reload reads only the Q/dQ of kept
-//     sub-tiles (the Born sweep wrote zeros everywhere else).  Column sums
-//     (W, U, screener force) add the 4 row groups in a fixed shuffle tree;
-//     row forces stay in registers across b and add the 8 column quads in a
-//     fixed tree at the end.
+//     of dQ along j) of 8 rows; the reload reads only the Q/dQ of the kept
+//     sub-tile pairs: those of the Born sweep's keep bits when it has them,
+//     else of its own boxes (Q/dQ written in full, zero outside the Born
+//     mask: a twin's, or the dense sweep's [NP, NHP] in the row-major
+//     full-grid list with row stride NHP).  Column sums (W, U, screener
+//     force) add the 4 row groups in a fixed shuffle tree; row forces stay
+//     in registers across b and add the 8 column quads in a fixed tree at
+//     the end.
 //   * Partials: rows [lmax, ng, K, T] per (l, grp) that kept a sub-tile
 //     pair, columns [lmax, T/32, K, T] per (l, a) and kept b, with the kept
 //     bits keep[l, a, grp].  subtile_reduce_kernel has one block per
 //     32-row output sub-tile (192 for 2clr's rows, not 24 tiles): it lists
 //     its terms in list order with a block-wide prefix sum, deals them
-//     round-robin to 8 warps with four loads in flight each, and adds the
+//     round-robin to its warps with four loads in flight each, and adds the
 //     warps in order.
-//
-// The Born sweep keeps its first design: one block per entry, one warp per
-// tile row, lanes over the tile's columns, the [T, T] Q/dQ tiles written in
-// full; its row partials go through the same reduce with one warp a block,
-// which adds them in list order exactly as before.
 //
 // Each host function launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() (0 on success).
 
 #include "common.cuh"
 
-#define BORN_THREADS 256
+#define BORN_WARPS 4         // Born units a block (they share the tables)
+#define BORN_CHUNK 16        // Born, column walk: columns staged at a time
+#define BORN_LD (BORN_CHUNK + 1)  // and the staging row stride
 #define SUB 32               // sub-tile edge: one warp's rows, one column block
 #define MAX_K 6
 #define GB_K 6               // GB partial components: E, Y, fx, fy, fz, MM
@@ -197,8 +208,8 @@ struct ReduceJob {
 // 32 b + x] of each column group g < ng that kept a sub-tile pair
 // (keep[l, b, g] != 0), then, if its column tile is t, the column partials
 // pcol[l, a, m, 32 b + x] of each row sub-tile a whose group g = b /
-// (S / ng) kept b (bit b of keep[l, a, g]), in order of a.  With keep null
-// every row partial is a term (the Born sweep: ng = 1, no columns).
+// (S / ng) kept b (bit b of keep[l, a, g]), in order of a.  The Born sweep
+// has row partials only.
 //
 // First the block lists the terms in shared memory: each thread takes one
 // entry, counts its terms, and a block-wide prefix sum over the entries
@@ -232,8 +243,7 @@ __global__ void subtile_reduce_kernel(const ReduceJob j0, const ReduceJob j1,
     if (l < nvl) {
       if (prow != nullptr && tl[l] == t) {
         for (int g = 0; g < ng; ++g)
-          if (keep == nullptr || keep[(l * S + b) * ng + g] != 0)
-            rbits |= 1u << g;
+          if (keep[(l * S + b) * ng + g] != 0) rbits |= 1u << g;
       }
       if (pcol != nullptr && tl[lmax + l] == t) {
         for (int a = 0; a < S; ++a)
@@ -337,108 +347,217 @@ static int reduce_subtiles(const ReduceJob& j0, const ReduceJob& j1,
 }
 
 // ---------------------------------------------------------------------------
-// Born sums over the list.  One block per entry, one warp per tile row,
-// lanes over the tile's columns (staged in shared memory with the spline
-// tables), as in pairs.cu's dense sweep.  With q_out, the entry's [T, T]
-// Q and dQ/dd tiles are written in full: the spline value where the Born
-// mask accepts a pair, zero everywhere else, and all zero for an entry past
-// nv, so the descreening reload needs no mask of its own.
+// Born sums over the list.  One warp per (entry l, row sub-tile a, column
+// group grp), BORN_WARPS of them a block sharing the spline tables staged in
+// shared memory.  Lane x holds row i = ti T + 32 a + x and its sum over the
+// group's kept column sub-tiles b.  Per kept b the warp walks the 32
+// columns: with ROTATE as GB does (step k pairs the lane's row with column
+// (x + k) & 31, the column data then move one lane down), else one column a
+// step for every lane, read from shared memory as a broadcast.  With q_out,
+// the sub-tile pair's Q and dQ/dd (the spline value where the Born mask
+// accepts a pair, zero elsewhere) go to a shared tile, then out as whole
+// sectors of rows: ROTATE stages the 32x32 tile (row stride 32: lane x
+// writes column (x + k) & 31, one bank each) and stores 16-byte vectors;
+// the column walk stages BORN_CHUNK columns at a time (row stride BORN_LD,
+// one bank a lane) and stores each 64-byte row piece (8 columns a store
+// were slower at 2clr, and 32 take 17 KB of shared memory a warp, too many
+// for the warps the walk needs in flight).  Nothing outside the kept
+// sub-tile pairs is written.
 // ---------------------------------------------------------------------------
-__global__ void born_tiles_kernel(const int* __restrict__ nv,
-                                  const int* __restrict__ tl, int lmax,
-                                  int tile, const float* __restrict__ pos,
-                                  int np, const float* __restrict__ posh,
-                                  int nhp, const int* __restrict__ hids,
-                                  const int* __restrict__ trow,
-                                  const int* __restrict__ tcol,
-                                  const float* __restrict__ yval,
-                                  const float* __restrict__ y2val, int ntab,
-                                  int ntj, const float* __restrict__ s, int n,
-                                  float horizon, int box_mode,
-                                  const float* __restrict__ box,
-                                  float* __restrict__ prow,
-                                  float* __restrict__ q_out,
-                                  float* __restrict__ dq_out) {
-  extern __shared__ float sh[];
-  float* tab = sh;               // y [ntab], y2 [ntab]
-  float* cx = sh + 2 * ntab;     // column x, y, z, s [tile] each
-  float* cy = cx + tile;
-  float* cz = cy + tile;
-  float* cs = cz + tile;
-  int* chid = (int*)(cs + tile);  // column permuted-row ids, types [tile]
-  int* ctc = chid + tile;
-  const int l = blockIdx.x;
-  const size_t tt = (size_t)tile * tile;
-  float* qt = q_out == nullptr ? nullptr : q_out + (size_t)l * tt;
-  float* dqt = dq_out == nullptr ? nullptr : dq_out + (size_t)l * tt;
-  if (l >= nv[0]) {
-    if (qt != nullptr) {
-      for (size_t k = threadIdx.x; k < tt; k += blockDim.x) {
-        qt[k] = 0.0f;
-        dqt[k] = 0.0f;
-      }
-    }
-    return;
-  }
-  const int i0 = tl[l] * tile, j0 = tl[lmax + l] * tile;
-  stage_tables(tab, yval, y2val, ntab);
-  for (int c = threadIdx.x; c < tile; c += blockDim.x) {
-    const int j = j0 + c;
-    cx[c] = posh[j];
-    cy[c] = posh[nhp + j];
-    cz[c] = posh[2 * nhp + j];
-    cs[c] = s[j];
-    chid[c] = hids[j];
-    ctc[c] = tcol[j];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  for (int r = warp; r < tile; r += nw) {
-    const int i = i0 + r;
-    const float xi = pos[i], yi = pos[np + i], zi = pos[2 * np + i];
-    const int tbase = trow[i] * ntj;
-    float acc = 0.0f;
-    for (int c = lane; c < tile; c += 32) {
-      float dx = cx[c] - xi, dy = cy[c] - yi, dz = cz[c] - zi;
-      min_image(box_mode, box, dx, dy, dz);
-      const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-      float qv = 0.0f, dqv = 0.0f;
-      if (born_pair_live(i, chid[c], n, d, horizon)) {
-        spline_qdq(tab, ntab, tbase + ctc[c], d, qv, dqv);
-        acc += qv * cs[c];
-      }
-      if (qt != nullptr) {
-        qt[(size_t)r * tile + c] = qv;
-        dqt[(size_t)r * tile + c] = dqv;
-      }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) prow[(size_t)l * tile + r] = acc;
+
+// floats of shared memory each Born warp uses beyond the tables
+template <bool ROTATE>
+__host__ __device__ constexpr int born_warp_floats() {
+  return ROTATE ? 2 * SUB * SUB : 6 * SUB + 2 * SUB * BORN_LD;
+}
+
+// One pair of the Born sweep: Q and dQ/dd where its mask accepts the pair
+// (else zero), and its term of row i's sum.
+__device__ __forceinline__ void born_pair(const float* tab,
+                                          const SplineRefs& sp, int i,
+                                          int tbase, float xi, float yi,
+                                          float zi, float xj, float yj,
+                                          float zj, float sj, int gj, int tcj,
+                                          int box_mode, const float* box,
+                                          float& acc, float& qv, float& dqv) {
+  float dx = xj - xi, dy = yj - yi, dz = zj - zi;
+  min_image(box_mode, box, dx, dy, dz);
+  const float d = sqrtf(dx * dx + dy * dy + dz * dz);
+  qv = 0.0f;
+  dqv = 0.0f;
+  if (born_pair_live(i, gj, sp.n, d, sp.horizon)) {
+    spline_qdq(tab, sp.ntab, tbase + tcj, d, qv, dqv);
+    acc += qv * sj;
   }
 }
 
+template <bool ROTATE>
+__global__ void __launch_bounds__(BORN_WARPS * 32)
+born_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
+                     int lmax, int tile, int ng,
+                     const float* __restrict__ pos, int np,
+                     const float* __restrict__ posh, int nhp,
+                     const float* __restrict__ s, SplineRefs sp, int box_mode,
+                     const float* __restrict__ box, float* __restrict__ prow,
+                     int* __restrict__ keep, float* __restrict__ q_out,
+                     float* __restrict__ dq_out) {
+  extern __shared__ float sh[];
+  float* tab = sh;  // y [ntab], y2 [ntab]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* wsh = sh + 2 * sp.ntab + warp * born_warp_floats<ROTATE>();
+  stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
+  __syncthreads();
+  const int S = tile / SUB, G = S / ng;
+  const int unit = blockIdx.x * BORN_WARPS + warp;
+  const int l = unit / (S * ng);
+  const int a = (unit / ng) % S, grp = unit % ng;
+  if (l >= lmax || l >= nv[0]) return;
+  const int ti = tl[l], tj = tl[lmax + l];
+  const int i = ti * tile + a * SUB + lane;
+  const float xi = pos[i], yi = pos[np + i], zi = pos[2 * np + i];
+  const int tbase = sp.trow[i] * sp.ntj;
+  const SubBox rbox = warp_box(xi, yi, zi, i < sp.n);
+  const bool save = q_out != nullptr;
+  float acc = 0.0f;
+  unsigned kept = 0;
+  for (int b = grp * G; b < (grp + 1) * G; ++b) {
+    const int jh = tj * tile + b * SUB + lane;
+    float xj = posh[jh], yj = posh[nhp + jh], zj = posh[2 * nhp + jh];
+    int gj = sp.hids[jh];
+    if (!subtiles_near(rbox, warp_box(xj, yj, zj, gj >= 0), sp.horizon,
+                       box_mode, box))
+      continue;
+    kept |= 1u << b;
+    float sj = s[jh];
+    int tcj = sp.tcol[jh];
+    // Q/dQ of row 32 a, column 32 b of this entry
+    const size_t qoff = (size_t)l * tile * tile + (size_t)a * SUB * tile
+                        + b * SUB;
+    float qv, dqv;
+    if (ROTATE) {
+      float* qs = wsh;  // [32 rows][32 columns]
+      float* dqs = wsh + SUB * SUB;
+      const int src = (lane + 1) & 31;
+#pragma unroll 4
+      for (int k = 0; k < SUB; ++k) {
+        born_pair(tab, sp, i, tbase, xi, yi, zi, xj, yj, zj, sj, gj, tcj,
+                  box_mode, box, acc, qv, dqv);
+        if (save) {
+          const int c = (lane + k) & 31;
+          qs[lane * SUB + c] = qv;
+          dqs[lane * SUB + c] = dqv;
+        }
+        xj = __shfl_sync(FULL_MASK, xj, src);
+        yj = __shfl_sync(FULL_MASK, yj, src);
+        zj = __shfl_sync(FULL_MASK, zj, src);
+        sj = __shfl_sync(FULL_MASK, sj, src);
+        gj = __shfl_sync(FULL_MASK, gj, src);
+        tcj = __shfl_sync(FULL_MASK, tcj, src);
+      }
+      if (save) {
+        __syncwarp();
+        const int rr = lane >> 3, c4 = lane & 7;
+#pragma unroll
+        for (int r0 = 0; r0 < SUB; r0 += 4) {
+          const int r = r0 + rr;
+          const size_t o = qoff + (size_t)r * tile + 4 * c4;
+          *(float4*)(q_out + o) = *(const float4*)(qs + r * SUB + 4 * c4);
+          *(float4*)(dq_out + o) = *(const float4*)(dqs + r * SUB + 4 * c4);
+        }
+        __syncwarp();
+      }
+    } else {
+      float4* colf = (float4*)wsh;                 // x, y, z, s [32]
+      int2* coli = (int2*)(wsh + 4 * SUB);         // screener id, type [32]
+      float* qs = wsh + 6 * SUB;                   // [32 rows][BORN_LD]
+      float* dqs = qs + SUB * BORN_LD;
+      colf[lane] = make_float4(xj, yj, zj, sj);
+      coli[lane] = make_int2(gj, tcj);
+      __syncwarp();
+      for (int c0 = 0; c0 < SUB; c0 += BORN_CHUNK) {
+#pragma unroll
+        for (int cc = 0; cc < BORN_CHUNK; ++cc) {
+          const float4 cf = colf[c0 + cc];
+          const int2 ci = coli[c0 + cc];
+          born_pair(tab, sp, i, tbase, xi, yi, zi, cf.x, cf.y, cf.z, cf.w,
+                    ci.x, ci.y, box_mode, box, acc, qv, dqv);
+          if (save) {
+            qs[lane * BORN_LD + cc] = qv;
+            dqs[lane * BORN_LD + cc] = dqv;
+          }
+        }
+        if (save) {
+          __syncwarp();
+          // lanes over the chunk's columns, SUB / BORN_CHUNK rows a store
+          constexpr int RPS = SUB / BORN_CHUNK;
+          const int rr = lane / BORN_CHUNK, cc = lane % BORN_CHUNK;
+#pragma unroll
+          for (int r0 = 0; r0 < SUB; r0 += RPS) {
+            const int r = r0 + rr;
+            const size_t o = qoff + (size_t)r * tile + c0 + cc;
+            q_out[o] = qs[r * BORN_LD + cc];
+            dq_out[o] = dqs[r * BORN_LD + cc];
+          }
+          __syncwarp();
+        }
+      }
+      __syncwarp();  // the column data are read before the next b's land
+    }
+  }
+  if (kept != 0) prow[((size_t)l * ng + grp) * tile + a * SUB + lane] = acc;
+  if (lane == 0) keep[(l * S + a) * ng + grp] = (int)kept;
+}
+
+template <bool ROTATE>
+static int launch_born_subtiles(const int* nv, const int* tl, int lmax,
+                                int tile, int ng, const float* pos, int np,
+                                const float* posh, int nhp, const float* s,
+                                const SplineRefs& sp, int box_mode,
+                                const float* box, float* prow, int* keep,
+                                float* q_out, float* dq_out,
+                                cudaStream_t st) {
+  const size_t smem =
+      (2 * (size_t)sp.ntab + BORN_WARPS * born_warp_floats<ROTATE>())
+      * sizeof(float);
+  allow_smem((const void*)born_subtiles_kernel<ROTATE>, smem);
+  const int units = lmax * (tile / SUB) * ng;
+  born_subtiles_kernel<ROTATE>
+      <<<(units + BORN_WARPS - 1) / BORN_WARPS, BORN_WARPS * 32, smem, st>>>(
+          nv, tl, lmax, tile, ng, pos, np, posh, nhp, s, sp, box_mode, box,
+          prow, keep, q_out, dq_out);
+  return (int)cudaGetLastError();
+}
+
+// groups: ng, as for the descreening sweep on the same list; rotate picks
+// the column walk; reduce_warps the warps of each reduce block.  horizon is
+// also the list's range.  prow [lmax, ng, 1, T] is scratch; keep [lmax,
+// T/32, ng] is written for the entries below nv, and tells the reload which
+// sub-tile pairs of q_out/dq_out [lmax, T, T] hold Q/dQ.
 extern "C" int agbnp_born_sums_tiles(
-    const int* nv, const int* tl, int lmax, int tile, const float* pos,
-    int np, const float* posh, int nhp, const int* hids, const int* trow,
-    const int* tcol, const float* yval, const float* y2val, int nti, int ntj,
-    const float* s, int n, float horizon, int box_mode, const float* box,
-    float* prow, float* raw, float* q_out, float* dq_out, void* stream) {
+    const int* nv, const int* tl, int lmax, int tile, int groups, int rotate,
+    int reduce_warps, const float* pos, int np, const float* posh, int nhp,
+    const int* hids, const int* trow, const int* tcol, const float* yval,
+    const float* y2val, int nti, int ntj, const float* s, int n,
+    float horizon, int box_mode, const float* box, float* prow, int* keep,
+    float* raw, float* q_out, float* dq_out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int ntab = nti * ntj * AGBNP_NA;
-  const size_t smem = (2 * (size_t)ntab + 6 * (size_t)tile) * sizeof(float);
-  allow_smem((const void*)born_tiles_kernel, smem);
-  born_tiles_kernel<<<lmax, BORN_THREADS, smem, st>>>(
-      nv, tl, lmax, tile, pos, np, posh, nhp, hids, trow, tcol, yval, y2val,
-      ntab, ntj, s, n, horizon, box_mode, box, prow, q_out, dq_out);
-  const int err = (int)cudaGetLastError();
+  const SplineRefs sp{hids, trow, tcol, yval, y2val, nti * ntj * AGBNP_NA, ntj,
+                      n, horizon};
+  const int err =
+      rotate ? launch_born_subtiles<true>(nv, tl, lmax, tile, groups, pos, np,
+                                          posh, nhp, s, sp, box_mode, box,
+                                          prow, keep, q_out, dq_out, st)
+             : launch_born_subtiles<false>(nv, tl, lmax, tile, groups, pos,
+                                           np, posh, nhp, s, sp, box_mode,
+                                           box, prow, keep, q_out, dq_out, st);
   if (err != 0) return err;
   Dest dst{};
   dst.p[0] = raw;
   dst.stride[0] = 1;
-  return reduce_subtiles(
-      reduce_job(prow, nullptr, 1, np, np / tile, nhp / tile, 1, tile, dst),
-      ReduceJob{}, nullptr, 1, nv, tl, lmax, tile, 1, st);
+  return reduce_subtiles(reduce_job(prow, nullptr, 1, np, np / tile,
+                                    nhp / tile, groups, tile, dst),
+                         ReduceJob{}, keep, groups, nv, tl, lmax, tile,
+                         reduce_warps, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -618,7 +737,11 @@ extern "C" int agbnp_gb_pair_tiles(
 // (g = x >> 3, c4 = x & 7) covers columns j0 + 4 c4 .. + 3 of rows 32 a +
 // g + 4 k, k = 0..7.  The reloading variant reads the entry's saved Q/dQ
 // as one float4 per row (coalesced: 8 lanes cover a 128-byte row) and
-// guards only d > 0, as the TPU kernel does; the recomputing variant
+// guards only d > 0, as the TPU kernel does; with keep_in (the Born
+// sweep's keep bits) it visits exactly the sub-tile pairs those name and
+// forms no box.  Entry l's Q/dQ tile starts at l T T with row stride T, or
+// with q_dense (the dense [NP, NHP] arrays over the full-grid list) at
+// ti T q_ld + tj T with row stride q_ld = NHP.  The recomputing variant
 // (RECOMPUTE) re-evaluates the Born mask and spline from tables staged in
 // shared memory.  Row data sits in shared memory, column data in registers.
 // ---------------------------------------------------------------------------
@@ -630,6 +753,8 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
                          const float* __restrict__ posh, int nhp,
                          const float* __restrict__ q,
                          const float* __restrict__ dq,
+                         const int* __restrict__ keep_in, int q_ld,
+                         int q_dense,
                          const float* __restrict__ s,
                          const float* __restrict__ brw,
                          const float* __restrict__ bru, int box_mode,
@@ -660,7 +785,10 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
   rbw[lane] = brw[ih];
   rbu[lane] = bru[ih];
   if (RECOMPUTE) rtype[lane] = sp.trow[ih];
-  const SubBox rbox = warp_box(xh, yh, zh, ih < sp.n);
+  const bool given = !RECOMPUTE && keep_in != nullptr;  // warp-uniform
+  const unsigned want = given ? keep_in[(l * S + a) * ng + grp] : 0u;
+  SubBox rbox{};
+  if (!given) rbox = warp_box(xh, yh, zh, ih < sp.n);
   __syncthreads();
   const int g = lane >> 3, c4 = lane & 7;
   float fr[8][DS_ROW_K];  // rows g + 4k, over this lane's columns
@@ -669,15 +797,21 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
 #pragma unroll
     for (int m = 0; m < DS_ROW_K; ++m) fr[k][m] = 0.0f;
   unsigned kept = 0;
-  const size_t tt = (size_t)tile * tile;
+  const size_t qbase = q_dense
+      ? (size_t)ti * tile * q_ld + (size_t)tj * tile
+      : (size_t)l * tile * tile;
   for (int b = grp * G; b < (grp + 1) * G; ++b) {
     const int j0 = tj * tile + b * SUB;
-    const int jh = j0 + lane;
-    const bool jvalid = sp.hids == nullptr || sp.hids[jh] >= 0;
-    if (!subtiles_near(rbox, warp_box(posh[jh], posh[nhp + jh],
-                                      posh[2 * nhp + jh], jvalid),
-                       rng, box_mode, box))
-      continue;
+    if (given) {
+      if (!((want >> b) & 1u)) continue;
+    } else {
+      const int jh = j0 + lane;
+      const bool jvalid = sp.hids == nullptr || sp.hids[jh] >= 0;
+      if (!subtiles_near(rbox, warp_box(posh[jh], posh[nhp + jh],
+                                        posh[2 * nhp + jh], jvalid),
+                         rng, box_mode, box))
+        continue;
+    }
     kept |= 1u << b;
     const int jq = j0 + 4 * c4;
     const float4 cx = *(const float4*)(posh + jq);
@@ -693,15 +827,15 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
 #pragma unroll
     for (int c = 0; c < 4; ++c) cw[c] = cu[c] = cfx[c] = cfy[c] = cfz[c] = 0.0f;
     // Q/dQ of row r, columns jq..jq+3 of this entry
-    const size_t qoff = (size_t)l * tt + (size_t)(a * SUB + g) * tile
-                        + b * SUB + 4 * c4;
+    const size_t qoff = qbase + (size_t)(a * SUB + g) * q_ld + b * SUB
+                        + 4 * c4;
 #pragma unroll
     for (int k0 = 0; k0 < 8; k0 += DS_ROWS_IN_FLIGHT) {
       float4 q4[DS_ROWS_IN_FLIGHT], dq4[DS_ROWS_IN_FLIGHT];
       if (!RECOMPUTE) {
 #pragma unroll
         for (int kk = 0; kk < DS_ROWS_IN_FLIGHT; ++kk) {
-          const size_t o = qoff + (size_t)(4 * (k0 + kk)) * tile;
+          const size_t o = qoff + (size_t)(4 * (k0 + kk)) * q_ld;
           q4[kk] = *(const float4*)(q + o);
           dq4[kk] = *(const float4*)(dq + o);
         }
@@ -795,6 +929,8 @@ static int launch_descreen_subtiles(const int* nv, const int* tl, int lmax,
                                     int np,
                                     const float* posh, int nhp,
                                     const float* q, const float* dq,
+                                    const int* keep_in, int q_ld,
+                                    int q_dense,
                                     const float* s, const float* brw,
                                     const float* bru, int box_mode,
                                     const float* box, const SplineRefs& sp,
@@ -805,21 +941,24 @@ static int launch_descreen_subtiles(const int* nv, const int* tl, int lmax,
   allow_smem((const void*)descreen_subtiles_kernel<RECOMPUTE>, smem);
   descreen_subtiles_kernel<RECOMPUTE>
       <<<lmax * (tile / SUB) * ng, SUB, smem, st>>>(
-          nv, tl, lmax, tile, ng, pos, np, posh, nhp, q, dq, s, brw, bru,
-          box_mode, box, sp, rng, prow, pcol, keep);
+          nv, tl, lmax, tile, ng, pos, np, posh, nhp, q, dq, keep_in, q_ld,
+          q_dense, s, brw, bru, box_mode, box, sp, rng, prow, pcol, keep);
   return (int)cudaGetLastError();
 }
 
 // q == nullptr selects the recomputing variant, which reads hids, trow,
-// tcol, the tables, n and horizon.  The reloading variant reads only n
-// (rows i >= n are padding) and hids (null: every column is real) to form
-// the sub-tile boxes.  rng is the range the list was built with.  groups:
-// ng, as for the GB sweep; prow [lmax, ng, 3, T], pcol [lmax, T/32, 5, T]
-// and keep [lmax, T/32, ng] are scratch.
+// tcol, the tables, n and horizon.  The reloading variant takes the Born
+// sweep's keep bits keep_in [lmax, T/32, groups] (from agbnp_born_sums_
+// tiles on the same list) or, with keep_in null, forms the sub-tile boxes
+// from n (rows i >= n are padding) and hids (null: every column is real);
+// q_ld and q_dense give the Q/dQ layout (see the kernel).  rng is the
+// range the list was built with.  groups: ng, as for the GB sweep; prow
+// [lmax, ng, 3, T], pcol [lmax, T/32, 5, T] and keep [lmax, T/32, ng] are
+// scratch.
 extern "C" int agbnp_descreening_tiles(
     const int* nv, const int* tl, int lmax, int tile, int groups,
     const float* pos, int np, const float* posh, int nhp, const float* q,
-    const float* dq,
+    const float* dq, const int* keep_in, int q_ld, int q_dense,
     const float* s, const float* brw, const float* bru, int box_mode,
     const float* box, const int* hids, const int* trow, const int* tcol,
     const float* yval, const float* y2val, int nti, int ntj, int n,
@@ -830,13 +969,13 @@ extern "C" int agbnp_descreening_tiles(
                       n, horizon};
   int err = q == nullptr
       ? launch_descreen_subtiles<true>(nv, tl, lmax, tile, groups, pos, np,
-                                       posh, nhp, q, dq, s, brw, bru,
-                                       box_mode, box, sp, rng, prow, pcol,
-                                       keep, st)
+                                       posh, nhp, q, dq, nullptr, tile, 0, s,
+                                       brw, bru, box_mode, box, sp, rng, prow,
+                                       pcol, keep, st)
       : launch_descreen_subtiles<false>(nv, tl, lmax, tile, groups, pos, np,
-                                        posh, nhp, q, dq, s, brw, bru,
-                                        box_mode, box, sp, rng, prow, pcol,
-                                        keep, st);
+                                        posh, nhp, q, dq, keep_in, q_ld,
+                                        q_dense, s, brw, bru, box_mode, box,
+                                        sp, rng, prow, pcol, keep, st);
   if (err != 0) return err;
   Dest rows{};
   for (int m = 0; m < DS_ROW_K; ++m) {

@@ -296,16 +296,19 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     e_vdw = B.vdw_energy(a["alpha_perm"], br_p)
     evdw_der_brw, egb_der_bru = B.born_chain_factors(
         a["alpha_perm"], charge_p, br_p, fp, yrow[:n])
+    # qd: (Q, dQ), and on the card the list Born kernel's keep bits, which
+    # name the only sub-tile pairs where it wrote Q/dQ; reloading, the
+    # descreening kernels still take the spline's ids, n and horizon: they
+    # bound the sub-tile pairs of the dense grid, or of a list without keep
+    # bits, that they visit
     desc_args = (pos_pad, pos_hpad, s_h, padv(evdw_der_brw),
                  padv(egb_der_bru), qd)
     if pair_tiles is not None:
-        # reloading Q/dQ, the list kernel still takes the spline's ids, n
-        # and horizon: they bound the sub-tile pairs it visits
         w_h, u_h, swf_r, swf_c = TL.descreening_tiles(
             nv_b, tl_b, *desc_args, tile, box=box, spline=spline)
     else:
-        w_h, u_h, swf_r, swf_c = PK.descreening(
-            *desc_args, box=box, spline=None if save_qd else spline)
+        w_h, u_h, swf_r, swf_c = PK.descreening(*desc_args, box=box,
+                                                spline=spline)
 
     # back to atom order (gathers; every heavy atom owns one packed column)
     col = a["hinv"]

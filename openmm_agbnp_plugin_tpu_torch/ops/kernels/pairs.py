@@ -16,7 +16,8 @@ radius-type ids and the [Ti, Tj, NA] y/y2 spline tables.
 
 Each wrapper routes by the device of its tensors: on the CPU it returns its
 plain twin (`*_reference`); on a CUDA device it checks every argument,
-launches its kernel from csrc/pairs.cu on the current stream, raises if the
+launches its kernel from csrc/pairs.cu (the reloading descreening: from
+csrc/tiles.cu, over every tile pair) on the current stream, raises if the
 launch failed, and adds one to its count in LAUNCHES.  There is no fallback
 from the kernel to the twin.  tiles.py holds the same sweeps over
 interacting-tile lists, counted here too.
@@ -398,11 +399,8 @@ def _check_spline(spline, npad, nhpad, dev):
     return nti, ntj
 
 
-def _spline_ptrs(spline, qd):
-    """The recomputing kernels' spline arguments (null when qd is given)."""
-    if qd is not None:
-        return (None,) * 5 + (0, 0, 0, 0.0)
-    sp = spline
+def _spline_ptrs(sp):
+    """The recomputing kernels' spline arguments."""
     return (sp.hids_perm.data_ptr(), sp.type_rows.data_ptr(),
             sp.type_cols.data_ptr(), sp.yval.data_ptr(), sp.y2val.data_ptr(),
             sp.yval.shape[0], sp.yval.shape[1], int(sp.n),
@@ -420,6 +418,11 @@ def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
     spline=SplineArgs(...) (the JAX package's _descreen_kernel, for when
     Q/dQ would exceed the memory budget or sharing is off).
 
+    The reloading kernel is tiles.py's list kernel over full_grid_list at
+    the tile pick_tile(NP): it skips the 32x32 sub-tile pairs that lie
+    beyond the horizon of the spline (2 nm without one), which hold zero
+    Q/dQ.
+
     Returns (W [NHP], U [NHP], force_rows [NP, 3], force_cols [NHP, 3]);
     the column-side quantities are in packed heavy layout.
     """
@@ -429,18 +432,28 @@ def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
     dev = pos_pad.device
     f32 = torch.float32
     npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    if qd is not None:
+        from .tiles import _descreen_subtiles, full_grid_list
+
+        q, dq = qd
+        _check("Q", q, f32, (npad, nhpad), dev)
+        _check("dQ", dq, f32, (npad, nhpad), dev)
+        tile = pick_tile(npad)
+        if npad % tile or nhpad % tile:
+            raise ValueError(f"padded extents {npad}, {nhpad} are not "
+                             f"multiples of the tile {tile}")
+        tl, nv = full_grid_list(npad // tile, nhpad // tile, dev)
+        out = _descreen_subtiles("descreening", nv, tl, tile, pos_pad,
+                                 pos_hpad, s_hpad, brw_pad, bru_pad, q, dq,
+                                 None, nhpad, True, box, spline)
+        LAUNCHES["descreening"] += 1
+        return out
     _check("pos_pad", pos_pad, f32, (3, npad), dev)
     _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
     _check("s_hpad", s_hpad, f32, (nhpad,), dev)
     _check("brw_pad", brw_pad, f32, (npad,), dev)
     _check("bru_pad", bru_pad, f32, (npad,), dev)
-    if qd is None:
-        _check_spline(spline, npad, nhpad, dev)
-        q = dq = None
-    else:
-        q, dq = qd
-        _check("Q", q, f32, (npad, nhpad), dev)
-        _check("dQ", dq, f32, (npad, nhpad), dev)
+    _check_spline(spline, npad, nhpad, dev)
     box_mode, box_t = _box_arg(box, dev)
     lib = _cuda_lib()
     partial = torch.empty((lib.agbnp_descreen_chunks(npad), 5, nhpad),
@@ -451,11 +464,10 @@ def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
     f_cols = torch.empty((nhpad, 3), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.agbnp_descreening(
-        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad, _ptr(q),
-        _ptr(dq), s_hpad.data_ptr(), brw_pad.data_ptr(), bru_pad.data_ptr(),
-        box_mode, _ptr(box_t), *_spline_ptrs(spline, qd), partial.data_ptr(),
-        w.data_ptr(), u.data_ptr(), f_rows.data_ptr(), f_cols.data_ptr(),
-        stream)
+        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad,
+        s_hpad.data_ptr(), brw_pad.data_ptr(), bru_pad.data_ptr(), box_mode,
+        _ptr(box_t), *_spline_ptrs(spline), partial.data_ptr(), w.data_ptr(),
+        u.data_ptr(), f_rows.data_ptr(), f_cols.data_ptr(), stream)
     _launch_check("descreening", rc)
-    LAUNCHES["descreening" if qd is not None else "descreening_recompute"] += 1
+    LAUNCHES["descreening_recompute"] += 1
     return w, u, f_rows, f_cols

@@ -13,18 +13,23 @@ when it overflows (the reference's neighbor-tile rebind,
 OpenCLAGBNPKernels.cpp:3521-3530).
 
   tile_bounds, build_tile_list   torch ops on the device
+  full_grid_list                 every tile pair of a dense grid as a list
+                                 (the dense reloading descreening runs the
+                                 list kernel over it)
   host_tile_count                numpy, for sizing the budget at model init
   born_sums_tiles                born_sums over the list, optionally saving
                                  per-entry [lmax, T, T] Q/dQ tiles
   gb_pair_tiles                  gb_pair over the triangular list
   descreening_tiles              descreening over the Born list, reloading
                                  the saved tiles or (qd=None) recomputing
-  subtile_live, exclusion_bits   torch mirrors of what the GB and
-                                 descreening kernels decide inside: which
-                                 32x32 sub-tile pairs of an entry they visit,
-                                 and the per-row exclusion bit masks
-  column_groups                  how the descreening kernel splits its work
-                                 units
+  subtile_live, exclusion_bits   torch mirrors of what the list kernels
+                                 decide inside: which 32x32 sub-tile pairs
+                                 of an entry they visit, and the per-row
+                                 exclusion bit masks
+  keep_flags                     the Born kernel's keep bits as the same
+                                 sub-tile flags
+  column_groups                  how the Born and descreening kernels split
+                                 their work units
 
 The sweeps take the same arguments as their dense counterparts in pairs.py
 with (nv, tl) in front and the tile size after n, and return the same
@@ -52,11 +57,18 @@ SUB = 32              # sub-tile edge of the GB and descreening list kernels
 # of the coordinates; ulp(100 nm) = 7.6e-6 nm), so no pair that a sweep's
 # own mask accepts is dropped (csrc/tiles.cu SUBTILE_MARGIN)
 SUBTILE_MARGIN = 1e-3
-# warps for each SM that the descreening list kernels aim for (an H100 at
-# 1li2's and 2clr's list shapes: held to 16 resident warps an SM by its
-# registers, it runs fastest at about two warps of work a slot); the GB
-# sweep always runs one warp per sub-tile pair, its fastest split there
+# warps for each SM that the Born and descreening list kernels aim for (an
+# H100 at 1li2's and 2clr's list shapes: held to 16 resident warps an SM by
+# its registers, the descreening sweep runs fastest at about two warps of
+# work a slot); the GB sweep always runs one warp per sub-tile pair, its
+# fastest split there
 DS_WARPS_PER_SM = 32
+# the Born sweep's column walk (csrc/tiles.cu): False, one column a step
+# for every lane, read from shared memory; True, the column data rotate
+# through the lanes as in the GB sweep
+BORN_ROTATE = False
+# warps of each block of the Born sweep's reduce (1 to 8)
+BORN_REDUCE_WARPS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +130,17 @@ def build_tile_list(ci, ri, cj, rj, rng_dist: float, lmax: int,
     return tl, torch.clamp(count, max=lmax).reshape(1), count
 
 
+@functools.lru_cache(maxsize=None)
+def full_grid_list(nrow_tiles: int, ncol_tiles: int, device):
+    """Every (row tile, column tile) pair of a dense grid, row-major, as a
+    list: (tl [2, L] int32, nv [1] int32 = L), L = nrow_tiles ncol_tiles.
+    Built once per shape and device."""
+    ntot = nrow_tiles * ncol_tiles
+    k = torch.arange(ntot, dtype=torch.int32, device=device)
+    tl = torch.stack([k // ncol_tiles, k % ncol_tiles]).contiguous()
+    return tl, torch.full((1,), ntot, dtype=torch.int32, device=device)
+
+
 def host_tile_count(pos_row, valid_row, pos_col, valid_col, tile: int,
                     rng_dist: float, triangular: bool = False,
                     box=None) -> int:
@@ -160,9 +183,9 @@ def host_tile_count(pos_row, valid_row, pos_col, valid_col, tile: int,
 
 def subtile_live(nv, tl, pos_r, valid_r, pos_c, valid_c, tile: int,
                  rng_dist, box=None, triangular: bool = False):
-    """Which 32x32 sub-tile pairs of each list entry the GB and descreening
-    kernels visit: [lmax, S, S] bool (S = tile // 32), True where entry l
-    (l < nv) pairs its row sub-tile a with its column sub-tile b.
+    """Which 32x32 sub-tile pairs of each list entry the list kernels
+    visit: [lmax, S, S] bool (S = tile // 32), True where entry l (l < nv)
+    pairs its row sub-tile a with its column sub-tile b.
 
     The torch mirror of the kernels' in-warp test: the 32-atom boxes of
     tile_bounds(pos, valid, 32), and the list's own rule with a margin,
@@ -189,6 +212,20 @@ def subtile_live(nv, tl, pos_r, valid_r, pos_c, valid_c, tile: int,
         live = live & (gj[:, None, :] >= gi[:, :, None])
     entries = torch.arange(tl.shape[1], device=tl.device) < nv[0]
     return live & entries[:, None, None]
+
+
+def keep_flags(keep, nv):
+    """The keep bits a list kernel writes, keep [lmax, S, ng] int32 with
+    bit b of keep[l, a, g] set where it visited sub-tile pair (a, b), as
+    subtile_live's [lmax, S, S] flags.  Bits of entries past nv are
+    undefined and read as False."""
+    lmax, s, _ = keep.shape
+    # each column group sets bits of its own sub-tiles only: the sum is an or
+    bits = torch.sum(keep.long(), dim=2)
+    b = torch.arange(s, device=keep.device)
+    flags = ((bits[:, :, None] >> b) & 1).bool()
+    entries = torch.arange(lmax, device=keep.device) < nv[0]
+    return flags & entries[:, None, None]
 
 
 def exclusion_bits(excl_rows_pad, tl, tile: int):
@@ -239,8 +276,11 @@ def _tile_sum(x, ids, size):
 
 def born_sums_tiles_reference(nv, tl, pos_pad, pos_hpad, hids_perm,
                               type_rows, type_cols, yval, y2val, s_hpad, n,
-                              tile, box=None, horizon=None, save_qd=False):
-    """Plain twin of born_sums_tiles (same arguments and results)."""
+                              tile, box=None, horizon=None, save_qd=False,
+                              keep=None):
+    """Plain twin of born_sums_tiles (same arguments; Q/dQ written in full,
+    no keep bits).  keep: optional [lmax, S, S] sub-tile flags
+    (subtile_live) outside which pairs add nothing and Q/dQ are zero."""
     rows, cols, live = _entries(nv, tl, tile)
     _, _, _, d2 = _pair_geom(pos_pad[:, rows], pos_hpad[:, cols], box)
     d = torch.sqrt(d2)
@@ -248,6 +288,8 @@ def born_sums_tiles_reference(nv, tl, pos_pad, pos_hpad, hids_perm,
                             hids_perm.long()[cols][:, None, :], n, horizon,
                             type_rows.long()[rows][:, :, None],
                             type_cols.long()[cols][:, None, :], yval, y2val)
+    if keep is not None:
+        live = live & _expand_subtiles(keep)
     q = torch.where(live, q, 0.0)
     dq = torch.where(live, dq, 0.0)
     raw = _tile_sum(torch.sum(q * s_hpad[cols][:, None, :], dim=2), rows,
@@ -315,9 +357,9 @@ def gb_pair_tiles_reference(nv, tl, pos_pad, charge_pad, born_pad, n, tile,
 def descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad,
                                 bru_pad, qd, tile, box=None, spline=None,
                                 keep=None):
-    """Plain twin of descreening_tiles (same arguments and results).
-    keep: optional [lmax, S, S] sub-tile flags (subtile_live) outside which
-    pairs add nothing, as in the kernel."""
+    """Plain twin of descreening_tiles (same arguments and results; keep
+    bits in qd are not needed).  keep: optional [lmax, S, S] sub-tile flags
+    (subtile_live) outside which pairs add nothing, as in the kernel."""
     rows, cols, live = _entries(nv, tl, tile)
     dx, dy, dz, d2 = _pair_geom(pos_pad[:, rows], pos_hpad[:, cols], box)
     d = torch.sqrt(d2)
@@ -330,7 +372,7 @@ def descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad,
                                 sp.type_cols.long()[cols][:, None, :],
                                 sp.yval, sp.y2val)
     else:
-        q, dq = qd
+        q, dq = qd[:2]
         mask = d > 0.0
     if keep is not None:
         live = live & _expand_subtiles(keep)
@@ -356,11 +398,12 @@ def _sm_count(dev) -> int:
 
 def column_groups(lmax: int, tile: int, dev) -> int:
     """How many column groups split each (entry, row sub-tile) unit of the
-    descreening list kernel: the least power of two, at most T / 32, that
-    gives DS_WARPS_PER_SM warps for every SM of the card, so a short list
-    (1li2's 18 entries: 144 units) still reaches every SM and a long one is
-    cut only as far as it pays.  It depends only on the budget, the tile
-    and the card, so a model's sums keep one order."""
+    Born and descreening list kernels: the least power of two, at most
+    T / 32, that gives DS_WARPS_PER_SM warps for every SM of the card, so a
+    short list (1li2's 18 entries: 144 units) still reaches every SM and a
+    long one is cut only as far as it pays.  It depends only on the budget,
+    the tile and the card, so a model's sums keep one order, and the Born
+    sweep's keep bits have the reload's layout."""
     s = tile // SUB
     want = DS_WARPS_PER_SM * _sm_count(dev)
     ng = 1
@@ -386,12 +429,22 @@ def _check_list(nv, tl, tile, dev, *extents):
 
 def born_sums_tiles(nv, tl, pos_pad, pos_hpad, hids_perm, type_rows,
                     type_cols, yval, y2val, s_hpad, n, tile, box=None,
-                    horizon=None, save_qd=False):
+                    horizon=None, save_qd=False, qd_out=None):
     """born_sums over the compacted interacting-tile list (tl, nv) from
-    build_tile_list.  Returns raw [NP], or (raw, Q, dQ) with save_qd where
-    Q/dQ are [lmax, T, T] per-entry tiles that descreening_tiles reloads by
-    list index: the spline value where the Born mask accepts a pair, zero
-    everywhere else, and all zero for an entry past nv."""
+    build_tile_list, built with the horizon as its range (2 nm without
+    one).  Returns raw [NP], or with save_qd also the [lmax, T, T]
+    per-entry Q/dQ tiles that descreening_tiles reloads by list index.
+
+    The twin (CPU tensors) returns (raw, Q, dQ), Q/dQ the spline value
+    where the Born mask accepts a pair and zero everywhere else.  The
+    kernel returns (raw, Q, dQ, keep): it visits only the 32x32 sub-tile
+    pairs that subtile_live keeps at the horizon (rows below n, columns
+    with hids_perm >= 0) and writes Q/dQ, as the twin's, only inside them;
+    everywhere else, entries past nv included, Q/dQ are undefined.  keep
+    [lmax, T/32, ng] int32 names the kept sub-tile pairs (keep_flags reads
+    it); hand the whole (Q, dQ, keep) to descreening_tiles as qd, so the
+    reload reads nothing else.  qd_out: optional (Q, dQ) buffers the
+    kernel writes into."""
     if pos_pad.device.type == "cpu":
         return born_sums_tiles_reference(
             nv, tl, pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
@@ -410,24 +463,32 @@ def born_sums_tiles(nv, tl, pos_pad, pos_hpad, hids_perm, type_rows,
     _check("y2val", y2val, f32, (nti, ntj, _NA), dev)
     _check("s_hpad", s_hpad, f32, (nhpad,), dev)
     box_mode, box_t = _box_arg(box, dev)
-    prow = torch.empty((lmax, tile), dtype=f32, device=dev)
+    ng = column_groups(lmax, tile, dev)
+    prow = torch.empty((lmax, ng, 1, tile), dtype=f32, device=dev)
+    keep = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
+                       device=dev)
     raw = torch.empty(npad, dtype=f32, device=dev)
     q = dq = None
-    if save_qd:
+    if save_qd and qd_out is not None:
+        q, dq = qd_out
+        _check("Q", q, f32, (lmax, tile, tile), dev)
+        _check("dQ", dq, f32, (lmax, tile, tile), dev)
+    elif save_qd:
         q = torch.empty((lmax, tile, tile), dtype=f32, device=dev)
         dq = torch.empty((lmax, tile, tile), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_born_sums_tiles(
-        nv.data_ptr(), tl.data_ptr(), lmax, tile, pos_pad.data_ptr(), npad,
-        pos_hpad.data_ptr(), nhpad, hids_perm.data_ptr(),
-        type_rows.data_ptr(), type_cols.data_ptr(), yval.data_ptr(),
-        y2val.data_ptr(), nti, ntj, s_hpad.data_ptr(), int(n),
-        _horizon(horizon), box_mode, _ptr(box_t), prow.data_ptr(),
-        raw.data_ptr(), _ptr(q), _ptr(dq), stream)
+        nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, int(BORN_ROTATE),
+        BORN_REDUCE_WARPS, pos_pad.data_ptr(), npad, pos_hpad.data_ptr(),
+        nhpad, hids_perm.data_ptr(), type_rows.data_ptr(),
+        type_cols.data_ptr(), yval.data_ptr(), y2val.data_ptr(), nti, ntj,
+        s_hpad.data_ptr(), int(n), _horizon(horizon), box_mode, _ptr(box_t),
+        prow.data_ptr(), keep.data_ptr(), raw.data_ptr(), _ptr(q), _ptr(dq),
+        stream)
     _launch_check("born_sums_tiles", rc)
     LAUNCHES["born_sums_tiles"] += 1
     if save_qd:
-        return raw, q, dq
+        return raw, q, dq, keep
     return raw
 
 
@@ -488,36 +549,62 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
                       qd, tile, box=None, spline=None):
     """Descreening sweep over the same list as born_sums_tiles (identical
     geometry and horizon, so the list is shared).  Same contract as
-    descreening: qd = (Q, dQ) [lmax, T, T] from born_sums_tiles(
-    save_qd=True) is reloaded; with qd=None the spline is recomputed from
-    spline=SplineArgs(...).
+    descreening: qd from born_sums_tiles(save_qd=True) is reloaded, (Q, dQ,
+    keep) from the kernel or (Q, dQ) [lmax, T, T]; with qd=None the spline
+    is recomputed from spline=SplineArgs(...).
 
-    The kernel visits only the 32x32 sub-tile pairs that subtile_live keeps
-    at the list's range: spline.horizon (2 nm without a spline), rows below
-    spline.n and columns with spline.hids_perm >= 0 (every row and column
-    without a spline).  With qd given, the spline is optional and only
-    bounds those sub-tiles: the Born sweep wrote zero Q/dQ outside them."""
+    With keep bits in qd, the kernel visits exactly the 32x32 sub-tile
+    pairs they name, the only ones where the Born kernel wrote Q/dQ.
+    Otherwise it visits those that subtile_live keeps at the list's range:
+    spline.horizon (2 nm without a spline), rows below spline.n and columns
+    with spline.hids_perm >= 0 (every row and column without a spline); a
+    reloaded (Q, dQ) must then be zero outside the Born mask wherever those
+    reach, as a twin's are."""
     if pos_pad.device.type == "cpu":
         return descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad,
                                            brw_pad, bru_pad, qd, tile,
                                            box=box, spline=spline)
     dev = pos_pad.device
-    f32 = torch.float32
     npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
     lmax = _check_list(nv, tl, tile, dev, npad, nhpad)
+    q = dq = keep = None
+    if qd is not None:
+        q, dq = qd[:2]
+        _check("Q", q, torch.float32, (lmax, tile, tile), dev)
+        _check("dQ", dq, torch.float32, (lmax, tile, tile), dev)
+        keep = qd[2] if len(qd) > 2 else None
+    out = _descreen_subtiles("descreening_tiles", nv, tl, tile, pos_pad,
+                             pos_hpad, s_hpad, brw_pad, bru_pad, q, dq, keep,
+                             tile, False, box, spline)
+    LAUNCHES["descreening_tiles" if qd is not None
+             else "descreening_tiles_recompute"] += 1
+    return out
+
+
+def _descreen_subtiles(name, nv, tl, tile, pos_pad, pos_hpad, s_hpad,
+                       brw_pad, bru_pad, q, dq, keep, q_ld, q_dense, box,
+                       spline):
+    """Check the rest of the arguments and launch the descreening list
+    kernel: over the Born list (Q/dQ [lmax, T, T], q_ld = T) or over
+    full_grid_list with the dense [NP, NHP] Q/dQ (q_dense, q_ld = NHP);
+    q None recomputes the spline.  keep: the Born kernel's keep bits."""
+    dev = pos_pad.device
+    f32 = torch.float32
+    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    lmax = tl.shape[1]
     _check("pos_pad", pos_pad, f32, (3, npad), dev)
     _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
     _check("s_hpad", s_hpad, f32, (nhpad,), dev)
     _check("brw_pad", brw_pad, f32, (npad,), dev)
     _check("bru_pad", bru_pad, f32, (npad,), dev)
-    if qd is None:
+    ng = column_groups(lmax, tile, dev)
+    if keep is not None:
+        # the Born sweep split the same list into the same column groups
+        _check("keep", keep, torch.int32, (lmax, tile // SUB, ng), dev)
+    if q is None:
         _check_spline(spline, npad, nhpad, dev)
-        q = dq = None
-        sp_args = _spline_ptrs(spline, None)
+        sp_args = _spline_ptrs(spline)
     else:
-        q, dq = qd
-        _check("Q", q, f32, (lmax, tile, tile), dev)
-        _check("dQ", dq, f32, (lmax, tile, tile), dev)
         if spline is None:
             sp_args = (None,) * 5 + (0, 0, npad, _horizon(None))
         else:
@@ -529,14 +616,13 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
     if spline is not None:
         vectors.update(hids_perm=spline.hids_perm,
                        type_cols=spline.type_cols)
-    for name, x in vectors.items():
+    for what, x in vectors.items():
         if x is not None and x.data_ptr() % 16:
-            raise ValueError(f"{name}: data not 16-byte aligned")
+            raise ValueError(f"{what}: data not 16-byte aligned")
     box_mode, box_t = _box_arg(box, dev)
-    ng = column_groups(lmax, tile, dev)
     prow = torch.empty((lmax, ng, 3, tile), dtype=f32, device=dev)
     pcol = torch.empty((lmax, tile // SUB, 5, tile), dtype=f32, device=dev)
-    keep = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
+    kept = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
                        device=dev)
     w = torch.empty(nhpad, dtype=f32, device=dev)
     u = torch.empty(nhpad, dtype=f32, device=dev)
@@ -545,13 +631,12 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_descreening_tiles(
         nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
-        npad, pos_hpad.data_ptr(), nhpad, _ptr(q), _ptr(dq), s_hpad.data_ptr(),
-        brw_pad.data_ptr(), bru_pad.data_ptr(), box_mode, _ptr(box_t),
+        npad, pos_hpad.data_ptr(), nhpad, _ptr(q), _ptr(dq), _ptr(keep),
+        q_ld, int(q_dense), s_hpad.data_ptr(), brw_pad.data_ptr(),
+        bru_pad.data_ptr(), box_mode, _ptr(box_t),
         *sp_args, sp_args[-1],  # the list's range: the horizon
         prow.data_ptr(), pcol.data_ptr(),
-        keep.data_ptr(), w.data_ptr(), u.data_ptr(), f_rows.data_ptr(),
+        kept.data_ptr(), w.data_ptr(), u.data_ptr(), f_rows.data_ptr(),
         f_cols.data_ptr(), stream)
-    _launch_check("descreening_tiles", rc)
-    LAUNCHES["descreening_tiles" if qd is not None
-             else "descreening_tiles_recompute"] += 1
+    _launch_check(name, rc)
     return w, u, f_rows, f_cols

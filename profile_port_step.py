@@ -27,11 +27,15 @@ With --out, also writes the full profiler table to that file.
 
 With --list-kernels it profiles the interacting-tile-list sweeps alone
 instead, on SYSTEM's lists as chip_smoke.py [2] builds them (Born and
-descreening at horizon 1 nm, GB at cutoff 1 nm, MM fused): the 32x32
-sub-tile pairs the GB and descreening kernels keep, and for each sweep
-the CUDA-event time per call and the profiler's device time of each of
-its kernels (the sweep, the reduce); the descreening sweeps at the
-column-group count the wrapper picks and at every fixed one.
+descreening at horizon 1 nm, the reload from the Born kernel's Q/dQ and
+keep bits, GB at cutoff 1 nm, MM fused), and the dense reloading
+descreening (the list kernel over every tile pair of SYSTEM's dense grid):
+the 32x32 sub-tile pairs the kernels keep, and for each sweep the
+CUDA-event time per call and the profiler's device time of each of its
+kernels (the sweep, the reduce); the Born sweep with each column walk
+(tiles.BORN_ROTATE) and reduce width (tiles.BORN_REDUCE_WARPS), the
+descreening sweeps at the column-group count the wrapper picks and at
+every fixed one.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -48,12 +52,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def profile_list_kernels(dev, card, system):
-    """--list-kernels: the list sweeps, the descreening ones at each
-    column-group count."""
+    """--list-kernels: the list sweeps and the dense reloading descreening;
+    the Born sweep at each column walk and reduce width, the descreening
+    ones at each column-group count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import cuda_time_ms, kernel_inputs, tile_list
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
 
     inp = kernel_inputs(dev, system)
@@ -62,36 +68,59 @@ def profile_list_kernels(dev, card, system):
     rvalid, hvalid = inp["valid"]
     tl, nv, what_b = tile_list(inp, 1.0)
     tlg, nvg, what_g = tile_list(inp, 1.0, triangular=True)
-    sp = inp["spline"]
+    sp = inp["spline"]._replace(horizon=1.0)
     args = (nv, tl, *inp["born_args"], tile)
-    _, q, dq = TL.born_sums_tiles(*args, horizon=1.0, save_qd=True)
     dargs = (nv, tl, *inp["desc_args"])
     gargs = (nvg, tlg, *inp["gb_args"], tile)
+    dense = (*inp["desc_args"], inp["qd"])
+    grid_tl, grid_nv = TL.full_grid_list(pos_pad.shape[1] // tile,
+                                         pos_h.shape[1] // tile, dev)
     kept_b = int(TL.subtile_live(nv, tl, pos_pad, rvalid, pos_h, hvalid,
                                  tile, 1.0).sum())
     kept_g = int(TL.subtile_live(nvg, tlg, pos_pad, rvalid, pos_pad, rvalid,
                                  tile, 1.0, triangular=True).sum())
+    kept_d = int(TL.subtile_live(grid_nv, grid_tl, pos_pad, rvalid, pos_h,
+                                 hvalid, tile, 1.0).sum())
     print(f"card: {card}; {system} list sweeps, f32, T {tile}: Born list "
           f"{what_b}, {kept_b} kept 32x32 sub-tile pairs; GB list {what_g}, "
-          f"{kept_g} kept", flush=True)
+          f"{kept_g} kept; dense reload over {grid_tl.shape[1]} tile pairs, "
+          f"{kept_d} kept", flush=True)
+
+    def born():
+        return TL.born_sums_tiles(*args, horizon=1.0, save_qd=True)
+
+    def reload():
+        # the Born kernel's Q/dQ and keep bits, at this setting's groups
+        qd = born()[1:]
+        return lambda: TL.descreening_tiles(*dargs, qd, tile, spline=sp)
+
+    # name -> (what varies: "walk", "groups" or nothing; a function that
+    # returns the call to time under the setting)
     sweeps = {
-        "born_sums_tiles": (False, lambda: TL.born_sums_tiles(
-            *args, horizon=1.0, save_qd=True)),
-        "gb_pair_tiles (MM)": (False, lambda: TL.gb_pair_tiles(
+        "born_sums_tiles": ("walk", lambda: born),
+        "gb_pair_tiles (MM)": (None, lambda: lambda: TL.gb_pair_tiles(
             *gargs, **inp["mm_kw"])),
-        "descreening_tiles": (True, lambda: TL.descreening_tiles(
-            *dargs, (q, dq), tile, spline=sp)),
-        "descreening_tiles_recompute": (True, lambda: TL.descreening_tiles(
-            *dargs, None, tile, spline=sp)),
+        "descreening_tiles": ("groups", reload),
+        "descreening_tiles_recompute": ("groups", lambda: lambda:
+                                        TL.descreening_tiles(
+                                            *dargs, None, tile, spline=sp)),
+        "descreening (dense reload)": ("groups", lambda: lambda:
+                                       PK.descreening(*dense, spline=sp)),
     }
-    picked = TL.column_groups
-    auto = picked(tl.shape[1], tile, dev)
+    picked = TL.column_groups, TL.BORN_ROTATE, TL.BORN_REDUCE_WARPS
+    settings = dict(
+        walk=[dict(BORN_ROTATE=r, BORN_REDUCE_WARPS=w)
+              for r in (False, True) for w in (1, 8)],
+        groups=[{}] + [dict(column_groups=lambda *a, ng=ng: ng)
+                       for ng in (1, 2, 4, 8) if ng <= tile // 32])
     try:
-        for name, (grouped, fn) in sweeps.items():
-            for ng in ([0] + [g for g in (1, 2, 4, 8) if g <= tile // 32]
-                       if grouped else [None]):
-                TL.column_groups = picked if not ng else (
-                    lambda *a, ng=ng: ng)
+        for name, (vary, make) in sweeps.items():
+            for kw in settings.get(vary, [{}]):
+                TL.column_groups, TL.BORN_ROTATE, TL.BORN_REDUCE_WARPS = \
+                    picked
+                for k, v in kw.items():
+                    setattr(TL, k, v)
+                fn = make()
                 ms = cuda_time_ms(fn, 50)
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(20):
@@ -100,14 +129,21 @@ def profile_list_kernels(dev, card, system):
                 rows = sorted((e for e in prof.key_averages()
                                if e.device_time_total > 0),
                               key=lambda e: -e.device_time_total)
-                label = ("" if ng is None else
-                         f" ng={ng}" if ng else f" ng={auto} (picked)")
+                if vary == "walk":
+                    label = (f" {'rotate' if TL.BORN_ROTATE else 'column'} "
+                             f"walk, reduce {TL.BORN_REDUCE_WARPS} warps")
+                elif vary == "groups":
+                    ng = TL.column_groups(grid_tl.shape[1] if "dense" in name
+                                          else tl.shape[1], tile, dev)
+                    label = f" ng={ng}" + ("" if kw else " (picked)")
+                else:
+                    label = ""
                 print(f"  {name}{label}: {ms:.4f} ms/call; " + "; ".join(
                     f"{e.key.split('(')[0].split()[-1]} "
                     f"{e.device_time_total / 20:.1f} us x{e.count / 20:g}"
                     for e in rows), flush=True)
     finally:
-        TL.column_groups = picked
+        TL.column_groups, TL.BORN_ROTATE, TL.BORN_REDUCE_WARPS = picked
     return 0
 
 

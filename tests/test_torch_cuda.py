@@ -257,6 +257,27 @@ def assert_outputs(outs, refs):
             assert x.shape == y.shape and rel(x, y) <= 1e-5
 
 
+def born_kept(L, nv, tl, rng_dist, box):
+    """The sub-tile pairs the Born list kernel must keep: subtile_live at
+    its range, rows below n, screener columns."""
+    return TL.subtile_live(nv, tl, L["pos_pad"], L["rvalid"], L["pos_h"],
+                           L["hvalid"], L["tile"], rng_dist, box=box)
+
+
+def assert_born(out, ref, nv, live):
+    """The Born list kernel's (raw, Q, dQ, keep) against its twin: keep
+    bits equal to subtile_live's mirror, raw in full, and Q/dQ on the kept
+    sub-tile pairs, outside which they are undefined on the card and the
+    twin's are zero."""
+    assert len(out) == 4 and len(ref) == 3
+    assert torch.equal(TL.keep_flags(out[3], nv), live)
+    kept = TL._expand_subtiles(live)
+    assert_outputs(out[:1], ref[:1])
+    for x, y in zip(out[1:3], ref[1:]):
+        assert x.shape == y.shape and rel(x[kept], y[kept]) <= 1e-5
+        assert not y[~kept].any()
+
+
 @pytest.mark.parametrize("box", list(BOXES))
 @pytest.mark.parametrize("horizon", [1.0, None])
 def test_list_born_and_descreening_match_twins(cuda, shapes, horizon, box):
@@ -264,17 +285,17 @@ def test_list_born_and_descreening_match_twins(cuda, shapes, horizon, box):
     n, tile = L["n"], L["tile"]
     box = box_tensor(box, cuda)
     sp = L["spline"]._replace(horizon=horizon)
-    tl, nv = headroom_list(L, 1.0 if horizon else 2.0, box=box)
+    rng_dist = 1.0 if horizon else 2.0
+    tl, nv = headroom_list(L, rng_dist, box=box)
     args = (nv, tl, L["pos_pad"], L["pos_h"], *sp[:5], L["s_h"], n, tile)
     before = PK.launch_counts()
     out = TL.born_sums_tiles(*args, box=box, horizon=horizon, save_qd=True)
     ref = TL.born_sums_tiles_reference(*args, box=box, horizon=horizon,
                                        save_qd=True)
-    assert_outputs(out, ref)
-    nvv = int(nv[0])
-    assert not out[1][nvv:].any() and not out[2][nvv:].any()
+    assert_born(out, ref, nv, born_kept(L, nv, tl, rng_dist, box))
     dargs = (nv, tl, L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"])
-    for qd_k, qd_r, spl in ((out[1:], ref[1:], None), (None, None, sp)):
+    for qd_k, qd_r, spl in ((out[1:], ref[1:], None), (ref[1:], ref[1:], sp),
+                            (None, None, sp)):
         assert_outputs(TL.descreening_tiles(*dargs, qd_k, tile, box=box,
                                             spline=spl),
                        TL.descreening_tiles_reference(*dargs, qd_r, tile,
@@ -284,8 +305,80 @@ def test_list_born_and_descreening_match_twins(cuda, shapes, horizon, box):
                    PK.descreening_reference(*dense, box=box, spline=sp))
     after = PK.launch_counts()
     assert {k: after[k] - before[k] for k in after} == dict(
-        dict.fromkeys(after, 0), born_sums_tiles=1, descreening_tiles=1,
+        dict.fromkeys(after, 0), born_sums_tiles=1, descreening_tiles=2,
         descreening_tiles_recompute=1, descreening_recompute=1)
+
+
+@pytest.mark.parametrize("box", list(BOXES))
+@pytest.mark.parametrize("horizon", [1.0, None])
+def test_dense_reload_descreening_matches_twin(cuda, shapes, horizon, box):
+    """The dense reloading descreening (the list kernel over every tile
+    pair, reading the dense Born sweep's Q/dQ) against its twin, with and
+    without the spline that prunes its sub-tile pairs at the horizon;
+    launched twice, bitwise equal."""
+    L = shapes
+    box = box_tensor(box, cuda)
+    sp = L["spline"]._replace(horizon=horizon)
+    before = PK.launch_counts()
+    born = PK.born_sums(L["pos_pad"], L["pos_h"], *sp[:5], L["s_h"], L["n"],
+                        box=box, horizon=horizon, save_qd=True)
+    dense = (L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"],
+             born[1:])
+    for spl in (sp, None):
+        out = PK.descreening(*dense, box=box, spline=spl)
+        assert_outputs(out, PK.descreening_reference(*dense, box=box,
+                                                     spline=spl))
+        again = PK.descreening(*dense, box=box, spline=spl)
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
+    after = PK.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(after, 0), born_sums=1, descreening=4)
+
+
+@pytest.mark.parametrize("system", ["fixture", "1li2", "2clr"])
+def test_reload_reads_only_what_the_born_kernel_wrote(cuda, fixture_system,
+                                                      monkeypatch, system):
+    """The model's pair phases on the lists with the Born kernel's Q/dQ
+    buffers filled with NaN beforehand: the sub-tile pairs it does not keep
+    stay NaN, and every result is finite and bitwise the run on zero-filled
+    buffers, since the reload visits only what the Born kernel wrote."""
+    if system == "fixture":
+        params, pos = fixture_system
+    else:
+        d = load_dms(os.path.join(DATA, f"{system}_agbnp1.dms"))
+        params = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                             alpha=d.agbnp_alpha, charge=d.charges,
+                             ishydrogen=d.ishydrogen)
+        pos = d.positions
+    m = AGBNPModel(params, device=cuda, dtype=torch.float32, version=1,
+                   positions=pos, cutoff=1.0, descreen_horizon="cutoff",
+                   caps=TreeCaps.for_natoms(params.n))
+    p = torch.as_tensor(pos, dtype=torch.float32, device=cuda)
+    s_factor = torch.as_tensor(
+        np.random.default_rng(4).uniform(0.3, 1.0, params.n),
+        dtype=torch.float32, device=cuda)
+    born = TL.born_sums_tiles
+    buffers = []
+
+    def run(fill):
+        def prefilled(*args, **kw):
+            shape = (args[1].shape[1], args[-1], args[-1])
+            bufs = tuple(torch.full(shape, fill, device=cuda)
+                         for _ in range(2))
+            buffers.append(bufs)
+            return born(*args, qd_out=bufs, **kw)
+
+        monkeypatch.setattr(TL, "born_sums_tiles", prefilled)
+        return _pair_phases_kernel(m.arrays, p, s_factor, 1.0, None,
+                                   m.pair_pad, horizon=m.descreen_horizon,
+                                   pair_tiles=m.pair_tiles)
+
+    nan, zero = run(float("nan")), run(0.0)
+    assert len(buffers) == 2 and torch.isnan(buffers[0][0]).any()
+    assert set(nan) == set(zero)
+    for k, v in zero.items():
+        assert bool(torch.isfinite(nan[k]).all()), k
+        assert torch.equal(nan[k], v), k
 
 
 @pytest.mark.parametrize("box", list(BOXES))
@@ -465,10 +558,10 @@ def test_list_kernels_keep_the_pairs_at_the_range(cuda, spline_tables, kind,
     kw = dict(box=box, horizon=rng_dist, save_qd=True)
     out = TL.born_sums_tiles(*args, **kw)
     ref = TL.born_sums_tiles_reference(*args, **kw)
-    assert_outputs(out, ref)
+    assert_born(out, ref, nv, born_kept(L, nv, tl, rng_dist, box))
     dargs = (nv, tl, L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"])
-    for qd_k, qd_r, spl in ((out[1:], ref[1:], sp), (out[1:], ref[1:], None),
-                            (None, None, sp)):
+    for qd_k, qd_r, spl in ((out[1:], ref[1:], sp), (ref[1:], ref[1:], sp),
+                            (ref[1:], ref[1:], None), (None, None, sp)):
         assert_outputs(TL.descreening_tiles(*dargs, qd_k, tile, box=box,
                                             spline=spl),
                        TL.descreening_tiles_reference(*dargs, qd_r, tile,
@@ -477,15 +570,23 @@ def test_list_kernels_keep_the_pairs_at_the_range(cuda, spline_tables, kind,
 
 @pytest.mark.parametrize("box", ["nobox", "triclinic"])
 def test_redesigned_list_kernels_bitwise_repeatable(cuda, shapes, box):
-    """The GB and descreening list kernels add every sum in a fixed order:
-    two launches on the same inputs are equal bit for bit."""
+    """The list kernels add every sum in a fixed order: two launches on the
+    same inputs are equal bit for bit (the Born kernel's Q/dQ on the
+    sub-tile pairs it keeps, its keep bits below nv)."""
     L = shapes
     n, tile = L["n"], L["tile"]
     box = box_tensor(box, cuda)
     tl, nv = headroom_list(L, 1.0, box=box)
-    born = TL.born_sums_tiles(nv, tl, L["pos_pad"], L["pos_h"],
-                              *L["spline"][:5], L["s_h"], n, tile, box=box,
-                              horizon=1.0, save_qd=True)
+    bargs = (nv, tl, L["pos_pad"], L["pos_h"], *L["spline"][:5], L["s_h"],
+             n, tile)
+    born, again = (TL.born_sums_tiles(*bargs, box=box, horizon=1.0,
+                                      save_qd=True) for _ in range(2))
+    nvv = int(nv[0])
+    kept = TL._expand_subtiles(TL.keep_flags(born[3], nv))
+    assert torch.equal(born[0], again[0])
+    assert torch.equal(born[3][:nvv], again[3][:nvv])
+    for x, y in zip(born[1:3], again[1:3]):
+        assert torch.equal(x[kept], y[kept])
     dargs = (nv, tl, L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"])
     tl_g, nv_g = headroom_list(L, 1.0, triangular=True, box=box)
     gargs = (nv_g, tl_g, L["pos_pad"], L["charge"], L["born"], n, tile)

@@ -10,7 +10,8 @@ orthorhombic and a triclinic box, for the Born/descreening list at horizons
 
   * subtile_live never drops a pair that the twin's own mask accepts;
   * the twin restricted to the kept sub-tile pairs equals the twin bit for
-    bit;
+    bit, and the Born twin's Q/dQ are zero outside them (the Born kernel
+    writes Q/dQ only inside);
   * the exclusion bits hold the same excluded set as the E-wide scan;
   * column_groups splits a short list into enough warps for the card;
   * on the sparse layout of tests/test_torch_cuda.py, where the kernels'
@@ -208,6 +209,54 @@ def test_pruned_twin_equals_twin_bitwise(request, system, box, sweep):
             assert (x is None) == (y is None)
             if x is not None:
                 assert torch.equal(x, y)
+
+
+def born_cases():
+    return [pytest.param(sys_, box, horizon,
+                         id=f"{sys_}-{box}-h{horizon or 2.0:g}")
+            for sys_ in ("rod", "li2") for box in ("nobox", "ortho",
+                                                   "triclinic")
+            for horizon in (1.0, None)]
+
+
+@pytest.mark.parametrize("system,box,horizon", born_cases())
+def test_pruned_born_twin_equals_twin_bitwise(request, system, box,
+                                              horizon):
+    """The Born kernel writes Q/dQ only inside the sub-tile pairs it keeps
+    (subtile_live at the horizon, the list's range): the twin restricted to
+    them gives the same raw sums and the same Q/dQ there, bit for bit, and
+    the unrestricted twin's Q/dQ are exactly zero everywhere else."""
+    C = request.getfixturevalue(system)
+    box = box_of(C, box)
+    nv, tl, keep = model_list(C, "born", horizon, box)
+    s = C["tile"] // TL.SUB
+    assert int(keep.sum()) < int(nv[0]) * s * s
+    args = (nv, tl, C["pos_pad"], C["pos_h"], *C["spline"], C["s_h"],
+            C["n"], C["tile"])
+    kw = dict(box=box, horizon=horizon, save_qd=True)
+    raw, q, dq = TL.born_sums_tiles_reference(*args, **kw)
+    raw_k, q_k, dq_k = TL.born_sums_tiles_reference(*args, keep=keep, **kw)
+    kept = TL._expand_subtiles(keep)
+    assert torch.equal(raw_k, raw)
+    for full, pruned in ((q, q_k), (dq, dq_k)):
+        assert torch.equal(pruned[kept], full[kept])
+        assert not full[~kept].any() and not pruned[~kept].any()
+    assert q[kept].any()
+
+
+@pytest.mark.parametrize("ng", [1, 2, 4, 8])
+def test_keep_flags_read_the_kernel_layout(li2, ng):
+    """keep_flags decodes the keep bits the list kernels write (bit b of
+    keep[l, a, g], g the column group of b) into subtile_live's flags, and
+    ignores whatever lies past nv."""
+    nv, tl, live = model_list(li2, "born", 1.0, None)
+    lmax, s, _ = live.shape
+    b = torch.arange(s)
+    bits = live.long() << b
+    keep = torch.stack([bits[:, :, b // (s // ng) == g].sum(dim=2)
+                        for g in range(ng)], dim=2).to(torch.int32)
+    keep[int(nv[0]):] = -1
+    assert torch.equal(TL.keep_flags(keep, nv), live)
 
 
 @pytest.mark.parametrize("system", ["rod", "li2"])
