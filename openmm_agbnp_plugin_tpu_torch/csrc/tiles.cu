@@ -63,11 +63,11 @@
 //     32-bit mask per row and column sub-tile, built once from the E-wide
 //     list, then one bit test per pair.
 //   * Born: lane x holds row 32 a + x and its sum in a register; the column
-//     data reach it either as shared-memory broadcasts, one column a step
-//     (the default), or rotating through the lanes as in GB (BORN_ROTATE in
-//     tiles.py picks).  Q and dQ/dd of a kept sub-tile pair pass through a
-//     per-warp shared-memory tile so that each store writes whole 32-byte
-//     sectors of Q/dQ rows.  Only kept sub-tile pairs are written: on the
+//     data reach it as shared-memory broadcasts, one column a step (faster
+//     than rotating them through the lanes as GB does: 2 loads a step
+//     against 6 shuffles).  Q and dQ/dd of a kept sub-tile pair pass through
+//     a per-warp shared-memory tile so that each store writes whole 64-byte
+//     pieces of Q/dQ rows.  Only kept sub-tile pairs are written: on the
 //     card, Q/dQ outside them are undefined, entries past nv included.  The
 //     keep bits it writes tell the reload which sub-tile pairs hold Q/dQ,
 //     so no second box computation on other validity rules can disagree.
@@ -213,9 +213,9 @@ struct ReduceJob {
 //
 // First the block lists the terms in shared memory: each thread takes one
 // entry, counts its terms, and a block-wide prefix sum over the entries
-// places them in list order.  Then warp w adds terms w, w + nw, w + 2 nw,
-// ... (four loads in flight), and the warps' sums are added in warp order.
-// With one warp every term is added in list order.
+// places them in list order.  Then warp w of the REDUCE_WARPS adds terms
+// w, w + nw, w + 2 nw, ... (four loads in flight), and the warps' sums are
+// added in warp order.
 __global__ void subtile_reduce_kernel(const ReduceJob j0, const ReduceJob j1,
                                       const int* __restrict__ keep, int ng,
                                       const int* __restrict__ nv,
@@ -332,17 +332,16 @@ static ReduceJob reduce_job(const float* prow, const float* pcol, int k,
   return ReduceJob{prow, pcol, k, extent, cap, dst};
 }
 
-// One launch for j0 and j1 (j1.extent 0: none).  warps: 1 adds every term
-// in list order.
+// One launch for j0 and j1 (j1.extent 0: none).
 static int reduce_subtiles(const ReduceJob& j0, const ReduceJob& j1,
                            const int* keep, int ng, const int* nv,
-                           const int* tl, int lmax, int tile, int warps,
+                           const int* tl, int lmax, int tile,
                            cudaStream_t st) {
   const size_t smem = (size_t)max(max(j0.cap, j1.cap), 1) * sizeof(int);
   if (smem > REDUCE_SMEM_MAX) return (int)cudaErrorInvalidValue;
   allow_smem((const void*)subtile_reduce_kernel, smem);
-  subtile_reduce_kernel<<<(j0.extent + j1.extent) / SUB, warps * 32, smem,
-                          st>>>(j0, j1, keep, ng, nv, tl, lmax, tile);
+  subtile_reduce_kernel<<<(j0.extent + j1.extent) / SUB, REDUCE_WARPS * 32,
+                          smem, st>>>(j0, j1, keep, ng, nv, tl, lmax, tile);
   return (int)cudaGetLastError();
 }
 
@@ -351,47 +350,39 @@ static int reduce_subtiles(const ReduceJob& j0, const ReduceJob& j1,
 // group grp), BORN_WARPS of them a block sharing the spline tables staged in
 // shared memory.  Lane x holds row i = ti T + 32 a + x and its sum over the
 // group's kept column sub-tiles b.  Per kept b the warp walks the 32
-// columns: with ROTATE as GB does (step k pairs the lane's row with column
-// (x + k) & 31, the column data then move one lane down), else one column a
-// step for every lane, read from shared memory as a broadcast.  With q_out,
-// the sub-tile pair's Q and dQ/dd (the spline value where the Born mask
-// accepts a pair, zero elsewhere) go to a shared tile, then out as whole
-// sectors of rows: ROTATE stages the 32x32 tile (row stride 32: lane x
-// writes column (x + k) & 31, one bank each) and stores 16-byte vectors;
-// the column walk stages BORN_CHUNK columns at a time (row stride BORN_LD,
-// one bank a lane) and stores each 64-byte row piece (8 columns a store
-// were slower at 2clr, and 32 take 17 KB of shared memory a warp, too many
-// for the warps the walk needs in flight).  Nothing outside the kept
-// sub-tile pairs is written.
+// columns, one a step for every lane, read from shared memory as a
+// broadcast.  With q_out, the sub-tile pair's Q and dQ/dd (the spline value
+// where the Born mask accepts a pair, zero elsewhere) go to a shared tile
+// BORN_CHUNK columns at a time (row stride BORN_LD, one bank a lane), then
+// out as 64-byte row pieces (8 columns a store were slower at 2clr, and 32
+// take 17 KB of shared memory a warp, too many for the warps the walk needs
+// in flight).  Nothing outside the kept sub-tile pairs is written.
 // ---------------------------------------------------------------------------
 
-// floats of shared memory each Born warp uses beyond the tables
-template <bool ROTATE>
-__host__ __device__ constexpr int born_warp_floats() {
-  return ROTATE ? 2 * SUB * SUB : 6 * SUB + 2 * SUB * BORN_LD;
-}
+// floats of shared memory each Born warp uses beyond the tables: column
+// data, then the Q and dQ staging tiles
+#define BORN_WARP_FLOATS (6 * SUB + 2 * SUB * BORN_LD)
 
 // One pair of the Born sweep: Q and dQ/dd where its mask accepts the pair
 // (else zero), and its term of row i's sum.
 __device__ __forceinline__ void born_pair(const float* tab,
                                           const SplineRefs& sp, int i,
                                           int tbase, float xi, float yi,
-                                          float zi, float xj, float yj,
-                                          float zj, float sj, int gj, int tcj,
-                                          int box_mode, const float* box,
-                                          float& acc, float& qv, float& dqv) {
-  float dx = xj - xi, dy = yj - yi, dz = zj - zi;
+                                          float zi, float4 col, int gj,
+                                          int tcj, int box_mode,
+                                          const float* box, float& acc,
+                                          float& qv, float& dqv) {
+  float dx = col.x - xi, dy = col.y - yi, dz = col.z - zi;
   min_image(box_mode, box, dx, dy, dz);
   const float d = sqrtf(dx * dx + dy * dy + dz * dz);
   qv = 0.0f;
   dqv = 0.0f;
   if (born_pair_live(i, gj, sp.n, d, sp.horizon)) {
     spline_qdq(tab, sp.ntab, tbase + tcj, d, qv, dqv);
-    acc += qv * sj;
+    acc += qv * col.w;
   }
 }
 
-template <bool ROTATE>
 __global__ void __launch_bounds__(BORN_WARPS * 32)
 born_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
                      int lmax, int tile, int ng,
@@ -404,7 +395,11 @@ born_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
   extern __shared__ float sh[];
   float* tab = sh;  // y [ntab], y2 [ntab]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* wsh = sh + 2 * sp.ntab + warp * born_warp_floats<ROTATE>();
+  float* wsh = sh + 2 * sp.ntab + warp * BORN_WARP_FLOATS;
+  float4* colf = (float4*)wsh;          // column x, y, z, s [32]
+  int2* coli = (int2*)(wsh + 4 * SUB);  // column screener id, type [32]
+  float* qs = wsh + 6 * SUB;            // Q [32 rows][BORN_LD]
+  float* dqs = qs + SUB * BORN_LD;      // dQ/dd [32 rows][BORN_LD]
   stage_tables(tab, sp.yval, sp.y2val, sp.ntab);
   __syncthreads();
   const int S = tile / SUB, G = S / ng;
@@ -417,147 +412,84 @@ born_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
   const float xi = pos[i], yi = pos[np + i], zi = pos[2 * np + i];
   const int tbase = sp.trow[i] * sp.ntj;
   const SubBox rbox = warp_box(xi, yi, zi, i < sp.n);
-  const bool save = q_out != nullptr;
   float acc = 0.0f;
   unsigned kept = 0;
   for (int b = grp * G; b < (grp + 1) * G; ++b) {
     const int jh = tj * tile + b * SUB + lane;
-    float xj = posh[jh], yj = posh[nhp + jh], zj = posh[2 * nhp + jh];
-    int gj = sp.hids[jh];
+    const float xj = posh[jh], yj = posh[nhp + jh], zj = posh[2 * nhp + jh];
+    const int gj = sp.hids[jh];
     if (!subtiles_near(rbox, warp_box(xj, yj, zj, gj >= 0), sp.horizon,
                        box_mode, box))
       continue;
     kept |= 1u << b;
-    float sj = s[jh];
-    int tcj = sp.tcol[jh];
+    colf[lane] = make_float4(xj, yj, zj, s[jh]);
+    coli[lane] = make_int2(gj, sp.tcol[jh]);
+    __syncwarp();
     // Q/dQ of row 32 a, column 32 b of this entry
     const size_t qoff = (size_t)l * tile * tile + (size_t)a * SUB * tile
                         + b * SUB;
-    float qv, dqv;
-    if (ROTATE) {
-      float* qs = wsh;  // [32 rows][32 columns]
-      float* dqs = wsh + SUB * SUB;
-      const int src = (lane + 1) & 31;
-#pragma unroll 4
-      for (int k = 0; k < SUB; ++k) {
-        born_pair(tab, sp, i, tbase, xi, yi, zi, xj, yj, zj, sj, gj, tcj,
+    for (int c0 = 0; c0 < SUB; c0 += BORN_CHUNK) {
+#pragma unroll
+      for (int cc = 0; cc < BORN_CHUNK; ++cc) {
+        const int2 ci = coli[c0 + cc];
+        float qv, dqv;
+        born_pair(tab, sp, i, tbase, xi, yi, zi, colf[c0 + cc], ci.x, ci.y,
                   box_mode, box, acc, qv, dqv);
-        if (save) {
-          const int c = (lane + k) & 31;
-          qs[lane * SUB + c] = qv;
-          dqs[lane * SUB + c] = dqv;
+        if (q_out != nullptr) {
+          qs[lane * BORN_LD + cc] = qv;
+          dqs[lane * BORN_LD + cc] = dqv;
         }
-        xj = __shfl_sync(FULL_MASK, xj, src);
-        yj = __shfl_sync(FULL_MASK, yj, src);
-        zj = __shfl_sync(FULL_MASK, zj, src);
-        sj = __shfl_sync(FULL_MASK, sj, src);
-        gj = __shfl_sync(FULL_MASK, gj, src);
-        tcj = __shfl_sync(FULL_MASK, tcj, src);
       }
-      if (save) {
+      if (q_out != nullptr) {
         __syncwarp();
-        const int rr = lane >> 3, c4 = lane & 7;
+        // lanes over the chunk's columns, SUB / BORN_CHUNK rows a store
+        const int rr = lane / BORN_CHUNK, cc = lane % BORN_CHUNK;
 #pragma unroll
-        for (int r0 = 0; r0 < SUB; r0 += 4) {
+        for (int r0 = 0; r0 < SUB; r0 += SUB / BORN_CHUNK) {
           const int r = r0 + rr;
-          const size_t o = qoff + (size_t)r * tile + 4 * c4;
-          *(float4*)(q_out + o) = *(const float4*)(qs + r * SUB + 4 * c4);
-          *(float4*)(dq_out + o) = *(const float4*)(dqs + r * SUB + 4 * c4);
+          const size_t o = qoff + (size_t)r * tile + c0 + cc;
+          q_out[o] = qs[r * BORN_LD + cc];
+          dq_out[o] = dqs[r * BORN_LD + cc];
         }
         __syncwarp();
       }
-    } else {
-      float4* colf = (float4*)wsh;                 // x, y, z, s [32]
-      int2* coli = (int2*)(wsh + 4 * SUB);         // screener id, type [32]
-      float* qs = wsh + 6 * SUB;                   // [32 rows][BORN_LD]
-      float* dqs = qs + SUB * BORN_LD;
-      colf[lane] = make_float4(xj, yj, zj, sj);
-      coli[lane] = make_int2(gj, tcj);
-      __syncwarp();
-      for (int c0 = 0; c0 < SUB; c0 += BORN_CHUNK) {
-#pragma unroll
-        for (int cc = 0; cc < BORN_CHUNK; ++cc) {
-          const float4 cf = colf[c0 + cc];
-          const int2 ci = coli[c0 + cc];
-          born_pair(tab, sp, i, tbase, xi, yi, zi, cf.x, cf.y, cf.z, cf.w,
-                    ci.x, ci.y, box_mode, box, acc, qv, dqv);
-          if (save) {
-            qs[lane * BORN_LD + cc] = qv;
-            dqs[lane * BORN_LD + cc] = dqv;
-          }
-        }
-        if (save) {
-          __syncwarp();
-          // lanes over the chunk's columns, SUB / BORN_CHUNK rows a store
-          constexpr int RPS = SUB / BORN_CHUNK;
-          const int rr = lane / BORN_CHUNK, cc = lane % BORN_CHUNK;
-#pragma unroll
-          for (int r0 = 0; r0 < SUB; r0 += RPS) {
-            const int r = r0 + rr;
-            const size_t o = qoff + (size_t)r * tile + c0 + cc;
-            q_out[o] = qs[r * BORN_LD + cc];
-            dq_out[o] = dqs[r * BORN_LD + cc];
-          }
-          __syncwarp();
-        }
-      }
-      __syncwarp();  // the column data are read before the next b's land
     }
+    __syncwarp();  // the column data are read before the next b's land
   }
   if (kept != 0) prow[((size_t)l * ng + grp) * tile + a * SUB + lane] = acc;
   if (lane == 0) keep[(l * S + a) * ng + grp] = (int)kept;
 }
 
-template <bool ROTATE>
-static int launch_born_subtiles(const int* nv, const int* tl, int lmax,
-                                int tile, int ng, const float* pos, int np,
-                                const float* posh, int nhp, const float* s,
-                                const SplineRefs& sp, int box_mode,
-                                const float* box, float* prow, int* keep,
-                                float* q_out, float* dq_out,
-                                cudaStream_t st) {
-  const size_t smem =
-      (2 * (size_t)sp.ntab + BORN_WARPS * born_warp_floats<ROTATE>())
-      * sizeof(float);
-  allow_smem((const void*)born_subtiles_kernel<ROTATE>, smem);
-  const int units = lmax * (tile / SUB) * ng;
-  born_subtiles_kernel<ROTATE>
-      <<<(units + BORN_WARPS - 1) / BORN_WARPS, BORN_WARPS * 32, smem, st>>>(
-          nv, tl, lmax, tile, ng, pos, np, posh, nhp, s, sp, box_mode, box,
-          prow, keep, q_out, dq_out);
-  return (int)cudaGetLastError();
-}
-
-// groups: ng, as for the descreening sweep on the same list; rotate picks
-// the column walk; reduce_warps the warps of each reduce block.  horizon is
+// groups: ng, as for the descreening sweep on the same list.  horizon is
 // also the list's range.  prow [lmax, ng, 1, T] is scratch; keep [lmax,
 // T/32, ng] is written for the entries below nv, and tells the reload which
 // sub-tile pairs of q_out/dq_out [lmax, T, T] hold Q/dQ.
 extern "C" int agbnp_born_sums_tiles(
-    const int* nv, const int* tl, int lmax, int tile, int groups, int rotate,
-    int reduce_warps, const float* pos, int np, const float* posh, int nhp,
-    const int* hids, const int* trow, const int* tcol, const float* yval,
-    const float* y2val, int nti, int ntj, const float* s, int n,
-    float horizon, int box_mode, const float* box, float* prow, int* keep,
-    float* raw, float* q_out, float* dq_out, void* stream) {
+    const int* nv, const int* tl, int lmax, int tile, int groups,
+    const float* pos, int np, const float* posh, int nhp, const int* hids,
+    const int* trow, const int* tcol, const float* yval, const float* y2val,
+    int nti, int ntj, const float* s, int n, float horizon, int box_mode,
+    const float* box, float* prow, int* keep, float* raw, float* q_out,
+    float* dq_out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const SplineRefs sp{hids, trow, tcol, yval, y2val, nti * ntj * AGBNP_NA, ntj,
                       n, horizon};
-  const int err =
-      rotate ? launch_born_subtiles<true>(nv, tl, lmax, tile, groups, pos, np,
-                                          posh, nhp, s, sp, box_mode, box,
-                                          prow, keep, q_out, dq_out, st)
-             : launch_born_subtiles<false>(nv, tl, lmax, tile, groups, pos,
-                                           np, posh, nhp, s, sp, box_mode,
-                                           box, prow, keep, q_out, dq_out, st);
+  const size_t smem =
+      (2 * (size_t)sp.ntab + BORN_WARPS * BORN_WARP_FLOATS) * sizeof(float);
+  allow_smem((const void*)born_subtiles_kernel, smem);
+  const int units = lmax * (tile / SUB) * groups;
+  born_subtiles_kernel<<<(units + BORN_WARPS - 1) / BORN_WARPS,
+                         BORN_WARPS * 32, smem, st>>>(
+      nv, tl, lmax, tile, groups, pos, np, posh, nhp, s, sp, box_mode, box,
+      prow, keep, q_out, dq_out);
+  const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   Dest dst{};
   dst.p[0] = raw;
   dst.stride[0] = 1;
   return reduce_subtiles(reduce_job(prow, nullptr, 1, np, np / tile,
                                     nhp / tile, groups, tile, dst),
-                         ReduceJob{}, keep, groups, nv, tl, lmax, tile,
-                         reduce_warps, st);
+                         ReduceJob{}, keep, groups, nv, tl, lmax, tile, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -727,8 +659,7 @@ extern "C" int agbnp_gb_pair_tiles(
   }
   return reduce_subtiles(reduce_job(prow, pcol, GB_K, np, np / tile,
                                     np / tile, groups, tile, dst),
-                         ReduceJob{}, keep, groups, nv, tl, lmax, tile,
-                         REDUCE_WARPS, st);
+                         ReduceJob{}, keep, groups, nv, tl, lmax, tile, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -995,5 +926,5 @@ extern "C" int agbnp_descreening_tiles(
                  tile, rows),
       reduce_job(nullptr, pcol, DS_COL_K, nhp, row_tiles, col_tiles, groups,
                  tile, cols),
-      keep, groups, nv, tl, lmax, tile, REDUCE_WARPS, st);
+      keep, groups, nv, tl, lmax, tile, st);
 }

@@ -63,12 +63,6 @@ SUBTILE_MARGIN = 1e-3
 # work a slot); the GB sweep always runs one warp per sub-tile pair, its
 # fastest split there
 DS_WARPS_PER_SM = 32
-# the Born sweep's column walk (csrc/tiles.cu): False, one column a step
-# for every lane, read from shared memory; True, the column data rotate
-# through the lanes as in the GB sweep
-BORN_ROTATE = False
-# warps of each block of the Born sweep's reduce (1 to 8)
-BORN_REDUCE_WARPS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -478,13 +472,12 @@ def born_sums_tiles(nv, tl, pos_pad, pos_hpad, hids_perm, type_rows,
         dq = torch.empty((lmax, tile, tile), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_born_sums_tiles(
-        nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, int(BORN_ROTATE),
-        BORN_REDUCE_WARPS, pos_pad.data_ptr(), npad, pos_hpad.data_ptr(),
-        nhpad, hids_perm.data_ptr(), type_rows.data_ptr(),
-        type_cols.data_ptr(), yval.data_ptr(), y2val.data_ptr(), nti, ntj,
-        s_hpad.data_ptr(), int(n), _horizon(horizon), box_mode, _ptr(box_t),
-        prow.data_ptr(), keep.data_ptr(), raw.data_ptr(), _ptr(q), _ptr(dq),
-        stream)
+        nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
+        npad, pos_hpad.data_ptr(), nhpad, hids_perm.data_ptr(),
+        type_rows.data_ptr(), type_cols.data_ptr(), yval.data_ptr(),
+        y2val.data_ptr(), nti, ntj, s_hpad.data_ptr(), int(n),
+        _horizon(horizon), box_mode, _ptr(box_t), prow.data_ptr(),
+        keep.data_ptr(), raw.data_ptr(), _ptr(q), _ptr(dq), stream)
     _launch_check("born_sums_tiles", rc)
     LAUNCHES["born_sums_tiles"] += 1
     if save_qd:

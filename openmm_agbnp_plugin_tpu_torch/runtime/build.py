@@ -46,9 +46,9 @@ SIGNATURES = {
     "agbnp_descreen_chunks": (_I,),
     "agbnp_descreening": (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                           _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
-    "agbnp_born_sums_tiles": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
-                              _P, _P, _P, _P, _I, _I, _P, _I, _F, _I, _P, _P,
-                              _P, _P, _P, _P, _P),
+    "agbnp_born_sums_tiles": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
+                              _P, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P,
+                              _P, _P, _P),
     "agbnp_gb_pair_tiles": (_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I,
                             _I, _F, _F, _I, _P, _F, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P),

@@ -32,10 +32,9 @@ keep bits, GB at cutoff 1 nm, MM fused), and the dense reloading
 descreening (the list kernel over every tile pair of SYSTEM's dense grid):
 the 32x32 sub-tile pairs the kernels keep, and for each sweep the
 CUDA-event time per call and the profiler's device time of each of its
-kernels (the sweep, the reduce); the Born sweep with each column walk
-(tiles.BORN_ROTATE) and reduce width (tiles.BORN_REDUCE_WARPS), the
-descreening sweeps at the column-group count the wrapper picks and at
-every fixed one.
+kernels (the sweep, the reduce); the descreening sweeps at the
+column-group count the wrapper picks and at every fixed one (the reload
+from Q/dQ and keep bits of a Born sweep run at that count).
 
 Needs a CUDA device; imports no JAX.
 """
@@ -52,9 +51,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def profile_list_kernels(dev, card, system):
-    """--list-kernels: the list sweeps and the dense reloading descreening;
-    the Born sweep at each column walk and reduce width, the descreening
-    ones at each column-group count."""
+    """--list-kernels: the list sweeps and the dense reloading descreening,
+    the descreening ones at each column-group count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -94,32 +92,26 @@ def profile_list_kernels(dev, card, system):
         qd = born()[1:]
         return lambda: TL.descreening_tiles(*dargs, qd, tile, spline=sp)
 
-    # name -> (what varies: "walk", "groups" or nothing; a function that
-    # returns the call to time under the setting)
+    # name -> (whether the column groups vary; a function that returns the
+    # call to time under the setting)
     sweeps = {
-        "born_sums_tiles": ("walk", lambda: born),
-        "gb_pair_tiles (MM)": (None, lambda: lambda: TL.gb_pair_tiles(
+        "born_sums_tiles": (False, lambda: born),
+        "gb_pair_tiles (MM)": (False, lambda: lambda: TL.gb_pair_tiles(
             *gargs, **inp["mm_kw"])),
-        "descreening_tiles": ("groups", reload),
-        "descreening_tiles_recompute": ("groups", lambda: lambda:
+        "descreening_tiles": (True, reload),
+        "descreening_tiles_recompute": (True, lambda: lambda:
                                         TL.descreening_tiles(
                                             *dargs, None, tile, spline=sp)),
-        "descreening (dense reload)": ("groups", lambda: lambda:
+        "descreening (dense reload)": (True, lambda: lambda:
                                        PK.descreening(*dense, spline=sp)),
     }
-    picked = TL.column_groups, TL.BORN_ROTATE, TL.BORN_REDUCE_WARPS
-    settings = dict(
-        walk=[dict(BORN_ROTATE=r, BORN_REDUCE_WARPS=w)
-              for r in (False, True) for w in (1, 8)],
-        groups=[{}] + [dict(column_groups=lambda *a, ng=ng: ng)
-                       for ng in (1, 2, 4, 8) if ng <= tile // 32])
+    picked = TL.column_groups
     try:
-        for name, (vary, make) in sweeps.items():
-            for kw in settings.get(vary, [{}]):
-                TL.column_groups, TL.BORN_ROTATE, TL.BORN_REDUCE_WARPS = \
-                    picked
-                for k, v in kw.items():
-                    setattr(TL, k, v)
+        for name, (grouped, make) in sweeps.items():
+            for ng in ([0] + [g for g in (1, 2, 4, 8) if g <= tile // 32]
+                       if grouped else [None]):
+                TL.column_groups = picked if not ng else (
+                    lambda *a, ng=ng: ng)
                 fn = make()
                 ms = cuda_time_ms(fn, 50)
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -129,21 +121,17 @@ def profile_list_kernels(dev, card, system):
                 rows = sorted((e for e in prof.key_averages()
                                if e.device_time_total > 0),
                               key=lambda e: -e.device_time_total)
-                if vary == "walk":
-                    label = (f" {'rotate' if TL.BORN_ROTATE else 'column'} "
-                             f"walk, reduce {TL.BORN_REDUCE_WARPS} warps")
-                elif vary == "groups":
-                    ng = TL.column_groups(grid_tl.shape[1] if "dense" in name
-                                          else tl.shape[1], tile, dev)
-                    label = f" ng={ng}" + ("" if kw else " (picked)")
-                else:
-                    label = ""
+                label = ""
+                if grouped:
+                    lmax = grid_tl.shape[1] if "dense" in name else tl.shape[1]
+                    label = f" ng={TL.column_groups(lmax, tile, dev)}" + (
+                        "" if ng else " (picked)")
                 print(f"  {name}{label}: {ms:.4f} ms/call; " + "; ".join(
                     f"{e.key.split('(')[0].split()[-1]} "
                     f"{e.device_time_total / 20:.1f} us x{e.count / 20:g}"
                     for e in rows), flush=True)
     finally:
-        TL.column_groups, TL.BORN_ROTATE, TL.BORN_REDUCE_WARPS = picked
+        TL.column_groups = picked
     return 0
 
 
