@@ -28,7 +28,8 @@ With --out, also writes the full profiler table to that file.
 With --list-kernels it profiles the interacting-tile-list sweeps alone
 instead, on SYSTEM's lists as chip_smoke.py [2] builds them (Born and
 descreening at horizon 1 nm, the reload from the Born kernel's Q/dQ and
-keep bits, GB at cutoff 1 nm, MM fused), and the dense reloading
+keep bits, GB at cutoff 1 nm, MM fused; Born also without its Q/dQ
+stores), and the dense reloading
 descreening (the list kernel over every tile pair of SYSTEM's dense grid):
 the 32x32 sub-tile pairs the kernels keep, and for each sweep the
 CUDA-event time per call and the profiler's device time of each of its
@@ -96,6 +97,9 @@ def profile_list_kernels(dev, card, system):
     # call to time under the setting)
     sweeps = {
         "born_sums_tiles": (False, lambda: born),
+        # the same sweep without its Q/dQ stores: what the stores cost
+        "born_sums_tiles, raw only": (False, lambda: lambda:
+                                      TL.born_sums_tiles(*args, horizon=1.0)),
         "gb_pair_tiles (MM)": (False, lambda: lambda: TL.gb_pair_tiles(
             *gargs, **inp["mm_kw"])),
         "descreening_tiles": (True, reload),
