@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
+Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
 
   1. prints the card's name and power limit (nvidia-smi) and the build time;
   2. holds each kernel against its plain PyTorch twin on the card, in f32,
@@ -24,13 +24,21 @@ Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      Q/dQ at 8 bytes a live pair, the bytes of their dense layout and,
      for the list sweep, of its kept sub-tile pairs reported beside), and
      in the log, for the two kernels redesigned last, their times before
-     the redesign;
+     the redesign; then the two row kernels (take_rows, cumsum_rows) at
+     the row probe's default shape (85,504 rows x 8 from 34,816 parents)
+     and at the widest level of 2clr's overlap tree: take_rows bitwise
+     equal to its twin (also with unsorted and out-of-range ids),
+     cumsum_rows launched twice (bitwise), within 1e-5 of an f64 prefix
+     sum and no further from its twin than the twin from f64, the
+     gather-free broadcast's deviation from the gather, and both timed
+     beside torch.index_select and torch.cumsum (library_ms);
   3. checks the fixture goldens through AGBNPModel on the card in f32
      (GVolSA 872.514, AGBNP1 -2476.66, within 0.01);
-  4. checks 1li2 and 2clr AGBNP1 (no cutoff, 2 nm horizon; 2clr on the
-     Born/descreening lists with on-device cell-grid tree candidates)
-     against the stored f64 results of the JAX package
-     (benchmarks/.parity_cache), then 2clr with Q/dQ sharing off against
+  4. checks the five shipped systems (trpcage, 1li2, rnaseh, 1dwc, 2clr;
+     AGBNP1, no cutoff, 2 nm horizon; rnaseh with half_neighbor_pairs tree
+     candidates on the device, 1dwc and 2clr through the cell grid, on the
+     Born/descreening lists) against the stored f64 results of the JAX
+     package (benchmarks/.parity_cache), then 2clr with Q/dQ sharing off against
      sharing on, on the list route and on the dense route;
   5. checks that two evaluations of 1li2, and of 2clr, are bitwise equal;
   6. runs the port's Simulation on 1li2 on the dense grid (f32, 400
@@ -39,8 +47,9 @@ Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      route) and checks that every energy is finite, no capacity overflow
      remains, and every dense kernel launched at least once per step;
   7. runs 2clr MD on the tile lists with the cell-grid neighbor build
-     (caps sized first by single evaluations, then 200 timed steps after a
-     200-step warm-up) with the same checks for the list kernels;
+     (200 timed steps after a 200-step warm-up) with the same checks for
+     the list kernels; like 6, 8 and 9 at the lean tree capacities the
+     Simulation sizes from its positions (caps_boost 1.10);
   8. bench.py's headline configuration on 1li2 (mts_wu4: the WU pass as
      an r-RESPA impulse every 4 steps, vdW-compact, tile lists): the
      compacted WU force against the full pass at a window start, a window
@@ -54,20 +63,29 @@ Builds the CUDA pair kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
  10. checks that SHAKE, RATTLE and the WU compaction make no host sync
      (torch.cuda.set_sync_debug_mode("error"));
  11. checks that run_md resumed from its step-40 checkpoint reproduces the
-     uninterrupted 80-step trajectory bitwise.
+     uninterrupted 80-step trajectory bitwise;
+ 12. drives the AGBNPForce/Context entry point on the card in f32: the
+     fixture goldens, getEnergy against getEnergyForces, a parameter edit
+     through updateParametersInContext against a fresh Context, a
+     CutoffPeriodic Context in a 20 nm box against CutoffNonPeriodic, and
+     1li2 at full width (NoCutoff, the dense kernels) against AGBNPModel
+     and the stored f64 result;
+ 13. runs the row probe (profile_port_step.py --row-probes), the path of
+     the two row kernels, and counts their launches.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
 output is {"ok": true, "device": {...}}; the line before it is nvidia-smi's
 name/power-limit line, and the one before that the per-kernel JSON record
-(times, bound and what sets it, library_ms null, live pairs, launches on
-its path and per step of each MD phase [6]-[9]; for the Born and
-descreening sweeps also the kept 32x32 sub-tile pairs and the Q/dQ bytes
-written or read).
+(times, bound and what sets it, library_ms null for the pair sweeps and
+measured for the row kernels, live pairs, launches on its path and per step
+of each MD phase [6]-[9]; for the Born and descreening sweeps also the kept
+32x32 sub-tile pairs and the Q/dQ bytes written or read).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -78,7 +96,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PAIRS_SRC = "openmm_agbnp_plugin_tpu_torch/csrc/pairs.cu"
 TILES_SRC = "openmm_agbnp_plugin_tpu_torch/csrc/tiles.cu"
+ROWS_SRC = "openmm_agbnp_plugin_tpu_torch/csrc/rows.cu"
 TPU = "openmm_agbnp_plugin_tpu/ops/pallas/pairs.py"
+TPU_PROBE = "benchmarks/micro_pallas_gather.py"
 # name -> (source, TPU kernel it replaces, the phase whose launches count)
 KERNELS = {
     "born_sums": (PAIRS_SRC, f"{TPU}:420", "md_1li2"),
@@ -89,7 +109,12 @@ KERNELS = {
     "gb_pair_tiles": (TILES_SRC, f"{TPU}:966", "md_2clr"),
     "descreening_tiles": (TILES_SRC, f"{TPU}:1114", "md_2clr"),
     "descreening_tiles_recompute": (TILES_SRC, f"{TPU}:1114", "share_off"),
+    "take_rows": (ROWS_SRC, f"{TPU_PROBE}:99", "row_probes"),
+    "cumsum_rows": (ROWS_SRC, f"{TPU_PROBE}:145", "row_probes"),
 }
+# the row probe's default shape (benchmarks/micro_pallas_gather.py:64-66) and
+# the repetitions of its run as a path of this script
+PROBE_ROWS, PROBE_PARENTS, PROBE_REPS = 85504, 34816, 20
 KERNEL_TOL = 1e-5     # max|kernel - twin| / max|twin|, f32 summation order
 # FP32 operations per live pair, counted from the twins' formulas (each +,
 # -, *, /, sqrt and exp one): distance 9, spline Q and dQ/dd 35, the Born
@@ -110,7 +135,7 @@ BEFORE_MS = {("born_sums_tiles", "2clr"): 0.1075,
 QD_SUBTILE_BYTES = 2 * 32 * 32 * 4
 # keys of a kernel's record beyond the contract's, copied into the JSON line
 RECORD_EXTRAS = ("kept_subtile_pairs", "qd_written_bytes", "qd_read_bytes",
-                 "qd_dense_bytes")
+                 "qd_dense_bytes", "f64_abs_err", "twin_f64_abs_err")
 LI2_BOXES = (("ortho", (4.0, 4.2, 4.4)),
              ("triclinic", ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
                             (0.4, -0.3, 4.4))))
@@ -329,6 +354,140 @@ def bound_ms(live, ops_per_pair, moved):
     t_ops = live * ops_per_pair / PEAK_FP32 * 1e3
     t_bytes = moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def widest_level(dev, name):
+    """The parent gather of the widest level of a system's overlap tree, as
+    the model's tree pass runs it at the model's capacities: (table [P, 8]
+    f32, the first 8 packed columns of the level above; pmono [R] int32, the
+    level's nondecreasing parent ids, padding rows included; the number of
+    valid rows, which come first; label)."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import AGBNPModel
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    d, p = system(name)
+    m = AGBNPModel(p, device=dev, dtype=torch.float32,
+                   positions=d.positions)
+    pos = torch.as_tensor(d.positions, dtype=torch.float32, device=dev)
+    a, pair_rows, _ = M.tree_candidates(m.arrays, pos, m.neighbor_rcut,
+                                        m.neighbor_kmax, m.neighbor_grid)
+    out = M.tree_passes(a, pos, m.caps, p.roffset, pair_rows=pair_rows)
+    levels, diag = out[3], out[5]
+    if T.check_overflow(diag)["any"]:
+        raise AssertionError(f"{name}: the sized tree overflowed")
+    counts = diag["counts"].tolist()
+    w = max(range(1, len(counts)), key=counts.__getitem__)
+    table = levels[w - 1]["_dat"][:, :8].contiguous()
+    pmono = levels[w]["bnd"]["pmono"].to(torch.int32).contiguous()
+    return table, pmono, counts[w], (
+        f"{name} level {w + 2}: {pmono.shape[0]} rows ({counts[w]} valid) "
+        f"from {table.shape[0]} parents")
+
+
+def probe_inputs(dev, rows, parents):
+    """The row probe's inputs from numpy seeds, as the JAX package's probe
+    makes them: (ids [rows] int32, table [parents, 8], payload [rows, 8])."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels.rows import make_segments
+
+    def rand(seed, n):
+        return torch.as_tensor(np.random.RandomState(seed).rand(n, 8),
+                               dtype=torch.float32, device=dev)
+
+    return (torch.as_tensor(make_segments(rows, parents), device=dev),
+            rand(1, parents), rand(2, rows))
+
+
+def check_row_kernels(dev, results):
+    """#8 and #9 against their twins, at the probe's default shape and at
+    the widest level of 2clr's tree: take_rows bitwise (also with ids out
+    of range and unsorted), cumsum_rows twice (bitwise), against the twin
+    and against an f64 cumsum, and the gather-free broadcast's deviation
+    from the gather.  Times both at the default shape, beside the library
+    calls torch.index_select and torch.cumsum."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    ids, table, x = probe_inputs(dev, PROBE_ROWS, PROBE_PARENTS)
+    lvl_table, lvl_ids, _, lvl_label = widest_level(dev, "2clr")
+    log(f"[2] row kernels vs plain twins, f32: probe shape {PROBE_ROWS} rows "
+        f"x 8 from {PROBE_PARENTS} parents; {lvl_label}")
+    for at, tab, idv in (("probe", table, ids), ("2clr", lvl_table, lvl_ids)):
+        nrows, npar = idv.shape[0], tab.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(3)
+        wild = torch.randint(-5, npar + 5, (nrows,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        for how, iv in (("sorted ids", idv), ("unsorted, out-of-range ids",
+                                              wild)):
+            out = RW.take_rows(tab, iv)
+            if not (torch.equal(out, RW.take_rows_reference(tab, iv))
+                    and torch.equal(out, RW.take_rows(tab, iv))):
+                raise AssertionError(f"take_rows {at} {how}: differs from "
+                                     "the twin, or between two launches")
+            log(f"    take_rows                   {at} {how}: bitwise equal "
+                "to the twin, twice")
+        # the level's gathered payload, signed values included
+        d = RW.take_rows(tab, idv) if at == "2clr" else x
+        out = RW.cumsum_rows(d)
+        if not torch.equal(out, RW.cumsum_rows(d)):
+            raise AssertionError(f"cumsum_rows {at}: two launches differ")
+        # every output is a chain of at most 33 + segments + tiles rounded
+        # partial sums, each below the running sum of |d|: that sum sets
+        # the scale, and the probe's chain of 146 stays under 1e-5 of it
+        scale = float(torch.cumsum(d.double().abs(), 0).max())
+        ref64 = torch.cumsum(d.double(), 0)
+        twin = RW.cumsum_rows_reference(d)
+        e64 = float((out.double() - ref64).abs().max())
+        etw = float((out - twin).abs().max())
+        # the twin adds a column's R rows one after another in f32 and
+        # drifts from the exact sum by up to R eps / 2 of the scale: the
+        # kernel may stand as far from the twin as the twin from f64, plus
+        # its own bound
+        twin64 = float((twin.double() - ref64).abs().max())
+        log(f"    cumsum_rows                 {at}: repeatable bitwise; vs "
+            f"f64 {e64 / scale:.3e}, vs twin {etw / scale:.3e} (twin vs f64 "
+            f"{twin64 / scale:.3e}) of max cumsum|d| {scale:.4g}")
+        if not (e64 <= KERNEL_TOL * scale
+                and etw <= twin64 + KERNEL_TOL * scale):
+            raise AssertionError(f"cumsum_rows {at}: outside {KERNEL_TOL} of "
+                                 "f64, or further from the twin than the "
+                                 "twin from f64")
+        rec = results["cumsum_rows"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], etw)
+        rec["f64_abs_err"] = max(rec.get("f64_abs_err", 0.0), e64)
+        rec["twin_f64_abs_err"] = max(rec.get("twin_f64_abs_err", 0.0),
+                                      twin64)
+        dev_b = RW.broadcast_deviation(tab, idv)
+        limit = nrows * 1.2e-7 * float(tab.abs().max())
+        log(f"    gather-free broadcast       {at}: max|cumsum_rows("
+            f"boundary_diffs) - take_rows| = {dev_b:.3e} (limit R eps "
+            f"max|v| = {limit:.3e})")
+        if not dev_b <= limit:
+            raise AssertionError(f"broadcast {at}: deviation {dev_b:.3e}")
+    for name, kern, plain, lib, libname, moved, live in (
+            ("take_rows", lambda: RW.take_rows(table, ids),
+             lambda: RW.take_rows_reference(table, ids),
+             lambda: torch.index_select(table, 0, ids), "torch.index_select",
+             nbytes(table, ids) + ids.shape[0] * table.shape[1] * 4, 0),
+            ("cumsum_rows", lambda: RW.cumsum_rows(x),
+             lambda: RW.cumsum_rows_reference(x),
+             lambda: torch.cumsum(x, 0), "torch.cumsum", 2 * nbytes(x),
+             x.numel())):
+        b_ms, b_by = bound_ms(live, 1, moved)
+        rec = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
+                   library_ms=cuda_time_ms(lib), library=libname,
+                   bound_ms=b_ms, bound_by=b_by)
+        results[name].update(rec)
+        log(f"    probe {name:21s} kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, {libname} {rec['library_ms']:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}; {moved} bytes)")
 
 
 def phase_kernels(dev):
@@ -625,6 +784,7 @@ def phase_kernels(dev):
                 results[name]["lists_1li2"] = rec
             else:
                 results[name].update(rec)
+    check_row_kernels(dev, results)
     return results
 
 
@@ -669,7 +829,7 @@ def sized_model(dev, p, positions, **kw):
     raise AssertionError("capacities did not converge")
 
 
-def check_parity(name, e, f):
+def check_parity(name, e, f, phase="[4]"):
     import numpy as np
 
     ref = np.load(os.path.join(HERE, "benchmarks", ".parity_cache",
@@ -681,7 +841,7 @@ def check_parity(name, e, f):
                              f"{np.isfinite(fn).all()}")
     e_rel = abs(float(e) - e_ref) / abs(e_ref)
     f_rel = float(np.abs(fn - f_ref).max() / np.abs(f_ref).max())
-    log(f"[4] {name} vs JAX f64: E = {float(e):.4f} (ref {e_ref:.4f}), "
+    log(f"{phase} {name} vs JAX f64: E = {float(e):.4f} (ref {e_ref:.4f}), "
         f"energy rel {e_rel:.3e}, force max-err/max|f| {f_rel:.3e}")
     if not (e_rel <= PARITY_TOL and f_rel <= PARITY_TOL):
         raise AssertionError(f"{name} parity outside {PARITY_TOL}")
@@ -705,10 +865,20 @@ def phase_parity(dev):
     from openmm_agbnp_plugin_tpu_torch import AGBNPModel
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
 
-    d, p = system("1li2")
-    m, e, f = sized_model(dev, p, d.positions)
-    check_parity("1li2", e, f)
-    check_repeatable("1li2", m, d.positions, e, f)
+    for name in ("trpcage", "1li2", "rnaseh", "1dwc"):
+        d, p = system(name)
+        m, e, f = sized_model(dev, p, d.positions)
+        check_parity(name, e, f)
+        log(f"[4] {name}: {p.n} atoms, pair_tiles {m.pair_tiles}, "
+            f"neighbor_kmax {m.neighbor_kmax}, cell grid "
+            f"{m.neighbor_grid is not None}, caps {m.caps.caps}")
+        if name == "rnaseh" and not (m.neighbor_kmax > 0
+                                     and m.neighbor_grid is None):
+            raise AssertionError("rnaseh must build its tree candidates with "
+                                 "half_neighbor_pairs on the device, without "
+                                 "a cell grid")
+        if name == "1li2":
+            check_repeatable("1li2", m, d.positions, e, f)
 
     d, p = system("2clr")
     t0 = time.perf_counter()
@@ -768,6 +938,7 @@ def run_md(dev, card, name, steps, label, sim=None, bench=None, **kw):
     import numpy as np
     import torch
 
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
 
     sim = md_sim(dev, name, **kw) if sim is None else sim
@@ -777,7 +948,7 @@ def run_md(dev, card, name, steps, label, sim=None, bench=None, **kw):
                                friction=1.0, max_regrow=3, **bench)
     counts = PK.launch_counts()
     energies = r["energies"]
-    ms_step = r["elapsed_s"] / steps * 1e3
+    ms_step = r["elapsed_s"] / r["steps_run"] * 1e3
     wu = ("vdW-compact WU pass" if bench.get("vdw_compact", True)
           else "full WU pass")
     log(f"{label} {name} MD {bench}, {wu}: {steps} steps x2 (warm-up + "
@@ -785,7 +956,12 @@ def run_md(dev, card, name, steps, label, sim=None, bench=None, **kw):
         f"pair_tiles "
         f"{sim.agbnp.pair_tiles}, cell grid {sim.grid is not None}, "
         f"E first/last {energies[0]:.2f}/{energies[-1]:.2f}")
-    log(f"    kernel launches {counts}")
+    lean = sim.agbnp.caps
+    padded = T.TreeCaps.for_natoms(sim.agbnp.params.n)
+    log(f"    tree rows per level {lean.caps} = {sum(lean.caps)}, windows "
+        f"{lean.offs} (TreeCaps.for_natoms: {padded.caps} = "
+        f"{sum(padded.caps)}, windows {padded.offs})")
+    log(f"    kernel launches { {k: c for k, c in counts.items() if c} }")
     log(f"    first measurement, not a claim: {ms_step:.3f} ms/step, "
         f"{r['ns_day']:.3f} ns/day on {card}")
     if r["overflow"]:
@@ -810,13 +986,7 @@ def phase_md(dev, card):
             raise AssertionError(f"{name}: {counts_1li2[name]} launches < "
                                  f"{MD_STEPS} steps")
 
-    # size the 2clr capacities by single evaluations first, so the timed
-    # runs do not regrow from TreeCaps.for_natoms
-    d, p = system("2clr")
-    m, _, _ = sized_model(dev, p, d.positions, cutoff=1.0,
-                          descreen_horizon="cutoff")
-    sim, counts_2clr, _ = run_md(dev, card, "2clr", MD_STEPS_2CLR, "[7]",
-                                 caps=m.caps)
+    sim, counts_2clr, _ = run_md(dev, card, "2clr", MD_STEPS_2CLR, "[7]")
     if sim.grid is None or sim.agbnp.pair_tiles is None \
             or sim.agbnp.pair_tiles[1] is None:
         raise AssertionError("2clr MD must run on both lists and the grid")
@@ -1006,6 +1176,116 @@ def phase_resume(dev, sim):
         raise AssertionError("the resumed trajectory differs")
 
 
+def phase_row_probes(dev, card):
+    """The row probe's own path: profile_port_step.py --row-probes at its
+    default shape and at 2clr's widest level, with the launch counts of
+    the run."""
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from profile_port_step import row_probes
+
+    PK.reset_launch_counts()
+    row_probes(dev, card, PROBE_ROWS, PROBE_PARENTS, PROBE_REPS)
+    return PK.launch_counts()
+
+
+def phase_context(dev):
+    """Phase 12: the AGBNPForce/Context entry point on the card, f32."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import (
+        AGBNPForce, AGBNPModel, AGBNPParams, Context, NonbondedMethod,
+        load_gaussvol_dat)
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    def force_of(p, version=1, n=None):
+        force = AGBNPForce()
+        force.setVersion(version)
+        for i in range(p.n if n is None else n):
+            force.addParticle(p.radius[i], p.gamma[i], p.alpha[i],
+                              p.charge[i], bool(p.ishydrogen[i]))
+        return force
+
+    def evaluate(force, pos, **kw):
+        ctx = Context(force, **kw)
+        ctx.setPositions(pos)
+        e, f = ctx.getEnergyForces()
+        if not (isinstance(e, float) and f.device == dev
+                and f.dtype == torch.float32
+                and bool(torch.isfinite(f).all())):
+            raise AssertionError("Context: energy must be a float and the "
+                                 "forces finite f32 on the card")
+        return ctx, e, f
+
+    pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(
+        os.path.join(HERE, "tests", "fixtures", "gaussvol.dat"))
+    p = AGBNPParams(radius=radius, gamma=gamma, alpha=alpha, charge=charge,
+                    ishydrogen=ish)
+    for version, anchor in ((0, 872.514), (1, -2476.66)):
+        ctx, e, _ = evaluate(force_of(p, version), pos)
+        e_only = ctx.getEnergy()
+        log(f"[12] Context v{version} on {ctx._device}: E = {e:.4f} (anchor "
+            f"{anchor}), getEnergy {e_only:.4f}")
+        if not abs(e - anchor) < GOLDEN_TOL:
+            raise AssertionError(f"Context golden v{version}: {e}")
+        if e_only != e:
+            raise AssertionError("getEnergy differs from getEnergyForces")
+    zero_e, zero_f = ctx.calcForcesAndEnergy(groups=0)
+    if zero_e != 0.0 or bool(zero_f.any()) or zero_f.device != dev \
+            or zero_f.dtype != torch.float32:
+        raise AssertionError("calcForcesAndEnergy outside the group mask")
+
+    # a parameter edit reaches the live Context without a new model
+    force = force_of(p)
+    ctx, e0, _ = evaluate(force, pos)
+    model = ctx._model
+    for i in range(p.n):
+        r, g, a, q, h = force.getParticleParameters(i)
+        force.setParticleParameters(i, r, g, a, 0.5 * q, h)
+    force.updateParametersInContext(ctx)
+    e1, f1 = ctx.getEnergyForces()
+    _, e_fresh, f_fresh = evaluate(force, pos)
+    same = e1 == e_fresh and bool(torch.equal(f1, f_fresh))
+    log(f"[12] updateParametersInContext (charges halved): E {e0:.4f} -> "
+        f"{e1:.4f}, model kept {ctx._model is model}, equal to a fresh "
+        f"Context bitwise {same}")
+    if ctx._model is not model or not same or abs(e1 - e0) < 1.0:
+        raise AssertionError("updateParametersInContext")
+
+    # CutoffPeriodic in a 20 nm box against CutoffNonPeriodic
+    force = force_of(p)
+    force.setNonbondedMethod(NonbondedMethod.CutoffNonPeriodic)
+    force.setCutoffDistance(1.2)
+    _, e_np, f_np = evaluate(force, pos)
+    force.setNonbondedMethod(NonbondedMethod.CutoffPeriodic)
+    _, e_p, f_p = evaluate(force, pos,
+                           box=((20.0, 0, 0), (0, 20.0, 0), (0, 0, 20.0)))
+    e_rel = abs(e_p - e_np) / abs(e_np)
+    f_rel, _ = rel_err(f_p, f_np)
+    log(f"[12] CutoffPeriodic (20 nm box) vs CutoffNonPeriodic: energy rel "
+        f"{e_rel:.3e}, force max-err/max|f| {f_rel:.3e}")
+    if not (e_rel <= PARITY_TOL and f_rel <= PARITY_TOL):
+        raise AssertionError("CutoffPeriodic in a large box differs")
+
+    # 1li2 at full width: NoCutoff, the dense kernels #1-#3
+    d, p = system("1li2")
+    PK.reset_launch_counts()
+    ctx, e, f = evaluate(force_of(p), d.positions)
+    counts = PK.launch_counts()
+    m = AGBNPModel(p, device=dev, dtype=torch.float32, caps=ctx._model.caps)
+    e_m, f_m = m.energy_forces(d.positions)
+    e_rel = abs(e - float(e_m)) / abs(float(e_m))
+    f_rel, _ = rel_err(f, f_m)
+    log(f"[12] 1li2 through Context.getEnergyForces: E = {e:.4f}, vs "
+        f"AGBNPModel energy rel {e_rel:.3e}, force {f_rel:.3e}; launches "
+        f"{ {k: c for k, c in counts.items() if c} }")
+    if not (e_rel <= PARITY_TOL and f_rel <= PARITY_TOL):
+        raise AssertionError("1li2 Context differs from the model")
+    for name in ("born_sums", "gb_pair", "descreening"):
+        if counts[name] < 1:
+            raise AssertionError(f"[12] {name} not launched by the Context")
+    check_parity("1li2", e, f, phase="[12]")
+
+
 def main() -> int:
     import torch
 
@@ -1029,6 +1309,8 @@ def main() -> int:
     counts["mts4fs"] = phase_mts4_constraints(dev, card)
     phase_no_sync(dev, sim_1li2)
     phase_resume(dev, sim_1li2)
+    phase_context(dev)
+    counts["row_probes"] = phase_row_probes(dev, card)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
@@ -1047,9 +1329,11 @@ def main() -> int:
                    launches=launches, max_abs_err=k["max_abs_err"],
                    ms=k["ms"], plain_ms=k["plain_ms"],
                    bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-                   library_ms=None, library=LIBRARY_NONE,
-                   live_pairs=k["live_pairs"],
+                   library_ms=k["library_ms"],
+                   library=k.get("library", LIBRARY_NONE),
                    launches_per_step=per_step)
+        if "live_pairs" in k:
+            rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})
         if "lists_1li2" in k:
             rec["lists_1li2"] = {x: v for x, v in k["lists_1li2"].items()

@@ -15,11 +15,15 @@ tested against), with the same module names:
   md/constraints.py       SHAKE/RATTLE; md/vsites.py virtual sites;
   md/minimize.py          FIRE
   io/checkpoint.py        exact-resume checkpoints; io/dcd.py trajectories
+  ops/kernels/rows.py     the tree's row gather and prefix sum (probes)
+  api/force.py            AGBNPForce, Context, NonbondedMethod
+  utils/                  AGBNPHtable; energy_breakdown, tree_stats, trace
   runtime/build.py        builds csrc/*.cu with nvcc at first kernel use
 
 This package imports torch and numpy only; nothing is built at import.
 """
 
+from .api.force import AGBNPForce, Context, NonbondedMethod
 from .io.dms import load_dms
 from .io.gaussvol_dat import load_gaussvol_dat
 from .md.simulation import Simulation
@@ -28,6 +32,6 @@ from .models.agbnp_torch import AGBNPModel, arrays_from_numpy, \
 from .models.params import AGBNPParams
 from .ops.tree import TreeCaps
 
-__all__ = ["AGBNPModel", "AGBNPParams", "Simulation", "TreeCaps",
-           "arrays_from_numpy", "energy_forces", "load_dms",
-           "load_gaussvol_dat", "prepare_arrays"]
+__all__ = ["AGBNPForce", "AGBNPModel", "AGBNPParams", "Context",
+           "NonbondedMethod", "Simulation", "TreeCaps", "arrays_from_numpy",
+           "energy_forces", "load_dms", "load_gaussvol_dat", "prepare_arrays"]

@@ -72,14 +72,19 @@ class Simulation:
     constraints=True applies the DMS X-H constraint tables
     (md/constraints.py) in every integrator; vsites: a VirtualSites table
     (md/vsites.py) projected before and spread after every evaluation.
+    Without `caps`, the tree capacities are sized from the DMS positions
+    with caps_boost headroom (AGBNPModel.size_caps): MD runs leaner than
+    the one-shot model's 1.6, since every row-indexed tree op costs per
+    padded row, counts drift slowly at equilibrium, and the PanicButton
+    covers the tail.
     """
 
     def __init__(self, dms, *, device, version: int = 1,
                  cutoff: float | None = None, dtype=torch.float64,
                  caps=None, skin: float = 0.15, kmax: int | None = None,
-                 descreen_horizon=None, pair_tiles=None,
-                 share_qd: bool = True, constraints: bool = False,
-                 vsites=None):
+                 caps_boost: float = 1.10, descreen_horizon=None,
+                 pair_tiles=None, share_qd: bool = True,
+                 constraints: bool = False, vsites=None):
         if version != 1:
             raise ValueError(f"version {version}: MD is ported for "
                              "AGBNP version 1 only")
@@ -92,6 +97,7 @@ class Simulation:
         self.agbnp = AGBNPModel(params, device=self.device, dtype=dtype,
                                 version=1, cutoff=cutoff, caps=caps,
                                 positions=dms.positions,
+                                caps_boost=caps_boost,
                                 descreen_horizon=descreen_horizon,
                                 pair_tiles=pair_tiles, share_qd=share_qd)
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
@@ -139,37 +145,19 @@ class Simulation:
         from a fresh sizing pass on the CURRENT configuration, discarding
         the regrow history (JAX md/simulation.py:126-160).
 
-        The tree sizing here is one evaluation on the device, grown until
-        clean, with the native pre-pass's headroom rules (JAX
-        runtime/native.py:182-207): caps = counts x caps_boost (128-
-        aligned), sibling windows = (largest sibling group - 1) x
-        max(caps_boost, 1.6), at least 4, so a window can never come out
-        degenerate.  Runners built before this call are stale; if the lean
-        capacities prove too small the PanicButton grows them back."""
+        The tree sizing is AGBNPModel.size_caps (one tree build on the
+        device, the native pre-pass's headroom rules: sibling windows at
+        least 4, so a window can never come out degenerate).  Runners built
+        before this call are stale; if the lean capacities prove too small
+        the PanicButton grows them back."""
         pos = (self.positions if positions is None else torch.as_tensor(
             positions, dtype=self.dtype, device=self.device))
         pos_np = pos.detach().cpu().numpy()
         m = self.agbnp
-        probe = AGBNPModel(m.params, device=self.device, dtype=self.dtype,
-                           version=1, cutoff=m.cutoff, positions=pos_np,
-                           descreen_horizon=m.descreen_horizon,
-                           pair_tiles=False, share_qd=m.share_qd)
-        for _ in range(8):
-            diag = probe.energy_forces(pos, with_details=True)[2]["diag"]
-            if not probe.check_and_grow(diag):
-                break
-        else:
-            raise RuntimeError("tree sizing did not converge")
-        counts = diag["counts"].cpu().numpy()
-        sibs = diag["max_siblings"].cpu().numpy()
-        offs_boost = max(caps_boost, 1.6)
-        caps = T.TreeCaps(
-            caps=tuple(_align(int(c) * caps_boost) for c in counts),
-            offs=tuple(int(max(4, np.ceil(max(int(s) - 1, 1) * offs_boost)))
-                       for s in sibs[:-1]))
         self.agbnp = AGBNPModel(m.params, device=self.device,
-                                dtype=self.dtype, version=1, caps=caps,
+                                dtype=self.dtype, version=1,
                                 cutoff=m.cutoff, positions=pos_np,
+                                caps_boost=caps_boost,
                                 descreen_horizon=m.descreen_horizon,
                                 pair_tiles=(None if m.pair_tiles is not None
                                             else False),
@@ -543,7 +531,11 @@ class Simulation:
         ns/day and the energy trace.  If a capacity overflow is detected
         (PanicButton, reference OpenCLAGBNPKernels.cpp:3598-3634) the caps
         are regrown and the whole timed run repeats, up to max_regrow
-        times, so the numbers come from a clean run.  The noise generator
+        times, so the numbers come from a clean run.  A run stops at its
+        first overflowed window; if the last allowed attempt still
+        overflowed, the dict says overflow=True and reports what ran:
+        steps_run (< nsteps), ns_day and steps_per_s computed from it, and
+        an energy trace of that length.  The noise generator
         is seeded from `seed` for the warm-up and again for the timed run.
         The defaults are the JAX package's (vdw_compact=True, wu_every=1,
         mts_inner=0): bench.py's strict run; wu_every=4 is its headline
@@ -569,9 +561,10 @@ class Simulation:
                 break
             self._regrow(*diag)
         counts, nbmax, shake = diag[0], diag[1], diag[4]
-        return dict(ns_day=nsteps * dt * 1e-3 / elapsed * 86400.0,
-                    elapsed_s=elapsed, steps_per_s=nsteps / elapsed,
-                    final_pos=pos, final_vel=vel,
+        steps_run = int(energies.shape[0])
+        return dict(ns_day=steps_run * dt * 1e-3 / elapsed * 86400.0,
+                    elapsed_s=elapsed, steps_per_s=steps_run / elapsed,
+                    steps_run=steps_run, final_pos=pos, final_vel=vel,
                     tree_counts_max=counts.cpu().numpy(),
                     neighbor_max=int(nbmax), overflow=overflow,
                     regrows=attempt, energies=energies.cpu().numpy(),

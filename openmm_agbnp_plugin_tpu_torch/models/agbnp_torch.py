@@ -327,6 +327,25 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     return out
 
 
+def tree_candidates(a: dict, pos, neighbor_rcut: float = 0.0,
+                    neighbor_kmax: int = 0, neighbor_grid=None):
+    """The overlap tree's 2-body candidates for one evaluation: the arrays'
+    own pair list, or with neighbor_kmax > 0 a half neighbor list within
+    neighbor_rcut built on the device (through the cell grid when
+    neighbor_grid is given).  Returns (arrays with the pair list to use,
+    pair_rows, neighbor_max or None)."""
+    if neighbor_kmax <= 0:
+        return a, False, None
+    heavy = a["ishydrogen"] == 0
+    if neighbor_grid is not None:
+        pi, pj, pv, nbmax = cell_neighbor_pairs(
+            pos, heavy, neighbor_rcut, neighbor_kmax, grid=neighbor_grid)
+    else:
+        pi, pj, pv, nbmax = half_neighbor_pairs(pos, heavy, neighbor_rcut,
+                                                neighbor_kmax)
+    return {**a, "pairs_i": pi, "pairs_j": pj, "pairs_valid": pv}, True, nbmax
+
+
 def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
                   roffset: float, ntypes_j: int, cutoff=None, topology=None,
                   box=None, pair_pad: int = 0, pair_rows: bool = False,
@@ -364,15 +383,8 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     if wu_mode not in ("fused", "split", "skip"):
         raise ValueError(f"wu_mode {wu_mode!r}: fused, split or skip")
     if neighbor_kmax > 0:
-        heavy = a["ishydrogen"] == 0
-        if neighbor_grid is not None:
-            pi, pj, pv, nbmax = cell_neighbor_pairs(
-                pos, heavy, neighbor_rcut, neighbor_kmax, grid=neighbor_grid)
-        else:
-            pi, pj, pv, nbmax = half_neighbor_pairs(pos, heavy, neighbor_rcut,
-                                                    neighbor_kmax)
-        a = {**a, "pairs_i": pi, "pairs_j": pj, "pairs_valid": pv}
-        pair_rows = True
+        a, pair_rows, nbmax = tree_candidates(a, pos, neighbor_rcut,
+                                              neighbor_kmax, neighbor_grid)
     e_cav, f_cav, self_volume, levels_vdw, lvl1_vdw, diag, red1, red2 = \
         tree_passes(a, pos, caps, roffset, topology=topology,
                     pair_rows=pair_rows)
@@ -466,15 +478,20 @@ class AGBNPModel:
     spline instead of reloading the Born sweep's Q/dQ (the JAX package's
     AGBNP_TILES_NO_QD=1).  Above 2000 atoms with positions given, the
     tree's candidate pairs are rebuilt on the device at every evaluation
-    (through a cell grid above 3000 atoms).  Tree capacities start from
-    TreeCaps.for_natoms; they, the neighbor width and the tile budgets grow
-    through check_and_grow (the PanicButton).
+    (through a cell grid above 3000 atoms); `pairs` (i, j[, valid]) gives
+    the tree's candidates explicitly instead.  Without `caps`, the tree
+    capacities are sized from `positions` by one tree build on the device
+    (size_caps: counts x caps_boost, the JAX package's native pre-pass
+    rules), or without positions from TreeCaps.for_natoms; they, the
+    neighbor width and the tile budgets grow through check_and_grow (the
+    PanicButton).
     """
 
     def __init__(self, params: AGBNPParams, *, device, dtype=torch.float64,
                  caps: T.TreeCaps | None = None, version: int = 1,
-                 cutoff: float | None = None, positions=None, box=None,
-                 pair_kernel: bool = True, descreen_horizon=None,
+                 cutoff: float | None = None, pairs=None, positions=None,
+                 box=None, pair_kernel: bool = True,
+                 caps_boost: float = 1.6, descreen_horizon=None,
                  pair_tiles=None, share_qd: bool = True):
         if version not in (0, 1):
             raise ValueError(f"version {version}: only 0 and 1 are ported")
@@ -490,7 +507,7 @@ class AGBNPModel:
         self.box = (None if box is None
                     else torch.as_tensor(box, dtype=dtype, device=self.device))
         self.caps = caps if caps is not None else \
-            T.TreeCaps.for_natoms(params.n)
+            T.TreeCaps.for_natoms(params.n, boost=max(1.0, caps_boost / 1.6))
         self.pair_kernel = bool(pair_kernel) and version == 1
         self.pair_pad = (PK.pad_to(params.n, PK.pick_tile(params.n))
                          if self.pair_kernel else 0)
@@ -500,8 +517,7 @@ class AGBNPModel:
         self.neighbor_rcut = 0.0
         self.neighbor_kmax = 0
         self.neighbor_grid = None
-        pairs = None
-        if positions is not None and params.n > 2000:
+        if pairs is None and positions is not None and params.n > 2000:
             self.neighbor_rcut = tree_pair_cutoff(params.radii_large) + 0.05
             heavy = np.asarray(params.ishydrogen) == 0
             seen = host_max_neighbors(np.asarray(positions), heavy,
@@ -527,6 +543,77 @@ class AGBNPModel:
             pair_tiles = self._sized_pair_tiles() if self.pair_kernel else None
         self.pair_tiles = (tuple(pair_tiles)
                            if pair_tiles and self.pair_kernel else None)
+        if caps is None and positions is not None:
+            self.caps = self.size_caps(positions, caps_boost)
+
+    def size_caps(self, positions, boost: float = 1.6) -> T.TreeCaps:
+        """Lean tree capacities for `positions`: the overlap tree is built
+        once at the large radii on the model's device (from the model's own
+        candidate pairs, capacities and neighbor width grown until the build
+        is clean) and sized by the rules of the JAX package's native
+        pre-pass (runtime/native.py::size_tree_caps): caps = level counts x
+        boost, aligned to 128; sibling windows = (largest sibling
+        group - 1) x max(boost, 1.6), at least 4, since sibling-group maxima
+        fluctuate proportionally more than level counts.  Leaves self.caps
+        as grown; the caller assigns the result."""
+        a = self.arrays
+        pos = torch.as_tensor(positions, dtype=self.dtype, device=self.device)
+        lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
+                             a["gamma"] / self.params.roffset, a["ishydrogen"])
+        for _ in range(8):
+            ap, pair_rows, nbmax = tree_candidates(
+                a, pos, self.neighbor_rcut, self.neighbor_kmax,
+                self.neighbor_grid)
+            diag = T.build_tree(lvl1, ap["pairs_i"], ap["pairs_j"], self.caps,
+                                pairs_valid=ap["pairs_valid"],
+                                pair_rows=pair_rows)[1]
+            if nbmax is not None:
+                diag["neighbor_max"] = nbmax
+            if not self.check_and_grow(diag):
+                break
+        else:
+            raise RuntimeError("tree sizing did not converge")
+        counts = diag["counts"].cpu().numpy()
+        sibs = diag["max_siblings"].cpu().numpy()
+        offs_boost = max(boost, 1.6)
+        return T.TreeCaps(
+            caps=tuple(max(128, int(np.ceil(int(c) * boost / 128)) * 128)
+                       for c in counts),
+            offs=tuple(int(max(4, np.ceil(max(int(s) - 1, 1) * offs_boost)))
+                       for s in sibs[:-1]))
+
+    def update_params(self, params: AGBNPParams) -> bool:
+        """Parameter-only update (updateParametersInContext, reference
+        AGBNPForce.cpp:76-78): rebuilds the parameter arrays and the spline
+        tables from `params` and swaps them in on the device, keeping the
+        candidate pairs, capacities, neighbor width, tile budgets and the
+        pair layouts' row order.  Returns True when every array kept its
+        shape and the radius-type table its dimensions (the case the JAX
+        package serves without recompiling).  Above 2000 atoms the
+        candidate cutoff follows the new radii (and the cell grid with
+        it)."""
+        old = self.arrays_np
+        pairs = (old["pairs_i"], old["pairs_j"], old["pairs_valid"])
+        np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
+        arrays_np = prepare_arrays(params, dtype=np_dtype, pairs=pairs,
+                                   pair_pad=self.pair_pad,
+                                   positions=self._init_positions)
+        ntypes_j = int(np.max(arrays_np["type_j"]) + 1)
+        same = (ntypes_j == self.ntypes_j and set(arrays_np) == set(old)
+                and all(np.shape(arrays_np[k]) == np.shape(old[k])
+                        for k in arrays_np))
+        self.params = params
+        self.arrays_np = arrays_np
+        self.arrays = arrays_from_numpy(arrays_np, self.device, self.dtype)
+        self.ntypes_j = ntypes_j
+        if self.neighbor_kmax > 0:
+            rcut = tree_pair_cutoff(params.radii_large) + 0.05
+            if rcut != self.neighbor_rcut and self.neighbor_grid is not None:
+                self.neighbor_grid = CellGrid(
+                    self._init_positions, rcut,
+                    heavy_mask=np.asarray(params.ishydrogen) == 0)
+            self.neighbor_rcut = rcut
+        return same
 
     def _sized_pair_tiles(self):
         """Initial (lmax_born, lmax_gb) tile-list budgets: the in-range
@@ -565,22 +652,36 @@ class AGBNPModel:
             lg = budget(cg, nti * (nti + 1) // 2)
         return (lb, lg)
 
-    def energy_forces(self, pos, with_details: bool = False):
+    def _evaluate(self, pos, wu_mode: str) -> dict:
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
-        out = energy_forces(self.arrays, pos, caps=self.caps,
-                            version=self.version,
-                            roffset=self.params.roffset,
-                            ntypes_j=self.ntypes_j, cutoff=self.cutoff,
-                            box=self.box, pair_pad=self.pair_pad,
-                            descreen_horizon=self.descreen_horizon,
-                            neighbor_rcut=self.neighbor_rcut,
-                            neighbor_kmax=self.neighbor_kmax,
-                            neighbor_grid=self.neighbor_grid,
-                            pair_tiles=self.pair_tiles,
-                            share_qd=self.share_qd)
+        return energy_forces(self.arrays, pos, caps=self.caps,
+                             version=self.version,
+                             roffset=self.params.roffset,
+                             ntypes_j=self.ntypes_j, cutoff=self.cutoff,
+                             box=self.box, pair_pad=self.pair_pad,
+                             descreen_horizon=self.descreen_horizon,
+                             neighbor_rcut=self.neighbor_rcut,
+                             neighbor_kmax=self.neighbor_kmax,
+                             neighbor_grid=self.neighbor_grid,
+                             pair_tiles=self.pair_tiles,
+                             share_qd=self.share_qd, wu_mode=wu_mode)
+
+    def energy_forces(self, pos, with_details: bool = False):
+        out = self._evaluate(pos, "fused")
         if with_details:
             return out["energy"], out["force"], out
         return out["energy"], out["force"]
+
+    def energy_only(self, pos, with_details: bool = False):
+        """Energy without the WU gamma-rescan force pass (the pass carries
+        force only: the includeForces=False evaluation of
+        AGBNPForceImpl::calcForcesAndEnergy, reference
+        openmmapi/src/AGBNPForceImpl.cpp:32-36).  Bitwise the energy of
+        energy_forces."""
+        out = self._evaluate(pos, "skip")
+        if with_details:
+            return out["energy"], out
+        return out["energy"]
 
     def check_and_grow(self, diag) -> bool:
         """PanicButton: grow capacities if the last evaluation overflowed

@@ -20,7 +20,7 @@ launches its kernel from csrc/pairs.cu (the reloading descreening: from
 csrc/tiles.cu, over every tile pair) on the current stream, raises if the
 launch failed, and adds one to its count in LAUNCHES.  There is no fallback
 from the kernel to the twin.  tiles.py holds the same sweeps over
-interacting-tile lists, counted here too.
+interacting-tile lists and rows.py the tree's row moves, counted here too.
 """
 
 from __future__ import annotations
@@ -55,11 +55,12 @@ def _horizon(horizon):
 
 
 # launches of each CUDA kernel (one per wrapper call on a CUDA device); the
-# two descreening variants of each route are counted apart
+# two descreening variants of each route are counted apart; the last two
+# are rows.py's
 LAUNCHES = dict.fromkeys((
     "born_sums", "gb_pair", "descreening", "descreening_recompute",
     "born_sums_tiles", "gb_pair_tiles", "descreening_tiles",
-    "descreening_tiles_recompute"), 0)
+    "descreening_tiles_recompute", "take_rows", "cumsum_rows"), 0)
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,169 @@
+"""Row moves of the overlap tree's passes: CUDA kernels and their plain twins.
+
+Counterpart of the two Pallas probes of the JAX package's
+benchmarks/micro_pallas_gather.py, which ask whether a hand kernel beats
+the stock row gather that every tree level runs (ops/tree.py::
+_parent_gather):
+
+  take_rows     out[r] = table[ids[r]]: the parent -> child broadcast itself
+  cumsum_rows   inclusive prefix sum down the rows of [R, C]; with
+                boundary_diffs it is the gather-free form of the broadcast:
+                cumsum_rows(boundary_diffs(v, starts, R)) ~ take_rows(v, ids)
+                for nondecreasing ids (exact up to the float roundoff of the
+                running sum, which broadcast_deviation reports)
+
+Each wrapper routes by the device of its tensors: on the CPU it returns its
+plain twin (`*_reference`); on a CUDA device it checks every argument,
+launches its kernel from csrc/rows.cu on the current stream, raises if the
+launch failed, and adds one to its count in pairs.LAUNCHES.  There is no
+fallback from the kernel to the twin.  Nothing in the tree calls them yet:
+tools time them against the stock calls first (profile_port_step.py
+--row-probes).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .pairs import LAUNCHES, _check, _cuda_lib, _launch_check
+
+MAX_COLS = 256  # one thread a column of a cumsum tile
+
+
+def make_segments(rows: int, parents: int, seed: int = 0) -> np.ndarray:
+    """Nondecreasing segment ids [rows] int32 with a tree-like width
+    distribution (mean 3.4 rows a parent), cut or padded with the last id to
+    `rows`: the probe input of benchmarks/micro_pallas_gather.py, from the
+    same numpy stream."""
+    rng = np.random.RandomState(seed)
+    widths = rng.choice([1, 1, 2, 2, 3, 4, 6, 8], size=parents)
+    ids = np.repeat(np.arange(parents), widths)
+    if len(ids) >= rows:
+        ids = ids[:rows]
+    else:
+        ids = np.concatenate([ids, np.full(rows - len(ids), ids[-1])])
+    return ids.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------
+
+def take_rows_reference(table, ids):
+    """Plain twin of take_rows."""
+    ok = (ids >= 0) & (ids < table.shape[0])
+    rows = table[torch.where(ok, ids, 0).long()]
+    return torch.where(ok[:, None], rows, 0.0)
+
+
+def cumsum_rows_reference(d):
+    """Plain twin of cumsum_rows."""
+    return torch.cumsum(d, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# The piecewise-constant broadcast around cumsum_rows (plain torch)
+# ---------------------------------------------------------------------------
+
+def row_starts(ids):
+    """Segment starts of nondecreasing ids [R]: (start_rows [S], start_ids
+    [S]) int64, the rows where the id changes and the ids there.  Fixed per
+    tree topology (one host read for S), like the ids themselves."""
+    change = torch.ones_like(ids, dtype=torch.bool)
+    change[1:] = ids[1:] != ids[:-1]
+    start_rows = torch.nonzero(change)[:, 0]
+    return start_rows, ids[start_rows].long()
+
+
+def boundary_diffs(v, starts, nrows: int):
+    """[nrows, C] matrix whose running sum down the rows is v[ids]: at each
+    segment start the step from the previous segment's table row to this
+    one's (the first start carries its row whole), zero elsewhere.  starts:
+    row_starts(ids).  The per-evaluation part of the broadcast: a gather of
+    S table rows, a subtraction and a scatter."""
+    start_rows, start_ids = starts
+    vs = v[start_ids]
+    dv = torch.cat([vs[:1], vs[1:] - vs[:-1]])
+    diffs = v.new_zeros((nrows, v.shape[1]))
+    diffs[start_rows] = dv
+    return diffs
+
+
+def broadcast_deviation(v, ids) -> float:
+    """max |cumsum_rows(boundary_diffs(v)) - take_rows(v, ids)|: what the
+    gather-free broadcast loses to the running sum's roundoff.  Each of the
+    R additions rounds a partial sum no larger than max|v|, and each step
+    was itself rounded once, so it is at most R * eps * max|v|."""
+    out = cumsum_rows(boundary_diffs(v, row_starts(ids), ids.shape[0]))
+    return float(torch.max(torch.abs(out - take_rows(v, ids))))
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _check_aligned(name, t):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned (the kernel moves "
+                         "float4 pieces)")
+
+
+def take_rows(table, ids):
+    """out[r] = table[ids[r]] for table [P, C] and ids [R] int32; a row whose
+    id lies outside [0, P) is zero.  The ids need not be sorted.
+
+    On a CUDA device: float32, C a multiple of 4 (a row is moved as 16-byte
+    pieces) and 16-byte aligned storage, else it raises.  Bitwise the twin.
+    """
+    if table.device.type == "cpu":
+        return take_rows_reference(table, ids)
+    dev = table.device
+    if table.dim() != 2:
+        raise ValueError(f"table: shape {tuple(table.shape)}, expected [P, C]")
+    nparents, ncols = table.shape
+    nrows = ids.shape[0]
+    _check("table", table, torch.float32, (nparents, ncols), dev)
+    _check("ids", ids, torch.int32, (nrows,), dev)
+    if ncols % 4 or ncols == 0:
+        raise ValueError(f"table: {ncols} columns, expected a multiple of 4")
+    out = torch.empty((nrows, ncols), dtype=torch.float32, device=dev)
+    _check_aligned("table", table)
+    _check_aligned("out", out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _cuda_lib().agbnp_take_rows(table.data_ptr(), nparents, ncols,
+                                     ids.data_ptr(), nrows, out.data_ptr(),
+                                     stream)
+    _launch_check("take_rows", rc)
+    LAUNCHES["take_rows"] += 1
+    return out
+
+
+def cumsum_rows(d):
+    """Inclusive prefix sum down the rows of d [R, C], per column.
+
+    On a CUDA device: float32, 1 <= C <= 256, any R.  Two passes over
+    row tiles (tile totals, then each tile's running sums on top of the
+    totals before it), every sum taken in an order the shapes alone fix: two
+    launches give the same bits.  Against the twin (another summation order)
+    it agrees to float32 roundoff of the column sums."""
+    if d.device.type == "cpu":
+        return cumsum_rows_reference(d)
+    dev = d.device
+    if d.dim() != 2:
+        raise ValueError(f"d: shape {tuple(d.shape)}, expected [R, C]")
+    nrows, ncols = d.shape
+    _check("d", d, torch.float32, (nrows, ncols), dev)
+    if not 1 <= ncols <= MAX_COLS:
+        raise ValueError(f"d: {ncols} columns, expected 1..{MAX_COLS}")
+    lib = _cuda_lib()
+    tile_rows = lib.agbnp_cumsum_tile_rows(ncols)
+    ntiles = max(1, -(-nrows // tile_rows))
+    bsum = torch.empty((ntiles, ncols), dtype=torch.float32, device=dev)
+    out = torch.empty_like(d)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.agbnp_cumsum_rows(d.data_ptr(), nrows, ncols, bsum.data_ptr(),
+                               out.data_ptr(), stream)
+    _launch_check("cumsum_rows", rc)
+    LAUNCHES["cumsum_rows"] += 1
+    return out

@@ -56,6 +56,9 @@ SIGNATURES = {
                                 _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P,
                                 _P),
+    "agbnp_take_rows": (_P, _I, _I, _P, _I, _P, _P),
+    "agbnp_cumsum_tile_rows": (_I,),
+    "agbnp_cumsum_rows": (_P, _I, _I, _P, _P, _P),
 }
 
 
@@ -129,7 +132,7 @@ def build() -> tuple[pathlib.Path, str]:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the pair-sweep library, with argtypes and
+    """Build (if needed) and load the kernel library, with argtypes and
     restype declared for every exported function."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))

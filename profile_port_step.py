@@ -4,13 +4,15 @@
     python3 profile_port_step.py [SYSTEM] [--dense] [--mts-wu4]
                                  [--steps 40] [--out TABLE.txt]
     python3 profile_port_step.py [SYSTEM] --list-kernels
+    python3 profile_port_step.py [SYSTEM] --caps-compare [--steps 200]
+    python3 profile_port_step.py [SYSTEM] --row-probes [ROWS PARENTS REPS]
 
 Runs the port's MD configuration on SYSTEM (a name under benchmarks/data,
 1li2 by default, e.g. 2clr; or a path to a .dms file): AGBNP1 + OPLS, f32,
 1 nm cutoff and descreening horizon, rebuild every 40 steps, the vdW-
 compact WU pass, the pair sweeps on interacting-tile lists (--dense: on
-the dense grid), tree capacities sized first by single evaluations: the
-JAX package's bench.py strict run; with --mts-wu4 its headline run (the WU
+the dense grid), the lean tree capacities the Simulation sizes from the
+DMS positions: the JAX package's bench.py strict run; with --mts-wu4 its headline run (the WU
 pass as an r-RESPA impulse every 4 steps).  It prints:
 
   * per-phase wall time of each part of a step, synchronised around every
@@ -36,6 +38,24 @@ CUDA-event time per call and the profiler's device time of each of its
 kernels (the sweep, the reduce); the descreening sweeps at the
 column-group count the wrapper picks and at every fixed one (the reload
 from Q/dQ and keep bits of a Born sweep run at that count).
+
+With --caps-compare it times the strict run (--steps of it, after an equal
+warm-up) at the padded position-free tree capacities and at the lean ones
+the Simulation sizes from its positions, in turns within the one call, and
+prints ms/step beside the rows per level.
+
+With --row-probes [ROWS] [PARENTS] [REPS] (defaults 85504 34816 50) it
+runs the row-move probe instead, the counterpart of the JAX package's
+benchmarks/micro_pallas_gather.py: device ms and ns/row of the stock sorted
+gather `table[ids]`, `torch.index_select`, the port's `segment_sum` (also
+over a level's valid rows alone, without its padding segment), the hand
+kernel `take_rows`, `torch.cumsum`, the hand kernel `cumsum_rows`, and
+the whole gather-free broadcast (boundary diffs scattered, then
+`cumsum_rows`), with the broadcast's largest deviation from the gather; at
+the probe's shape (segment ids from numpy seed 0, an 8-column f32 table)
+and at the widest level of SYSTEM's overlap tree (2clr by default) from the
+model's own tree pass.  Each hand kernel is first held against its plain
+twin on the timed inputs.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -139,21 +159,114 @@ def profile_list_kernels(dev, card, system):
     return 0
 
 
+def caps_compare(dev, card, dms, steps, kw):
+    """--caps-compare: bench.py's strict run (1 fs, rebuilds every 40
+    steps) at the padded tree capacities a Simulation had before it sized
+    them (TreeCaps.for_natoms, grown until clean) and at the lean ones it
+    sizes now (caps_boost 1.10), in turns padded, lean, lean, padded within
+    this one call; each after an equal warm-up."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import Simulation, TreeCaps
+
+    def simulation(caps):
+        return Simulation(dms, device=dev, version=1, dtype=torch.float32,
+                          skin=0.25, caps=caps, **kw)
+
+    print(f"card: {card}; {dms.n} atoms, f32, strict run, {steps} steps "
+          "after an equal warm-up, ms/step on the host clock", flush=True)
+    for which in ("padded", "lean", "lean", "padded"):
+        sim = simulation(TreeCaps.for_natoms(dms.n) if which == "padded"
+                         else None)
+        r = sim.benchmark_langevin(nsteps=steps, neighbor_every=40)
+        caps = sim.agbnp.caps
+        print(f"  {which:6s}: {r['elapsed_s'] / r['steps_run'] * 1e3:8.3f} "
+              f"ms/step ({r['ns_day']:.3f} ns/day), regrows {r['regrows']}, "
+              f"overflow {r['overflow']}; rows per level {caps.caps} = "
+              f"{sum(caps.caps)}, windows {caps.offs}", flush=True)
+    return 0
+
+
+def row_probes(dev, card, rows=85504, parents=34816, reps=50,
+               system="2clr"):
+    """--row-probes: the sorted row gather and its alternatives, timed on
+    the card.  Returns {shape label: {probe: ms}}."""
+    import torch
+
+    from chip_smoke import cuda_time_ms, probe_inputs, widest_level
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+    from openmm_agbnp_plugin_tpu_torch.ops.tree import segment_sum
+
+    ids, table, x = probe_inputs(dev, rows, parents)
+    lvl_table, lvl_ids, lvl_valid, lvl_label = widest_level(dev, system)
+    print(f"card: {card}; row probes, f32 x 8 columns, device ms per call "
+          f"over {reps} calls (CUDA events behind a device sleep)",
+          flush=True)
+    results = {}
+    for label, tab, idv, payload, nvalid in (
+            (f"probe: {rows} rows from {parents} parents", table, ids, x,
+             rows),
+            (lvl_label, lvl_table, lvl_ids, None, lvl_valid)):
+        nrows, npar = idv.shape[0], tab.shape[0]
+        ids64 = idv.long()
+        gathered = RW.take_rows(tab, idv)
+        if not torch.equal(gathered, RW.take_rows_reference(tab, idv)):
+            raise AssertionError(f"take_rows differs from its twin ({label})")
+        if payload is None:
+            payload = gathered
+        summed = RW.cumsum_rows(payload)
+        scale = float(torch.cumsum(payload.double().abs(), 0).max())
+        err = float((summed.double()
+                     - torch.cumsum(payload.double(), 0)).abs().max())
+        if not torch.equal(summed, RW.cumsum_rows(payload)) \
+                or not err <= 1e-5 * scale:
+            raise AssertionError(f"cumsum_rows: not repeatable or {err:.3e} "
+                                 f"from f64 at scale {scale:.4g} ({label})")
+        starts = RW.row_starts(idv)
+        probes = {
+            "table[ids] (stock gather)": lambda: tab[ids64],
+            "torch.index_select": lambda: torch.index_select(tab, 0, idv),
+            "segment_sum (sorted)": lambda: segment_sum(
+                payload, ids64, npar, ids_sorted=True),
+            # a level's padding rows share the last parent's id: one long
+            # segment that the valid rows alone do not have
+            "segment_sum, valid rows only": lambda: segment_sum(
+                payload[:nvalid], ids64[:nvalid], npar, ids_sorted=True),
+            "take_rows (hand kernel)": lambda: RW.take_rows(tab, idv),
+            "torch.cumsum": lambda: torch.cumsum(payload, 0),
+            "cumsum_rows (hand kernel)": lambda: RW.cumsum_rows(payload),
+            "cumsum broadcast + diff scatter": lambda: RW.cumsum_rows(
+                RW.boundary_diffs(tab, starts, nrows)),
+        }
+        print(f"{label} ({starts[0].shape[0]} segments)", flush=True)
+        results[label] = {}
+        for name, fn in probes.items():
+            ms = cuda_time_ms(fn, reps)
+            results[label][name] = ms
+            print(f"  {name:32s}: {ms:8.4f} ms ({ms / nrows * 1e6:7.3f} "
+                  "ns/row)", flush=True)
+        print(f"  cumsum_rows vs f64: {err / scale:.3e} of max cumsum|d|; "
+              f"broadcast's max deviation from the gather: "
+              f"{RW.broadcast_deviation(tab, idv):.3e} (max|v| "
+              f"{float(tab.abs().max()):.4g})", flush=True)
+    return results
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("profile_port_step: no CUDA device", file=sys.stderr)
         return 1
-    from openmm_agbnp_plugin_tpu_torch import AGBNPModel, AGBNPParams, \
-        Simulation, load_dms
+    from openmm_agbnp_plugin_tpu_torch import Simulation, load_dms
     from openmm_agbnp_plugin_tpu_torch.md.constraints import Constraints
     from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
     from openmm_agbnp_plugin_tpu_torch.ops import tree as T
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("system", nargs="?", default="1li2",
-                    help="name under benchmarks/data or a .dms path")
+    ap.add_argument("system", nargs="?",
+                    help="name under benchmarks/data or a .dms path (1li2; "
+                         "with --row-probes 2clr, names only)")
     ap.add_argument("--dense", action="store_true",
                     help="pair sweeps on the dense grid, not tile lists")
     ap.add_argument("--mts-wu4", action="store_true",
@@ -165,31 +278,38 @@ def main() -> int:
     ap.add_argument("--list-kernels", action="store_true",
                     help="profile the tile-list sweeps alone, at every "
                          "column-group count")
+    ap.add_argument("--caps-compare", action="store_true",
+                    help="time the strict run at the padded position-free "
+                         "tree capacities and at the lean sized ones")
+    ap.add_argument("--row-probes", nargs="*", type=int, metavar="N",
+                    help="time the row-move probes: [rows] [parents] [reps]")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    if args.list_kernels:
+    if args.list_kernels or args.row_probes is not None:
         from openmm_agbnp_plugin_tpu_torch.runtime import build
         build.load_library()
-        return profile_list_kernels(dev, card, args.system)
+    if args.list_kernels:
+        return profile_list_kernels(dev, card, args.system or "1li2")
+    if args.row_probes is not None:
+        if len(args.row_probes) > 3:
+            ap.error("--row-probes takes at most rows, parents and reps")
+        row_probes(dev, card, *args.row_probes, system=args.system or "2clr")
+        return 0
+    args.system = args.system or "1li2"
     path = (args.system if args.system.endswith(".dms") else os.path.join(
         HERE, "benchmarks", "data", f"{args.system}_agbnp1.dms"))
     d = load_dms(path)
     kw = dict(cutoff=1.0, descreen_horizon="cutoff",
               pair_tiles=False if args.dense else None)
-    # size the tree capacities on the initial configuration first
-    sizing = AGBNPModel(AGBNPParams(
-        radius=d.agbnp_radius, gamma=d.agbnp_gamma, alpha=d.agbnp_alpha,
-        charge=d.charges, ishydrogen=d.ishydrogen), device=dev,
-        dtype=torch.float32, positions=d.positions, **kw)
-    for _ in range(8):
-        out = sizing.energy_forces(d.positions, with_details=True)[2]
-        if not sizing.check_and_grow(out["diag"]):
-            break
+    if args.caps_compare:
+        return caps_compare(dev, card, d, args.steps, kw)
+    # the Simulation sizes its lean tree capacities (caps_boost 1.10) from
+    # the DMS positions
     sim = Simulation(d, device=dev, version=1, dtype=torch.float32,
-                     skin=0.25, caps=sizing.caps, **kw)
+                     skin=0.25, **kw)
     m = sim.agbnp
     ff = sim.ff_state()
     a = ff["a"]

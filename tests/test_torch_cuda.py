@@ -599,3 +599,169 @@ def test_redesigned_list_kernels_bitwise_repeatable(cuda, shapes, box):
         first, second = call(), call()
         for x, y in zip(first, second):
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The row kernels (csrc/rows.cu) and the Context
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,parents,cols", [(85504, 34816, 8),
+                                               (4097, 1500, 8), (1, 3, 4),
+                                               (777, 200, 16)])
+def test_take_rows_bitwise_equal_to_the_twin(cuda, rows, parents, cols):
+    """Sorted ids, an unsorted id vector and ids outside [0, P): every row
+    is a copy or zero, so the kernel equals the twin bit for bit."""
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    rng = np.random.RandomState(1)
+    table = torch.as_tensor(rng.rand(parents, cols), dtype=torch.float32,
+                            device=cuda)
+    sorted_ids = torch.as_tensor(RW.make_segments(rows, parents), device=cuda)
+    wild = torch.as_tensor(rng.randint(-5, parents + 5, size=rows)
+                           .astype(np.int32), device=cuda)
+    assert bool(((wild < 0) | (wild >= parents)).any()) or rows == 1
+    before = PK.launch_counts()["take_rows"]
+    for ids in (sorted_ids, wild, sorted_ids.flip(0).contiguous()):
+        out = RW.take_rows(table, ids)
+        assert torch.equal(out, RW.take_rows_reference(table, ids))
+        assert torch.equal(out.cpu(), RW.take_rows(table.cpu(), ids.cpu()))
+    assert PK.launch_counts()["take_rows"] == before + 3
+
+
+@pytest.mark.parametrize("rows,cols", [(85504, 8), (1056, 8), (1057, 8),
+                                       (1, 8), (33, 1), (5000, 13),
+                                       (3000, 256)])
+def test_cumsum_rows_repeatable_and_within_its_bound(cuda, rows, cols):
+    """R not a multiple of the tile (1,056 rows at 8 columns), one tile
+    exactly, R = 1, other widths: two launches equal bit for bit; every
+    output is a chain of at most 33 + segments + tiles rounded partial
+    sums, so it lies within 1e-5 of an f64 prefix sum at these sizes,
+    measured against the running sum of |d|; signed data included."""
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    rng = np.random.RandomState(2)
+    d = torch.as_tensor(rng.rand(rows, cols) - 0.25, dtype=torch.float32,
+                        device=cuda)
+    before = PK.launch_counts()["cumsum_rows"]
+    out = RW.cumsum_rows(d)
+    assert torch.equal(out, RW.cumsum_rows(d))
+    assert PK.launch_counts()["cumsum_rows"] == before + 2
+    ref = torch.cumsum(d.double(), 0)
+    scale = float(torch.cumsum(d.double().abs(), 0).max())
+    assert float((out.double() - ref).abs().max()) <= 1e-5 * scale
+    # the twin is a sequential f32 sum: the kernel is no further from it
+    # than the twin is from f64, plus its own bound
+    twin = RW.cumsum_rows_reference(d)
+    assert float((out - twin).abs().max()) <= float(
+        (twin.double() - ref).abs().max()) + 1e-5 * scale
+
+
+def test_row_wrappers_reject_bad_inputs(cuda):
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    table = torch.zeros((16, 8), dtype=torch.float32, device=cuda)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        RW.take_rows(table, ids.long())
+    with pytest.raises(ValueError, match="multiple of 4"):
+        RW.take_rows(table[:, :6].contiguous(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        RW.take_rows(table[:, :4], ids)
+    with pytest.raises(ValueError, match="aligned"):
+        RW.take_rows(torch.zeros(16 * 8 + 1, dtype=torch.float32,
+                                 device=cuda)[1:].view(16, 8), ids)
+    with pytest.raises(ValueError):
+        RW.take_rows(table, ids.cpu())
+    with pytest.raises(TypeError):
+        RW.cumsum_rows(table.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        RW.cumsum_rows(table.T)
+
+
+def test_gather_free_broadcast_on_the_card(cuda):
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    rows, parents = 85504, 34816
+    ids = torch.as_tensor(RW.make_segments(rows, parents), device=cuda)
+    v = torch.as_tensor(np.random.RandomState(1).rand(parents, 8),
+                        dtype=torch.float32, device=cuda)
+    dev = RW.broadcast_deviation(v, ids)
+    assert 0.0 <= dev <= rows * 2.0 ** -23 * float(v.abs().max())
+
+
+def _force_of(pkg_force, params, version):
+    pkg_force.setVersion(version)
+    for i in range(params.n):
+        pkg_force.addParticle(params.radius[i], params.gamma[i],
+                              params.alpha[i], params.charge[i],
+                              bool(params.ishydrogen[i]))
+    return pkg_force
+
+
+@pytest.mark.parametrize("version", [0, 1])
+@pytest.mark.parametrize("method", ["NoCutoff", "CutoffNonPeriodic",
+                                    "CutoffPeriodic"])
+def test_context_on_card_matches_cpu_f64(cuda, fixture_system, version,
+                                         method):
+    """The Context on the card (f32, the default device) against the
+    Context on the CPU in f64, for every nonbonded method."""
+    from openmm_agbnp_plugin_tpu_torch import AGBNPForce, Context, \
+        NonbondedMethod
+
+    params, pos = fixture_system
+    force = _force_of(AGBNPForce(), params, version)
+    force.setNonbondedMethod(NonbondedMethod[method])
+    force.setCutoffDistance(1.2)
+    box = (((6.0, 0, 0), (0.8, 6.2, 0), (-0.5, 0.7, 6.4))
+           if method == "CutoffPeriodic" else None)
+    ctx = Context(force, box=box)
+    ref = Context(force, dtype=torch.float64, device="cpu", box=box)
+    assert ctx._device == cuda
+    for c in (ctx, ref):
+        c.setPositions(pos)
+    e, f = ctx.getEnergyForces()
+    e_ref, f_ref = ref.getEnergyForces()
+    assert isinstance(e, float) and f.device == cuda
+    assert f.dtype == torch.float32
+    assert abs(e - e_ref) <= 1e-5 * abs(e_ref)
+    assert rel(f, f_ref) <= 1e-5
+    assert ctx.getEnergy() == e
+    e0, f0 = ctx.calcForcesAndEnergy(includeForces=False)
+    assert e0 == e and not bool(f0.any()) and f0.device == cuda
+    # a parameter edit keeps the model and matches a fresh Context
+    model = ctx._model
+    for i in range(params.n):
+        r, g, a, q, h = force.getParticleParameters(i)
+        force.setParticleParameters(i, r, g, a, 0.5 * q, h)
+    force.updateParametersInContext(ctx)
+    assert ctx._model is model
+    fresh = Context(force, box=box)
+    fresh.setPositions(pos)
+    e1, f1 = ctx.getEnergyForces()
+    e2, f2 = fresh.getEnergyForces()
+    assert e1 == e2 and torch.equal(f1, f2)
+
+
+@pytest.mark.parametrize("name", ["trpcage", "rnaseh", "1dwc"])
+def test_shipped_systems_on_card_against_f64_records(cuda, name):
+    """The three shipped systems beside 1li2 and 2clr, f32 on the card
+    against the JAX package's stored f64 results; rnaseh builds its tree
+    candidates with half_neighbor_pairs on the device, without a grid."""
+    d = load_dms(os.path.join(DATA, f"{name}_agbnp1.dms"))
+    p = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                    alpha=d.agbnp_alpha, charge=d.charges,
+                    ishydrogen=d.ishydrogen)
+    m = AGBNPModel(p, device=cuda, dtype=torch.float32,
+                   positions=d.positions)
+    if name == "rnaseh":
+        assert m.neighbor_kmax > 0 and m.neighbor_grid is None
+    for _ in range(8):
+        e, f, out = m.energy_forces(d.positions, with_details=True)
+        if not m.check_and_grow(out["diag"]):
+            break
+    else:
+        raise AssertionError("capacities did not converge")
+    ref = np.load(os.path.join(os.path.dirname(DATA), ".parity_cache",
+                               f"{name}_agbnp1_f64.npz"))
+    assert abs(float(e) - float(ref["e"])) <= 1e-5 * abs(float(ref["e"]))
+    assert rel(f, torch.as_tensor(ref["f"])) <= 1e-5

@@ -117,7 +117,11 @@ def test_prepare_arrays_bit_equal_to_jax(gaussvol_system):
 
 def test_port_never_imports_jax():
     code = ("import sys, openmm_agbnp_plugin_tpu_torch.md.simulation, "
-            "openmm_agbnp_plugin_tpu_torch.ops.kernels.pairs; "
+            "openmm_agbnp_plugin_tpu_torch.ops.kernels.pairs, "
+            "openmm_agbnp_plugin_tpu_torch.ops.kernels.rows, "
+            "openmm_agbnp_plugin_tpu_torch.api.force, "
+            "openmm_agbnp_plugin_tpu_torch.utils.hashtable, "
+            "openmm_agbnp_plugin_tpu_torch.utils.profiling; "
             "print('jax' in sys.modules, "
             "'openmm_agbnp_plugin_tpu' in sys.modules)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
