@@ -9,8 +9,11 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
   2. holds each kernel against its plain PyTorch twin on the card, in f32,
      and times both: the dense-grid sweeps at the 1li2 shapes (NP 1536,
      NHP 768, E 24; horizon and cutoff 1 nm, with and without the fused MM
-     terms; the reloading descreening, a list kernel over every tile
-     pair, also with both boxes), the interacting-tile-list sweeps at
+     terms; the GB sweep and the reloading descreening, list kernels over
+     every tile pair, also with both boxes and launched twice, the GB
+     sweep also without a cutoff and at 2clr's dense shapes, with an empty
+     kernel's launch time beside its bound), the interacting-tile-list
+     sweeps at
      1li2's list shapes (T 256; also with an orthorhombic and a triclinic
      box) and at 2clr's, both dense descreening variants at the 2clr
      shapes (NP 6144, NHP 3328, E 24; Born and descreening lists at
@@ -27,11 +30,14 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      the redesign; then the two row kernels (take_rows, cumsum_rows) at
      the row probe's default shape (85,504 rows x 8 from 34,816 parents)
      and at the widest level of 2clr's overlap tree: take_rows bitwise
-     equal to its twin (also with unsorted and out-of-range ids),
-     cumsum_rows launched twice (bitwise), within 1e-5 of an f64 prefix
-     sum and no further from its twin than the twin from f64, the
-     gather-free broadcast's deviation from the gather, and both timed
-     beside torch.index_select and torch.cumsum (library_ms);
+     equal to its twin (also with unsorted and out-of-range ids) at every
+     width the tree's passes give it (1, 6, 12, 13 and 26 columns, parent
+     and atom ids, a table at an odd word address), cumsum_rows launched
+     twice (bitwise), within 1e-5 of an f64 prefix sum and no further from
+     its twin than the twin from f64, the gather-free broadcast's
+     deviation from the gather, and both timed beside torch.index_select
+     and torch.cumsum (library_ms), take_rows at each tree width and at
+     the padded widths 16 and 28;
   3. checks the fixture goldens through AGBNPModel on the card in f32
      (GVolSA 872.514, AGBNP1 -2476.66, within 0.01);
   4. checks the five shipped systems (trpcage, 1li2, rnaseh, 1dwc, 2clr;
@@ -45,7 +51,8 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      Langevin steps at 1 fs, neighbor list and tree topology rebuilt every
      40 steps, the vdW-compact WU pass: bench.py's strict run on the dense
      route) and checks that every energy is finite, no capacity overflow
-     remains, and every dense kernel launched at least once per step;
+     remains, and every dense kernel launched at least once per step and
+     the tree's row gather (take_rows) at every level of every pass;
   7. runs 2clr MD on the tile lists with the cell-grid neighbor build
      (200 timed steps after a 200-step warm-up) with the same checks for
      the list kernels; like 6, 8 and 9 at the lean tree capacities the
@@ -71,7 +78,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      1li2 at full width (NoCutoff, the dense kernels) against AGBNPModel
      and the stored f64 result;
  13. runs the row probe (profile_port_step.py --row-probes), the path of
-     the two row kernels, and counts their launches.
+     cumsum_rows, and counts the row kernels' launches.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -102,14 +109,14 @@ TPU_PROBE = "benchmarks/micro_pallas_gather.py"
 # name -> (source, TPU kernel it replaces, the phase whose launches count)
 KERNELS = {
     "born_sums": (PAIRS_SRC, f"{TPU}:420", "md_1li2"),
-    "gb_pair": (PAIRS_SRC, f"{TPU}:569", "md_1li2"),
+    "gb_pair": (TILES_SRC, f"{TPU}:569", "md_1li2"),
     "descreening": (TILES_SRC, f"{TPU}:740", "md_1li2"),
     "descreening_recompute": (PAIRS_SRC, f"{TPU}:740", "share_off"),
     "born_sums_tiles": (TILES_SRC, f"{TPU}:842", "md_2clr"),
     "gb_pair_tiles": (TILES_SRC, f"{TPU}:966", "md_2clr"),
     "descreening_tiles": (TILES_SRC, f"{TPU}:1114", "md_2clr"),
     "descreening_tiles_recompute": (TILES_SRC, f"{TPU}:1114", "share_off"),
-    "take_rows": (ROWS_SRC, f"{TPU_PROBE}:99", "row_probes"),
+    "take_rows": (ROWS_SRC, f"{TPU_PROBE}:99", "md_2clr"),
     "cumsum_rows": (ROWS_SRC, f"{TPU_PROBE}:145", "row_probes"),
 }
 # the row probe's default shape (benchmarks/micro_pallas_gather.py:64-66) and
@@ -125,17 +132,32 @@ PEAK_FP32 = 67e12     # FLOP/s, H100 SXM data sheet, FP32 outside tensor cores
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 LIBRARY_NONE = ("none: no PyTorch call computes the sweep (a spline lookup, "
                 "an exclusion scan and a deterministic row/column deposit)")
-# device ms of the Born list sweep and the dense reloading descreening
-# before their redesign, by (kernel, shapes) as timed in [2] (PERF.md's
-# kernel table: NVIDIA H100 80GB HBM3, 700 W); for the log only
-BEFORE_MS = {("born_sums_tiles", "2clr"): 0.1075,
+# device ms of the dense GB sweep (one warp a row over the full square),
+# the Born list sweep and the dense reloading descreening before their
+# redesign, by (kernel, shapes) as timed in [2] (PERF.md's kernel table:
+# NVIDIA H100 80GB HBM3, 700 W); for the log only
+BEFORE_MS = {("gb_pair", "1li2"): 0.0418,
+             ("born_sums_tiles", "2clr"): 0.1075,
              ("born_sums_tiles", "1li2"): 0.0722,
              ("descreening", "1li2"): 0.0436}
+# the widths of the tables the tree's passes gather rows from, with the ids
+# they take (ops/tree.py): the per-atom gamma, the atomic rows of one and of
+# two parameterizations, a level's packed rows of one and of two, the
+# running gamma sums of the level above
+TREE_WIDTHS = ((1, "atom"), (6, "atom"), (12, "atom"), (1, "parent"),
+               (13, "parent"), (26, "parent"))
+# what padding the packed level rows to whole 16-byte pieces would gather
+PADDED_WIDTHS = ((16, "parent"), (28, "parent"))
+# the tree's row gathers at each level of a pass: the parent rows and the
+# atom rows
+GATHERS_PER_LEVEL = 2
 # bytes of Q and dQ in one 32x32 sub-tile pair
 QD_SUBTILE_BYTES = 2 * 32 * 32 * 4
 # keys of a kernel's record beyond the contract's, copied into the JSON line
 RECORD_EXTRAS = ("kept_subtile_pairs", "qd_written_bytes", "qd_read_bytes",
-                 "qd_dense_bytes", "f64_abs_err", "twin_f64_abs_err")
+                 "qd_dense_bytes", "f64_abs_err", "twin_f64_abs_err",
+                 "empty_launch_ms", "shape",
+                 "tree_widths", "probe")
 LI2_BOXES = (("ortho", (4.0, 4.2, 4.4)),
              ("triclinic", ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
                             (0.4, -0.3, 4.4))))
@@ -358,11 +380,12 @@ def bound_ms(live, ops_per_pair, moved):
 
 @functools.lru_cache(maxsize=None)
 def widest_level(dev, name):
-    """The parent gather of the widest level of a system's overlap tree, as
-    the model's tree pass runs it at the model's capacities: (table [P, 8]
-    f32, the first 8 packed columns of the level above; pmono [R] int32, the
-    level's nondecreasing parent ids, padding rows included; the number of
-    valid rows, which come first; label)."""
+    """The widest level of a system's overlap tree as the model's tree pass
+    holds it at the model's capacities, padding rows included: dict(table
+    [P, 8] f32, the first 8 packed columns of the level above; pmono32 and
+    atom32 [R] int32, the ids the pass gathers parent and atom rows with;
+    pmono [R] int64 and lengths [P], what its segment sum takes; nvalid, the
+    valid rows, which come first; nparents P; natoms; label)."""
     import torch
 
     from openmm_agbnp_plugin_tpu_torch import AGBNPModel
@@ -382,10 +405,30 @@ def widest_level(dev, name):
     counts = diag["counts"].tolist()
     w = max(range(1, len(counts)), key=counts.__getitem__)
     table = levels[w - 1]["_dat"][:, :8].contiguous()
-    pmono = levels[w]["bnd"]["pmono"].to(torch.int32).contiguous()
-    return table, pmono, counts[w], (
-        f"{name} level {w + 2}: {pmono.shape[0]} rows ({counts[w]} valid) "
-        f"from {table.shape[0]} parents")
+    bnd = levels[w]["bnd"]
+    return dict(
+        table=table, pmono32=bnd["pmono32"], atom32=bnd["atom32"],
+        pmono=bnd["pmono"], lengths=bnd["lengths"], nvalid=counts[w],
+        nparents=table.shape[0], natoms=p.n, label=(
+            f"{name} level {w + 2}: {bnd['pmono'].shape[0]} rows "
+            f"({counts[w]} valid) from {table.shape[0]} parents"))
+
+
+def tree_width_tables(dev, lvl, widths):
+    """For each (columns, "parent" or "atom") of widths, a seeded f32 table
+    of that width ([P] or [N] for one column, as the tree's gamma vectors
+    are) and the level's ids into it."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = []
+    for cols, which in widths:
+        size = lvl["nparents"] if which == "parent" else lvl["natoms"]
+        shape = (size,) if cols == 1 else (size, cols)
+        out.append((cols, which, torch.rand(shape, generator=gen,
+                                            dtype=torch.float32, device=dev),
+                    lvl["pmono32"] if which == "parent" else lvl["atom32"]))
+    return out
 
 
 def probe_inputs(dev, rows, parents):
@@ -407,30 +450,41 @@ def probe_inputs(dev, rows, parents):
 def check_row_kernels(dev, results):
     """#8 and #9 against their twins, at the probe's default shape and at
     the widest level of 2clr's tree: take_rows bitwise (also with ids out
-    of range and unsorted), cumsum_rows twice (bitwise), against the twin
-    and against an f64 cumsum, and the gather-free broadcast's deviation
-    from the gather.  Times both at the default shape, beside the library
-    calls torch.index_select and torch.cumsum."""
+    of range and unsorted, at every width the tree gives it, and from a
+    table at an odd word address), cumsum_rows twice (bitwise), against the
+    twin and against an f64 cumsum, and the gather-free broadcast's
+    deviation from the gather.  Times take_rows at the widest of the tree's
+    shapes (2clr's widest level, both parameterizations' packed rows) and
+    at each other width, cumsum_rows at the probe's default shape, beside
+    the library calls torch.index_select and torch.cumsum."""
     import torch
 
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
 
     ids, table, x = probe_inputs(dev, PROBE_ROWS, PROBE_PARENTS)
-    lvl_table, lvl_ids, _, lvl_label = widest_level(dev, "2clr")
+    lvl = widest_level(dev, "2clr")
+    lvl_table, lvl_ids = lvl["table"], lvl["pmono32"]
     log(f"[2] row kernels vs plain twins, f32: probe shape {PROBE_ROWS} rows "
-        f"x 8 from {PROBE_PARENTS} parents; {lvl_label}")
+        f"x 8 from {PROBE_PARENTS} parents; {lvl['label']}")
+
+    def take_equal(what, tab, iv):
+        out = RW.take_rows(tab, iv)
+        if not (torch.equal(out, RW.take_rows_reference(tab, iv))
+                and torch.equal(out, RW.take_rows(tab, iv))):
+            raise AssertionError(f"take_rows {what}: differs from the twin, "
+                                 "or between two launches")
+        return out
+
+    def wild_ids(size, nrows):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        return torch.randint(-5, size + 5, (nrows,), generator=gen,
+                             device=dev, dtype=torch.int32)
+
     for at, tab, idv in (("probe", table, ids), ("2clr", lvl_table, lvl_ids)):
         nrows, npar = idv.shape[0], tab.shape[0]
-        gen = torch.Generator(device=dev).manual_seed(3)
-        wild = torch.randint(-5, npar + 5, (nrows,), generator=gen,
-                             device=dev, dtype=torch.int32)
         for how, iv in (("sorted ids", idv), ("unsorted, out-of-range ids",
-                                              wild)):
-            out = RW.take_rows(tab, iv)
-            if not (torch.equal(out, RW.take_rows_reference(tab, iv))
-                    and torch.equal(out, RW.take_rows(tab, iv))):
-                raise AssertionError(f"take_rows {at} {how}: differs from "
-                                     "the twin, or between two launches")
+                                              wild_ids(npar, nrows))):
+            take_equal(f"{at} {how}", tab, iv)
             log(f"    take_rows                   {at} {how}: bitwise equal "
                 "to the twin, twice")
         # the level's gathered payload, signed values included
@@ -471,23 +525,81 @@ def check_row_kernels(dev, results):
             f"max|v| = {limit:.3e})")
         if not dev_b <= limit:
             raise AssertionError(f"broadcast {at}: deviation {dev_b:.3e}")
-    for name, kern, plain, lib, libname, moved, live in (
-            ("take_rows", lambda: RW.take_rows(table, ids),
-             lambda: RW.take_rows_reference(table, ids),
-             lambda: torch.index_select(table, 0, ids), "torch.index_select",
-             nbytes(table, ids) + ids.shape[0] * table.shape[1] * 4, 0),
-            ("cumsum_rows", lambda: RW.cumsum_rows(x),
-             lambda: RW.cumsum_rows_reference(x),
-             lambda: torch.cumsum(x, 0), "torch.cumsum", 2 * nbytes(x),
-             x.numel())):
+
+    def timed(kern, plain, lib, moved, live=0):
         b_ms, b_by = bound_ms(live, 1, moved)
-        rec = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
-                   library_ms=cuda_time_ms(lib), library=libname,
-                   bound_ms=b_ms, bound_by=b_by)
-        results[name].update(rec)
-        log(f"    probe {name:21s} kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, {libname} {rec['library_ms']:.4f} "
-            f"ms, bound {b_ms:.4f} ms ({b_by}; {moved} bytes)")
+        return dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
+                    library_ms=cuda_time_ms(lib), bound_ms=b_ms,
+                    bound_by=b_by, bytes=moved)
+
+    def take_timed(tab, iv):
+        # index_select takes a matrix; a vector is its one column
+        tab2 = tab if tab.dim() == 2 else tab[:, None]
+        row_bytes = tab2.shape[1] * 4
+        # the bytes these ids need: the ids, each table row they name once
+        # (not the rows no id reaches), and the output
+        named = torch.unique(iv[(iv >= 0) & (iv < tab.shape[0])]).numel()
+        rec = timed(lambda: RW.take_rows(tab, iv),
+                    lambda: RW.take_rows_reference(tab, iv),
+                    lambda: torch.index_select(tab2, 0, iv),
+                    nbytes(iv) + (named + iv.shape[0]) * row_bytes)
+        return dict(rec, rows_named=named)
+
+    # take_rows at the tree's own shapes: the widest level of 2clr's tree
+    # at each width a pass gathers, the twin held first on the timed inputs
+    # and on wild ids, then a table that starts one word off a 16-byte
+    # address
+    widths = []
+    for cols, which, tab, iv in tree_width_tables(
+            dev, lvl, TREE_WIDTHS + PADDED_WIDTHS):
+        what = f"2clr {cols} columns, {which} ids"
+        out = take_equal(what, tab, iv)
+        take_equal(f"{what}, wild", tab, wild_ids(tab.shape[0], iv.shape[0]))
+        off = torch.empty(tab.numel() + 1, dtype=torch.float32,
+                          device=dev)[1:].view(tab.shape).copy_(tab)
+        if not torch.equal(take_equal(f"{what}, odd address", off, iv), out):
+            raise AssertionError(f"take_rows {what}: an odd word address "
+                                 "changed the rows")
+        rec = dict(cols=cols, ids=which, rows=iv.shape[0],
+                   table_rows=tab.shape[0],
+                   piece_bytes=RW.take_rows_piece_bytes(tab, out),
+                   **take_timed(tab, iv))
+        widths.append(rec)
+        log(f"    take_rows {what:32s} {rec['rows']} rows from "
+            f"{rec['rows_named']} of {rec['table_rows']}, "
+            f"{rec['piece_bytes']}-byte pieces: kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"torch.index_select {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['bytes']} "
+            "bytes)")
+    tree = [w for w in widths if (w["cols"], w["ids"]) in TREE_WIDTHS]
+    main = max(tree, key=lambda w: w["bytes"])
+    padded = {w["cols"]: w["ms"] for w in widths if w not in tree}
+    by_cols = {w["cols"]: w["ms"] for w in tree if w["ids"] == "parent"}
+    log(f"    take_rows packed rows as they are against padded to whole "
+        f"16-byte pieces: 13 columns {by_cols[13]:.4f} ms, 16 columns "
+        f"{padded[16]:.4f} ms; 26 columns {by_cols[26]:.4f} ms, 28 columns "
+        f"{padded[28]:.4f} ms")
+    probe = take_timed(table, ids)
+    results["take_rows"].update(
+        {k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by")},
+        library="torch.index_select",
+        shape=(f"{main['rows']} rows x {main['cols']} from "
+               f"{main['table_rows']} ({lvl['label']})"),
+        tree_widths=widths, probe=probe)
+    rec = timed(lambda: RW.cumsum_rows(x),
+                lambda: RW.cumsum_rows_reference(x),
+                lambda: torch.cumsum(x, 0), 2 * nbytes(x), x.numel())
+    results["cumsum_rows"].update(rec, library="torch.cumsum")
+    for name, r in (("take_rows", probe), ("cumsum_rows", rec)):
+        lib = "torch.index_select" if name == "take_rows" else "torch.cumsum"
+        log(f"    probe {name:21s} kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, {lib} {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bytes']} bytes"
+            + (f", {r['rows_named']} table rows named"
+               if "rows_named" in r else "") + ")")
 
 
 def phase_kernels(dev):
@@ -495,6 +607,7 @@ def phase_kernels(dev):
 
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
+    from openmm_agbnp_plugin_tpu_torch.runtime import build
 
     results = {name: dict(max_abs_err=0.0) for name in KERNELS}
 
@@ -643,6 +756,25 @@ def phase_kernels(dev):
                 extra=0, info=dict(kept_subtile_pairs=kept)),
         }
 
+    def check_dense_gb(inp, at, boxes=()):
+        """#2, the GB list kernel over every tile pair ti <= tj of the dense
+        grid, against its twin: cutoff 1 nm and none, with and without the
+        fused MM terms, with each box at 1 nm, every call twice (bitwise)."""
+        gb_args, mm_kw = inp["gb_args"], inp["mm_kw"]
+        no_cut = dict(mm_kw, cutoff=None)
+        cases = [("cutoff=1, MM", mm_kw), ("cutoff=1, no MM",
+                                           dict(cutoff=1.0)),
+                 ("no cutoff, MM", no_cut), ("no cutoff, no MM", {})]
+        cases += [(f"cutoff=1, MM, {name}",
+                   dict(mm_kw, box=torch.tensor(box, device=dev)))
+                  for name, box in boxes]
+        for label, kw in cases:
+            outs = PK.gb_pair(*gb_args, **kw)
+            compare("gb_pair", f"{at} {label}", outs,
+                    PK.gb_pair_reference(*gb_args, **kw))
+            repeatable("gb_pair", f"{at} {label}", outs,
+                       PK.gb_pair(*gb_args, **kw))
+
     def repeatable(name, label, outs, again):
         if not all(x is None if y is None else torch.equal(x, y)
                    for x, y in zip(outs, again)):
@@ -703,13 +835,7 @@ def phase_kernels(dev):
         compare("born_sums", label,
                 PK.born_sums(*l_born, horizon=hz, save_qd=True),
                 PK.born_sums_reference(*l_born, horizon=hz, save_qd=True))
-    compare("gb_pair", "cutoff=1, MM",
-            PK.gb_pair(*l_gb, **l_mm), PK.gb_pair_reference(*l_gb, **l_mm))
-    compare("gb_pair", "cutoff=1, no MM",
-            PK.gb_pair(*l_gb, cutoff=1.0),
-            PK.gb_pair_reference(*l_gb, cutoff=1.0))
-    compare("gb_pair", "no cutoff, no MM",
-            PK.gb_pair(*l_gb), PK.gb_pair_reference(*l_gb))
+    check_dense_gb(li2, "1li2", LI2_BOXES)
     for box_name, box in (("", None), *LI2_BOXES):
         box = None if box is None else torch.tensor(box, device=dev)
         qd = PK.born_sums(*l_born, box=box, horizon=1.0, save_qd=True)[1:]
@@ -766,6 +892,7 @@ def phase_kernels(dev):
     compare("descreening", "2clr from Q/dQ h=1 spline",
             PK.descreening(*c_desc, spline=c_sp),
             PK.descreening_reference(*c_desc, spline=c_sp))
+    check_dense_gb(clr, "2clr")
     timed_2clr = check_lists(clr, "2clr")
     sp = clr["spline"]
     dense_d = (*clr["desc_args"], None)
@@ -784,6 +911,21 @@ def phase_kernels(dev):
                 results[name]["lists_1li2"] = rec
             else:
                 results[name].update(rec)
+    # what is left under #2's bound of a few tenths of a microsecond: the
+    # sweep and its reduce are two launches, and even a kernel that does
+    # nothing takes this long from launch to finish
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty_launch():
+        if lib.agbnp_empty_launch(stream) != 0:
+            raise AssertionError("the empty kernel did not launch")
+
+    results["gb_pair"].update(empty_launch_ms=cuda_time_ms(empty_launch))
+    log(f"    an empty kernel, launch to finish: "
+        f"{results['gb_pair']['empty_launch_ms']:.4f} ms a launch; gb_pair "
+        f"is 2 launches (sweep, reduce), bound "
+        f"{results['gb_pair']['bound_ms']:.4f} ms")
     check_row_kernels(dev, results)
     return results
 
@@ -914,6 +1056,9 @@ def phase_parity(dev):
             f"{ {k: c for k, c in counts.items() if c} }")
         if not (e_rel <= PARITY_TOL and f_rel <= PARITY_TOL):
             raise AssertionError(f"2clr {route}: sharing off differs")
+        if counts["take_rows"] < 1:
+            raise AssertionError(f"[4] 2clr {route}: the tree's passes did "
+                                 "not launch take_rows")
     return recompute
 
 
@@ -964,6 +1109,11 @@ def run_md(dev, card, name, steps, label, sim=None, bench=None, **kw):
     log(f"    kernel launches { {k: c for k, c in counts.items() if c} }")
     log(f"    first measurement, not a claim: {ms_step:.3f} ms/step, "
         f"{r['ns_day']:.3f} ns/day on {card}")
+    # every pass gathers parent and atom rows at each of the tree's levels
+    # through take_rows, and every (outer) step runs at least one pass
+    if counts["take_rows"] < GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * steps:
+        raise AssertionError(f"{label} take_rows: {counts['take_rows']} "
+                             f"launches in {steps} steps")
     if r["overflow"]:
         raise AssertionError(f"capacity overflow after {r['regrows']} "
                              "regrows")
@@ -1280,7 +1430,7 @@ def phase_context(dev):
         f"{ {k: c for k, c in counts.items() if c} }")
     if not (e_rel <= PARITY_TOL and f_rel <= PARITY_TOL):
         raise AssertionError("1li2 Context differs from the model")
-    for name in ("born_sums", "gb_pair", "descreening"):
+    for name in ("born_sums", "gb_pair", "descreening", "take_rows"):
         if counts[name] < 1:
             raise AssertionError(f"[12] {name} not launched by the Context")
     check_parity("1li2", e, f, phase="[12]")

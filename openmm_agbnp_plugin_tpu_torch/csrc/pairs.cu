@@ -2,17 +2,16 @@
 //
 // Three sweeps with a data dependency between them (Born radii -> GB pair
 // energy -> descreening derivatives), each launched from its Python wrapper
-// in ops/kernels/pairs.py, which also holds the plain PyTorch twin of each:
+// in ops/kernels/pairs.py, which also holds the plain PyTorch twin of each.
+// Two of them have their dense-grid kernel here:
 //
 //   agbnp_born_sums     raw_i = sum_j s_j Q4(d_ij), saving Q and dQ/dd
-//   agbnp_gb_pair       GB pair energy, Y accumulators, direct forces,
-//                       optionally with the OPLS LJ + Coulomb sum fused in
 //   agbnp_descreening   W_j/U_j column sums + direct descreening forces
 //                       with the spline recomputed
 //
-// These sweep the dense tile grid; tiles.cu holds the same sweeps over
-// interacting-tile lists, and the descreening sweep that reloads the saved
-// Q/dQ, which runs over the dense grid as a list of every tile pair.
+// tiles.cu holds the same sweeps over interacting-tile lists; the GB pair
+// sweep and the descreening sweep that reloads the saved Q/dQ run over the
+// dense grid as its list kernels over a list of every tile pair.
 //
 // Layouts are the JAX wrappers' (openmm_agbnp_plugin_tpu/ops/pallas/pairs.py):
 // positions [3, NP] (Morton-permuted rows, NP padded) and [3, NHP]
@@ -108,110 +107,21 @@ extern "C" int agbnp_born_sums(const float* pos, int np, const float* posh,
 }
 
 // ---------------------------------------------------------------------------
-// GB pair sweep.  Replaces _gb_kernel / gb_pair
-// (openmm_agbnp_plugin_tpu/ops/pallas/pairs.py:454-593).
+// The GB pair sweep over the dense grid (gb_pair, which replaces _gb_kernel
+// / gb_pair, openmm_agbnp_plugin_tpu/ops/pallas/pairs.py:454-593) has no
+// kernel of its own: it is tiles.cu's sub-tile GB kernel over the list of
+// every tile pair ti <= tj (ops/kernels/pairs.py::gb_pair), which takes
+// each unordered pair once, skips the 32x32 sub-tile pairs beyond the
+// cutoff before it walks them, and tests exclusions as one bit a pair.
 //
-// Bound on the H100: ~2.4M ordered pairs at NP 1536, each an exp, a sqrt and
-// two divisions (plus the LJ/Coulomb terms and an E-wide exclusion scan with
-// MM), so it is bound by special-function and issue throughput, not memory
-// (inputs are a few KB per row and stay in L1/L2).  Design: the TPU kernel
-// deposits each unordered pair on both sides into VMEM-resident full-width
-// accumulators, which relies on its serial grid; here every ordered pair is
-// evaluated on its own row (the full square, twice the pair work) so each
-// row's sums belong to one warp and no column scatter is needed.  The
-// per-pair values are symmetric bit for bit, so the result equals the
-// triangular deposit.  Exclusions: the row's E-wide list sits in shared
-// memory and is scanned per pair.
+// agbnp_empty_launch: one launch of a kernel that does nothing, the floor
+// under any kernel's time, for a tool to put beside a bound of a few tenths
+// of a microsecond.
 // ---------------------------------------------------------------------------
-__global__ void gb_rows_kernel(const float* __restrict__ pos, int np,
-                               const float* __restrict__ charge,
-                               const float* __restrict__ born,
-                               const float* __restrict__ sig,
-                               const float* __restrict__ epsq,
-                               const int* __restrict__ excl, int ne, int n,
-                               float cutoff2, int box_mode,
-                               const float* __restrict__ box, float dfac,
-                               float ke, float* __restrict__ erow,
-                               float* __restrict__ yrow,
-                               float* __restrict__ force,
-                               float* __restrict__ mmrow) {
-  extern __shared__ int sh_excl[];  // [WARPS_PER_BLOCK, ne]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * WARPS_PER_BLOCK + warp;
-  const bool with_mm = mmrow != nullptr;
-  int* my_excl = sh_excl + warp * ne;
-  if (with_mm && i < np) {
-    for (int k = lane; k < ne; k += 32) my_excl[k] = excl[(size_t)i * ne + k];
-  }
-  __syncwarp();
-  if (i >= np) return;
-  const float xi = pos[i], yi = pos[np + i], zi = pos[2 * np + i];
-  const float qi = charge[i], bi = born[i];
-  const float si = with_mm ? sig[i] : 0.0f, ei = with_mm ? epsq[i] : 0.0f;
-  const bool row_ok = i < n;
-  float e = 0.0f, y = 0.0f, fx = 0.0f, fy = 0.0f, fz = 0.0f, mm = 0.0f;
-  for (int j = lane; j < np; j += 32) {
-    if (!row_ok || j >= n || j == i) continue;
-    float dx = pos[j] - xi, dy = pos[np + j] - yi, dz = pos[2 * np + j] - zi;
-    min_image(box_mode, box, dx, dy, dz);
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    if (cutoff2 >= 0.0f && !(d2 < cutoff2)) continue;
-    const float bb = bi * born[j];
-    const float etij = expf(-0.25f * d2 / bb);
-    const float fgb = 1.0f / sqrtf(d2 + bb * etij);
-    const float qq_f = qi * charge[j];
-    const float qq = dfac * qq_f;
-    const float fgb3 = fgb * fgb * fgb;
-    float mw = -2.0f * qq * (1.0f - 0.25f * etij) * fgb3;
-    e += qq * fgb;
-    y += qq_f * (bb + 0.25f * d2) * etij * fgb3;
-    if (with_mm) {
-      bool excluded = false;
-      for (int k = 0; k < ne; ++k) excluded |= (my_excl[k] == j);
-      if (!excluded) {
-        const float inv2 = 1.0f / d2;
-        const float sr2 = (si * sig[j]) * inv2;
-        const float sr6 = sr2 * sr2 * sr2;
-        const float epsij = ei * epsq[j];
-        const float ecoul = ke * qq_f * (1.0f / sqrtf(d2));
-        const float elj = 4.0f * epsij * (sr6 * sr6 - sr6);
-        mm += elj + ecoul;
-        const float dmm = (4.0f * epsij * (-6.0f * sr6 * sr6 + 3.0f * sr6)
-                           - 0.5f * ecoul) * inv2;
-        mw = mw + 2.0f * dmm;
-      }
-    }
-    fx += dx * mw;
-    fy += dy * mw;
-    fz += dz * mw;
-  }
-  e = warp_sum(e);
-  y = warp_sum(y);
-  fx = warp_sum(fx);
-  fy = warp_sum(fy);
-  fz = warp_sum(fz);
-  mm = warp_sum(mm);
-  if (lane == 0) {
-    erow[i] = e;
-    yrow[i] = y;
-    force[3 * (size_t)i] = fx;
-    force[3 * (size_t)i + 1] = fy;
-    force[3 * (size_t)i + 2] = fz;
-    if (with_mm) mmrow[i] = mm;
-  }
-}
+__global__ void empty_kernel() {}
 
-extern "C" int agbnp_gb_pair(const float* pos, int np, const float* charge,
-                             const float* born, const float* sig,
-                             const float* epsq, const int* excl, int ne, int n,
-                             float cutoff2, int box_mode, const float* box,
-                             float dfac, float ke, float* erow, float* yrow,
-                             float* force, float* mmrow, void* stream) {
-  const size_t smem = (size_t)WARPS_PER_BLOCK * (mmrow != nullptr ? ne : 0) * sizeof(int);
-  const int blocks = (np + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  gb_rows_kernel<<<blocks, 32 * WARPS_PER_BLOCK, smem, (cudaStream_t)stream>>>(
-      pos, np, charge, born, sig, epsq, excl, mmrow != nullptr ? ne : 0, n,
-      cutoff2, box_mode, box, dfac, ke, erow, yrow, force, mmrow);
+extern "C" int agbnp_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -18,10 +18,16 @@
 // parents, 8 f32 columns) the gather moves 4.2 MB and the prefix sum 5.5 MB,
 // ~1.3 and ~1.6 us at HBM's rate, and both arrays fit the 50 MB L2.
 //
-// take_rows: no staging.  The table (1.1 MB at the probe's shape) lives in
-// L2, so a thread moves one 16-byte piece of one output row: it reads its
-// row's id, loads the piece through the read-only path and stores it.  A
-// warp writes 512 contiguous bytes; ids need not be sorted, and an id
+// take_rows: no staging.  The table of a tree level (19 MB at 2clr's widest
+// level of 26 columns, 1.1 MB at the probe's shape) lives in L2, so a
+// thread moves one piece of one output row: it reads its row's id, loads
+// the piece through the read-only path and stores it.  The piece is the
+// widest of 16, 8 and 4 bytes that divides the row and that the three
+// arrays are aligned to: the tree's tables are 1, 6, 12, 13 and 26 columns
+// wide, so rows of 12 columns move as float4, of 6 and 26 as float2, of 1
+// and 13 as single words.  The thread's index is the flat index of its
+// piece in the output, so a warp writes 128 to 512 contiguous bytes and
+// reads from at most a few source rows; ids need not be sorted, and an id
 // outside [0, P) gives a zero row.
 //
 // cumsum_rows: CUDA blocks run in no order, so the carry of the TPU kernel
@@ -44,18 +50,56 @@
 #define ROWS_THREADS 256
 #define SEG_ROWS 33
 
-__global__ void take_rows_kernel(const float4* __restrict__ table,
-                                 const int* __restrict__ ids, int nrows,
-                                 int nparents, int c4,
-                                 float4* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)nrows * c4) return;
-  const int r = (int)(t / c4);
-  const int piece = (int)(t - (long long)r * c4);
+__device__ __forceinline__ void zero_piece(float& v) { v = 0.0f; }
+__device__ __forceinline__ void zero_piece(float2& v) {
+  v = make_float2(0.0f, 0.0f);
+}
+__device__ __forceinline__ void zero_piece(float4& v) {
+  v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// V: the piece a thread moves (float, float2 or float4); cv: pieces a row.
+template <typename V>
+__global__ void take_rows_kernel(const V* __restrict__ table,
+                                 const int* __restrict__ ids, unsigned npieces,
+                                 int nparents, unsigned cv,
+                                 V* __restrict__ out) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= npieces) return;
+  const unsigned r = t / cv;
+  const unsigned piece = t - r * cv;
   const int id = __ldg(ids + r);
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (id >= 0 && id < nparents) v = __ldg(table + (long long)id * c4 + piece);
+  V v;
+  zero_piece(v);
+  if (id >= 0 && id < nparents) v = __ldg(table + (unsigned)id * cv + piece);
   out[t] = v;
+}
+
+// Piece indices are 32-bit: a table or an output of 2^31 pieces or more is
+// refused.
+template <typename V>
+static int launch_take_rows(const float* table, int nparents, int cv,
+                            const int* ids, int nrows, float* out,
+                            cudaStream_t stream) {
+  const long long npieces = (long long)nrows * cv;
+  const long long reach = (long long)(nparents > nrows ? nparents : nrows) * cv;
+  if (reach >= 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned blocks =
+      (unsigned)((npieces + ROWS_THREADS - 1) / ROWS_THREADS);
+  take_rows_kernel<V><<<blocks, ROWS_THREADS, 0, stream>>>(
+      (const V*)table, ids, (unsigned)npieces, nparents, (unsigned)cv,
+      (V*)out);
+  return (int)cudaGetLastError();
+}
+
+// The bytes of the pieces that rows of ncols floats move in: the widest of
+// 16, 8 and 4 that divides a row and that both arrays are aligned to.
+static int take_rows_piece_bytes(int ncols, const float* table,
+                                 const float* out) {
+  const uintptr_t where = (uintptr_t)table | (uintptr_t)out;
+  if (ncols % 4 == 0 && where % 16 == 0) return 16;
+  if (ncols % 2 == 0 && where % 8 == 0) return 8;
+  return 4;
 }
 
 // One tile of nseg * SEG_ROWS rows.  WRITE false: pass 1 (bsum out).  WRITE
@@ -124,18 +168,23 @@ static size_t cumsum_smem_bytes(int ncols, int nseg) {
 extern "C" {
 
 // out[r, :] = table[ids[r], :] (zero where ids[r] is outside [0, nparents));
-// ncols is a multiple of 4 and the three arrays are 16-byte aligned.
+// any ncols >= 1, the three arrays 4-byte aligned.
 int agbnp_take_rows(const float* table, int nparents, int ncols,
                     const int* ids, int nrows, float* out,
                     cudaStream_t stream) {
+  if (ncols <= 0) return (int)cudaErrorInvalidValue;
   if (nrows <= 0) return (int)cudaSuccess;
-  const int c4 = ncols / 4;
-  const long long pieces = (long long)nrows * c4;
-  const unsigned blocks =
-      (unsigned)((pieces + ROWS_THREADS - 1) / ROWS_THREADS);
-  take_rows_kernel<<<blocks, ROWS_THREADS, 0, stream>>>(
-      (const float4*)table, ids, nrows, nparents, c4, (float4*)out);
-  return (int)cudaGetLastError();
+  switch (take_rows_piece_bytes(ncols, table, out)) {
+    case 16:
+      return launch_take_rows<float4>(table, nparents, ncols / 4, ids, nrows,
+                                      out, stream);
+    case 8:
+      return launch_take_rows<float2>(table, nparents, ncols / 2, ids, nrows,
+                                      out, stream);
+    default:
+      return launch_take_rows<float>(table, nparents, ncols, ids, nrows, out,
+                                     stream);
+  }
 }
 
 // Rows of one tile: floor(256 / ncols) segments of 33 rows (1 <= ncols <=

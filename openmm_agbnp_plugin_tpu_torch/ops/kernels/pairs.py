@@ -16,9 +16,9 @@ radius-type ids and the [Ti, Tj, NA] y/y2 spline tables.
 
 Each wrapper routes by the device of its tensors: on the CPU it returns its
 plain twin (`*_reference`); on a CUDA device it checks every argument,
-launches its kernel from csrc/pairs.cu (the reloading descreening: from
-csrc/tiles.cu, over every tile pair) on the current stream, raises if the
-launch failed, and adds one to its count in LAUNCHES.  There is no fallback
+launches its kernel from csrc/pairs.cu (gb_pair and the reloading
+descreening: from csrc/tiles.cu, over every tile pair) on the current
+stream, raises if the launch failed, and adds one to its count in LAUNCHES.  There is no fallback
 from the kernel to the twin.  tiles.py holds the same sweeps over
 interacting-tile lists and rows.py the tree's row moves, counted here too.
 """
@@ -338,7 +338,6 @@ def born_sums(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
     return raw
 
 
-
 def gb_pair(pos_pad, charge_pad, born_pad, n, box=None, cutoff=None,
             sig_pad=None, epsq_pad=None, excl_rows_pad=None):
     """GB pair sweep (reference ReferenceAGBNPKernels.cpp:464-504,
@@ -351,41 +350,37 @@ def gb_pair(pos_pad, charge_pad, born_pad, n, box=None, cutoff=None,
     sig_pad/epsq_pad (sigma and sqrt(epsilon)) and excl_rows_pad [NP, E]
     int32 (-1 padded, permuted-row ids), the OPLS dense LJ + Coulomb sum
     and its forces ride the same sweep; excluded pairs are skipped inside.
+
+    The kernel is tiles.py's list kernel over triangular_grid_list at the
+    tile pick_tile(NP): each unordered pair once, deposited on both sides,
+    the 32x32 sub-tile pairs beyond the cutoff skipped (none without one).
+    Its scratch takes 1.5 T^2 bytes for every tile pair (96 KB at T 256).
     """
     if pos_pad.device.type == "cpu":
         return gb_pair_reference(pos_pad, charge_pad, born_pad, n, box=box,
                                  cutoff=cutoff, sig_pad=sig_pad,
                                  epsq_pad=epsq_pad,
                                  excl_rows_pad=excl_rows_pad)
-    dev = pos_pad.device
-    f32 = torch.float32
-    npad = pos_pad.shape[1]
-    _check("pos_pad", pos_pad, f32, (3, npad), dev)
-    _check("charge_pad", charge_pad, f32, (npad,), dev)
-    _check("born_pad", born_pad, f32, (npad,), dev)
-    with_mm = sig_pad is not None
-    ne = 0
-    if with_mm:
-        ne = excl_rows_pad.shape[1]
-        _check("sig_pad", sig_pad, f32, (npad,), dev)
-        _check("epsq_pad", epsq_pad, f32, (npad,), dev)
-        _check("excl_rows_pad", excl_rows_pad, torch.int32, (npad, ne), dev)
-    box_mode, box_t = _box_arg(box, dev)
-    erow = torch.empty(npad, dtype=f32, device=dev)
-    yrow = torch.empty(npad, dtype=f32, device=dev)
-    force = torch.empty((npad, 3), dtype=f32, device=dev)
-    mmrow = torch.empty(npad, dtype=f32, device=dev) if with_mm else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _cuda_lib().agbnp_gb_pair(
-        pos_pad.data_ptr(), npad, charge_pad.data_ptr(), born_pad.data_ptr(),
-        _ptr(sig_pad), _ptr(epsq_pad), _ptr(excl_rows_pad), ne, int(n),
-        -1.0 if cutoff is None else float(cutoff) * float(cutoff), box_mode,
-        _ptr(box_t), DIELECTRIC_FACTOR, KE, erow.data_ptr(), yrow.data_ptr(),
-        force.data_ptr(), _ptr(mmrow), stream)
-    _launch_check("gb_pair", rc)
-    LAUNCHES["gb_pair"] += 1
-    return erow, yrow, force, mmrow
+    from .tiles import _gb_subtiles, triangular_grid_list
 
+    npad = pos_pad.shape[1]
+    tile = _grid_tile(npad)
+    tl, nv = triangular_grid_list(npad // tile, pos_pad.device)
+    out = _gb_subtiles("gb_pair", nv, tl, tile, pos_pad, charge_pad,
+                       born_pad, n, box, cutoff, sig_pad, epsq_pad,
+                       excl_rows_pad)
+    LAUNCHES["gb_pair"] += 1
+    return out
+
+
+def _grid_tile(*extents):
+    """The tile pick_tile gives the dense layouts of these padded extents,
+    which it must divide."""
+    tile = pick_tile(extents[0])
+    if any(e % tile for e in extents):
+        raise ValueError(f"padded extents {extents} are not multiples of the "
+                         f"tile {tile}")
+    return tile
 
 
 def _check_spline(spline, npad, nhpad, dev):
@@ -439,10 +434,7 @@ def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
         q, dq = qd
         _check("Q", q, f32, (npad, nhpad), dev)
         _check("dQ", dq, f32, (npad, nhpad), dev)
-        tile = pick_tile(npad)
-        if npad % tile or nhpad % tile:
-            raise ValueError(f"padded extents {npad}, {nhpad} are not "
-                             f"multiples of the tile {tile}")
+        tile = _grid_tile(npad, nhpad)
         tl, nv = full_grid_list(npad // tile, nhpad // tile, dev)
         out = _descreen_subtiles("descreening", nv, tl, tile, pos_pad,
                                  pos_hpad, s_hpad, brw_pad, bru_pad, q, dq,

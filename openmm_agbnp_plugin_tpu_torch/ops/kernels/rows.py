@@ -16,8 +16,9 @@ Each wrapper routes by the device of its tensors: on the CPU it returns its
 plain twin (`*_reference`); on a CUDA device it checks every argument,
 launches its kernel from csrc/rows.cu on the current stream, raises if the
 launch failed, and adds one to its count in pairs.LAUNCHES.  There is no
-fallback from the kernel to the twin.  Nothing in the tree calls them yet:
-tools time them against the stock calls first (profile_port_step.py
+fallback from the kernel to the twin.  take_rows is the row gather of the
+tree's passes (ops/tree.py::_parent_gather and the per-atom gathers beside
+it); cumsum_rows is a probe that tools time (profile_port_step.py
 --row-probes).
 """
 
@@ -51,10 +52,10 @@ def make_segments(rows: int, parents: int, seed: int = 0) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def take_rows_reference(table, ids):
-    """Plain twin of take_rows."""
+    """Plain twin of take_rows (table [P, C] or [P])."""
     ok = (ids >= 0) & (ids < table.shape[0])
     rows = table[torch.where(ok, ids, 0).long()]
-    return torch.where(ok[:, None], rows, 0.0)
+    return torch.where(ok if table.dim() == 1 else ok[:, None], rows, 0.0)
 
 
 def cumsum_rows_reference(d):
@@ -103,33 +104,33 @@ def broadcast_deviation(v, ids) -> float:
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _check_aligned(name, t):
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: not 16-byte aligned (the kernel moves "
-                         "float4 pieces)")
-
-
 def take_rows(table, ids):
-    """out[r] = table[ids[r]] for table [P, C] and ids [R] int32; a row whose
-    id lies outside [0, P) is zero.  The ids need not be sorted.
+    """out[r] = table[ids[r]] for table [P, C] (or [P], out [R]) and ids [R]
+    int32; a row whose id lies outside [0, P) is zero.  The ids need not be
+    sorted.  No gradient passes through it.
 
-    On a CUDA device: float32, C a multiple of 4 (a row is moved as 16-byte
-    pieces) and 16-byte aligned storage, else it raises.  Bitwise the twin.
+    On a CUDA device a float32 table of any width C >= 1 goes through the
+    kernel, which moves the widest pieces (16, 8 or 4 bytes) that divide a
+    row and that table and out are aligned to; bitwise the twin.  The
+    kernel is float32 only: a table of another dtype there raises.
     """
     if table.device.type == "cpu":
         return take_rows_reference(table, ids)
     dev = table.device
-    if table.dim() != 2:
-        raise ValueError(f"table: shape {tuple(table.shape)}, expected [P, C]")
-    nparents, ncols = table.shape
+    if table.dim() not in (1, 2):
+        raise ValueError(f"table: shape {tuple(table.shape)}, expected [P, C] "
+                         "or [P]")
+    if table.requires_grad:
+        raise ValueError("table: requires grad, and the kernel passes none")
+    nparents = table.shape[0]
+    ncols = table.shape[1] if table.dim() == 2 else 1
     nrows = ids.shape[0]
-    _check("table", table, torch.float32, (nparents, ncols), dev)
+    _check("table", table, torch.float32, table.shape, dev)
     _check("ids", ids, torch.int32, (nrows,), dev)
-    if ncols % 4 or ncols == 0:
-        raise ValueError(f"table: {ncols} columns, expected a multiple of 4")
-    out = torch.empty((nrows, ncols), dtype=torch.float32, device=dev)
-    _check_aligned("table", table)
-    _check_aligned("out", out)
+    if ncols == 0:
+        raise ValueError("table: no columns")
+    out = torch.empty((nrows,) + tuple(table.shape[1:]), dtype=torch.float32,
+                      device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_take_rows(table.data_ptr(), nparents, ncols,
                                      ids.data_ptr(), nrows, out.data_ptr(),
@@ -137,6 +138,19 @@ def take_rows(table, ids):
     _launch_check("take_rows", rc)
     LAUNCHES["take_rows"] += 1
     return out
+
+
+def take_rows_piece_bytes(table, out) -> int:
+    """The bytes of the pieces (16, 8 or 4) in which take_rows moves the
+    rows of table into out: the widest that divides a float32 row and that
+    both are aligned to (csrc/rows.cu makes the same choice)."""
+    ncols = table.shape[1] if table.dim() == 2 else 1
+    where = table.data_ptr() | out.data_ptr()
+    if ncols % 4 == 0 and where % 16 == 0:
+        return 16
+    if ncols % 2 == 0 and where % 8 == 0:
+        return 8
+    return 4
 
 
 def cumsum_rows(d):

@@ -16,6 +16,9 @@ OpenCLAGBNPKernels.cpp:3521-3530).
   full_grid_list                 every tile pair of a dense grid as a list
                                  (the dense reloading descreening runs the
                                  list kernel over it)
+  triangular_grid_list           every tile pair ti <= tj of a square grid
+                                 (the dense GB sweep runs the list kernel
+                                 over it)
   host_tile_count                numpy, for sizing the budget at model init
   born_sums_tiles                born_sums over the list, optionally saving
                                  per-entry [lmax, T, T] Q/dQ tiles
@@ -133,6 +136,17 @@ def full_grid_list(nrow_tiles: int, ncol_tiles: int, device):
     k = torch.arange(ntot, dtype=torch.int32, device=device)
     tl = torch.stack([k // ncol_tiles, k % ncol_tiles]).contiguous()
     return tl, torch.full((1,), ntot, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def triangular_grid_list(ntiles: int, device):
+    """Every tile pair ti <= tj of a square dense grid, i-major, as a GB
+    list: (tl [2, L] int32, nv [1] int32 = L), L = ntiles (ntiles + 1) / 2.
+    Built once per shape and device."""
+    ti, tj = torch.triu_indices(ntiles, ntiles, device=device)
+    tl = torch.stack([ti, tj]).to(torch.int32).contiguous()
+    return tl, torch.full((1,), tl.shape[1], dtype=torch.int32,
+                          device=device)
 
 
 def host_tile_count(pos_row, valid_row, pos_col, valid_col, tile: int,
@@ -499,6 +513,17 @@ def gb_pair_tiles(nv, tl, pos_pad, charge_pad, born_pad, n, tile, box=None,
                                        n, tile, box=box, cutoff=cutoff,
                                        sig_pad=sig_pad, epsq_pad=epsq_pad,
                                        excl_rows_pad=excl_rows_pad)
+    out = _gb_subtiles("gb_pair_tiles", nv, tl, tile, pos_pad, charge_pad,
+                       born_pad, n, box, cutoff, sig_pad, epsq_pad,
+                       excl_rows_pad)
+    LAUNCHES["gb_pair_tiles"] += 1
+    return out
+
+
+def _gb_subtiles(name, nv, tl, tile, pos_pad, charge_pad, born_pad, n, box,
+                 cutoff, sig_pad, epsq_pad, excl_rows_pad):
+    """Check the arguments and launch the GB list kernel: over a list from
+    build_tile_list, or over triangular_grid_list for the dense sweep."""
     dev = pos_pad.device
     f32 = torch.float32
     npad = pos_pad.shape[1]
@@ -533,8 +558,7 @@ def gb_pair_tiles(nv, tl, pos_pad, charge_pad, born_pad, n, tile, box=None,
         _ptr(box_t), DIELECTRIC_FACTOR, KE, prow.data_ptr(), pcol.data_ptr(),
         keep.data_ptr(), erow.data_ptr(), yrow.data_ptr(), force.data_ptr(),
         _ptr(mmrow), stream)
-    _launch_check("gb_pair_tiles", rc)
-    LAUNCHES["gb_pair_tiles"] += 1
+    _launch_check(name, rc)
     return erow, yrow, force, mmrow
 
 

@@ -41,8 +41,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "agbnp_born_sums": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                         _F, _I, _P, _P, _P, _P, _P),
-    "agbnp_gb_pair": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _F, _F,
-                      _P, _P, _P, _P, _P),
+    "agbnp_empty_launch": (_P,),
     "agbnp_descreen_chunks": (_I,),
     "agbnp_descreening": (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                           _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),

@@ -6,6 +6,9 @@
     python3 profile_port_step.py [SYSTEM] --list-kernels
     python3 profile_port_step.py [SYSTEM] --caps-compare [--steps 200]
     python3 profile_port_step.py [SYSTEM] --row-probes [ROWS PARENTS REPS]
+    python3 profile_port_step.py [SYSTEM] --device-shares [--dense]
+                                 [--steps 200] [--root DIR] [--dump F.npz]
+    python3 profile_port_step.py --same A.npz B.npz
 
 Runs the port's MD configuration on SYSTEM (a name under benchmarks/data,
 1li2 by default, e.g. 2clr; or a path to a .dms file): AGBNP1 + OPLS, f32,
@@ -47,15 +50,30 @@ prints ms/step beside the rows per level.
 With --row-probes [ROWS] [PARENTS] [REPS] (defaults 85504 34816 50) it
 runs the row-move probe instead, the counterpart of the JAX package's
 benchmarks/micro_pallas_gather.py: device ms and ns/row of the stock sorted
-gather `table[ids]`, `torch.index_select`, the port's `segment_sum` (also
-over a level's valid rows alone, without its padding segment), the hand
-kernel `take_rows`, `torch.cumsum`, the hand kernel `cumsum_rows`, and
+gather `table[ids]`, `torch.index_select`, the port's `segment_sum` over
+every row (the padding rows form one long segment) and the sum with the
+level's own lengths, which count its valid rows alone, the hand kernel
+`take_rows`, `torch.cumsum`, the hand kernel `cumsum_rows`, and
 the whole gather-free broadcast (boundary diffs scattered, then
 `cumsum_rows`), with the broadcast's largest deviation from the gather; at
 the probe's shape (segment ids from numpy seed 0, an 8-column f32 table)
 and at the widest level of SYSTEM's overlap tree (2clr by default) from the
-model's own tree pass.  Each hand kernel is first held against its plain
-twin on the timed inputs.
+model's own tree pass; then `take_rows` beside the stock gather at every
+width the tree's passes gather (1, 6, 12, 13, 26 columns) and at the padded
+widths 16 and 28.  Each hand kernel is first held against its plain twin on
+the timed inputs.
+
+With --device-shares it times the strict run (--steps of it on the host
+clock, after an equal warm-up) and then profiles one 40-step rebuild
+window: device ms and kernel launches per step, and the shares of
+`torch.segment_reduce`, of PyTorch's own index and gather kernels, and of
+the hand kernel `take_rows` in the device time.  --root DIR imports the
+package from another checkout of this repository (an older commit unpacked
+into DIR) instead of this one, so that two commits can be compared within
+one call on one card; --dump F.npz saves what the run computed (one force
+evaluation of each kind at the start, the timed run's energies and final
+state), and --same A.npz B.npz reports whether two such files are equal
+bit for bit.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -193,27 +211,36 @@ def row_probes(dev, card, rows=85504, parents=34816, reps=50,
     the card.  Returns {shape label: {probe: ms}}."""
     import torch
 
-    from chip_smoke import cuda_time_ms, probe_inputs, widest_level
+    from chip_smoke import (PADDED_WIDTHS, TREE_WIDTHS, cuda_time_ms,
+                            probe_inputs, tree_width_tables, widest_level)
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
-    from openmm_agbnp_plugin_tpu_torch.ops.tree import segment_sum
+    from openmm_agbnp_plugin_tpu_torch.ops.tree import (
+        segment_sum, sorted_lengths, sorted_segment_sum)
 
     ids, table, x = probe_inputs(dev, rows, parents)
-    lvl_table, lvl_ids, lvl_valid, lvl_label = widest_level(dev, system)
+    lvl = widest_level(dev, system)
     print(f"card: {card}; row probes, f32 x 8 columns, device ms per call "
           f"over {reps} calls (CUDA events behind a device sleep)",
           flush=True)
     results = {}
-    for label, tab, idv, payload, nvalid in (
+    for label, tab, idv, payload, lengths in (
             (f"probe: {rows} rows from {parents} parents", table, ids, x,
-             rows),
-            (lvl_label, lvl_table, lvl_ids, None, lvl_valid)):
+             None),
+            (lvl["label"], lvl["table"], lvl["pmono32"], None,
+             lvl["lengths"])):
         nrows, npar = idv.shape[0], tab.shape[0]
         ids64 = idv.long()
+        if lengths is None:
+            lengths = sorted_lengths(ids64, torch.ones_like(ids64,
+                                                            dtype=torch.bool),
+                                     npar)
         gathered = RW.take_rows(tab, idv)
         if not torch.equal(gathered, RW.take_rows_reference(tab, idv)):
             raise AssertionError(f"take_rows differs from its twin ({label})")
         if payload is None:
-            payload = gathered
+            # as the passes hand it to the sum: zero on the padding rows
+            payload = gathered * (torch.arange(nrows, device=dev)
+                                  < lvl["nvalid"])[:, None]
         summed = RW.cumsum_rows(payload)
         scale = float(torch.cumsum(payload.double().abs(), 0).max())
         err = float((summed.double()
@@ -222,16 +249,21 @@ def row_probes(dev, card, rows=85504, parents=34816, reps=50,
                 or not err <= 1e-5 * scale:
             raise AssertionError(f"cumsum_rows: not repeatable or {err:.3e} "
                                  f"from f64 at scale {scale:.4g} ({label})")
+        if not torch.equal(
+                segment_sum(payload, ids64, npar, ids_sorted=True),
+                sorted_segment_sum(payload, lengths)):
+            raise AssertionError("segment_sum over the valid rows differs "
+                                 f"from the sum over every row ({label})")
         starts = RW.row_starts(idv)
         probes = {
             "table[ids] (stock gather)": lambda: tab[ids64],
             "torch.index_select": lambda: torch.index_select(tab, 0, idv),
-            "segment_sum (sorted)": lambda: segment_sum(
-                payload, ids64, npar, ids_sorted=True),
-            # a level's padding rows share the last parent's id: one long
+            # a level's padding rows share one parent's id: one long
             # segment that the valid rows alone do not have
-            "segment_sum, valid rows only": lambda: segment_sum(
-                payload[:nvalid], ids64[:nvalid], npar, ids_sorted=True),
+            "segment_sum (sorted), every row": lambda: segment_sum(
+                payload, ids64, npar, ids_sorted=True),
+            "segment sum, the level's lengths": lambda: sorted_segment_sum(
+                payload, lengths),
             "take_rows (hand kernel)": lambda: RW.take_rows(tab, idv),
             "torch.cumsum": lambda: torch.cumsum(payload, 0),
             "cumsum_rows (hand kernel)": lambda: RW.cumsum_rows(payload),
@@ -249,20 +281,142 @@ def row_probes(dev, card, rows=85504, parents=34816, reps=50,
               f"broadcast's max deviation from the gather: "
               f"{RW.broadcast_deviation(tab, idv):.3e} (max|v| "
               f"{float(tab.abs().max()):.4g})", flush=True)
+    label = f"{lvl['label']}, the tree's widths"
+    print(f"{label}: take_rows beside the stock gather table[ids] (int64 "
+          "ids, as the passes ran it before)", flush=True)
+    results[label] = {}
+    for cols, which, tab, iv in tree_width_tables(
+            dev, lvl, TREE_WIDTHS + PADDED_WIDTHS):
+        ids64 = iv.long()
+        out = RW.take_rows(tab, iv)
+        if not torch.equal(out, tab[ids64]):
+            raise AssertionError(f"take_rows differs from the stock gather "
+                                 f"at {cols} columns, {which} ids")
+        ms = cuda_time_ms(lambda: RW.take_rows(tab, iv), reps)
+        stock = cuda_time_ms(lambda: tab[ids64], reps)
+        results[label][f"{cols} columns, {which} ids"] = (ms, stock)
+        print(f"  {cols:2d} columns, {which:6s} ids, "
+              f"{RW.take_rows_piece_bytes(tab, out):2d}-byte pieces: "
+              f"take_rows {ms:8.4f} ms, table[ids] {stock:8.4f} ms",
+              flush=True)
     return results
 
 
-def main() -> int:
+def _device_kernels(prof):
+    """The profiler's device-side kernel events (the operator rows above
+    them carry the same device time again)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+# kernel-name fragments of the three row movers whose shares
+# --device-shares reports
+SHARE_GROUPS = {
+    "torch.segment_reduce": ("segment_reduce",),
+    "PyTorch index/gather kernels": ("index_elementwise", "indexSelect",
+                                     "index_select", "vectorized_gather",
+                                     "gather_kernel", "indexFuncLargeIndex",
+                                     "indexFuncSmallIndex"),
+    "take_rows (hand kernel)": ("take_rows_kernel",),
+}
+
+
+def device_shares(dev, card, dms, steps, kw, dump=None):
+    """--device-shares: the strict run's ms/step on the host clock, then one
+    profiled rebuild window's device time, launches and the row movers'
+    shares of it."""
+    import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("profile_port_step: no CUDA device", file=sys.stderr)
-        return 1
-    from openmm_agbnp_plugin_tpu_torch import Simulation, load_dms
-    from openmm_agbnp_plugin_tpu_torch.md.constraints import Constraints
-    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
-    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    import openmm_agbnp_plugin_tpu_torch as pkg
+    from openmm_agbnp_plugin_tpu_torch import Simulation
 
+    window = 40
+    sim = Simulation(dms, device=dev, version=1, dtype=torch.float32,
+                     skin=0.25, **kw)
+    r = sim.benchmark_langevin(nsteps=steps, neighbor_every=window)
+    ms_step = r["elapsed_s"] / r["steps_run"] * 1e3
+    print(f"card: {card}; package {os.path.dirname(pkg.__file__)}; "
+          f"{dms.n} atoms, f32, strict run, pair_tiles "
+          f"{sim.agbnp.pair_tiles}, tree rows {sum(sim.agbnp.caps.caps)}",
+          flush=True)
+    print(f"  {steps} steps after an equal warm-up: {ms_step:.3f} ms/step on "
+          f"the host clock ({r['ns_day']:.3f} ns/day), regrows "
+          f"{r['regrows']}, overflow {r['overflow']}", flush=True)
+    run = sim.make_langevin_runner(neighbor_every=window)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pos, vel = sim.positions, sim.velocities
+    run(pos, vel, window, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(pos, vel, window, generator=gen)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = _device_kernels(prof)
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    dev_step = dev_us / 1e3 / window
+    # the profiler slows the host many times over: the idle share is taken
+    # against the timed run's step
+    print(f"  profiled window of {window} steps: device {dev_us / 1e3:.1f} ms "
+          f"= {dev_step:.3f} ms/step in {launches / window:.0f} kernels a "
+          f"step ({wall / window * 1e3:.1f} ms/step under the profiler); "
+          f"the device is idle {100 - dev_step / ms_step * 100:.1f}% of the "
+          f"timed {ms_step:.3f} ms step", flush=True)
+    for group, frags in SHARE_GROUPS.items():
+        es = [e for e in kernels if any(f in e.key for f in frags)]
+        us = sum(e.self_device_time_total for e in es)
+        n = sum(e.count for e in es)
+        print(f"    {group:30s} {us / 1e3 / window:8.4f} ms/step = "
+              f"{us / max(dev_us, 1) * 100:5.2f}% of device time, "
+              f"{n / window:6.1f} launches a step", flush=True)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        print(f"    top: {e.self_device_time_total / 1e3 / window:8.4f} "
+              f"ms/step x{e.count / window:6.1f}  {e.key[:90]}", flush=True)
+    if dump:
+        # one evaluation of each kind at a window start, and the timed run
+        from chip_smoke import window_start
+
+        w = window_start(sim, pos)
+        mk = dict(pairs=w["pairs"], topology=w["topology"],
+                  ff=sim.ff_state(), vdw_topology=w["vdw_topology"])
+        out = dict(energies=np.asarray(r["energies"]),
+                   final_pos=r["final_pos"].cpu().numpy())
+        for mode in ("fused", "split", "skip"):
+            res = sim.force_fn(wu_mode=mode, **mk)(pos)
+            for k, v in enumerate(res):
+                if isinstance(v, torch.Tensor):
+                    out[f"{mode}_{k}"] = v.cpu().numpy()
+        os.makedirs(os.path.dirname(os.path.abspath(dump)), exist_ok=True)
+        np.savez(dump, **out)
+        print(f"  wrote {sorted(out)} to {dump}", flush=True)
+    return 0
+
+
+def same_dumps(path_a, path_b) -> int:
+    """--same: whether two --dump files hold the same arrays bit for bit."""
+    import numpy as np
+
+    a, b = np.load(path_a), np.load(path_b)
+    equal = sorted(a.files) == sorted(b.files)
+    for k in sorted(set(a.files) & set(b.files)):
+        same = a[k].shape == b[k].shape and np.array_equal(a[k], b[k])
+        worst = (float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                 if a[k].shape == b[k].shape and a[k].size else float("nan"))
+        print(f"  {k:12s} {str(a[k].shape):14s} bitwise {same}, max|a - b| "
+              f"{worst:.3e}, max|a| {float(np.abs(a[k]).max()):.6g}")
+        equal = equal and same
+    print(f"{path_a} vs {path_b}: {'equal bit for bit' if equal else 'DIFFER'}")
+    return 0 if equal else 1
+
+
+def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("system", nargs="?",
                     help="name under benchmarks/data or a .dms path (1li2; "
@@ -273,7 +427,8 @@ def main() -> int:
                     help="profile the window with the WU pass as an "
                          "r-RESPA impulse every 4 steps (bench.py's "
                          "headline run)")
-    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--steps", type=int,
+                    help="steps to run (40; 200 with --device-shares)")
     ap.add_argument("--out", help="file for the full profiler table")
     ap.add_argument("--list-kernels", action="store_true",
                     help="profile the tile-list sweeps alone, at every "
@@ -283,7 +438,32 @@ def main() -> int:
                          "tree capacities and at the lean sized ones")
     ap.add_argument("--row-probes", nargs="*", type=int, metavar="N",
                     help="time the row-move probes: [rows] [parents] [reps]")
+    ap.add_argument("--device-shares", action="store_true",
+                    help="time the strict run and profile one window: "
+                         "device ms/step, launches, the row movers' shares")
+    ap.add_argument("--root", metavar="DIR",
+                    help="import the package from this other checkout")
+    ap.add_argument("--dump", metavar="F.npz",
+                    help="with --device-shares: save what the run computed")
+    ap.add_argument("--same", nargs=2, metavar="F.npz",
+                    help="compare two --dump files bit for bit")
     args = ap.parse_args()
+    if args.same:
+        return same_dumps(*args.same)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_port_step: no CUDA device", file=sys.stderr)
+        return 1
+    from openmm_agbnp_plugin_tpu_torch import Simulation, load_dms
+    from openmm_agbnp_plugin_tpu_torch.md.constraints import Constraints
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    if args.steps is None:
+        args.steps = 200 if args.device_shares else 40
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
@@ -306,6 +486,8 @@ def main() -> int:
               pair_tiles=False if args.dense else None)
     if args.caps_compare:
         return caps_compare(dev, card, d, args.steps, kw)
+    if args.device_shares:
+        return device_shares(dev, card, d, args.steps, kw, dump=args.dump)
     # the Simulation sizes its lean tree capacities (caps_boost 1.10) from
     # the DMS positions
     sim = Simulation(d, device=dev, version=1, dtype=torch.float32,
@@ -403,7 +585,6 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     run(pos, sim.velocities, args.steps, generator=gen)  # warm-up
     torch.cuda.synchronize()
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -413,9 +594,7 @@ def main() -> int:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    # device-side kernel events only: the operator rows above them carry
-    # the same device time again
-    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     dev_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     print(f"profiled window (wu_every={wu_every}): {args.steps} steps, wall "

@@ -605,12 +605,17 @@ def test_redesigned_list_kernels_bitwise_repeatable(cuda, shapes, box):
 # The row kernels (csrc/rows.cu) and the Context
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("rows,parents,cols", [(85504, 34816, 8),
-                                               (4097, 1500, 8), (1, 3, 4),
-                                               (777, 200, 16)])
+@pytest.mark.parametrize("rows,parents,cols", [
+    (85504, 34816, 8), (4097, 1500, 8), (1, 3, 4), (777, 200, 16),
+    (85504, 34816, 1), (85504, 5983, 6), (85504, 5983, 12),
+    (85504, 34816, 13), (85504, 34816, 26), (4097, 1500, 28), (33, 7, 5)])
 def test_take_rows_bitwise_equal_to_the_twin(cuda, rows, parents, cols):
-    """Sorted ids, an unsorted id vector and ids outside [0, P): every row
-    is a copy or zero, so the kernel equals the twin bit for bit."""
+    """Sorted ids, an unsorted id vector and ids outside [0, P), at the
+    probe's width and at every width the tree gathers (1, 6, 12, 13, 26:
+    16-, 8- and 4-byte pieces): every row is a copy or zero, so the kernel
+    equals the twin bit for bit, twice.  A table that starts one word off a
+    16-byte address moves in single words to the same rows, and a
+    one-column table also as a vector."""
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
 
     rng = np.random.RandomState(1)
@@ -620,12 +625,27 @@ def test_take_rows_bitwise_equal_to_the_twin(cuda, rows, parents, cols):
     wild = torch.as_tensor(rng.randint(-5, parents + 5, size=rows)
                            .astype(np.int32), device=cuda)
     assert bool(((wild < 0) | (wild >= parents)).any()) or rows == 1
+    off = torch.empty(table.numel() + 1, dtype=torch.float32,
+                      device=cuda)[1:].view(table.shape).copy_(table)
+    assert off.data_ptr() % 8 == 4
     before = PK.launch_counts()["take_rows"]
     for ids in (sorted_ids, wild, sorted_ids.flip(0).contiguous()):
         out = RW.take_rows(table, ids)
         assert torch.equal(out, RW.take_rows_reference(table, ids))
+        assert torch.equal(out, RW.take_rows(table, ids))
+        assert torch.equal(out, RW.take_rows(off, ids))
         assert torch.equal(out.cpu(), RW.take_rows(table.cpu(), ids.cpu()))
-    assert PK.launch_counts()["take_rows"] == before + 3
+    assert PK.launch_counts()["take_rows"] == before + 9
+    # the kernel is float32 only: another dtype on the card raises
+    with pytest.raises(TypeError):
+        RW.take_rows(table.double(), wild)
+    want = 16 if cols % 4 == 0 else 8 if cols % 2 == 0 else 4
+    assert RW.take_rows_piece_bytes(table, out) == want
+    assert RW.take_rows_piece_bytes(off, out) == 4
+    if cols == 1:
+        vec = RW.take_rows(table[:, 0].contiguous(), wild)
+        assert tuple(vec.shape) == (rows,)
+        assert torch.equal(vec, RW.take_rows(table, wild)[:, 0])
 
 
 @pytest.mark.parametrize("rows,cols", [(85504, 8), (1056, 8), (1057, 8),
@@ -663,19 +683,143 @@ def test_row_wrappers_reject_bad_inputs(cuda):
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         RW.take_rows(table, ids.long())
-    with pytest.raises(ValueError, match="multiple of 4"):
-        RW.take_rows(table[:, :6].contiguous(), ids)
     with pytest.raises(ValueError, match="contiguous"):
         RW.take_rows(table[:, :4], ids)
-    with pytest.raises(ValueError, match="aligned"):
-        RW.take_rows(torch.zeros(16 * 8 + 1, dtype=torch.float32,
-                                 device=cuda)[1:].view(16, 8), ids)
+    with pytest.raises(ValueError, match=r"\[P, C\]"):
+        RW.take_rows(table.view(16, 4, 2), ids)
+    with pytest.raises(ValueError, match="no columns"):
+        RW.take_rows(table[:, :0].contiguous(), ids)
+    with pytest.raises(ValueError, match="requires grad"):
+        RW.take_rows(table.clone().requires_grad_(True), ids)
     with pytest.raises(ValueError):
         RW.take_rows(table, ids.cpu())
     with pytest.raises(TypeError):
         RW.cumsum_rows(table.double())
     with pytest.raises(ValueError, match="contiguous"):
         RW.cumsum_rows(table.T)
+
+
+@pytest.fixture(scope="module")
+def tree_2clr(cuda):
+    """2clr's tree on the card at the model's capacities: (levels of the
+    vdW parameterization from the model's own pass, their topology, the two
+    level-1 tables, natoms)."""
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    d = load_dms(os.path.join(DATA, "2clr_agbnp1.dms"))
+    p = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                    alpha=d.agbnp_alpha, charge=d.charges,
+                    ishydrogen=d.ishydrogen)
+    m = AGBNPModel(p, device=cuda, dtype=torch.float32,
+                   positions=d.positions)
+    pos = torch.as_tensor(d.positions, dtype=torch.float32, device=cuda)
+    a, pair_rows, _ = M.tree_candidates(m.arrays, pos, m.neighbor_rcut,
+                                        m.neighbor_kmax, m.neighbor_grid)
+    out = M.tree_passes(a, pos, m.caps, p.roffset, pair_rows=pair_rows)
+    assert not T.check_overflow(out[5])["any"]
+    gdr = a["gamma"] / p.roffset
+    l1 = T.make_level1(pos, a["radii_large"], a["vol_large"], gdr,
+                       a["ishydrogen"])
+    return out[3], T.tree_topology(out[3]), l1, out[4], p.n
+
+
+def test_tree_passes_with_the_kernel_equal_the_stock_gather(cuda, tree_2clr,
+                                                            monkeypatch):
+    """Every pass of 2clr's tree with take_rows against the same pass with
+    the stock gather in its place: the kernel is a pure move, so energies,
+    gradients and self volumes are equal bit for bit; twice."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    _, topo, l1, v1, natoms = tree_2clr
+    level_bounds = T.level_bounds
+    gam = torch.as_tensor(np.random.default_rng(3).normal(0.0, 10.0, natoms),
+                          dtype=torch.float32, device=cuda)
+    wu = {**v1, "gamma1i": gam}
+
+    def passes():
+        la, lb = T.rescan_volumes2(topo, l1, v1)
+        r1, r2 = T.reduce_tree2(la, lb, l1, v1)
+        lv = T.rescan_volumes(topo, v1)
+        rg = T.reduce_tree(T.rescan_gammas(lv, wu), wu, with_selfvol=False)
+        vt, counts = T.compact_topology(lv, [l["valid"].shape[0]
+                                             for l in lv])
+        rc = T.reduce_tree(T.rescan_volumes(vt, wu), wu, with_selfvol=False)
+        return [r1["energy"], r1["dr"], r2["energy"], r2["dr"],
+                r2["self_volume"], rg["energy"], rg["dr"], rc["dr"], counts]
+
+    before = PK.launch_counts()["take_rows"]
+    first, second = passes(), passes()
+    launched = PK.launch_counts()["take_rows"] - before
+    assert launched == 2 * 4 * 2 * T.NUM_TREE_LEVELS
+    # the stock gather, and the padding rows deposited on atom 0 as zeros
+    # instead of left out of the deposit sum
+    monkeypatch.setattr(T, "take_rows", lambda x, ids: x[ids.long()])
+    monkeypatch.setattr(T, "level_bounds", lambda pmono, atom, *a: dict(
+        level_bounds(pmono, atom, *a), atom_dep=atom))
+    topo = tuple({**t, "bnd": {**t["bnd"], "atom_dep": t["atom"]}}
+                 for t in topo)
+    stock = passes()
+    assert PK.launch_counts()["take_rows"] - before == launched
+    for x, y, z in zip(first, second, stock):
+        assert bool(torch.isfinite(x).all())
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_segment_sum_over_valid_rows_on_the_card(cuda, tree_2clr):
+    """On every level of 2clr's tree, built and compacted: the sorted sum
+    with the level's lengths (its valid rows, which come first) equals the
+    sum whose lengths count every row bit for bit, reads no padding row
+    (NaN there changes nothing), and repeats bit for bit."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    levels_vdw, topo, _, _, natoms = tree_2clr
+    compacted, _ = T.compact_topology(
+        levels_vdw, [max(8, int(l["valid"].sum()) // 2) for l in levels_vdw])
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for levels in (topo, compacted):
+        nparents = natoms
+        for lvl in levels:
+            valid, bnd = lvl["valid"], lvl["bnd"]
+            cap = valid.shape[0]
+            nv = int(valid.sum())
+            assert bool(valid[:nv].all()) and not bool(valid[nv:].any())
+            assert int(bnd["lengths"].sum()) == nv
+            x = torch.randn((cap, 11), generator=gen, device=cuda) \
+                * valid[:, None]
+            full = T.segment_sum(x, bnd["pmono"], nparents, ids_sorted=True)
+            lean = T._upward_segment_sum(x, lvl, nparents)
+            assert torch.equal(lean, full)
+            assert torch.equal(lean, T._upward_segment_sum(x, lvl, nparents))
+            junk = torch.where(valid[:, None], x, float("nan"))
+            assert torch.equal(T._upward_segment_sum(junk, lvl, nparents),
+                               full)
+            nparents = cap
+
+
+@pytest.mark.parametrize("case", ["nocutoff", "nocutoff-mm", "1nm",
+                                  "1nm-mm", "1nm-mm-ortho",
+                                  "1nm-mm-triclinic"])
+def test_dense_gb_pair_matches_twin(cuda, shapes, case):
+    """The dense GB sweep (the list kernel over every tile pair ti <= tj)
+    against gb_pair's twin at the fixture's, 1li2's and 2clr's dense
+    shapes, without a cutoff (nothing pruned) and at 1 nm, with the fused
+    MM terms and with boxes; launched twice, bitwise equal."""
+    L = shapes
+    parts = case.split("-")
+    kw = dict(cutoff=None if parts[0] == "nocutoff" else 1.0,
+              box=box_tensor(parts[2] if len(parts) > 2 else "nobox", cuda),
+              **(L["mm"] if "mm" in parts else {}))
+    args = (L["pos_pad"], L["charge"], L["born"], L["n"])
+    before = PK.launch_counts()
+    out = PK.gb_pair(*args, **kw)
+    assert_outputs(out, PK.gb_pair_reference(*args, **kw))
+    again = PK.gb_pair(*args, **kw)
+    assert all(x is None if y is None else torch.equal(x, y)
+               for x, y in zip(out, again))
+    after = PK.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(after, 0), gb_pair=2)
 
 
 def test_gather_free_broadcast_on_the_card(cuda):

@@ -17,6 +17,7 @@ from openmm_agbnp_plugin_tpu.models.agbnp_jax import \
 from openmm_agbnp_plugin_tpu.ops.pallas import pairs as JPK
 from openmm_agbnp_plugin_tpu_torch.models.agbnp_torch import arrays_from_numpy
 from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
 
 torch.set_num_threads(2)
 
@@ -148,4 +149,102 @@ def test_gb_pair_matches_pallas(layouts, cutoff, with_mm):
         assert_close(out[3], out_j[3], "mmrow")
     else:
         assert out[3] is None and out_j[3] is None
+    assert PK.launch_counts()["gb_pair"] == 0
+    # what gb_pair launches on a card: the list sweep over every tile pair
+    # ti <= tj; its twin against the same Pallas kernel
+    npad = L["pos_pad"].shape[1]
+    tl, nv = TL.triangular_grid_list(npad // TILE, torch.device("cpu"))
+    out_l = TL.gb_pair_tiles_reference(
+        nv, tl, t(L["pos_pad"]), t(aj["charge_pad"]), t(L["born"]), n, TILE,
+        cutoff=cutoff, **mm_t)
+    for name, x, y in zip(("erow", "yrow", "force", "mmrow"), out_l, out_j):
+        if y is not None:
+            assert_close(x, y, f"list {name}")
+
+
+def _gb_layout(name, gaussvol_system):
+    """GB sweep inputs in f64 from numpy seeds: (pos_pad, charge, born, sig,
+    epsq, excl, n, tile) at NP 256 (the fixture's first 250 atoms, two
+    tiles of 128), NP 384 (the fixture) and NP 1536 (1li2, six tiles of
+    256)."""
+    import os
+
+    from openmm_agbnp_plugin_tpu_torch import load_dms
+
+    if name == "1li2":
+        pos = load_dms(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "benchmarks", "data",
+            "1li2_agbnp1.dms")).positions
+    else:
+        pos = gaussvol_system[1][:250 if name == "np256" else None]
+    n = pos.shape[0]
+    tile = PK.pick_tile(n)
+    npad = PK.pad_to(n, tile)
+    rng = np.random.default_rng(17)
+
+    def rows(lo, hi):
+        x = np.zeros(npad)
+        x[:n] = rng.uniform(lo, hi, n)
+        return x
+
+    pos_pad = np.zeros((3, npad))
+    pos_pad[:, :n] = np.asarray(pos, np.float64).T
+    # chain neighbours excluded, as a bonded topology would
+    excl = np.full((npad, 8), -1, np.int32)
+    for k in range(1, 5):
+        excl[:n - k, 2 * k - 2] = np.arange(k, n)
+        excl[k:n, 2 * k - 1] = np.arange(n - k)
+    return (t(pos_pad), t(rows(-0.8, 0.8)), t(rows(0.12, 0.45)),
+            t(rows(0.2, 0.4)), t(rows(0.1, 0.9)), t(excl), n, tile)
+
+
+GB_BOXES = {"nobox": None, "ortho": (4.0, 4.2, 4.4),
+            "triclinic": ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
+                          (0.4, -0.3, 4.4))}
+
+
+@pytest.mark.parametrize("box,with_mm", [
+    ("nobox", True), ("nobox", False), ("ortho", True), ("triclinic", True)],
+    ids=["nobox-mm", "nobox-no_mm", "ortho-mm", "triclinic-mm"])
+@pytest.mark.parametrize("cutoff", [None, 1.0], ids=["nocutoff", "1nm"])
+@pytest.mark.parametrize("name", ["np256", "np384", "1li2"])
+def test_dense_gb_pair_is_the_list_sweep_over_every_tile_pair(
+        gaussvol_system, name, cutoff, box, with_mm):
+    """The dense GB sweep on a card runs the list kernel over
+    triangular_grid_list: that list through the list sweep's twin (each
+    unordered pair once, deposited on both sides) against gb_pair's twin
+    (the full square, row sums), f64, 1e-12 of the largest entry: the same
+    pairs in another summation order.  Also with the kernel's own sub-tile
+    pruning (subtile_live at the cutoff): it drops nothing the mask
+    accepts."""
+    pos_pad, charge, born, sig, epsq, excl, n, tile = _gb_layout(
+        name, gaussvol_system)
+    npad = pos_pad.shape[1]
+    kw = dict(cutoff=cutoff,
+              box=None if GB_BOXES[box] is None else torch.tensor(
+                  GB_BOXES[box], dtype=torch.float64))
+    if with_mm:
+        kw.update(sig_pad=sig, epsq_pad=epsq, excl_rows_pad=excl)
+    ref = PK.gb_pair_reference(pos_pad, charge, born, n, **kw)
+    tl, nv = TL.triangular_grid_list(npad // tile, torch.device("cpu"))
+    nt = npad // tile
+    assert tuple(tl.shape) == (2, nt * (nt + 1) // 2) and int(nv[0]) == \
+        tl.shape[1]
+    assert bool((tl[0] <= tl[1]).all())
+    assert len({(int(a), int(b)) for a, b in tl.T}) == tl.shape[1]
+    valid = torch.arange(npad) < n
+    keep = TL.subtile_live(nv, tl, pos_pad, valid, pos_pad, valid, tile,
+                           cutoff, box=kw["box"], triangular=True)
+    if cutoff is None:
+        # nothing is pruned but what holds no pair at all
+        s = tile // TL.SUB
+        assert int(keep.sum()) >= tl.shape[1] * s * (s - 1) // 2 - 2 * s * nt
+    for kp in (None, keep):
+        out = TL.gb_pair_tiles_reference(nv, tl, pos_pad, charge, born, n,
+                                         tile, keep=kp, **kw)
+        for what, x, y in zip(("erow", "yrow", "force", "mmrow"), out, ref):
+            if y is None:
+                assert x is None
+            else:
+                assert_close(x, y, f"{what} keep={kp is not None}")
     assert PK.launch_counts()["gb_pair"] == 0

@@ -73,6 +73,66 @@ def test_take_rows_twin_against_jnp():
         np.asarray(jnp.take(jnp.asarray(v), high, axis=0, fill_value=0.0)))
 
 
+def _pallas_take(v, ids, blk):
+    """The probe's take_kernel with its block specs (the whole table in VMEM
+    for each block of ids), in interpret mode."""
+    def take_kernel(idx_ref, tab_ref, out_ref):
+        out_ref[:] = jnp.take(tab_ref[:], idx_ref[:], axis=0, fill_value=0.0)
+
+    rows, (parents, cols) = ids.shape[0], v.shape
+    vmem = pltpu.VMEM
+    return pl.pallas_call(
+        take_kernel,
+        out_shape=jax.ShapeDtypeStruct((rows, cols), jnp.float32),
+        grid=(rows // blk,),
+        in_specs=[pl.BlockSpec((blk,), lambda i: (i,), memory_space=vmem),
+                  pl.BlockSpec((parents, cols), lambda i: (0, 0),
+                               memory_space=vmem)],
+        out_specs=pl.BlockSpec((blk, cols), lambda i: (i, 0),
+                               memory_space=vmem),
+        interpret=True)(jnp.asarray(ids), jnp.asarray(v))
+
+
+@pytest.mark.parametrize("ids_kind", ["sorted", "unsorted", "out_of_range"])
+@pytest.mark.parametrize("cols", [1, 6, 12, 13, 26])
+def test_take_rows_twin_at_the_tree_widths(cols, ids_kind):
+    """The widths of the tables the tree's passes gather from (the per-atom
+    gamma, the atomic rows of one and two parameterizations, a level's
+    packed rows of one and two), exact: rows are copied or zero.  Against
+    the probe's take_kernel in interpret mode, whose fill agrees where ids
+    run past the end; ids below zero (where jnp.take wraps) against numpy.
+    A one-column table also as the vector the tree's gamma pass holds."""
+    ids = RW.make_segments(ROWS, PARENTS)
+    rng = np.random.RandomState(4)
+    if ids_kind == "unsorted":
+        ids = rng.permutation(ids)
+    elif ids_kind == "out_of_range":
+        ids = rng.randint(-5, PARENTS + 5, size=ROWS).astype(np.int32)
+    v = np.random.RandomState(1).rand(PARENTS, cols).astype(np.float32)
+    tv, ti = torch.as_tensor(v), torch.as_tensor(ids)
+    out = RW.take_rows(tv, ti)
+    assert PK.launch_counts()["take_rows"] == 0  # the twin, on the CPU
+    assert out.dtype == torch.float32 and tuple(out.shape) == (ROWS, cols)
+    high = ids >= 0
+    taken = np.asarray(_pallas_take(v, np.where(high, ids, PARENTS), BLK))
+    np.testing.assert_array_equal(out.numpy(), taken)
+    ok = high & (ids < PARENTS)
+    assert ok.all() == (ids_kind != "out_of_range")
+    np.testing.assert_array_equal(out.numpy()[ok], v[ids[ok]])
+    assert not out.numpy()[~ok].any()
+    # in range, the twin is the stock gather the passes ran before
+    assert torch.equal(out[torch.as_tensor(ok)],
+                       tv[ti.long()[torch.as_tensor(ok)]])
+    if cols == 1:
+        vec = RW.take_rows(tv[:, 0].contiguous(), ti)
+        assert tuple(vec.shape) == (ROWS,)
+        assert torch.equal(vec, out[:, 0])
+    # on the CPU float64 tables (what the CPU tests run the tree in) move
+    # the same way through the twin
+    out64 = RW.take_rows(tv.double(), ti)
+    assert out64.dtype == torch.float64 and torch.equal(out64, out.double())
+
+
 def test_cumsum_rows_twin_against_jnp_f64():
     _, _, x = _inputs(dtype=np.float64)
     out = RW.cumsum_rows(torch.as_tensor(x)).numpy()
@@ -168,12 +228,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     on meta tensors that claim to lie on a card)."""
     tab = torch.empty((16, 6), dtype=torch.float32, device="meta")
     ids = torch.empty((4,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="multiple of 4"):
-        RW.take_rows(tab, ids)
+    with pytest.raises(ValueError, match=r"\[P, C\]"):
+        RW.take_rows(torch.empty((16, 6, 2), device="meta"), ids)
+    with pytest.raises(ValueError, match="no columns"):
+        RW.take_rows(torch.empty((16, 0), device="meta"), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        RW.take_rows(torch.empty((16, 8), device="meta")[:, :6], ids)
+    with pytest.raises(ValueError, match="requires grad"):
+        RW.take_rows(torch.empty((16, 6), device="meta", requires_grad=True),
+                     ids)
+    with pytest.raises(TypeError, match="dtype"):
+        RW.take_rows(tab, ids.long())
     with pytest.raises(TypeError, match="dtype"):
         RW.take_rows(tab.double(), ids)
-    with pytest.raises(TypeError, match="dtype"):
-        RW.take_rows(torch.empty((16, 8), device="meta"), ids.long())
     with pytest.raises(ValueError, match="columns"):
         RW.cumsum_rows(torch.empty((8, 300), device="meta"))
     with pytest.raises(ValueError, match=r"\[R, C\]"):

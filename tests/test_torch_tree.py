@@ -179,3 +179,202 @@ def test_for_natoms_matches_jax():
     for n in (264, 1310, 2000):
         a, b = JT.TreeCaps.for_natoms(n), T.TreeCaps.for_natoms(n)
         assert (a.caps, a.offs) == (b.caps, b.offs)
+
+
+# ---------------------------------------------------------------------------
+# The row moves of the passes: take_rows and the valid-only segment sums
+# ---------------------------------------------------------------------------
+
+def _built_levels(name, system):
+    """(levels, natoms) of a tree built by the port, f64 on the CPU: the
+    fixture through both build paths, 1li2 through the model's own pass."""
+    if name == "1li2":
+        import os
+
+        from openmm_agbnp_plugin_tpu_torch import (AGBNPModel, AGBNPParams,
+                                                   load_dms)
+        from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+
+        d = load_dms(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "benchmarks", "data",
+            "1li2_agbnp1.dms"))
+        p = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                        alpha=d.agbnp_alpha, charge=d.charges,
+                        ishydrogen=d.ishydrogen)
+        m = AGBNPModel(p, device="cpu", dtype=torch.float64,
+                       positions=d.positions)
+        pos = torch.as_tensor(d.positions, dtype=torch.float64)
+        a, pair_rows, _ = M.tree_candidates(m.arrays, pos, m.neighbor_rcut,
+                                            m.neighbor_kmax, m.neighbor_grid)
+        out = M.tree_passes(a, pos, m.caps, p.roffset, pair_rows=pair_rows)
+        assert not T.check_overflow(out[5])["any"]
+        return out[3], p.n
+    levels, _ = build_both(system, rows=(name == "fixture_rows"))[1]
+    return levels, system[0].n
+
+
+@pytest.fixture(scope="module")
+def built(system):
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = _built_levels(name, system)
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("compacted", [False, True],
+                         ids=["built", "compacted"])
+@pytest.mark.parametrize("name", ["fixture_all_pairs", "fixture_rows",
+                                  "1li2"])
+def test_segment_sum_over_valid_rows_equals_the_full_count(built, name,
+                                                           compacted):
+    """Every level's valid rows come first and its lengths count them
+    alone, so the sorted sum never reads the padding behind them, and it
+    equals (torch.equal) the sum whose lengths count every row, on rows
+    that are zero where invalid, as the passes make them."""
+    levels, natoms = built(name)
+    if compacted:
+        # capacities that cut some levels short (an overflowed window) and
+        # leave others room
+        kept = T.compact_topology(levels, [l["valid"].shape[0]
+                                           for l in levels])[1].tolist()
+        caps = [c + 16 if i % 2 else c // 2 + 8 for i, c in enumerate(kept)]
+        levels, counts = T.compact_topology(levels, caps)
+        assert counts.tolist() == kept
+        assert any(int(c) > cap for c, cap in zip(counts, caps))
+        assert any(int(c) < cap for c, cap in zip(counts, caps))
+    rng = np.random.default_rng(9)
+    nparents = natoms
+    assert sum(int(l["valid"].sum()) for l in levels) > 0
+    for lvl in levels:
+        valid, bnd = lvl["valid"], lvl["bnd"]
+        cap = valid.shape[0]
+        nv = int(valid.sum())
+        assert bool(valid[:nv].all()) and not bool(valid[nv:].any())
+        assert bnd["lengths"].shape == (nparents,)
+        assert int(bnd["lengths"].sum()) == nv
+        assert bnd["pmono32"].dtype == torch.int32
+        assert bnd["atom32"].dtype == torch.int32
+        assert bnd["atom32"].is_contiguous()
+        assert torch.equal(bnd["pmono32"].long(), bnd["pmono"])
+        assert torch.equal(bnd["atom32"].long(), lvl["atom"])
+        assert bool((bnd["pmono"][1:] >= bnd["pmono"][:-1]).all())
+        assert torch.equal(bnd["pmono"][:nv], lvl["parent"][:nv])
+        assert torch.equal(bnd["atom_dep"],
+                           torch.where(valid, lvl["atom"], natoms))
+        x = torch.as_tensor(rng.normal(size=(cap, 11))) * valid[:, None]
+        full = T.segment_sum(x, bnd["pmono"], nparents, ids_sorted=True)
+        lean = T._upward_segment_sum(x, lvl, nparents)
+        assert torch.equal(lean, full)
+        # the padding is not read: junk there changes nothing
+        junk = torch.where(valid[:, None], x, float("nan"))
+        assert torch.equal(T._upward_segment_sum(junk, lvl, nparents), full)
+        # and the unsorted route agrees to roundoff (another grouping pass,
+        # the same row order inside each segment)
+        plain = T.segment_sum(x, lvl["parent"].where(valid, bnd["pmono"]),
+                              nparents)
+        assert rel(lean.numpy(), plain.numpy()) <= TOL
+        nparents = cap
+
+
+def test_interior_invalid_row_is_refused_by_the_sorted_sum():
+    """Why the valid rows must come first: a sorted segment sum takes each
+    segment's rows one after another, so lengths that skip an invalid row
+    in the middle push every later row into the wrong segment.
+    sorted_lengths refuses such a level instead of guessing."""
+    ids = torch.tensor([0, 0, 1, 1, 2])
+    x = torch.tensor([[1.0], [2.0], [100.0], [4.0], [8.0]])
+    ok = torch.tensor([True, True, True, True, False])
+    lengths = T.sorted_lengths(ids, ok, 3)
+    assert lengths.tolist() == [2, 2, 0]
+    assert T.sorted_segment_sum(x, lengths)[:, 0].tolist() == [3.0, 104.0,
+                                                               0.0]
+    interior = torch.tensor([True, True, False, True, True])
+    right = T.segment_sum(x * interior[:, None], ids, 3, ids_sorted=True)
+    assert right[:, 0].tolist() == [3.0, 4.0, 8.0]
+    # counted blindly, the third row (invalid) is read as parent 1's only
+    # row and the last valid row is never read
+    blind = torch.zeros(3, dtype=torch.int64).index_add_(0, ids,
+                                                         interior.long())
+    wrong = T.sorted_segment_sum(x, blind)
+    assert wrong[:, 0].tolist() == [3.0, 100.0, 4.0]
+    with pytest.raises(ValueError, match="valid rows must come before"):
+        T.sorted_lengths(ids, interior, 3)
+    with pytest.raises(ValueError, match="valid rows must come before"):
+        T.level_bounds(ids, ids, interior, 3, 3)
+    # and so do ids that fall among the valid rows (the tail's are not read)
+    with pytest.raises(ValueError, match="must not decrease"):
+        T.sorted_lengths(torch.tensor([0, 1, 0, 2, 2]), ok, 3)
+    assert T.sorted_lengths(torch.tensor([0, 0, 1, 1, 0]), ok,
+                            3).tolist() == [2, 2, 0]
+    # a row with the id num_segments is left out, sorted or not
+    out = T.segment_sum(x, torch.tensor([0, 3, 1, 3, 2]), 3)
+    assert out[:, 0].tolist() == [1.0, 100.0, 8.0]
+    out = T.segment_sum(x, torch.tensor([0, 0, 1, 3, 3]), 3, ids_sorted=True)
+    assert out[:, 0].tolist() == [3.0, 100.0, 0.0]
+    # a level's bounds go with its own parents
+    lvl = dict(bnd=dict(lengths=lengths))
+    assert torch.equal(T._upward_segment_sum(x, lvl, 3),
+                       T.sorted_segment_sum(x, lengths))
+    with pytest.raises(ValueError, match="3 parents, expected 4"):
+        T._upward_segment_sum(x, lvl, 4)
+
+
+def test_parent_and_atom_gathers_reach_take_rows(system, all_pairs_build,
+                                                 monkeypatch):
+    """Every level of every pass gathers its parent rows and its atom rows
+    through rows.take_rows, with the int32 ids its topology carries, at the
+    widths 1, 6, 12, 13 and 26; the rows are those of the stock gather."""
+    params, pos, aj, at = system
+    (_, _), (lev_t, _) = all_pairs_build
+    (_, l1t), (_, v1t) = level1_pair(aj, at, pos, params.roffset)
+    topo = T.tree_topology(lev_t)
+    calls = []
+
+    def counted(table, ids):
+        assert ids.dtype == torch.int32 and ids.is_contiguous()
+        out = RW.take_rows(table, ids)
+        assert torch.equal(out, table[ids.long()])
+        calls.append(1 if table.dim() == 1 else table.shape[1])
+        return out
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+    monkeypatch.setattr(T, "take_rows", counted)
+    nl = T.NUM_TREE_LEVELS
+    _, lb = T.rescan_volumes2(topo, l1t, v1t)
+    assert calls == [12, 12] + [26, 12] * (nl - 1)
+    calls.clear()
+    lv = T.rescan_volumes(topo, v1t)
+    assert calls == [6, 6] + [13, 6] * (nl - 1)
+    calls.clear()
+    T.rescan_gammas(lv, v1t)
+    assert calls == [1, 1] * nl
+    # the two-parameterization pass moves the same vdW rows (it leaves junk
+    # on the padding, which the one-parameterization pass zeroes)
+    for x, y in zip(lb, lv):
+        valid = x["valid"]
+        assert torch.equal(x["_dat"][valid], y["_dat"][valid])
+
+
+def test_deposits_leave_out_the_padding_rows(system, all_pairs_build):
+    """The atom deposits of a reduction sum every level's rows by atom.
+    Invalid slots carry the id natoms, which the sum leaves out, instead of
+    atom 0, whose segment they used to lengthen by every padding row of the
+    tree: the results are those of the zero rows deposited on atom 0."""
+    params, pos, aj, at = system
+    (_, _), (lev_t, _) = all_pairs_build
+    (_, l1t), _ = level1_pair(aj, at, pos, params.roffset)
+    got = T.reduce_tree(lev_t, l1t, with_selfvol=True)
+    padded = 0
+    on_atom0 = []
+    for lvl in lev_t:
+        dep = lvl["bnd"]["atom_dep"]
+        padded += int((dep == params.n).sum())
+        assert torch.equal(dep == params.n, ~lvl["valid"])
+        on_atom0.append({**lvl, "bnd": {**lvl["bnd"], "atom_dep": lvl["atom"]}})
+    assert padded > 0
+    ref = T.reduce_tree(tuple(on_atom0), l1t, with_selfvol=True)
+    for k in ("energy", "dr", "self_volume"):
+        assert torch.equal(got[k], ref[k]), k
