@@ -9,25 +9,33 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
   2. holds each kernel against its plain PyTorch twin on the card, in f32,
      and times both: the dense-grid sweeps at the 1li2 shapes (NP 1536,
      NHP 768, E 24; horizon and cutoff 1 nm, with and without the fused MM
-     terms; the GB sweep and the reloading descreening, list kernels over
-     every tile pair, also with both boxes and launched twice, the GB
-     sweep also without a cutoff and at 2clr's dense shapes, with an empty
-     kernel's launch time beside its bound), the interacting-tile-list
-     sweeps at
+     terms; the GB sweep, the list kernel over every tile pair, also with
+     both boxes and launched twice, also without a cutoff and at 2clr's
+     dense shapes, with an empty kernel's launch time beside its bound;
+     the chunk list, bitwise its twin, and over it the Born sweep, the
+     reloading descreening on its chunk-layout Q/dQ and the recomputing
+     one, and the Born sweep given no list, whose own list is bitwise the
+     twin's and whose results are bitwise the given list's, at horizons 1
+     and 2 nm, with no box and both boxes, each launched twice, at 1li2's
+     and 2clr's dense shapes), the
+     interacting-tile-list sweeps at
      1li2's list shapes (T 256; also with an orthorhombic and a triclinic
-     box) and at 2clr's, both dense descreening variants at the 2clr
-     shapes (NP 6144, NHP 3328, E 24; Born and descreening lists at
+     box) and at 2clr's (NP 6144, NHP 3328, E 24; Born and descreening
+     lists at
      horizons 1 and 2 nm, the reload from the Born kernel's Q/dQ and keep
      bits and from the twin's Q/dQ, the GB list with and without MM; the
      Born kernel's Q/dQ checked on the sub-tile pairs its keep bits name
      and the bits against subtile_live; the list kernels and the dense
      reload launched twice and held bitwise equal); the list kernels are
-     timed at the budgets the model gives its lists; beside each time, the
+     timed at the budgets the model gives its lists, the dense recomputing
+     descreening at 1li2's and 2clr's shapes; beside each time, the
      kernel's bound from this run's live pairs and bytes (the Born sweeps'
-     Q/dQ at 8 bytes a live pair, the bytes of their dense layout and,
-     for the list sweep, of its kept sub-tile pairs reported beside), and
-     in the log, for the two kernels redesigned last, their times before
-     the redesign; then the two row kernels (take_rows, cumsum_rows) at
+     Q/dQ at 8 bytes a live pair, the bytes of their dense layout and of
+     the kept sub-tile pairs or chunk slots they write or read reported
+     beside; the dense Born sweep timed as the main path runs it, building
+     its own chunk list, and also walking a given one), and in the log,
+     for the kernels redesigned last,
+     their times before the redesign; then the two row kernels (take_rows, cumsum_rows) at
      the row probe's default shape (85,504 rows x 8 from 34,816 parents)
      and at the widest level of 2clr's overlap tree: take_rows bitwise
      equal to its twin (also with unsorted and out-of-range ids) at every
@@ -87,7 +95,7 @@ name/power-limit line, and the one before that the per-kernel JSON record
 (times, bound and what sets it, library_ms null for the pair sweeps and
 measured for the row kernels, live pairs, launches on its path and per step
 of each MD phase [6]-[9]; for the Born and descreening sweeps also the kept
-32x32 sub-tile pairs and the Q/dQ bytes written or read).
+32x32 sub-tile pairs or the chunk slots and the Q/dQ bytes written or read).
 """
 
 from __future__ import annotations
@@ -107,10 +115,15 @@ ROWS_SRC = "openmm_agbnp_plugin_tpu_torch/csrc/rows.cu"
 TPU = "openmm_agbnp_plugin_tpu/ops/pallas/pairs.py"
 TPU_PROBE = "benchmarks/micro_pallas_gather.py"
 # name -> (source, TPU kernel it replaces, the phase whose launches count)
+# (the chunk list subtile_columns is the H100 design's own work list for
+# born_sums and the dense descreening, which walk it: it replaces no TPU
+# kernel; on the main path the Born kernel builds its list itself, and the
+# standalone kernel launches for the recompute with sharing off)
 KERNELS = {
+    "subtile_columns": (PAIRS_SRC, None, "share_off"),
     "born_sums": (PAIRS_SRC, f"{TPU}:420", "md_1li2"),
     "gb_pair": (TILES_SRC, f"{TPU}:569", "md_1li2"),
-    "descreening": (TILES_SRC, f"{TPU}:740", "md_1li2"),
+    "descreening": (PAIRS_SRC, f"{TPU}:740", "md_1li2"),
     "descreening_recompute": (PAIRS_SRC, f"{TPU}:740", "share_off"),
     "born_sums_tiles": (TILES_SRC, f"{TPU}:842", "md_2clr"),
     "gb_pair_tiles": (TILES_SRC, f"{TPU}:966", "md_2clr"),
@@ -126,20 +139,25 @@ KERNEL_TOL = 1e-5     # max|kernel - twin| / max|twin|, f32 summation order
 # FP32 operations per live pair, counted from the twins' formulas (each +,
 # -, *, /, sqrt and exp one): distance 9, spline Q and dQ/dd 35, the Born
 # sum 2, the GB pair 37 (+28 with the fused LJ/Coulomb), a descreening
-# pair 18
-OPS_PER_PAIR = dict(born=46, gb=46, gb_mm=74, descreen=27, descreen_spline=62)
+# pair 18; the chunk list's test of a column against a sub-tile's box 11
+OPS_PER_PAIR = dict(born=46, gb=46, gb_mm=74, descreen=27, descreen_spline=62,
+                    chunk_test=11)
 PEAK_FP32 = 67e12     # FLOP/s, H100 SXM data sheet, FP32 outside tensor cores
 PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 LIBRARY_NONE = ("none: no PyTorch call computes the sweep (a spline lookup, "
                 "an exclusion scan and a deterministic row/column deposit)")
 # device ms of the dense GB sweep (one warp a row over the full square),
-# the Born list sweep and the dense reloading descreening before their
-# redesign, by (kernel, shapes) as timed in [2] (PERF.md's kernel table:
-# NVIDIA H100 80GB HBM3, 700 W); for the log only
+# the Born list sweep, the dense Born sweep (one warp a row), the dense
+# reloading descreening (the list kernel over every tile pair) and the dense
+# recomputing one (row pass, column pass, reduce) before their redesign, by
+# (kernel, shapes) as timed in [2] (PERF.md's kernel table: NVIDIA H100
+# 80GB HBM3, 700 W); for the log only
 BEFORE_MS = {("gb_pair", "1li2"): 0.0418,
              ("born_sums_tiles", "2clr"): 0.1075,
              ("born_sums_tiles", "1li2"): 0.0722,
-             ("descreening", "1li2"): 0.0436}
+             ("born_sums", "1li2"): 0.0185,
+             ("descreening", "1li2"): 0.0148,
+             ("descreening_recompute", "2clr"): 0.1341}
 # the widths of the tables the tree's passes gather rows from, with the ids
 # they take (ops/tree.py): the per-atom gamma, the atomic rows of one and of
 # two parameterizations, a level's packed rows of one and of two, the
@@ -151,13 +169,14 @@ PADDED_WIDTHS = ((16, "parent"), (28, "parent"))
 # the tree's row gathers at each level of a pass: the parent rows and the
 # atom rows
 GATHERS_PER_LEVEL = 2
-# bytes of Q and dQ in one 32x32 sub-tile pair
+# bytes of Q and dQ in one 32x32 sub-tile pair, and in one slot of a chunk
 QD_SUBTILE_BYTES = 2 * 32 * 32 * 4
+QD_SLOT_BYTES = 2 * 4
 # keys of a kernel's record beyond the contract's, copied into the JSON line
-RECORD_EXTRAS = ("kept_subtile_pairs", "qd_written_bytes", "qd_read_bytes",
-                 "qd_dense_bytes", "f64_abs_err", "twin_f64_abs_err",
-                 "empty_launch_ms", "shape",
-                 "tree_widths", "probe")
+RECORD_EXTRAS = ("kept_subtile_pairs", "chunk_slots", "qd_written_bytes",
+                 "qd_read_bytes", "qd_dense_bytes", "given_list_ms",
+                 "column_tests", "f64_abs_err", "twin_f64_abs_err",
+                 "empty_launch_ms", "shape", "tree_widths", "probe")
 LI2_BOXES = (("ortho", (4.0, 4.2, 4.4)),
              ("triclinic", ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
                             (0.4, -0.3, 4.4))))
@@ -650,6 +669,114 @@ def phase_kernels(dev):
                 (ref[0], ref[1][kept], ref[2][kept]))
         return int(flags.sum())
 
+    def compare_dense_born(label, out, ref):
+        """#1 against its twin: raw in full, Q/dQ in the chunk layout on
+        the slots of the chunks it walks (undefined elsewhere).  Returns
+        the number of those slots (of one row each)."""
+        chunks = out[3]
+        slots = PK.chunk_slots(chunks)
+        compare("born_sums", label, (out[0], out[1][slots], out[2][slots]),
+                (ref[0], PK.chunk_layout(ref[1], chunks)[slots],
+                 PK.chunk_layout(ref[2], chunks)[slots]))
+        return int(slots.sum()) * 32
+
+    def check_dense(inp, at, boxes):
+        """The chunk list (bitwise its twin) and over it #1, the reload
+        from #1's chunk-layout Q/dQ and #4 against their twins, at horizons
+        1 and 2 nm, without a box and with each box, every kernel launched
+        twice and held bitwise equal."""
+        born_args, desc_args = inp["born_args"], inp["desc_args"]
+        n = born_args[-1]
+        for box_name, box in (("", None), *boxes):
+            box = None if box is None else torch.tensor(box, device=dev)
+            for hz in (1.0, None):
+                label = f"{at} {box_name or 'no box'} h={hz or 2.0}"
+                kw = dict(box=box, horizon=hz)
+                chunks = PK.subtile_columns(*born_args[:3], n, **kw)
+                twin = PK.subtile_columns_reference(*born_args[:3], n, **kw)
+                if not all(torch.equal(x, y) for x, y in zip(chunks, twin)):
+                    raise AssertionError(f"subtile_columns {label}: differs "
+                                         "from its twin")
+                repeatable("subtile_columns", label, chunks,
+                           PK.subtile_columns(*born_args[:3], n, **kw))
+                log(f"    {'subtile_columns':27s} {label:34s} bitwise its "
+                    f"twin ({int(chunks.ncols.sum())} columns listed)")
+                out = PK.born_sums(*born_args, save_qd=True, chunks=chunks,
+                                   **kw)
+                ref = PK.born_sums_reference(*born_args, save_qd=True, **kw)
+                compare_dense_born(label, out, ref)
+                slots = PK.chunk_slots(chunks)
+                # again over the given list, and building its own
+                for how in ("given", "built"):
+                    again = PK.born_sums(*born_args, save_qd=True, **kw,
+                                         chunks=chunks if how == "given"
+                                         else None)
+                    if how == "built" and not all(
+                            torch.equal(x, y) for x, y in zip(again[3], twin)):
+                        raise AssertionError(f"born_sums {label}: its own "
+                                             "chunk list differs from the "
+                                             "twin's")
+                    repeatable("born_sums", f"{label} {how}",
+                               (out[0], out[1][slots], out[2][slots]),
+                               (again[0], again[1][slots], again[2][slots]))
+                outs = PK.descreening(*desc_args, out[1:], box=box)
+                compare("descreening", label, outs, PK.descreening_reference(
+                    *desc_args, ref[1:], box=box))
+                repeatable("descreening", label, outs,
+                           PK.descreening(*desc_args, out[1:], box=box))
+                sp = inp["spline"]._replace(horizon=hz)
+                dd = (*desc_args, None)
+                outs = PK.descreening(*dd, box=box, spline=sp, chunks=chunks)
+                compare("descreening_recompute", label, outs,
+                        PK.descreening_reference(*dd, box=box, spline=sp))
+                repeatable("descreening_recompute", label, outs,
+                           PK.descreening(*dd, box=box, spline=sp,
+                                          chunks=chunks))
+
+    def timed_dense(inp):
+        """The dense chunk sweeps to time at horizon 1 nm without a box:
+        the chunk list, #1 building its own (also walking a given one), the
+        reload from #1's Q/dQ and #4.  The bounds count what the TPU
+        function reads and writes, not the list."""
+        born_args, desc_args = inp["born_args"], inp["desc_args"]
+        n = born_args[-1]
+        chunks = PK.subtile_columns(*born_args[:3], n, horizon=1.0)
+        qd_k = PK.born_sums(*born_args, horizon=1.0, save_qd=True)[1:]
+        slots = int(PK.chunk_slots(chunks).sum()) * 32
+        live_b = live_pairs(inp, "born", 1.0)
+        sp = inp["spline"]._replace(horizon=1.0)
+        dd = (*desc_args, None)
+        return {
+            "subtile_columns": dict(
+                kern=lambda: PK.subtile_columns(*born_args[:3], n,
+                                                horizon=1.0),
+                plain=lambda: PK.subtile_columns_reference(
+                    *born_args[:3], n, horizon=1.0),
+                reads=born_args[:3], live=chunks.cols.numel(),
+                live_key="column_tests", ops="chunk_test", extra=0),
+            "born_sums": dict(
+                kern=lambda: PK.born_sums(*born_args, horizon=1.0,
+                                          save_qd=True),
+                plain=lambda: PK.born_sums_reference(*born_args, horizon=1.0,
+                                                     save_qd=True),
+                reads=born_args, live=live_b, ops="born",
+                extra=8 * live_b, born_chunks=True,
+                also=dict(given_list_ms=lambda: PK.born_sums(
+                    *born_args, horizon=1.0, save_qd=True, chunks=chunks))),
+            "descreening": dict(
+                kern=lambda: PK.descreening(*desc_args, qd_k),
+                plain=lambda: PK.descreening_reference(*desc_args, inp["qd"]),
+                reads=desc_args, live=live_b, ops="descreen",
+                extra=8 * live_b,
+                info=dict(chunk_slots=slots,
+                          qd_read_bytes=slots * QD_SLOT_BYTES)),
+            "descreening_recompute": dict(
+                kern=lambda: PK.descreening(*dd, spline=sp, chunks=chunks),
+                plain=lambda: PK.descreening_reference(*dd, spline=sp),
+                reads=(dd, sp), live=live_b, ops="descreen_spline",
+                extra=0, info=dict(chunk_slots=slots)),
+        }
+
     def born_live(inp, nv, tl, rng_dist, box=None):
         pos_pad, pos_h = inp["born_args"][:2]
         return TL.subtile_live(nv, tl, pos_pad, inp["valid"][0], pos_h,
@@ -801,16 +928,23 @@ def phase_kernels(dev):
                            qd_written_bytes=kept * QD_SUBTILE_BYTES,
                            qd_dense_bytes=nbytes(written[1:3]))
                 written = (written[0], written[3])
+            elif "born_chunks" in t:
+                slots = compare_dense_born(f"{at} as timed", written,
+                                           t["plain"]())
+                rec.update(chunk_slots=slots,
+                           qd_written_bytes=slots * QD_SLOT_BYTES,
+                           qd_dense_bytes=nbytes(written[1:3]))
+                written = written[0]
             else:
                 compare(name, f"{at} as timed", written, t["plain"]())
-                if t["ops"] == "born":
-                    rec["qd_dense_bytes"] = nbytes(written[1:])
-                    written = written[0]
             moved = nbytes(t["reads"], written) + t["extra"]
             b_ms, b_by = bound_ms(t["live"], OPS_PER_PAIR[t["ops"]], moved)
             rec.update(ms=cuda_time_ms(t["kern"]),
                        plain_ms=cuda_time_ms(t["plain"]), bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None, live_pairs=t["live"])
+                       bound_by=b_by, library_ms=None)
+            rec[t.get("live_key", "live_pairs")] = t["live"]
+            for key, fn in t.get("also", {}).items():
+                rec[key] = cuda_time_ms(fn)
             out[name] = rec
             before = (f", before the redesign {BEFORE_MS[name, at]:.4f} ms "
                       "(PERF.md)" if (name, at) in BEFORE_MS else "")
@@ -818,7 +952,9 @@ def phase_kernels(dev):
                             if x in rec)
             log(f"    {at:4s} {name:27s} kernel {rec['ms']:.4f} ms{before}, "
                 f"plain {rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}; {t['live']} live pairs, {moved} bytes{sizes})")
+                f"({b_by}; {t['live']} "
+                f"{t.get('live_key', 'live_pairs').replace('_', ' ')}, "
+                f"{moved} bytes{sizes})")
         return out
 
     # dense grid, 1li2 shapes
@@ -827,51 +963,16 @@ def phase_kernels(dev):
         f"{li2['shapes']}")
     if li2["shapes"] != dict(NP=1536, NHP=768, E=24):
         raise AssertionError(f"unexpected 1li2 shapes {li2['shapes']}")
-    l_born, l_gb, l_mm = li2["born_args"], li2["gb_args"], li2["mm_kw"]
-    l_desc = (*li2["desc_args"], li2["qd"])
-    l_sp = li2["spline"]._replace(horizon=1.0)
-    for hz in (1.0, None):
-        label = f"horizon={hz or 2.0}"
-        compare("born_sums", label,
-                PK.born_sums(*l_born, horizon=hz, save_qd=True),
-                PK.born_sums_reference(*l_born, horizon=hz, save_qd=True))
+    l_gb, l_mm = li2["gb_args"], li2["mm_kw"]
     check_dense_gb(li2, "1li2", LI2_BOXES)
-    for box_name, box in (("", None), *LI2_BOXES):
-        box = None if box is None else torch.tensor(box, device=dev)
-        qd = PK.born_sums(*l_born, box=box, horizon=1.0, save_qd=True)[1:]
-        d_args = (*li2["desc_args"], qd)
-        for spl, how in ((l_sp, "h=1 spline"), (None, "no spline")):
-            label = f"from Q/dQ {box_name} {how}"
-            outs = PK.descreening(*d_args, box=box, spline=spl)
-            compare("descreening", label, outs,
-                    PK.descreening_reference(*d_args, box=box, spline=spl))
-            repeatable("descreening", label, outs,
-                       PK.descreening(*d_args, box=box, spline=spl))
-    live_b = live_pairs(li2, "born", 1.0)
-    # the sub-tile pairs the dense reload visits: those of the full-grid
-    # list within the horizon
-    grid_tl, grid_nv = TL.full_grid_list(1536 // li2["tile"],
-                                         768 // li2["tile"], dev)
-    kept = int(born_live(li2, grid_nv, grid_tl, 1.0).sum())
-    timed_1li2 = {
-        "born_sums": dict(
-            kern=lambda: PK.born_sums(*l_born, horizon=1.0, save_qd=True),
-            plain=lambda: PK.born_sums_reference(*l_born, horizon=1.0,
-                                                 save_qd=True),
-            reads=l_born, live=live_b, ops="born", extra=8 * live_b),
-        "gb_pair": dict(
-            kern=lambda: PK.gb_pair(*l_gb, **l_mm),
-            plain=lambda: PK.gb_pair_reference(*l_gb, **l_mm),
-            reads=(l_gb, l_mm), live=live_pairs(li2, "gb", 1.0),
-            ops="gb_mm", extra=0),
-        "descreening": dict(
-            kern=lambda: PK.descreening(*l_desc, spline=l_sp),
-            plain=lambda: PK.descreening_reference(*l_desc, spline=l_sp),
-            reads=(li2["desc_args"], l_sp.hids_perm), live=live_b,
-            ops="descreen", extra=8 * live_b,
-            info=dict(kept_subtile_pairs=kept,
-                      qd_read_bytes=kept * QD_SUBTILE_BYTES)),
-    }
+    check_dense(li2, "1li2", LI2_BOXES)
+    timed_1li2 = dict(timed_dense(li2), gb_pair=dict(
+        kern=lambda: PK.gb_pair(*l_gb, **l_mm),
+        plain=lambda: PK.gb_pair_reference(*l_gb, **l_mm),
+        reads=(l_gb, l_mm), live=live_pairs(li2, "gb", 1.0), ops="gb_mm",
+        extra=0))
+    # #4's main record is at 2clr's shapes; 1li2's rides beside it
+    timed_1li2["descreening_recompute"]["sub"] = "dense_1li2"
     log(f"[2] kernels vs plain twins, f32: lists at 1li2 {li2['shapes']} "
         f"(T {li2['tile']}; mts_wu4's route), boxes too")
     timed_1li2_lists = check_lists(li2, "1li2", LI2_BOXES)
@@ -882,33 +983,21 @@ def phase_kernels(dev):
         f"2clr {clr['shapes']} (T {clr['tile']})")
     if clr["shapes"] != dict(NP=6144, NHP=3328, E=24):
         raise AssertionError(f"unexpected 2clr shapes {clr['shapes']}")
-    for hz in (1.0, None):
-        sp = clr["spline"]._replace(horizon=hz)
-        compare("descreening_recompute", f"horizon={hz or 2.0}",
-                PK.descreening(*clr["desc_args"], None, spline=sp),
-                PK.descreening_reference(*clr["desc_args"], None, spline=sp))
-    c_desc = (*clr["desc_args"], clr["qd"])
-    c_sp = clr["spline"]._replace(horizon=1.0)
-    compare("descreening", "2clr from Q/dQ h=1 spline",
-            PK.descreening(*c_desc, spline=c_sp),
-            PK.descreening_reference(*c_desc, spline=c_sp))
+    check_dense(clr, "2clr", LI2_BOXES)
     check_dense_gb(clr, "2clr")
     timed_2clr = check_lists(clr, "2clr")
-    sp = clr["spline"]
-    dense_d = (*clr["desc_args"], None)
-    timed_2clr["descreening_recompute"] = dict(
-        kern=lambda: PK.descreening(*dense_d, spline=sp),
-        plain=lambda: PK.descreening_reference(*dense_d, spline=sp),
-        reads=(dense_d, sp), live=live_pairs(clr, "born", 1.0),
-        ops="descreen_spline", extra=0)
+    timed_2clr["descreening_recompute"] = timed_dense(clr)[
+        "descreening_recompute"]
     log("    times: device ms per call, CUDA events behind a device sleep, "
         "horizon and cutoff 1 nm; bound from the H100 SXM peaks (67 TFLOP/s "
         f"FP32, 3.35 TB/s); library_ms null, {LIBRARY_NONE}")
-    for at, timed in (("1li2", timed_1li2), ("1li2", timed_1li2_lists),
-                      ("2clr", timed_2clr)):
+    for at, timed, sub in (("1li2", timed_1li2, None),
+                           ("1li2", timed_1li2_lists, "lists_1li2"),
+                           ("2clr", timed_2clr, None)):
         for name, rec in measure(timed, at).items():
-            if at == "1li2" and name in timed_1li2_lists:
-                results[name]["lists_1li2"] = rec
+            key = sub or timed[name].get("sub")
+            if key:
+                results[name][key] = rec
             else:
                 results[name].update(rec)
     # what is left under #2's bound of a few tenths of a microsecond: the
@@ -1001,7 +1090,8 @@ def check_repeatable(name, m, positions, e, f):
 
 def phase_parity(dev):
     """Phases 4-5.  Returns the launch counts of the sharing-off
-    evaluations (the path of the two recomputing descreening kernels)."""
+    evaluations (the path of the two recomputing descreening kernels and
+    of the standalone chunk list)."""
     import torch
 
     from openmm_agbnp_plugin_tpu_torch import AGBNPModel
@@ -1036,7 +1126,7 @@ def phase_parity(dev):
     check_repeatable("2clr", m, d.positions, e, f)
     ref_dense = AGBNPModel(p, device=dev, dtype=torch.float32, caps=m.caps,
                            positions=d.positions, pair_tiles=False)
-    recompute = dict.fromkeys(("descreening_recompute",
+    recompute = dict.fromkeys(("subtile_columns", "descreening_recompute",
                                "descreening_tiles_recompute"), 0)
     for route, m_on in (("lists", m), ("dense", ref_dense)):
         m_off = AGBNPModel(p, device=dev, dtype=torch.float32, caps=m.caps,
@@ -1485,9 +1575,10 @@ def main() -> int:
         if "live_pairs" in k:
             rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})
-        if "lists_1li2" in k:
-            rec["lists_1li2"] = {x: v for x, v in k["lists_1li2"].items()
-                                 if x != "library_ms"}
+        for sub in ("lists_1li2", "dense_1li2"):
+            if sub in k:
+                rec[sub] = {x: v for x, v in k[sub].items()
+                            if x != "library_ms"}
         record.append(rec)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(dict(kernels=record)))

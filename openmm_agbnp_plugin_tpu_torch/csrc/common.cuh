@@ -1,12 +1,13 @@
 // Device helpers shared by the dense sweeps (pairs.cu) and the
 // interacting-tile-list sweeps (tiles.cu): the spline constants and lookup,
-// minimum image, and the warp sum.
+// minimum image, the Born sweep's pair, and the warp reductions.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define AGBNP_NA 16          // spline nodes (models/constants.py)
+#define FULL_MASK 0xffffffffu
 
 // spline grid step h = AGBNP_I4LOOKUP_MAXA / (NA - 1) = 2 / 15 nm, and the
 // derived constants in the order the JAX kernel forms them
@@ -17,9 +18,20 @@ __device__ __forceinline__ float spline_hh() {
 }
 __device__ __forceinline__ float spline_h6() { return (float)((2.0 / 15.0) / 6.0); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;  // complete in lane 0
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
 // Minimum image of dx = pos_j - pos_i.  box_mode 0: none; 1: orthorhombic
@@ -94,4 +106,26 @@ struct SplineRefs {
 __device__ __forceinline__ bool born_pair_live(int i, int gj, int n, float d,
                                                float horizon) {
   return i < n && gj >= 0 && gj != i && d < horizon;
+}
+
+// One pair of the Born sweep: row i (position xi, yi, zi; its type row
+// starts at tbase) and a column at col.xyz with screening factor col.w,
+// permuted-row id gj and type tcj.  Q and dQ/dd where the Born mask accepts
+// the pair (else zero), and its term added to row i's sum.
+__device__ __forceinline__ void born_pair(const float* tab,
+                                          const SplineRefs& sp, int i,
+                                          int tbase, float xi, float yi,
+                                          float zi, float4 col, int gj,
+                                          int tcj, int box_mode,
+                                          const float* box, float& acc,
+                                          float& qv, float& dqv) {
+  float dx = col.x - xi, dy = col.y - yi, dz = col.z - zi;
+  min_image(box_mode, box, dx, dy, dz);
+  const float d = sqrtf(dx * dx + dy * dy + dz * dz);
+  qv = 0.0f;
+  dqv = 0.0f;
+  if (born_pair_live(i, gj, sp.n, d, sp.horizon)) {
+    spline_qdq(tab, sp.ntab, tbase + tcj, d, qv, dqv);
+    acc += qv * col.w;
+  }
 }

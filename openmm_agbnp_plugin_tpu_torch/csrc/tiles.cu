@@ -75,11 +75,9 @@
 //     of dQ along j) of 8 rows; the reload reads only the Q/dQ of the kept
 //     sub-tile pairs: those of the Born sweep's keep bits when it has them,
 //     else of its own boxes (Q/dQ written in full, zero outside the Born
-//     mask: a twin's, or the dense sweep's [NP, NHP] in the row-major
-//     full-grid list with row stride NHP).  Column sums (W, U, screener
-//     force) add the 4 row groups in a fixed shuffle tree; row forces stay
-//     in registers across b and add the 8 column quads in a fixed tree at
-//     the end.
+//     mask: a twin's).  Column sums (W, U, screener force) add the 4 row
+//     groups in a fixed shuffle tree; row forces stay in registers across b
+//     and add the 8 column quads in a fixed tree at the end.
 //   * Partials: rows [lmax, ng, K, T] per (l, grp) that kept a sub-tile
 //     pair, columns [lmax, T/32, K, T] per (l, a) and kept b, with the kept
 //     bits keep[l, a, grp].  subtile_reduce_kernel has one block per
@@ -105,7 +103,6 @@
 #define REDUCE_SMEM_MAX (200 * 1024)  // the term list of one output sub-tile
 #define DS_ROWS_IN_FLIGHT 2  // descreening: rows of Q/dQ loads a lane issues
                              // before it uses them (the compiler may hoist)
-#define FULL_MASK 0xffffffffu
 // nm added to the range before a sub-tile pair is dropped, far above the
 // f32 rounding of the boxes and distances (tiles.py SUBTILE_MARGIN)
 #define SUBTILE_MARGIN 1e-3f
@@ -128,18 +125,6 @@ struct SubBox {
   float cx, cy, cz, r;
   bool has;
 };
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(FULL_MASK, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
-  return v;
-}
 
 __device__ __forceinline__ SubBox warp_box(float x, float y, float z,
                                            bool valid) {
@@ -170,10 +155,6 @@ __device__ __forceinline__ bool subtiles_near(const SubBox& a,
   min_image(box_mode, box, dx, dy, dz);
   return sqrtf(dx * dx + dy * dy + dz * dz) - a.r - b.r
          < rng + SUBTILE_MARGIN;
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
 __device__ __forceinline__ int lane4(const int4& v, int c) {
@@ -362,26 +343,6 @@ static int reduce_subtiles(const ReduceJob& j0, const ReduceJob& j1,
 // floats of shared memory each Born warp uses beyond the tables: column
 // data, then the Q and dQ staging tiles
 #define BORN_WARP_FLOATS (6 * SUB + 2 * SUB * BORN_LD)
-
-// One pair of the Born sweep: Q and dQ/dd where its mask accepts the pair
-// (else zero), and its term of row i's sum.
-__device__ __forceinline__ void born_pair(const float* tab,
-                                          const SplineRefs& sp, int i,
-                                          int tbase, float xi, float yi,
-                                          float zi, float4 col, int gj,
-                                          int tcj, int box_mode,
-                                          const float* box, float& acc,
-                                          float& qv, float& dqv) {
-  float dx = col.x - xi, dy = col.y - yi, dz = col.z - zi;
-  min_image(box_mode, box, dx, dy, dz);
-  const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-  qv = 0.0f;
-  dqv = 0.0f;
-  if (born_pair_live(i, gj, sp.n, d, sp.horizon)) {
-    spline_qdq(tab, sp.ntab, tbase + tcj, d, qv, dqv);
-    acc += qv * col.w;
-  }
-}
 
 __global__ void __launch_bounds__(BORN_WARPS * 32)
 born_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
@@ -670,11 +631,10 @@ extern "C" int agbnp_gb_pair_tiles(
 // as one float4 per row (coalesced: 8 lanes cover a 128-byte row) and
 // guards only d > 0, as the TPU kernel does; with keep_in (the Born
 // sweep's keep bits) it visits exactly the sub-tile pairs those name and
-// forms no box.  Entry l's Q/dQ tile starts at l T T with row stride T, or
-// with q_dense (the dense [NP, NHP] arrays over the full-grid list) at
-// ti T q_ld + tj T with row stride q_ld = NHP.  The recomputing variant
-// (RECOMPUTE) re-evaluates the Born mask and spline from tables staged in
-// shared memory.  Row data sits in shared memory, column data in registers.
+// forms no box.  Entry l's Q/dQ tile starts at l T T with row stride T.
+// The recomputing variant (RECOMPUTE) re-evaluates the Born mask and spline
+// from tables staged in shared memory.  Row data sits in shared memory,
+// column data in registers.
 // ---------------------------------------------------------------------------
 template <bool RECOMPUTE>
 __global__ void __launch_bounds__(32, 16)
@@ -684,8 +644,7 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
                          const float* __restrict__ posh, int nhp,
                          const float* __restrict__ q,
                          const float* __restrict__ dq,
-                         const int* __restrict__ keep_in, int q_ld,
-                         int q_dense,
+                         const int* __restrict__ keep_in,
                          const float* __restrict__ s,
                          const float* __restrict__ brw,
                          const float* __restrict__ bru, int box_mode,
@@ -728,9 +687,7 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
 #pragma unroll
     for (int m = 0; m < DS_ROW_K; ++m) fr[k][m] = 0.0f;
   unsigned kept = 0;
-  const size_t qbase = q_dense
-      ? (size_t)ti * tile * q_ld + (size_t)tj * tile
-      : (size_t)l * tile * tile;
+  const size_t qbase = (size_t)l * tile * tile;
   for (int b = grp * G; b < (grp + 1) * G; ++b) {
     const int j0 = tj * tile + b * SUB;
     if (given) {
@@ -758,7 +715,7 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
 #pragma unroll
     for (int c = 0; c < 4; ++c) cw[c] = cu[c] = cfx[c] = cfy[c] = cfz[c] = 0.0f;
     // Q/dQ of row r, columns jq..jq+3 of this entry
-    const size_t qoff = qbase + (size_t)(a * SUB + g) * q_ld + b * SUB
+    const size_t qoff = qbase + (size_t)(a * SUB + g) * tile + b * SUB
                         + 4 * c4;
 #pragma unroll
     for (int k0 = 0; k0 < 8; k0 += DS_ROWS_IN_FLIGHT) {
@@ -766,7 +723,7 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
       if (!RECOMPUTE) {
 #pragma unroll
         for (int kk = 0; kk < DS_ROWS_IN_FLIGHT; ++kk) {
-          const size_t o = qoff + (size_t)(4 * (k0 + kk)) * q_ld;
+          const size_t o = qoff + (size_t)(4 * (k0 + kk)) * tile;
           q4[kk] = *(const float4*)(q + o);
           dq4[kk] = *(const float4*)(dq + o);
         }
@@ -860,8 +817,7 @@ static int launch_descreen_subtiles(const int* nv, const int* tl, int lmax,
                                     int np,
                                     const float* posh, int nhp,
                                     const float* q, const float* dq,
-                                    const int* keep_in, int q_ld,
-                                    int q_dense,
+                                    const int* keep_in,
                                     const float* s, const float* brw,
                                     const float* bru, int box_mode,
                                     const float* box, const SplineRefs& sp,
@@ -872,8 +828,8 @@ static int launch_descreen_subtiles(const int* nv, const int* tl, int lmax,
   allow_smem((const void*)descreen_subtiles_kernel<RECOMPUTE>, smem);
   descreen_subtiles_kernel<RECOMPUTE>
       <<<lmax * (tile / SUB) * ng, SUB, smem, st>>>(
-          nv, tl, lmax, tile, ng, pos, np, posh, nhp, q, dq, keep_in, q_ld,
-          q_dense, s, brw, bru, box_mode, box, sp, rng, prow, pcol, keep);
+          nv, tl, lmax, tile, ng, pos, np, posh, nhp, q, dq, keep_in, s, brw,
+          bru, box_mode, box, sp, rng, prow, pcol, keep);
   return (int)cudaGetLastError();
 }
 
@@ -881,17 +837,15 @@ static int launch_descreen_subtiles(const int* nv, const int* tl, int lmax,
 // tcol, the tables, n and horizon.  The reloading variant takes the Born
 // sweep's keep bits keep_in [lmax, T/32, groups] (from agbnp_born_sums_
 // tiles on the same list) or, with keep_in null, forms the sub-tile boxes
-// from n (rows i >= n are padding) and hids (null: every column is real);
-// q_ld and q_dense give the Q/dQ layout (see the kernel).  rng is the
-// range the list was built with.  groups: ng, as for the GB sweep; prow
-// [lmax, ng, 3, T], pcol [lmax, T/32, 5, T] and keep [lmax, T/32, ng] are
-// scratch.
+// from n (rows i >= n are padding) and hids (null: every column is real).
+// rng is the range the list was built with.  groups: ng, as for the GB
+// sweep; prow [lmax, ng, 3, T], pcol [lmax, T/32, 5, T] and keep [lmax,
+// T/32, ng] are scratch.
 extern "C" int agbnp_descreening_tiles(
     const int* nv, const int* tl, int lmax, int tile, int groups,
     const float* pos, int np, const float* posh, int nhp, const float* q,
-    const float* dq, const int* keep_in, int q_ld, int q_dense,
-    const float* s, const float* brw, const float* bru, int box_mode,
-    const float* box, const int* hids, const int* trow, const int* tcol,
+    const float* dq, const int* keep_in, const float* s, const float* brw,
+    const float* bru, int box_mode, const float* box, const int* hids, const int* trow, const int* tcol,
     const float* yval, const float* y2val, int nti, int ntj, int n,
     float horizon, float rng, float* prow, float* pcol, int* keep,
     float* w_out, float* u_out, float* f_rows, float* f_cols, void* stream) {
@@ -900,13 +854,13 @@ extern "C" int agbnp_descreening_tiles(
                       n, horizon};
   int err = q == nullptr
       ? launch_descreen_subtiles<true>(nv, tl, lmax, tile, groups, pos, np,
-                                       posh, nhp, q, dq, nullptr, tile, 0, s,
-                                       brw, bru, box_mode, box, sp, rng, prow,
-                                       pcol, keep, st)
+                                       posh, nhp, q, dq, nullptr, s, brw, bru,
+                                       box_mode, box, sp, rng, prow, pcol,
+                                       keep, st)
       : launch_descreen_subtiles<false>(nv, tl, lmax, tile, groups, pos, np,
-                                        posh, nhp, q, dq, keep_in, q_ld,
-                                        q_dense, s, brw, bru, box_mode, box,
-                                        sp, rng, prow, pcol, keep, st);
+                                        posh, nhp, q, dq, keep_in, s, brw,
+                                        bru, box_mode, box, sp, rng, prow,
+                                        pcol, keep, st);
   if (err != 0) return err;
   Dest rows{};
   for (int m = 0; m < DS_ROW_K; ++m) {

@@ -227,9 +227,13 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     pair_tiles: None for the dense tile grid, or the (lmax_born, lmax_gb)
     budgets of the interacting-tile lists built here per evaluation;
     lmax_gb None keeps the GB sweep dense (no cutoff, no distance bound).
-    The in-range tile counts come back as "tile_counts".  Q/dQ are shared
-    between the Born and descreening sweeps under share_qd and
-    QD_BYTES_LIMIT; otherwise descreening recomputes the spline."""
+    The in-range tile counts come back as "tile_counts".  On the dense grid
+    the Born and descreening sweeps walk one chunk list (subtile_columns)
+    per evaluation on the card: the Born kernel's own, handed on with its
+    Q/dQ, or one built here for both when descreening recomputes the
+    spline (the CPU twins read none).  Q/dQ are shared between the Born
+    and descreening sweeps under share_qd and QD_BYTES_LIMIT; otherwise
+    descreening recomputes the spline."""
     n = pos.shape[0]
     tile = PK.pick_tile(n)
     rperm, rinv = a["rperm"], a["rinv"]
@@ -268,8 +272,12 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
                                       horizon=horizon, save_qd=save_qd)
     else:
         save_qd = share_qd and pair_pad * nhpad * 8 <= QD_BYTES_LIMIT
+        chunks = None
+        if pos.is_cuda and not save_qd:
+            chunks = PK.subtile_columns(pos_pad, pos_hpad, spline.hids_perm,
+                                        n, box=box, horizon=horizon)
         born_out = PK.born_sums(*born_args, box=box, horizon=horizon,
-                                save_qd=save_qd)
+                                save_qd=save_qd, chunks=chunks)
     raw, qd = (born_out[0], born_out[1:]) if save_qd else (born_out, None)
     # perm-space per-atom chain: Born radii, GB self, vdW dispersion
     beta = 1.0 / a["radii_vdw_perm"] - PIFAC * raw[:n]
@@ -296,11 +304,8 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     e_vdw = B.vdw_energy(a["alpha_perm"], br_p)
     evdw_der_brw, egb_der_bru = B.born_chain_factors(
         a["alpha_perm"], charge_p, br_p, fp, yrow[:n])
-    # qd: (Q, dQ), and on the card the list Born kernel's keep bits, which
-    # name the only sub-tile pairs where it wrote Q/dQ; reloading, the
-    # descreening kernels still take the spline's ids, n and horizon: they
-    # bound the sub-tile pairs of the dense grid, or of a list without keep
-    # bits, that they visit
+    # qd: (Q, dQ), and on the card the list Born kernel's keep bits or the
+    # dense one's chunks, which name the only places where it wrote Q/dQ
     desc_args = (pos_pad, pos_hpad, s_h, padv(evdw_der_brw),
                  padv(egb_der_bru), qd)
     if pair_tiles is not None:
@@ -308,7 +313,7 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
             nv_b, tl_b, *desc_args, tile, box=box, spline=spline)
     else:
         w_h, u_h, swf_r, swf_c = PK.descreening(*desc_args, box=box,
-                                                spline=spline)
+                                                spline=spline, chunks=chunks)
 
     # back to atom order (gathers; every heavy atom owns one packed column)
     col = a["hinv"]

@@ -8,18 +8,26 @@ same returned tuples.  One change: instead of the TPU's row-contracted
 spline tables and column one-hots, the sweeps take per-row and per-column
 radius-type ids and the [Ti, Tj, NA] y/y2 spline tables.
 
-  born_sums     raw_i = sum_j s_j Q4(d_ij), optionally saving Q and dQ/dd
-  gb_pair       GB pair energy rows, Y rows, direct forces (+ OPLS LJ and
-                Coulomb with in-kernel exclusion lists)
-  descreening   W_j/U_j column sums + direct descreening forces from the
-                saved Q/dQ, or (qd=None) with the spline recomputed
+  subtile_columns  the Born and descreening sweeps' work list: for each
+                   32-row sub-tile, the heavy columns that can hold a live
+                   Born pair (Chunks); the Born kernel builds its own
+                   unless it is given one
+  born_sums        raw_i = sum_j s_j Q4(d_ij), optionally saving Q and dQ/dd
+  gb_pair          GB pair energy rows, Y rows, direct forces (+ OPLS LJ
+                   and Coulomb with in-kernel exclusion lists)
+  descreening      W_j/U_j column sums + direct descreening forces from the
+                   saved Q/dQ, or (qd=None) with the spline recomputed
 
 Each wrapper routes by the device of its tensors: on the CPU it returns its
 plain twin (`*_reference`); on a CUDA device it checks every argument,
-launches its kernel from csrc/pairs.cu (gb_pair and the reloading
-descreening: from csrc/tiles.cu, over every tile pair) on the current
-stream, raises if the launch failed, and adds one to its count in LAUNCHES.  There is no fallback
-from the kernel to the twin.  tiles.py holds the same sweeps over
+launches its kernel from csrc/pairs.cu (gb_pair: from csrc/tiles.cu, over
+every tile pair) on the current stream, raises if the launch failed, and
+adds one to its count in LAUNCHES.  There is no fallback from the kernel
+to the twin.  On the card born_sums and descreening walk the chunks of
+subtile_columns in 32-column steps and keep Q/dQ in the chunk layout [NP /
+32, NHP, 32]; `*_chunks_reference` are the torch mirrors of those walks,
+and chunk_layout / chunk_slots say where a dense [NP, NHP] value lands and
+which slots the Born kernel writes.  tiles.py holds the same sweeps over
 interacting-tile lists and rows.py the tree's row moves, counted here too.
 """
 
@@ -38,6 +46,16 @@ from ...models.constants import (
 _NA = AGBNP_I4LOOKUP_NA
 _H = AGBNP_I4LOOKUP_MAXA / (_NA - 1)
 KE = 138.935456  # kJ mol^-1 nm e^-2 (Coulomb constant, md/forces.py)
+SUB = 32          # sub-tile edge: the rows of a chunk list entry, a chunk
+# nm added to the horizon before a column is left off a sub-tile's chunk
+# list: far above the f32 rounding of the box and the distances (tiles.py
+# SUBTILE_MARGIN), so no pair the Born mask accepts is dropped
+CHUNK_MARGIN = 1e-3
+# the most warps a dense chunk sweep's block (one sub-tile) takes, and the
+# most blocks a dense descreening sweep splits a sub-tile's chunks over
+# (csrc/pairs.cu MAX_CHUNK_WARPS, MAX_CHUNK_PARTS)
+MAX_CHUNK_WARPS = 16
+MAX_CHUNK_PARTS = 4
 
 
 def pad_to(n: int, tile: int) -> int:
@@ -58,9 +76,10 @@ def _horizon(horizon):
 # two descreening variants of each route are counted apart; the last two
 # are rows.py's
 LAUNCHES = dict.fromkeys((
-    "born_sums", "gb_pair", "descreening", "descreening_recompute",
-    "born_sums_tiles", "gb_pair_tiles", "descreening_tiles",
-    "descreening_tiles_recompute", "take_rows", "cumsum_rows"), 0)
+    "subtile_columns", "born_sums", "gb_pair", "descreening",
+    "descreening_recompute", "born_sums_tiles", "gb_pair_tiles",
+    "descreening_tiles", "descreening_tiles_recompute", "take_rows",
+    "cumsum_rows"), 0)
 
 
 def launch_counts() -> dict:
@@ -85,6 +104,19 @@ class SplineArgs(NamedTuple):
     horizon: float | None = None
 
 
+class Chunks(NamedTuple):
+    """The dense Born and descreening sweeps' work list (subtile_columns):
+    for each 32-row sub-tile a of the padded rows (S = NP / 32), the heavy
+    columns j that can hold a pair the Born mask accepts with one of its
+    rows.  cols [S, NHP] int32: the listed j in ascending order, -1 past
+    ncols [S] int32; bits [S, NHP / 32] int32: bit c of word w set iff
+    column 32 w + c is listed (the transposed list the column sums walk).
+    The sweeps walk each list in chunks of 32 slots."""
+    cols: torch.Tensor
+    ncols: torch.Tensor
+    bits: torch.Tensor
+
+
 # ---------------------------------------------------------------------------
 # Plain twins
 # ---------------------------------------------------------------------------
@@ -95,9 +127,15 @@ def _pair_geom(pos_r, pos_c, box):
 
     box: None, [3] orthorhombic lengths, or [3, 3] reduced triclinic rows
     (sequential c/b/a wrap, ops/born.py::min_image)."""
-    dx = pos_c[0][..., None, :] - pos_r[0][..., :, None]
-    dy = pos_c[1][..., None, :] - pos_r[1][..., :, None]
-    dz = pos_c[2][..., None, :] - pos_r[2][..., :, None]
+    return _min_image_d2(pos_c[0][..., None, :] - pos_r[0][..., :, None],
+                         pos_c[1][..., None, :] - pos_r[1][..., :, None],
+                         pos_c[2][..., None, :] - pos_r[2][..., :, None], box)
+
+
+def _min_image_d2(dx, dy, dz, box):
+    """The minimum image of the deltas (as _pair_geom's) and d2, every
+    product and sum rounded on its own: the order the chunk-list kernel
+    reproduces bit for bit."""
     if box is not None and box.dim() == 1:
         dx = dx - box[0] * torch.round(dx * (1.0 / box[0]))
         dy = dy - box[1] * torch.round(dy * (1.0 / box[1]))
@@ -241,6 +279,149 @@ def _descreen_sums(dx, dy, dz, d, mask, q, dq, s_cols, brw_rows, bru_rows):
     return w, u, f_rows, f_cols
 
 
+def _chunk_lim(horizon) -> float:
+    """The chunk list's bound on |x_j - c_a| - r_a: the Born mask's horizon
+    plus CHUNK_MARGIN, the one float both the kernel and the twin compare
+    with."""
+    return _horizon(horizon) + CHUNK_MARGIN
+
+
+def subtile_columns_reference(pos_pad, pos_hpad, hids_perm, n, box=None,
+                              horizon=None):
+    """Plain twin of subtile_columns (same arguments and result).  Each
+    product, sum and square root is its own torch op, in the kernel's
+    order, so on the card the two agree bit for bit."""
+    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    dev = pos_pad.device
+    nsub = npad // SUB
+    p = pos_pad.reshape(3, nsub, SUB)
+    valid = (torch.arange(npad, device=dev) < n).reshape(1, nsub, SUB)
+    has = torch.any(valid[0], dim=1)
+    lo = torch.where(has[None, :], torch.amin(torch.where(valid, p, 1e30),
+                                              dim=2), 0.0)
+    hi = torch.where(has[None, :], torch.amax(torch.where(valid, p, -1e30),
+                                              dim=2), 0.0)
+    c = 0.5 * (lo + hi)
+    e = hi - lo
+    r = 0.5 * torch.sqrt(e[0] * e[0] + e[1] * e[1] + e[2] * e[2])
+    dx, dy, dz, d2 = _pair_geom(c, pos_hpad, box)
+    if box is not None and box.dim() == 2:
+        # the sequential triclinic wrap need not find the nearest image:
+        # the least of the 27 images one lattice step around it
+        for kc in (-1, 0, 1):
+            for kb in (-1, 0, 1):
+                for ka in (-1, 0, 1):
+                    sx = (dx + ka * box[0, 0]) + kb * box[1, 0] \
+                        + kc * box[2, 0]
+                    sy = (dy + kb * box[1, 1]) + kc * box[2, 1]
+                    sz = dz + kc * box[2, 2]
+                    d2 = torch.minimum(d2, sx * sx + sy * sy + sz * sz)
+    ok = ((torch.sqrt(d2) - r[:, None] < _chunk_lim(horizon))
+          & has[:, None] & (hids_perm >= 0)[None, :])
+    ids = torch.arange(nhpad, dtype=torch.int32, device=dev)
+    key = torch.sort(torch.where(ok, ids, nhpad), dim=1).values
+    cols = torch.where(key < nhpad, key, -1).to(torch.int32).contiguous()
+    words = torch.sum(ok.reshape(nsub, nhpad // SUB, SUB).long()
+                      << torch.arange(SUB, device=dev), dim=2)
+    bits = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return Chunks(cols, torch.sum(ok, dim=1).to(torch.int32),
+                  bits.to(torch.int32).contiguous())
+
+
+def chunk_slots(chunks):
+    """[S, NHP] bool: the slots of the chunks a dense sweep walks (k <
+    32 ceil(ncols / 32)), where the Born kernel writes Q/dQ (zero past
+    ncols); elsewhere they are undefined on the card."""
+    k = torch.arange(chunks.cols.shape[1], device=chunks.cols.device)
+    walked = (chunks.ncols.long() + SUB - 1) // SUB * SUB
+    return k[None, :] < walked[:, None]
+
+
+def chunk_layout(x, chunks):
+    """A dense [NP, NHP] array (Q or dQ) in the chunk layout [S, NHP, 32]:
+    slot (a, k) of row 32 a + r holds x[32 a + r, cols[a, k]], zero where
+    the slot lists no column."""
+    nsub = x.shape[0] // SUB
+    cols = chunks.cols.long()
+    rows = x.reshape(nsub, SUB, -1).transpose(1, 2)       # [S, NHP, 32]
+    out = torch.gather(rows, 1, cols.clamp(min=0)[:, :, None].expand(
+        -1, -1, SUB))
+    return torch.where((cols >= 0)[:, :, None], out, 0.0)
+
+
+def _chunk_geom(chunks, pos_pad, pos_hpad, box):
+    """Row ids [S, 1, 32], listed column ids [S, NHP, 1] (0 on dead
+    slots), which slots list a column [S, NHP, 1], and the deltas dx, dy,
+    dz [S, NHP, 32] = column - row (min-image if box) with d."""
+    nsub = pos_pad.shape[1] // SUB
+    cols = chunks.cols.long()
+    live = (cols >= 0)[:, :, None]
+    cj = cols.clamp(min=0)
+    rows = torch.arange(nsub * SUB, device=cols.device).reshape(nsub, 1, SUB)
+    dx, dy, dz, d2 = _min_image_d2(
+        pos_hpad[0][cj][:, :, None] - pos_pad[0][rows],
+        pos_hpad[1][cj][:, :, None] - pos_pad[1][rows],
+        pos_hpad[2][cj][:, :, None] - pos_pad[2][rows], box)
+    return rows, cj[:, :, None], live, dx, dy, dz, torch.sqrt(d2)
+
+
+def _chunk_spline(chunks, pos_pad, pos_hpad, sp, box):
+    """The Born sweep's masked Q, dQ/dd and mask on every chunk slot."""
+    rows, cj, live, dx, dy, dz, d = _chunk_geom(chunks, pos_pad, pos_hpad,
+                                                box)
+    gj = torch.where(live, sp.hids_perm.long()[cj], -1)
+    q, dq, mask = _born_qdq(d, rows, gj, sp.n, sp.horizon,
+                            sp.type_rows.long()[rows],
+                            sp.type_cols.long()[cj], sp.yval, sp.y2val)
+    return q, dq, mask, (rows, cj, live, dx, dy, dz, d)
+
+
+def born_sums_chunks_reference(chunks, pos_pad, pos_hpad, hids_perm,
+                               type_rows, type_cols, yval, y2val, s_hpad, n,
+                               box=None, horizon=None):
+    """The Born kernel's walk of the chunks as torch ops: (raw [NP], Q, dQ
+    [S, NHP, 32] in the chunk layout, zero past ncols)."""
+    sp = SplineArgs(hids_perm, type_rows, type_cols, yval, y2val, n, horizon)
+    q, dq, _, (_, cj, live, *_) = _chunk_spline(chunks, pos_pad, pos_hpad,
+                                                sp, box)
+    s_cols = torch.where(live, s_hpad[cj], 0.0)
+    return torch.sum(q * s_cols, dim=1).reshape(-1), q, dq
+
+
+def descreening_chunks_reference(chunks, pos_pad, pos_hpad, s_hpad, brw_pad,
+                                 bru_pad, qd, box=None, spline=None):
+    """The descreening kernel's walk of the chunks as torch ops: qd the
+    (Q, dQ) in the chunk layout (born_sums_chunks_reference's, or the
+    kernel's), reloaded with only d > 0 guarded as the kernel does, or
+    None to recompute the spline from spline=SplineArgs(...).  Same
+    results as descreening."""
+    if qd is None:
+        q, dq, mask, geom = _chunk_spline(chunks, pos_pad, pos_hpad,
+                                          need_spline(spline), box)
+        rows, cj, live, dx, dy, dz, d = geom
+    else:
+        rows, cj, live, dx, dy, dz, d = _chunk_geom(chunks, pos_pad,
+                                                    pos_hpad, box)
+        q, dq = qd[:2]
+        mask = d > 0.0
+    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    # [S, 32 rows, NHP slots] for _descreen_sums
+    t = (lambda x: x.transpose(1, 2))
+    w, u, f_rows, f_cols = _descreen_sums(
+        t(dx), t(dy), t(dz), t(d), t(mask & live), t(q), t(dq),
+        torch.where(live[:, :, 0], s_hpad[cj[:, :, 0]], 0.0),
+        brw_pad[rows[:, 0]], bru_pad[rows[:, 0]])
+    ids = cj.reshape(-1)
+    keep = live.reshape(-1)
+
+    def to_cols(x):
+        x = x.reshape((ids.shape[0],) + tuple(x.shape[2:]))
+        x = torch.where(keep.reshape((-1,) + (1,) * (x.dim() - 1)), x, 0.0)
+        return x.new_zeros((nhpad,) + tuple(x.shape[1:])).index_add_(0, ids, x)
+
+    return to_cols(w), to_cols(u), f_rows.reshape(npad, 3), to_cols(f_cols)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -286,8 +467,86 @@ def _cuda_lib():
     return load_library()
 
 
+def chunk_warps(nhpad: int) -> int:
+    """The warps G of a dense chunk sweep's block (one 32-row sub-tile, its
+    chunks dealt round-robin to the warps): MAX_CHUNK_WARPS, or the largest
+    power of two up to the chunks a sub-tile can have.  Each warp's walk is
+    a chain of dependent loads and spline steps, so the sweeps run fastest
+    with the most warps a block (measured on an H100 at 1li2's and 2clr's
+    shapes, profile_port_step.py --list-kernels).  It depends on the shape
+    alone, so a model's sums keep one order on any card."""
+    g = 1
+    while 2 * g <= min(MAX_CHUNK_WARPS, nhpad // SUB):
+        g *= 2
+    return g
+
+
+def chunk_parts(nhpad: int) -> int:
+    """The blocks P a dense descreening sweep splits each sub-tile's chunks
+    over (chunk c to block c // G mod P): as many as a sub-tile's most
+    chunks, NHP / 32, fill at chunk_warps(nhpad) warps a block, at most
+    MAX_CHUNK_PARTS, so that no warp walks more chunks than it must (the
+    walk is the time); the row forces then add over the P blocks in a
+    second pass.  It depends on the shape alone."""
+    g = chunk_warps(nhpad)
+    return max(1, min(MAX_CHUNK_PARTS, (nhpad // SUB + g - 1) // g))
+
+
+def _check_chunks(chunks, npad, nhpad, dev):
+    if not isinstance(chunks, Chunks):
+        raise TypeError(f"chunks: expected Chunks, got "
+                        f"{type(chunks).__name__}")
+    nsub = npad // SUB
+    _check("chunks.cols", chunks.cols, torch.int32, (nsub, nhpad), dev)
+    _check("chunks.ncols", chunks.ncols, torch.int32, (nsub,), dev)
+    _check("chunks.bits", chunks.bits, torch.int32, (nsub, nhpad // SUB), dev)
+
+
+def _check_pads(npad, nhpad):
+    if npad % SUB or nhpad % SUB or npad < SUB or nhpad < SUB:
+        raise ValueError(f"padded extents {npad}, {nhpad}: multiples of "
+                         f"{SUB}")
+
+
+def subtile_columns(pos_pad, pos_hpad, hids_perm, n, box=None, horizon=None):
+    """The chunk list of the dense Born and descreening sweeps (Chunks):
+    for each 32-row sub-tile a of pos_pad [3, NP], the heavy columns j of
+    pos_hpad [3, NHP] with hids_perm[j] >= 0 and |x_j - c_a| - r_a <
+    min(horizon, 2 nm) + CHUNK_MARGIN, c_a and r_a the center and half
+    diagonal of the box of a's rows below n (with a box, to the nearest
+    image of c_a: for a triclinic box the least of the 27 images one
+    lattice step around the wrapped one); none for a sub-tile without such
+    rows.  Every pair the Born mask
+    accepts is listed.  The kernel writes every entry; it equals the twin
+    bit for bit."""
+    if pos_pad.device.type == "cpu":
+        return subtile_columns_reference(pos_pad, pos_hpad, hids_perm, n,
+                                         box=box, horizon=horizon)
+    dev = pos_pad.device
+    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    _check_pads(npad, nhpad)
+    _check("pos_pad", pos_pad, torch.float32, (3, npad), dev)
+    _check("pos_hpad", pos_hpad, torch.float32, (3, nhpad), dev)
+    _check("hids_perm", hids_perm, torch.int32, (nhpad,), dev)
+    box_mode, box_t = _box_arg(box, dev)
+    nsub = npad // SUB
+    cols = torch.empty((nsub, nhpad), dtype=torch.int32, device=dev)
+    ncols = torch.empty(nsub, dtype=torch.int32, device=dev)
+    bits = torch.empty((nsub, nhpad // SUB), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _cuda_lib().agbnp_subtile_columns(
+        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad,
+        hids_perm.data_ptr(), int(n), _chunk_lim(horizon), box_mode,
+        _ptr(box_t), cols.data_ptr(), ncols.data_ptr(), bits.data_ptr(),
+        stream)
+    _launch_check("subtile_columns", rc)
+    LAUNCHES["subtile_columns"] += 1
+    return Chunks(cols, ncols, bits)
+
+
 def born_sums(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
-              y2val, s_hpad, n, box=None, horizon=None, save_qd=False):
+              y2val, s_hpad, n, box=None, horizon=None, save_qd=False,
+              chunks=None, qd_out=None):
     """raw_i = sum_j s_j Q4(d_ij) with the screener (column) axis packed to
     heavy atoms only (hydrogens never screen, reference
     AGBNPUtils.cpp:168-171).
@@ -299,8 +558,16 @@ def born_sums(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
     min(horizon, 2 nm).  Mirrors inverseBornRadii (reference
     AGBNPBornRadii.cl:181-490; CPU loop ReferenceAGBNPKernels.cpp:437-454).
 
-    With save_qd, also returns the masked Q [NP, NHP] and dQ/dd [NP, NHP]
-    so descreening reloads them instead of re-running the spline.
+    The twin (CPU tensors) returns raw, or with save_qd (raw, Q, dQ), the
+    masked Q and dQ/dd [NP, NHP] that descreening reloads.  The kernel
+    walks the chunks of subtile_columns: chunks, that list at this
+    horizon, box and positions, or when None the list it builds itself in
+    the same launch, equal to subtile_columns' bit for bit.  With save_qd
+    it returns (raw, Q, dQ, chunks), Q/dQ in the chunk layout [NP / 32,
+    NHP, 32] (chunk_layout of the twin's) on the slots chunk_slots names
+    and undefined elsewhere; hand the whole tuple to descreening as qd, so
+    the reload reads nothing else.  qd_out: optional (Q, dQ) buffers the
+    kernel writes into.
     """
     if pos_pad.device.type == "cpu":
         return born_sums_reference(pos_pad, pos_hpad, hids_perm, type_rows,
@@ -310,6 +577,7 @@ def born_sums(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
     f32, i32 = torch.float32, torch.int32
     npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
     nti, ntj = yval.shape[0], yval.shape[1]
+    _check_pads(npad, nhpad)
     _check("pos_pad", pos_pad, f32, (3, npad), dev)
     _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
     _check("hids_perm", hids_perm, i32, (nhpad,), dev)
@@ -318,23 +586,39 @@ def born_sums(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
     _check("yval", yval, f32, (nti, ntj, _NA), dev)
     _check("y2val", y2val, f32, (nti, ntj, _NA), dev)
     _check("s_hpad", s_hpad, f32, (nhpad,), dev)
+    nsub = npad // SUB
+    build = chunks is None
+    if build:
+        chunks = Chunks(torch.empty((nsub, nhpad), dtype=i32, device=dev),
+                        torch.empty(nsub, dtype=i32, device=dev),
+                        torch.empty((nsub, nhpad // SUB), dtype=i32,
+                                    device=dev))
+    _check_chunks(chunks, npad, nhpad, dev)
     box_mode, box_t = _box_arg(box, dev)
     raw = torch.empty(npad, dtype=f32, device=dev)
     q = dq = None
     if save_qd:
-        q = torch.empty((npad, nhpad), dtype=f32, device=dev)
-        dq = torch.empty((npad, nhpad), dtype=f32, device=dev)
+        shape = (nsub, nhpad, SUB)
+        if qd_out is None:
+            q = torch.empty(shape, dtype=f32, device=dev)
+            dq = torch.empty(shape, dtype=f32, device=dev)
+        else:
+            q, dq = qd_out
+            _check("Q", q, f32, shape, dev)
+            _check("dQ", dq, f32, shape, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_born_sums(
         pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad,
         hids_perm.data_ptr(), type_rows.data_ptr(), type_cols.data_ptr(),
         yval.data_ptr(), y2val.data_ptr(), nti, ntj, s_hpad.data_ptr(),
-        int(n), _horizon(horizon), box_mode, _ptr(box_t), raw.data_ptr(),
-        _ptr(q), _ptr(dq), stream)
+        int(n), _horizon(horizon), box_mode, _ptr(box_t),
+        _chunk_lim(horizon), int(build), chunks.cols.data_ptr(),
+        chunks.ncols.data_ptr(), chunks.bits.data_ptr(), chunk_warps(nhpad),
+        raw.data_ptr(), _ptr(q), _ptr(dq), stream)
     _launch_check("born_sums", rc)
     LAUNCHES["born_sums"] += 1
     if save_qd:
-        return raw, q, dq
+        return raw, q, dq, chunks
     return raw
 
 
@@ -373,12 +657,12 @@ def gb_pair(pos_pad, charge_pad, born_pad, n, box=None, cutoff=None,
     return out
 
 
-def _grid_tile(*extents):
-    """The tile pick_tile gives the dense layouts of these padded extents,
+def _grid_tile(npad):
+    """The tile pick_tile gives the dense layout of padded extent npad,
     which it must divide."""
-    tile = pick_tile(extents[0])
-    if any(e % tile for e in extents):
-        raise ValueError(f"padded extents {extents} are not multiples of the "
+    tile = pick_tile(npad)
+    if npad % tile:
+        raise ValueError(f"padded extent {npad} is not a multiple of the "
                          f"tile {tile}")
     return tile
 
@@ -404,20 +688,21 @@ def _spline_ptrs(sp):
 
 
 def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
-                spline=None):
+                spline=None, chunks=None):
     """Descreening derivative sweep (reference
     ReferenceAGBNPKernels.cpp:555-586, VdWGBDerBorn
     AGBNPBornRadii.cl:872-1280) over the heavy-packed screener columns.
 
-    With qd = (Q, dQ) from born_sums(save_qd=True) it reloads them; with
+    With qd = born_sums(save_qd=True)[1:] it reloads the saved Q/dQ; with
     qd=None it re-evaluates the Born sweep's masked spline from
     spline=SplineArgs(...) (the JAX package's _descreen_kernel, for when
     Q/dQ would exceed the memory budget or sharing is off).
 
-    The reloading kernel is tiles.py's list kernel over full_grid_list at
-    the tile pick_tile(NP): it skips the 32x32 sub-tile pairs that lie
-    beyond the horizon of the spline (2 nm without one), which hold zero
-    Q/dQ.
+    On the CPU qd is the twin's dense (Q, dQ) [NP, NHP] and chunks is not
+    read.  On the card qd must be the kernel's (Q, dQ, chunks): the reload
+    walks exactly the chunks the Born kernel wrote; the recompute walks
+    chunks (subtile_columns at the spline's horizon; built here when
+    None).
 
     Returns (W [NHP], U [NHP], force_rows [NP, 3], force_cols [NHP, 3]);
     the column-side quantities are in packed heavy layout.
@@ -428,39 +713,52 @@ def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
     dev = pos_pad.device
     f32 = torch.float32
     npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
-    if qd is not None:
-        from .tiles import _descreen_subtiles, full_grid_list
-
-        q, dq = qd
-        _check("Q", q, f32, (npad, nhpad), dev)
-        _check("dQ", dq, f32, (npad, nhpad), dev)
-        tile = _grid_tile(npad, nhpad)
-        tl, nv = full_grid_list(npad // tile, nhpad // tile, dev)
-        out = _descreen_subtiles("descreening", nv, tl, tile, pos_pad,
-                                 pos_hpad, s_hpad, brw_pad, bru_pad, q, dq,
-                                 None, nhpad, True, box, spline)
-        LAUNCHES["descreening"] += 1
-        return out
+    _check_pads(npad, nhpad)
     _check("pos_pad", pos_pad, f32, (3, npad), dev)
     _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
     _check("s_hpad", s_hpad, f32, (nhpad,), dev)
     _check("brw_pad", brw_pad, f32, (npad,), dev)
     _check("bru_pad", bru_pad, f32, (npad,), dev)
-    _check_spline(spline, npad, nhpad, dev)
+    q = dq = None
+    if qd is not None:
+        if len(qd) != 3:
+            raise ValueError("qd: on a CUDA device, the (Q, dQ, chunks) "
+                             "that born_sums(save_qd=True) returns")
+        q, dq, chunks = qd
+        shape = (npad // SUB, nhpad, SUB)
+        _check("Q", q, f32, shape, dev)
+        _check("dQ", dq, f32, shape, dev)
+        for what, x in (("Q", q), ("dQ", dq)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{what}: data not 16-byte aligned")
+        sp_args = (None,) * 5 + (0, 0, 0, 0.0)
+    else:
+        _check_spline(spline, npad, nhpad, dev)
+        sp_args = _spline_ptrs(spline)
+        if chunks is None:
+            chunks = subtile_columns(pos_pad, pos_hpad, spline.hids_perm,
+                                     spline.n, box=box,
+                                     horizon=spline.horizon)
+    _check_chunks(chunks, npad, nhpad, dev)
     box_mode, box_t = _box_arg(box, dev)
-    lib = _cuda_lib()
-    partial = torch.empty((lib.agbnp_descreen_chunks(npad), 5, nhpad),
-                          dtype=f32, device=dev)
+    pcol = torch.empty((npad // SUB, 5, nhpad), dtype=f32, device=dev)
+    parts = chunk_parts(nhpad)
+    f_part = (torch.empty((parts, npad, 3), dtype=f32, device=dev)
+              if parts > 1 else None)
     w = torch.empty(nhpad, dtype=f32, device=dev)
     u = torch.empty(nhpad, dtype=f32, device=dev)
     f_rows = torch.empty((npad, 3), dtype=f32, device=dev)
     f_cols = torch.empty((nhpad, 3), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.agbnp_descreening(
-        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad,
-        s_hpad.data_ptr(), brw_pad.data_ptr(), bru_pad.data_ptr(), box_mode,
-        _ptr(box_t), *_spline_ptrs(spline), partial.data_ptr(), w.data_ptr(),
-        u.data_ptr(), f_rows.data_ptr(), f_cols.data_ptr(), stream)
+    rc = _cuda_lib().agbnp_descreening(
+        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad, _ptr(q),
+        _ptr(dq), s_hpad.data_ptr(), brw_pad.data_ptr(), bru_pad.data_ptr(),
+        box_mode, _ptr(box_t), *sp_args, chunks.cols.data_ptr(),
+        chunks.ncols.data_ptr(), chunks.bits.data_ptr(),
+        chunk_warps(nhpad), parts, pcol.data_ptr(), _ptr(f_part),
+        w.data_ptr(), u.data_ptr(), f_rows.data_ptr(), f_cols.data_ptr(),
+        stream)
     _launch_check("descreening", rc)
-    LAUNCHES["descreening_recompute"] += 1
+    LAUNCHES["descreening" if qd is not None
+             else "descreening_recompute"] += 1
     return w, u, f_rows, f_cols

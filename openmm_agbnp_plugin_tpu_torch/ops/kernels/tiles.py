@@ -13,9 +13,6 @@ when it overflows (the reference's neighbor-tile rebind,
 OpenCLAGBNPKernels.cpp:3521-3530).
 
   tile_bounds, build_tile_list   torch ops on the device
-  full_grid_list                 every tile pair of a dense grid as a list
-                                 (the dense reloading descreening runs the
-                                 list kernel over it)
   triangular_grid_list           every tile pair ti <= tj of a square grid
                                  (the dense GB sweep runs the list kernel
                                  over it)
@@ -125,17 +122,6 @@ def build_tile_list(ci, ri, cj, rj, rng_dist: float, lmax: int,
     order = torch.where(order < ntot, order, 0)
     tl = torch.stack([order // ntj, order % ntj]).to(torch.int32).contiguous()
     return tl, torch.clamp(count, max=lmax).reshape(1), count
-
-
-@functools.lru_cache(maxsize=None)
-def full_grid_list(nrow_tiles: int, ncol_tiles: int, device):
-    """Every (row tile, column tile) pair of a dense grid, row-major, as a
-    list: (tl [2, L] int32, nv [1] int32 = L), L = nrow_tiles ncol_tiles.
-    Built once per shape and device."""
-    ntot = nrow_tiles * ncol_tiles
-    k = torch.arange(ntot, dtype=torch.int32, device=device)
-    tl = torch.stack([k // ncol_tiles, k % ncol_tiles]).contiguous()
-    return tl, torch.full((1,), ntot, dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -582,33 +568,15 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
                                            brw_pad, bru_pad, qd, tile,
                                            box=box, spline=spline)
     dev = pos_pad.device
+    f32 = torch.float32
     npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
     lmax = _check_list(nv, tl, tile, dev, npad, nhpad)
     q = dq = keep = None
     if qd is not None:
         q, dq = qd[:2]
-        _check("Q", q, torch.float32, (lmax, tile, tile), dev)
-        _check("dQ", dq, torch.float32, (lmax, tile, tile), dev)
+        _check("Q", q, f32, (lmax, tile, tile), dev)
+        _check("dQ", dq, f32, (lmax, tile, tile), dev)
         keep = qd[2] if len(qd) > 2 else None
-    out = _descreen_subtiles("descreening_tiles", nv, tl, tile, pos_pad,
-                             pos_hpad, s_hpad, brw_pad, bru_pad, q, dq, keep,
-                             tile, False, box, spline)
-    LAUNCHES["descreening_tiles" if qd is not None
-             else "descreening_tiles_recompute"] += 1
-    return out
-
-
-def _descreen_subtiles(name, nv, tl, tile, pos_pad, pos_hpad, s_hpad,
-                       brw_pad, bru_pad, q, dq, keep, q_ld, q_dense, box,
-                       spline):
-    """Check the rest of the arguments and launch the descreening list
-    kernel: over the Born list (Q/dQ [lmax, T, T], q_ld = T) or over
-    full_grid_list with the dense [NP, NHP] Q/dQ (q_dense, q_ld = NHP);
-    q None recomputes the spline.  keep: the Born kernel's keep bits."""
-    dev = pos_pad.device
-    f32 = torch.float32
-    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
-    lmax = tl.shape[1]
     _check("pos_pad", pos_pad, f32, (3, npad), dev)
     _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
     _check("s_hpad", s_hpad, f32, (nhpad,), dev)
@@ -649,11 +617,13 @@ def _descreen_subtiles(name, nv, tl, tile, pos_pad, pos_hpad, s_hpad,
     rc = _cuda_lib().agbnp_descreening_tiles(
         nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
         npad, pos_hpad.data_ptr(), nhpad, _ptr(q), _ptr(dq), _ptr(keep),
-        q_ld, int(q_dense), s_hpad.data_ptr(), brw_pad.data_ptr(),
-        bru_pad.data_ptr(), box_mode, _ptr(box_t),
+        s_hpad.data_ptr(), brw_pad.data_ptr(), bru_pad.data_ptr(), box_mode,
+        _ptr(box_t),
         *sp_args, sp_args[-1],  # the list's range: the horizon
         prow.data_ptr(), pcol.data_ptr(),
         kept.data_ptr(), w.data_ptr(), u.data_ptr(), f_rows.data_ptr(),
         f_cols.data_ptr(), stream)
-    _launch_check(name, rc)
+    _launch_check("descreening_tiles", rc)
+    LAUNCHES["descreening_tiles" if qd is not None
+             else "descreening_tiles_recompute"] += 1
     return w, u, f_rows, f_cols

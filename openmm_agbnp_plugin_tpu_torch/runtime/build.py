@@ -39,12 +39,14 @@ _F = ctypes.c_float
 # argument types of every exported function (pointers and the stream as
 # c_void_p so 64-bit addresses are never cut)
 SIGNATURES = {
+    "agbnp_subtile_columns": (_P, _I, _P, _I, _P, _I, _F, _I, _P, _P, _P, _P,
+                              _P),
     "agbnp_born_sums": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I,
-                        _F, _I, _P, _P, _P, _P, _P),
+                        _F, _I, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _P),
     "agbnp_empty_launch": (_P,),
-    "agbnp_descreen_chunks": (_I,),
-    "agbnp_descreening": (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                          _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    "agbnp_descreening": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                          _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _I, _P,
+                          _P, _P, _P, _P, _P, _P),
     "agbnp_born_sums_tiles": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
                               _P, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P,
                               _P, _P, _P),
@@ -52,9 +54,8 @@ SIGNATURES = {
                             _I, _F, _F, _I, _P, _F, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P),
     "agbnp_descreening_tiles": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
-                                _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P,
-                                _P),
+                                _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
     "agbnp_take_rows": (_P, _I, _I, _P, _I, _P, _P),
     "agbnp_cumsum_tile_rows": (_I,),
     "agbnp_cumsum_rows": (_P, _I, _I, _P, _P, _P),

@@ -30,17 +30,21 @@ pass as an r-RESPA impulse every 4 steps).  It prints:
 
 With --out, also writes the full profiler table to that file.
 
-With --list-kernels it profiles the interacting-tile-list sweeps alone
-instead, on SYSTEM's lists as chip_smoke.py [2] builds them (Born and
-descreening at horizon 1 nm, the reload from the Born kernel's Q/dQ and
-keep bits, GB at cutoff 1 nm, MM fused; Born also without its Q/dQ
-stores), and the dense reloading
-descreening (the list kernel over every tile pair of SYSTEM's dense grid):
-the 32x32 sub-tile pairs the kernels keep, and for each sweep the
-CUDA-event time per call and the profiler's device time of each of its
-kernels (the sweep, the reduce); the descreening sweeps at the
-column-group count the wrapper picks and at every fixed one (the reload
-from Q/dQ and keep bits of a Born sweep run at that count).
+With --list-kernels it profiles the pair sweeps alone instead: the
+interacting-tile-list sweeps on SYSTEM's lists as chip_smoke.py [2] builds
+them (Born and descreening at horizon 1 nm, the reload from the Born
+kernel's Q/dQ and keep bits, GB at cutoff 1 nm, MM fused; Born also
+without its Q/dQ stores), and the dense sweeps over SYSTEM's chunk list
+(the list itself; Born building its own list as the model runs it, also
+walking a given one and without its Q/dQ stores; the reload from the Born
+kernel's chunk-layout Q/dQ; the recompute): the 32x32 sub-tile
+pairs the list kernels keep and the chunk slots the dense ones walk, and
+for each sweep the CUDA-event time per call and the profiler's device time
+of each of its kernels (the sweep, the reduce); the list descreening
+sweeps at the column-group count the wrapper picks and at every fixed one
+(the reload from Q/dQ and keep bits of a Born sweep run at that count),
+the dense Born and descreening sweeps at the warps a block the wrapper
+picks and at every fixed count.
 
 With --caps-compare it times the strict run (--steps of it, after an equal
 warm-up) at the padded position-free tree capacities and at the lean ones
@@ -67,7 +71,8 @@ With --device-shares it times the strict run (--steps of it on the host
 clock, after an equal warm-up) and then profiles one 40-step rebuild
 window: device ms and kernel launches per step, and the shares of
 `torch.segment_reduce`, of PyTorch's own index and gather kernels, and of
-the hand kernel `take_rows` in the device time.  --root DIR imports the
+the hand kernel `take_rows` in the device time, and the pair sweeps' hand
+kernels one by one (device ms and launches a step).  --root DIR imports the
 package from another checkout of this repository (an older commit unpacked
 into DIR) instead of this one, so that two commits can be compared within
 one call on one card; --dump F.npz saves what the run computed (one force
@@ -90,8 +95,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def profile_list_kernels(dev, card, system):
-    """--list-kernels: the list sweeps and the dense reloading descreening,
-    the descreening ones at each column-group count."""
+    """--list-kernels: the list sweeps and the dense chunk sweeps, the list
+    descreening ones at each column-group count, the dense ones at each
+    count of warps a block."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,19 +115,18 @@ def profile_list_kernels(dev, card, system):
     args = (nv, tl, *inp["born_args"], tile)
     dargs = (nv, tl, *inp["desc_args"])
     gargs = (nvg, tlg, *inp["gb_args"], tile)
-    dense = (*inp["desc_args"], inp["qd"])
-    grid_tl, grid_nv = TL.full_grid_list(pos_pad.shape[1] // tile,
-                                         pos_h.shape[1] // tile, dev)
+    n = inp["born_args"][-1]
+    chunks = PK.subtile_columns(pos_pad, pos_h, sp.hids_perm, n, horizon=1.0)
+    slots = int(PK.chunk_slots(chunks).sum()) * 32
     kept_b = int(TL.subtile_live(nv, tl, pos_pad, rvalid, pos_h, hvalid,
                                  tile, 1.0).sum())
     kept_g = int(TL.subtile_live(nvg, tlg, pos_pad, rvalid, pos_pad, rvalid,
                                  tile, 1.0, triangular=True).sum())
-    kept_d = int(TL.subtile_live(grid_nv, grid_tl, pos_pad, rvalid, pos_h,
-                                 hvalid, tile, 1.0).sum())
-    print(f"card: {card}; {system} list sweeps, f32, T {tile}: Born list "
+    print(f"card: {card}; {system} pair sweeps, f32, T {tile}: Born list "
           f"{what_b}, {kept_b} kept 32x32 sub-tile pairs; GB list {what_g}, "
-          f"{kept_g} kept; dense reload over {grid_tl.shape[1]} tile pairs, "
-          f"{kept_d} kept", flush=True)
+          f"{kept_g} kept; dense chunk list {int(chunks.ncols.sum())} "
+          f"columns of {chunks.cols.numel()}, {slots} chunk slots walked",
+          flush=True)
 
     def born():
         return TL.born_sums_tiles(*args, horizon=1.0, save_qd=True)
@@ -131,29 +136,70 @@ def profile_list_kernels(dev, card, system):
         qd = born()[1:]
         return lambda: TL.descreening_tiles(*dargs, qd, tile, spline=sp)
 
-    # name -> (whether the column groups vary; a function that returns the
-    # call to time under the setting)
+    born_args, desc_args = inp["born_args"], inp["desc_args"]
+
+    def dense_born(save_qd=True, given=None):
+        # as the model runs it, building its chunk list; or walking `given`
+        return PK.born_sums(*born_args, horizon=1.0, save_qd=save_qd,
+                            chunks=given)
+
+    def dense_reload():
+        # the Born kernel's Q/dQ, at this setting's warps
+        qd = dense_born()[1:]
+        return lambda: PK.descreening(*desc_args, qd)
+
+    # name -> (the knob that varies: None, "groups" (the list descreening
+    # sweeps' column groups) or "warps" (the dense sweeps' warps a block);
+    # a function that returns the call to time under the setting)
     sweeps = {
-        "born_sums_tiles": (False, lambda: born),
+        "born_sums_tiles": (None, lambda: born),
         # the same sweep without its Q/dQ stores: what the stores cost
-        "born_sums_tiles, raw only": (False, lambda: lambda:
+        "born_sums_tiles, raw only": (None, lambda: lambda:
                                       TL.born_sums_tiles(*args, horizon=1.0)),
-        "gb_pair_tiles (MM)": (False, lambda: lambda: TL.gb_pair_tiles(
+        "gb_pair_tiles (MM)": (None, lambda: lambda: TL.gb_pair_tiles(
             *gargs, **inp["mm_kw"])),
-        "descreening_tiles": (True, reload),
-        "descreening_tiles_recompute": (True, lambda: lambda:
+        "descreening_tiles": ("groups", reload),
+        "descreening_tiles_recompute": ("groups", lambda: lambda:
                                         TL.descreening_tiles(
                                             *dargs, None, tile, spline=sp)),
-        "descreening (dense reload)": (True, lambda: lambda:
-                                       PK.descreening(*dense, spline=sp)),
+        "subtile_columns (dense chunk list)": (None, lambda: lambda:
+                                               PK.subtile_columns(
+                                                   pos_pad, pos_h,
+                                                   sp.hids_perm, n,
+                                                   horizon=1.0)),
+        "born_sums (dense)": ("warps", lambda: dense_born),
+        "born_sums (dense), given list": ("warps", lambda: lambda:
+                                          dense_born(given=chunks)),
+        "born_sums (dense), raw only": ("warps", lambda: lambda:
+                                        dense_born(False)),
+        "descreening (dense reload)": ("warps", dense_reload),
+        "descreening (dense recompute)": ("warps", lambda: lambda:
+                                          PK.descreening(
+                                              *desc_args, None, spline=sp,
+                                              chunks=chunks)),
+        # the same two at 16 warps a block and P blocks a sub-tile
+        "descreening (dense reload), split": ("parts", dense_reload),
+        "descreening (dense recompute), split": ("parts", lambda: lambda:
+                                                 PK.descreening(
+                                                     *desc_args, None,
+                                                     spline=sp,
+                                                     chunks=chunks)),
     }
-    picked = TL.column_groups
+    picked, picked_w, picked_p = TL.column_groups, PK.chunk_warps, \
+        PK.chunk_parts
+    settings = dict(groups=[g for g in (1, 2, 4, 8) if g <= tile // 32],
+                    warps=[w for w in (1, 2, 4, 8, 16)
+                           if w <= PK.MAX_CHUNK_WARPS],
+                    parts=[p for p in (1, 2, 4) if p <= PK.MAX_CHUNK_PARTS])
     try:
-        for name, (grouped, make) in sweeps.items():
-            for ng in ([0] + [g for g in (1, 2, 4, 8) if g <= tile // 32]
-                       if grouped else [None]):
-                TL.column_groups = picked if not ng else (
-                    lambda *a, ng=ng: ng)
+        for name, (knob, make) in sweeps.items():
+            for v in [0] + settings[knob] if knob else [None]:
+                TL.column_groups = picked if not (knob == "groups" and v) \
+                    else (lambda *a, v=v: v)
+                PK.chunk_warps = picked_w if not (knob == "warps" and v) \
+                    else (lambda *a, v=v: v)
+                PK.chunk_parts = picked_p if not (knob == "parts" and v) \
+                    else (lambda *a, v=v: v)
                 fn = make()
                 ms = cuda_time_ms(fn, 50)
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -164,16 +210,21 @@ def profile_list_kernels(dev, card, system):
                                if e.device_time_total > 0),
                               key=lambda e: -e.device_time_total)
                 label = ""
-                if grouped:
-                    lmax = grid_tl.shape[1] if "dense" in name else tl.shape[1]
-                    label = f" ng={TL.column_groups(lmax, tile, dev)}" + (
-                        "" if ng else " (picked)")
+                if knob == "groups":
+                    label = f" ng={TL.column_groups(tl.shape[1], tile, dev)}"
+                elif knob == "warps":
+                    label = f" warps={PK.chunk_warps(pos_h.shape[1])}"
+                elif knob == "parts":
+                    label = f" parts={PK.chunk_parts(pos_h.shape[1])}"
+                if knob and not v:
+                    label += " (picked)"
                 print(f"  {name}{label}: {ms:.4f} ms/call; " + "; ".join(
                     f"{e.key.split('(')[0].split()[-1]} "
                     f"{e.device_time_total / 20:.1f} us x{e.count / 20:g}"
                     for e in rows), flush=True)
     finally:
-        TL.column_groups = picked
+        TL.column_groups, PK.chunk_warps, PK.chunk_parts = picked, \
+            picked_w, picked_p
     return 0
 
 
@@ -320,7 +371,14 @@ SHARE_GROUPS = {
                                      "gather_kernel", "indexFuncLargeIndex",
                                      "indexFuncSmallIndex"),
     "take_rows (hand kernel)": ("take_rows_kernel",),
+    # the pair sweeps' hand kernels, of any commit: Born, GB, descreening,
+    # their reduces and work lists
+    "pair sweeps (hand kernels)": ("born_", "gb_subtiles", "descreen_",
+                                   "subtile_reduce", "subtile_columns",
+                                   "column_sums"),
 }
+# groups whose kernels are also listed one by one
+SHARE_ITEMIZED = ("pair sweeps (hand kernels)",)
 
 
 def device_shares(dev, card, dms, steps, kw, dump=None):
@@ -375,6 +433,11 @@ def device_shares(dev, card, dms, steps, kw, dump=None):
         print(f"    {group:30s} {us / 1e3 / window:8.4f} ms/step = "
               f"{us / max(dev_us, 1) * 100:5.2f}% of device time, "
               f"{n / window:6.1f} launches a step", flush=True)
+        if group in SHARE_ITEMIZED:
+            for e in sorted(es, key=lambda e: -e.self_device_time_total):
+                print(f"      {e.self_device_time_total / 1e3 / window:8.4f} "
+                      f"ms/step x{e.count / window:5.2f}  {e.key[:70]}",
+                      flush=True)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     for e in top:
         print(f"    top: {e.self_device_time_total / 1e3 / window:8.4f} "

@@ -89,8 +89,8 @@ def test_kernels_match_twins(cuda, fixture_system, horizon, cutoff):
     before = PK.launch_counts()
     out = PK.born_sums(*args, horizon=horizon, save_qd=True)
     ref = PK.born_sums_reference(*args, horizon=horizon, save_qd=True)
-    for x, y in zip(out, ref):
-        assert rel(x, y) <= 1e-5
+    assert_dense_born(out, ref)
+    assert_list_is_twin(out[3], args, horizon=horizon)
     excl = torch.full((m.pair_pad, 8), -1, dtype=torch.int32, device=cuda)
     excl[:n - 1, 0] = torch.arange(1, n, dtype=torch.int32, device=cuda)
     excl[1:n, 1] = torch.arange(0, n - 1, dtype=torch.int32, device=cuda)
@@ -134,6 +134,9 @@ def test_pair_phases_route_through_kernels(cuda, fixture_system, route,
     sfx = "" if route == "dense" else "_tiles"
     desc = "descreening" + sfx + ("" if share_qd else "_recompute")
     want = {"born_sums" + sfx, "gb_pair" + sfx, desc}
+    if route == "dense" and not share_qd:
+        # the recompute's list; with Q/dQ shared the Born kernel builds it
+        want.add("subtile_columns")
     assert {k: after[k] - before[k] for k in after} == {
         k: int(k in want) for k in after}
 
@@ -153,6 +156,42 @@ def test_wrappers_reject_bad_inputs(cuda, fixture_system):
         PK.gb_pair(torch.zeros((npad, 3), device=cuda).T, q, q, params.n)
     with pytest.raises(ValueError):
         PK.gb_pair(pos_pad, q.cpu(), q, params.n)
+    # the dense Born and descreening sweeps and their chunk list
+    a, n = m.arrays, params.n
+    nh = a["hids_pad"].shape[0]
+    pos_h = torch.zeros((3, nh), device=cuda)
+    s_h = torch.zeros(nh, device=cuda)
+    args = (pos_pad, pos_h, a["hids_perm_pad"], a["type_rows_pad"],
+            a["type_cols_hpad"], a["ytab"], a["y2tab"], s_h, n)
+    with pytest.raises(TypeError):
+        PK.subtile_columns(pos_pad.double(), pos_h, a["hids_perm_pad"], n)
+    with pytest.raises(ValueError):   # not a whole number of sub-tiles
+        PK.subtile_columns(pos_pad[:, :-1].contiguous(), pos_h,
+                           a["hids_perm_pad"], n)
+    chunks = PK.subtile_columns(pos_pad, pos_h, a["hids_perm_pad"], n)
+    with pytest.raises(TypeError):
+        PK.born_sums(*args, chunks=tuple(chunks)[:2])
+    with pytest.raises(ValueError):
+        PK.born_sums(*args, chunks=chunks._replace(
+            cols=chunks.cols[:, :-32].contiguous()))
+    with pytest.raises(TypeError):
+        PK.born_sums(*args, chunks=chunks._replace(
+            ncols=chunks.ncols.long()))
+    _, qq, dqq, ch = PK.born_sums(*args, save_qd=True, chunks=chunks)
+    with pytest.raises(ValueError):
+        PK.born_sums(*args, save_qd=True, qd_out=(qq[:1], dqq))
+    desc = (pos_pad, pos_h, s_h, q, q)
+    with pytest.raises(ValueError):   # a dense (Q, dQ) on the card
+        PK.descreening(*desc, (qq, dqq))
+    with pytest.raises(ValueError):
+        PK.descreening(*desc, (qq[:, :-1].contiguous(), dqq, ch))
+    odd = torch.empty(qq.numel() + 1, device=cuda)[1:].view(qq.shape)
+    with pytest.raises(ValueError):   # read as 16-byte vectors
+        PK.descreening(*desc, (odd, dqq, ch))
+    with pytest.raises(ValueError):   # qd=None needs the spline
+        PK.descreening(*desc, None)
+    with pytest.raises(TypeError):
+        PK.descreening(*desc, (qq, dqq, tuple(ch)))
 
 
 def test_md_window_bitwise_repeatable(cuda):
@@ -249,6 +288,38 @@ def shapes(request, cuda, fixture_system):
     return sweep_inputs(params, pos, cuda, 1.0)
 
 
+def _system(name, fixture_system):
+    """(AGBNPParams, positions) of the fixture or a shipped system."""
+    if name == "fixture":
+        return fixture_system
+    d = load_dms(os.path.join(DATA, f"{name}_agbnp1.dms"))
+    return AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                       alpha=d.agbnp_alpha, charge=d.charges,
+                       ishydrogen=d.ishydrogen), d.positions
+
+
+def assert_dense_born(out, ref):
+    """The dense Born kernel's (raw, Q, dQ, chunks) against its twin's
+    (raw, Q, dQ): raw in full, Q/dQ in the chunk layout on the slots of the
+    chunks the kernel walks (undefined elsewhere on the card)."""
+    assert len(out) == 4 and len(ref) == 3
+    chunks = out[3]
+    slots = PK.chunk_slots(chunks)
+    assert_outputs(out[:1], ref[:1])
+    for x, y in zip(out[1:3], ref[1:]):
+        yc = PK.chunk_layout(y, chunks)
+        assert x.shape == yc.shape and rel(x[slots], yc[slots]) <= 1e-5
+
+
+def assert_list_is_twin(chunks, bargs, box=None, horizon=None):
+    """A chunk list from the card (the Born kernel's own, or
+    subtile_columns') bitwise subtile_columns_reference's."""
+    twin = PK.subtile_columns_reference(*bargs[:3], bargs[-1], box=box,
+                                        horizon=horizon)
+    for x, y in zip(chunks, twin):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
 def assert_outputs(outs, refs):
     for x, y in zip(outs, refs):
         if y is None:
@@ -306,33 +377,112 @@ def test_list_born_and_descreening_match_twins(cuda, shapes, horizon, box):
     after = PK.launch_counts()
     assert {k: after[k] - before[k] for k in after} == dict(
         dict.fromkeys(after, 0), born_sums_tiles=1, descreening_tiles=2,
-        descreening_tiles_recompute=1, descreening_recompute=1)
+        descreening_tiles_recompute=1, descreening_recompute=1,
+        subtile_columns=1)
 
 
 @pytest.mark.parametrize("box", list(BOXES))
 @pytest.mark.parametrize("horizon", [1.0, None])
 def test_dense_reload_descreening_matches_twin(cuda, shapes, horizon, box):
-    """The dense reloading descreening (the list kernel over every tile
-    pair, reading the dense Born sweep's Q/dQ) against its twin, with and
-    without the spline that prunes its sub-tile pairs at the horizon;
-    launched twice, bitwise equal."""
+    """The dense reloading descreening (the chunk kernel, reading the dense
+    Born kernel's chunk-layout Q/dQ on the chunks it wrote) against its
+    twin on the twin's dense Q/dQ, with and without a spline (which the
+    reload does not read); launched twice, bitwise equal."""
     L = shapes
     box = box_tensor(box, cuda)
     sp = L["spline"]._replace(horizon=horizon)
     before = PK.launch_counts()
-    born = PK.born_sums(L["pos_pad"], L["pos_h"], *sp[:5], L["s_h"], L["n"],
-                        box=box, horizon=horizon, save_qd=True)
-    dense = (L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"],
-             born[1:])
+    bargs = (L["pos_pad"], L["pos_h"], *sp[:5], L["s_h"], L["n"])
+    born = PK.born_sums(*bargs, box=box, horizon=horizon, save_qd=True)
+    ref = PK.born_sums_reference(*bargs, box=box, horizon=horizon,
+                                 save_qd=True)
+    assert_dense_born(born, ref)
+    assert_list_is_twin(born[3], bargs, box=box, horizon=horizon)
+    desc = (L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"])
     for spl in (sp, None):
-        out = PK.descreening(*dense, box=box, spline=spl)
-        assert_outputs(out, PK.descreening_reference(*dense, box=box,
-                                                     spline=spl))
-        again = PK.descreening(*dense, box=box, spline=spl)
+        out = PK.descreening(*desc, born[1:], box=box, spline=spl)
+        assert_outputs(out, PK.descreening_reference(*desc, ref[1:],
+                                                     box=box))
+        again = PK.descreening(*desc, born[1:], box=box, spline=spl)
         assert all(torch.equal(x, y) for x, y in zip(out, again))
     after = PK.launch_counts()
     assert {k: after[k] - before[k] for k in after} == dict(
         dict.fromkeys(after, 0), born_sums=1, descreening=4)
+
+
+@pytest.mark.parametrize("box", list(BOXES))
+@pytest.mark.parametrize("horizon", [1.0, None])
+def test_dense_chunk_kernels_match_twins(cuda, shapes, horizon, box):
+    """The chunk list kernel bitwise its twin; the dense Born kernel and
+    the recomputing descreening over it against their dense twins (1e-5 of
+    max|ref|), the Born kernel's Q/dQ on the chunk slots it walks; the Born
+    kernel given no list builds one bitwise the twin's and walks it as the
+    given one, bit for bit; every kernel launched twice, bitwise equal."""
+    L = shapes
+    box = box_tensor(box, cuda)
+    n = L["n"]
+    sp = L["spline"]._replace(horizon=horizon)
+    bargs = (L["pos_pad"], L["pos_h"], *sp[:5], L["s_h"], n)
+    chunks = PK.subtile_columns(*bargs[:3], n, box=box, horizon=horizon)
+    assert_list_is_twin(chunks, bargs, box=box, horizon=horizon)
+    assert torch.equal(PK.subtile_columns(*bargs[:3], n, box=box,
+                                          horizon=horizon).cols, chunks.cols)
+    kw = dict(box=box, horizon=horizon, save_qd=True, chunks=chunks)
+    born, again = (PK.born_sums(*bargs, **kw) for _ in range(2))
+    assert_dense_born(born, PK.born_sums_reference(
+        *bargs, box=box, horizon=horizon, save_qd=True))
+    built = PK.born_sums(*bargs, box=box, horizon=horizon, save_qd=True)
+    assert_list_is_twin(built[3], bargs, box=box, horizon=horizon)
+    slots = PK.chunk_slots(chunks)
+    for other in (again, built):
+        assert torch.equal(born[0], other[0])
+        for x, y in zip(born[1:3], other[1:3]):
+            assert torch.equal(x[slots], y[slots])
+    desc = (L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"], None)
+    out = PK.descreening(*desc, box=box, spline=sp, chunks=chunks)
+    assert_outputs(out, PK.descreening_reference(*desc, box=box, spline=sp))
+    for x, y in zip(out, PK.descreening(*desc, box=box, spline=sp,
+                                        chunks=chunks)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("system", ["fixture", "1li2", "2clr"])
+def test_dense_reload_reads_only_what_the_born_kernel_wrote(
+        cuda, fixture_system, monkeypatch, system):
+    """The model's dense pair phases with the Born kernel's chunk-layout
+    Q/dQ buffers filled with NaN beforehand: the slots of the chunks it
+    does not walk stay NaN, and every result is finite and bitwise the run
+    on zero-filled buffers, since the reload walks only those chunks."""
+    params, pos = _system(system, fixture_system)
+    m = AGBNPModel(params, device=cuda, dtype=torch.float32, version=1,
+                   positions=pos, cutoff=1.0, descreen_horizon="cutoff",
+                   pair_tiles=False, caps=TreeCaps.for_natoms(params.n))
+    p = torch.as_tensor(pos, dtype=torch.float32, device=cuda)
+    s_factor = torch.as_tensor(
+        np.random.default_rng(4).uniform(0.3, 1.0, params.n),
+        dtype=torch.float32, device=cuda)
+    born = PK.born_sums
+    buffers = []
+
+    def run(fill):
+        def prefilled(*args, **kw):
+            shape = (args[0].shape[1] // PK.SUB, args[1].shape[1], PK.SUB)
+            bufs = tuple(torch.full(shape, fill, device=cuda)
+                         for _ in range(2))
+            buffers.append(bufs)
+            return born(*args, qd_out=bufs, **kw)
+
+        monkeypatch.setattr(PK, "born_sums", prefilled)
+        return _pair_phases_kernel(m.arrays, p, s_factor, 1.0, None,
+                                   m.pair_pad, horizon=m.descreen_horizon,
+                                   pair_tiles=None)
+
+    nan, zero = run(float("nan")), run(0.0)
+    assert len(buffers) == 2 and torch.isnan(buffers[0][0]).any()
+    assert set(nan) == set(zero)
+    for k, v in zero.items():
+        assert bool(torch.isfinite(nan[k]).all()), k
+        assert torch.equal(nan[k], v), k
 
 
 @pytest.mark.parametrize("system", ["fixture", "1li2", "2clr"])
@@ -342,14 +492,7 @@ def test_reload_reads_only_what_the_born_kernel_wrote(cuda, fixture_system,
     buffers filled with NaN beforehand: the sub-tile pairs it does not keep
     stay NaN, and every result is finite and bitwise the run on zero-filled
     buffers, since the reload visits only what the Born kernel wrote."""
-    if system == "fixture":
-        params, pos = fixture_system
-    else:
-        d = load_dms(os.path.join(DATA, f"{system}_agbnp1.dms"))
-        params = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
-                             alpha=d.agbnp_alpha, charge=d.charges,
-                             ishydrogen=d.ishydrogen)
-        pos = d.positions
+    params, pos = _system(system, fixture_system)
     m = AGBNPModel(params, device=cuda, dtype=torch.float32, version=1,
                    positions=pos, cutoff=1.0, descreen_horizon="cutoff",
                    caps=TreeCaps.for_natoms(params.n))
@@ -566,6 +709,39 @@ def test_list_kernels_keep_the_pairs_at_the_range(cuda, spline_tables, kind,
                                             spline=spl),
                        TL.descreening_tiles_reference(*dargs, qd_r, tile,
                                                       box=box, spline=spl))
+
+
+@pytest.mark.parametrize("box", list(SPARSE_BOXES))
+def test_dense_chunk_kernels_keep_the_pairs_at_the_range(cuda, spline_tables,
+                                                         box):
+    """The chunk list kernel on the sparse layout, where each live Born
+    pair lies just inside the horizon and its row sub-tile's box is exactly
+    as far from the column: bitwise its twin, every pair listed, and the
+    dense Born kernel, the reload and the recompute over it against the
+    dense twins."""
+    L = sparse_layout("born", box, *spline_tables, dev=cuda)
+    box = box_tensor(box, cuda, SPARSE_BOXES)
+    sp, n, hz = L["spline"], L["n"], L["range"]
+    bargs = (L["pos_pad"], L["pos_h"], *sp[:5], L["s_h"], n)
+    chunks = PK.subtile_columns(*bargs[:3], n, box=box, horizon=hz)
+    for x, y in zip(chunks, PK.subtile_columns_reference(
+            *bargs[:3], n, box=box, horizon=hz)):
+        assert torch.equal(x, y)
+    rows, cols = L["pairs"][:, 0].to(cuda), L["pairs"][:, 1].to(cuda)
+    on = (chunks.cols.long()[rows // PK.SUB] == cols[:, None]).any(dim=1)
+    assert bool(on.all())
+    ref = PK.born_sums_reference(*bargs, box=box, horizon=hz, save_qd=True)
+    desc = (L["pos_pad"], L["pos_h"], L["s_h"], L["brw"], L["bru"])
+    for given in (chunks, None):   # the list given, and built by #1
+        born = PK.born_sums(*bargs, box=box, horizon=hz, save_qd=True,
+                            chunks=given)
+        assert_dense_born(born, ref)
+        assert_list_is_twin(born[3], bargs, box=box, horizon=hz)
+        assert_outputs(PK.descreening(*desc, born[1:], box=box),
+                       PK.descreening_reference(*desc, ref[1:], box=box))
+    assert_outputs(PK.descreening(*desc, None, box=box, spline=sp,
+                                  chunks=chunks),
+                   PK.descreening_reference(*desc, None, box=box, spline=sp))
 
 
 @pytest.mark.parametrize("box", ["nobox", "triclinic"])

@@ -223,69 +223,6 @@ def test_born_and_descreening_tiles_match_pallas(layouts, horizon, box):
             assert_close(x, y, f"{label} {name}")
 
 
-def test_full_grid_list_holds_every_tile_pair_once():
-    tl, nv = TL.full_grid_list(3, 5, torch.device("cpu"))
-    assert tl.dtype == nv.dtype == torch.int32
-    assert nv.tolist() == [15]
-    assert tl.T.tolist() == [[i, j] for i in range(3) for j in range(5)]
-
-
-def dense_qd_tiles(x, tl, tile):
-    """The dense [NP, NHP] Q or dQ as the reloading list kernel reads it
-    over the full-grid list: entry l's tile starts at ti T NHP + tj T, row
-    stride NHP (csrc/tiles.cu, q_dense)."""
-    nhp = x.shape[1]
-    r = torch.arange(tile)
-    base = tl[0].long() * tile * nhp + tl[1].long() * tile
-    return x.reshape(-1)[base[:, None, None] + r[:, None] * nhp + r]
-
-
-@pytest.mark.parametrize("horizon,box", [(None, "nobox"), (1.0, "nobox"),
-                                         (1.0, "triclinic")])
-def test_dense_reload_over_the_full_grid_list(layouts, horizon, box):
-    """The dense reloading descreening as the card runs it: the list twin
-    over every tile pair, Q/dQ read at the kernel's dense address, the
-    sub-tile pairs beyond the horizon skipped, against the dense twin
-    (1e-12), which matches the Pallas kernel in interpret mode."""
-    L = layouts
-    aj, at = L["aj"], L["at"]
-    box_j, box_t = box_args(BOXES[box])
-    raw_j, q_j, dq_j = JPK.born_sums(
-        j(L["pos_pad"]), j(L["pos_h"]), j(aj["hids_perm_pad"]),
-        j(aj["rowY_pad"]), j(aj["cols_oh_hpad"]), j(L["s_h"]), N, TILE,
-        box=box_j, interpret=True, horizon=horizon, save_qd=True)
-    spline = PK.SplineArgs(at["hids_perm_pad"], at["type_rows_pad"],
-                           at["type_cols_hpad"], at["ytab"], at["y2tab"], N,
-                           horizon)
-    pos_pad, pos_h = t(L["pos_pad"]), t(L["pos_h"])
-    _, q, dq = PK.born_sums(pos_pad, pos_h, *spline[:5], t(L["s_h"]), N,
-                            box=box_t, horizon=horizon, save_qd=True)
-    assert_close(q, q_j, "Q")
-    assert_close(dq, dq_j, "dQ")
-    dargs = (pos_pad, pos_h, t(L["s_h"]), t(L["brw"]), t(L["bru"]))
-    ref = PK.descreening(*dargs, (q, dq), box=box_t, spline=spline)
-    out_j = JPK.descreening(j(L["pos_pad"]), j(L["pos_h"]),
-                            j(aj["hids_perm_pad"]), j(aj["rowY_pad"]),
-                            j(aj["cols_oh_hpad"]), j(L["s_h"]), j(L["brw"]),
-                            j(L["bru"]), N, TILE, box=box_j, interpret=True,
-                            horizon=horizon, qd=(q_j, dq_j))
-    for name, x, y in zip(("W", "U", "f_rows", "f_cols"), ref, out_j):
-        assert_close(x, y, f"dense {name} vs Pallas")
-    tile = PK.pick_tile(pos_pad.shape[1])
-    tl, nv = TL.full_grid_list(pos_pad.shape[1] // tile,
-                               pos_h.shape[1] // tile, torch.device("cpu"))
-    keep = TL.subtile_live(nv, tl, pos_pad, t(L["rvalid"]), pos_h,
-                           t(L["hvalid"]), tile, PK._horizon(horizon),
-                           box=box_t)
-    s = tile // TL.SUB
-    assert int(keep.sum()) < tl.shape[1] * s * s
-    qd_tiles = (dense_qd_tiles(q, tl, tile), dense_qd_tiles(dq, tl, tile))
-    out = TL.descreening_tiles_reference(nv, tl, *dargs, qd_tiles, tile,
-                                         box=box_t, keep=keep)
-    for name, x, y in zip(("W", "U", "f_rows", "f_cols"), out, ref):
-        assert_close(x, y, f"full-grid list {name} vs dense")
-
-
 @pytest.mark.parametrize("cutoff,with_mm", [(None, False), (1.0, False),
                                             (1.0, True), (None, True)])
 def test_gb_pair_tiles_matches_pallas(layouts, cutoff, with_mm):
