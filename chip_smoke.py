@@ -86,7 +86,18 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      1li2 at full width (NoCutoff, the dense kernels) against AGBNPModel
      and the stored f64 result;
  13. runs the row probe (profile_port_step.py --row-probes), the path of
-     cumsum_rows, and counts the row kernels' launches.
+     cumsum_rows, and counts the row kernels' launches;
+ 14. AGBNP2 (version 2) and version 0 MD: the V2 anchor on the fixture's
+     first 40 atoms in f64 (plain phases) and in f32 (PairCavity over the
+     dense kernels #1-#3, each launched once); 1li2 in f32 against the
+     port's f64 on the card, at the f64 model's capacities grown until
+     nothing overflows; Simulation(version=2) on 1li2 (f32, 1 nm GB
+     cutoff, one build a 40-step window, a first window for the
+     PanicButton, then 100 timed Langevin steps after an equal warm-up; no
+     overflow, #1-#3 launched every step, never the recompute);
+     Simulation(version=0) on 1li2 for 20 steps; and the v2 Context on
+     the card (the anchor, getEnergy; 1li2, where its PanicButton grows
+     the MS-tree neighbor width).
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -148,8 +159,9 @@ LIBRARY_NONE = ("none: no PyTorch call computes the sweep (a spline lookup, "
                 "an exclusion scan and a deterministic row/column deposit)")
 # device ms of the dense GB sweep (one warp a row over the full square),
 # the Born list sweep, the dense Born sweep (one warp a row), the dense
-# reloading descreening (the list kernel over every tile pair) and the dense
-# recomputing one (row pass, column pass, reduce) before their redesign, by
+# reloading descreening (the list kernel over every tile pair), the dense
+# recomputing one (row pass, column pass, reduce) and the row prefix sum
+# (two passes over tiles of 33-row segments) before their redesign, by
 # (kernel, shapes) as timed in [2] (PERF.md's kernel table: NVIDIA H100
 # 80GB HBM3, 700 W); for the log only
 BEFORE_MS = {("gb_pair", "1li2"): 0.0418,
@@ -157,7 +169,8 @@ BEFORE_MS = {("gb_pair", "1li2"): 0.0418,
              ("born_sums_tiles", "1li2"): 0.0722,
              ("born_sums", "1li2"): 0.0185,
              ("descreening", "1li2"): 0.0148,
-             ("descreening_recompute", "2clr"): 0.1341}
+             ("descreening_recompute", "2clr"): 0.1341,
+             ("cumsum_rows", "probe"): 0.0126}
 # the widths of the tables the tree's passes gather rows from, with the ids
 # they take (ops/tree.py): the per-atom gamma, the atomic rows of one and of
 # two parameterizations, a level's packed rows of one and of two, the
@@ -176,7 +189,8 @@ QD_SLOT_BYTES = 2 * 4
 RECORD_EXTRAS = ("kept_subtile_pairs", "chunk_slots", "qd_written_bytes",
                  "qd_read_bytes", "qd_dense_bytes", "given_list_ms",
                  "column_tests", "f64_abs_err", "twin_f64_abs_err",
-                 "empty_launch_ms", "shape", "tree_widths", "probe")
+                 "empty_launch_ms", "shape", "tree_widths", "probe",
+                 "mirror_abs_err")
 LI2_BOXES = (("ortho", (4.0, 4.2, 4.4)),
              ("triclinic", ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
                             (0.4, -0.3, 4.4))))
@@ -189,6 +203,16 @@ MTS4_STEPS = 100      # [9], 4 fs outer steps, after an equal warm-up
 RESUME_STEPS = 40     # [11]: the checkpoint's step, and the steps resumed
 SHAKE_LIMIT = 3.6e-6  # 30 eps of float32, the constraint tolerance floor
 NEIGHBOR_EVERY = 40
+V2_STEPS = 100        # [14] AGBNP2 1li2 Langevin steps, after an equal warm-up
+V0_STEPS = 20         # [14] GVolSA 1li2 Langevin steps
+# the in-repo AGBNP2 anchor (tests/test_agbnp2.py::V2_GOLDEN): the f64
+# oracle's energy on the first 40 atoms of the fixture
+V2_GOLDEN_ATOMS, V2_GOLDEN_E = 40, -505.76495633268286
+V2_F64_TOL = 1e-9     # relative, the port's f64 plain route vs the anchor
+# max-err / max|f| of AGBNP2's f32 forces (kernels) against its f64 plain
+# route: f32 through two overlap trees, the MS free volumes' subtractions
+# and the pair sweeps
+V2_FORCE_TOL = 1e-4
 
 
 def log(*args):
@@ -499,21 +523,30 @@ def check_row_kernels(dev, results):
         return torch.randint(-5, size + 5, (nrows,), generator=gen,
                              device=dev, dtype=torch.int32)
 
-    for at, tab, idv in (("probe", table, ids), ("2clr", lvl_table, lvl_ids)):
+    wide = {(w[0], w[1]): w[2] for w in tree_width_tables(
+        dev, lvl, ((26, "parent"),))}[26, "parent"]
+    for at, tab, idv in (("probe", table, ids), ("2clr", lvl_table, lvl_ids),
+                         ("2clr, 26 columns", wide, lvl_ids)):
         nrows, npar = idv.shape[0], tab.shape[0]
         for how, iv in (("sorted ids", idv), ("unsorted, out-of-range ids",
                                               wild_ids(npar, nrows))):
             take_equal(f"{at} {how}", tab, iv)
             log(f"    take_rows                   {at} {how}: bitwise equal "
                 "to the twin, twice")
-        # the level's gathered payload, signed values included
-        d = RW.take_rows(tab, idv) if at == "2clr" else x
+        # the level's gathered payload, signed values included; at 26
+        # columns the carry takes the group level (ntiles * C > 4,096)
+        d = RW.take_rows(tab, idv) if at != "probe" else x
         out = RW.cumsum_rows(d)
         if not torch.equal(out, RW.cumsum_rows(d)):
             raise AssertionError(f"cumsum_rows {at}: two launches differ")
-        # every output is a chain of at most 33 + segments + tiles rounded
-        # partial sums, each below the running sum of |d|: that sum sets
-        # the scale, and the probe's chain of 146 stays under 1e-5 of it
+        # the kernel's summation order is the mirror's, bit for bit
+        mirror = RW.cumsum_rows_mirror(d)
+        if not torch.equal(out, mirror):
+            raise AssertionError(f"cumsum_rows {at}: differs from "
+                                 "cumsum_rows_mirror")
+        # every output is a chain of at most 8 + log2(parts) + a few
+        # look-back sums of rounded partial sums, each below the running
+        # sum of |d|: that sum sets the scale
         scale = float(torch.cumsum(d.double().abs(), 0).max())
         ref64 = torch.cumsum(d.double(), 0)
         twin = RW.cumsum_rows_reference(d)
@@ -524,7 +557,8 @@ def check_row_kernels(dev, results):
         # kernel may stand as far from the twin as the twin from f64, plus
         # its own bound
         twin64 = float((twin.double() - ref64).abs().max())
-        log(f"    cumsum_rows                 {at}: repeatable bitwise; vs "
+        log(f"    cumsum_rows                 {at}: repeatable bitwise, "
+            f"bitwise cumsum_rows_mirror; vs "
             f"f64 {e64 / scale:.3e}, vs twin {etw / scale:.3e} (twin vs f64 "
             f"{twin64 / scale:.3e}) of max cumsum|d| {scale:.4g}")
         if not (e64 <= KERNEL_TOL * scale
@@ -537,6 +571,8 @@ def check_row_kernels(dev, results):
         rec["f64_abs_err"] = max(rec.get("f64_abs_err", 0.0), e64)
         rec["twin_f64_abs_err"] = max(rec.get("twin_f64_abs_err", 0.0),
                                       twin64)
+        rec["mirror_abs_err"] = max(rec.get("mirror_abs_err", 0.0), float(
+            (out - mirror).abs().max()))
         dev_b = RW.broadcast_deviation(tab, idv)
         limit = nrows * 1.2e-7 * float(tab.abs().max())
         log(f"    gather-free broadcast       {at}: max|cumsum_rows("
@@ -610,7 +646,13 @@ def check_row_kernels(dev, results):
     rec = timed(lambda: RW.cumsum_rows(x),
                 lambda: RW.cumsum_rows_reference(x),
                 lambda: torch.cumsum(x, 0), 2 * nbytes(x), x.numel())
+    rec["empty_launch_ms"] = results["gb_pair"].get("empty_launch_ms")
     results["cumsum_rows"].update(rec, library="torch.cumsum")
+    log(f"    cumsum_rows at the probe shape: {rec['ms']:.4f} ms in one "
+        f"launch (two-pass design before the redesign "
+        f"{BEFORE_MS['cumsum_rows', 'probe']:.4f} ms), bound "
+        f"{rec['bound_ms']:.4f} ms, an empty launch "
+        f"{rec['empty_launch_ms']:.4f} ms")
     for name, r in (("take_rows", probe), ("cumsum_rows", rec)):
         lib = "torch.index_select" if name == "take_rows" else "torch.cumsum"
         log(f"    probe {name:21s} kernel {r['ms']:.4f} ms, plain "
@@ -1526,6 +1568,178 @@ def phase_context(dev):
     check_parity("1li2", e, f, phase="[12]")
 
 
+def phase_v2(dev, card):
+    """Phase 14: AGBNP2 through its model, Simulation and Context, and
+    version 0 MD, on the card.  Returns the launch counts of the v2 MD run
+    (its warm-up and timed run)."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import (
+        AGBNPForce, AGBNPParams, Context, Simulation, load_gaussvol_dat)
+    from openmm_agbnp_plugin_tpu_torch.models.agbnp2_torch import \
+        AGBNP2Model
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    dense = ("born_sums", "gb_pair", "descreening")
+    pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(
+        os.path.join(HERE, "tests", "fixtures", "gaussvol.dat"))
+    n = V2_GOLDEN_ATOMS
+    p40 = AGBNPParams(radius=radius[:n], gamma=gamma[:n], alpha=alpha[:n],
+                      charge=charge[:n], ishydrogen=ish[:n])
+    for dtype in (torch.float64, torch.float32):
+        m = AGBNP2Model(p40, device=dev, dtype=dtype, positions=pos[:n])
+        PK.reset_launch_counts()
+        e, f = m.energy_forces(pos[:n])
+        counts = PK.launch_counts()
+        e = float(e)
+        log(f"[14] V2 anchor, {dtype}, pair kernels {m.pair_kernel}: E = "
+            f"{e:.6f} (anchor {V2_GOLDEN_E}); launches "
+            f"{ {k: c for k, c in counts.items() if c} }")
+        if not (abs(e - V2_GOLDEN_E) < GOLDEN_TOL
+                and bool(torch.isfinite(f).all())):
+            raise AssertionError(f"V2 anchor {dtype}: {e}")
+        kernels = dtype == torch.float32
+        if m.pair_kernel != kernels or any(
+                counts[k] != (1 if kernels else 0) for k in dense):
+            raise AssertionError(f"V2 {dtype}: the pair phases took the "
+                                 "wrong route")
+        if not kernels and abs(e - V2_GOLDEN_E) > V2_F64_TOL * abs(
+                V2_GOLDEN_E):
+            raise AssertionError(f"V2 f64: {e} outside {V2_F64_TOL}")
+
+    # the f64 reference's capacities grow until nothing overflows (JAX's
+    # MS-tree neighbor width of 64 is short for 1li2), the f32 model
+    # takes them all
+    d, p = system("1li2")
+    t0 = time.perf_counter()
+    ref = AGBNP2Model(p, device=dev, dtype=torch.float64,
+                      positions=d.positions)
+    sized_kmax = ref.ms_kmax
+    e0, f0, out0 = ref.energy_forces(d.positions, with_details=True)
+    while ref.check_and_grow(out0["diags"]):
+        e0, f0, out0 = ref.energy_forces(d.positions, with_details=True)
+    m = AGBNP2Model(p, device=dev, dtype=torch.float32,
+                    positions=d.positions, caps=ref.caps,
+                    caps_ms=ref.caps_ms, cap_ms=ref.cap_ms,
+                    ms_kmax=ref.ms_kmax, ms_sub_k=ref.ms_sub_k)
+    PK.reset_launch_counts()
+    e1, f1, out1 = m.energy_forces(d.positions, with_details=True)
+    counts = PK.launch_counts()
+    e_rel = abs(float(e1) - float(e0)) / abs(float(e0))
+    f_rel, _ = rel_err(f1, f0)
+    log(f"[14] 1li2 v2: E f32 kernels {float(e1):.4f}, f64 plain "
+        f"{float(e0):.4f}: energy rel {e_rel:.3e}, force max-err/max|f| "
+        f"{f_rel:.3e}; {int(out1['details']['num_ms'])} MS particles of "
+        f"cap_ms {m.cap_ms}, caps {m.caps.caps}, MS caps {m.caps_ms.caps}, "
+        f"MS-tree neighbor width {sized_kmax} -> {m.ms_kmax}; launches "
+        f"{ {k: c for k, c in counts.items() if c} }; both models and "
+        f"evaluations {time.perf_counter() - t0:.1f} s")
+    if not (e_rel <= PARITY_TOL and f_rel <= V2_FORCE_TOL):
+        raise AssertionError("1li2 v2: f32 kernels differ from f64")
+    if any(counts[k] != 1 for k in dense):
+        raise AssertionError("1li2 v2: #1-#3 not launched once each")
+    if m.check_and_grow(out1["diags"]):
+        raise AssertionError("1li2 v2: the f32 evaluation overflowed")
+    del ref, out0
+
+    sim = Simulation(d, device=dev, version=2, cutoff=1.0,
+                     dtype=torch.float32, skin=0.25)
+    if not sim.agbnp2.pair_kernel:
+        raise AssertionError("Simulation(version=2) at f32 on the card must "
+                             "run the pair kernels")
+    def capacities():
+        m2 = sim.agbnp2
+        return dict(caps=m2.caps.caps, caps_ms=m2.caps_ms.caps,
+                    cap_ms=m2.cap_ms, ms_kmax=m2.ms_kmax,
+                    ms_candidate_kmax=sim.ms_kmax_list, ms_sub_k=m2.ms_sub_k)
+
+    # JAX's MS-tree neighbor width (64) is short for 1li2 (77 at the DMS
+    # positions): one window of run_md lets the PanicButton grow it before
+    # the counted runs
+    sized = capacities()
+    pre = sim.run_md(NEIGHBOR_EVERY, dt=0.001, neighbor_every=NEIGHBOR_EVERY)
+    grown = {k: (v, capacities()[k]) for k, v in sized.items()
+             if capacities()[k] != v}
+    log(f"[14] 1li2 v2: one {NEIGHBOR_EVERY}-step window first: regrows "
+        f"{pre['regrows']}, grown (sized -> grown) {grown}")
+    sized = capacities()
+    PK.reset_launch_counts()
+    r = sim.benchmark_langevin(nsteps=V2_STEPS, temperature=300.0,
+                               friction=1.0, dt=0.001,
+                               neighbor_every=NEIGHBOR_EVERY, max_regrow=3)
+    counts_v2 = PK.launch_counts()
+    grown = {k: (v, capacities()[k]) for k, v in sized.items()
+             if capacities()[k] != v}
+    if grown:
+        log(f"    the PanicButton grew again (sized -> grown): {grown}")
+    ms_step = r["elapsed_s"] / r["steps_run"] * 1e3
+    energies = r["energies"]
+    log(f"[14] 1li2 v2 MD (f32, 1 nm GB cutoff, build every "
+        f"{NEIGHBOR_EVERY} steps): {V2_STEPS} steps x2 (warm-up + timed), "
+        f"regrows {r['regrows']}, overflow {r['overflow']}, E first/last "
+        f"{energies[0]:.2f}/{energies[-1]:.2f}, cap_ms {sim.agbnp2.cap_ms}; "
+        f"launches { {k: c for k, c in counts_v2.items() if c} }")
+    log(f"    first measurement, not a claim: {ms_step:.3f} ms/step, "
+        f"{r['ns_day']:.3f} ns/day on {card}")
+    if r["overflow"] or energies.shape != (V2_STEPS,) \
+            or not np.isfinite(energies).all():
+        raise AssertionError("1li2 v2 MD: overflow or non-finite energies")
+    if any(counts_v2[k] < 2 * V2_STEPS for k in dense) \
+            or counts_v2["descreening_recompute"]:
+        raise AssertionError("1li2 v2 MD: #1-#3 not launched every step, "
+                             "or the recompute ran")
+
+    sim0 = Simulation(d, device=dev, version=0, cutoff=1.0,
+                      dtype=torch.float32, skin=0.25)
+    r0 = sim0.benchmark_langevin(nsteps=V0_STEPS, warmup=False, dt=0.001,
+                                 neighbor_every=10, max_regrow=3)
+    log(f"[14] 1li2 v0 MD (f32): {V0_STEPS} steps, regrows "
+        f"{r0['regrows']}, overflow {r0['overflow']}, E first/last "
+        f"{r0['energies'][0]:.2f}/{r0['energies'][-1]:.2f}, "
+        f"{r0['elapsed_s'] / r0['steps_run'] * 1e3:.3f} ms/step")
+    if r0["overflow"] or not np.isfinite(r0["energies"]).all():
+        raise AssertionError("1li2 v0 MD: overflow or non-finite energies")
+
+    def v2_force(params):
+        force = AGBNPForce()
+        force.setVersion(2)
+        for i in range(params.n):
+            force.addParticle(params.radius[i], params.gamma[i],
+                              params.alpha[i], params.charge[i],
+                              bool(params.ishydrogen[i]))
+        return force
+
+    ctx = Context(v2_force(p40))
+    ctx.setPositions(pos[:n])
+    e, f = ctx.getEnergyForces()
+    e_only = ctx.getEnergy()
+    log(f"[14] Context v2 on {ctx._device}: E = {e:.4f} (anchor "
+        f"{V2_GOLDEN_E:.4f}), getEnergy {e_only:.4f}")
+    if not (isinstance(e, float) and f.device == dev
+            and f.dtype == torch.float32 and bool(torch.isfinite(f).all())
+            and abs(e - V2_GOLDEN_E) < GOLDEN_TOL and e_only == e):
+        raise AssertionError("Context v2 on the card")
+    # 1li2: the Context's PanicButton grows the MS-tree neighbor width
+    ctx = Context(v2_force(p))
+    ctx.setPositions(d.positions)
+    PK.reset_launch_counts()
+    e, f = ctx.getEnergyForces()
+    counts = PK.launch_counts()
+    e_rel = abs(e - float(e1)) / abs(float(e1))
+    log(f"[14] Context v2, 1li2: E = {e:.4f}, vs the f32 model at the "
+        f"grown capacities rel {e_rel:.3e}; MS-tree neighbor width "
+        f"{ctx._model.ms_kmax}; launches "
+        f"{ {k: c for k, c in counts.items() if c} }")
+    if not (e_rel <= PARITY_TOL and ctx._model.ms_kmax > sized_kmax
+            and bool(torch.isfinite(f).all())
+            and all(counts[k] >= 2 for k in dense)):
+        raise AssertionError("Context v2 on 1li2: no regrow, or off the "
+                             "f32 model")
+    torch.cuda.synchronize()
+    return counts_v2
+
+
 def main() -> int:
     import torch
 
@@ -1551,11 +1765,13 @@ def main() -> int:
     phase_resume(dev, sim_1li2)
     phase_context(dev)
     counts["row_probes"] = phase_row_probes(dev, card)
+    counts["md_v2"] = phase_v2(dev, card)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
     md_steps = dict(md_1li2=2 * MD_STEPS, md_2clr=2 * MD_STEPS_2CLR,
-                    mts_wu4=2 * MTS_WU4_STEPS, mts4fs=2 * MTS4_STEPS)
+                    mts_wu4=2 * MTS_WU4_STEPS, mts4fs=2 * MTS4_STEPS,
+                    md_v2=2 * V2_STEPS)
     record = []
     for name, (src, replaces, path) in KERNELS.items():
         launches = counts[path][name]

@@ -4,6 +4,7 @@ A port of the JAX package `openmm_agbnp_plugin_tpu` (the reference it is
 tested against), with the same module names:
 
   models/agbnp_torch.py   AGBNPModel, energy_forces, prepare_arrays
+  models/agbnp2_torch.py  AGBNP2Model, agbnp2_energy (version 2)
   ops/tree.py             the flattened Gaussian overlap tree
   ops/born.py             dense pair phases (the plain route)
   ops/kernels/pairs.py    the three pair sweeps on the dense tile grid, and
@@ -27,11 +28,13 @@ from .api.force import AGBNPForce, Context, NonbondedMethod
 from .io.dms import load_dms
 from .io.gaussvol_dat import load_gaussvol_dat
 from .md.simulation import Simulation
+from .models.agbnp2_torch import AGBNP2Model
 from .models.agbnp_torch import AGBNPModel, arrays_from_numpy, \
     energy_forces, prepare_arrays
 from .models.params import AGBNPParams
 from .ops.tree import TreeCaps
 
-__all__ = ["AGBNPForce", "AGBNPModel", "AGBNPParams", "Context",
-           "NonbondedMethod", "Simulation", "TreeCaps", "arrays_from_numpy",
-           "energy_forces", "load_dms", "load_gaussvol_dat", "prepare_arrays"]
+__all__ = ["AGBNP2Model", "AGBNPForce", "AGBNPModel", "AGBNPParams",
+           "Context", "NonbondedMethod", "Simulation", "TreeCaps",
+           "arrays_from_numpy", "energy_forces", "load_dms",
+           "load_gaussvol_dat", "prepare_arrays"]

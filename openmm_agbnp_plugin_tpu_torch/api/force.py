@@ -10,8 +10,11 @@ kernel; the parameter-validation semantics (version in {0,1,2}, single
 common gamma across heavy atoms, hydrogen gamma zeroing) match the
 reference (AGBNPForce.cpp:52-59, ReferenceAGBNPKernels.cpp:96-118).  The
 same classes as the JAX package's api/force.py, with one more Context
-argument: the device.  Versions 0 and 1 evaluate; version 2 is accepted by
-the force and refused by the Context until AGBNP2 is ported.
+argument: the device.  Versions 0 and 1 evaluate through AGBNPModel,
+version 2 through AGBNP2Model (built at the first evaluation, since its MS
+sizing needs positions; its MS candidates picked anew at every
+setPositions).  Every evaluation retries through the PanicButton loop
+while a capacity overflows.  Version 2 takes no periodic box.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..models.agbnp2_torch import AGBNP2Model
 from ..models.agbnp_torch import AGBNPModel
 from ..models.constants import AGBNP_RADIUS_INCREMENT, SOLVENT_RADIUS
 from ..models.params import AGBNPParams
@@ -141,7 +145,8 @@ class Context:
     the first CUDA device and raises where there is none; pass "cpu" to
     evaluate on the host (the pair phases then run their plain twins).  On a
     CUDA device the version 1 pair phases are float32 CUDA kernels, so dtype
-    must be torch.float32 there.
+    must be torch.float32 there; version 2 runs them at float32 and its
+    plain phases at float64.
 
     Energies come back as Python floats and forces as a [N, 3] tensor of
     `dtype` on the Context's device (calcForcesAndEnergy's zeros included).
@@ -215,16 +220,22 @@ class Context:
             raise ValueError(
                 "CutoffPeriodic requires setPeriodicBoxVectors (or the box= "
                 "Context argument)")
-        if force.getVersion() == 2:
+        if periodic and force.getVersion() == 2:
             raise NotImplementedError(
-                "AGBNP version 2 is not ported yet: this Context evaluates "
-                "versions 0 and 1")
+                "version 2 takes no periodic box: its MS stage and pair "
+                "phases run without one (NoCutoff or CutoffNonPeriodic)")
         self._force = force
+        if force.getVersion() == 2:
+            # AGBNP2: the model is built at the first evaluation, since its
+            # MS sizing needs positions
+            self._model = None
+            self._model_box = None
+            return
         params = force.to_params()
         box = self._box if periodic else None
         old = self._model
         if (old is not None
-                and old.version == force.getVersion()
+                and old.version == force.getVersion() != 2
                 and old.cutoff == cutoff
                 and ((self._model_box is None) == (box is None))
                 and (box is None or np.array_equal(self._model_box, box))
@@ -246,6 +257,8 @@ class Context:
 
     def setPositions(self, positions):
         self._positions = np.asarray(positions, dtype=np.float64)
+        if isinstance(self._model, AGBNP2Model):
+            self._model.set_positions(self._positions)
         if self._box is not None:
             # The overlap tree uses raw deltas (like every reference
             # backend): overlaps span <~0.7 nm and assume an unwrapped
@@ -264,12 +277,23 @@ class Context:
 
     def _evaluate(self, evaluate):
         """evaluate() -> (result, out) retried through the PanicButton
-        resize loop while the overlap tree overflows its capacities."""
+        resize loop while a capacity overflows (version 2: both overlap
+        trees, cap_ms and the MS list widths, from capacities sized at the
+        first positions; the JAX package evaluates version 2 once)."""
         if self._positions is None:
             raise ValueError("call setPositions first")
+        v2 = self._force.getVersion() == 2
+        if v2 and self._model is None:
+            cutoff = (None if self._force.getNonbondedMethod()
+                      == NonbondedMethod.NoCutoff
+                      else self._force.getCutoffDistance())
+            self._model = AGBNP2Model(self._force.to_params(),
+                                      device=self._device, dtype=self._dtype,
+                                      positions=self._positions,
+                                      cutoff=cutoff)
         for _ in range(8):
             result, out = evaluate()
-            if not self._model.check_and_grow(out["diag"]):
+            if not self._model.check_and_grow(out["diags" if v2 else "diag"]):
                 return result
         raise RuntimeError("overlap tree capacities failed to converge")
 
@@ -289,6 +313,8 @@ class Context:
         it) — the includeForces=False path of the reference's
         AGBNPForceImpl::calcForcesAndEnergy
         (openmmapi/src/AGBNPForceImpl.cpp:32-36)."""
+        if self._force.getVersion() == 2:
+            return self.getEnergyForces()[0]
         return float(self._evaluate(lambda: self._model.energy_only(
             self._positions, with_details=True)))
 

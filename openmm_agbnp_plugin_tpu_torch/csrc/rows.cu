@@ -30,25 +30,47 @@
 // reads from at most a few source rows; ids need not be sorted, and an id
 // outside [0, P) gives a zero row.
 //
-// cumsum_rows: CUDA blocks run in no order, so the carry of the TPU kernel
-// becomes two passes whose float association is fixed by the shapes alone
-// (no atomics, no look-back that depends on timing: two launches give the
-// same bits).  A block owns a tile of nseg x 33 rows, staged in shared
-// memory with coalesced loads; thread (segment, column) walks its 33 rows
-// of one column in order.  33 rows a segment make the 32 lanes of a warp
-// hit 32 different banks for every C.
-//   pass 1: segment totals -> the tile's column totals, bsum[tile, C];
-//   pass 2: each tile adds up bsum of the tiles before it, left to right
-//           (so every tile forms the same chain of partial sums), then the
-//           totals of the segments before each segment, then the running
-//           sum down the segment, and stores the tile coalesced.
-// The matrix is read twice (the second time from L2) and written once.
+// cumsum_rows: one launch.  CUDA blocks run in no order, so the carry of the
+// TPU kernel becomes a look-back whose float association the shapes alone
+// fix (no float atomics, no look-back depth that depends on timing: every
+// launch gives the same bits).  A tile is P = floor(256 / C) parts of 32
+// rows (32 P rows, at most 8,192 values: 84 tiles at the probe's shape).
+//   * A block takes its tile's index from an integer ticket (atomicAdd on an
+//     int), so tiles start in order and a block only ever waits on tiles
+//     that are already running.
+//   * The tile is staged with 16-byte loads (a tile of rows is contiguous)
+//     into shared memory, each part padded to a stride of 32C + pad with
+//     stride = C (mod 32), so thread (part p, column c) walks its 32 rows
+//     with no bank conflict; the part totals take a Hillis-Steele scan over
+//     the parts in shared memory.
+//   * The tile publishes its column totals behind a flag, then adds the
+//     totals of the tiles before it with warp-parallel trees (lane j adds
+//     every 32nd value from j, then an xor butterfly) whose shape depends on
+//     the tile's index alone: over every tile before it while ntiles * C <=
+//     4,096, else over the group totals of the complete groups of 32 tiles
+//     before its group plus the totals of its own group's tiles before it.
+//     The tile that closes a group publishes the group's total behind a
+//     second flag, from its group's tile totals alone and before it waits
+//     on any group total: no chain of waits runs from group to group.
+//   * One warp a block polls, each flag on a 128-byte line of its own:
+//     flags that share a line queue the polls of every waiting block on it,
+//     and the look-back then takes most of a tile's time.  Flags are
+//     written with release and read with acquire at GPU scope.
+//   * The flags and the ticket belong to one stream (the wrapper keeps a
+//     zeroed buffer a stream), and the last tile to finish zeroes them
+//     again, so no call needs a host sync or a clearing launch.
+// The matrix is read once and written once.  rows.py::cumsum_rows_mirror
+// states the same order in plain torch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define ROWS_THREADS 256
-#define SEG_ROWS 33
+#define SCAN_THREADS 256
+#define PART_ROWS 32
+#define GROUP_TILES 32
+#define FLAT_VALUES 4096
+#define FLAG_STRIDE 32
 
 __device__ __forceinline__ void zero_piece(float& v) { v = 0.0f; }
 __device__ __forceinline__ void zero_piece(float2& v) {
@@ -102,67 +124,294 @@ static int take_rows_piece_bytes(int ncols, const float* table,
   return 4;
 }
 
-// One tile of nseg * SEG_ROWS rows.  WRITE false: pass 1 (bsum out).  WRITE
-// true: pass 2 (bsum in, out written).
-template <bool WRITE>
-__global__ void cumsum_tile_kernel(const float* __restrict__ d, int nrows,
-                                   int ncols, int nseg,
-                                   float* __restrict__ bsum,
-                                   float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* tile = smem;                                  // [nseg * 33, C]
-  float* segtot = smem + nseg * SEG_ROWS * ncols;      // [nseg, C]
-  float* before = segtot + nseg * ncols;               // [C]
-  const int tid = threadIdx.x;
-  const int tile_rows = nseg * SEG_ROWS;
-  const long long r0 = (long long)blockIdx.x * tile_rows;
-  const int rows_here = (int)min((long long)tile_rows, nrows - r0);
-  const int nel = rows_here * ncols;
-  const float* src = d + r0 * ncols;
-  for (int e = tid; e < nel; e += ROWS_THREADS) tile[e] = src[e];
-  if (WRITE && tid < ncols) {
-    // the column totals of every tile before this one, in tile order
-    float run = 0.0f;
-    for (int b = 0; b < (int)blockIdx.x; ++b) run += bsum[b * ncols + tid];
-    before[tid] = run;
-  }
-  __syncthreads();
-
-  const bool worker = tid < nseg * ncols;
-  const int seg = tid / ncols, c = tid - seg * ncols;
-  const int row_lo = seg * SEG_ROWS;
-  const int row_hi = min(row_lo + SEG_ROWS, rows_here);
-  if (worker) {
-    float run = 0.0f;
-    for (int r = row_lo; r < row_hi; ++r) {
-      run += tile[r * ncols + c];
-      if (WRITE) tile[r * ncols + c] = run;
-    }
-    segtot[tid] = run;
-  }
-  __syncthreads();
-
-  if (!WRITE) {
-    if (tid < ncols) {
-      float tot = 0.0f;
-      for (int s = 0; s < nseg; ++s) tot += segtot[s * ncols + tid];
-      bsum[blockIdx.x * ncols + tid] = tot;
-    }
-    return;
-  }
-  if (worker) {
-    float pre = before[c];
-    for (int s = 0; s < seg; ++s) pre += segtot[s * ncols + c];
-    for (int r = row_lo; r < row_hi; ++r) tile[r * ncols + c] += pre;
-  }
-  __syncthreads();
-  float* dst = out + r0 * ncols;
-  for (int e = tid; e < nel; e += ROWS_THREADS) dst[e] = tile[e];
+// The tile's layout: P parts of PART_ROWS rows, P = SCAN_THREADS / C.
+__host__ __device__ __forceinline__ int scan_parts(int ncols) {
+  return SCAN_THREADS / ncols;
 }
 
-static size_t cumsum_smem_bytes(int ncols, int nseg) {
-  return (size_t)(nseg * SEG_ROWS * ncols + nseg * ncols + ncols)
-         * sizeof(float);
+// Padding after each part in shared memory: the part stride
+// PART_ROWS * C + pad is C modulo 32, so thread t = p * C + c reads bank
+// (t + i * C) mod 32.
+__host__ __device__ __forceinline__ int scan_pad(int ncols) {
+  return (32 - ((PART_ROWS - 1) * ncols) % 32) % 32;
+}
+
+// The state's ints: the ticket and the done count, then one flag a tile
+// and one a group, each on a 128-byte line of its own (flags that share a
+// line make the polls of every waiting block queue on it).
+__host__ __device__ __forceinline__ int flag_slot(int k) {
+  return FLAG_STRIDE * (2 + k);
+}
+
+__device__ __forceinline__ float warp_tree(float acc) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+// The flags publish with release and are read with acquire at GPU scope.
+// __threadfence() is a sequentially consistent fence, which every block of
+// a look-back would pay several times over; acquire/release order only
+// what the look-back needs.
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// One lane's share of a wait: flags k = first, first + 32, ... < end set,
+// then an acquire of what their setters wrote.  A tile waits only on tiles
+// with smaller tickets, which are running, so a wait lasts microseconds; one
+// that outlasts ~2^24 polls (about a second) is a fault, and the kernel
+// traps (an error the next synchronisation reports) instead of holding the
+// card.
+__device__ __forceinline__ void wait_flags(const int* state, int first,
+                                           int end) {
+  for (unsigned polls = 0;; ++polls) {
+    bool all = true;
+    for (int k = first; k < end; k += 32)
+      all &= ld_relaxed(state + flag_slot(k)) != 0;
+    if (all) break;
+    if (polls > (1u << 24)) __trap();
+    __nanosleep(64);
+  }
+  fence_acq_rel();
+}
+
+// scratch: tile totals [ntiles, C] then group totals [ngroups, C].  VEC: d
+// and out 16-byte aligned.
+template <bool VEC>
+__global__ void __launch_bounds__(SCAN_THREADS)
+    cumsum_lookback_kernel(const float* __restrict__ d, int nrows, int ncols,
+                           int ntiles, int* state, float* scratch,
+                           float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_tile;
+  const int C = ncols;
+  const int P = scan_parts(C);
+  const int pad = scan_pad(C);
+  const int span = PART_ROWS * C;     // values of one part
+  const int stride = span + pad;      // its stride in shared memory
+  const int tile_rows = PART_ROWS * P;
+  float* tile = smem;                 // [P * stride]
+  float* parts = tile + P * stride;   // two buffers of [P * C]
+  float* carry = parts + 2 * P * C;   // [C]
+  const int ngroups = (ntiles + GROUP_TILES - 1) / GROUP_TILES;
+  float* agg = scratch;
+  float* gsum = scratch + (size_t)ntiles * C;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) s_tile = atomicAdd(state, 1);
+  __syncthreads();
+  const int b = s_tile;
+  const long long r0 = (long long)b * tile_rows;
+  const int rows_here = (int)min((long long)tile_rows, (long long)nrows - r0);
+  const int nel = rows_here * C;
+  const float* src = d + r0 * C;
+
+  // stage the tile, rows past the end as zeros
+  int e0 = 0;
+  if (VEC) {
+    const int nq = nel >> 2;
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int q = tid; q < nq; q += SCAN_THREADS) {
+      const float4 v = __ldcs(src4 + q);
+      const int e = q << 2;  // a part holds 32C values: e..e+3 stay in it
+      float* dst = tile + e + (e / span) * pad;
+      if ((pad & 3) == 0) {
+        *reinterpret_cast<float4*>(dst) = v;
+      } else {
+        dst[0] = v.x;
+        dst[1] = v.y;
+        dst[2] = v.z;
+        dst[3] = v.w;
+      }
+    }
+    e0 = nq << 2;
+  }
+  for (int e = e0 + tid; e < nel; e += SCAN_THREADS)
+    tile[e + (e / span) * pad] = __ldcs(src + e);
+  for (int e = nel + tid; e < tile_rows * C; e += SCAN_THREADS)
+    tile[e + (e / span) * pad] = 0.0f;
+  __syncthreads();
+
+  // each thread: a running sum down its part's rows of one column
+  const bool worker = tid < P * C;
+  const int p = tid / C, c = tid - p * C;
+  float run[PART_ROWS];
+  if (worker) {
+    const float* my = tile + p * stride + c;
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PART_ROWS; ++i) {
+      acc += my[i * C];
+      run[i] = acc;
+    }
+    parts[tid] = acc;
+  }
+  __syncthreads();
+  // inclusive scan of the part totals over the parts (Hillis-Steele)
+  int cur = 0;
+  for (int o = 1; o < P; o <<= 1) {
+    if (worker) {
+      float v = parts[cur * P * C + tid];
+      if (p >= o) v += parts[cur * P * C + tid - o * C];
+      parts[(cur ^ 1) * P * C + tid] = v;
+    }
+    cur ^= 1;
+    __syncthreads();
+  }
+  const float* incl = parts + cur * P * C;
+
+  // publish the tile's column totals: warp 0 writes them and raises the
+  // flag behind a release fence
+  if (warp == 0) {
+    for (int col = lane; col < C; col += 32)
+      __stcg(agg + (size_t)b * C + col, incl[(P - 1) * C + col]);
+    fence_acq_rel();
+    __syncwarp();
+    if (lane == 0) st_relaxed(state + flag_slot(b), 1);
+  }
+
+  // the carry: the column totals of the tiles before this one.  Warp 0
+  // polls every flag the tile reads (the other warps read the data after
+  // the barrier behind its acquire).  Few tiles (ntiles * C <=
+  // FLAT_VALUES): one warp tree a column over them all.  Else carry =
+  // (group totals before this tile's group) + (tile totals of its group
+  // before it), the in-group part first: a tile that closes its group
+  // publishes the group's total from its group's tile totals alone, before
+  // it waits on any group total, so no chain of waits runs from group to
+  // group.
+  if (ntiles * C <= FLAT_VALUES) {
+    if (warp == 0) wait_flags(state, lane, b);
+    __syncthreads();
+    for (int col = warp; col < C; col += SCAN_THREADS / 32) {
+      float a = 0.0f;
+      for (int k = lane; k < b; k += 32)
+        a += __ldcg(agg + (size_t)k * C + col);
+      a = warp_tree(a);
+      if (lane == 0) carry[col] = a;
+    }
+  } else {
+    const int g = b / GROUP_TILES, j0 = b - g * GROUP_TILES;
+    const bool closes = j0 == GROUP_TILES - 1;
+    if (warp == 0)
+      wait_flags(state, g * GROUP_TILES + lane, g * GROUP_TILES + j0);
+    __syncthreads();
+    for (int col = warp; col < C; col += SCAN_THREADS / 32) {
+      float in_group = 0.0f;
+      float mine = 0.0f;
+      if (lane < j0) {
+        mine = __ldcg(agg + (size_t)(g * GROUP_TILES + lane) * C + col);
+        in_group += mine;
+      }
+      in_group = warp_tree(in_group);
+      if (lane == 0) carry[col] = in_group;
+      if (closes) {
+        float tot = 0.0f;
+        tot += lane == GROUP_TILES - 1 ? incl[(P - 1) * C + col] : mine;
+        tot = warp_tree(tot);
+        if (lane == 0) {
+          __stcg(gsum + (size_t)g * C + col, tot);
+          fence_acq_rel();
+        }
+      }
+    }
+    __syncthreads();
+    if (tid == 0 && closes) {
+      fence_acq_rel();
+      st_relaxed(state + flag_slot(ntiles + g), 1);
+    }
+    if (warp == 0) wait_flags(state, ntiles + lane, ntiles + g);
+    __syncthreads();
+    for (int col = warp; col < C; col += SCAN_THREADS / 32) {
+      float a = 0.0f;
+      for (int k = lane; k < g; k += 32)
+        a += __ldcg(gsum + (size_t)k * C + col);
+      a = warp_tree(a);
+      if (lane == 0) carry[col] = a + carry[col];
+    }
+  }
+  __syncthreads();
+
+  // out = running sum + (the parts before + the tiles before)
+  if (worker) {
+    const float base = (p > 0 ? incl[(p - 1) * C + c] : 0.0f) + carry[c];
+    float* my = tile + p * stride + c;
+#pragma unroll
+    for (int i = 0; i < PART_ROWS; ++i) my[i * C] = run[i] + base;
+  }
+  __syncthreads();
+  float* dst = out + r0 * C;
+  e0 = 0;
+  if (VEC) {
+    const int nq = nel >> 2;
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int q = tid; q < nq; q += SCAN_THREADS) {
+      const int e = q << 2;
+      const float* s4 = tile + e + (e / span) * pad;
+      float4 v;
+      if ((pad & 3) == 0) {
+        v = *reinterpret_cast<const float4*>(s4);
+      } else {
+        v = make_float4(s4[0], s4[1], s4[2], s4[3]);
+      }
+      __stcs(dst4 + q, v);
+    }
+    e0 = nq << 2;
+  }
+  for (int e = e0 + tid; e < nel; e += SCAN_THREADS)
+    __stcs(dst + e, tile[e + (e / span) * pad]);
+
+  // every read of this tile's look-back is done: count the tile, and the
+  // last one clears the flags for the next call on this stream (its
+  // acquire sees every other tile's flags, so no flag lands after it).
+  // Built with -DCUMSUM_NO_RESET (profile_port_step.py --row-probes times
+  // it) the kernel leaves its state set, and each call needs a zeroed one:
+  // the design the reset replaces.
+#ifndef CUMSUM_NO_RESET
+  __shared__ int s_last;
+  if (tid == 0) {
+    fence_acq_rel();
+    s_last = atomicAdd(state + FLAG_STRIDE, 1) == ntiles - 1;
+    if (s_last) fence_acq_rel();
+  }
+  __syncthreads();
+  if (s_last) {
+    for (int k = tid; k < ntiles + ngroups; k += SCAN_THREADS)
+      state[flag_slot(k)] = 0;
+    if (tid == 0) {
+      state[0] = 0;
+      state[FLAG_STRIDE] = 0;
+    }
+  }
+#endif
+}
+
+static size_t cumsum_smem_bytes(int ncols) {
+  const int P = scan_parts(ncols);
+  return (size_t)(P * (PART_ROWS * ncols + scan_pad(ncols)) + 2 * P * ncols +
+                  ncols) *
+         sizeof(float);
+}
+
+static int cumsum_tiles(int nrows, int ncols) {
+  const int tile_rows = PART_ROWS * scan_parts(ncols);
+  return (nrows + tile_rows - 1) / tile_rows;
 }
 
 extern "C" {
@@ -187,27 +436,37 @@ int agbnp_take_rows(const float* table, int nparents, int ncols,
   }
 }
 
-// Rows of one tile: floor(256 / ncols) segments of 33 rows (1 <= ncols <=
-// 256).
+// Rows of one tile: 32 floor(256 / ncols) (1 <= ncols <= 256).
 int agbnp_cumsum_tile_rows(int ncols) {
-  return (ROWS_THREADS / ncols) * SEG_ROWS;
+  return PART_ROWS * scan_parts(ncols);
 }
 
-// out[r, c] = sum of d[0..r, c].  bsum: scratch of ceil(nrows / tile rows)
-// x ncols floats.
-int agbnp_cumsum_rows(const float* d, int nrows, int ncols, float* bsum,
-                      float* out, cudaStream_t stream) {
-  if (nrows <= 0) return (int)cudaSuccess;
-  const int nseg = ROWS_THREADS / ncols;
-  const int tile_rows = nseg * SEG_ROWS;
-  const unsigned blocks = (unsigned)((nrows + tile_rows - 1) / tile_rows);
-  const size_t smem = cumsum_smem_bytes(ncols, nseg);
-  cumsum_tile_kernel<false><<<blocks, ROWS_THREADS, smem, stream>>>(
-      d, nrows, ncols, nseg, bsum, out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cumsum_tile_kernel<true><<<blocks, ROWS_THREADS, smem, stream>>>(
-      d, nrows, ncols, nseg, bsum, out);
+// Ints of the state cumsum_rows needs for nrows x ncols: the ticket and the
+// done count, then a flag a tile and a group, each on a line of its own.
+int agbnp_cumsum_state_ints(int nrows, int ncols) {
+  const int ntiles = cumsum_tiles(nrows, ncols);
+  return flag_slot(ntiles + (ntiles + GROUP_TILES - 1) / GROUP_TILES);
+}
+
+// out[r, c] = sum of d[0..r, c], in one launch (1 <= ncols <= 256).  state:
+// agbnp_cumsum_state_ints ints, zero (the kernel leaves them zero again),
+// kept by one stream; scratch: (ntiles + ngroups) * ncols floats, where
+// ntiles = ceil(nrows / tile rows) and ngroups = ceil(ntiles / 32).
+int agbnp_cumsum_rows(const float* d, int nrows, int ncols, int* state,
+                      float* scratch, float* out, cudaStream_t stream) {
+  if (ncols < 1 || ncols > SCAN_THREADS || nrows < 0)
+    return (int)cudaErrorInvalidValue;
+  if (nrows == 0) return (int)cudaSuccess;
+  const int ntiles = cumsum_tiles(nrows, ncols);
+  const size_t smem = cumsum_smem_bytes(ncols);
+  const bool vec = ((uintptr_t)d | (uintptr_t)out) % 16 == 0;
+  if (vec) {
+    cumsum_lookback_kernel<true><<<ntiles, SCAN_THREADS, smem, stream>>>(
+        d, nrows, ncols, ntiles, state, scratch, out);
+  } else {
+    cumsum_lookback_kernel<false><<<ntiles, SCAN_THREADS, smem, stream>>>(
+        d, nrows, ncols, ntiles, state, scratch, out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -149,9 +149,28 @@ class MMForceField:
 
     def bonded_and_14_forces(self, pos, a):
         """(energy, force) of energy_bonded_and_14, force by autograd."""
+        return self.forces_of(self.energy_bonded_and_14, pos, a)
+
+    def energy(self, pos, a, excl_mask):
+        """Total MM energy: bonded + 1-4 + the dense all-pairs LJ and
+        Coulomb sum (excl_mask [N, N] bool on pos.device), as the JAX
+        package's MMForceField.energy: what AGBNP versions 0 and 2 add,
+        whose pair phases carry no MM sum."""
+        return self.energy_bonded_and_14(pos, a) + self.energy_nonbonded(
+            pos, a, excl_mask)
+
+    def energy_nonbonded(self, pos, a, excl_mask):
+        """The dense LJ + Coulomb sum alone (the slow r-RESPA class when
+        the GB sweep does not carry it)."""
+        return dense_nonbonded_energy(pos, a["charge"], a["sigma"],
+                                      a["epsilon"], cutoff=self.cutoff,
+                                      excl_mask=excl_mask)
+
+    def forces_of(self, energy_fn, pos, *args):
+        """(energy, force) of energy_fn(pos, *args), force by autograd."""
         with torch.enable_grad():
             x = pos.detach().requires_grad_(True)
-            e = self.energy_bonded_and_14(x, a)
+            e = energy_fn(x, *args)
             (g,) = torch.autograd.grad(e, x)
         return e.detach(), -g
 

@@ -1,9 +1,10 @@
-"""MD of a DMS system with AGBNP1 implicit solvent + OPLS.
+"""MD of a DMS system with AGBNP implicit solvent + OPLS.
 
-Counterpart of the JAX package's md/simulation.py for AGBNP version 1: the
-pair sweeps on the kernel route (over interacting-tile lists by default, as
-in JAX) with the MM dense LJ + Coulomb sum fused into the GB sweep, and
-every MD configuration of the JAX package's benchmark (bench.py):
+Counterpart of the JAX package's md/simulation.py.  AGBNP version 1 runs
+the pair sweeps on the kernel route (over interacting-tile lists by
+default, as in JAX) with the MM dense LJ + Coulomb sum fused into the GB
+sweep, and every MD configuration of the JAX package's benchmark
+(bench.py):
 
   * rebuild windows: a half neighbor list (through a cell grid above 3000
     atoms) and an overlap-tree topology every `neighbor_every` steps,
@@ -25,8 +26,16 @@ and the SHAKE residual stay on the device, and the host reads them once
 per window; a window that overflowed (or whose SHAKE missed tolerance)
 stops the run, and its counts come back for the PanicButton regrow.
 
-Not ported here: versions 0/2 (version != 1 raises), mesh sharding, and
-`mixed=True`.
+Version 0 (GVolSA) takes the same runner paths without pair phases, the
+MM force field by autograd.  Version 2 (AGBNP2, models/agbnp2_torch.py:
+energy by PyTorch, forces by autograd through its analytic reverse rules,
+the dense pair kernels #1-#3 on a card at float32) runs rebuild windows as
+the JAX package does: one build a window (both tree topologies and the
+frozen MS compaction, _v2_build), fixed-topology steps in between, an
+18-entry overflow vector read once a window; no MTS, no WU impulse, no
+vdW-compact WU pass.
+
+Not ported here: mesh sharding and `mixed=True`.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ import numpy as np
 import torch
 
 from ..io.checkpoint import save_checkpoint
+from ..models.agbnp2_torch import AGBNP2Model, agbnp2_energy, \
+    ms_pair_cutoff
 from ..models.agbnp_torch import AGBNPModel, energy_forces
 from ..models.params import AGBNPParams
 from ..ops import tree as T
@@ -77,6 +88,10 @@ class Simulation:
     the one-shot model's 1.6, since every row-indexed tree op costs per
     padded row, counts drift slowly at equilibrium, and the PanicButton
     covers the tail.
+
+    version: 0 (GVolSA), 1 (AGBNP1) or 2 (AGBNP2, an AGBNP2Model sized
+    from the DMS positions as JAX sizes it; its pair phases run through the
+    CUDA kernels on a card at float32).
     """
 
     def __init__(self, dms, *, device, version: int = 1,
@@ -85,21 +100,33 @@ class Simulation:
                  caps_boost: float = 1.10, descreen_horizon=None,
                  pair_tiles=None, share_qd: bool = True,
                  constraints: bool = False, vsites=None):
-        if version != 1:
-            raise ValueError(f"version {version}: MD is ported for "
-                             "AGBNP version 1 only")
+        if version not in (0, 1, 2):
+            raise ValueError(f"version {version}: expected 0, 1 or 2")
         self.dms = dms
         self.device = torch.device(device)
         self.dtype = dtype
         params = AGBNPParams(radius=dms.agbnp_radius, gamma=dms.agbnp_gamma,
                              alpha=dms.agbnp_alpha, charge=dms.charges,
                              ishydrogen=dms.ishydrogen)
-        self.agbnp = AGBNPModel(params, device=self.device, dtype=dtype,
-                                version=1, cutoff=cutoff, caps=caps,
-                                positions=dms.positions,
-                                caps_boost=caps_boost,
-                                descreen_horizon=descreen_horizon,
-                                pair_tiles=pair_tiles, share_qd=share_qd)
+        self.agbnp2 = None
+        if version == 2:
+            # AGBNP2: MS candidate pairs rebuilt on the device at every
+            # window start from a half list within ms_pair_cutoff
+            self.agbnp2 = AGBNP2Model(params, device=self.device, dtype=dtype,
+                                      positions=np.asarray(dms.positions),
+                                      cutoff=cutoff, caps=caps)
+            self.agbnp = self.agbnp2
+            self.ms_rcut = ms_pair_cutoff(params.radii_vdw)
+            self.ms_kmax_list = _kmax_for(host_max_neighbors(
+                np.asarray(dms.positions), np.asarray(params.ishydrogen) == 0,
+                self.ms_rcut))
+        else:
+            self.agbnp = AGBNPModel(params, device=self.device, dtype=dtype,
+                                    version=version, cutoff=cutoff,
+                                    caps=caps, positions=dms.positions,
+                                    caps_boost=caps_boost,
+                                    descreen_horizon=descreen_horizon,
+                                    pair_tiles=pair_tiles, share_qd=share_qd)
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         self.mm = MMForceField.from_dms(dms, cutoff=cutoff, dtype=np_dtype)
         self.masses = torch.as_tensor(dms.masses, dtype=dtype,
@@ -150,12 +177,14 @@ class Simulation:
         least 4, so a window can never come out degenerate).  Runners built
         before this call are stale; if the lean capacities prove too small
         the PanicButton grows them back."""
+        if self.agbnp2 is not None:
+            raise ValueError("resize_caps_to_current supports versions 0/1")
         pos = (self.positions if positions is None else torch.as_tensor(
             positions, dtype=self.dtype, device=self.device))
         pos_np = pos.detach().cpu().numpy()
         m = self.agbnp
         self.agbnp = AGBNPModel(m.params, device=self.device,
-                                dtype=self.dtype, version=1,
+                                dtype=self.dtype, version=m.version,
                                 cutoff=m.cutoff, positions=pos_np,
                                 caps_boost=caps_boost,
                                 descreen_horizon=m.descreen_horizon,
@@ -181,19 +210,29 @@ class Simulation:
                                                        temperature, gen)
         return self.velocities
 
+    def _fuse_mm(self) -> bool:
+        """The MM LJ + Coulomb sum rides the GB sweep: AGBNP1 on the kernel
+        route.  Versions 0 and 2 add the dense sum by autograd."""
+        return self.agbnp.version == 1 and self.agbnp.pair_pad > 0
+
     def ff_state(self) -> dict:
         """Force-field tensors the MD step reads: the AGBNP arrays, the MM
-        arrays, and the exclusion rows in the pair sweeps' Morton-permuted
-        row space (rows reordered, atom-id values remapped)."""
+        arrays, and the exclusions: as rows in the pair sweeps'
+        Morton-permuted row space (rows reordered, atom-id values remapped)
+        where the GB sweep carries the MM sum, else as an [N, N] mask."""
+        ff = dict(a=self.agbnp.arrays,
+                  mm=self.mm.tensors(self.device, self.dtype))
+        if not self._fuse_mm():
+            ff["mm_excl_mask"] = torch.as_tensor(self.mm.excl_mask(),
+                                                 device=self.device)
+            return ff
         a = self.agbnp.arrays_np
         er = self.mm.excl_rows()
         rinv = a["rinv"]
         epm = np.where(er >= 0, rinv[np.clip(er, 0, None)], -1)
-        return dict(a=self.agbnp.arrays,
-                    mm=self.mm.tensors(self.device, self.dtype),
-                    excl_rows_perm=torch.as_tensor(
-                        epm[a["rperm"]].astype(np.int32),
-                        device=self.device))
+        ff["excl_rows_perm"] = torch.as_tensor(
+            epm[a["rperm"]].astype(np.int32), device=self.device)
+        return ff
 
     def force_fn(self, pairs=None, topology=None, ff=None,
                  split: bool = False, vdw_topology=None,
@@ -201,7 +240,10 @@ class Simulation:
         """Returns fn(pos) -> (energy, force, counts).
 
         AGBNP1 energy + analytic forces with the OPLS dense LJ + Coulomb
-        sum riding the GB sweep; bonded terms and 1-4 pairs by autograd.
+        sum riding the GB sweep; bonded terms and 1-4 pairs by autograd
+        (version 0: the whole MM force field by autograd; version 2: see
+        _force_fn_v2, where pairs are the MS candidate pairs and topology
+        the window's _v2_build).
         pairs: (pairs_i, pairs_j, pairs_valid) from the neighbor list (the
         tree's 2-body candidates; None: the model's all-pairs list);
         topology: a tree_topology() of an earlier build (fixed-topology
@@ -215,9 +257,19 @@ class Simulation:
         fast_fn) for the r-RESPA integrators instead: slow_fn(pos) ->
         (e, f, counts) is AGBNP + the fused MM nonbonded sum, fast_fn(pos)
         -> (e, f) the stiff bonded + 1-4 class."""
+        if self.agbnp2 is not None:
+            if split:
+                raise ValueError("MTS supports AGBNP versions 0/1")
+            if wu_mode != "fused":
+                raise ValueError("wu_mode split/skip (mts_wu) requires "
+                                 "version 1")
+            return self._force_fn_v2(ms_pairs=pairs, topology=topology,
+                                     ff=ff)
         if wu_mode != "fused" and split:
             raise ValueError("wu_mode split/skip (mts_wu) does not combine "
                              "with MTS")
+        if wu_mode != "fused" and self.agbnp.version != 1:
+            raise ValueError("wu_mode split/skip (mts_wu) requires version 1")
         ff = self.ff_state() if ff is None else ff
         m = self.agbnp
         if pairs is None and m.neighbor_kmax > 0:
@@ -228,8 +280,10 @@ class Simulation:
             a = {**a, "pairs_i": pairs[0], "pairs_j": pairs[1],
                  "pairs_valid": pairs[2]}
         mm = ff["mm"]
-        mm_nb = dict(sigma=mm["sigma"], epsq=mm["epsq"],
-                     excl_rows_perm=ff["excl_rows_perm"])
+        fuse_mm = "excl_rows_perm" in ff
+        mm_nb = (dict(sigma=mm["sigma"], epsq=mm["epsq"],
+                      excl_rows_perm=ff["excl_rows_perm"])
+                 if fuse_mm else None)
         vs = self.vsites
 
         def agbnp_part(pos):
@@ -247,7 +301,9 @@ class Simulation:
                                 vdw_topology=vdw_topology,
                                 wu_mode="skip" if wu_mode == "skip"
                                 else "split")
-            energy = out["energy"] + out["details"]["e_mm_nb"]
+            energy = out["energy"]
+            if fuse_mm:
+                energy = energy + out["details"]["e_mm_nb"]
             counts = out["diag"]["counts"].long()
             ptc = out["diag"].get("pair_tile_counts")
             if ptc is not None:
@@ -263,10 +319,27 @@ class Simulation:
         def project(pos):
             return pos if vs is None else project_positions(pos, vs)
 
+        def mm_forces(pos):
+            # the MM terms the pair sweeps do not carry
+            if fuse_mm:
+                return self.mm.bonded_and_14_forces(pos, mm)
+            return self.mm.forces_of(self.mm.energy, pos, mm,
+                                     ff["mm_excl_mask"])
+
         if split:
             def slow_fn(pos):
-                energy, force, f_wu, counts = agbnp_part(project(pos))
-                return energy, spread(force + f_wu), counts
+                pos = project(pos)
+                energy, force, f_wu, counts = agbnp_part(pos)
+                if f_wu is not None:
+                    force = force + f_wu
+                if not fuse_mm:
+                    # the dense LJ/Coulomb sum belongs to the slow class
+                    e_nb, f_nb = self.mm.forces_of(
+                        self.mm.energy_nonbonded, pos, mm,
+                        ff["mm_excl_mask"])
+                    energy = energy + e_nb
+                    force = force + f_nb
+                return energy, spread(force), counts
 
             def fast_fn(pos):
                 e, f = self.mm.bonded_and_14_forces(project(pos), mm)
@@ -277,14 +350,77 @@ class Simulation:
         def fn(pos):
             pos = project(pos)
             energy, force, f_wu, counts = agbnp_part(pos)
-            e_mm, f_mm = self.mm.bonded_and_14_forces(pos, mm)
+            e_mm, f_mm = mm_forces(pos)
             energy = energy + e_mm
             force = spread(force + f_mm)
             if wu_mode == "split":
                 return energy, force, spread(f_wu), counts
-            if wu_mode == "fused":
+            if wu_mode == "fused" and f_wu is not None:
                 force = force + spread(f_wu)
             return energy, force, counts
+
+        return fn
+
+    @staticmethod
+    def _v2_counts(diags, cand_nb):
+        """AGBNP2's 18-entry overflow vector: the atomic tree's level counts
+        [7], the MS tree's [7], then the MS particle count, the MS tree's
+        neighbor maximum, the MS candidate list's maximum and the MS
+        subtraction lists' maximum."""
+        d0, d1 = diags
+        return torch.cat([d0["counts"].long(), d1["counts"].long(),
+                          torch.stack([d1["ms_count"], d1["ms_nbmax"],
+                                       cand_nb, d1["ms_sub_max"]]).long()])
+
+    def _v2_build(self, pos, ff=None):
+        """Window-start AGBNP2 build: both tree topologies and the frozen MS
+        compaction at pos, from MS candidate pairs found on the device.
+        Returns (ms_pairs, (topology, counts)) in force_fn's convention
+        (pairs=, topology=)."""
+        a = self.agbnp2.arrays if ff is None else ff["a"]
+        with torch.no_grad():
+            mpi, mpj, mpv, cand_nb = half_neighbor_pairs(
+                pos, self.heavy_mask, self.ms_rcut, self.ms_kmax_list)
+            diags, topo = agbnp2_energy(
+                a, pos, ms_pi=mpi, ms_pj=mpj, ms_pv=mpv, build_only=True,
+                **self.agbnp2.energy_kwargs())
+        return (mpi, mpj, mpv), (topo, self._v2_counts(diags, cand_nb))
+
+    def _force_fn_v2(self, ms_pairs=None, topology=None, ff=None):
+        """fn(pos) -> (energy, force, counts) for AGBNP2 + the MM force
+        field: forces by autograd (models/agbnp2_torch.py).  With ms_pairs
+        and topology (from _v2_build) the tree builds are fixed-topology
+        rescans (the stale-topology window) and counts are the build's
+        (a rescan cannot overflow); without them every call finds the MS
+        candidates and builds both trees."""
+        ff = self.ff_state() if ff is None else ff
+        a, mm, excl = ff["a"], ff["mm"], ff["mm_excl_mask"]
+        kw = self.agbnp2.energy_kwargs()
+        vs = self.vsites
+
+        def fn(pos):
+            if vs is not None:
+                pos = project_positions(pos, vs)
+            x = pos.detach().requires_grad_(True)
+            with torch.enable_grad():
+                if topology is not None:
+                    topo, counts = topology
+                    e = agbnp2_energy(a, x, ms_pi=ms_pairs[0],
+                                      ms_pj=ms_pairs[1], ms_pv=ms_pairs[2],
+                                      topology=topo, **kw)[0]
+                else:
+                    mpi, mpj, mpv, cand_nb = half_neighbor_pairs(
+                        pos, self.heavy_mask, self.ms_rcut,
+                        self.ms_kmax_list)
+                    e, diags, _ = agbnp2_energy(a, x, ms_pi=mpi, ms_pj=mpj,
+                                                ms_pv=mpv, **kw)
+                    counts = self._v2_counts(diags, cand_nb)
+                (grad,) = torch.autograd.grad(e, x)
+            e_mm, f_mm = self.mm.forces_of(self.mm.energy, pos, mm, excl)
+            force = -grad + f_mm
+            if vs is not None:
+                force = spread_forces(force, vs)
+            return e.detach() + e_mm, force, counts
 
         return fn
 
@@ -375,9 +511,10 @@ class Simulation:
         overflowed, or whose SHAKE missed tolerance, stops the run (its
         forces are invalid) and its counts come back for the regrow.
         """
-        if wu_every > 1 and (mts_inner or neighbor_every <= 0):
-            raise ValueError("wu_every > 1 (mts_wu) requires rebuild-window "
-                             "MD without MTS")
+        if wu_every > 1 and (mts_inner or neighbor_every <= 0
+                             or self.agbnp.version != 1):
+            raise ValueError("wu_every > 1 (mts_wu) requires version 1 "
+                             "rebuild-window MD without MTS")
         masses, rcut, kmax = self.masses, self.rcut_list, self.kmax
         heavy = self.heavy_mask
         neighbor_fn = self.neighbor_fn
@@ -387,7 +524,8 @@ class Simulation:
         ff = self.ff_state()
         a = ff["a"]
         nsub = max(mts_inner, 1)
-        use_vdwc = vdw_compact and rebuild_topology and neighbor_every > 0
+        use_vdwc = (vdw_compact and rebuild_topology and neighbor_every > 0
+                    and self.agbnp2 is None)
         vdw_caps = self._ensure_vdw_caps(vdw_relax) if use_vdwc else None
 
         def make_step(pairs=None, topology=None, vdw_topology=None):
@@ -423,8 +561,23 @@ class Simulation:
 
             return run_strict
 
+        def window_v2(pos, vel, ninner, draw):
+            """One AGBNP2 window: a build, then fixed-topology steps; only
+            the build can overflow, so its counts are the window's."""
+            ms_pairs, topo = self._v2_build(pos, ff)
+            step = make_step(ms_pairs, topo)
+            energies, counts, shake = [], None, None
+            for _ in range(ninner):
+                pos, vel, e, c, sh = step(pos, vel, step_noise(draw))
+                energies.append(e)
+                counts = running_max(counts, c)
+                shake = running_max(shake, sh)
+            return pos, vel, energies, self._no_window_diag(counts, shake)
+
         def window(pos, vel, ninner, draw):
             """One rebuild window: (pos, vel, energies, window diag)."""
+            if self.agbnp2 is not None:
+                return window_v2(pos, vel, ninner, draw)
             pi, pj, pv, nbmax = neighbor_fn(pos, heavy, rcut, kmax)
             pairs = (pi, pj, pv)
             topo = build_counts = vdw_topo = None
@@ -585,6 +738,14 @@ class Simulation:
         constraint tolerance (shake_residual)."""
         rep = {}
         counts = np.asarray(torch.as_tensor(counts).cpu())
+        if shake is not None and self.constraints is not None:
+            tol = self.constraints.tolerance(self.dtype)
+            resid = float(shake)
+            if not resid <= tol:
+                rep["shake_residual"] = (resid, tol)
+        if self.agbnp2 is not None:
+            rep.update(self._overflow_report_v2(counts))
+            return rep
         sibs = np.asarray(torch.as_tensor(sibs).cpu())
         caps = self.agbnp.caps
         for i, (c, c0) in enumerate(zip(counts[:len(caps.caps)], caps.caps)):
@@ -614,12 +775,64 @@ class Simulation:
                 rep["tile_list_born"] = (int(cb), int(lb))
             if lg is not None and int(cg) > int(lg):
                 rep["tile_list_gb"] = (int(cg), int(lg))
-        if shake is not None and self.constraints is not None:
-            tol = self.constraints.tolerance(self.dtype)
-            resid = float(shake)
-            if not resid <= tol:
-                rep["shake_residual"] = (resid, tol)
         return rep
+
+    def _overflow_report_v2(self, c) -> dict:
+        """The AGBNP2 channels of overflow_report over _v2_counts' vector
+        (JAX md/simulation.py::_check_overflow_v2): both trees' level caps,
+        cap_ms, the MS tree's neighbor width, the MS candidate list's width
+        and the MS subtraction lists' width."""
+        m2 = self.agbnp2
+        rep = {}
+        for name, counts, caps in (("tree_level", c[:7], m2.caps.caps),
+                                   ("ms_tree_level", c[7:14],
+                                    m2.caps_ms.caps)):
+            for i, (k, k0) in enumerate(zip(counts, caps)):
+                if int(k) > int(k0):
+                    rep[f"{name}{i + 1}"] = (int(k), int(k0))
+        for name, k, k0 in (("ms_count", c[14], m2.cap_ms),
+                            ("ms_tree_kmax", c[15], m2.ms_kmax),
+                            ("ms_candidate_kmax", c[16], self.ms_kmax_list),
+                            ("ms_subtraction_k", c[17], m2.ms_sub_k)):
+            # the subtraction lists exist only with ms_sub_k > 0
+            if int(k) > int(k0) and (name != "ms_subtraction_k" or k0 > 0):
+                rep[name] = (int(k), int(k0))
+        return rep
+
+    def _regrow_v2(self, counts, headroom: float = 1.3):
+        """PanicButton resize for AGBNP2 (JAX md/simulation.py::
+        _regrow_v2): the atomic and MS tree caps, cap_ms and the three list
+        widths grow past the measured maxima, and the model is rebuilt."""
+        c = np.asarray(torch.as_tensor(counts).cpu())
+        m2 = self.agbnp2
+
+        def grow_caps(old, seen):
+            return T.TreeCaps(
+                caps=tuple(max(c0, 2 * c0 if int(k) > c0 else c0,
+                               _align(int(k) * headroom))
+                           for c0, k in zip(old.caps, seen)),
+                offs=old.offs)
+
+        cap_ms = m2.cap_ms
+        if int(c[14]) > cap_ms:
+            cap_ms = _align(int(c[14]) * 1.5)
+        ms_kmax = m2.ms_kmax
+        if int(c[15]) > ms_kmax:
+            ms_kmax = _kmax_for(int(c[15]))
+        if int(c[16]) > self.ms_kmax_list:
+            self.ms_kmax_list = _kmax_for(int(c[16]))
+        ms_sub_k = m2.ms_sub_k
+        if ms_sub_k > 0 and int(c[17]) > ms_sub_k:
+            ms_sub_k = _kmax_for(int(c[17]))
+        self.agbnp2 = AGBNP2Model(m2.params, device=self.device,
+                                  dtype=self.dtype,
+                                  positions=np.asarray(self.dms.positions),
+                                  cutoff=m2.cutoff,
+                                  caps=grow_caps(m2.caps, c[:7]),
+                                  caps_ms=grow_caps(m2.caps_ms, c[7:14]),
+                                  cap_ms=cap_ms, ms_kmax=ms_kmax,
+                                  ms_sub_k=ms_sub_k)
+        self.agbnp = self.agbnp2
 
     def _regrow(self, counts, nbmax, sibs, wu=None, shake=None,
                 headroom: float = 1.3):
@@ -628,6 +841,13 @@ class Simulation:
         maxima plus headroom, grow the WU-compact caps past their kept-row
         counts, and give SHAKE two more Newton sweeps if it missed its
         tolerance.  Runners built before this call are stale."""
+        if (shake is not None and self.constraints is not None
+                and not float(shake) <= self.constraints.tolerance(
+                    self.dtype)):
+            self.constraints.sweeps = min(self.constraints.sweeps + 2,
+                                          self.constraints.max_iter)
+        if self.agbnp2 is not None:
+            return self._regrow_v2(counts, headroom)
         old = self.agbnp.caps
         counts = np.asarray(torch.as_tensor(counts).cpu())
         # trailing tile-list counts: grow the model's budgets before the
@@ -651,11 +871,6 @@ class Simulation:
                                max(8, int(np.ceil(int(k) * headroom / 8) * 8)))
                            for o, k in zip(old_wu, wu))
             self._vdw_caps = (relax, new_wu)
-        if (shake is not None and self.constraints is not None
-                and not float(shake) <= self.constraints.tolerance(
-                    self.dtype)):
-            self.constraints.sweeps = min(self.constraints.sweeps + 2,
-                                          self.constraints.max_iter)
         if int(nbmax) > self.kmax:
             if self.grid is not None:
                 # a cell-capacity overflow reports kmax+1 through this

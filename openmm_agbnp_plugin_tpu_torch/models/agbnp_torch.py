@@ -332,6 +332,26 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     return out
 
 
+def _pair_phases_plain(a, pos, s_factor, cutoff, box, ntypes_j: int,
+                       horizon=None):
+    """The same phases as _pair_phases_kernel (born sums, GB self/pair +
+    vdW + direct forces, BrW/BrU, the descreening sweep) as the dense
+    [N, N] torch ops of ops/born.py, in atom order: the plain route."""
+    geom = B.born_radii(pos, a["radii_vdw"], s_factor, a["ishydrogen"],
+                        a["type_i"], a["type_j"], a["yflat"], a["y2flat"],
+                        ntypes_j, box=box, horizon=horizon)
+    br = geom["born_radius"]
+    gb = B.gb_energy(pos, a["charge"], br, geom, cutoff=cutoff)
+    evdw_der_brw, egb_der_bru = B.born_chain_factors(
+        a["alpha"], a["charge"], br, geom["inv_br_fp"], gb["egb_der_Y"])
+    sweep = B.descreening_sweep(geom, s_factor, evdw_der_brw, egb_der_bru)
+    return dict(gb_self=gb["gb_self"], gb_pair=gb["gb_pair"],
+                e_vdw=B.vdw_energy(a["alpha"], br), born_radius=br,
+                pair_force=gb["force"] + sweep["force"],
+                evdw_der_W=sweep["evdw_der_W"],
+                egb_der_U=sweep["egb_der_U"])
+
+
 def tree_candidates(a: dict, pos, neighbor_rcut: float = 0.0,
                     neighbor_kmax: int = 0, neighbor_grid=None):
     """The overlap tree's 2-body candidates for one evaluation: the arrays'
@@ -402,16 +422,10 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
 
     # volume scaling factors (ReferenceAGBNPKernels.cpp:420-430)
     s_factor = self_volume / a["vol_vdw_all"]
-    e_mm_nb = None
     if pair_pad > 0:
         pp = _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad,
                                  horizon=descreen_horizon, mm_nb=mm_nb,
                                  pair_tiles=pair_tiles, share_qd=share_qd)
-        gb_self, gb_pair_e, e_vdw = pp["gb_self"], pp["gb_pair"], pp["e_vdw"]
-        br = pp["born_radius"]
-        pair_force = pp["pair_force"]
-        evdw_der_W, egb_der_U = pp["evdw_der_W"], pp["egb_der_U"]
-        e_mm_nb = pp.get("e_mm_nb")
         if "tile_counts" in pp:
             diag = {**diag, "pair_tile_counts": pp["tile_counts"],
                     "pair_tile_budgets": np.asarray(
@@ -421,19 +435,12 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     else:
         if mm_nb is not None:
             raise ValueError("the fused MM sum rides the kernel route only")
-        geom = B.born_radii(pos, a["radii_vdw"], s_factor, a["ishydrogen"],
-                            a["type_i"], a["type_j"], a["yflat"], a["y2flat"],
-                            ntypes_j, box=box, horizon=descreen_horizon)
-        br = geom["born_radius"]
-        gb = B.gb_energy(pos, a["charge"], br, geom, cutoff=cutoff)
-        e_vdw = B.vdw_energy(a["alpha"], br)
-        evdw_der_brw, egb_der_bru = B.born_chain_factors(
-            a["alpha"], a["charge"], br, geom["inv_br_fp"], gb["egb_der_Y"])
-        sweep = B.descreening_sweep(geom, s_factor, evdw_der_brw,
-                                    egb_der_bru)
-        gb_self, gb_pair_e = gb["gb_self"], gb["gb_pair"]
-        pair_force = gb["force"] + sweep["force"]
-        evdw_der_W, egb_der_U = sweep["evdw_der_W"], sweep["egb_der_U"]
+        pp = _pair_phases_plain(a, pos, s_factor, cutoff, box, ntypes_j,
+                                horizon=descreen_horizon)
+    gb_self, gb_pair_e, e_vdw = pp["gb_self"], pp["gb_pair"], pp["e_vdw"]
+    br, pair_force = pp["born_radius"], pp["pair_force"]
+    evdw_der_W, egb_der_U = pp["evdw_der_W"], pp["egb_der_U"]
+    e_mm_nb = pp.get("e_mm_nb")
 
     energy = e_cav + gb_self + gb_pair_e + e_vdw
     force = f_cav + pair_force

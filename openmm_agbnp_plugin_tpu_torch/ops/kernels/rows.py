@@ -29,7 +29,12 @@ import torch
 
 from .pairs import LAUNCHES, _check, _cuda_lib, _launch_check
 
-MAX_COLS = 256  # one thread a column of a cumsum tile
+MAX_COLS = 256  # at least one thread a column of a cumsum tile
+# cumsum_rows' layout (csrc/rows.cu): a block of SCAN_THREADS threads scans
+# a tile of SCAN_THREADS // C parts of PART_ROWS rows; its carry adds the
+# totals of every tile before it while ntiles * C <= FLAT_VALUES, else the
+# group totals of GROUP_TILES tiles and the tile totals inside its group
+SCAN_THREADS, PART_ROWS, GROUP_TILES, FLAT_VALUES = 256, 32, 32, 4096
 
 
 def make_segments(rows: int, parents: int, seed: int = 0) -> np.ndarray:
@@ -61,6 +66,77 @@ def take_rows_reference(table, ids):
 def cumsum_rows_reference(d):
     """Plain twin of cumsum_rows."""
     return torch.cumsum(d, dim=0)
+
+
+def cumsum_layout(ncols: int) -> tuple[int, int]:
+    """(parts, tile rows) of cumsum_rows' tiles for ncols columns: 256 //
+    ncols parts of 32 rows."""
+    parts = max(1, SCAN_THREADS // ncols)
+    return parts, PART_ROWS * parts
+
+
+def _warp_tree(v):
+    """What the kernel's warp_tree gives for the values v [n, C] of one
+    column set: lane j adds v[j], v[j + 32], ... to 0.0 in order, then the
+    lanes meet in an xor butterfly (offsets 16, 8, 4, 2, 1).  Returns [C]."""
+    n, ncols = v.shape
+    blocks = max(1, -(-n // 32))
+    lanes = v.new_zeros((blocks * 32, ncols))
+    lanes[:n] = v
+    acc = v.new_zeros((32, ncols))
+    for k in range(blocks):
+        acc = acc + lanes[32 * k:32 * (k + 1)]
+    lane = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[lane ^ off]
+    return acc[0]
+
+
+def cumsum_rows_mirror(d):
+    """cumsum_rows' summation order in plain torch (the kernel's bits, where
+    both run in float32): per tile, a running sum down each part's 32 rows
+    from 0.0, a Hillis-Steele scan of the part totals over the parts, the
+    tile's carry (while ntiles * C <= FLAT_VALUES the warp tree of the tile
+    totals before it, else the warp tree of the group totals before its
+    group plus the warp tree of its group's tile totals before it; a group
+    total is the warp tree of its 32 tile totals), and each output = the
+    running sum + (the parts before + the carry).  Rows past the end count
+    as zeros."""
+    nrows, ncols = d.shape
+    parts, tile_rows = cumsum_layout(ncols)
+    ntiles = max(1, -(-nrows // tile_rows))
+    x = d.new_zeros((ntiles * tile_rows, ncols))
+    x[:nrows] = d
+    x = x.view(ntiles, parts, PART_ROWS, ncols)
+    run = torch.empty_like(x)
+    acc = d.new_zeros((ntiles, parts, ncols))
+    for i in range(PART_ROWS):
+        acc = acc + x[:, :, i]
+        run[:, :, i] = acc
+    o = 1
+    while o < parts:
+        nxt = acc.clone()
+        nxt[:, o:] = acc[:, o:] + acc[:, :-o]
+        acc = nxt
+        o *= 2
+    totals = acc[:, -1]
+    flat = ntiles * ncols <= FLAT_VALUES
+    groups = [] if flat else [_warp_tree(totals[k:k + GROUP_TILES])
+              for k in range(0, ntiles - GROUP_TILES + 1, GROUP_TILES)]
+    carry = []
+    for b in range(ntiles):
+        if flat:
+            carry.append(_warp_tree(totals[:b]))
+            continue
+        g = b // GROUP_TILES
+        before = (torch.stack(groups[:g]) if g
+                  else totals.new_zeros((0, ncols)))
+        carry.append(_warp_tree(before)
+                     + _warp_tree(totals[g * GROUP_TILES:b]))
+    carry = torch.stack(carry)
+    pre = torch.cat([acc.new_zeros((ntiles, 1, ncols)), acc[:, :-1]], dim=1)
+    out = run + (pre + carry[:, None])[:, :, None]
+    return out.reshape(ntiles * tile_rows, ncols)[:nrows]
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +188,10 @@ def take_rows(table, ids):
     On a CUDA device a float32 table of any width C >= 1 goes through the
     kernel, which moves the widest pieces (16, 8 or 4 bytes) that divide a
     row and that table and out are aligned to; bitwise the twin.  The
-    kernel is float32 only: a table of another dtype there raises.
+    kernel moves 32-bit words: a float64 table moves as the float32 view
+    of its rows (two words a value, so the same bits), which lets the
+    tree's passes run in f64 on the card; a table of another dtype there
+    raises.
     """
     if table.device.type == "cpu":
         return take_rows_reference(table, ids)
@@ -122,6 +201,12 @@ def take_rows(table, ids):
                          "or [P]")
     if table.requires_grad:
         raise ValueError("table: requires grad, and the kernel passes none")
+    if table.dtype == torch.float64:
+        if not table.is_contiguous():
+            raise ValueError("table: not contiguous")
+        words = table.reshape(table.shape[0], -1).view(torch.float32)
+        return take_rows(words, ids).view(torch.float64).reshape(
+            (ids.shape[0],) + tuple(table.shape[1:]))
     nparents = table.shape[0]
     ncols = table.shape[1] if table.dim() == 2 else 1
     nrows = ids.shape[0]
@@ -153,13 +238,32 @@ def take_rows_piece_bytes(table, out) -> int:
     return 4
 
 
+# per (device, stream): the int32 ticket, done count and flags of
+# cumsum_rows, zero between calls (the kernel's last tile clears them)
+_SCAN_STATE: dict = {}
+
+
+def _scan_state(dev, stream: int, need: int):
+    """The stream's zeroed cumsum_rows state of at least `need` ints: two
+    calls in flight on two streams never share one, and calls on one stream
+    run one after another.  A larger call than any before zero-fills a new
+    buffer (one fill launch); otherwise nothing is cleared."""
+    key = (dev.index, stream)
+    st = _SCAN_STATE.get(key)
+    if st is None or st.numel() < need:
+        st = torch.zeros(max(need, 1024), dtype=torch.int32, device=dev)
+        _SCAN_STATE[key] = st
+    return st
+
+
 def cumsum_rows(d):
     """Inclusive prefix sum down the rows of d [R, C], per column.
 
-    On a CUDA device: float32, 1 <= C <= 256, any R.  Two passes over
-    row tiles (tile totals, then each tile's running sums on top of the
-    totals before it), every sum taken in an order the shapes alone fix: two
-    launches give the same bits.  Against the twin (another summation order)
+    On a CUDA device: float32, 1 <= C <= 256, any R; one launch (none for
+    R = 0).  Tiles of 32 (256 // C) rows take tickets in order, publish
+    their column totals and add up those of the tiles before them in an
+    order the shapes alone fix (cumsum_rows_mirror): every launch gives the
+    same bits, on any stream.  Against the twin (another summation order)
     it agrees to float32 roundoff of the column sums."""
     if d.device.type == "cpu":
         return cumsum_rows_reference(d)
@@ -170,14 +274,26 @@ def cumsum_rows(d):
     _check("d", d, torch.float32, (nrows, ncols), dev)
     if not 1 <= ncols <= MAX_COLS:
         raise ValueError(f"d: {ncols} columns, expected 1..{MAX_COLS}")
+    if nrows >= 2 ** 31 // ncols:
+        raise ValueError(f"d: {nrows} rows x {ncols} columns, expected "
+                         "fewer than 2^31 values")
+    out = torch.empty_like(d)
+    if nrows == 0:
+        return out
     lib = _cuda_lib()
     tile_rows = lib.agbnp_cumsum_tile_rows(ncols)
-    ntiles = max(1, -(-nrows // tile_rows))
-    bsum = torch.empty((ntiles, ncols), dtype=torch.float32, device=dev)
-    out = torch.empty_like(d)
+    if tile_rows != cumsum_layout(ncols)[1]:
+        raise RuntimeError("cumsum_rows: csrc/rows.cu and cumsum_layout "
+                           "disagree on the tile")
+    ntiles = -(-nrows // tile_rows)
+    ngroups = -(-ntiles // GROUP_TILES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.agbnp_cumsum_rows(d.data_ptr(), nrows, ncols, bsum.data_ptr(),
-                               out.data_ptr(), stream)
+    state = _scan_state(dev, stream,
+                        lib.agbnp_cumsum_state_ints(nrows, ncols))
+    scratch = torch.empty((ntiles + ngroups) * ncols, dtype=torch.float32,
+                          device=dev)
+    rc = lib.agbnp_cumsum_rows(d.data_ptr(), nrows, ncols, state.data_ptr(),
+                               scratch.data_ptr(), out.data_ptr(), stream)
     _launch_check("cumsum_rows", rc)
     LAUNCHES["cumsum_rows"] += 1
     return out

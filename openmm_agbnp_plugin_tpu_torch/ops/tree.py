@@ -555,7 +555,8 @@ def rescan_gammas(levels, level1):
     return tuple(new_levels)
 
 
-def reduce_tree(levels, level1, with_selfvol: bool = True):
+def reduce_tree(levels, level1, with_selfvol: bool = True,
+                with_dv: bool = False):
     """Bottom-up reduction: energy, gradients, self volumes.
 
     The flattened form of compute_volume_underslot2_r (gaussvol.cpp:400-519):
@@ -567,8 +568,13 @@ def reduce_tree(levels, level1, with_selfvol: bool = True):
     scalar.  All channels ride one [cap, C] matrix: one upward segment sum
     per level and one atom-deposit segment sum at the end.
 
-    Returns dict(energy, dr[, self_volume]); dr is the energy gradient wrt
-    positions (negate for force).
+    with_dv adds the dv channel, V_i dE/dV_i of each atomic volume: an
+    n-body Gaussian product volume is linear in each constituent volume,
+    so each node deposits gv * e_f on its last atom (the AGBNP2 MS tree's
+    free-volume chain, JAX ops/tree.py::reduce_tree).
+
+    Returns dict(energy, dr[, self_volume][, dv]); dr is the energy
+    gradient wrt positions (negate for force).
     """
     natoms = level1["gv"].shape[0]
     dtype = level1["gv"].dtype
@@ -608,6 +614,8 @@ def reduce_tree(levels, level1, with_selfvol: bool = True):
         dep_cols = [dr_dep]
         if with_selfvol:
             dep_cols.append(tot[:, 5:6])
+        if with_dv:
+            dep_cols.append((lvl["gv"] * e_f)[:, None])
         dep_rows.append(torch.cat(dep_cols, dim=1) * vmask[:, None])
         dep_atoms.append(lvl["bnd"]["atom_dep"])
 
@@ -631,8 +639,12 @@ def reduce_tree(levels, level1, with_selfvol: bool = True):
     e_psi = gamma * vol + acc[:, 0]
     dr = deposits[:, 0:3] + acc[:, 2:5]
     result = dict(energy=torch.sum(e_psi), dr=dr)
+    col = 3
     if with_selfvol:
-        result["self_volume"] = vol + acc[:, 5] + deposits[:, 3]
+        result["self_volume"] = vol + acc[:, 5] + deposits[:, col]
+        col += 1
+    if with_dv:
+        result["dv"] = vol * (gamma + acc[:, 1]) + deposits[:, col]
     return result
 
 
@@ -666,13 +678,14 @@ def rescan_volumes2(levels, level1_a, level1_b):
     return tuple(out_a), tuple(out_b)
 
 
-def reduce_tree2(levels_a, levels_b, level1_a, level1_b):
+def reduce_tree2(levels_a, levels_b, level1_a, level1_b,
+                 with_selfvol_b: bool = True, with_selfvol_a: bool = False):
     """Bottom-up reduction of two same-topology trees in one sweep.
 
     Packs both trees' accumulator channels into one matrix so each level
     runs a single upward segment sum; deposits are batched into one.
-    Returns (result_a, result_b) like reduce_tree(with_selfvol=False) and
-    reduce_tree(with_selfvol=True).
+    Returns (result_a, result_b) like reduce_tree(with_selfvol=
+    with_selfvol_a) and reduce_tree(with_selfvol=with_selfvol_b).
     """
     natoms = level1_a["gv"].shape[0]
     dtype = level1_a["gv"].dtype
@@ -680,6 +693,9 @@ def reduce_tree2(levels_a, levels_b, level1_a, level1_b):
     acc = None
     dep_rows = []
     dep_atoms = []
+    # channels past the two 5-channel energy families: sv_b, then sv_a
+    i_svb = 10
+    i_sva = 10 + (1 if with_selfvol_b else 0)
 
     for l in range(NUM_TREE_LEVELS - 1, -1, -1):
         la = levels_a[l]
@@ -696,7 +712,10 @@ def reduce_tree2(levels_a, levels_b, level1_a, level1_b):
             zero = torch.zeros_like(gsfp)
             cols += [volcoeffp * lv["gamma1i"] * lv["volume"], gsfp,
                      zero, zero, zero]
-        cols.append(volcoeffp * lb["volume"])
+        if with_selfvol_b:
+            cols.append(volcoeffp * lb["volume"])
+        if with_selfvol_a:
+            cols.append(volcoeffp * la["volume"])
         tot = torch.stack(cols, dim=1) * vmask[:, None]
         if acc is not None:
             tot = tot + acc
@@ -714,8 +733,9 @@ def reduce_tree2(levels_a, levels_b, level1_a, level1_b):
             p_out = (lv["dv1"] * e_f[:, None]
                      + e_p * ((a1i - ai) / safe)[:, None])
             ups += [tot[:, base:base + 1], (lv["dvv1"] * e_f)[:, None], p_out]
-        dep_cols.append(tot[:, 10:11])
-        ups.append(tot[:, 10:11])
+        # the self-volume psi channels deposit and pass up as they are
+        dep_cols.append(tot[:, 10:])
+        ups.append(tot[:, 10:])
         dep_rows.append(torch.cat(dep_cols, dim=1) * vmask[:, None])
         dep_atoms.append(la["bnd"]["atom_dep"])
 
@@ -731,6 +751,10 @@ def reduce_tree2(levels_a, levels_b, level1_a, level1_b):
         e_psi = l1["gamma1i"] * l1["gv"] + acc[:, base]
         dr = deposits[:, dbase:dbase + 3] + acc[:, base + 2:base + 5]
         results.append(dict(energy=torch.sum(e_psi), dr=dr))
-    results[1]["self_volume"] = (level1_b["gv"] + acc[:, 10]
-                                 + deposits[:, 6])
+    if with_selfvol_b:
+        results[1]["self_volume"] = (level1_b["gv"] + acc[:, i_svb]
+                                     + deposits[:, 6])
+    if with_selfvol_a:
+        results[0]["self_volume"] = (level1_a["gv"] + acc[:, i_sva]
+                                     + deposits[:, 6 + i_sva - 10])
     return results[0], results[1]

@@ -58,7 +58,8 @@ SIGNATURES = {
                                 _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
     "agbnp_take_rows": (_P, _I, _I, _P, _I, _P, _P),
     "agbnp_cumsum_tile_rows": (_I,),
-    "agbnp_cumsum_rows": (_P, _I, _I, _P, _P, _P),
+    "agbnp_cumsum_state_ints": (_I, _I),
+    "agbnp_cumsum_rows": (_P, _I, _I, _P, _P, _P, _P),
 }
 
 

@@ -8,6 +8,7 @@
     python3 profile_port_step.py [SYSTEM] --row-probes [ROWS PARENTS REPS]
     python3 profile_port_step.py [SYSTEM] --device-shares [--dense]
                                  [--steps 200] [--root DIR] [--dump F.npz]
+                                 [--version 0|1|2]
     python3 profile_port_step.py --same A.npz B.npz
 
 Runs the port's MD configuration on SYSTEM (a name under benchmarks/data,
@@ -57,8 +58,10 @@ benchmarks/micro_pallas_gather.py: device ms and ns/row of the stock sorted
 gather `table[ids]`, `torch.index_select`, the port's `segment_sum` over
 every row (the padding rows form one long segment) and the sum with the
 level's own lengths, which count its valid rows alone, the hand kernel
-`take_rows`, `torch.cumsum`, the hand kernel `cumsum_rows`, and
-the whole gather-free broadcast (boundary diffs scattered, then
+`take_rows`, `torch.cumsum`, the hand kernel `cumsum_rows` (beside
+it built without its in-kernel state reset, over states zeroed ahead and
+over a fresh `torch.zeros` state a call), and the whole gather-free
+broadcast (boundary diffs scattered, then
 `cumsum_rows`), with the broadcast's largest deviation from the gather; at
 the probe's shape (segment ids from numpy seed 0, an 8-column f32 table)
 and at the widest level of SYSTEM's overlap tree (2clr by default) from the
@@ -72,7 +75,9 @@ clock, after an equal warm-up) and then profiles one 40-step rebuild
 window: device ms and kernel launches per step, and the shares of
 `torch.segment_reduce`, of PyTorch's own index and gather kernels, and of
 the hand kernel `take_rows` in the device time, and the pair sweeps' hand
-kernels one by one (device ms and launches a step).  --root DIR imports the
+kernels one by one (device ms and launches a step); --version 0 or 2 runs
+that AGBNP version's Simulation instead (version 2: AGBNP2, its pair phases
+on the dense grid).  --root DIR imports the
 package from another checkout of this repository (an older commit unpacked
 into DIR) instead of this one, so that two commits can be compared within
 one call on one card; --dump F.npz saves what the run computed (one force
@@ -328,6 +333,9 @@ def row_probes(dev, card, rows=85504, parents=34816, reps=50,
             results[label][name] = ms
             print(f"  {name:32s}: {ms:8.4f} ms ({ms / nrows * 1e6:7.3f} "
                   "ns/row)", flush=True)
+        for name, ms in cumsum_reset_probe(dev, payload, reps).items():
+            results[label][name] = ms
+            print(f"  {name:32s}: {ms:8.4f} ms", flush=True)
         print(f"  cumsum_rows vs f64: {err / scale:.3e} of max cumsum|d|; "
               f"broadcast's max deviation from the gather: "
               f"{RW.broadcast_deviation(tab, idv):.3e} (max|v| "
@@ -351,6 +359,65 @@ def row_probes(dev, card, rows=85504, parents=34816, reps=50,
               f"take_rows {ms:8.4f} ms, table[ids] {stock:8.4f} ms",
               flush=True)
     return results
+
+
+def cumsum_reset_probe(dev, payload, reps):
+    """What cumsum_rows' in-kernel reset costs: the kernel as built (the
+    wrapper keeps a zeroed state a stream and the last tile clears it
+    again) beside csrc/rows.cu built alone with -DCUMSUM_NO_RESET (no done
+    count, no clear), over states zeroed ahead of the timed calls and over
+    a fresh torch.zeros state a call (the design the reset replaces: one
+    fill launch more).  Each variant is first held bitwise to the wrapper.
+    Returns {probe: ms}; {} for a checkout whose rows.cu has no switch."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import cuda_time_ms
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+    from openmm_agbnp_plugin_tpu_torch.runtime import build
+
+    src = build.CSRC / "rows.cu"
+    if "CUMSUM_NO_RESET" not in src.read_text():
+        return {}
+    so = build.library_path().parent / "cumsum_no_reset.so"
+    if not so.exists():
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DCUMSUM_NO_RESET",
+                        "-shared", "-o", str(so), str(src)], check=True,
+                       capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    scan = lib.agbnp_cumsum_rows
+    scan.argtypes = list(build.SIGNATURES["agbnp_cumsum_rows"])
+    nrows, ncols = payload.shape
+    need = lib.agbnp_cumsum_state_ints(nrows, ncols)
+    ntiles = -(-nrows // RW.cumsum_layout(ncols)[1])
+    scratch = torch.empty((ntiles + -(-ntiles // RW.GROUP_TILES)) * ncols,
+                          dtype=torch.float32, device=dev)
+    out = torch.empty_like(payload)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(state):
+        rc = scan(payload.data_ptr(), nrows, ncols, state.data_ptr(),
+                  scratch.data_ptr(), out.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"cumsum_rows without reset: CUDA error {rc}")
+
+    def fresh():
+        return torch.zeros(need, dtype=torch.int32, device=dev)
+
+    run(fresh())
+    if not torch.equal(out, RW.cumsum_rows(payload)):
+        raise AssertionError("cumsum_rows without reset differs from the "
+                             "kernel as built")
+    ahead = iter([fresh() for _ in range(reps + 1)])
+    return {
+        "cumsum_rows, reset by last tile": cuda_time_ms(
+            lambda: RW.cumsum_rows(payload), reps),
+        "no reset, state zeroed ahead": cuda_time_ms(
+            lambda: run(next(ahead)), reps),
+        "no reset, torch.zeros a call": cuda_time_ms(
+            lambda: run(fresh()), reps),
+    }
 
 
 def _device_kernels(prof):
@@ -381,10 +448,12 @@ SHARE_GROUPS = {
 SHARE_ITEMIZED = ("pair sweeps (hand kernels)",)
 
 
-def device_shares(dev, card, dms, steps, kw, dump=None):
+def device_shares(dev, card, dms, steps, kw, dump=None, version=1):
     """--device-shares: the strict run's ms/step on the host clock, then one
     profiled rebuild window's device time, launches and the row movers'
-    shares of it."""
+    shares of it.  version 0 or 2 runs that AGBNP version's Simulation
+    (version 2 takes the cutoff alone: its pair phases run the dense grid
+    with the 2 nm horizon, as in JAX)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -393,14 +462,16 @@ def device_shares(dev, card, dms, steps, kw, dump=None):
     from openmm_agbnp_plugin_tpu_torch import Simulation
 
     window = 40
-    sim = Simulation(dms, device=dev, version=1, dtype=torch.float32,
+    if version == 2:
+        kw = dict(cutoff=kw["cutoff"])
+    sim = Simulation(dms, device=dev, version=version, dtype=torch.float32,
                      skin=0.25, **kw)
     r = sim.benchmark_langevin(nsteps=steps, neighbor_every=window)
     ms_step = r["elapsed_s"] / r["steps_run"] * 1e3
     print(f"card: {card}; package {os.path.dirname(pkg.__file__)}; "
-          f"{dms.n} atoms, f32, strict run, pair_tiles "
-          f"{sim.agbnp.pair_tiles}, tree rows {sum(sim.agbnp.caps.caps)}",
-          flush=True)
+          f"{dms.n} atoms, f32, AGBNP version {version}, strict run, "
+          f"pair_tiles {getattr(sim.agbnp, 'pair_tiles', None)}, tree rows "
+          f"{sum(sim.agbnp.caps.caps)}", flush=True)
     print(f"  {steps} steps after an equal warm-up: {ms_step:.3f} ms/step on "
           f"the host clock ({r['ns_day']:.3f} ns/day), regrows "
           f"{r['regrows']}, overflow {r['overflow']}", flush=True)
@@ -442,7 +513,7 @@ def device_shares(dev, card, dms, steps, kw, dump=None):
     for e in top:
         print(f"    top: {e.self_device_time_total / 1e3 / window:8.4f} "
               f"ms/step x{e.count / window:6.1f}  {e.key[:90]}", flush=True)
-    if dump:
+    if dump and version == 1:
         # one evaluation of each kind at a window start, and the timed run
         from chip_smoke import window_start
 
@@ -506,6 +577,8 @@ def main() -> int:
                          "device ms/step, launches, the row movers' shares")
     ap.add_argument("--root", metavar="DIR",
                     help="import the package from this other checkout")
+    ap.add_argument("--version", type=int, default=1, choices=(0, 1, 2),
+                    help="with --device-shares: the AGBNP version (1)")
     ap.add_argument("--dump", metavar="F.npz",
                     help="with --device-shares: save what the run computed")
     ap.add_argument("--same", nargs=2, metavar="F.npz",
@@ -550,7 +623,8 @@ def main() -> int:
     if args.caps_compare:
         return caps_compare(dev, card, d, args.steps, kw)
     if args.device_shares:
-        return device_shares(dev, card, d, args.steps, kw, dump=args.dump)
+        return device_shares(dev, card, d, args.steps, kw, dump=args.dump,
+                             version=args.version)
     # the Simulation sizes its lean tree capacities (caps_boost 1.10) from
     # the DMS positions
     sim = Simulation(d, device=dev, version=1, dtype=torch.float32,

@@ -5,7 +5,7 @@ The version 0/1 cases of tests/test_api.py, mirrored on
 every case that evaluates also runs the same particle table through the JAX
 package's Context (f64, CPU) and holds energy and forces to 1e-10 relative.
 Plus the model surface the Context rests on (update_params, energy_only),
-the version 2 refusal, and AGBNPHtable.
+version 2 through the Context, and AGBNPHtable.
 """
 
 import warnings
@@ -114,17 +114,42 @@ def test_context_energy_golden(gaussvol_system, version, anchor):
 
 
 def test_context_v2_not_ported(gaussvol_system):
-    """Version 2 is a legal force setting that the port's Context refuses
-    out loud (no silent version 1)."""
+    """Version 2, which this Context once refused, now evaluates (through
+    AGBNP2Model, built at the first evaluation): the in-repo V2 anchor on
+    the 40-atom subset (tests/test_agbnp2.py::V2_GOLDEN), and an existing
+    version 1 Context switched to version 2 by updateParametersInContext
+    evaluates version 2.  tests/test_torch_agbnp2.py holds it to JAX."""
     params, pos = gaussvol_system
     f2 = _fill(P.AGBNPForce(), params, n=40, version=2)
-    with pytest.raises(NotImplementedError, match="version 2"):
-        P.Context(f2, dtype=torch.float64, device="cpu")
-    # an existing Context refuses the switch too and keeps its force
+    ctx2 = P.Context(f2, dtype=torch.float64, device="cpu")
+    ctx2.setPositions(pos[:40])
+    e2, f = ctx2.getEnergyForces()
+    assert e2 == pytest.approx(-505.76495633268286, rel=1e-9)
+    assert tuple(f.shape) == (40, 3) and bool(torch.isfinite(f).all())
     f1 = _fill(P.AGBNPForce(), params, n=40, version=1)
     ctx = P.Context(f1, dtype=torch.float64, device="cpu")
+    ctx.setPositions(pos[:40])
+    e1 = ctx.getEnergyForces()[0]
     f1.setVersion(2)
-    with pytest.raises(NotImplementedError):
+    f1.updateParametersInContext(ctx)
+    assert ctx.getEnergyForces()[0] == e2 != e1
+
+
+def test_context_v2_refuses_a_periodic_box(gaussvol_system):
+    """Version 2 runs its MS stage and pair phases without a box: a
+    CutoffPeriodic v2 force is refused, at the Context and when a live
+    Context's force switches to it."""
+    params, pos = gaussvol_system
+    box = ((7.0, 0, 0), (0, 7.0, 0), (0, 0, 7.0))
+    f2 = _fill(P.AGBNPForce(), params, n=40, version=2)
+    f2.setNonbondedMethod(P.NonbondedMethod.CutoffPeriodic)
+    with pytest.raises(NotImplementedError, match="periodic"):
+        P.Context(f2, dtype=torch.float64, device="cpu", box=box)
+    f1 = _fill(P.AGBNPForce(), params, n=40, version=1)
+    f1.setNonbondedMethod(P.NonbondedMethod.CutoffPeriodic)
+    ctx = P.Context(f1, dtype=torch.float64, device="cpu", box=box)
+    f1.setVersion(2)
+    with pytest.raises(NotImplementedError, match="periodic"):
         f1.updateParametersInContext(ctx)
 
 

@@ -812,9 +812,20 @@ def test_take_rows_bitwise_equal_to_the_twin(cuda, rows, parents, cols):
         assert torch.equal(out, RW.take_rows(off, ids))
         assert torch.equal(out.cpu(), RW.take_rows(table.cpu(), ids.cpu()))
     assert PK.launch_counts()["take_rows"] == before + 9
-    # the kernel is float32 only: another dtype on the card raises
+    # the kernel moves 32-bit words: a float64 table moves as two words a
+    # value, bitwise its twin (the tree's passes in f64 on the card); a
+    # table of another dtype raises
+    t64 = table.double() / 3.0
+    before = PK.launch_counts()["take_rows"]
+    out64 = RW.take_rows(t64, wild)
+    assert out64.dtype == torch.float64 and out64.shape == (rows, cols)
+    assert torch.equal(out64, RW.take_rows_reference(t64, wild))
+    if cols == 1:
+        assert torch.equal(RW.take_rows(t64[:, 0].contiguous(), wild),
+                           out64[:, 0])
+    assert PK.launch_counts()["take_rows"] == before + 1 + (cols == 1)
     with pytest.raises(TypeError):
-        RW.take_rows(table.double(), wild)
+        RW.take_rows(table.half(), wild)
     want = 16 if cols % 4 == 0 else 8 if cols % 2 == 0 else 4
     assert RW.take_rows_piece_bytes(table, out) == want
     assert RW.take_rows_piece_bytes(off, out) == 4
@@ -828,11 +839,12 @@ def test_take_rows_bitwise_equal_to_the_twin(cuda, rows, parents, cols):
                                        (1, 8), (33, 1), (5000, 13),
                                        (3000, 256)])
 def test_cumsum_rows_repeatable_and_within_its_bound(cuda, rows, cols):
-    """R not a multiple of the tile (1,056 rows at 8 columns), one tile
-    exactly, R = 1, other widths: two launches equal bit for bit; every
-    output is a chain of at most 33 + segments + tiles rounded partial
-    sums, so it lies within 1e-5 of an f64 prefix sum at these sizes,
-    measured against the running sum of |d|; signed data included."""
+    """R not a multiple of the tile (1,024 rows at 8 columns), R = 1, other
+    widths: one launch a call, two launches equal bit for bit; every
+    output is a chain of at most 8 + log2(parts) + a few look-back sums of
+    rounded partial sums, so it lies within 1e-5 of an f64 prefix sum at
+    these sizes, measured against the running sum of |d|; signed data
+    included."""
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
 
     rng = np.random.RandomState(2)
@@ -850,6 +862,61 @@ def test_cumsum_rows_repeatable_and_within_its_bound(cuda, rows, cols):
     twin = RW.cumsum_rows_reference(d)
     assert float((out - twin).abs().max()) <= float(
         (twin.double() - ref).abs().max()) + 1e-5 * scale
+
+
+@pytest.mark.parametrize("cols", [1, 3, 8, 13, 26, 256])
+def test_cumsum_rows_bitwise_its_mirror(cuda, cols):
+    """The kernel's bits are cumsum_rows_mirror's (the same float32 sums
+    in the same order), on shapes that are not a tile multiple, with the
+    carry over every tile before and over groups of 32 tiles, on 1 row,
+    and on 0 rows (no launch);
+    twice bitwise; within 1e-5 of max|f64 prefix sum|."""
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    tile_rows = RW.cumsum_layout(cols)[1]
+    # past FLAT_VALUES // C tiles the carry takes the group level (and more
+    # than 32 groups); 4 tiles: one tree over every tile before
+    grouped = RW.FLAT_VALUES // cols + 34
+    for rows in (grouped * tile_rows - 3, 3 * tile_rows + 5, 1, 0):
+        rng = np.random.RandomState(rows + cols)
+        d = torch.as_tensor(rng.rand(rows, cols) - 0.3, dtype=torch.float32,
+                            device=cuda)
+        before = PK.launch_counts()["cumsum_rows"]
+        out = RW.cumsum_rows(d)
+        assert PK.launch_counts()["cumsum_rows"] == before + (rows > 0)
+        assert tuple(out.shape) == (rows, cols)
+        if rows == 0:
+            continue
+        assert torch.equal(out, RW.cumsum_rows(d))
+        assert torch.equal(out, RW.cumsum_rows_mirror(d))
+        assert torch.equal(out.cpu(), RW.cumsum_rows_mirror(d.cpu()))
+        ref = torch.cumsum(d.double(), 0)
+        assert float((out.double() - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max().clamp_min(1.0))
+
+
+def test_cumsum_rows_two_streams_at_once(cuda):
+    """Calls in flight on two streams keep their own tickets and flags:
+    each result is bitwise the one-stream result, and a third call on the
+    default stream after them is too (the flags were cleared)."""
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    rng = np.random.RandomState(9)
+    xs = [torch.as_tensor(rng.rand(85504, 8) - 0.5, dtype=torch.float32,
+                          device=cuda) for _ in range(2)]
+    ref = [RW.cumsum_rows(x) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in xs]
+    outs = [None, None]
+    for _ in range(20):
+        for i, (x, st) in enumerate(zip(xs, streams)):
+            st.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(st):
+                outs[i] = RW.cumsum_rows(x)
+        torch.cuda.synchronize()
+        for o, r in zip(outs, ref):
+            assert torch.equal(o, r)
+    assert torch.equal(RW.cumsum_rows(xs[0]), ref[0])
 
 
 def test_row_wrappers_reject_bad_inputs(cuda):
@@ -1085,3 +1152,108 @@ def test_shipped_systems_on_card_against_f64_records(cuda, name):
                                f"{name}_agbnp1_f64.npz"))
     assert abs(float(e) - float(ref["e"])) <= 1e-5 * abs(float(ref["e"]))
     assert rel(f, torch.as_tensor(ref["f"])) <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def v2_systems():
+    """name -> (AGBNPParams, positions): the fixture's first 40 atoms, all
+    264, and 1li2."""
+    pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(FIXTURE)
+    out = {}
+    for n in (40, 264):
+        out[f"fixture{n}"] = (AGBNPParams(
+            radius=radius[:n], gamma=gamma[:n], alpha=alpha[:n],
+            charge=charge[:n], ishydrogen=ish[:n]), pos[:n])
+    d = load_dms(os.path.join(DATA, "1li2_agbnp1.dms"))
+    out["1li2"] = (AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                               alpha=d.agbnp_alpha, charge=d.charges,
+                               ishydrogen=d.ishydrogen), d.positions)
+    return out
+
+
+@pytest.mark.parametrize("name", ["fixture40", "fixture264", "1li2"])
+def test_v2_f32_kernels_on_card_against_f64_plain(cuda, v2_systems, name):
+    """AGBNP2 at f32 through PairCavity and the dense kernels #1-#3 (one
+    launch each an evaluation) against the port's f64 plain route on the
+    card, both at the f64 model's capacities, grown until nothing
+    overflows (1li2 overflows JAX's MS-tree neighbor width of 64): energy
+    to 1e-5 relative, forces to 1e-4 of max|f| (f32 through two overlap
+    trees, the MS free volumes and the pair sweeps); the f32 evaluation
+    overflows nothing; two f32 evaluations bitwise equal."""
+    from openmm_agbnp_plugin_tpu_torch.models.agbnp2_torch import AGBNP2Model
+
+    params, pos = v2_systems[name]
+    ref = AGBNP2Model(params, device=cuda, dtype=torch.float64,
+                      positions=pos)
+    assert not ref.pair_kernel
+    e0, f0, out0 = ref.energy_forces(pos, with_details=True)
+    while ref.check_and_grow(out0["diags"]):
+        e0, f0, out0 = ref.energy_forces(pos, with_details=True)
+    m = AGBNP2Model(params, device=cuda, dtype=torch.float32, positions=pos,
+                    caps=ref.caps, caps_ms=ref.caps_ms, cap_ms=ref.cap_ms,
+                    ms_kmax=ref.ms_kmax, ms_sub_k=ref.ms_sub_k)
+    assert m.pair_kernel and m.pair_pad > 0
+    PK.reset_launch_counts()
+    e1, f1, out1 = m.energy_forces(pos, with_details=True)
+    counts = PK.launch_counts()
+    assert not m.check_and_grow(out1["diags"])
+    for k in ("born_sums", "gb_pair", "descreening"):
+        assert counts[k] == 1, (k, counts)
+    assert counts["descreening_recompute"] == 0
+    assert abs(float(e1) - float(e0)) <= 1e-5 * abs(float(e0))
+    assert rel(f1, f0) <= 1e-4
+    e2, f2 = m.energy_forces(pos)
+    assert torch.equal(e1, e2) and torch.equal(f1, f2)
+
+
+def test_v2_context_on_card(cuda, v2_systems):
+    """The v2 Context on the card (f32, the kernels) against the f64 CPU
+    Context: energy to 1e-5, the V2 anchor within 0.01 kJ/mol."""
+    from openmm_agbnp_plugin_tpu_torch import AGBNPForce, Context
+
+    params, pos = v2_systems["fixture40"]
+    force = AGBNPForce()
+    force.setVersion(2)
+    for i in range(params.n):
+        force.addParticle(params.radius[i], params.gamma[i], params.alpha[i],
+                          params.charge[i], bool(params.ishydrogen[i]))
+    out = {}
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        ctx = Context(force, dtype=dtype, device=dev)
+        ctx.setPositions(pos)
+        e, f = ctx.getEnergyForces()
+        assert isinstance(e, float) and f.dtype == dtype
+        assert f.device.type == torch.device(dev).type
+        out[str(dev)] = (e, f)
+    (e1, f1), (e0, f0) = out[str(cuda)], out["cpu"]
+    assert abs(e1 - e0) <= 1e-5 * abs(e0)
+    assert abs(e1 - (-505.76495633268286)) < 0.01
+    assert rel(f1, f0) <= 1e-4
+
+
+def test_v2_context_on_card_grows_on_1li2(cuda, v2_systems):
+    """The v2 Context on 1li2 (f32, the kernels): JAX's MS-tree neighbor
+    width of 64 overflows there, the Context's PanicButton grows it and
+    evaluates again, to an f64 model on the card whose capacities were
+    grown until nothing overflowed: energy to 1e-5 relative, forces to
+    1e-4 of max|f|."""
+    from openmm_agbnp_plugin_tpu_torch import AGBNPForce, Context
+    from openmm_agbnp_plugin_tpu_torch.models.agbnp2_torch import AGBNP2Model
+
+    params, pos = v2_systems["1li2"]
+    force = AGBNPForce()
+    force.setVersion(2)
+    for i in range(params.n):
+        force.addParticle(params.radius[i], params.gamma[i], params.alpha[i],
+                          params.charge[i], bool(params.ishydrogen[i]))
+    ctx = Context(force, device=cuda)
+    ctx.setPositions(pos)
+    e1, f1 = ctx.getEnergyForces()
+    assert ctx._model.ms_kmax > 64 and ctx._model.pair_kernel
+    ref = AGBNP2Model(params, device=cuda, dtype=torch.float64,
+                      positions=pos)
+    e0, f0, out0 = ref.energy_forces(pos, with_details=True)
+    while ref.check_and_grow(out0["diags"]):
+        e0, f0, out0 = ref.energy_forces(pos, with_details=True)
+    assert abs(e1 - float(e0)) <= 1e-5 * abs(float(e0))
+    assert rel(f1, f0) <= 1e-4

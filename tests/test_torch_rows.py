@@ -240,8 +240,93 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="dtype"):
         RW.take_rows(tab, ids.long())
     with pytest.raises(TypeError, match="dtype"):
-        RW.take_rows(tab.double(), ids)
+        RW.take_rows(tab.half(), ids)
     with pytest.raises(ValueError, match="columns"):
         RW.cumsum_rows(torch.empty((8, 300), device="meta"))
     with pytest.raises(ValueError, match=r"\[R, C\]"):
         RW.cumsum_rows(torch.empty((8,), device="meta"))
+
+
+def _mirror_shapes():
+    """(rows, cols) for each width the tests hold the #9 mirror at: 33
+    tiles and 7 rows (the last tile cut short; the carry a tree over every
+    tile before, or at 256 columns the group level, where the last group
+    of 32 tiles closes and one tile stands past it), and for 8, 13 and 26
+    columns enough tiles for the group level (ntiles * C > FLAT_VALUES)."""
+    shapes = [(33 * RW.cumsum_layout(c)[1] + 7, c)
+              for c in (1, 3, 8, 13, 26, 256)]
+    for c in (8, 13, 26):
+        tiles = RW.FLAT_VALUES // c + 2
+        shapes.append(((tiles - 1) * RW.cumsum_layout(c)[1] + 7, c))
+    return shapes
+
+
+def _pallas_cumsum(x, blk=BLK):
+    """The probe's cum_kernel with its block specs, in interpret mode; the
+    rows padded with zeros to whole blocks (prefix sums of the first rows
+    do not see them)."""
+    rows, cols = x.shape
+    padded = -(-rows // blk) * blk
+    xp = np.zeros((padded, cols), np.float32)
+    xp[:rows] = x
+    vmem = pltpu.VMEM
+
+    def cum_kernel(d_ref, out_ref, carry_ref):
+        i = pl.program_id(0)
+
+        @pl.when(i == 0)
+        def _():
+            carry_ref[:] = jnp.zeros_like(carry_ref)
+        c = jnp.cumsum(d_ref[:], axis=0) + carry_ref[:]
+        out_ref[:] = c
+        carry_ref[:] = c[-1:, :]
+
+    out = pl.pallas_call(
+        cum_kernel,
+        out_shape=jax.ShapeDtypeStruct((padded, cols), jnp.float32),
+        grid=(padded // blk,),
+        in_specs=[pl.BlockSpec((blk, cols), lambda i: (i, 0),
+                               memory_space=vmem)],
+        out_specs=pl.BlockSpec((blk, cols), lambda i: (i, 0),
+                               memory_space=vmem),
+        scratch_shapes=[vmem((1, cols), jnp.float32)],
+        interpret=True)(jnp.asarray(xp))
+    return np.asarray(out)[:rows]
+
+
+@pytest.mark.parametrize("rows,cols", _mirror_shapes())
+def test_cumsum_mirror_against_f64_and_the_probes_kernel(rows, cols):
+    """The redesigned #9's summation order (tiles of 32 (256 // C) rows, a
+    Hillis-Steele scan of the part totals, the look-back's warp trees over
+    group and tile totals), stated in plain torch: within 1e-5 of an f64
+    prefix sum (of max|prefix|) and as close to the probe's Pallas kernel
+    (interpret mode), on shapes that are not a tile multiple."""
+    parts, tile_rows = RW.cumsum_layout(cols)
+    assert parts == max(1, 256 // cols)
+    assert tile_rows == RW.PART_ROWS * parts
+    assert rows % tile_rows and -(-rows // tile_rows) > RW.GROUP_TILES
+    x = np.random.RandomState(cols).rand(rows, cols).astype(np.float32)
+    out = RW.cumsum_rows_mirror(torch.as_tensor(x))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (rows, cols)
+    ref = np.cumsum(x.astype(np.float64), axis=0)
+    scale = np.abs(ref).max()
+    assert np.abs(out.numpy() - ref).max() <= 1e-5 * scale
+    pallas = _pallas_cumsum(x)
+    assert np.abs(pallas - ref).max() <= 1e-5 * scale
+    assert np.abs(out.numpy() - pallas).max() <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("rows,cols", _mirror_shapes()[1:4]
+                         + _mirror_shapes()[-2:] + [(1, 8), (0, 3)])
+def test_cumsum_mirror_is_exact_on_integers(rows, cols):
+    """Small integers add exactly in float32 in any order, so the mirror
+    equals the running sum bit for bit: every tile's carry takes the
+    totals of exactly the tiles before it, and every row its parts."""
+    x = np.random.RandomState(5).randint(-3, 4, (rows, cols))
+    out = RW.cumsum_rows_mirror(torch.as_tensor(x, dtype=torch.float32))
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.cumsum(x, axis=0).astype(np.float32))
+    # signed floats: order-dependent, the mirror repeats itself
+    y = torch.as_tensor(np.random.RandomState(6).randn(rows, cols),
+                        dtype=torch.float32)
+    assert torch.equal(RW.cumsum_rows_mirror(y), RW.cumsum_rows_mirror(y))
