@@ -45,7 +45,11 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      its twin than the twin from f64, the gather-free broadcast's
      deviation from the gather, and both timed beside torch.index_select
      and torch.cumsum (library_ms), take_rows at each tree width and at
-     the padded widths 16 and 28;
+     the padded widths 16 and 28; then the replica axis of every pair
+     kernel at 1li2's shapes (dense and lists, three boxes, both
+     horizons) and 2clr's lists: a batch of 3 replicas (displaced 0.01 nm,
+     numpy seed) in one launch, counted once, bitwise each replica's own
+     B = 1 launch, and the batched tile lists bitwise each replica's own;
   3. checks the fixture goldens through AGBNPModel on the card in f32
      (GVolSA 872.514, AGBNP1 -2476.66, within 0.01);
   4. checks the five shipped systems (trpcage, 1li2, rnaseh, 1dwc, 2clr;
@@ -97,7 +101,32 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      overflow, #1-#3 launched every step, never the recompute);
      Simulation(version=0) on 1li2 for 20 steps; and the v2 Context on
      the card (the anchor, getEnergy; 1li2, where its PanicButton grows
-     the MS-tree neighbor width).
+     the MS-tree neighbor width);
+ 15. replicas as a batch (parallel/ensemble.py): one batched evaluation of
+     8 jittered 1li2 conformers (0.01 nm, numpy seed; tile lists) against
+     each conformer's B = 1 evaluation (energy 1e-6 relative, forces 1e-5
+     of max|f|, each list kernel launched once); then ReplicaEnsemble on
+     1li2 (strict 1 fs Langevin, 300 K, 1/ps, rebuilds every 40 steps,
+     vdW-compact WU pass), R = 1 and R = 8 in turns through the same
+     runner (40 warm-up and 200 timed steps, then 200 timed again): ms/step,
+     ns/day per replica and aggregate, no overflow, finite energies that
+     differ across replicas, the list kernels every step; kernels and
+     device ms a step of a profiled window at R = 1 and R = 8;
+ 16. ReplicaEnsemble of 4 x 2clr (BASELINE config 5: the cell grid per
+     replica, tile lists), 80 timed steps after 40, and the peak device
+     memory of a window build;
+ 17. TemperatureREMD of 8 x 1li2 on geometric_ladder(300, 450, 8), 40
+     steps a cycle and a window, 2 warm-up cycles then 5: rungs a
+     permutation each cycle, acceptances in [0, 1], ns/day per replica;
+     then an all-300 K ladder of 2 replicas, two cycles of 10 steps,
+     bitwise ReplicaEnsemble with the same generators;
+ 18. ConformerScorer on 1li2: 16 poses (0.01 nm, numpy seed), NoCutoff
+     (the dense sweeps) and CutoffNonPeriodic 1 nm (the lists), against
+     the Context one pose at a time (energy 1e-5 relative, forces 1e-5 of
+     max|f|), the kernels and device ms of a score call at B = 1 and
+     B = 16 (each pair kernel once a call); refine of 4 poses (50 FIRE
+     iterations) lowers every energy; version 2 on 2 poses of the 264-atom
+     fixture against the v2 Context.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -105,7 +134,8 @@ output is {"ok": true, "device": {...}}; the line before it is nvidia-smi's
 name/power-limit line, and the one before that the per-kernel JSON record
 (times, bound and what sets it, library_ms null for the pair sweeps and
 measured for the row kernels, live pairs, launches on its path and per step
-of each MD phase [6]-[9]; for the Born and descreening sweeps also the kept
+of each MD phase [6]-[9], [14] and of the replica runs [15]-[17], and in
+one batched score of [18]; for the Born and descreening sweeps also the kept
 32x32 sub-tile pairs or the chunk slots and the Q/dQ bytes written or read).
 """
 
@@ -445,7 +475,7 @@ def widest_level(dev, name):
     levels, diag = out[3], out[5]
     if T.check_overflow(diag)["any"]:
         raise AssertionError(f"{name}: the sized tree overflowed")
-    counts = diag["counts"].tolist()
+    counts = diag["counts"][0].tolist()
     w = max(range(1, len(counts)), key=counts.__getitem__)
     table = levels[w - 1]["_dat"][:, :8].contiguous()
     bnd = levels[w]["bnd"]
@@ -1058,7 +1088,219 @@ def phase_kernels(dev):
         f"is 2 launches (sweep, reduce), bound "
         f"{results['gb_pair']['bound_ms']:.4f} ms")
     check_row_kernels(dev, results)
+    check_replica_axis(dev, "1li2", lists=True, dense=True)
+    check_replica_axis(dev, "2clr", lists=True, dense=False)
     return results
+
+
+REPLICA_BATCH = 3     # [2]: replicas of the batched launches
+REPLICA_JITTER = 0.01  # nm, the replicas' displacement (numpy seed)
+
+
+def replica_batch(inp, nb, seed=1):
+    """A batch of nb replicas of kernel_inputs' layouts: replica 0 as
+    given, the others with their atoms displaced (numpy seed, REPLICA_JITTER
+    nm) and their screening factors, Born radii and chain factors scaled,
+    the heavy columns taken from the displaced rows (so each replica is one
+    consistent system).  Returns per-replica (pos_pad, pos_h, s_h, born,
+    brw, bru), each [nb, ...]."""
+    import numpy as np
+    import torch
+
+    pos_pad, pos_h = inp["born_args"][:2]
+    s_h = inp["born_args"][7]
+    born = inp["gb_args"][2]
+    brw, bru = inp["desc_args"][3:5]
+    rvalid, hvalid = inp["valid"]
+    hperm = inp["spline"].hids_perm.long().clamp(min=0)
+    rng = np.random.default_rng(seed)
+    dev = pos_pad.device
+
+    def rnd(shape, scale):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32, device=dev)
+
+    out = ([], [], [], [], [], [])
+    for b in range(nb):
+        if b == 0:
+            pp = pos_pad
+        else:
+            pp = pos_pad + rnd(pos_pad.shape, REPLICA_JITTER) * rvalid
+        ph = torch.where(hvalid, pp[:, hperm], 0.0)
+        f = 1.0 + 0.05 * b
+        for lst, x in zip(out, (pp, ph, s_h / f, born * f, brw * f,
+                                bru / f)):
+            lst.append(x.contiguous())
+    return tuple(torch.stack(x).contiguous() for x in out)
+
+
+def check_replica_axis(dev, name, lists=True, dense=True):
+    """The replica axis of the pair kernels at a system's shapes: a batch of
+    REPLICA_BATCH replicas in one launch (counted once in LAUNCHES) against
+    each replica's own B = 1 launch, bitwise, for every output the kernel
+    defines (Q/dQ on the chunk slots or kept sub-tile pairs only); the
+    batched lists against each replica's own list, bitwise."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
+
+    inp = kernel_inputs(dev, name)
+    nb = REPLICA_BATCH
+    pos_b, posh_b, s_b, born_b, brw_b, bru_b = replica_batch(inp, nb)
+    sp = inp["spline"]
+    n = inp["born_args"][-1]
+    tables = inp["born_args"][2:7]
+    charge = inp["gb_args"][1]
+    mm_kw = inp["mm_kw"]
+    rvalid, hvalid = inp["valid"]
+    tile = inp["tile"]
+    boxes = (None,) + tuple(b for _, b in LI2_BOXES) if name == "1li2" \
+        else (None,)
+
+    def same(label, out, refs, mask=None):
+        """out [nb, ...] (nested) bitwise refs[b] for every replica."""
+        if isinstance(out, torch.Tensor):
+            for b, r in enumerate(refs):
+                o = out[b]
+                if mask is not None:
+                    o, r = o[mask[b]], r[mask[b]]
+                if not torch.equal(o, r):
+                    raise AssertionError(f"[2] replica axis {name} {label}: "
+                                         f"replica {b} differs from its "
+                                         f"B = 1 launch")
+            return
+        for k, o in enumerate(out):
+            if o is None:
+                continue
+            same(f"{label}.{k}", o, [r[k] for r in refs],
+                 None if mask is None else mask[k])
+
+    def once(kname, fn):
+        before = PK.LAUNCHES[kname]
+        out = fn()
+        if PK.LAUNCHES[kname] - before != 1:
+            raise AssertionError(f"[2] {kname}: {PK.LAUNCHES[kname] - before}"
+                                 f" launches for one batched call")
+        return out
+
+    checked = []
+    for box in boxes:
+        bl = "none" if box is None else ("ortho" if len(box) == 3 and
+                                          not hasattr(box[0], "__len__")
+                                          else "triclinic")
+        box_t = None if box is None else torch.as_tensor(
+            box, dtype=torch.float32, device=dev)
+        for horizon in ((1.0, 2.0) if dense else ()):
+            spb = sp._replace(horizon=horizon)
+            ch = once("subtile_columns", lambda: PK.subtile_columns(
+                pos_b, posh_b, sp.hids_perm, n, box=box_t, horizon=horizon))
+            ch1 = [PK.subtile_columns(pos_b[b], posh_b[b], sp.hids_perm, n,
+                                      box=box_t, horizon=horizon)
+                   for b in range(nb)]
+            same(f"subtile_columns h{horizon} {bl}", ch, ch1)
+            out = once("born_sums", lambda: PK.born_sums(
+                pos_b, posh_b, *tables, s_b, n, box=box_t, horizon=horizon,
+                save_qd=True))
+            ref = [PK.born_sums(pos_b[b], posh_b[b], *tables, s_b[b], n,
+                                box=box_t, horizon=horizon, save_qd=True)
+                   for b in range(nb)]
+            slots = torch.stack([PK.chunk_slots(r[3]) for r in ref])
+            same(f"born_sums h{horizon} {bl}", (out[0], out[3]),
+                 [(r[0], r[3]) for r in ref])
+            same(f"born_sums Q/dQ h{horizon} {bl}", out[1:3],
+                 [r[1:3] for r in ref], mask=(slots, slots))
+            raw = once("born_sums", lambda: PK.born_sums(
+                pos_b, posh_b, *tables, s_b, n, box=box_t, horizon=horizon,
+                chunks=ch))
+            same(f"born_sums given list h{horizon} {bl}", raw,
+                 [r[0] for r in ref])
+            d = once("descreening", lambda: PK.descreening(
+                pos_b, posh_b, s_b, brw_b, bru_b, out[1:], box=box_t))
+            same(f"descreening h{horizon} {bl}", d,
+                 [PK.descreening(pos_b[b], posh_b[b], s_b[b], brw_b[b],
+                                 bru_b[b], ref[b][1:], box=box_t)
+                  for b in range(nb)])
+            d = once("descreening_recompute", lambda: PK.descreening(
+                pos_b, posh_b, s_b, brw_b, bru_b, None, box=box_t,
+                spline=spb, chunks=ch))
+            same(f"descreening_recompute h{horizon} {bl}", d,
+                 [PK.descreening(pos_b[b], posh_b[b], s_b[b], brw_b[b],
+                                 bru_b[b], None, box=box_t, spline=spb,
+                                 chunks=ch1[b]) for b in range(nb)])
+            checked.append(f"dense h{horizon} {bl}")
+        if dense:
+            for kw in (mm_kw, dict(cutoff=None)):
+                g = once("gb_pair", lambda: PK.gb_pair(
+                    pos_b, charge, born_b, n, box=box_t, **kw))
+                same(f"gb_pair {bl} mm={'sig_pad' in kw}", g,
+                     [PK.gb_pair(pos_b[b], charge, born_b[b], n, box=box_t,
+                                 **kw) for b in range(nb)])
+        if not lists:
+            continue
+        rb = TL.tile_bounds(pos_b, rvalid, tile)
+        cb = TL.tile_bounds(posh_b, hvalid, tile)
+        for rng_d in (1.0, 2.0):
+            spb = sp._replace(horizon=rng_d)
+            cnt = TL.build_tile_list(*rb, *cb, rng_d, 1, box=box_t)[2]
+            lmax = int(math.ceil(int(cnt.max()) * 1.5 / 8) * 8)
+            tl, nv, _ = TL.build_tile_list(*rb, *cb, rng_d, lmax, box=box_t)
+            one = [TL.build_tile_list(
+                *TL.tile_bounds(pos_b[b], rvalid, tile),
+                *TL.tile_bounds(posh_b[b], hvalid, tile), rng_d, lmax,
+                box=box_t) for b in range(nb)]
+            same(f"build_tile_list {rng_d} {bl}", (tl, nv),
+                 [o[:2] for o in one])
+            out = once("born_sums_tiles", lambda: TL.born_sums_tiles(
+                nv, tl, pos_b, posh_b, *tables, s_b, n, tile, box=box_t,
+                horizon=rng_d, save_qd=True))
+            ref = [TL.born_sums_tiles(nv[b], tl[b], pos_b[b], posh_b[b],
+                                      *tables, s_b[b], n, tile, box=box_t,
+                                      horizon=rng_d, save_qd=True)
+                   for b in range(nb)]
+            # keep bits are written for the entries below nv only
+            ent = (torch.arange(lmax, device=dev)[None, :] < nv).expand(
+                nb, lmax)
+            same(f"born_sums_tiles {rng_d} {bl}", out[0], [r[0] for r in ref])
+            same(f"born_sums_tiles keep {rng_d} {bl}", out[3],
+                 [r[3] for r in ref], mask=ent)
+            kept = torch.stack([TL._expand_subtiles(TL.keep_flags(r[3],
+                                                                  nv[b]))
+                                for b, r in enumerate(ref)])
+            same(f"born_sums_tiles Q/dQ {rng_d} {bl}", out[1:3],
+                 [r[1:3] for r in ref], mask=(kept, kept))
+            d = once("descreening_tiles", lambda: TL.descreening_tiles(
+                nv, tl, pos_b, posh_b, s_b, brw_b, bru_b, out[1:], tile,
+                box=box_t, spline=spb))
+            same(f"descreening_tiles {rng_d} {bl}", d,
+                 [TL.descreening_tiles(nv[b], tl[b], pos_b[b], posh_b[b],
+                                       s_b[b], brw_b[b], bru_b[b], ref[b][1:],
+                                       tile, box=box_t, spline=spb)
+                  for b in range(nb)])
+            d = once("descreening_tiles_recompute",
+                     lambda: TL.descreening_tiles(
+                         nv, tl, pos_b, posh_b, s_b, brw_b, bru_b, None, tile,
+                         box=box_t, spline=spb))
+            same(f"descreening_tiles_recompute {rng_d} {bl}", d,
+                 [TL.descreening_tiles(nv[b], tl[b], pos_b[b], posh_b[b],
+                                       s_b[b], brw_b[b], bru_b[b], None, tile,
+                                       box=box_t, spline=spb)
+                  for b in range(nb)])
+        cnt = TL.build_tile_list(*rb, *rb, 1.0, 1, triangular=True,
+                                 box=box_t)[2]
+        lmax = int(math.ceil(int(cnt.max()) * 1.5 / 8) * 8)
+        tl, nv, _ = TL.build_tile_list(*rb, *rb, 1.0, lmax, triangular=True,
+                                       box=box_t)
+        for kw in (mm_kw, dict(cutoff=1.0)):
+            g = once("gb_pair_tiles", lambda: TL.gb_pair_tiles(
+                nv, tl, pos_b, charge, born_b, n, tile, box=box_t, **kw))
+            same(f"gb_pair_tiles {bl} mm={'sig_pad' in kw}", g,
+                 [TL.gb_pair_tiles(nv[b], tl[b], pos_b[b], charge, born_b[b],
+                                   n, tile, box=box_t, **kw)
+                  for b in range(nb)])
+        checked.append(f"lists {bl} (nv {[int(x) for x in nv[:, 0]]})")
+    log(f"[2] replica axis at {name}: B = {nb} in one launch bitwise each "
+        f"replica's B = 1 launch, every kernel ({'; '.join(checked)})")
 
 
 def phase_goldens(dev):
@@ -1740,6 +1982,401 @@ def phase_v2(dev, card):
     return counts_v2
 
 
+# [15]-[18]: replicas as a batch on one card
+ENS_REPLICAS = 8      # [15] 1li2 replicas
+ENS_WARMUP = 40       # [15]-[16] warm-up steps before each timed run
+ENS_STEPS = 200       # [15] timed steps
+ENS_2CLR_REPLICAS = 4  # [16] BASELINE config 5
+ENS_2CLR_STEPS = 80   # [16] timed steps
+ENS_JITTER = 0.01     # nm, [15]'s conformers and [18]'s poses (numpy seed)
+BATCH_E_TOL = 1e-6    # relative, a batched evaluation vs B = 1 on the card
+BATCH_F_TOL = 1e-5    # of max|f|
+REMD_REPLICAS, REMD_T = 8, (300.0, 450.0)
+REMD_SPC, REMD_WARM, REMD_CYCLES = 40, 2, 5
+REMD_ENS_STEPS = 120  # [17]'s ensemble turns before and after the T-REMD
+SCORE_POSES = 16      # [18]
+SCORE_TOL = 1e-5      # relative, the scorer vs the Context (BASELINE's bar)
+REFINE_POSES, REFINE_ITERS = 4, 50
+PAIR_KERNELS = ("subtile_columns", "born_sums", "gb_pair", "descreening",
+                "descreening_recompute", "born_sums_tiles", "gb_pair_tiles",
+                "descreening_tiles", "descreening_tiles_recompute")
+
+
+def device_kernels(fn):
+    """(fn's result, CUDA kernels it launched, their device ms) from a
+    torch.profiler trace of one call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (out, sum(e.count for e in ks),
+            sum(e.self_device_time_total for e in ks) / 1e3)
+
+
+def pair_launches(counts):
+    return {k: counts[k] for k in PAIR_KERNELS if counts[k]}
+
+
+def check_once(counts, kernels, label):
+    """Each of kernels launched exactly once (one batched call)."""
+    for k in kernels:
+        if counts.get(k, 0) != 1:
+            raise AssertionError(f"{label} {k}: {counts.get(k, 0)} launches "
+                                 "for one batched call")
+
+
+def check_every_step(per_step, kernels, label):
+    """Each of kernels launched at least once a step."""
+    for k in kernels:
+        if per_step.get(k, 0.0) < 1.0:
+            raise AssertionError(f"{label} {k}: not launched every step")
+
+
+def jittered(positions, nb, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.asarray(positions)[None] + ENS_JITTER * rng.standard_normal(
+        (nb,) + np.asarray(positions).shape)
+
+
+def check_batch_vs_each(label, m, batch, out):
+    """A batched evaluation's replicas against the model's own B = 1
+    evaluation of each conformer."""
+    worst_e = worst_f = 0.0
+    for b in range(batch.shape[0]):
+        e, f = m.energy_forces(batch[b])
+        worst_e = max(worst_e, abs(float(out["energy"][b]) - float(e))
+                      / abs(float(e)))
+        worst_f = max(worst_f, rel_err(out["force"][b], f)[0])
+    log(f"{label} batched vs each conformer's B = 1 evaluation: energy rel "
+        f"{worst_e:.3e}, force max-err/max|f| {worst_f:.3e}")
+    if not (worst_e <= BATCH_E_TOL and worst_f <= BATCH_F_TOL):
+        raise AssertionError(f"{label}: batched evaluation differs")
+
+
+def ensemble_run(dev, card, label, sim, nrep, steps, warmup):
+    """nrep replicas through ReplicaEnsemble.make_runner: warmup steps, then
+    steps timed (continuing them; host clock around a synchronised run):
+    ms/step, ns/day, the pair kernels' launches a step, no overflow, finite
+    energies that differ across replicas."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import worst_replica
+
+    ens = ReplicaEnsemble(sim, nrep)
+    run = ens.make_runner(neighbor_every=NEIGHBOR_EVERY)
+    states = ens.initial_states(jitter=1e-3)
+    PK.reset_launch_counts()
+    if warmup:
+        states, _ = run(states, warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, (energies, *diag) = run(states, steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = PK.launch_counts()
+    per_step = {k: v / (steps + warmup) for k, v in
+                pair_launches(counts).items()}
+    e = energies.cpu().numpy()
+    ms = elapsed * 1e3 / steps
+    ns_day = steps * 1e-6 / elapsed * 86400.0  # 1 fs steps
+    report = sim.overflow_report(*worst_replica(diag))
+    log(f"{label} R = {nrep}: {ms:.3f} ms/step, {ns_day:.3f} ns/day a "
+        f"replica, {ns_day * nrep:.3f} ns/day aggregate on {card}; "
+        f"overflow {bool(report)}; pair kernel launches a step "
+        f"{ {k: round(v, 3) for k, v in per_step.items()} }")
+    if report or e.shape != (nrep, steps):
+        raise AssertionError(f"{label} R = {nrep}: overflow {report}, "
+                             f"energies {e.shape}")
+    if not np.isfinite(e).all():
+        raise AssertionError(f"{label}: non-finite energies")
+    if nrep > 1 and len(np.unique(e[:, -1])) < nrep:
+        raise AssertionError(f"{label}: replicas' energies do not differ")
+    if not bool(torch.isfinite(states[0]).all()):
+        raise AssertionError(f"{label}: non-finite positions")
+    check_every_step(per_step, ("born_sums_tiles", "gb_pair_tiles",
+                                "descreening_tiles"), label)
+    return ms, counts
+
+
+def window_kernels(sim, nrep):
+    """Device kernels a step and device ms a step of one profiled rebuild
+    window of nrep replicas."""
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble
+
+    ens = ReplicaEnsemble(sim, nrep)
+    run = ens.make_runner(neighbor_every=NEIGHBOR_EVERY)
+    states = ens.initial_states(jitter=1e-3, seed=5)
+    run(states, NEIGHBOR_EVERY)
+    _, n, ms = device_kernels(lambda: run(states, NEIGHBOR_EVERY))
+    return n / NEIGHBOR_EVERY, ms / NEIGHBOR_EVERY
+
+
+def phase_ensemble(dev, card):
+    """Phase 15: ReplicaEnsemble of 8 x 1li2 on the tile lists (strict 1
+    fs Langevin at 300 K, 1/ps, rebuilds every 40 steps, vdW-compact WU
+    pass).  First a batched evaluation of 8 jittered conformers against
+    each conformer's B = 1 evaluation; then R = 1 and R = 8 in turns
+    through the same runner."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import AGBNPModel, batched_diag_max
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    d, p = system("1li2")
+    m = AGBNPModel(p, device=dev, dtype=torch.float32, cutoff=1.0,
+                   descreen_horizon="cutoff", positions=d.positions)
+    batch = jittered(d.positions, ENS_REPLICAS, 15)
+    for _ in range(8):
+        PK.reset_launch_counts()
+        out = m.batched_energy_forces(batch)
+        counts = PK.launch_counts()
+        if not m.check_and_grow(batched_diag_max(out["diag"])):
+            break
+    log(f"[15] 1li2 batched evaluation of {ENS_REPLICAS} conformers "
+        f"({ENS_JITTER} nm, numpy seed): pair_tiles {m.pair_tiles}, "
+        f"launches {pair_launches(counts)}")
+    check_once(counts, ("born_sums_tiles", "gb_pair_tiles",
+                        "descreening_tiles"), "[15]")
+    check_batch_vs_each("[15]", m, batch, out)
+    sim = md_sim(dev, "1li2")
+    runs, path_counts = {}, None
+    for turn in range(2):
+        for nrep in (1, ENS_REPLICAS):
+            ms, counts = ensemble_run(
+                dev, card, f"[15] turn {turn + 1}", sim, nrep, ENS_STEPS,
+                ENS_WARMUP if turn == 0 else 0)
+            runs.setdefault(nrep, []).append(ms)
+            if turn == 0 and nrep == ENS_REPLICAS:
+                path_counts = counts
+    for nrep in (1, ENS_REPLICAS):
+        k, ms = window = window_kernels(sim, nrep)
+        ms_step = min(runs[nrep])
+        log(f"[15] R = {nrep}: {k:.0f} kernels a step, device "
+            f"{ms:.3f} ms a step in a profiled window (the device idle "
+            f"{100 - ms / ms_step * 100:.1f}% of the best timed "
+            f"{ms_step:.3f} ms step)")
+    torch.cuda.synchronize()
+    return sim, path_counts, window
+
+
+def phase_ensemble_2clr(dev, card):
+    """Phase 16: ReplicaEnsemble of 4 x 2clr (BASELINE config 5): the
+    cell-grid candidates per replica, tile lists; 80 timed steps after a
+    40-step warm-up; the peak device memory of a window build."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble
+
+    sim = md_sim(dev, "2clr")
+    if sim.grid is None or sim.agbnp.pair_tiles is None:
+        raise AssertionError("[16] 2clr must run the cell grid and lists")
+    ens = ReplicaEnsemble(sim, ENS_2CLR_REPLICAS)
+    pos = ens.initial_states(jitter=1e-3)[0]
+    ff = sim.ff_state()
+    caps = sim._ensure_vdw_caps()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sim.window_build(pos, ff, caps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[16] 2clr x {ENS_2CLR_REPLICAS}: a window build peaks at "
+        f"{peak / 2**30:.3f} GiB allocated ({(peak - base) / 2**30:.3f} GiB "
+        f"above the {base / 2**30:.3f} GiB held before it) on {card}")
+    _, counts = ensemble_run(dev, card, "[16]", sim, ENS_2CLR_REPLICAS,
+                             ENS_2CLR_STEPS, ENS_WARMUP)
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase_remd(dev, card, sim, ens_window):
+    """Phase 17: T-REMD of 8 x 1li2 on geometric_ladder(300, 450, 8), 40
+    steps a cycle and a window, 2 warm-up cycles, then 5 timed (host clock
+    around a synchronised run) between two timed ReplicaEnsemble runs of
+    as many replicas in the same process (turns: ensemble, T-REMD,
+    ensemble); then two profiled cycles beside [15]'s profiled R = 8
+    window (ens_window: kernels and device ms a step); then an all-300 K
+    ladder of 2 replicas, two cycles of 10 steps, against ReplicaEnsemble
+    with the same generators, bitwise."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import (ReplicaEnsemble,
+                                               TemperatureREMD,
+                                               geometric_ladder)
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.parallel.remd import pair_acceptance
+
+    ens_ms = [ensemble_run(dev, card, "[17] turn 1: ensemble", sim,
+                           REMD_REPLICAS, REMD_ENS_STEPS, ENS_WARMUP)[0]]
+    remd = TemperatureREMD(sim, geometric_ladder(*REMD_T, REMD_REPLICAS))
+    run = remd.make_runner(steps_per_cycle=REMD_SPC, neighbor_every=REMD_SPC)
+    states, xgen = remd.initial_states(jitter=1e-3)
+    PK.reset_launch_counts()
+    states, _ = run(states, xgen, REMD_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, out = run(states, xgen, REMD_CYCLES)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = PK.launch_counts()
+    steps = (REMD_WARM + REMD_CYCLES) * REMD_SPC
+    check_every_step({k: v / steps for k, v in counts.items()},
+                     ("born_sums_tiles", "gb_pair_tiles",
+                      "descreening_tiles"), "[17]")
+    rung_all = out["rung"].cpu().numpy()
+    for c, rung in enumerate(rung_all):
+        if sorted(rung.tolist()) != list(range(REMD_REPLICAS)):
+            raise AssertionError(f"[17] cycle {c}: rungs {rung} are not a "
+                                 "permutation")
+    rates = pair_acceptance(out["accept"].cpu().numpy())
+    if not (bool(torch.isfinite(out["U"]).all())
+            and bool(torch.isfinite(out["energies"]).all())
+            and ((rates >= 0) & (rates <= 1)).all()):
+        raise AssertionError(f"[17] acceptances {rates} or energies")
+    ms = elapsed * 1e3 / (REMD_CYCLES * REMD_SPC)
+    log(f"[17] turn 2: T-REMD {REMD_REPLICAS} x 1li2, ladder {REMD_T}: "
+        f"{REMD_CYCLES} cycles of {REMD_SPC} steps after {REMD_WARM}: "
+        f"{ms:.3f} ms/step, {86.4 / ms:.3f} ns/day a replica on {card}; "
+        f"pair acceptance {np.round(rates, 3).tolist()}; rungs after the "
+        f"last cycle {rung_all[-1].tolist()}")
+    ens_ms.append(ensemble_run(dev, card, "[17] turn 3: ensemble", sim,
+                               REMD_REPLICAS, REMD_ENS_STEPS, 0)[0])
+    log(f"[17] T-REMD ms/step over the ensemble's of the turns around it: "
+        f"{ms / max(ens_ms):.3f}-{ms / min(ens_ms):.3f}")
+    _, n, dms = device_kernels(lambda: run(states, xgen, 2))
+    log(f"[17] two profiled cycles (three window builds, two exchanges): "
+        f"{n / (2 * REMD_SPC):.0f} kernels a step, device "
+        f"{dms / (2 * REMD_SPC):.3f} ms a step, against {ens_window[0]:.0f} "
+        f"and {ens_window[1]:.3f} in [15]'s profiled R = {REMD_REPLICAS} "
+        f"window (one build)")
+    nrep, spc = 2, 10
+    remd = TemperatureREMD(sim, [300.0] * nrep)
+    states, xgen = remd.initial_states(jitter=1e-3, seed=17)
+    pos0, vel0 = states[0].clone(), states[1].clone()
+    (pos, vel, _, _), out = remd.make_runner(
+        steps_per_cycle=spc, neighbor_every=spc)(states, xgen, 2)
+    ens = ReplicaEnsemble(sim, nrep)
+    (epos, evel, _), (e, *_) = ens.make_runner(neighbor_every=spc)(
+        (pos0, vel0, ens.initial_states(seed=17)[2]), 2 * spc)
+    same = (torch.equal(pos, epos) and torch.equal(vel, evel)
+            and torch.equal(out["energies"], e))
+    log(f"[17] all-300 K REMD (2 replicas, 2 cycles of {spc}) bitwise the "
+        f"ensemble with the same generators: {same}; accepted "
+        f"{out['accept'].cpu().numpy().astype(int).tolist()}")
+    if not same or not bool(out["accept"][0].all()):
+        raise AssertionError("[17] equal-temperature REMD differs from the "
+                             "ensemble")
+    return counts
+
+
+def phase_scoring(dev, card):
+    """Phase 18: ConformerScorer on 1li2, 16 poses, NoCutoff (the dense
+    sweeps) and CutoffNonPeriodic 1 nm (the lists), against the Context
+    one pose at a time; kernels a score call at B = 1 and B = 16; refine of
+    4 poses; version 2 on the 264-atom fixture against the v2 Context."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import (AGBNPForce, AGBNPParams,
+                                               ConformerScorer, Context,
+                                               NonbondedMethod,
+                                               load_gaussvol_dat)
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    def force_of(p, version=1):
+        force = AGBNPForce()
+        force.setVersion(version)
+        for i in range(p.n):
+            force.addParticle(p.radius[i], p.gamma[i], p.alpha[i],
+                              p.charge[i], bool(p.ishydrogen[i]))
+        return force
+
+    d, p = system("1li2")
+    poses = jittered(d.positions, SCORE_POSES, 18)
+    path_counts = {}
+    for method, kernels in (("NoCutoff", ("born_sums", "gb_pair",
+                                          "descreening")),
+                            ("CutoffNonPeriodic", ("born_sums_tiles",
+                                                   "gb_pair_tiles",
+                                                   "descreening_tiles"))):
+        force = force_of(p)
+        force.setNonbondedMethod(getattr(NonbondedMethod, method))
+        scorer = ConformerScorer(force, d.positions, device=dev)
+        res = scorer.score(poses, forces=True, details=True)
+        ctx = Context(force, device=dev)
+        worst_e = worst_f = 0.0
+        for b in range(SCORE_POSES):
+            ctx.setPositions(poses[b])
+            e, f = ctx.getEnergyForces()
+            worst_e = max(worst_e, abs(float(res["energy"][b]) - e) / abs(e))
+            worst_f = max(worst_f, rel_err(res["force"][b], f)[0])
+        calls = {}
+        for nb in (1, SCORE_POSES):
+            PK.reset_launch_counts()
+            _, n, ms = device_kernels(lambda: scorer.score(poses[:nb]))
+            calls[nb] = (n, ms, PK.launch_counts())
+        log(f"[18] ConformerScorer 1li2 {method}, {SCORE_POSES} poses: vs "
+            f"the Context energy rel {worst_e:.3e}, force max-err/max|f| "
+            f"{worst_f:.3e}; a score call: B = 1 {calls[1][0]} kernels "
+            f"({calls[1][1]:.3f} device ms), B = {SCORE_POSES} "
+            f"{calls[SCORE_POSES][0]} kernels ({calls[SCORE_POSES][1]:.3f} "
+            f"device ms) on {card}; pair kernels at B = {SCORE_POSES} "
+            f"{pair_launches(calls[SCORE_POSES][2])}, take_rows "
+            f"{calls[SCORE_POSES][2]['take_rows']}")
+        if not (worst_e <= SCORE_TOL and worst_f <= SCORE_TOL):
+            raise AssertionError(f"[18] {method}: scorer vs Context")
+        check_once(calls[SCORE_POSES][2], kernels, f"[18] {method}")
+        for k, v in calls[SCORE_POSES][2].items():
+            path_counts[k] = path_counts.get(k, 0) + v
+        if calls[SCORE_POSES][2]["take_rows"] < 1:
+            raise AssertionError(f"[18] {method}: the tree's passes did not "
+                                 "launch take_rows")
+        total = res["e_cav"] + res["gb_self"] + res["gb_pair"] + res["e_vdw"]
+        if rel_err(total, res["energy"])[0] > 1e-6:
+            raise AssertionError("[18] details do not add up to the energy")
+    e0 = scorer.score(poses[:REFINE_POSES])["energy"]
+    ref = scorer.refine(poses[:REFINE_POSES], maxiter=REFINE_ITERS)
+    drop = (e0 - ref["energy"]).cpu().numpy()
+    log(f"[18] refine {REFINE_POSES} poses, {REFINE_ITERS} FIRE iterations: "
+        f"energy drops {np.round(drop, 3).tolist()} kJ/mol")
+    if not (drop > 0).all():
+        raise AssertionError("[18] refine did not lower every energy")
+
+    pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(
+        os.path.join(HERE, "tests", "fixtures", "gaussvol.dat"))
+    p = AGBNPParams(radius=radius, gamma=gamma, alpha=alpha, charge=charge,
+                    ishydrogen=ish)
+    force = force_of(p, version=2)
+    poses = pos[None] + 0.005 * np.random.default_rng(19).standard_normal(
+        (2,) + pos.shape)
+    res = ConformerScorer(force, pos, device=dev).score(poses, forces=True)
+    worst_e = worst_f = 0.0
+    for b in range(2):
+        ctx = Context(force, device=dev)
+        ctx.setPositions(poses[b])
+        e, f = ctx.getEnergyForces()
+        worst_e = max(worst_e, abs(float(res["energy"][b]) - e) / abs(e))
+        worst_f = max(worst_f, rel_err(res["force"][b], f)[0])
+    log(f"[18] v2 scorer, 2 poses of the 264-atom fixture vs the v2 Context: "
+        f"energy rel {worst_e:.3e}, force max-err/max|f| {worst_f:.3e}")
+    if not (worst_e <= SCORE_TOL and worst_f <= SCORE_TOL):
+        raise AssertionError("[18] v2 scorer vs Context")
+    torch.cuda.synchronize()
+    return path_counts
+
+
 def main() -> int:
     import torch
 
@@ -1766,12 +2403,19 @@ def main() -> int:
     phase_context(dev)
     counts["row_probes"] = phase_row_probes(dev, card)
     counts["md_v2"] = phase_v2(dev, card)
+    sim_ens, counts["ens_1li2"], ens_window = phase_ensemble(dev, card)
+    counts["ens_2clr"] = phase_ensemble_2clr(dev, card)
+    counts["remd"] = phase_remd(dev, card, sim_ens, ens_window)
+    score_counts = phase_scoring(dev, card)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
     md_steps = dict(md_1li2=2 * MD_STEPS, md_2clr=2 * MD_STEPS_2CLR,
                     mts_wu4=2 * MTS_WU4_STEPS, mts4fs=2 * MTS4_STEPS,
-                    md_v2=2 * V2_STEPS)
+                    md_v2=2 * V2_STEPS,
+                    ens_1li2=ENS_WARMUP + ENS_STEPS,
+                    ens_2clr=ENS_WARMUP + ENS_2CLR_STEPS,
+                    remd=(REMD_WARM + REMD_CYCLES) * REMD_SPC)
     record = []
     for name, (src, replaces, path) in KERNELS.items():
         launches = counts[path][name]
@@ -1788,6 +2432,10 @@ def main() -> int:
                    library_ms=k["library_ms"],
                    library=k.get("library", LIBRARY_NONE),
                    launches_per_step=per_step)
+        # the replica paths: launches a step of R replicas' MD ([15] R = 8,
+        # [16], [17]; within the per-step dict above) and of one batched
+        # score of [18] (NoCutoff + CutoffNonPeriodic)
+        rec["launches_score_b16"] = score_counts.get(name, 0)
         if "live_pairs" in k:
             rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})

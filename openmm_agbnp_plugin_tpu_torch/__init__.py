@@ -18,23 +18,37 @@ tested against), with the same module names:
   io/checkpoint.py        exact-resume checkpoints; io/dcd.py trajectories
   ops/kernels/rows.py     the tree's row gather and prefix sum (probes)
   api/force.py            AGBNPForce, Context, NonbondedMethod
+  api/scoring.py          ConformerScorer (batched pose scoring, FIRE refine)
+  api/hydration.py        HydrationSites (virtual hydration sites)
+  parallel/ensemble.py    ReplicaEnsemble: R replicas' MD as one batch
+  parallel/remd.py        TemperatureREMD, attempt_swaps, geometric_ladder
   utils/                  AGBNPHtable; energy_breakdown, tree_stats, trace
   runtime/build.py        builds csrc/*.cu with nvcc at first kernel use
+
+Replicas of one system run as a batch on one device: positions [B, N, 3]
+through batched_energy_forces (one overlap tree over the replicas' disjoint
+union, the pair kernels' replica axis).
 
 This package imports torch and numpy only; nothing is built at import.
 """
 
 from .api.force import AGBNPForce, Context, NonbondedMethod
+from .api.hydration import HydrationSites
+from .api.scoring import ConformerScorer
 from .io.dms import load_dms
 from .io.gaussvol_dat import load_gaussvol_dat
 from .md.simulation import Simulation
 from .models.agbnp2_torch import AGBNP2Model
 from .models.agbnp_torch import AGBNPModel, arrays_from_numpy, \
-    energy_forces, prepare_arrays
+    batched_diag_max, batched_energy_forces, energy_forces, prepare_arrays
 from .models.params import AGBNPParams
 from .ops.tree import TreeCaps
+from .parallel.ensemble import ReplicaEnsemble
+from .parallel.remd import TemperatureREMD, attempt_swaps, geometric_ladder
 
 __all__ = ["AGBNP2Model", "AGBNPForce", "AGBNPModel", "AGBNPParams",
-           "Context", "NonbondedMethod", "Simulation", "TreeCaps",
-           "arrays_from_numpy", "energy_forces", "load_dms",
-           "load_gaussvol_dat", "prepare_arrays"]
+           "ConformerScorer", "Context", "HydrationSites", "NonbondedMethod",
+           "ReplicaEnsemble", "Simulation", "TemperatureREMD", "TreeCaps",
+           "arrays_from_numpy", "attempt_swaps", "batched_diag_max",
+           "batched_energy_forces", "energy_forces", "geometric_ladder",
+           "load_dms", "load_gaussvol_dat", "prepare_arrays"]

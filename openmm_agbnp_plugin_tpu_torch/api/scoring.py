@@ -1,0 +1,193 @@
+"""Batched conformer rescoring: score B conformations of one molecule in one
+batched evaluation.
+
+Counterpart of the JAX package's api/scoring.py.  The reference plugin
+evaluates one conformation per Context call (openmmapi/src/
+AGBNPForceImpl.cpp:32-36), so rescoring a pose ensemble costs B serial
+round trips.  Here versions 0 and 1 score the whole batch in one
+evaluation: the overlap tree of the poses' disjoint union and the pair
+kernels' replica axis (one launch each for the batch), as
+AGBNPModel.batched_energy_forces runs them.  NoCutoff scores on the dense
+tile grid; CutoffNonPeriodic on interacting-tile lists sized from the
+representative positions.
+
+Semantics per conformer are those of api.force.Context.getEnergyForces:
+the same energy and forces, and the same 8-try PanicButton regrow, from
+the worst conformer of the batch (batched_diag_max).  Version 2 scores
+each conformer through AGBNP2Model with the capacities shared and regrown
+over the whole batch (AGBNP2Model.check_and_grow); it is B evaluations.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..md.minimize import make_fire_runner
+from ..models.agbnp2_torch import AGBNP2Model
+from ..models.agbnp_torch import AGBNPModel, batched_diag_max
+from .force import AGBNPForce, NonbondedMethod
+
+_DETAIL_TERMS = ("e_cav", "e_vol1", "e_vol2", "gb_self", "gb_pair", "e_vdw")
+_DETAIL_TERMS_V2 = ("e_vol1", "e_vol2", "gb_self", "gb_pair", "e_vdw",
+                    "e_ms_vdw", "e_ms_large")
+_TRIES = 8
+
+
+class ConformerScorer:
+    """Batched AGBNP scorer over conformations of a fixed particle table.
+
+    force: an AGBNPForce (version 0, 1 or 2; NoCutoff or
+        CutoffNonPeriodic).
+    positions: representative coordinates [N, 3] or a batch [B, N, 3]
+        (its first conformer): they size the tree capacities, order the
+        pair layouts and size the tile lists; scoring positions may differ.
+    dtype: torch.float32 on a card (the pair kernels' type), float64 for
+        parity work on the CPU.
+    device: where the batch is scored; None is the first CUDA device and
+        raises where there is none.
+    caps, caps_boost: tree capacities, or the headroom they are sized with.
+
+    Results are tensors on the scorer's device: "energy" [B] (kJ/mol),
+    "force" [B, N, 3] with forces=True, and per-term energies with
+    details=True.
+    """
+
+    def __init__(self, force: AGBNPForce, positions, dtype=torch.float32,
+                 device=None, caps=None, caps_boost: float = 1.6):
+        if force.getVersion() not in (0, 1, 2):
+            raise ValueError("ConformerScorer supports versions 0, 1 and 2")
+        if force.getNonbondedMethod() == NonbondedMethod.CutoffPeriodic:
+            raise ValueError(
+                "ConformerScorer is for gas-phase/implicit-solvent poses; "
+                "CutoffPeriodic is not supported")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "ConformerScorer: no CUDA device; pass device='cpu' to "
+                    "score on the host")
+            device = "cuda:0"
+        self.device = torch.device(device)
+        self.dtype = dtype
+        pos = torch.as_tensor(positions, dtype=torch.float64)
+        pos0 = (pos[0] if pos.dim() == 3 else pos).numpy()
+        no_cutoff = force.getNonbondedMethod() == NonbondedMethod.NoCutoff
+        self._cutoff = None if no_cutoff else force.getCutoffDistance()
+        self._is_v2 = force.getVersion() == 2
+        self._pos0 = pos0
+        self._force = force
+        self._caps = caps
+        self._caps_boost = caps_boost
+        self._model = self._build(force.to_params())
+
+    def _build(self, params):
+        if self._is_v2:
+            return AGBNP2Model(params, device=self.device, dtype=self.dtype,
+                               positions=self._pos0, cutoff=self._cutoff,
+                               caps=self._caps)
+        # the dense grid without a cutoff, interacting-tile lists with one
+        return AGBNPModel(params, device=self.device, dtype=self.dtype,
+                          version=self._force.getVersion(),
+                          cutoff=self._cutoff, caps=self._caps,
+                          caps_boost=self._caps_boost, positions=self._pos0,
+                          pair_tiles=None if self._cutoff else False)
+
+    @property
+    def model(self):
+        return self._model
+
+    def updateParametersInContext(self, force: AGBNPForce | None = None):
+        """Parameter-only refresh (AGBNPForce.cpp:76-78 semantics): the
+        model's parameter arrays are swapped, its capacities, layouts and
+        tile budgets kept (version 2: the model is rebuilt with the new
+        parameters and the grown capacities)."""
+        self._force = force or self._force
+        params = self._force.to_params()
+        if self._is_v2:
+            m2 = self._model
+            self._model = AGBNP2Model(
+                params, device=self.device, dtype=self.dtype,
+                positions=self._pos0, cutoff=self._cutoff, caps=m2.caps,
+                caps_ms=m2.caps_ms, cap_ms=m2.cap_ms, ms_kmax=m2.ms_kmax,
+                ms_sub_k=m2.ms_sub_k)
+            return
+        self._model.update_params(params)
+
+    def _batch(self, positions):
+        pos = torch.as_tensor(positions, dtype=self.dtype, device=self.device)
+        if pos.dim() == 2:
+            pos = pos[None]
+        n = self._force.getNumParticles()
+        if pos.dim() != 3 or tuple(pos.shape[1:]) != (n, 3):
+            raise ValueError(f"expected positions [B, {n}, 3], got "
+                             f"{tuple(pos.shape)}")
+        return pos
+
+    def score(self, positions, forces: bool = False, details: bool = False):
+        """Score a batch of conformations positions [B, N, 3] (or [N, 3],
+        a batch of one)."""
+        pos = self._batch(positions)
+        if self._is_v2:
+            return self._score_v2(pos, forces, details)
+        m = self._model
+        for _ in range(_TRIES):
+            out = m.batched_energy_forces(pos)
+            if not m.check_and_grow(batched_diag_max(out["diag"])):
+                break
+        else:
+            raise RuntimeError("overlap tree capacities failed to converge")
+        res = dict(energy=out["energy"])
+        if forces:
+            res["force"] = out["force"]
+        if details:
+            res.update({k: out["details"][k] for k in _DETAIL_TERMS
+                        if k in out["details"]})
+        return res
+
+    def _score_v2(self, pos, forces: bool, details: bool):
+        """AGBNP2: each conformer through the model (its MS candidates
+        picked at that conformer), the capacities shared by the batch; a
+        growth on any conformer re-scores the whole batch."""
+        m2 = self._model
+        for _ in range(_TRIES):
+            outs, grew = [], False
+            for p in pos:
+                m2.set_positions(p.detach().cpu().numpy())
+                outs.append(m2.energy_forces(p, with_details=True)[2])
+                grew = m2.check_and_grow(outs[-1]["diags"]) or grew
+            if not grew:
+                break
+        else:
+            raise RuntimeError("AGBNP2 capacities failed to converge")
+        res = dict(energy=torch.stack([o["energy"] for o in outs]))
+        if forces:
+            res["force"] = torch.stack([o["force"] for o in outs])
+        if details:
+            res.update({k: torch.stack([o["details"][k] for o in outs])
+                        for k in _DETAIL_TERMS_V2 if k in outs[0]["details"]})
+        return res
+
+    def refine(self, positions, maxiter: int = 200, **fire_kw):
+        """FIRE-minimize every conformation (one batch, each pose on its own
+        FIRE state), then rescore.  The batched analogue of the reference
+        workflow's per-pose simulation.minimizeEnergy() (reference
+        example/test_agbnp.py:49).  Returns the score() dict plus
+        "positions" [B, N, 3] (minimized) and "energy_trace" [B, maxiter].
+        Capacities regrow from the worst tree any pose built at any
+        iteration, and the minimization reruns."""
+        if self._is_v2:
+            raise ValueError("refine() supports versions 0/1; score AGBNP2 "
+                             "poses directly or minimize through md/")
+        pos = self._batch(positions)
+        m = self._model
+        for _ in range(_TRIES):
+            run = make_fire_runner(m.batched_energy_forces, maxiter=maxiter,
+                                   **fire_kw)
+            pmin, etrace, diag = run(pos)
+            if not m.check_and_grow(batched_diag_max(diag)):
+                break
+        else:
+            raise RuntimeError("overlap tree capacities failed to converge")
+        res = self.score(pmin)
+        res["positions"] = pmin
+        res["energy_trace"] = etrace
+        return res

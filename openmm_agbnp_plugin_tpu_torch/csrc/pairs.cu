@@ -99,6 +99,17 @@
 //     sweep keeps one block a sub-tile, so that its row sums need no
 //     second launch.
 //
+// Replicas.  Every launch serves B replicas of one system (a batched
+// evaluation: conformers, replica-ensemble or REMD replicas): the replica b
+// is the grid's last axis (blockIdx.y or .z), and each block first moves its
+// per-replica pointers by b times the replica's extent: positions [B, 3,
+// NP] and [B, 3, NHP], screening factors [B, NHP], BrW/BrU [B, NP], the
+// chunk lists [B, S, ...], Q/dQ [B, S, NHP, 32], the scratch and every
+// output.  The tables shared by the replicas (screener ids, radius types,
+// the spline) carry no replica axis and are read by all.  A block's work
+// inside its replica is the B = 1 block's, so replica b of a batch is
+// bitwise its own B = 1 launch, and B = 1 is the unbatched launch.
+//
 // Determinism: no float atomics; every sum is in an order fixed by the
 // shapes (S, NHP, G, P), so results are bitwise repeatable.
 //
@@ -264,7 +275,7 @@ __device__ int build_chunk_list(int a, const float* __restrict__ pos, int np,
   return base;
 }
 
-// One block of BUILD_THREADS per sub-tile a.
+// One block of BUILD_THREADS per (sub-tile a, replica blockIdx.y).
 __global__ void __launch_bounds__(BUILD_THREADS)
 subtile_columns_kernel(const float* __restrict__ pos, int np,
                        const float* __restrict__ posh, int nhp,
@@ -272,19 +283,23 @@ subtile_columns_kernel(const float* __restrict__ pos, int np,
                        int box_mode, const float* __restrict__ box,
                        int* __restrict__ cols, int* __restrict__ ncols,
                        unsigned* __restrict__ bits) {
-  build_chunk_list(blockIdx.x, pos, np, posh, nhp, hids, n, lim, box_mode,
-                   box, cols, ncols, bits);
+  const size_t b = blockIdx.y, nsub = np / SUB;
+  build_chunk_list(blockIdx.x, pos + b * 3 * np, np, posh + b * 3 * nhp, nhp,
+                   hids, n, lim, box_mode, box, cols + b * nsub * nhp,
+                   ncols + b * nsub, bits + b * nsub * (nhp / SUB));
 }
 
-// lim: horizon + CHUNK_MARGIN as one f32.  cols [S, NHP], ncols [S] and
-// bits [S, NHP / 32] are written in full.
-extern "C" int agbnp_subtile_columns(const float* pos, int np,
+// nb replicas.  lim: horizon + CHUNK_MARGIN as one f32.  cols [B, S,
+// NHP], ncols [B, S] and bits [B, S, NHP / 32] are written in full.
+extern "C" int agbnp_subtile_columns(int nb, const float* pos, int np,
                                      const float* posh, int nhp,
                                      const int* hids, int n, float lim,
                                      int box_mode, const float* box,
                                      int* cols, int* ncols, unsigned* bits,
                                      void* stream) {
-  subtile_columns_kernel<<<np / SUB, BUILD_THREADS, 0, (cudaStream_t)stream>>>(
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
+  subtile_columns_kernel<<<dim3(np / SUB, nb), BUILD_THREADS, 0,
+                           (cudaStream_t)stream>>>(
       pos, np, posh, nhp, hids, n, lim, box_mode, box, cols, ncols, bits);
   return (int)cudaGetLastError();
 }
@@ -308,7 +323,8 @@ __device__ __forceinline__ float4 stage_column(const float* __restrict__ posh,
 
 // build != 0: the block first builds its sub-tile's chunk list
 // (build_chunk_list at lim, into cols, ncols and bits), then walks it;
-// build == 0: it walks the list given in cols and ncols.
+// build == 0: it walks the list given in cols and ncols.  Replica
+// blockIdx.y.
 __global__ void __launch_bounds__(MAX_CHUNK_WARPS * 32)
 born_chunks_kernel(const float* __restrict__ pos, int np,
                    const float* __restrict__ posh, int nhp,
@@ -317,6 +333,20 @@ born_chunks_kernel(const float* __restrict__ pos, int np,
                    int* cols, int* ncols, unsigned* bits,
                    float* __restrict__ raw, float* __restrict__ q_out,
                    float* __restrict__ dq_out) {
+  {
+    const size_t b = blockIdx.y, nsub = np / SUB;
+    pos += b * 3 * np;
+    posh += b * 3 * nhp;
+    s += b * nhp;
+    cols += b * nsub * nhp;
+    ncols += b * nsub;
+    bits += b * nsub * (nhp / SUB);
+    raw += b * np;
+    if (q_out != nullptr) {
+      q_out += b * nsub * nhp * SUB;
+      dq_out += b * nsub * nhp * SUB;
+    }
+  }
   extern __shared__ float sh[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
@@ -367,13 +397,15 @@ born_chunks_kernel(const float* __restrict__ pos, int np,
   }
 }
 
+// nb replicas (pos [B, 3, NP], posh [B, 3, NHP], s [B, NHP], raw [B, NP]).
 // warps: G, at most MAX_CHUNK_WARPS.  build != 0: the kernel builds the
-// chunk list (as agbnp_subtile_columns at lim) into cols [S, NHP], ncols [S]
-// and bits [S, NHP / 32], written in full; build == 0: cols/ncols from
-// agbnp_subtile_columns at this horizon and box (bits unread, may be null).
-// q_out/dq_out [S, NHP, 32] (or null): written on the chunks below ncols
-// only.
-extern "C" int agbnp_born_sums(const float* pos, int np, const float* posh,
+// chunk list (as agbnp_subtile_columns at lim) into cols [B, S, NHP], ncols
+// [B, S] and bits [B, S, NHP / 32], written in full; build == 0: cols/ncols
+// from agbnp_subtile_columns at this horizon and box (bits unread, may be
+// null).  q_out/dq_out [B, S, NHP, 32] (or null): written on the chunks
+// below ncols only.
+extern "C" int agbnp_born_sums(int nb, const float* pos, int np,
+                               const float* posh,
                                int nhp, const int* hids, const int* trow,
                                const int* tcol, const float* yval,
                                const float* y2val, int nti, int ntj,
@@ -382,13 +414,15 @@ extern "C" int agbnp_born_sums(const float* pos, int np, const float* posh,
                                int build, int* cols, int* ncols,
                                unsigned* bits, int warps, float* raw,
                                float* q_out, float* dq_out, void* stream) {
-  if (warps < 1 || warps > MAX_CHUNK_WARPS) return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > MAX_CHUNK_WARPS || nb < 1 || nb > 65535)
+    return (int)cudaErrorInvalidValue;
   const SplineRefs sp{hids, trow, tcol, yval, y2val, nti * ntj * AGBNP_NA, ntj,
                       n, horizon};
   const size_t smem =
       (2 * (size_t)sp.ntab + warps * SUB + warps * SUB * 6) * sizeof(float);
   allow_smem((const void*)born_chunks_kernel, smem);
-  born_chunks_kernel<<<np / SUB, warps * 32, smem, (cudaStream_t)stream>>>(
+  born_chunks_kernel<<<dim3(np / SUB, nb), warps * 32, smem,
+                       (cudaStream_t)stream>>>(
       pos, np, posh, nhp, s, sp, box_mode, box, lim, build, cols, ncols,
       bits, raw, q_out, dq_out);
   return (int)cudaGetLastError();
@@ -414,8 +448,25 @@ descreen_chunks_kernel(const float* __restrict__ pos, int np,
                        const int* __restrict__ ncols,
                        float* __restrict__ f_rows,
                        float* __restrict__ pcol) {
-  // block (a, p) of P = gridDim.y walks chunks p G + w, p G + w + P G, ...;
-  // with P > 1, f_rows is the [P, NP, 3] partial column_sums_kernel adds
+  // block (a, p, b) of P = gridDim.y walks chunks p G + w, p G + w + P G,
+  // ... of replica b; with P > 1, f_rows is the [B, P, NP, 3] partial
+  // column_sums_kernel adds
+  {
+    const size_t b = blockIdx.z, nsub = np / SUB;
+    pos += b * 3 * np;
+    posh += b * 3 * nhp;
+    if (!RECOMPUTE) {
+      q += b * nsub * nhp * SUB;
+      dq += b * nsub * nhp * SUB;
+    }
+    s += b * nhp;
+    brw += b * np;
+    bru += b * np;
+    cols += b * nsub * nhp;
+    ncols += b * nsub;
+    f_rows += b * gridDim.y * 3 * np;
+    pcol += b * nsub * DS_COL_K * nhp;
+  }
   extern __shared__ float sh[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
@@ -558,17 +609,27 @@ descreen_chunks_kernel(const float* __restrict__ pos, int np,
   }
 }
 
-// Column sums: one block per 32 columns j (lane), COLSUM_WARPS warps; warp
-// w adds the partials of sub-tiles a = w, w + COLSUM_WARPS, ... whose bit
-// for j is set, and the warps' sums are added in warp order.  With parts >
-// 1, the blocks past NHP / 32 add the row forces' [parts, NP, 3] partials
-// in part order, a thread an element.
+// Column sums: one block per 32 columns j (lane) of replica blockIdx.z,
+// COLSUM_WARPS warps; warp w adds the partials of sub-tiles a = w, w +
+// COLSUM_WARPS, ... whose bit for j is set, and the warps' sums are added in
+// warp order.  With parts > 1, the blocks past NHP / 32 add the row forces'
+// [parts, NP, 3] partials in part order, a thread an element.
 __global__ void __launch_bounds__(COLSUM_WARPS * 32)
 column_sums_kernel(const float* __restrict__ pcol,
                    const unsigned* __restrict__ bits, int nsub, int nhp,
                    const float* __restrict__ f_part, int parts, int np,
                    float* __restrict__ w_out, float* __restrict__ u_out,
                    float* __restrict__ f_cols, float* __restrict__ f_rows) {
+  {
+    const size_t b = blockIdx.z;
+    pcol += b * nsub * DS_COL_K * nhp;
+    bits += b * nsub * (nhp / SUB);
+    if (f_part != nullptr) f_part += b * parts * 3 * np;
+    w_out += b * nhp;
+    u_out += b * nhp;
+    f_cols += b * 3 * nhp;
+    f_rows += b * 3 * np;
+  }
   __shared__ float part[COLSUM_WARPS][DS_COL_K][SUB];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int jb = blockIdx.x, j = jb * SUB + lane;
@@ -611,23 +672,25 @@ column_sums_kernel(const float* __restrict__ pcol,
   }
 }
 
+// nb replicas: every array but the spline's carries a leading [B] axis.
 // q == nullptr selects the recomputing variant, which reads hids, trow,
-// tcol, the tables, n and horizon; the reloading variant reads q/dq [S,
+// tcol, the tables, n and horizon; the reloading variant reads q/dq [B, S,
 // NHP, 32] from agbnp_born_sums on the same chunks (16-byte aligned) and
 // no spline argument.  warps: G; parts: P, the blocks a sub-tile's chunks
-// are split over (at most MAX_CHUNK_PARTS).  pcol [S, 5, NHP] is scratch,
-// written for the listed (sub-tile, column) pairs only; f_part [P, NP, 3]
-// is scratch when P > 1 (may be null when P == 1).
+// are split over (at most MAX_CHUNK_PARTS).  pcol [B, S, 5, NHP] is
+// scratch, written for the listed (sub-tile, column) pairs only; f_part
+// [B, P, NP, 3] is scratch when P > 1 (may be null when P == 1).
 extern "C" int agbnp_descreening(
-    const float* pos, int np, const float* posh, int nhp, const float* q,
-    const float* dq, const float* s, const float* brw, const float* bru,
-    int box_mode, const float* box, const int* hids, const int* trow,
-    const int* tcol, const float* yval, const float* y2val, int nti, int ntj,
-    int n, float horizon, const int* cols, const int* ncols,
+    int nb, const float* pos, int np, const float* posh, int nhp,
+    const float* q, const float* dq, const float* s, const float* brw,
+    const float* bru, int box_mode, const float* box, const int* hids,
+    const int* trow, const int* tcol, const float* yval, const float* y2val,
+    int nti, int ntj, int n, float horizon, const int* cols, const int* ncols,
     const unsigned* bits, int warps, int parts, float* pcol, float* f_part,
     float* w_out, float* u_out, float* f_rows, float* f_cols, void* stream) {
   if (warps < 1 || warps > MAX_CHUNK_WARPS || parts < 1
-      || parts > MAX_CHUNK_PARTS || (parts > 1 && f_part == nullptr)) {
+      || parts > MAX_CHUNK_PARTS || (parts > 1 && f_part == nullptr)
+      || nb < 1 || nb > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
@@ -638,7 +701,7 @@ extern "C" int agbnp_descreening(
       ((recompute ? 2 * (size_t)sp.ntab : 0) + 6 * SUB + warps * SUB * 3
        + warps * SUB * 8) * sizeof(float);
   const int nsub = np / SUB;
-  const dim3 grid(nsub, parts);
+  const dim3 grid(nsub, parts, nb);
   float* rows_out = parts > 1 ? f_part : f_rows;
   if (recompute) {
     allow_smem((const void*)descreen_chunks_kernel<true>, smem);
@@ -655,7 +718,8 @@ extern "C" int agbnp_descreening(
   if (err != 0) return err;
   const int threads = COLSUM_WARPS * 32;
   const int row_blocks = parts > 1 ? (3 * np + threads - 1) / threads : 0;
-  column_sums_kernel<<<nhp / SUB + row_blocks, threads, 0, st>>>(
+  column_sums_kernel<<<dim3(nhp / SUB + row_blocks, 1, nb), threads, 0,
+                       st>>>(
       pcol, bits, nsub, nhp, f_part, parts, np, w_out, u_out, f_cols,
       f_rows);
   return (int)cudaGetLastError();

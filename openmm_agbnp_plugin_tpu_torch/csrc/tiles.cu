@@ -86,6 +86,17 @@
 //     round-robin to its warps with four loads in flight each, and adds the
 //     warps in order.
 //
+//   * Replicas.  One launch serves B replicas of one system: the replica
+//     b is the grid's blockIdx.z, and each block moves its per-replica
+//     pointers by b times the replica's extent (positions, screening
+//     factors, Born radii, BrW/BrU, the list tl [B, 2, lmax] and nv [B],
+//     Q/dQ, keep bits, scratch and outputs).  The tables the replicas share
+//     (charges, LJ parameters, exclusion rows, screener ids, radius types,
+//     the spline) carry no replica axis.  The dense GB sweep's list
+//     (every tile pair) is one list for all replicas (shared_list).  A
+//     block's work inside its replica is the B = 1 block's, so replica b
+//     of a batch is bitwise its own B = 1 launch.
+//
 // Each host function launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() (0 on success).
 
@@ -107,12 +118,23 @@
 // f32 rounding of the boxes and distances (tiles.py SUBTILE_MARGIN)
 #define SUBTILE_MARGIN 1e-3f
 
-// Where subtile_reduce_kernel writes component m of output row g:
-// p[m][g * stride[m]] (skipped when p[m] is null).
+// Where subtile_reduce_kernel writes component m of output row g of
+// replica b: p[m][b * rstride[m] + g * stride[m]] (skipped when p[m] is
+// null).
 struct Dest {
   float* p[MAX_K];
   int stride[MAX_K];
+  size_t rstride[MAX_K];
 };
+
+// Move nv and tl to the list of replica blockIdx.z: tl [2, lmax] and nv
+// [1] of the [B, 2, lmax] and [B] arrays, unless every replica shares one
+// list (shared_list).
+#define REPLICA_LIST(nv, tl, lmax, shared_list)      \
+  if (!(shared_list)) {                              \
+    nv += blockIdx.z;                                \
+    tl += (size_t)blockIdx.z * 2 * (lmax);           \
+  }
 
 // ---------------------------------------------------------------------------
 // Sub-tile boxes and the pruning test
@@ -201,17 +223,23 @@ __global__ void subtile_reduce_kernel(const ReduceJob j0, const ReduceJob j1,
                                       const int* __restrict__ keep, int ng,
                                       const int* __restrict__ nv,
                                       const int* __restrict__ tl, int lmax,
-                                      int tile) {
+                                      int tile, int shared_list) {
   extern __shared__ int terms[];  // [cap]: (partial index << 1) | column
   __shared__ int wtot[REDUCE_WARPS];
   __shared__ float part[REDUCE_WARPS][MAX_K][SUB];
   const int n0 = j0.extent / SUB;
   const ReduceJob job = blockIdx.x < n0 ? j0 : j1;
-  const float* __restrict__ prow = job.prow;
-  const float* __restrict__ pcol = job.pcol;
   const int k = job.k;
   const int s = blockIdx.x < n0 ? blockIdx.x : blockIdx.x - n0;
   const int S = tile / SUB;
+  // replica blockIdx.z: its list, keep bits and partials
+  const size_t rb = blockIdx.z;
+  REPLICA_LIST(nv, tl, lmax, shared_list);
+  keep += rb * lmax * S * ng;
+  const float* __restrict__ prow =
+      job.prow == nullptr ? nullptr : job.prow + rb * lmax * ng * k * tile;
+  const float* __restrict__ pcol =
+      job.pcol == nullptr ? nullptr : job.pcol + rb * lmax * S * k * tile;
   const int t = s / S, b = s - t * S;
   const int gb = b / (S / ng);  // the column group that holds b
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -295,7 +323,7 @@ __global__ void subtile_reduce_kernel(const ReduceJob j0, const ReduceJob j1,
       if (m < k && job.dst.p[m] != nullptr) {
         float sum = 0.0f;
         for (int w = 0; w < nw; ++w) sum += part[w][m][lane];
-        job.dst.p[m][g * job.dst.stride[m]] = sum;
+        job.dst.p[m][rb * job.dst.rstride[m] + g * job.dst.stride[m]] = sum;
       }
     }
   }
@@ -313,16 +341,17 @@ static ReduceJob reduce_job(const float* prow, const float* pcol, int k,
   return ReduceJob{prow, pcol, k, extent, cap, dst};
 }
 
-// One launch for j0 and j1 (j1.extent 0: none).
+// One launch for j0 and j1 (j1.extent 0: none), nb replicas.
 static int reduce_subtiles(const ReduceJob& j0, const ReduceJob& j1,
                            const int* keep, int ng, const int* nv,
-                           const int* tl, int lmax, int tile,
-                           cudaStream_t st) {
+                           const int* tl, int lmax, int tile, int nb,
+                           int shared_list, cudaStream_t st) {
   const size_t smem = (size_t)max(max(j0.cap, j1.cap), 1) * sizeof(int);
   if (smem > REDUCE_SMEM_MAX) return (int)cudaErrorInvalidValue;
   allow_smem((const void*)subtile_reduce_kernel, smem);
-  subtile_reduce_kernel<<<(j0.extent + j1.extent) / SUB, REDUCE_WARPS * 32,
-                          smem, st>>>(j0, j1, keep, ng, nv, tl, lmax, tile);
+  subtile_reduce_kernel<<<dim3((j0.extent + j1.extent) / SUB, 1, nb),
+                          REDUCE_WARPS * 32, smem, st>>>(
+      j0, j1, keep, ng, nv, tl, lmax, tile, shared_list);
   return (int)cudaGetLastError();
 }
 
@@ -353,6 +382,19 @@ born_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
                      const float* __restrict__ box, float* __restrict__ prow,
                      int* __restrict__ keep, float* __restrict__ q_out,
                      float* __restrict__ dq_out) {
+  {
+    const size_t b = blockIdx.z, S = tile / SUB;
+    REPLICA_LIST(nv, tl, lmax, 0);
+    pos += b * 3 * np;
+    posh += b * 3 * nhp;
+    s += b * nhp;
+    prow += b * lmax * ng * tile;
+    keep += b * lmax * S * ng;
+    if (q_out != nullptr) {
+      q_out += b * lmax * tile * tile;
+      dq_out += b * lmax * tile * tile;
+    }
+  }
   extern __shared__ float sh[];
   float* tab = sh;  // y [ntab], y2 [ntab]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -421,25 +463,28 @@ born_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
   if (lane == 0) keep[(l * S + a) * ng + grp] = (int)kept;
 }
 
-// groups: ng, as for the descreening sweep on the same list.  horizon is
-// also the list's range.  prow [lmax, ng, 1, T] is scratch; keep [lmax,
-// T/32, ng] is written for the entries below nv, and tells the reload which
-// sub-tile pairs of q_out/dq_out [lmax, T, T] hold Q/dQ.
+// nb replicas, each with its own list (nv [B], tl [B, 2, lmax]) and every
+// other array but the spline's with a leading [B] axis.  groups: ng, as for
+// the descreening sweep on the same list.  horizon is also the list's
+// range.  prow [B, lmax, ng, 1, T] is scratch; keep [B, lmax, T/32, ng] is
+// written for the entries below nv, and tells the reload which sub-tile
+// pairs of q_out/dq_out [B, lmax, T, T] hold Q/dQ.
 extern "C" int agbnp_born_sums_tiles(
-    const int* nv, const int* tl, int lmax, int tile, int groups,
+    int nb, const int* nv, const int* tl, int lmax, int tile, int groups,
     const float* pos, int np, const float* posh, int nhp, const int* hids,
     const int* trow, const int* tcol, const float* yval, const float* y2val,
     int nti, int ntj, const float* s, int n, float horizon, int box_mode,
     const float* box, float* prow, int* keep, float* raw, float* q_out,
     float* dq_out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
   const SplineRefs sp{hids, trow, tcol, yval, y2val, nti * ntj * AGBNP_NA, ntj,
                       n, horizon};
   const size_t smem =
       (2 * (size_t)sp.ntab + BORN_WARPS * BORN_WARP_FLOATS) * sizeof(float);
   allow_smem((const void*)born_subtiles_kernel, smem);
   const int units = lmax * (tile / SUB) * groups;
-  born_subtiles_kernel<<<(units + BORN_WARPS - 1) / BORN_WARPS,
+  born_subtiles_kernel<<<dim3((units + BORN_WARPS - 1) / BORN_WARPS, 1, nb),
                          BORN_WARPS * 32, smem, st>>>(
       nv, tl, lmax, tile, groups, pos, np, posh, nhp, s, sp, box_mode, box,
       prow, keep, q_out, dq_out);
@@ -448,9 +493,11 @@ extern "C" int agbnp_born_sums_tiles(
   Dest dst{};
   dst.p[0] = raw;
   dst.stride[0] = 1;
+  dst.rstride[0] = np;
   return reduce_subtiles(reduce_job(prow, nullptr, 1, np, np / tile,
                                     nhp / tile, groups, tile, dst),
-                         ReduceJob{}, keep, groups, nv, tl, lmax, tile, st);
+                         ReduceJob{}, keep, groups, nv, tl, lmax, tile, nb, 0,
+                         st);
 }
 
 // ---------------------------------------------------------------------------
@@ -479,8 +526,17 @@ gb_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
                    float cutoff2, float rng, int box_mode,
                    const float* __restrict__ box, float dfac, float ke,
                    float* __restrict__ prow, float* __restrict__ pcol,
-                   int* __restrict__ keep) {
+                   int* __restrict__ keep, int shared_list) {
   const int S = tile / SUB, G = S / ng;
+  {
+    const size_t b = blockIdx.z;
+    REPLICA_LIST(nv, tl, lmax, shared_list);
+    pos += b * 3 * np;
+    born += b * np;
+    prow += b * lmax * ng * GB_K * tile;
+    pcol += b * lmax * S * GB_K * tile;
+    keep += b * lmax * S * ng;
+  }
   const int l = blockIdx.x / (S * ng);
   const int a = (blockIdx.x / ng) % S, grp = blockIdx.x % ng;
   const int lane = threadIdx.x;
@@ -588,26 +644,34 @@ gb_subtiles_kernel(const int* __restrict__ nv, const int* __restrict__ tl,
   if (lane == 0) keep[(l * S + a) * ng + grp] = (int)kept;
 }
 
+// nb replicas: positions [B, 3, NP], Born radii [B, NP], every output and
+// scratch array with a leading [B] axis; charges, LJ parameters and
+// exclusion rows are shared.  shared_list: one list (nv [1], tl [2, lmax])
+// for every replica (the dense sweep's), else nv [B], tl [B, 2, lmax].
 // groups: ng, the column groups of T / 32 / ng sub-tiles each that split
-// every (entry, row sub-tile); prow [lmax, ng, 6, T], pcol [lmax, T/32, 6,
-// T] and keep [lmax, T/32, ng] are scratch.
+// every (entry, row sub-tile); prow [B, lmax, ng, 6, T], pcol [B, lmax,
+// T/32, 6, T] and keep [B, lmax, T/32, ng] are scratch.
 extern "C" int agbnp_gb_pair_tiles(
-    const int* nv, const int* tl, int lmax, int tile, int groups,
+    int nb, int shared_list, const int* nv, const int* tl, int lmax, int tile,
+    int groups,
     const float* pos, int np, const float* charge, const float* born,
     const float* sig, const float* epsq, const int* excl, int ne, int n,
     float cutoff2, float rng, int box_mode, const float* box, float dfac,
     float ke, float* prow, float* pcol, int* keep, float* erow, float* yrow,
     float* force, float* mmrow, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int units = lmax * (tile / SUB) * groups;
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(lmax * (tile / SUB) * groups, 1, nb);
   if (mmrow != nullptr) {
-    gb_subtiles_kernel<true><<<units, SUB, 0, st>>>(
+    gb_subtiles_kernel<true><<<grid, SUB, 0, st>>>(
         nv, tl, lmax, tile, groups, pos, np, charge, born, sig, epsq, excl,
-        ne, n, cutoff2, rng, box_mode, box, dfac, ke, prow, pcol, keep);
+        ne, n, cutoff2, rng, box_mode, box, dfac, ke, prow, pcol, keep,
+        shared_list);
   } else {
-    gb_subtiles_kernel<false><<<units, SUB, 0, st>>>(
+    gb_subtiles_kernel<false><<<grid, SUB, 0, st>>>(
         nv, tl, lmax, tile, groups, pos, np, charge, born, sig, epsq, excl,
-        0, n, cutoff2, rng, box_mode, box, dfac, ke, prow, pcol, keep);
+        0, n, cutoff2, rng, box_mode, box, dfac, ke, prow, pcol, keep,
+        shared_list);
   }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -617,10 +681,12 @@ extern "C" int agbnp_gb_pair_tiles(
   for (int m = 0; m < GB_K; ++m) {
     dst.p[m] = outs[m];
     dst.stride[m] = strides[m];
+    dst.rstride[m] = (size_t)strides[m] * np;
   }
   return reduce_subtiles(reduce_job(prow, pcol, GB_K, np, np / tile,
                                     np / tile, groups, tile, dst),
-                         ReduceJob{}, keep, groups, nv, tl, lmax, tile, st);
+                         ReduceJob{}, keep, groups, nv, tl, lmax, tile, nb,
+                         shared_list, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -651,6 +717,23 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
                          const float* __restrict__ box, SplineRefs sp,
                          float rng, float* __restrict__ prow,
                          float* __restrict__ pcol, int* __restrict__ keep) {
+  {
+    const size_t b = blockIdx.z, S = tile / SUB;
+    REPLICA_LIST(nv, tl, lmax, 0);
+    pos += b * 3 * np;
+    posh += b * 3 * nhp;
+    if (!RECOMPUTE) {
+      q += b * lmax * tile * tile;
+      dq += b * lmax * tile * tile;
+      if (keep_in != nullptr) keep_in += b * lmax * S * ng;
+    }
+    s += b * nhp;
+    brw += b * np;
+    bru += b * np;
+    prow += b * lmax * ng * DS_ROW_K * tile;
+    pcol += b * lmax * S * DS_COL_K * tile;
+    keep += b * lmax * S * ng;
+  }
   extern __shared__ float sh[];
   float* tab = sh;  // RECOMPUTE: y [ntab], y2 [ntab]
   float* rx = sh + (RECOMPUTE ? 2 * sp.ntab : 0);  // rows x, y, z, BrW, BrU
@@ -812,7 +895,8 @@ descreen_subtiles_kernel(const int* __restrict__ nv,
 }
 
 template <bool RECOMPUTE>
-static int launch_descreen_subtiles(const int* nv, const int* tl, int lmax,
+static int launch_descreen_subtiles(int nb, const int* nv, const int* tl,
+                                    int lmax,
                                     int tile, int ng, const float* pos,
                                     int np,
                                     const float* posh, int nhp,
@@ -827,22 +911,24 @@ static int launch_descreen_subtiles(const int* nv, const int* tl, int lmax,
                           * sizeof(float) + SUB * sizeof(int);
   allow_smem((const void*)descreen_subtiles_kernel<RECOMPUTE>, smem);
   descreen_subtiles_kernel<RECOMPUTE>
-      <<<lmax * (tile / SUB) * ng, SUB, smem, st>>>(
+      <<<dim3(lmax * (tile / SUB) * ng, 1, nb), SUB, smem, st>>>(
           nv, tl, lmax, tile, ng, pos, np, posh, nhp, q, dq, keep_in, s, brw,
           bru, box_mode, box, sp, rng, prow, pcol, keep);
   return (int)cudaGetLastError();
 }
 
-// q == nullptr selects the recomputing variant, which reads hids, trow,
-// tcol, the tables, n and horizon.  The reloading variant takes the Born
-// sweep's keep bits keep_in [lmax, T/32, groups] (from agbnp_born_sums_
-// tiles on the same list) or, with keep_in null, forms the sub-tile boxes
-// from n (rows i >= n are padding) and hids (null: every column is real).
-// rng is the range the list was built with.  groups: ng, as for the GB
-// sweep; prow [lmax, ng, 3, T], pcol [lmax, T/32, 5, T] and keep [lmax,
-// T/32, ng] are scratch.
+// nb replicas, each with its own list (nv [B], tl [B, 2, lmax]) and every
+// other array but the spline's with a leading [B] axis.  q == nullptr
+// selects the recomputing variant, which reads hids, trow, tcol, the
+// tables, n and horizon.  The reloading variant takes the Born sweep's keep
+// bits keep_in [B, lmax, T/32, groups] (from agbnp_born_sums_tiles on the
+// same lists) or, with keep_in null, forms the sub-tile boxes from n (rows
+// i >= n are padding) and hids (null: every column is real).  rng is the
+// range the lists were built with.  groups: ng, as for the GB sweep; prow
+// [B, lmax, ng, 3, T], pcol [B, lmax, T/32, 5, T] and keep [B, lmax, T/32,
+// ng] are scratch.
 extern "C" int agbnp_descreening_tiles(
-    const int* nv, const int* tl, int lmax, int tile, int groups,
+    int nb, const int* nv, const int* tl, int lmax, int tile, int groups,
     const float* pos, int np, const float* posh, int nhp, const float* q,
     const float* dq, const int* keep_in, const float* s, const float* brw,
     const float* bru, int box_mode, const float* box, const int* hids, const int* trow, const int* tcol,
@@ -850,14 +936,16 @@ extern "C" int agbnp_descreening_tiles(
     float horizon, float rng, float* prow, float* pcol, int* keep,
     float* w_out, float* u_out, float* f_rows, float* f_cols, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
   const SplineRefs sp{hids, trow, tcol, yval, y2val, nti * ntj * AGBNP_NA, ntj,
                       n, horizon};
   int err = q == nullptr
-      ? launch_descreen_subtiles<true>(nv, tl, lmax, tile, groups, pos, np,
+      ? launch_descreen_subtiles<true>(nb, nv, tl, lmax, tile, groups, pos, np,
                                        posh, nhp, q, dq, nullptr, s, brw, bru,
                                        box_mode, box, sp, rng, prow, pcol,
                                        keep, st)
-      : launch_descreen_subtiles<false>(nv, tl, lmax, tile, groups, pos, np,
+      : launch_descreen_subtiles<false>(nb, nv, tl, lmax, tile, groups, pos,
+                                        np,
                                         posh, nhp, q, dq, keep_in, s, brw,
                                         bru, box_mode, box, sp, rng, prow,
                                         pcol, keep, st);
@@ -866,6 +954,7 @@ extern "C" int agbnp_descreening_tiles(
   for (int m = 0; m < DS_ROW_K; ++m) {
     rows.p[m] = f_rows + m;
     rows.stride[m] = 3;
+    rows.rstride[m] = 3 * (size_t)np;
   }
   Dest cols{};
   float* couts[DS_COL_K] = {w_out, u_out, f_cols, f_cols + 1, f_cols + 2};
@@ -873,6 +962,7 @@ extern "C" int agbnp_descreening_tiles(
   for (int m = 0; m < DS_COL_K; ++m) {
     cols.p[m] = couts[m];
     cols.stride[m] = cstrides[m];
+    cols.rstride[m] = (size_t)cstrides[m] * nhp;
   }
   const int row_tiles = np / tile, col_tiles = nhp / tile;
   return reduce_subtiles(
@@ -880,5 +970,5 @@ extern "C" int agbnp_descreening_tiles(
                  tile, rows),
       reduce_job(nullptr, pcol, DS_COL_K, nhp, row_tiles, col_tiles, groups,
                  tile, cols),
-      keep, groups, nv, tl, lmax, tile, st);
+      keep, groups, nv, tl, lmax, tile, nb, 0, st);
 }

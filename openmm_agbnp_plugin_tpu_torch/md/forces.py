@@ -7,6 +7,9 @@ energy functions here with forces from torch.autograd; the dense
 LJ + Coulomb sum rides the GB pair sweep (ops/kernels/pairs.py::gb_pair),
 and `dense_nonbonded_energy` is its plain twin.
 
+Every term also takes B replicas' positions [B, N, 3] and returns the
+energy of each [B]; forces_of then gives [B, N, 3].
+
 Terms (units: nm, kJ/mol, ps, e):
   * stretch_harm:   E = fc (r - r0)^2
   * angle_harm:     E = fc (theta - theta0)^2
@@ -25,25 +28,35 @@ import torch
 ONE_4PI_EPS0 = 138.935456  # kJ mol^-1 nm e^-2
 
 
+def _sum_terms(x, dims: int = 1):
+    """Sum of the last `dims` axes of x (the terms of one system), per
+    replica when x has more."""
+    return torch.sum(x.reshape(x.shape[:x.dim() - dims] + (-1,)), dim=-1)
+
+
+def _atoms(pos, ids):
+    return pos[..., ids, :]
+
+
 def bond_energy(pos, idx, r0, k):
-    d = pos[idx[:, 1]] - pos[idx[:, 0]]
+    d = _atoms(pos, idx[:, 1]) - _atoms(pos, idx[:, 0])
     r = torch.sqrt(torch.sum(d * d, dim=-1))
-    return torch.sum(k * (r - r0) ** 2)
+    return _sum_terms(k * (r - r0) ** 2)
 
 
 def angle_energy(pos, idx, theta0, k):
-    a = pos[idx[:, 0]] - pos[idx[:, 1]]
-    b = pos[idx[:, 2]] - pos[idx[:, 1]]
+    a = _atoms(pos, idx[:, 0]) - _atoms(pos, idx[:, 1])
+    b = _atoms(pos, idx[:, 2]) - _atoms(pos, idx[:, 1])
     cosang = torch.sum(a * b, dim=-1) / torch.sqrt(
         torch.sum(a * a, dim=-1) * torch.sum(b * b, dim=-1))
     theta = torch.arccos(torch.clamp(cosang, -1.0, 1.0))
-    return torch.sum(k * (theta - theta0) ** 2)
+    return _sum_terms(k * (theta - theta0) ** 2)
 
 
 def dihedral_angle(pos, idx):
-    b1 = pos[idx[:, 1]] - pos[idx[:, 0]]
-    b2 = pos[idx[:, 2]] - pos[idx[:, 1]]
-    b3 = pos[idx[:, 3]] - pos[idx[:, 2]]
+    b1 = _atoms(pos, idx[:, 1]) - _atoms(pos, idx[:, 0])
+    b2 = _atoms(pos, idx[:, 2]) - _atoms(pos, idx[:, 1])
+    b3 = _atoms(pos, idx[:, 3]) - _atoms(pos, idx[:, 2])
     n1 = torch.linalg.cross(b1, b2)
     n2 = torch.linalg.cross(b2, b3)
     b2n = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True)
@@ -54,18 +67,18 @@ def dihedral_angle(pos, idx):
 
 def dihedral_energy(pos, idx, phi0, fc):
     phi = dihedral_angle(pos, idx)
-    dphi = phi[:, None] - phi0[:, None]
+    dphi = phi[..., None] - phi0[:, None]
     orders = torch.arange(fc.shape[1], dtype=pos.dtype,
                           device=pos.device)[None, :]
-    return torch.sum(fc * torch.cos(orders * dphi))
+    return _sum_terms(fc * torch.cos(orders * dphi), 2)
 
 
 def dense_nonbonded_energy(pos, charge, sigma, epsilon, cutoff=None,
                            excl_mask=None):
     """The dense all-pairs LJ + Coulomb double sum (OPLS geometric rules),
     excluded pairs ([N, N] bool, True = excluded) masked inside the sum."""
-    n = pos.shape[0]
-    dist = pos[None, :, :] - pos[:, None, :]
+    n = pos.shape[-2]
+    dist = pos[..., None, :, :] - pos[..., :, None, :]
     d2 = torch.sum(dist * dist, dim=-1)
     eye = torch.eye(n, dtype=torch.bool, device=pos.device)
     d2s = torch.where(eye, 1.0, d2)
@@ -83,18 +96,18 @@ def dense_nonbonded_energy(pos, charge, sigma, epsilon, cutoff=None,
         mask = mask & ~excl_mask
     if cutoff is not None:
         mask = mask & (d2s < cutoff * cutoff)
-    return 0.5 * torch.sum(torch.where(mask, elj + ecoul, 0.0))
+    return 0.5 * _sum_terms(torch.where(mask, elj + ecoul, 0.0), 2)
 
 
 def pair14_energy(pos, pair_idx, pair_aij, pair_bij, pair_qij):
     """1-4 scaled pair terms (pre-scaled aij/bij/qij from the DMS tables)."""
     pi, pj = pair_idx[:, 0], pair_idx[:, 1]
-    dxp = pos[pj] - pos[pi]
+    dxp = _atoms(pos, pj) - _atoms(pos, pi)
     d2p = torch.sum(dxp * dxp, dim=-1)
     inv2 = 1.0 / d2p
     inv6 = inv2 ** 3
-    return torch.sum(pair_aij * inv6 * inv6 - pair_bij * inv6
-                     + ONE_4PI_EPS0 * pair_qij * torch.sqrt(inv2))
+    return _sum_terms(pair_aij * inv6 * inv6 - pair_bij * inv6
+                      + ONE_4PI_EPS0 * pair_qij * torch.sqrt(inv2))
 
 
 @dataclasses.dataclass
@@ -167,11 +180,12 @@ class MMForceField:
                                       excl_mask=excl_mask)
 
     def forces_of(self, energy_fn, pos, *args):
-        """(energy, force) of energy_fn(pos, *args), force by autograd."""
+        """(energy, force) of energy_fn(pos, *args), force by autograd
+        (per replica for positions [B, N, 3]: energy [B])."""
         with torch.enable_grad():
             x = pos.detach().requires_grad_(True)
             e = energy_fn(x, *args)
-            (g,) = torch.autograd.grad(e, x)
+            (g,) = torch.autograd.grad(e.sum(), x)
         return e.detach(), -g
 
     def excl_mask(self):

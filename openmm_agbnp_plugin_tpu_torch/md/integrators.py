@@ -66,6 +66,14 @@ def running_max(acc, x):
     return torch.maximum(acc, x)
 
 
+def _sigma(temp, inv_m):
+    """sqrt(kT/m): [N, 1] for one bath temperature, [R, N, 1] for
+    per-replica temperatures temp [R] (the replicas of a batch).  kT is
+    formed in float64 and rounded once to inv_m's type."""
+    kt = KB * torch.as_tensor(temp, dtype=torch.float64, device=inv_m.device)
+    return torch.sqrt(kt.to(inv_m.dtype).reshape(kt.shape + (1, 1)) * inv_m)
+
+
 def _ovrvo(pos, vel, force, noise, dt, inv_m, a, b, sigma, constraints,
            shake):
     """Kick by dt*force, then the middle scheme's drift / O-step / drift,
@@ -99,11 +107,15 @@ def langevin_middle_step(force_fn, masses, dt, temp, friction,
     (pos, vel, energy, *aux, shake) where noise is a standard-normal [N, 3]
     tensor and aux the extra outputs of force_fn(pos) -> (energy, force,
     *aux).
+
+    Replicas: with positions, velocities, forces and noise [R, N, 3] (a
+    batched force_fn), every replica takes its own step; temp may then be
+    a tensor [R] of per-replica bath temperatures (T-REMD's rungs).
     """
     a = math.exp(-friction * dt)
     b = math.sqrt(1.0 - a * a)
     inv_m = 1.0 / masses[:, None]
-    sigma = torch.sqrt(KB * temp * inv_m)
+    sigma = _sigma(temp, inv_m)
 
     def step(pos, vel, noise):
         energy, force, *aux = force_fn(pos)

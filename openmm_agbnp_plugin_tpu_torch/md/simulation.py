@@ -49,7 +49,7 @@ import torch
 from ..io.checkpoint import save_checkpoint
 from ..models.agbnp2_torch import AGBNP2Model, agbnp2_energy, \
     ms_pair_cutoff
-from ..models.agbnp_torch import AGBNPModel, energy_forces
+from ..models.agbnp_torch import AGBNPModel, energy_forces, union_arrays
 from ..models.params import AGBNPParams
 from ..ops import tree as T
 from ..ops.neighbors import CellGrid, cell_neighbor_pairs, \
@@ -309,7 +309,7 @@ class Simulation:
             if ptc is not None:
                 # the tile-list counts ride the tree counts' overflow
                 # channel (split off again in overflow_report)
-                counts = torch.cat([counts, ptc.long()])
+                counts = torch.cat([counts, ptc.long()], dim=-1)
             return energy, out["force"], out["details"].get("force_wu"), \
                 counts
 
@@ -424,6 +424,38 @@ class Simulation:
 
         return fn
 
+    def window_build(self, pos, ff, vdw_caps=None, vdw_relax: float = 0.5):
+        """A rebuild window's start for R replicas pos [R, N, 3] of the
+        system (R = 1 for the Simulation's own windows): their neighbor
+        lists, the overlap-tree topology of their disjoint union and, with
+        vdw_caps, its compacted WU topology (the ancestor closure of the
+        vdW-live rows of the build).  Returns (pairs, topology,
+        vdw_topology, (build counts [R, 7], neighbor_max [R], sibling
+        maxima [R, 7], WU kept rows [R, 7]))."""
+        nrep = pos.shape[0]
+        a = union_arrays(ff["a"], nrep, pairs=False)
+        pi, pj, pv, nbmax = self.neighbor_fn(pos, self.heavy_mask,
+                                             self.rcut_list, self.kmax)
+        pos_t = pos.reshape(-1, 3)
+        gdr = a["gamma"] / self.agbnp.params.roffset
+        lvl1 = T.make_level1(pos_t, a["radii_large"], a["vol_large"], gdr,
+                             a["ishydrogen"])
+        levels, bdiag = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
+                                     pairs_valid=pv, pair_rows=True,
+                                     nrep=nrep)
+        topo = T.tree_topology(levels)
+        vdw_topo = None
+        vdw_counts = torch.zeros((nrep, 7), dtype=torch.int64,
+                                 device=pos.device)
+        if vdw_caps is not None:
+            lvl1v = T.make_level1(pos_t, a["radii_vdw"], a["vol_vdw"], -gdr,
+                                  a["ishydrogen"])
+            vdw_topo, vdw_counts = T.compact_topology(
+                T.rescan_volumes(topo, lvl1v), vdw_caps, relax=vdw_relax,
+                nrep=nrep)
+        return ((pi, pj, pv), topo, vdw_topo,
+                (bdiag["counts"], nbmax, bdiag["max_siblings"], vdw_counts))
+
     def _ensure_vdw_caps(self, relax: float = 0.5, boost: float = 1.5):
         """Static per-level capacities of the compacted WU topology
         (ops/tree.py::compact_topology), sized from the kept-row counts of
@@ -446,7 +478,7 @@ class Simulation:
                               a["ishydrogen"])
         lv = T.rescan_volumes(T.tree_topology(levels), lvl1v)
         counts = T.compact_topology(lv, [l["valid"].shape[0] for l in lv],
-                                    relax=relax)[1].cpu().numpy()
+                                    relax=relax)[1][0].cpu().numpy()
         wu = tuple(max(8, int(np.ceil(int(k) * boost / 8) * 8))
                    for k in counts)
         self._vdw_caps = (relax, wu)
@@ -518,11 +550,8 @@ class Simulation:
         masses, rcut, kmax = self.masses, self.rcut_list, self.kmax
         heavy = self.heavy_mask
         neighbor_fn = self.neighbor_fn
-        caps = self.agbnp.caps
-        roffset = self.agbnp.params.roffset
         cons = self.constraints
         ff = self.ff_state()
-        a = ff["a"]
         nsub = max(mts_inner, 1)
         use_vdwc = (vdw_compact and rebuild_topology and neighbor_every > 0
                     and self.agbnp2 is None)
@@ -578,28 +607,18 @@ class Simulation:
             """One rebuild window: (pos, vel, energies, window diag)."""
             if self.agbnp2 is not None:
                 return window_v2(pos, vel, ninner, draw)
-            pi, pj, pv, nbmax = neighbor_fn(pos, heavy, rcut, kmax)
-            pairs = (pi, pj, pv)
-            topo = build_counts = vdw_topo = None
-            zeros7 = torch.zeros(7, dtype=torch.int64, device=pos.device)
-            sib_max = vdw_counts = zeros7
             if rebuild_topology:
-                gdr = a["gamma"] / roffset
-                lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
-                                     gdr, a["ishydrogen"])
-                levels, bdiag = T.build_tree(lvl1, pi, pj, caps,
-                                             pairs_valid=pv, pair_rows=True)
-                topo = T.tree_topology(levels)
-                build_counts = bdiag["counts"]
-                sib_max = bdiag["max_siblings"]
-                if use_vdwc:
-                    # the window's compacted WU topology: the ancestor
-                    # closure of the vdW-live rows of this build
-                    lvl1v = T.make_level1(pos, a["radii_vdw"], a["vol_vdw"],
-                                          -gdr, a["ishydrogen"])
-                    vdw_topo, vdw_counts = T.compact_topology(
-                        T.rescan_volumes(topo, lvl1v), vdw_caps,
-                        relax=vdw_relax)
+                pairs, topo, vdw_topo, bdiag = self.window_build(
+                    pos[None], ff, vdw_caps, vdw_relax)
+                # one system: the build's one replica row
+                build_counts, nbmax, sib_max, vdw_counts = (
+                    x[0] for x in bdiag)
+            else:
+                pi, pj, pv, nbmax = neighbor_fn(pos, heavy, rcut, kmax)
+                pairs = (pi, pj, pv)
+                topo = build_counts = vdw_topo = None
+                sib_max = vdw_counts = torch.zeros(7, dtype=torch.int64,
+                                                   device=pos.device)
             energies, counts, shake = [], None, None
             if wu_every > 1:
                 mk = dict(pairs=pairs, topology=topo, ff=ff,

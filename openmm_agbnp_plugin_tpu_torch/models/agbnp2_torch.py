@@ -198,8 +198,8 @@ class _AtomicCavity(torch.autograd.Function):
                                       with_selfvol_b=True,
                                       with_selfvol_a=True)
         ctx.rescanned = (levels_l, levels_v, lvl1_l, lvl1_v, lvl1_args[4])
-        return (red_l["energy"], red_v["energy"], red_l["self_volume"],
-                red_v["self_volume"])
+        return (red_l["energy"][0], red_v["energy"][0],
+                red_l["self_volume"], red_v["self_volume"])
 
     @staticmethod
     def backward(ctx, g1, g2, w_l, w_v):
@@ -235,7 +235,7 @@ class _MSCavity(torch.autograd.Function):
         red_l, red_v = T.reduce_tree2(levels_l, levels_v, lvl1_l, lvl1_v,
                                       with_selfvol_b=True)
         ctx.rescanned = (levels_v, levels_l, lvl1_v, lvl1_l, gamma_ms)
-        return red_v["energy"], red_l["energy"], red_v["self_volume"]
+        return red_v["energy"][0], red_l["energy"][0], red_v["self_volume"]
 
     @staticmethod
     def backward(ctx, g2, g1, w):
@@ -318,6 +318,7 @@ def agbnp2_energy(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
                                  a["vol_large"], gamma_dr, a["ishydrogen"])
             levels, diag = T.build_tree(lvl1, a["pairs_i"], a["pairs_j"],
                                         caps, pairs_valid=a["pairs_valid"])
+            diag = {k: v[0] for k, v in diag.items()}  # one system
             topo_atoms = T.tree_topology(levels)
     else:
         topo_atoms = topology["atoms"]
@@ -363,6 +364,7 @@ def agbnp2_energy(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
                 ms_kmax)
             mlevels, mdiag = T.build_tree(lvl1_ms, mpi, mpj, caps_ms,
                                           pairs_valid=mpv)
+            mdiag = {k: v[0] for k, v in mdiag.items()}
             topo_ms = T.tree_topology(mlevels)
         # MS-capacity overflow channels ride the diagnostics for the MD
         # PanicButton: the particle count against cap_ms, the MS-tree

@@ -18,6 +18,13 @@ interacting-tile lists (ops/kernels/tiles.py, the default whenever the
 model gets positions) or the dense tile grid (ops/kernels/pairs.py); the
 plain route (`AGBNPModel(pair_kernel=False)`) runs the dense [N, N] phases
 of ops/born.py in atom order.
+
+Replicas (batched_energy_forces): B conformations [B, N, 3] of one system
+evaluate as one batch.  The tree stage runs once over the disjoint union
+of the replicas (atom b N + i; ops/tree.py, nrep), whose overlap tree is
+the union of their trees; the pair phases run the kernels' replica axis,
+one launch for the batch; energies are summed per replica.  One system
+[N, 3] is a batch of one, its leading axis dropped from every result.
 """
 
 from __future__ import annotations
@@ -172,13 +179,40 @@ def arrays_from_numpy(arrays: dict, device, dtype=torch.float64) -> dict:
     return out
 
 
+# the per-atom arrays the overlap tree reads: tiled over the replicas for
+# the disjoint union
+_TREE_ATOM_KEYS = ("radii_large", "vol_large", "gamma", "ishydrogen",
+                   "radii_vdw", "vol_vdw", "vol_vdw_all")
+
+
+def union_arrays(a: dict, nb: int, pairs: bool = True) -> dict:
+    """The arrays of the disjoint union of nb replicas for the tree stage:
+    the per-atom arrays tiled nb times and, with pairs, the arrays' own
+    candidate pairs repeated with atom ids offset by b N (no pair crosses
+    replicas).  One replica's union is the arrays themselves."""
+    if nb == 1:
+        return a
+    n = a["radii_large"].shape[0]
+    u = {**a, **{k: a[k].repeat(nb) for k in _TREE_ATOM_KEYS}}
+    if pairs:
+        off = n * torch.arange(nb, device=a["pairs_i"].device)[:, None]
+        u.update(pairs_i=(a["pairs_i"][None, :] + off).reshape(-1),
+                 pairs_j=(a["pairs_j"][None, :] + off).reshape(-1),
+                 pairs_valid=a["pairs_valid"].repeat(nb))
+    return u
+
+
 def tree_passes(a: dict, pos, caps: T.TreeCaps, roffset: float,
-                topology=None, pair_rows: bool = False):
+                topology=None, pair_rows: bool = False, nrep: int = 1):
     """Two-pass cavity evaluation (large radii, then vdW radii).
 
     With topology given (a T.tree_topology result from an earlier build),
     the build is replaced by a fixed-topology volume rescan of both
     parameterizations in one fused pass — the MD path between rebuilds.
+
+    nrep: a and pos [nrep N, 3] are the disjoint union of nrep replicas
+    (union_arrays; 1 for one system); caps are per replica, the energies
+    [nrep] and the diag's leaves [nrep, ...].
 
     Returns (e_cav, f_cav, self_volume, levels_vdw, lvl1_vdw, diag, red1,
     red2) where levels_vdw feeds the W/U gamma pass.
@@ -191,22 +225,23 @@ def tree_passes(a: dict, pos, caps: T.TreeCaps, roffset: float,
     if topology is None:
         levels, diag = T.build_tree(lvl1_large, a["pairs_i"], a["pairs_j"],
                                     caps, pairs_valid=a["pairs_valid"],
-                                    pair_rows=pair_rows)
-        red1 = T.reduce_tree(levels, lvl1_large, with_selfvol=False)
+                                    pair_rows=pair_rows, nrep=nrep)
+        red1 = T.reduce_tree(levels, lvl1_large, with_selfvol=False,
+                             nrep=nrep)
         levels_vdw = T.rescan_volumes(levels, lvl1_vdw)
-        red2 = T.reduce_tree(levels_vdw, lvl1_vdw, with_selfvol=True)
+        red2 = T.reduce_tree(levels_vdw, lvl1_vdw, with_selfvol=True,
+                             nrep=nrep)
     else:
         dev = pos.device
-        counts = torch.stack([torch.sum(t["valid"]) for t in topology])
-        diag = dict(counts=counts,
-                    caps=torch.tensor(caps.caps, device=dev),
-                    max_siblings=torch.zeros(7, dtype=torch.int64,
+        diag = dict(counts=T.replica_counts(topology, nrep,
+                                            pos.shape[0] // nrep),
+                    max_siblings=torch.zeros((nrep, 7), dtype=torch.int64,
                                              device=dev),
-                    offs=torch.tensor(caps.offs + (0,), device=dev))
+                    **T.caps_rows(caps, nrep, dev))
         levels_large, levels_vdw = T.rescan_volumes2(topology, lvl1_large,
                                                      lvl1_vdw)
         red1, red2 = T.reduce_tree2(levels_large, levels_vdw,
-                                    lvl1_large, lvl1_vdw)
+                                    lvl1_large, lvl1_vdw, nrep=nrep)
 
     e_cav = red1["energy"] + red2["energy"]
     f_cav = -(red1["dr"] + red2["dr"])
@@ -233,21 +268,28 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     Q/dQ, or one built here for both when descreening recomputes the
     spline (the CPU twins read none).  Q/dQ are shared between the Born
     and descreening sweeps under share_qd and QD_BYTES_LIMIT; otherwise
-    descreening recomputes the spline."""
-    n = pos.shape[0]
+    descreening recomputes the spline.
+
+    pos [B, N, 3] and s_factor [B, N]: B replicas through the kernels'
+    replica axis (one launch each for the batch), every output with a
+    leading [B] axis (tile_counts [B, 2]); the budgets and the Q/dQ byte
+    rule are per replica."""
+    n = pos.shape[-2]
     tile = PK.pick_tile(n)
     rperm, rinv = a["rperm"], a["rinv"]
-    pos_pad = F.pad(pos[rperm], (0, 0, 0, pair_pad - n)).T.contiguous()
+    pos_pad = F.pad(pos[..., rperm, :], (0, 0, 0, pair_pad - n)).transpose(
+        -1, -2).contiguous()
     hids = a["hids_pad"]
     hvalid = hids >= 0
     hclip = torch.clamp(hids, min=0)
-    pos_hpad = (pos[hclip] * hvalid[:, None]).T.contiguous()
+    pos_hpad = (pos[..., hclip, :] * hvalid[:, None]).transpose(
+        -1, -2).contiguous()
     nhpad = hids.shape[0]
 
     def padv(x):
         return F.pad(x, (0, pair_pad - n))
 
-    s_h = torch.where(hvalid, s_factor[hclip], 0.0)
+    s_h = torch.where(hvalid, s_factor[..., hclip], 0.0)
     spline = PK.SplineArgs(a["hids_perm_pad"], a["type_rows_pad"],
                            a["type_cols_hpad"], a["ytab"], a["y2tab"], n,
                            horizon)
@@ -261,12 +303,12 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
         tl_b, nv_b, cnt_b = TL.build_tile_list(c_r, r_r, c_h, r_h,
                                                PK._horizon(horizon), lb,
                                                box=box)
-        cnt_g = torch.zeros((), dtype=torch.int32, device=pos.device)
+        cnt_g = torch.zeros_like(cnt_b)
         if lg is not None:
             tl_g, nv_g, cnt_g = TL.build_tile_list(c_r, r_r, c_r, r_r,
                                                    float(cutoff), lg,
                                                    triangular=True, box=box)
-        tile_counts = torch.stack([cnt_b, cnt_g])
+        tile_counts = torch.stack([cnt_b, cnt_g], dim=-1)
         save_qd = share_qd and lb * tile * tile * 8 <= QD_BYTES_LIMIT
         born_out = TL.born_sums_tiles(nv_b, tl_b, *born_args, tile, box=box,
                                       horizon=horizon, save_qd=save_qd)
@@ -280,7 +322,7 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
                                 save_qd=save_qd, chunks=chunks)
     raw, qd = (born_out[0], born_out[1:]) if save_qd else (born_out, None)
     # perm-space per-atom chain: Born radii, GB self, vdW dispersion
-    beta = 1.0 / a["radii_vdw_perm"] - PIFAC * raw[:n]
+    beta = 1.0 / a["radii_vdw_perm"] - PIFAC * raw[..., :n]
     filt, fp = B.agbnp_swf_invbr(beta)
     br_p = 1.0 / filt
     charge_p = a["charge_pad"][:n]
@@ -299,11 +341,12 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     else:
         erow, yrow, gbf, mmrow = PK.gb_pair(*gb_args, box=box, cutoff=cutoff,
                                             **mm_kw)
-    gb_self = torch.sum(DIELECTRIC_FACTOR * charge_p * charge_p / br_p)
-    gb_pair_e = torch.sum(erow[:n])
+    gb_self = torch.sum(DIELECTRIC_FACTOR * charge_p * charge_p / br_p,
+                        dim=-1)
+    gb_pair_e = torch.sum(erow[..., :n], dim=-1)
     e_vdw = B.vdw_energy(a["alpha_perm"], br_p)
     evdw_der_brw, egb_der_bru = B.born_chain_factors(
-        a["alpha_perm"], charge_p, br_p, fp, yrow[:n])
+        a["alpha_perm"], charge_p, br_p, fp, yrow[..., :n])
     # qd: (Q, dQ), and on the card the list Born kernel's keep bits or the
     # dense one's chunks, which name the only places where it wrote Q/dQ
     desc_args = (pos_pad, pos_hpad, s_h, padv(evdw_der_brw),
@@ -319,14 +362,14 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
     col = a["hinv"]
     heavy = col >= 0
     cclip = torch.clamp(col, min=0)
-    swf_cols = torch.where(heavy[:, None], swf_c[cclip], 0.0)
-    row_force = (gbf[:n] + swf_r[:n])[rinv]
+    swf_cols = torch.where(heavy[:, None], swf_c[..., cclip, :], 0.0)
+    row_force = (gbf[..., :n, :] + swf_r[..., :n, :])[..., rinv, :]
     out = dict(gb_self=gb_self, gb_pair=gb_pair_e, e_vdw=e_vdw,
-               born_radius=br_p[rinv], pair_force=row_force + swf_cols,
-               evdw_der_W=torch.where(heavy, w_h[cclip], 0.0),
-               egb_der_U=torch.where(heavy, u_h[cclip], 0.0))
+               born_radius=br_p[..., rinv], pair_force=row_force + swf_cols,
+               evdw_der_W=torch.where(heavy, w_h[..., cclip], 0.0),
+               egb_der_U=torch.where(heavy, u_h[..., cclip], 0.0))
     if mm_nb is not None:
-        out["e_mm_nb"] = 0.5 * torch.sum(mmrow[:n])
+        out["e_mm_nb"] = 0.5 * torch.sum(mmrow[..., :n], dim=-1)
     if tile_counts is not None:
         out["tile_counts"] = tile_counts
     return out
@@ -358,7 +401,9 @@ def tree_candidates(a: dict, pos, neighbor_rcut: float = 0.0,
     own pair list, or with neighbor_kmax > 0 a half neighbor list within
     neighbor_rcut built on the device (through the cell grid when
     neighbor_grid is given).  Returns (arrays with the pair list to use,
-    pair_rows, neighbor_max or None)."""
+    pair_rows, neighbor_max or None).  Positions [B, N, 3] give each
+    replica's list in the ids of their disjoint union (neighbor_max [B]);
+    the arrays' own list is then left to union_arrays."""
     if neighbor_kmax <= 0:
         return a, False, None
     heavy = a["ishydrogen"] == 0
@@ -372,16 +417,40 @@ def tree_candidates(a: dict, pos, neighbor_rcut: float = 0.0,
 
 
 def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
-                  roffset: float, ntypes_j: int, cutoff=None, topology=None,
-                  box=None, pair_pad: int = 0, pair_rows: bool = False,
-                  mm_nb=None, descreen_horizon=None,
-                  neighbor_rcut: float = 0.0, neighbor_kmax: int = 0,
-                  neighbor_grid=None, pair_tiles=None,
-                  share_qd: bool = True, vdw_topology=None,
-                  wu_mode: str = "fused"):
-    """Full GVolSA (version 0) / AGBNP1 (version 1) energy + analytic forces.
+                  roffset: float, ntypes_j: int, **kw):
+    """Full GVolSA (version 0) / AGBNP1 (version 1) energy + analytic forces
+    of one system, pos [N, 3]: batched_energy_forces of a batch of one,
+    the leading axis dropped from every result (energy, force, details,
+    diag).  Positions [B, N, 3] pass to batched_energy_forces as they
+    are."""
+    if pos.dim() == 3:
+        return batched_energy_forces(a, pos, caps, version, roffset,
+                                     ntypes_j, **kw)
+    out = batched_energy_forces(a, pos[None], caps, version, roffset,
+                                ntypes_j, **kw)
+    return dict(energy=out["energy"][0], force=out["force"][0],
+                diag={k: v[0] for k, v in out["diag"].items()},
+                details={k: v[0] for k, v in out["details"].items()})
 
-    a: arrays_from_numpy dict; pos [N, 3] on the same device.  With box
+
+def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
+                          roffset: float, ntypes_j: int, cutoff=None,
+                          topology=None, box=None, pair_pad: int = 0,
+                          pair_rows: bool = False, mm_nb=None,
+                          descreen_horizon=None, neighbor_rcut: float = 0.0,
+                          neighbor_kmax: int = 0, neighbor_grid=None,
+                          pair_tiles=None, share_qd: bool = True,
+                          vdw_topology=None, wu_mode: str = "fused"):
+    """Energy and forces of B conformations pos [B, N, 3] of one system in
+    one batched evaluation (counterpart of the JAX package's vmapped
+    energy_forces, models/agbnp_jax.py:751-774): the overlap tree of the
+    replicas' disjoint union (caps per replica), the pair kernels' replica
+    axis.  Every result has a leading [B] axis: the energy [B], force [B,
+    N, 3], the details (e_cav, e_vol1, e_vol2, gb_self, gb_pair, e_vdw,
+    ...) and every diag leaf (pass it through batched_diag_max before a
+    PanicButton check).
+
+    a: arrays_from_numpy dict on pos's device.  With box
     ([3] orthorhombic lengths or [3, 3] reduced triclinic rows), the pair
     phases use minimum-image deltas (CutoffPeriodic, AGBNPForce.h:55); the
     overlap tree keeps raw deltas like every reference backend.
@@ -401,21 +470,30 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     wu_mode: "fused" adds its force in; "split" returns it apart as
     details["force_wu"] (the mts_wu r-RESPA impulse); "skip" leaves the
     pass out (the impulse integrator's off-steps).  The energy never
-    depends on this pass.
+    depends on this pass.  topology and vdw_topology are those of the
+    replicas' union tree.
 
     Returns dict(energy, force, diag, details).
     """
+    if pos.dim() != 3:
+        raise ValueError(f"positions [B, N, 3], got {tuple(pos.shape)}")
     if wu_mode not in ("fused", "split", "skip"):
         raise ValueError(f"wu_mode {wu_mode!r}: fused, split or skip")
+    nb = pos.shape[0]
     if neighbor_kmax > 0:
         a, pair_rows, nbmax = tree_candidates(a, pos, neighbor_rcut,
                                               neighbor_kmax, neighbor_grid)
+    # the tree stage: one tree over the replicas' disjoint union
+    at = union_arrays(a, nb, pairs=neighbor_kmax <= 0 and topology is None)
+    pos_t = pos.reshape(-1, 3)
     e_cav, f_cav, self_volume, levels_vdw, lvl1_vdw, diag, red1, red2 = \
-        tree_passes(a, pos, caps, roffset, topology=topology,
-                    pair_rows=pair_rows)
+        tree_passes(at, pos_t, caps, roffset, topology=topology,
+                    pair_rows=pair_rows, nrep=nb)
+    f_cav = f_cav.reshape(pos.shape)
+    self_volume = self_volume.reshape(pos.shape[:-1])
     if neighbor_kmax > 0:
         diag = {**diag, "neighbor_max": nbmax,
-                "neighbor_kmax": torch.tensor(neighbor_kmax)}
+                "neighbor_kmax": torch.full(nbmax.shape, neighbor_kmax)}
     details = dict(e_vol1=red1["energy"], e_vol2=red2["energy"], e_cav=e_cav)
     if version == 0:
         return dict(energy=e_cav, force=f_cav, diag=diag, details=details)
@@ -427,16 +505,19 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
                                  horizon=descreen_horizon, mm_nb=mm_nb,
                                  pair_tiles=pair_tiles, share_qd=share_qd)
         if "tile_counts" in pp:
+            budgets = np.asarray(
+                [pair_tiles[0],
+                 -1 if pair_tiles[1] is None else pair_tiles[1]], np.int32)
             diag = {**diag, "pair_tile_counts": pp["tile_counts"],
-                    "pair_tile_budgets": np.asarray(
-                        [pair_tiles[0],
-                         -1 if pair_tiles[1] is None else pair_tiles[1]],
-                        np.int32)}
+                    "pair_tile_budgets": np.tile(budgets, (nb, 1))}
     else:
         if mm_nb is not None:
             raise ValueError("the fused MM sum rides the kernel route only")
-        pp = _pair_phases_plain(a, pos, s_factor, cutoff, box, ntypes_j,
-                                horizon=descreen_horizon)
+        # the plain route has no replica axis: one replica at a time
+        pp = PK.per_replica(
+            _pair_phases_plain, nb, dict(pos=pos, s_factor=s_factor),
+            a=a, cutoff=cutoff, box=box, ntypes_j=ntypes_j,
+            horizon=descreen_horizon)
     gb_self, gb_pair_e, e_vdw = pp["gb_self"], pp["gb_pair"], pp["e_vdw"]
     br, pair_force = pp["born_radius"], pp["pair_force"]
     evdw_der_W, egb_der_U = pp["evdw_der_W"], pp["egb_der_U"]
@@ -456,24 +537,34 @@ def energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     # self-volume gradient components via one gamma rescan over
     # gamma_W + gamma_U (the reference's two passes,
     # ReferenceAGBNPKernels.cpp:713-747, are linear in gamma)
-    gamma_WU = (evdw_der_W + egb_der_U) / a["vol_vdw_all"]
+    gamma_WU = ((evdw_der_W + egb_der_U) / a["vol_vdw_all"]).reshape(-1)
     if vdw_topology is not None:
         # compacted WU pass: one rescan_volumes over the ancestor closure of
         # the vdW-live rows (T.compact_topology) recomputes the volumes and
         # carries the WU gammas down its packed chain
-        lvl1_WU = T.make_level1(pos, a["radii_vdw"], a["vol_vdw"], gamma_WU,
-                                a["ishydrogen"])
+        lvl1_WU = T.make_level1(pos_t, at["radii_vdw"], at["vol_vdw"],
+                                gamma_WU, at["ishydrogen"])
         red_WU = T.reduce_tree(T.rescan_volumes(vdw_topology, lvl1_WU),
-                               lvl1_WU, with_selfvol=False)
+                               lvl1_WU, with_selfvol=False, nrep=nb)
     else:
         lvl1_WU = {**lvl1_vdw, "gamma1i": gamma_WU}
         red_WU = T.reduce_tree(T.rescan_gammas(levels_vdw, lvl1_WU), lvl1_WU,
-                               with_selfvol=False)
+                               with_selfvol=False, nrep=nb)
+    f_wu = red_WU["dr"].reshape(pos.shape)
     if wu_mode == "split":
-        details["force_wu"] = -red_WU["dr"]
+        details["force_wu"] = -f_wu
     else:
-        force = force - red_WU["dr"]
+        force = force - f_wu
     return dict(energy=energy, force=force, diag=diag, details=details)
+
+
+def batched_diag_max(diag) -> dict:
+    """Reduce a batched diag (a leading replica axis on every leaf) to the
+    worst case over the batch, so the PanicButton check (check_and_grow)
+    sees the largest tree, list and tile count any replica built (JAX
+    models/agbnp_jax.py:520-524)."""
+    return {k: np.max(np.asarray(torch.as_tensor(v).cpu()), axis=0)
+            for k, v in diag.items()}
 
 
 class AGBNPModel:
@@ -576,9 +667,9 @@ class AGBNPModel:
             ap, pair_rows, nbmax = tree_candidates(
                 a, pos, self.neighbor_rcut, self.neighbor_kmax,
                 self.neighbor_grid)
-            diag = T.build_tree(lvl1, ap["pairs_i"], ap["pairs_j"], self.caps,
-                                pairs_valid=ap["pairs_valid"],
-                                pair_rows=pair_rows)[1]
+            diag = {k: v[0] for k, v in T.build_tree(
+                lvl1, ap["pairs_i"], ap["pairs_j"], self.caps,
+                pairs_valid=ap["pairs_valid"], pair_rows=pair_rows)[1].items()}
             if nbmax is not None:
                 diag["neighbor_max"] = nbmax
             if not self.check_and_grow(diag):
@@ -666,6 +757,12 @@ class AGBNPModel:
 
     def _evaluate(self, pos, wu_mode: str) -> dict:
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        if pos.dim() != 2:
+            raise ValueError(f"positions [N, 3], got {tuple(pos.shape)}; "
+                             "batched_energy_forces takes [B, N, 3]")
+        return self._run(pos, wu_mode)
+
+    def _run(self, pos, wu_mode: str) -> dict:
         return energy_forces(self.arrays, pos, caps=self.caps,
                              version=self.version,
                              roffset=self.params.roffset,
@@ -683,6 +780,18 @@ class AGBNPModel:
         if with_details:
             return out["energy"], out["force"], out
         return out["energy"], out["force"]
+
+    def batched_energy_forces(self, pos_batch):
+        """Evaluate B conformations [B, N, 3] of this system in one batch
+        (the batched-rescoring path; JAX AGBNPModel.batched_energy_forces,
+        which the port also runs on the kernel route).  Returns the
+        energy_forces dict with a leading [B] axis on every leaf; pass the
+        diag through batched_diag_max before check_and_grow."""
+        pos = torch.as_tensor(pos_batch, dtype=self.dtype, device=self.device)
+        if pos.dim() != 3 or pos.shape[1:] != (self.params.n, 3):
+            raise ValueError(f"positions [B, {self.params.n}, 3], got "
+                             f"{tuple(pos.shape)}")
+        return self._run(pos, "fused")
 
     def energy_only(self, pos, with_details: bool = False):
         """Energy without the WU gamma-rescan force pass (the pass carries

@@ -165,7 +165,7 @@ def gb_energy(pos, charge, born_radius, geom, cutoff=None):
 def vdw_energy(alpha, born_radius):
     """E_vdw = sum_i alpha_i / (B_i + rw)^3
     (reference ReferenceAGBNPKernels.cpp:513-521)."""
-    return torch.sum(alpha / (born_radius + AGBNP_HB_RADIUS) ** 3)
+    return torch.sum(alpha / (born_radius + AGBNP_HB_RADIUS) ** 3, dim=-1)
 
 
 def born_chain_factors(alpha, charge, born_radius, inv_br_fp, egb_der_Y):

@@ -18,6 +18,15 @@ radius-type ids and the [Ti, Tj, NA] y/y2 spline tables.
   descreening      W_j/U_j column sums + direct descreening forces from the
                    saved Q/dQ, or (qd=None) with the spline recomputed
 
+Replicas: every wrapper also takes a batch of B replicas of one system,
+positions [B, 3, NP] / [B, 3, NHP] and every other per-replica array with a
+leading [B] axis (screening factors, Born radii, BrW/BrU, chunk lists,
+Q/dQ), while the tables the replicas share (screener ids, radius types,
+the spline, charges, LJ parameters, exclusion rows) keep their shapes; the
+results then carry the [B] axis too.  On the card one launch serves the
+batch, and replica b is bitwise its own B = 1 launch; the twins run each
+replica as an unbatched call.  No pair crosses replicas.
+
 Each wrapper routes by the device of its tensors: on the CPU it returns its
 plain twin (`*_reference`); on a CUDA device it checks every argument,
 launches its kernel from csrc/pairs.cu (gb_pair: from csrc/tiles.cu, over
@@ -456,6 +465,51 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _stack(outs):
+    """Stack the per-replica results of unbatched calls (tensors, tuples,
+    NamedTuples and dicts of them, None) on a new leading axis."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    if isinstance(first, dict):
+        return {k: _stack([o[k] for o in outs]) for k in first}
+    items = [_stack([o[i] for o in outs]) for i in range(len(first))]
+    return type(first)(*items) if hasattr(first, "_fields") else tuple(items)
+
+
+def _nested(x, f):
+    """f applied to every tensor of x (a tensor, a tuple or NamedTuple of
+    them, or None)."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return f(x)
+    items = [_nested(v, f) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+
+def per_replica(fn, nb: int, batched: dict, **shared):
+    """Run an unbatched function once per replica: batched holds the
+    keyword arguments with a leading [nb] axis, shared those every replica
+    takes whole; the results are stacked.  How the twins take a replica
+    axis."""
+    return _stack([fn(**{k: _nested(v, lambda t: t[b])
+                         for k, v in batched.items()}, **shared)
+                   for b in range(nb)])
+
+
+def _lead(x):
+    """An unbatched argument as a batch of one (None stays None)."""
+    return _nested(x, lambda t: t[None])
+
+
+def _unlead(x):
+    """The one replica of a batch of one."""
+    return _nested(x, lambda t: t[0])
+
+
 def _launch_check(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
@@ -492,14 +546,25 @@ def chunk_parts(nhpad: int) -> int:
     return max(1, min(MAX_CHUNK_PARTS, (nhpad // SUB + g - 1) // g))
 
 
-def _check_chunks(chunks, npad, nhpad, dev):
+def _check_chunks(chunks, nb, npad, nhpad, dev):
     if not isinstance(chunks, Chunks):
         raise TypeError(f"chunks: expected Chunks, got "
                         f"{type(chunks).__name__}")
     nsub = npad // SUB
-    _check("chunks.cols", chunks.cols, torch.int32, (nsub, nhpad), dev)
-    _check("chunks.ncols", chunks.ncols, torch.int32, (nsub,), dev)
-    _check("chunks.bits", chunks.bits, torch.int32, (nsub, nhpad // SUB), dev)
+    _check("chunks.cols", chunks.cols, torch.int32, (nb, nsub, nhpad), dev)
+    _check("chunks.ncols", chunks.ncols, torch.int32, (nb, nsub), dev)
+    _check("chunks.bits", chunks.bits, torch.int32, (nb, nsub, nhpad // SUB),
+           dev)
+
+
+def _replicas(pos_pad):
+    """(B, batched): the replica count of positions [B, 3, NP], or 1 for
+    an unbatched [3, NP]."""
+    if pos_pad.dim() == 3:
+        if not 1 <= pos_pad.shape[0] <= 65535:
+            raise ValueError(f"{pos_pad.shape[0]} replicas: 1 to 65535")
+        return pos_pad.shape[0], True
+    return 1, False
 
 
 def _check_pads(npad, nhpad):
@@ -518,24 +583,42 @@ def subtile_columns(pos_pad, pos_hpad, hids_perm, n, box=None, horizon=None):
     lattice step around the wrapped one); none for a sub-tile without such
     rows.  Every pair the Born mask
     accepts is listed.  The kernel writes every entry; it equals the twin
-    bit for bit."""
+    bit for bit.  Batched positions [B, 3, NP] / [B, 3, NHP] give one list
+    per replica, Chunks with a leading [B] axis."""
+    nb, batched = _replicas(pos_pad)
     if pos_pad.device.type == "cpu":
+        if batched:
+            return per_replica(subtile_columns_reference, nb,
+                               dict(pos_pad=pos_pad, pos_hpad=pos_hpad),
+                               hids_perm=hids_perm, n=n, box=box,
+                               horizon=horizon)
         return subtile_columns_reference(pos_pad, pos_hpad, hids_perm, n,
                                          box=box, horizon=horizon)
+    if not batched:
+        return _unlead(_subtile_columns_cuda(pos_pad[None], pos_hpad[None],
+                                             hids_perm, n, box, horizon))
+    return _subtile_columns_cuda(pos_pad, pos_hpad, hids_perm, n, box, horizon)
+
+
+def _subtile_columns_cuda(pos_pad, pos_hpad, hids_perm, n, box, horizon):
+    """subtile_columns' launch on a batch of CUDA tensors (a leading [B]
+    axis); an unbatched call takes it as a batch of one."""
+    nb, _ = _replicas(pos_pad)
     dev = pos_pad.device
-    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    npad, nhpad = pos_pad.shape[2], pos_hpad.shape[2]
     _check_pads(npad, nhpad)
-    _check("pos_pad", pos_pad, torch.float32, (3, npad), dev)
-    _check("pos_hpad", pos_hpad, torch.float32, (3, nhpad), dev)
+    _check("pos_pad", pos_pad, torch.float32, (nb, 3, npad), dev)
+    _check("pos_hpad", pos_hpad, torch.float32, (nb, 3, nhpad), dev)
     _check("hids_perm", hids_perm, torch.int32, (nhpad,), dev)
     box_mode, box_t = _box_arg(box, dev)
     nsub = npad // SUB
-    cols = torch.empty((nsub, nhpad), dtype=torch.int32, device=dev)
-    ncols = torch.empty(nsub, dtype=torch.int32, device=dev)
-    bits = torch.empty((nsub, nhpad // SUB), dtype=torch.int32, device=dev)
+    cols = torch.empty((nb, nsub, nhpad), dtype=torch.int32, device=dev)
+    ncols = torch.empty((nb, nsub), dtype=torch.int32, device=dev)
+    bits = torch.empty((nb, nsub, nhpad // SUB), dtype=torch.int32,
+                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_subtile_columns(
-        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad,
+        nb, pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad,
         hids_perm.data_ptr(), int(n), _chunk_lim(horizon), box_mode,
         _ptr(box_t), cols.data_ptr(), ncols.data_ptr(), bits.data_ptr(),
         stream)
@@ -567,38 +650,63 @@ def born_sums(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
     NHP, 32] (chunk_layout of the twin's) on the slots chunk_slots names
     and undefined elsewhere; hand the whole tuple to descreening as qd, so
     the reload reads nothing else.  qd_out: optional (Q, dQ) buffers the
-    kernel writes into.
+    kernel writes into.  Batched: pos_pad [B, 3, NP], pos_hpad [B, 3,
+    NHP], s_hpad [B, NHP], chunks and qd_out with a leading [B] axis, and
+    so are the results.
     """
+    nb, batched = _replicas(pos_pad)
     if pos_pad.device.type == "cpu":
+        if batched:
+            return per_replica(
+                born_sums_reference, nb,
+                dict(pos_pad=pos_pad, pos_hpad=pos_hpad, s_hpad=s_hpad),
+                hids_perm=hids_perm, type_rows=type_rows,
+                type_cols=type_cols, yval=yval, y2val=y2val, n=n, box=box,
+                horizon=horizon, save_qd=save_qd)
         return born_sums_reference(pos_pad, pos_hpad, hids_perm, type_rows,
                                    type_cols, yval, y2val, s_hpad, n, box=box,
                                    horizon=horizon, save_qd=save_qd)
+    if not batched:
+        return _unlead(_born_sums_cuda(
+            pos_pad[None], pos_hpad[None], hids_perm, type_rows, type_cols,
+            yval, y2val, s_hpad[None], n, box=box, horizon=horizon,
+            save_qd=save_qd, chunks=_lead(chunks), qd_out=_lead(qd_out)))
+    return _born_sums_cuda(pos_pad, pos_hpad, hids_perm, type_rows, type_cols,
+                           yval, y2val, s_hpad, n, box=box, horizon=horizon,
+                           save_qd=save_qd, chunks=chunks, qd_out=qd_out)
+
+
+def _born_sums_cuda(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
+                    y2val, s_hpad, n, box, horizon, save_qd, chunks, qd_out):
+    """born_sums' launch on a batch of CUDA tensors (a leading [B] axis);
+    an unbatched call takes it as a batch of one."""
+    nb, _ = _replicas(pos_pad)
     dev = pos_pad.device
     f32, i32 = torch.float32, torch.int32
-    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    npad, nhpad = pos_pad.shape[2], pos_hpad.shape[2]
     nti, ntj = yval.shape[0], yval.shape[1]
     _check_pads(npad, nhpad)
-    _check("pos_pad", pos_pad, f32, (3, npad), dev)
-    _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
+    _check("pos_pad", pos_pad, f32, (nb, 3, npad), dev)
+    _check("pos_hpad", pos_hpad, f32, (nb, 3, nhpad), dev)
     _check("hids_perm", hids_perm, i32, (nhpad,), dev)
     _check("type_rows", type_rows, i32, (npad,), dev)
     _check("type_cols", type_cols, i32, (nhpad,), dev)
     _check("yval", yval, f32, (nti, ntj, _NA), dev)
     _check("y2val", y2val, f32, (nti, ntj, _NA), dev)
-    _check("s_hpad", s_hpad, f32, (nhpad,), dev)
+    _check("s_hpad", s_hpad, f32, (nb, nhpad), dev)
     nsub = npad // SUB
     build = chunks is None
     if build:
-        chunks = Chunks(torch.empty((nsub, nhpad), dtype=i32, device=dev),
-                        torch.empty(nsub, dtype=i32, device=dev),
-                        torch.empty((nsub, nhpad // SUB), dtype=i32,
-                                    device=dev))
-    _check_chunks(chunks, npad, nhpad, dev)
+        chunks = Chunks(
+            torch.empty((nb, nsub, nhpad), dtype=i32, device=dev),
+            torch.empty((nb, nsub), dtype=i32, device=dev),
+            torch.empty((nb, nsub, nhpad // SUB), dtype=i32, device=dev))
+    _check_chunks(chunks, nb, npad, nhpad, dev)
     box_mode, box_t = _box_arg(box, dev)
-    raw = torch.empty(npad, dtype=f32, device=dev)
+    raw = torch.empty((nb, npad), dtype=f32, device=dev)
     q = dq = None
     if save_qd:
-        shape = (nsub, nhpad, SUB)
+        shape = (nb, nsub, nhpad, SUB)
         if qd_out is None:
             q = torch.empty(shape, dtype=f32, device=dev)
             dq = torch.empty(shape, dtype=f32, device=dev)
@@ -608,7 +716,7 @@ def born_sums(pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
             _check("dQ", dq, f32, shape, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_born_sums(
-        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad,
+        nb, pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad,
         hids_perm.data_ptr(), type_rows.data_ptr(), type_cols.data_ptr(),
         yval.data_ptr(), y2val.data_ptr(), nti, ntj, s_hpad.data_ptr(),
         int(n), _horizon(horizon), box_mode, _ptr(box_t),
@@ -638,21 +746,28 @@ def gb_pair(pos_pad, charge_pad, born_pad, n, box=None, cutoff=None,
     The kernel is tiles.py's list kernel over triangular_grid_list at the
     tile pick_tile(NP): each unordered pair once, deposited on both sides,
     the 32x32 sub-tile pairs beyond the cutoff skipped (none without one).
-    Its scratch takes 1.5 T^2 bytes for every tile pair (96 KB at T 256).
+    Its scratch takes 1.5 T^2 bytes for every tile pair (96 KB at T 256)
+    and replica.  Batched: pos_pad [B, 3, NP] and born_pad [B, NP] (the
+    charges, LJ parameters and exclusion rows are shared), results [B,
+    ...]; the replicas share the list.
     """
+    nb, batched = _replicas(pos_pad)
     if pos_pad.device.type == "cpu":
-        return gb_pair_reference(pos_pad, charge_pad, born_pad, n, box=box,
-                                 cutoff=cutoff, sig_pad=sig_pad,
-                                 epsq_pad=epsq_pad,
-                                 excl_rows_pad=excl_rows_pad)
+        kw = dict(charge_pad=charge_pad, n=n, box=box, cutoff=cutoff,
+                  sig_pad=sig_pad, epsq_pad=epsq_pad,
+                  excl_rows_pad=excl_rows_pad)
+        if batched:
+            return per_replica(gb_pair_reference, nb,
+                               dict(pos_pad=pos_pad, born_pad=born_pad), **kw)
+        return gb_pair_reference(pos_pad, born_pad=born_pad, **kw)
     from .tiles import _gb_subtiles, triangular_grid_list
 
-    npad = pos_pad.shape[1]
+    npad = pos_pad.shape[-1]
     tile = _grid_tile(npad)
     tl, nv = triangular_grid_list(npad // tile, pos_pad.device)
     out = _gb_subtiles("gb_pair", nv, tl, tile, pos_pad, charge_pad,
                        born_pad, n, box, cutoff, sig_pad, epsq_pad,
-                       excl_rows_pad)
+                       excl_rows_pad, shared_list=True)
     LAUNCHES["gb_pair"] += 1
     return out
 
@@ -705,27 +820,50 @@ def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
     None).
 
     Returns (W [NHP], U [NHP], force_rows [NP, 3], force_cols [NHP, 3]);
-    the column-side quantities are in packed heavy layout.
+    the column-side quantities are in packed heavy layout.  Batched: every
+    argument but the spline with a leading [B] axis (positions [B, 3, ...],
+    qd and chunks from a batched born_sums), and so are the results.
     """
+    nb, batched = _replicas(pos_pad)
     if pos_pad.device.type == "cpu":
+        if batched:
+            return per_replica(
+                descreening_reference, nb,
+                dict(pos_pad=pos_pad, pos_hpad=pos_hpad, s_hpad=s_hpad,
+                     brw_pad=brw_pad, bru_pad=bru_pad, qd=qd),
+                box=box, spline=spline)
         return descreening_reference(pos_pad, pos_hpad, s_hpad, brw_pad,
                                      bru_pad, qd, box=box, spline=spline)
+    if not batched:
+        return _unlead(_descreening_cuda(
+            pos_pad[None], pos_hpad[None], s_hpad[None], brw_pad[None],
+            bru_pad[None], _lead(qd), box=box, spline=spline,
+            chunks=_lead(chunks)))
+    return _descreening_cuda(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd,
+                             box=box, spline=spline, chunks=chunks)
+
+
+def _descreening_cuda(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box,
+                      spline, chunks):
+    """descreening's launch on a batch of CUDA tensors (a leading [B] axis);
+    an unbatched call takes it as a batch of one."""
+    nb, _ = _replicas(pos_pad)
     dev = pos_pad.device
     f32 = torch.float32
-    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    npad, nhpad = pos_pad.shape[2], pos_hpad.shape[2]
     _check_pads(npad, nhpad)
-    _check("pos_pad", pos_pad, f32, (3, npad), dev)
-    _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
-    _check("s_hpad", s_hpad, f32, (nhpad,), dev)
-    _check("brw_pad", brw_pad, f32, (npad,), dev)
-    _check("bru_pad", bru_pad, f32, (npad,), dev)
+    _check("pos_pad", pos_pad, f32, (nb, 3, npad), dev)
+    _check("pos_hpad", pos_hpad, f32, (nb, 3, nhpad), dev)
+    _check("s_hpad", s_hpad, f32, (nb, nhpad), dev)
+    _check("brw_pad", brw_pad, f32, (nb, npad), dev)
+    _check("bru_pad", bru_pad, f32, (nb, npad), dev)
     q = dq = None
     if qd is not None:
         if len(qd) != 3:
             raise ValueError("qd: on a CUDA device, the (Q, dQ, chunks) "
                              "that born_sums(save_qd=True) returns")
         q, dq, chunks = qd
-        shape = (npad // SUB, nhpad, SUB)
+        shape = (nb, npad // SUB, nhpad, SUB)
         _check("Q", q, f32, shape, dev)
         _check("dQ", dq, f32, shape, dev)
         for what, x in (("Q", q), ("dQ", dq)):
@@ -739,19 +877,19 @@ def descreening(pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad, qd, box=None,
             chunks = subtile_columns(pos_pad, pos_hpad, spline.hids_perm,
                                      spline.n, box=box,
                                      horizon=spline.horizon)
-    _check_chunks(chunks, npad, nhpad, dev)
+    _check_chunks(chunks, nb, npad, nhpad, dev)
     box_mode, box_t = _box_arg(box, dev)
-    pcol = torch.empty((npad // SUB, 5, nhpad), dtype=f32, device=dev)
+    pcol = torch.empty((nb, npad // SUB, 5, nhpad), dtype=f32, device=dev)
     parts = chunk_parts(nhpad)
-    f_part = (torch.empty((parts, npad, 3), dtype=f32, device=dev)
+    f_part = (torch.empty((nb, parts, npad, 3), dtype=f32, device=dev)
               if parts > 1 else None)
-    w = torch.empty(nhpad, dtype=f32, device=dev)
-    u = torch.empty(nhpad, dtype=f32, device=dev)
-    f_rows = torch.empty((npad, 3), dtype=f32, device=dev)
-    f_cols = torch.empty((nhpad, 3), dtype=f32, device=dev)
+    w = torch.empty((nb, nhpad), dtype=f32, device=dev)
+    u = torch.empty((nb, nhpad), dtype=f32, device=dev)
+    f_rows = torch.empty((nb, npad, 3), dtype=f32, device=dev)
+    f_cols = torch.empty((nb, nhpad, 3), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_descreening(
-        pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad, _ptr(q),
+        nb, pos_pad.data_ptr(), npad, pos_hpad.data_ptr(), nhpad, _ptr(q),
         _ptr(dq), s_hpad.data_ptr(), brw_pad.data_ptr(), bru_pad.data_ptr(),
         box_mode, _ptr(box_t), *sp_args, chunks.cols.data_ptr(),
         chunks.ncols.data_ptr(), chunks.bits.data_ptr(),

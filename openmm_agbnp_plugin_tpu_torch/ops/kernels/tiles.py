@@ -35,6 +35,11 @@ The sweeps take the same arguments as their dense counterparts in pairs.py
 with (nv, tl) in front and the tile size after n, and return the same
 results.  Each wrapper runs its plain twin on CPU tensors and its kernel
 from csrc/tiles.cu on CUDA tensors, counted in pairs.LAUNCHES.
+
+Replicas, as in pairs.py: positions [B, 3, ...] make tile_bounds and
+build_tile_list work per replica (tl [B, 2, lmax], nv [B, 1], count [B];
+one budget lmax for all), and the sweeps take those lists with every
+per-replica array batched; one launch serves the batch.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ from ...models.constants import DIELECTRIC_FACTOR
 from ..born import min_image
 from .pairs import (KE, LAUNCHES, _born_qdq, _box_arg, _check, _check_spline,
                     _cuda_lib, _descreen_sums, _horizon, _launch_check,
-                    _NA, _pair_geom, _ptr, _spline_ptrs, need_spline)
+                    _lead, _NA, _pair_geom, _ptr, _replicas, _spline_ptrs,
+                    _unlead, need_spline, per_replica)
 
 SUB = 32              # sub-tile edge of the GB and descreening list kernels
 # nm added to a list's range before the kernels drop a sub-tile pair: far
@@ -72,18 +78,21 @@ DS_WARPS_PER_SM = 32
 def tile_bounds(pos_pad, valid, tile: int):
     """Per-tile AABB (center [3, NT], half-diagonal radius [NT]) of the
     valid atoms in each contiguous block of `tile` packed columns.  Empty
-    tiles get radius -1e30 so every distance test excludes them."""
-    nt = pos_pad.shape[1] // tile
-    p = pos_pad.reshape(3, nt, tile)
-    v = valid.reshape(1, nt, tile)
+    tiles get radius -1e30 so every distance test excludes them.  Leading
+    replica axes of pos_pad (and of valid, when it has them) carry
+    through: [B, 3, NP] gives [B, 3, NT] and [B, NT]."""
+    nt = pos_pad.shape[-1] // tile
+    p = pos_pad.reshape(pos_pad.shape[:-1] + (nt, tile))
+    v = valid.reshape(valid.shape[:-1] + (1, nt, tile))
     big = 1e30
-    lo = torch.amin(torch.where(v, p, big), dim=2)
-    hi = torch.amax(torch.where(v, p, -big), dim=2)
-    has = torch.any(v[0], dim=1)
-    lo = torch.where(has[None, :], lo, 0.0)
-    hi = torch.where(has[None, :], hi, 0.0)
+    lo = torch.amin(torch.where(v, p, big), dim=-1)
+    hi = torch.amax(torch.where(v, p, -big), dim=-1)
+    has = torch.any(v, dim=-1)
+    lo = torch.where(has, lo, 0.0)
+    hi = torch.where(has, hi, 0.0)
     center = 0.5 * (lo + hi)
-    rad = torch.where(has, 0.5 * torch.sqrt(torch.sum((hi - lo) ** 2, dim=0)),
+    rad = torch.where(has[..., 0, :],
+                      0.5 * torch.sqrt(torch.sum((hi - lo) ** 2, dim=-2)),
                       -big)
     return center, rad
 
@@ -100,28 +109,35 @@ def build_tile_list(ci, ri, cj, rj, rng_dist: float, lmax: int,
 
     Returns (tl [2, lmax] int32 (ti; tj), nv [1] int32 = min(count, lmax),
     count [] int32).  Entries past nv are (0; 0).  count > lmax means the
-    budget overflowed; nothing here reads it on the host.
+    budget overflowed; nothing here reads it on the host.  With a leading
+    replica axis on the bounds (tile_bounds of [B, 3, NP] positions), each
+    replica gets its own list: tl [B, 2, lmax], nv [B, 1], count [B].
     """
-    nti, ntj = ri.shape[0], rj.shape[0]
+    nti, ntj = ri.shape[-1], rj.shape[-1]
     dev = ri.device
-    dc = ci.T[:, None, :] - cj.T[None, :, :]
+    lead = ri.shape[:-1]
+    dc = (ci.transpose(-1, -2)[..., :, None, :]
+          - cj.transpose(-1, -2)[..., None, :, :])
     if box is not None:
         dc = min_image(dc, box)
-    dmin = torch.sqrt(torch.sum(dc * dc, dim=-1)) - ri[:, None] - rj[None, :]
+    dmin = (torch.sqrt(torch.sum(dc * dc, dim=-1)) - ri[..., :, None]
+            - rj[..., None, :])
     ok = dmin < rng_dist
     if triangular:
         ok = ok & (torch.arange(ntj, device=dev)[None, :]
                    >= torch.arange(nti, device=dev)[:, None])
     ntot = nti * ntj
-    key = torch.where(ok.reshape(-1),
-                      torch.arange(ntot, dtype=torch.int32, device=dev), ntot)
+    ok = ok.reshape(lead + (ntot,))
+    key = torch.where(ok, torch.arange(ntot, dtype=torch.int32, device=dev),
+                      ntot)
     if ntot < lmax:
         key = F.pad(key, (0, lmax - ntot), value=ntot)
-    order = torch.sort(key, stable=True).values[:lmax]
-    count = torch.sum(ok).to(torch.int32)
+    order = torch.sort(key, dim=-1, stable=True).values[..., :lmax]
+    count = torch.sum(ok, dim=-1).to(torch.int32)
     order = torch.where(order < ntot, order, 0)
-    tl = torch.stack([order // ntj, order % ntj]).to(torch.int32).contiguous()
-    return tl, torch.clamp(count, max=lmax).reshape(1), count
+    tl = torch.stack([order // ntj, order % ntj], dim=-2).to(
+        torch.int32).contiguous()
+    return tl, torch.clamp(count, max=lmax)[..., None], count
 
 
 @functools.lru_cache(maxsize=None)
@@ -406,14 +422,17 @@ def column_groups(lmax: int, tile: int, dev) -> int:
     return ng
 
 
-def _check_list(nv, tl, tile, dev, *extents):
+def _check_list(nv, tl, tile, dev, nb, *extents):
     """Check the list and the tile size against the padded extents; returns
-    lmax."""
+    lmax.  nb: the replicas, each with its list (nv [nb, 1], tl [nb, 2,
+    lmax]); None for one list that every replica shares (nv [1], tl [2,
+    lmax])."""
     if tile % 32 or not 32 <= tile <= 256:
         raise ValueError(f"tile {tile}: a multiple of 32 up to 256")
-    lmax = tl.shape[1] if tl.dim() == 2 else -1
-    _check("tl", tl, torch.int32, (2, max(lmax, 1)), dev)
-    _check("nv", nv, torch.int32, (1,), dev)
+    lead = () if nb is None else (nb,)
+    lmax = tl.shape[-1] if tl.dim() == len(lead) + 2 else -1
+    _check("tl", tl, torch.int32, lead + (2, max(lmax, 1)), dev)
+    _check("nv", nv, torch.int32, lead + (1,), dev)
     for e in extents:
         if e % tile:
             raise ValueError(f"padded extent {e} is not a multiple of the "
@@ -438,41 +457,69 @@ def born_sums_tiles(nv, tl, pos_pad, pos_hpad, hids_perm, type_rows,
     [lmax, T/32, ng] int32 names the kept sub-tile pairs (keep_flags reads
     it); hand the whole (Q, dQ, keep) to descreening_tiles as qd, so the
     reload reads nothing else.  qd_out: optional (Q, dQ) buffers the
-    kernel writes into."""
+    kernel writes into.  Batched: nv [B, 1], tl [B, 2, lmax], pos_pad [B,
+    3, NP], pos_hpad [B, 3, NHP], s_hpad [B, NHP] (and qd_out [B, ...]); the
+    results carry the [B] axis."""
+    nb, batched = _replicas(pos_pad)
     if pos_pad.device.type == "cpu":
-        return born_sums_tiles_reference(
-            nv, tl, pos_pad, pos_hpad, hids_perm, type_rows, type_cols, yval,
-            y2val, s_hpad, n, tile, box=box, horizon=horizon, save_qd=save_qd)
+        kw = dict(hids_perm=hids_perm, type_rows=type_rows,
+                  type_cols=type_cols, yval=yval, y2val=y2val, n=n,
+                  tile=tile, box=box, horizon=horizon, save_qd=save_qd)
+        if batched:
+            return per_replica(
+                born_sums_tiles_reference, nb,
+                dict(nv=nv, tl=tl, pos_pad=pos_pad, pos_hpad=pos_hpad,
+                     s_hpad=s_hpad), **kw)
+        return born_sums_tiles_reference(nv, tl, pos_pad, pos_hpad,
+                                         s_hpad=s_hpad, **kw)
+    if not batched:
+        return _unlead(_born_sums_tiles_cuda(
+            nv[None], tl[None], pos_pad[None], pos_hpad[None], hids_perm,
+            type_rows, type_cols, yval, y2val, s_hpad[None], n, tile,
+            box=box, horizon=horizon, save_qd=save_qd,
+            qd_out=_lead(qd_out)))
+    return _born_sums_tiles_cuda(nv, tl, pos_pad, pos_hpad, hids_perm,
+                                 type_rows, type_cols, yval, y2val, s_hpad, n,
+                                 tile, box=box, horizon=horizon,
+                                 save_qd=save_qd, qd_out=qd_out)
+
+
+def _born_sums_tiles_cuda(nv, tl, pos_pad, pos_hpad, hids_perm, type_rows,
+                          type_cols, yval, y2val, s_hpad, n, tile, box,
+                          horizon, save_qd, qd_out):
+    """born_sums_tiles' launch on a batch of CUDA tensors (a leading [B]
+    axis); an unbatched call takes it as a batch of one."""
+    nb, _ = _replicas(pos_pad)
     dev = pos_pad.device
     f32, i32 = torch.float32, torch.int32
-    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
+    npad, nhpad = pos_pad.shape[2], pos_hpad.shape[2]
     nti, ntj = yval.shape[0], yval.shape[1]
-    lmax = _check_list(nv, tl, tile, dev, npad, nhpad)
-    _check("pos_pad", pos_pad, f32, (3, npad), dev)
-    _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
+    lmax = _check_list(nv, tl, tile, dev, nb, npad, nhpad)
+    _check("pos_pad", pos_pad, f32, (nb, 3, npad), dev)
+    _check("pos_hpad", pos_hpad, f32, (nb, 3, nhpad), dev)
     _check("hids_perm", hids_perm, i32, (nhpad,), dev)
     _check("type_rows", type_rows, i32, (npad,), dev)
     _check("type_cols", type_cols, i32, (nhpad,), dev)
     _check("yval", yval, f32, (nti, ntj, _NA), dev)
     _check("y2val", y2val, f32, (nti, ntj, _NA), dev)
-    _check("s_hpad", s_hpad, f32, (nhpad,), dev)
+    _check("s_hpad", s_hpad, f32, (nb, nhpad), dev)
     box_mode, box_t = _box_arg(box, dev)
     ng = column_groups(lmax, tile, dev)
-    prow = torch.empty((lmax, ng, 1, tile), dtype=f32, device=dev)
-    keep = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
+    prow = torch.empty((nb, lmax, ng, 1, tile), dtype=f32, device=dev)
+    keep = torch.empty((nb, lmax, tile // SUB, ng), dtype=torch.int32,
                        device=dev)
-    raw = torch.empty(npad, dtype=f32, device=dev)
+    raw = torch.empty((nb, npad), dtype=f32, device=dev)
     q = dq = None
     if save_qd and qd_out is not None:
         q, dq = qd_out
-        _check("Q", q, f32, (lmax, tile, tile), dev)
-        _check("dQ", dq, f32, (lmax, tile, tile), dev)
+        _check("Q", q, f32, (nb, lmax, tile, tile), dev)
+        _check("dQ", dq, f32, (nb, lmax, tile, tile), dev)
     elif save_qd:
-        q = torch.empty((lmax, tile, tile), dtype=f32, device=dev)
-        dq = torch.empty((lmax, tile, tile), dtype=f32, device=dev)
+        q = torch.empty((nb, lmax, tile, tile), dtype=f32, device=dev)
+        dq = torch.empty((nb, lmax, tile, tile), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_born_sums_tiles(
-        nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
+        nb, nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
         npad, pos_hpad.data_ptr(), nhpad, hids_perm.data_ptr(),
         type_rows.data_ptr(), type_cols.data_ptr(), yval.data_ptr(),
         y2val.data_ptr(), nti, ntj, s_hpad.data_ptr(), int(n),
@@ -493,12 +540,19 @@ def gb_pair_tiles(nv, tl, pos_pad, charge_pad, born_pad, n, tile, box=None,
     gb_pair.  The kernel visits only the 32x32 sub-tile pairs that
     subtile_live(nv, tl, pos_pad, rows < n, pos_pad, rows < n, tile, cutoff,
     box, triangular=True) keeps: the list must have been built with this
-    cutoff (or none)."""
+    cutoff (or none).  Batched: nv [B, 1], tl [B, 2, lmax], pos_pad [B, 3,
+    NP] and born_pad [B, NP]; the results carry the [B] axis."""
+    nb, batched = _replicas(pos_pad)
     if pos_pad.device.type == "cpu":
-        return gb_pair_tiles_reference(nv, tl, pos_pad, charge_pad, born_pad,
-                                       n, tile, box=box, cutoff=cutoff,
-                                       sig_pad=sig_pad, epsq_pad=epsq_pad,
-                                       excl_rows_pad=excl_rows_pad)
+        kw = dict(charge_pad=charge_pad, n=n, tile=tile, box=box,
+                  cutoff=cutoff, sig_pad=sig_pad, epsq_pad=epsq_pad,
+                  excl_rows_pad=excl_rows_pad)
+        if batched:
+            return per_replica(gb_pair_tiles_reference, nb,
+                               dict(nv=nv, tl=tl, pos_pad=pos_pad,
+                                    born_pad=born_pad), **kw)
+        return gb_pair_tiles_reference(nv, tl, pos_pad, born_pad=born_pad,
+                                       **kw)
     out = _gb_subtiles("gb_pair_tiles", nv, tl, tile, pos_pad, charge_pad,
                        born_pad, n, box, cutoff, sig_pad, epsq_pad,
                        excl_rows_pad)
@@ -507,16 +561,26 @@ def gb_pair_tiles(nv, tl, pos_pad, charge_pad, born_pad, n, tile, box=None,
 
 
 def _gb_subtiles(name, nv, tl, tile, pos_pad, charge_pad, born_pad, n, box,
-                 cutoff, sig_pad, epsq_pad, excl_rows_pad):
+                 cutoff, sig_pad, epsq_pad, excl_rows_pad,
+                 shared_list: bool = False):
     """Check the arguments and launch the GB list kernel: over a list from
-    build_tile_list, or over triangular_grid_list for the dense sweep."""
+    build_tile_list (one per replica when batched), or with shared_list
+    over one list for every replica (triangular_grid_list for the dense
+    sweep)."""
+    nb, batched = _replicas(pos_pad)
+    if not batched:
+        lists = (nv, tl) if shared_list else (nv[None], tl[None])
+        return _unlead(_gb_subtiles(name, *lists, tile, pos_pad[None],
+                                    charge_pad, born_pad[None], n, box,
+                                    cutoff, sig_pad, epsq_pad, excl_rows_pad,
+                                    shared_list))
     dev = pos_pad.device
     f32 = torch.float32
-    npad = pos_pad.shape[1]
-    lmax = _check_list(nv, tl, tile, dev, npad)
-    _check("pos_pad", pos_pad, f32, (3, npad), dev)
+    npad = pos_pad.shape[2]
+    lmax = _check_list(nv, tl, tile, dev, None if shared_list else nb, npad)
+    _check("pos_pad", pos_pad, f32, (nb, 3, npad), dev)
     _check("charge_pad", charge_pad, f32, (npad,), dev)
-    _check("born_pad", born_pad, f32, (npad,), dev)
+    _check("born_pad", born_pad, f32, (nb, npad), dev)
     with_mm = sig_pad is not None
     ne = 0
     if with_mm:
@@ -526,17 +590,20 @@ def _gb_subtiles(name, nv, tl, tile, pos_pad, charge_pad, born_pad, n, box,
         _check("excl_rows_pad", excl_rows_pad, torch.int32, (npad, ne), dev)
     box_mode, box_t = _box_arg(box, dev)
     ng = tile // SUB  # one warp per sub-tile pair
-    prow = torch.empty((lmax, ng, 6, tile), dtype=f32, device=dev)
-    pcol = torch.empty((lmax, tile // SUB, 6, tile), dtype=f32, device=dev)
-    keep = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
+    prow = torch.empty((nb, lmax, ng, 6, tile), dtype=f32, device=dev)
+    pcol = torch.empty((nb, lmax, tile // SUB, 6, tile), dtype=f32,
                        device=dev)
-    erow = torch.empty(npad, dtype=f32, device=dev)
-    yrow = torch.empty(npad, dtype=f32, device=dev)
-    force = torch.empty((npad, 3), dtype=f32, device=dev)
-    mmrow = torch.empty(npad, dtype=f32, device=dev) if with_mm else None
+    keep = torch.empty((nb, lmax, tile // SUB, ng), dtype=torch.int32,
+                       device=dev)
+    erow = torch.empty((nb, npad), dtype=f32, device=dev)
+    yrow = torch.empty((nb, npad), dtype=f32, device=dev)
+    force = torch.empty((nb, npad, 3), dtype=f32, device=dev)
+    mmrow = (torch.empty((nb, npad), dtype=f32, device=dev) if with_mm
+             else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_gb_pair_tiles(
-        nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
+        nb, int(shared_list), nv.data_ptr(), tl.data_ptr(), lmax, tile, ng,
+        pos_pad.data_ptr(),
         npad, charge_pad.data_ptr(), born_pad.data_ptr(), _ptr(sig_pad),
         _ptr(epsq_pad), _ptr(excl_rows_pad), ne, int(n),
         -1.0 if cutoff is None else float(cutoff) * float(cutoff),
@@ -562,30 +629,54 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
     spline.horizon (2 nm without a spline), rows below spline.n and columns
     with spline.hids_perm >= 0 (every row and column without a spline); a
     reloaded (Q, dQ) must then be zero outside the Born mask wherever those
-    reach, as a twin's are."""
+    reach, as a twin's are.  Batched: nv, tl, positions, s_hpad, brw_pad,
+    bru_pad and qd with a leading [B] axis (from batched lists and a batched
+    born_sums_tiles), and so are the results."""
+    nb, batched = _replicas(pos_pad)
     if pos_pad.device.type == "cpu":
+        if batched:
+            return per_replica(
+                descreening_tiles_reference, nb,
+                dict(nv=nv, tl=tl, pos_pad=pos_pad, pos_hpad=pos_hpad,
+                     s_hpad=s_hpad, brw_pad=brw_pad, bru_pad=bru_pad, qd=qd),
+                tile=tile, box=box, spline=spline)
         return descreening_tiles_reference(nv, tl, pos_pad, pos_hpad, s_hpad,
                                            brw_pad, bru_pad, qd, tile,
                                            box=box, spline=spline)
+    if not batched:
+        return _unlead(_descreening_tiles_cuda(
+            nv[None], tl[None], pos_pad[None], pos_hpad[None], s_hpad[None],
+            brw_pad[None], bru_pad[None], _lead(qd), tile, box=box,
+            spline=spline))
+    return _descreening_tiles_cuda(nv, tl, pos_pad, pos_hpad, s_hpad,
+                                   brw_pad, bru_pad, qd, tile, box=box,
+                                   spline=spline)
+
+
+def _descreening_tiles_cuda(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad,
+                            bru_pad, qd, tile, box, spline):
+    """descreening_tiles' launch on a batch of CUDA tensors (a leading [B]
+    axis); an unbatched call takes it as a batch of one."""
+    nb, _ = _replicas(pos_pad)
     dev = pos_pad.device
     f32 = torch.float32
-    npad, nhpad = pos_pad.shape[1], pos_hpad.shape[1]
-    lmax = _check_list(nv, tl, tile, dev, npad, nhpad)
+    npad, nhpad = pos_pad.shape[2], pos_hpad.shape[2]
+    lmax = _check_list(nv, tl, tile, dev, nb, npad, nhpad)
     q = dq = keep = None
     if qd is not None:
         q, dq = qd[:2]
-        _check("Q", q, f32, (lmax, tile, tile), dev)
-        _check("dQ", dq, f32, (lmax, tile, tile), dev)
+        _check("Q", q, f32, (nb, lmax, tile, tile), dev)
+        _check("dQ", dq, f32, (nb, lmax, tile, tile), dev)
         keep = qd[2] if len(qd) > 2 else None
-    _check("pos_pad", pos_pad, f32, (3, npad), dev)
-    _check("pos_hpad", pos_hpad, f32, (3, nhpad), dev)
-    _check("s_hpad", s_hpad, f32, (nhpad,), dev)
-    _check("brw_pad", brw_pad, f32, (npad,), dev)
-    _check("bru_pad", bru_pad, f32, (npad,), dev)
+    _check("pos_pad", pos_pad, f32, (nb, 3, npad), dev)
+    _check("pos_hpad", pos_hpad, f32, (nb, 3, nhpad), dev)
+    _check("s_hpad", s_hpad, f32, (nb, nhpad), dev)
+    _check("brw_pad", brw_pad, f32, (nb, npad), dev)
+    _check("bru_pad", bru_pad, f32, (nb, npad), dev)
     ng = column_groups(lmax, tile, dev)
     if keep is not None:
         # the Born sweep split the same list into the same column groups
-        _check("keep", keep, torch.int32, (lmax, tile // SUB, ng), dev)
+        _check("keep", keep, torch.int32, (nb, lmax, tile // SUB, ng), dev)
     if q is None:
         _check_spline(spline, npad, nhpad, dev)
         sp_args = _spline_ptrs(spline)
@@ -605,17 +696,18 @@ def descreening_tiles(nv, tl, pos_pad, pos_hpad, s_hpad, brw_pad, bru_pad,
         if x is not None and x.data_ptr() % 16:
             raise ValueError(f"{what}: data not 16-byte aligned")
     box_mode, box_t = _box_arg(box, dev)
-    prow = torch.empty((lmax, ng, 3, tile), dtype=f32, device=dev)
-    pcol = torch.empty((lmax, tile // SUB, 5, tile), dtype=f32, device=dev)
-    kept = torch.empty((lmax, tile // SUB, ng), dtype=torch.int32,
+    prow = torch.empty((nb, lmax, ng, 3, tile), dtype=f32, device=dev)
+    pcol = torch.empty((nb, lmax, tile // SUB, 5, tile), dtype=f32,
                        device=dev)
-    w = torch.empty(nhpad, dtype=f32, device=dev)
-    u = torch.empty(nhpad, dtype=f32, device=dev)
-    f_rows = torch.empty((npad, 3), dtype=f32, device=dev)
-    f_cols = torch.empty((nhpad, 3), dtype=f32, device=dev)
+    kept = torch.empty((nb, lmax, tile // SUB, ng), dtype=torch.int32,
+                       device=dev)
+    w = torch.empty((nb, nhpad), dtype=f32, device=dev)
+    u = torch.empty((nb, nhpad), dtype=f32, device=dev)
+    f_rows = torch.empty((nb, npad, 3), dtype=f32, device=dev)
+    f_cols = torch.empty((nb, nhpad, 3), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _cuda_lib().agbnp_descreening_tiles(
-        nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
+        nb, nv.data_ptr(), tl.data_ptr(), lmax, tile, ng, pos_pad.data_ptr(),
         npad, pos_hpad.data_ptr(), nhpad, _ptr(q), _ptr(dq), _ptr(keep),
         s_hpad.data_ptr(), brw_pad.data_ptr(), bru_pad.data_ptr(), box_mode,
         _ptr(box_t),

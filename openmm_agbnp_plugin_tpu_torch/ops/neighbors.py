@@ -7,7 +7,11 @@ pairs within rcut, heavy atoms only (hydrogen Gaussians carry zero volume
 and can never form a surviving overlap, gaussvol.cpp:132), padded with a
 validity mask and an overflow indicator.  `half_neighbor_pairs` tests all
 pairs; `cell_neighbor_pairs` scans the 27 cells around each atom of a
-static `CellGrid` (the O(N) build for large systems).
+static `CellGrid` (the O(N) build for large systems).  Both also build
+the lists of B replicas of one system at once, from positions [B, N, 3]:
+each replica's list within its own atoms, with atom ids offset by b N (the
+ids of the replicas' disjoint union, which the overlap tree is built over)
+and one max_neighbors per replica.
 
 The tree's 2-body survival criterion implies a hard geometric cutoff:
 s(V12) V12 > MIN_GVOL requires V12 > VOLMINA, i.e.
@@ -99,6 +103,13 @@ class CellGrid:
         return g
 
 
+def _batch(pos):
+    """(positions [B, N, 3], B, whether they came batched)."""
+    if pos.dim() == 3:
+        return pos, pos.shape[0], True
+    return pos[None], 1, False
+
+
 def cell_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int,
                         grid: CellGrid):
     """O(N) half neighbor list through the cell grid.
@@ -106,60 +117,74 @@ def cell_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int,
     Same contract as half_neighbor_pairs: flat i-major (pairs_i, pairs_j,
     pairs_valid, max_neighbors) with invalid slots j == i; max_neighbors
     is at least kmax + 1 when a cell overflowed its capacity (pairs may
-    then be missing, so the window must be retried).
+    then be missing, so the window must be retried).  Positions [B, N, 3]:
+    one grid table per replica (each with its own solute-following origin),
+    the lists of the disjoint union, max_neighbors [B].
     """
-    n = pos.shape[0]
+    pos, nb, batched = _batch(pos)
+    n = pos.shape[1]
+    nt = nb * n
     dev = pos.device
     dims = torch.as_tensor(grid.dims, dtype=torch.int64, device=dev)
     ncells, ccap = grid.ncells, grid.ccap
+    heavy = heavy_mask[None, :]
 
     # solute-following origin: rigid drift costs nothing; only expansion
     # beyond the static extent clamps (and overflow-detects)
-    origin = torch.amin(torch.where(heavy_mask[:, None], pos,
-                                    torch.amax(pos, dim=0)[None, :]),
-                        dim=0) - grid.margin
-    c = ((pos - origin[None, :]) / grid.rcut).to(torch.int64)
-    c = torch.minimum(torch.clamp(c, min=0), dims[None, :] - 1)
-    cid = (c[:, 0] * dims[1] + c[:, 1]) * dims[2] + c[:, 2]
+    origin = torch.amin(torch.where(heavy[..., None], pos,
+                                    torch.amax(pos, dim=1)[:, None, :]),
+                        dim=1) - grid.margin
+    c = ((pos - origin[:, None, :]) / grid.rcut).to(torch.int64)
+    c = torch.minimum(torch.clamp(c, min=0), dims - 1)
+    cid = (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
     # hydrogens go to a trash cell: they never appear as candidates
-    cid = torch.where(heavy_mask, cid, ncells)
+    cid = torch.where(heavy, cid, ncells)
+    # replica b's cells are rows b (ncells + 1) + cell of one table
+    rows = ncells + 1
+    cid = (cid + rows * torch.arange(nb, device=dev)[:, None]).reshape(-1)
 
-    counts = torch.bincount(cid, minlength=ncells + 1)
+    counts = torch.bincount(cid, minlength=nb * rows)
     starts = torch.cumsum(counts, 0) - counts
     order = torch.argsort(cid, stable=True)
     cid_o = cid[order]
-    rank = torch.arange(n, device=dev) - starts[cid_o]
+    rank = torch.arange(nt, device=dev) - starts[cid_o]
     # a clamped rank can only collide in an overflowing cell, which the
     # flag below reports for a retry with a grown capacity
     slot = cid_o * ccap + torch.clamp(rank, max=ccap - 1)
-    table = torch.full(((ncells + 1) * ccap,), n, dtype=torch.int64,
+    table = torch.full((nb * rows * ccap,), nt, dtype=torch.int64,
                        device=dev)
     table[slot] = order
-    table = table.reshape(ncells + 1, ccap)
-    table[ncells] = n
+    table = table.reshape(nb, rows, ccap)
+    table[:, ncells] = nt
+    table = table.reshape(nb * rows, ccap)
 
     # 27-cell stencil; out-of-grid stencil cells point at the trash row
-    nbr = c[:, None, :] + torch.as_tensor(grid.stencil, dtype=torch.int64,
-                                          device=dev)[None, :, :]
-    in_grid = torch.all((nbr >= 0) & (nbr < dims[None, None, :]), dim=-1)
+    nbr = c[:, :, None, :] + torch.as_tensor(
+        grid.stencil, dtype=torch.int64, device=dev)[None, None, :, :]
+    in_grid = torch.all((nbr >= 0) & (nbr < dims), dim=-1)
     nbr_cid = (nbr[..., 0] * dims[1] + nbr[..., 1]) * dims[2] + nbr[..., 2]
     nbr_cid = torch.where(in_grid, nbr_cid, ncells)
+    nbr_cid = nbr_cid + rows * torch.arange(nb, device=dev)[:, None, None]
 
-    cand = table[nbr_cid].reshape(n, 27 * ccap)
-    jj = torch.arange(n, device=dev)
-    delta = pos[torch.clamp(cand, max=n - 1)] - pos[:, None, :]
+    cand = table[nbr_cid].reshape(nt, 27 * ccap)
+    jj = torch.arange(nt, device=dev)
+    flat = pos.reshape(nt, 3)
+    delta = flat[torch.clamp(cand, max=nt - 1)] - flat[:, None, :]
     d2 = torch.sum(delta * delta, dim=-1)
-    ok = ((cand < n) & (cand > jj[:, None]) & (d2 < rcut * rcut)
-          & heavy_mask[:, None])
+    ok = ((cand < nt) & (cand > jj[:, None]) & (d2 < rcut * rcut)
+          & heavy_mask.repeat(nb)[:, None])
 
-    key = torch.where(ok, cand, n)
+    key = torch.where(ok, cand, nt)
     pj = torch.sort(key, dim=1).values[:, :kmax]
-    valid = pj < n
-    pi = jj[:, None].expand(n, pj.shape[1])
+    valid = pj < nt
+    pi = jj[:, None].expand(nt, pj.shape[1])
     pj = torch.where(valid, pj, pi)
-    cell_over = torch.max(counts[:ncells]) > ccap
-    max_neighbors = torch.maximum(torch.max(torch.sum(ok, dim=1)),
-                                  torch.where(cell_over, kmax + 1, 0))
+    cell_over = torch.amax(counts.reshape(nb, rows)[:, :ncells], dim=1) > ccap
+    max_neighbors = torch.maximum(
+        torch.amax(torch.sum(ok, dim=1).reshape(nb, n), dim=1),
+        torch.where(cell_over, kmax + 1, 0))
+    if not batched:
+        max_neighbors = max_neighbors[0]
     return pi.reshape(-1), pj.reshape(-1), valid.reshape(-1), max_neighbors
 
 
@@ -168,10 +193,13 @@ def half_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int):
 
     Returns (pairs_i [N*kmax], pairs_j, pairs_valid, max_neighbors), all on
     pos.device.  Invalid slots have pairs_j == pairs_i (masked out
-    downstream).  max_neighbors > kmax signals overflow.
+    downstream).  max_neighbors > kmax signals overflow.  Positions [B, N,
+    3]: each replica's list within its own atoms, ids offset by b N,
+    max_neighbors [B].
     """
-    n = pos.shape[0]
-    dist = pos[None, :, :] - pos[:, None, :]
+    pos, nb, batched = _batch(pos)
+    n = pos.shape[1]
+    dist = pos[:, None, :, :] - pos[:, :, None, :]
     d2 = torch.sum(dist * dist, dim=-1)
     jj = torch.arange(n, device=pos.device)
     pair_ok = ((jj[None, :] > jj[:, None])
@@ -180,9 +208,13 @@ def half_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int):
     # ascending-j order with invalid slots pushed to the end: the key IS the
     # neighbor index, so a value sort yields pj directly
     key = torch.where(pair_ok, jj[None, :], n)
-    pj = torch.sort(key, dim=1).values[:, :kmax]
+    pj = torch.sort(key, dim=-1).values[..., :kmax]
     valid = pj < n
-    pi = jj[:, None].expand(n, pj.shape[1])
+    pi = jj[:, None].expand(n, pj.shape[-1])
     pj = torch.where(valid, pj, pi)
-    max_neighbors = torch.max(torch.sum(pair_ok, dim=1))
-    return pi.reshape(-1), pj.reshape(-1), valid.reshape(-1), max_neighbors
+    off = n * torch.arange(nb, device=pos.device)[:, None, None]
+    max_neighbors = torch.amax(torch.sum(pair_ok, dim=-1), dim=-1)
+    if not batched:
+        max_neighbors = max_neighbors[0]
+    return ((pi + off).reshape(-1), (pj + off).reshape(-1), valid.reshape(-1),
+            max_neighbors)

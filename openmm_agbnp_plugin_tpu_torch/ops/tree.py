@@ -31,6 +31,17 @@ ones (level_bounds).
 Capacity overflow is detected and reported (the PanicButton analogue,
 OpenCLAGBNPKernels.cpp:3598-3634): the host checks the returned diagnostics
 and rebuilds with larger capacities.
+
+Replicas: B replicas of one system are one tree over the disjoint union of
+their atoms (atom b N + i is atom i of replica b).  No candidate pair
+crosses replicas, so the union's overlap tree is exactly the union of the
+replicas' trees, each replica's rows in the order its own build gives them.
+`nrep` (1 for one system) makes build_tree hold every level at nrep
+times the per-replica capacity and report the counts per replica ([nrep,
+7], each against the per-replica capacity, so no level is cut unless some
+replica overflows), compact_topology likewise, and the reductions sum the
+energy per replica ([nrep]).  One system is a batch of one: its diag and
+energies carry the leading [1] axis too.
 """
 
 from __future__ import annotations
@@ -295,7 +306,8 @@ def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap):
     """Next-level build: the partner of each node is taken from a window of
     the next `offs` rows of the same (parent-grouped) level; partners
     sharing the parent form the sibling-pair candidates.  Returns
-    (lvl, a6, count, max_sib) with a6 the atomic rows of each node's atom."""
+    (lvl, a6, cnt) with a6 the atomic rows of each node's atom and cnt the
+    surviving children of each row of the previous level."""
     cap_prev = prev_lvl["_dat"].shape[0]
     dev = prev_a6.device
     src_i = torch.cat([prev_lvl["_ints"],
@@ -315,7 +327,7 @@ def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap):
                            dat_s[:, None, 2:5], dat_s[:, 11:12], win_a)
     mask = pair_ok & survives(sgvol)
 
-    row, off, valid, count, cnt = _compact_rows(dat[:, :, 5], mask, cap)
+    row, off, valid, _, cnt = _compact_rows(dat[:, :, 5], mask, cap)
     idx = row * offs + off
     out_dat = torch.where(valid[:, None],
                           dat.reshape(cap_prev * offs, _D)[idx], 0.0)
@@ -325,13 +337,14 @@ def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap):
     lvl = _level_views(out_dat, ints, valid)
     lvl["bnd"] = level_bounds(row, atom2, valid, cap_prev,
                               level1["gv"].shape[0])
-    return lvl, a6, count, torch.max(cnt)
+    return lvl, a6, cnt
 
 
 def _build_pair_level(level1, pj2d, pv2d, cap):
     """Level-2 build from a fixed-width i-major neighbor grid [N, kmax]
     (half_neighbor_pairs layout): the i side is a broadcast and compaction
-    is row-structured.  Returns (lvl, a6, count, max_sib)."""
+    is row-structured.  Returns (lvl, a6, cnt), cnt the surviving pairs of
+    each atom."""
     at = level1["_at"]
     n, kmax = pj2d.shape
     a = at[pj2d]  # [n, kmax, 6]
@@ -341,7 +354,7 @@ def _build_pair_level(level1, pj2d, pv2d, cap):
     if pv2d is not None:
         mask = mask & pv2d
 
-    row, off, valid, count, cnt = _compact_rows(dat[:, :, 5], mask, cap)
+    row, off, valid, _, cnt = _compact_rows(dat[:, :, 5], mask, cap)
     idx = row * kmax + off
     out_dat = torch.where(valid[:, None], dat.reshape(n * kmax, _D)[idx], 0.0)
     atom2 = torch.where(valid, pj2d.reshape(-1)[idx].long(), 0)
@@ -349,19 +362,33 @@ def _build_pair_level(level1, pj2d, pv2d, cap):
     a6 = at[atom2]
     lvl = _level_views(out_dat, ints, valid)
     lvl["bnd"] = level_bounds(row, atom2, valid, n, n)
-    return lvl, a6, count, torch.max(cnt)
+    return lvl, a6, cnt
 
 
-def _max_siblings(level, parent_cap):
-    """Largest number of surviving children under one parent."""
+def _children(level, parent_cap):
+    """Surviving children under each parent."""
     cnt = torch.zeros(parent_cap, dtype=torch.int64,
                       device=level["valid"].device)
-    cnt.index_add_(0, level["parent"], level["valid"].long())
-    return torch.max(cnt)
+    return cnt.index_add_(0, level["parent"], level["valid"].long())
+
+
+def replica_sum(x, rep, nrep: int):
+    """Integer per-replica sums [nrep] of x over rows whose replica is rep
+    (exact: integer adds in any order)."""
+    return torch.zeros(nrep, dtype=torch.int64, device=x.device).index_add_(
+        0, rep, x.long())
+
+
+def replica_max(x, rep, nrep: int):
+    """Integer per-replica maxima [nrep] of x (zero for a replica without
+    rows)."""
+    return torch.zeros(nrep, dtype=torch.int64,
+                       device=x.device).scatter_reduce(0, rep, x.long(),
+                                                       "amax")
 
 
 def build_tree(level1, pairs_i, pairs_j, caps: TreeCaps, pairs_valid=None,
-               pair_rows: bool = False):
+               pair_rows: bool = False, nrep: int = 1):
     """Builds all overlap levels 2..MAX_ORDER.
 
     pairs_i/pairs_j: candidate 2-body pairs (i < j), i-major order — from an
@@ -370,65 +397,106 @@ def build_tree(level1, pairs_i, pairs_j, caps: TreeCaps, pairs_valid=None,
     [N, kmax] grid of half_neighbor_pairs and level 2 takes the row path).
     Returns (levels, diag) where diag carries per-level counts and overflow
     indicators as device tensors.
+
+    nrep: level1 is the disjoint union of nrep replicas (equal atom
+    counts) and no candidate pair crosses them; caps are per replica and
+    each level holds nrep times as many rows.  Every leaf of the diag has
+    a leading [nrep] axis: the counts and sibling maxima of each replica
+    (before any cut), against the per-replica caps and windows.
     """
     natoms = level1["gv"].shape[0]
+    per = natoms // nrep
     dev = level1["gv"].device
     levels = []
     counts = []
     sib_max = []
+    lcaps = tuple(c * nrep for c in caps.caps)
+
+    def rep_of(atom):
+        return torch.div(atom, per, rounding_mode="floor")
 
     if pair_rows:
         pj2d = pairs_j.reshape(natoms, -1)
         pv2d = None if pairs_valid is None else pairs_valid.reshape(natoms, -1)
-        lvl, a6, count, msib = _build_pair_level(level1, pj2d, pv2d,
-                                                 caps.caps[0])
+        lvl, a6, cnt = _build_pair_level(level1, pj2d, pv2d, lcaps[0])
+        count = replica_sum(cnt, rep_of(torch.arange(natoms, device=dev)),
+                            nrep)
     else:
         dat, cints, mask = _pair_candidates(level1, pairs_i, pairs_j,
                                             pairs_valid)
-        lvl, count = _compact(mask, dat, cints, caps.caps[0], natoms, natoms)
+        lvl, _ = _compact(mask, dat, cints, lcaps[0], natoms, natoms)
         a6 = level1["_at"][lvl["atom"]]
-        msib = _max_siblings(lvl, natoms)
+        cnt = _children(lvl, natoms)
+        count = replica_sum(mask, rep_of(pairs_i.long()), nrep)
+    # level 2's parents are the atoms
+    msib = replica_max(cnt, rep_of(torch.arange(natoms, device=dev)), nrep)
     levels.append(lvl)
     counts.append(count)
     sib_max.append(msib)
 
     for l in range(1, NUM_TREE_LEVELS):
-        lvl, a6, count, msib = _build_sibling_level(
-            levels[-1], a6, level1, caps.offs[l - 1], caps.caps[l])
+        prev = levels[-1]
+        lvl, a6, cnt = _build_sibling_level(
+            prev, a6, level1, caps.offs[l - 1], lcaps[l])
+        # each row of the previous level is a node of its atom's replica
+        # (invalid rows have no children)
+        rows = rep_of(prev["atom"])
+        count = replica_sum(cnt, rows, nrep)
+        msib = replica_max(cnt, rows, nrep)
         levels.append(lvl)
         counts.append(count)
         sib_max.append(msib)
 
     diag = dict(
-        counts=torch.stack(counts).long(),
-        caps=torch.tensor(caps.caps, device=dev),
-        max_siblings=torch.stack(sib_max).long(),
-        offs=torch.tensor(caps.offs + (0,), device=dev),
+        counts=torch.stack(counts, dim=-1).long(),
+        max_siblings=torch.stack(sib_max, dim=-1).long(),
+        **caps_rows(caps, nrep, dev),
     )
     return tuple(levels), diag
 
 
+def caps_rows(caps: TreeCaps, nrep: int, device) -> dict:
+    """The diag's capacity leaves, caps and sibling windows (offs), one
+    [7] row per replica."""
+    return dict(caps=torch.tensor(caps.caps, device=device).repeat(nrep, 1),
+                offs=torch.tensor(caps.offs + (0,),
+                                  device=device).repeat(nrep, 1))
+
+
+def replica_counts(levels, nrep: int, natoms: int):
+    """Valid rows of each level per replica, [nrep, 7], of a union tree
+    over nrep replicas of natoms atoms each (the counts a fixed topology
+    carries)."""
+    return torch.stack([replica_sum(
+        l["valid"], torch.div(l["atom"], natoms, rounding_mode="floor"),
+        nrep) for l in levels], dim=-1)
+
+
 def merge_counts(a, b):
     """Elementwise max of two overflow-count vectors, zero-padding the
-    shorter."""
+    shorter (along the last axis: per-replica rows [R, C] merge row by
+    row)."""
     a = a.long()
     b = b.long()
-    if a.shape[0] < b.shape[0]:
-        a = torch.cat([a, a.new_zeros(b.shape[0] - a.shape[0])])
-    elif b.shape[0] < a.shape[0]:
-        b = torch.cat([b, b.new_zeros(a.shape[0] - b.shape[0])])
+    if a.shape[-1] < b.shape[-1]:
+        a = torch.nn.functional.pad(a, (0, b.shape[-1] - a.shape[-1]))
+    elif b.shape[-1] < a.shape[-1]:
+        b = torch.nn.functional.pad(b, (0, a.shape[-1] - b.shape[-1]))
     return torch.maximum(a, b)
 
 
 def check_overflow(diag) -> dict:
-    """Host-side PanicButton check. Returns numpy bools per level."""
-    counts = np.asarray(diag["counts"].cpu())
-    caps = np.asarray(diag["caps"].cpu())
-    sibs = np.asarray(diag["max_siblings"].cpu())
-    offs = np.asarray(diag["offs"].cpu())
+    """Host-side PanicButton check of one system's diag (levels on the
+    last axis). Returns numpy bools per level.  The diag's leaves may be
+    tensors or numpy arrays (batched_diag_max's)."""
+    def host(k):
+        return np.asarray(torch.as_tensor(diag[k]).cpu())
+
+    counts, caps, sibs, offs = (host(k) for k in ("counts", "caps",
+                                                 "max_siblings", "offs"))
     cap_overflow = counts > caps
     sib_overflow = np.zeros_like(cap_overflow)
-    sib_overflow[:-1] = (sibs[:-1] - 1) > offs[:-1]
+    sib_overflow[..., :-1] = (sibs[..., :-1] - 1) > offs[..., :-1]
     return dict(cap_overflow=cap_overflow, sib_overflow=sib_overflow,
                 any=bool(cap_overflow.any() or sib_overflow.any()))
 
@@ -463,7 +531,7 @@ def tree_topology(levels):
                       parent=l["parent"], bnd=l["bnd"]) for l in levels)
 
 
-def compact_topology(levels, caps, relax: float = 0.5):
+def compact_topology(levels, caps, relax: float = 0.5, nrep: int = 1):
     """Compact a (rescanned) tree to the ancestor closure of its live rows
     (counterpart of the JAX package's ops/tree.py::compact_topology).
 
@@ -481,6 +549,10 @@ def compact_topology(levels, caps, relax: float = 0.5):
     stays parent-sorted, so the sorted segment sums apply), and counts [7],
     the pre-truncation kept-row counts (count > cap: live rows were dropped
     and the window must be regrown).  No host sync.
+
+    nrep: a union tree over nrep replicas (build_tree(nrep=)); caps are per
+    replica, each level holds nrep times as many rows, and counts are
+    [nrep, 7], each replica's kept rows.
     """
     keep = [l["valid"] & (l["gv"] > VOLMINA * relax) for l in levels]
     # ancestor closure, bottom-up: a kept row's parent chain stays, so
@@ -493,12 +565,15 @@ def compact_topology(levels, caps, relax: float = 0.5):
             0, torch.where(keep[li], levels[li]["parent"], 0), k, "amax")
         keep[li - 1] = keep[li - 1] | ((up > 0) & levels[li - 1]["valid"])
 
+    natoms = prev_cap = levels[0]["bnd"]["lengths"].shape[0]
     counts = torch.stack([torch.sum(k) for k in keep])
+    rep_counts = replica_counts(
+        [dict(valid=k, atom=l["atom"]) for k, l in zip(keep, levels)], nrep,
+        natoms // nrep)
     out = []
     prev_remap = None  # old parent index -> compact slot of previous level
-    natoms = prev_cap = levels[0]["bnd"]["lengths"].shape[0]
     for li, (lvl, kp) in enumerate(zip(levels, keep)):
-        cap = max(int(caps[li]), 8)
+        cap = max(int(caps[li]), 8) * nrep
         sel = _nonzero_padded(kp, cap)
         valid = torch.arange(cap, device=kp.device) < torch.clamp(
             counts[li], max=cap)
@@ -515,7 +590,7 @@ def compact_topology(levels, caps, relax: float = 0.5):
                                          atom, valid, prev_cap, natoms)))
         prev_remap = torch.cumsum(kp.to(torch.int64), dim=0) - 1
         prev_cap = cap
-    return tuple(out), counts
+    return tuple(out), rep_counts
 
 
 def rescan_volumes(levels, level1):
@@ -556,7 +631,7 @@ def rescan_gammas(levels, level1):
 
 
 def reduce_tree(levels, level1, with_selfvol: bool = True,
-                with_dv: bool = False):
+                with_dv: bool = False, nrep: int = 1):
     """Bottom-up reduction: energy, gradients, self volumes.
 
     The flattened form of compute_volume_underslot2_r (gaussvol.cpp:400-519):
@@ -574,7 +649,8 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
     free-volume chain, JAX ops/tree.py::reduce_tree).
 
     Returns dict(energy, dr[, self_volume][, dv]); dr is the energy
-    gradient wrt positions (negate for force).
+    gradient wrt positions (negate for force); the energy is [nrep], each
+    replica's sum (a union tree over nrep replicas).
     """
     natoms = level1["gv"].shape[0]
     dtype = level1["gv"].dtype
@@ -638,7 +714,7 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
     vol = level1["gv"]
     e_psi = gamma * vol + acc[:, 0]
     dr = deposits[:, 0:3] + acc[:, 2:5]
-    result = dict(energy=torch.sum(e_psi), dr=dr)
+    result = dict(energy=_energy(e_psi, nrep), dr=dr)
     col = 3
     if with_selfvol:
         result["self_volume"] = vol + acc[:, 5] + deposits[:, col]
@@ -646,6 +722,11 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
     if with_dv:
         result["dv"] = vol * (gamma + acc[:, 1]) + deposits[:, col]
     return result
+
+
+def _energy(e_psi, nrep: int):
+    """The energy of per-atom terms, each replica's sum [nrep]."""
+    return torch.sum(e_psi.reshape(nrep, -1), dim=1)
 
 
 def rescan_volumes2(levels, level1_a, level1_b):
@@ -679,13 +760,15 @@ def rescan_volumes2(levels, level1_a, level1_b):
 
 
 def reduce_tree2(levels_a, levels_b, level1_a, level1_b,
-                 with_selfvol_b: bool = True, with_selfvol_a: bool = False):
+                 with_selfvol_b: bool = True, with_selfvol_a: bool = False,
+                 nrep: int = 1):
     """Bottom-up reduction of two same-topology trees in one sweep.
 
     Packs both trees' accumulator channels into one matrix so each level
     runs a single upward segment sum; deposits are batched into one.
     Returns (result_a, result_b) like reduce_tree(with_selfvol=
-    with_selfvol_a) and reduce_tree(with_selfvol=with_selfvol_b).
+    with_selfvol_a) and reduce_tree(with_selfvol=with_selfvol_b), energies
+    per replica with nrep.
     """
     natoms = level1_a["gv"].shape[0]
     dtype = level1_a["gv"].dtype
@@ -750,7 +833,7 @@ def reduce_tree2(levels_a, levels_b, level1_a, level1_b,
     for base, dbase, l1 in ((0, 0, level1_a), (5, 3, level1_b)):
         e_psi = l1["gamma1i"] * l1["gv"] + acc[:, base]
         dr = deposits[:, dbase:dbase + 3] + acc[:, base + 2:base + 5]
-        results.append(dict(energy=torch.sum(e_psi), dr=dr))
+        results.append(dict(energy=_energy(e_psi, nrep), dr=dr))
     if with_selfvol_b:
         results[1]["self_volume"] = (level1_b["gv"] + acc[:, i_svb]
                                      + deposits[:, 6])

@@ -37,25 +37,27 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # argument types of every exported function (pointers and the stream as
-# c_void_p so 64-bit addresses are never cut)
+# c_void_p so 64-bit addresses are never cut); the pair sweeps take the
+# replica count first (the GB sweep then whether its list is shared)
 SIGNATURES = {
-    "agbnp_subtile_columns": (_P, _I, _P, _I, _P, _I, _F, _I, _P, _P, _P, _P,
-                              _P),
-    "agbnp_born_sums": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+    "agbnp_subtile_columns": (_I, _P, _I, _P, _I, _P, _I, _F, _I, _P, _P, _P,
+                              _P, _P),
+    "agbnp_born_sums": (_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                         _F, _I, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _P),
     "agbnp_empty_launch": (_P,),
-    "agbnp_descreening": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                          _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _I, _P,
-                          _P, _P, _P, _P, _P, _P),
-    "agbnp_born_sums_tiles": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
-                              _P, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P,
-                              _P, _P, _P),
-    "agbnp_gb_pair_tiles": (_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I,
-                            _I, _F, _F, _I, _P, _F, _F, _P, _P, _P, _P, _P,
-                            _P, _P, _P),
-    "agbnp_descreening_tiles": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
-                                _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
+    "agbnp_descreening": (_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                          _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _P),
+    "agbnp_born_sums_tiles": (_I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P,
+                              _P, _P, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P,
+                              _P, _P, _P, _P),
+    "agbnp_gb_pair_tiles": (_I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                            _P, _I, _I, _F, _F, _I, _P, _F, _F, _P, _P, _P, _P,
+                            _P, _P, _P, _P),
+    "agbnp_descreening_tiles": (_I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P,
+                                _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P,
+                                _P),
     "agbnp_take_rows": (_P, _I, _I, _P, _I, _P, _P),
     "agbnp_cumsum_tile_rows": (_I,),
     "agbnp_cumsum_state_ints": (_I, _I),

@@ -1257,3 +1257,204 @@ def test_v2_context_on_card_grows_on_1li2(cuda, v2_systems):
         e0, f0, out0 = ref.energy_forces(pos, with_details=True)
     assert abs(e1 - float(e0)) <= 1e-5 * abs(float(e0))
     assert rel(f1, f0) <= 1e-4
+
+
+# what the Born kernels' Q/dQ buffers hold before a launch
+FILLS = {"nan": float("nan"), "zero": 0.0}
+
+
+def replica_inputs(L, nb, seed=21):
+    """A batch of nb replicas of sweep_inputs' layouts: replica 0 as given,
+    the others with their rows displaced by 0.01 nm (numpy seed) and the
+    heavy columns taken from the displaced rows, their screening factors,
+    Born radii and chain factors scaled."""
+    rng = np.random.default_rng(seed)
+    dev = L["pos_pad"].device
+    hperm = L["spline"].hids_perm.long().clamp(min=0)
+    out = dict(pos_pad=[], pos_h=[], s_h=[], born=[], brw=[], bru=[])
+    for b in range(nb):
+        pp = L["pos_pad"]
+        if b:
+            pp = pp + torch.as_tensor(rng.normal(0.0, 0.01, pp.shape),
+                                      dtype=torch.float32,
+                                      device=dev) * L["rvalid"]
+        f = 1.0 + 0.05 * b
+        vals = dict(pos_pad=pp,
+                    pos_h=torch.where(L["hvalid"], pp[:, hperm], 0.0),
+                    s_h=L["s_h"] / f, born=L["born"] * f, brw=L["brw"] * f,
+                    bru=L["bru"] / f)
+        for k, v in vals.items():
+            out[k].append(v.contiguous())
+    return {k: torch.stack(v).contiguous() for k, v in out.items()}
+
+
+def assert_replicas(out, refs, mask=None):
+    """out (a batch, nested) bitwise refs[b] on every replica, on mask[b]
+    where given."""
+    if isinstance(out, torch.Tensor):
+        assert out.shape[0] == len(refs)
+        for b, r in enumerate(refs):
+            o = out[b]
+            if mask is not None:
+                o, r = o[mask[b]], r[mask[b]]
+            assert torch.equal(o, r), b
+        return
+    for k, o in enumerate(out):
+        if o is not None:
+            assert_replicas(o, [r[k] for r in refs],
+                            None if mask is None else mask[k])
+
+
+def counted(name, fn):
+    """fn()'s result, checking it launched kernel `name` once."""
+    before = PK.LAUNCHES[name]
+    out = fn()
+    assert PK.LAUNCHES[name] - before == 1, name
+    return out
+
+
+@pytest.mark.parametrize("nb", [1, 2, 5])
+def test_replica_axis_dense_kernels_bitwise_each_replica(cuda, shapes, nb):
+    """The dense sweeps and the chunk list with a replica axis: one launch
+    for the batch, each replica bitwise its own B = 1 launch (the Born
+    kernel's Q/dQ on the chunk slots it walks), the reload reading Q/dQ
+    buffers that were NaN outside those slots."""
+    L = shapes
+    X = replica_inputs(L, nb)
+    sp, n = L["spline"], L["n"]
+    tables = tuple(sp[:5])
+    one = range(nb)
+    for h in (1.0, 2.0):
+        ch = counted("subtile_columns", lambda: PK.subtile_columns(
+            X["pos_pad"], X["pos_h"], sp.hids_perm, n, horizon=h))
+        ch1 = [PK.subtile_columns(X["pos_pad"][b], X["pos_h"][b],
+                                  sp.hids_perm, n, horizon=h) for b in one]
+        assert_replicas(ch, ch1)
+        shape = (nb, L["pos_pad"].shape[1] // PK.SUB, L["pos_h"].shape[1],
+                 PK.SUB)
+        outs = {}
+        for fill in FILLS:
+            bufs = tuple(torch.full(shape, FILLS[fill], device=cuda)
+                         for _ in range(2))
+            outs[fill] = counted("born_sums", lambda: PK.born_sums(
+                X["pos_pad"], X["pos_h"], *tables, X["s_h"], n, horizon=h,
+                save_qd=True, qd_out=bufs))
+        out = outs["zero"]
+        ref = [PK.born_sums(X["pos_pad"][b], X["pos_h"][b], *tables,
+                            X["s_h"][b], n, horizon=h, save_qd=True)
+               for b in one]
+        slots = torch.stack([PK.chunk_slots(r[3]) for r in ref])
+        assert_replicas((out[0], out[3]), [(r[0], r[3]) for r in ref])
+        assert_replicas(out[1:3], [r[1:3] for r in ref], (slots, slots))
+        assert torch.isnan(outs["nan"][1][~slots]).all()
+        dargs = (X["pos_pad"], X["pos_h"], X["s_h"], X["brw"], X["bru"])
+        refs = [PK.descreening(*(x[b] for x in dargs), ref[b][1:])
+                for b in one]
+        for fill in FILLS:
+            d = counted("descreening", lambda: PK.descreening(
+                *dargs, outs[fill][1:]))
+            assert_replicas(d, refs)
+        d = counted("descreening_recompute", lambda: PK.descreening(
+            *dargs, None, spline=sp._replace(horizon=h), chunks=ch))
+        assert_replicas(d, [PK.descreening(*(x[b] for x in dargs), None,
+                                           spline=sp._replace(horizon=h),
+                                           chunks=ch1[b]) for b in one])
+    for kw in (dict(cutoff=1.0, **L["mm"]), dict(cutoff=None)):
+        g = counted("gb_pair", lambda: PK.gb_pair(
+            X["pos_pad"], L["charge"], X["born"], n, **kw))
+        assert_replicas(g, [PK.gb_pair(X["pos_pad"][b], L["charge"],
+                                       X["born"][b], n, **kw) for b in one])
+
+
+@pytest.mark.parametrize("nb", [1, 2, 5])
+def test_replica_axis_list_kernels_bitwise_each_replica(cuda, shapes, nb):
+    """The list sweeps with a replica axis, each replica on its own list:
+    one launch for the batch, each replica bitwise its own B = 1 launch;
+    one replica's list cut to half its entries and, with several
+    replicas, one replica's list empty (nv 0); the reload reading Q/dQ
+    buffers that were NaN outside the kept sub-tile pairs."""
+    L = shapes
+    X = replica_inputs(L, nb)
+    sp, n, tile = L["spline"], L["n"], L["tile"]
+    tables = tuple(sp[:5])
+    one = range(nb)
+    rb = TL.tile_bounds(X["pos_pad"], L["rvalid"], tile)
+    cb = TL.tile_bounds(X["pos_h"], L["hvalid"], tile)
+
+    def lists(c_r, c_c, rng_d, triangular=False):
+        cnt = TL.build_tile_list(*c_r, *c_c, rng_d, 1,
+                                 triangular=triangular)[2]
+        tl, nv, _ = TL.build_tile_list(*c_r, *c_c, rng_d,
+                                       int(cnt.max()) + 8,
+                                       triangular=triangular)
+        nv = nv.clone()
+        nv[0] = (nv[0] + 1) // 2      # unequal: replica 0's list cut
+        if nb > 2:
+            nv[nb - 1] = 0            # an empty list
+        return tl, nv
+
+    for rng_d in (1.0, 2.0):
+        spb = sp._replace(horizon=rng_d)
+        tl, nv = lists(rb, cb, rng_d)
+        lmax = tl.shape[-1]
+        shape = (nb, lmax, tile, tile)
+        outs = {}
+        for fill in FILLS:
+            bufs = tuple(torch.full(shape, FILLS[fill], device=cuda)
+                         for _ in range(2))
+            outs[fill] = counted("born_sums_tiles", lambda: TL.born_sums_tiles(
+                nv, tl, X["pos_pad"], X["pos_h"], *tables, X["s_h"], n, tile,
+                horizon=rng_d, save_qd=True, qd_out=bufs))
+        out = outs["zero"]
+        ref = [TL.born_sums_tiles(nv[b], tl[b], X["pos_pad"][b],
+                                  X["pos_h"][b], *tables, X["s_h"][b], n,
+                                  tile, horizon=rng_d, save_qd=True)
+               for b in one]
+        ent = (torch.arange(lmax, device=cuda)[None, :] < nv).expand(nb,
+                                                                     lmax)
+        kept = torch.stack([TL._expand_subtiles(TL.keep_flags(r[3], nv[b]))
+                            for b, r in enumerate(ref)])
+        assert_replicas(out[0], [r[0] for r in ref])
+        assert_replicas(out[3], [r[3] for r in ref], ent)
+        assert_replicas(out[1:3], [r[1:3] for r in ref], (kept, kept))
+        assert torch.isnan(outs["nan"][1][~kept]).all()
+        dargs = (X["pos_pad"], X["pos_h"], X["s_h"], X["brw"], X["bru"])
+        refs = [TL.descreening_tiles(nv[b], tl[b], *(x[b] for x in dargs),
+                                     ref[b][1:], tile, spline=spb)
+                for b in one]
+        for fill in FILLS:
+            d = counted("descreening_tiles", lambda: TL.descreening_tiles(
+                nv, tl, *dargs, outs[fill][1:], tile, spline=spb))
+            assert_replicas(d, refs)
+        d = counted("descreening_tiles_recompute",
+                    lambda: TL.descreening_tiles(nv, tl, *dargs, None, tile,
+                                                 spline=spb))
+        assert_replicas(d, [TL.descreening_tiles(
+            nv[b], tl[b], *(x[b] for x in dargs), None, tile, spline=spb)
+            for b in one])
+        if nb > 2:
+            assert not out[0][nb - 1].any()
+    tl, nv = lists(rb, rb, 1.0, triangular=True)
+    for kw in (dict(cutoff=1.0, **L["mm"]), dict(cutoff=1.0)):
+        g = counted("gb_pair_tiles", lambda: TL.gb_pair_tiles(
+            nv, tl, X["pos_pad"], L["charge"], X["born"], n, tile, **kw))
+        assert_replicas(g, [TL.gb_pair_tiles(nv[b], tl[b], X["pos_pad"][b],
+                                             L["charge"], X["born"][b], n,
+                                             tile, **kw) for b in one])
+
+
+def test_batched_model_on_card_matches_each_conformer(cuda, fixture_system):
+    """AGBNPModel.batched_energy_forces of 4 conformers on the card (f32,
+    lists and dense grid) against each conformer's own evaluation."""
+    params, pos = fixture_system
+    batch = pos[None] + 0.01 * np.random.default_rng(2).standard_normal(
+        (4,) + pos.shape)
+    for tiles, cutoff in ((None, 1.0), (False, None)):
+        m = AGBNPModel(params, device=cuda, dtype=torch.float32,
+                       positions=pos, cutoff=cutoff, pair_tiles=tiles)
+        out = m.batched_energy_forces(batch)
+        for b in range(4):
+            e, f = m.energy_forces(batch[b])
+            assert abs(float(out["energy"][b]) - float(e)) <= 1e-6 * abs(
+                float(e))
+            assert rel(out["force"][b], f) <= 1e-5

@@ -93,8 +93,8 @@ def window(sims):
     lvl1v = T.make_level1(pt0, b["radii_vdw"], b["vol_vdw"], -tg,
                           b["ishydrogen"])
     tlv = T.rescan_volumes(ttopo, lvl1v)
-    tvt, tcounts = T.compact_topology(tlv, [l["valid"].shape[0]
-                                            for l in tlv], relax=0.5)
+    tvt, (tcounts,) = T.compact_topology(tlv, [l["valid"].shape[0]
+                                               for l in tlv], relax=0.5)
     return dict(pos0=pos0, pos1=pos1, jpairs=jpairs, jtopo=jtopo, jlv=jlv,
                 jvt=jvt, jcounts=jcounts, tpairs=tpairs, ttopo=ttopo,
                 tlv=tlv, tvt=tvt, tcounts=tcounts, lvl1v=lvl1v)
@@ -145,7 +145,7 @@ def test_compact_truncation_detected(window):
     cap, the compacted levels hold at most cap rows, and the truncated
     topology still rescans to finite values (its parents stay in range)."""
     w = window
-    topo, counts = T.compact_topology(w["tlv"], [8] * 7, relax=0.5)
+    topo, (counts,) = T.compact_topology(w["tlv"], [8] * 7, relax=0.5)
     assert int(counts[0]) > 8
     np.testing.assert_array_equal(counts.numpy(), w["tcounts"].numpy())
     for t in topo:

@@ -79,6 +79,12 @@ def level1_pair(aj, at, pos, roffset):
     return large, vdw
 
 
+def one_system(red):
+    """A reduction of one system (a batch of one): its energy without the
+    replica axis."""
+    return {**red, "energy": red["energy"][0]}
+
+
 def build_both(system, rows: bool, caps=CAPS):
     params, pos, aj, at = system
     (l1j, l1t), _ = level1_pair(aj, at, pos, params.roffset)
@@ -115,8 +121,9 @@ def test_build_matches_jax(system, all_pairs_build, rows):
     (lev_j, diag_j), (lev_t, diag_t) = (build_both(system, rows) if rows
                                         else all_pairs_build)
     for key in ("counts", "max_siblings"):
+        # one system: the diag's one replica row
         np.testing.assert_array_equal(np.asarray(diag_j[key]),
-                                      diag_t[key].numpy())
+                                      diag_t[key][0].numpy())
     assert np.asarray(diag_j["counts"])[0] > 0
     for lj, lt in zip(lev_j, lev_t):
         valid = np.asarray(lj["valid"])
@@ -135,7 +142,7 @@ def test_reductions_and_rescans_match_jax(system, all_pairs_build):
     (l1j, l1t), (v1j, v1t) = level1_pair(aj, at, pos, params.roffset)
 
     rj = jax_reduce_tree(lev_j, l1j, with_selfvol=True)
-    rt = T.reduce_tree(lev_t, l1t, with_selfvol=True)
+    rt = one_system(T.reduce_tree(lev_t, l1t, with_selfvol=True))
     for k in ("energy", "dr", "self_volume"):
         assert rel(rt[k].numpy(), rj[k]) <= TOL, k
 
@@ -143,7 +150,7 @@ def test_reductions_and_rescans_match_jax(system, all_pairs_build):
     topo_j, topo_t = JT.tree_topology(lev_j), T.tree_topology(lev_t)
     r1j, r2j = jax_fixed_topology_pass(topo_j, l1j, v1j)
     at2, bt2 = T.rescan_volumes2(topo_t, l1t, v1t)
-    r1t, r2t = T.reduce_tree2(at2, bt2, l1t, v1t)
+    r1t, r2t = map(one_system, T.reduce_tree2(at2, bt2, l1t, v1t))
     for k in ("energy", "dr"):
         assert rel(r1t[k].numpy(), r1j[k]) <= TOL, k
     for k in ("energy", "dr", "self_volume"):
@@ -154,7 +161,8 @@ def test_reductions_and_rescans_match_jax(system, all_pairs_build):
     gam = np.random.default_rng(3).normal(0.0, 10.0, params.n)
     wt = {**v1t, "gamma1i": torch.as_tensor(gam)}
     gj = jax_wu_pass(topo_j, v1j, jnp.asarray(gam))
-    gt = T.reduce_tree(T.rescan_gammas(lvt, wt), wt, with_selfvol=False)
+    gt = one_system(T.reduce_tree(T.rescan_gammas(lvt, wt), wt,
+                                  with_selfvol=False))
     for k in ("energy", "dr"):
         assert rel(gt[k].numpy(), gj[k]) <= TOL, k
 
@@ -163,7 +171,7 @@ def test_overflow_grows_like_jax(system):
     small = ((1024, 1024, 1024, 1024, 512, 128, 128), (48, 32, 24, 16, 8, 2))
     (_, diag_j), (_, diag_t) = build_both(system, rows=False, caps=small)
     ov_j = JT.check_overflow(diag_j)
-    ov_t = T.check_overflow(diag_t)
+    ov_t = T.check_overflow({k: v[0] for k, v in diag_t.items()})
     assert ov_t["any"] and ov_j["any"]
     for k in ("cap_overflow", "sib_overflow"):
         np.testing.assert_array_equal(ov_t[k], ov_j[k])
@@ -239,9 +247,9 @@ def test_segment_sum_over_valid_rows_equals_the_full_count(built, name,
         # capacities that cut some levels short (an overflowed window) and
         # leave others room
         kept = T.compact_topology(levels, [l["valid"].shape[0]
-                                           for l in levels])[1].tolist()
+                                           for l in levels])[1][0].tolist()
         caps = [c + 16 if i % 2 else c // 2 + 8 for i, c in enumerate(kept)]
-        levels, counts = T.compact_topology(levels, caps)
+        levels, (counts,) = T.compact_topology(levels, caps)
         assert counts.tolist() == kept
         assert any(int(c) > cap for c, cap in zip(counts, caps))
         assert any(int(c) < cap for c, cap in zip(counts, caps))
