@@ -127,6 +127,30 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      B = 16 (each pair kernel once a call); refine of 4 poses (50 FIRE
      iterations) lowers every energy; version 2 on 2 poses of the 264-atom
      fixture against the v2 Context.
+ 19. ParameterGradients on 1li2 (full width, NoCutoff, pair_kernel=False)
+     in f64 and f32: 4 poses jittered 0.005 nm (numpy seed), gamma, alpha
+     and charge gradients against central finite differences along a
+     random direction (JAX's bar, rtol 5e-6, atol 1e-8), the hydrogens'
+     gamma gradients exactly 0, f32 within 1e-4 of max|g| of f64, the
+     tree's take_rows launched in the forward, the backward (TakeRows'
+     segment sums) under set_sync_debug_mode("error"), ms a call;
+ 20. ReplicaEnsemble of 1li2 with its 665 X-H constraints (SHAKE/RATTLE
+     per replica, strict 1 fs, lists, 40-step windows), R = 1 and R = 8 in
+     turns (40 warm-up and 80 timed steps): every replica's violation and
+     SHAKE residual within the f32 tolerance, replica 0 of R = 8 within
+     1e-5 in energy of the R = 1 run from the same state and generator at
+     every step, the list kernels every step; then TemperatureREMD with
+     constraints, 2 cycles of 40 on geometric_ladder(300, 450, 8);
+ 21. the per-step path: ReplicaEnsemble.make_runner(neighbor_every=0) on
+     4 x 1li2, 20 steps, its first step against the windowed runner's;
+     then a 20-step window of 4 trp-cage replicas with two hydration sites
+     sharing a parent: sites exactly at w1 p1 + w2 p2, site forces 0;
+ 22. the Simulation options: 1li2 with pair_kernel=False in f64 against
+     the f32 kernel route (energy and forces 1e-5), then 40 MD steps after
+     an equal warm-up; include_mm=False against the model's energy (1e-6);
+     make_langevin_runner(topology_relax=0.5): a 40-step window with no
+     overflow (regrown if the birth-margin rows need room), its first step
+     against relax=None's (1e-5).
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -134,8 +158,9 @@ output is {"ok": true, "device": {...}}; the line before it is nvidia-smi's
 name/power-limit line, and the one before that the per-kernel JSON record
 (times, bound and what sets it, library_ms null for the pair sweeps and
 measured for the row kernels, live pairs, launches on its path and per step
-of each MD phase [6]-[9], [14] and of the replica runs [15]-[17], and in
-one batched score of [18]; for the Born and descreening sweeps also the kept
+of each MD phase [6]-[9], [14] and of the replica runs [15]-[17], in
+one batched score of [18] and on each of [19]-[22]; for the Born and
+descreening sweeps also the kept
 32x32 sub-tile pairs or the chunk slots and the Q/dQ bytes written or read).
 """
 
@@ -2377,6 +2402,404 @@ def phase_scoring(dev, card):
     return path_counts
 
 
+GRAD_POSES = 4        # [19] 1li2 poses (numpy seed)
+GRAD_JITTER = 0.005   # nm, as the JAX package's fitting test
+FD_RTOL, FD_ATOL = 5e-6, 1e-8  # JAX's tests/test_fitting.py bar
+GRAD_F32_TOL = 1e-4   # of max|g| per key, f32 gradients vs f64
+CONS_REPLICAS = 8     # [20] 1li2 replicas with X-H constraints
+CONS_WARMUP, CONS_STEPS = 40, 80
+CONS_E_TOL = 1e-5     # relative, replica 0 of R = 8 vs R = 1 at every step
+CONS_REMD_CYCLES = 2  # [20] T-REMD cycles of NEIGHBOR_EVERY steps
+PER_STEP_REPLICAS, PER_STEP_STEPS = 4, 20  # [21]
+FIRST_STEP_TOL = 1e-5  # relative, [21]-[22] first steps against each other
+VSITE_REPLICAS, VSITE_STEPS = 4, 20  # [21] trp-cage with hydration sites
+OPTION_STEPS = 40     # [22]
+NO_MM_TOL = 1e-6      # relative, include_mm=False vs the model's energy
+TOPOLOGY_RELAX = 0.5  # [22]
+
+
+def phase_param_grads(dev, card):
+    """Phase 19: ParameterGradients on 1li2 (full width, NoCutoff, the
+    plain pair route) in f64 and f32 on the card: 4 poses jittered 0.005
+    nm (numpy seed); gamma, alpha and charge gradients against central
+    finite differences along a random direction (JAX's bar), the
+    hydrogens' gamma gradients exactly 0, f32 against f64; take_rows
+    launched in the forward; the backward under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import AGBNPModel, ParameterGradients
+    from openmm_agbnp_plugin_tpu_torch.api.fitting import FITTABLE
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    d, p = system("1li2")
+    rng = np.random.default_rng(19)
+    poses = np.asarray(d.positions)[None] + GRAD_JITTER * \
+        rng.standard_normal((GRAD_POSES,) + np.asarray(d.positions).shape)
+    grads, pgs, path_counts = {}, {}, {}
+    for dtype in (torch.float64, torch.float32):
+        m = AGBNPModel(p, device=dev, dtype=dtype, version=1,
+                       pair_kernel=False, positions=d.positions)
+        pg = pgs[dtype] = ParameterGradients(m)
+        theta = pg.initial_theta()
+        PK.reset_launch_counts()
+        out = pg.energy_grads(theta, poses)
+        torch.cuda.synchronize()
+        counts = PK.launch_counts()
+        for k, v in counts.items():
+            path_counts[k] = path_counts.get(k, 0) + v
+        t0 = time.perf_counter()
+        out = pg.energy_grads(theta, poses)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        grads[dtype] = out
+        log(f"[19] ParameterGradients 1li2 {str(dtype)[6:]}, {GRAD_POSES} "
+            f"poses, gamma/alpha/charge: {ms:.1f} ms an energy_grads call "
+            f"on {card}; take_rows launches a call "
+            f"{counts['take_rows']}, pair kernels {pair_launches(counts)}")
+        if counts["take_rows"] < 1:
+            raise AssertionError("[19] the forward launched no take_rows")
+        if pair_launches(counts):
+            raise AssertionError("[19] the plain route launched a pair "
+                                 "kernel")
+    g64, pg = grads[torch.float64], pgs[torch.float64]
+    theta = pg.initial_theta()
+    hyd = torch.as_tensor(np.asarray(p.ishydrogen) > 0, device=dev)
+    if bool((g64["gamma"][:, hyd] != 0).any()):
+        raise AssertionError("[19] hydrogen gamma gradients are not 0")
+    for key in FITTABLE:
+        direction = torch.as_tensor(rng.standard_normal(p.n), device=dev)
+        h = 1e-5 * max(1.0, float(theta[key].abs().max()))
+        ep = pg.energies({key: theta[key] + h * direction}, poses)
+        em = pg.energies({key: theta[key] - h * direction}, poses)
+        fd = ((ep - em) / (2 * h)).cpu().numpy()
+        an = (g64[key] @ direction).cpu().numpy()
+        worst = np.max(np.abs(an - fd) / (FD_ATOL + FD_RTOL * np.abs(fd)))
+        g32 = grads[torch.float32][key].double()
+        err32 = rel_err(g32, g64[key])[0]
+        log(f"[19] {key}: analytic {np.round(an, 6).tolist()} vs central "
+            f"differences {np.round(fd, 6).tolist()} (h {h:.1e}): worst "
+            f"|diff| / (atol + rtol |fd|) {worst:.3f}; f32 vs f64 "
+            f"max-err/max|g| {err32:.3e}")
+        if not worst <= 1.0:
+            raise AssertionError(f"[19] {key}: gradient vs finite "
+                                 "differences")
+        if not err32 <= GRAD_F32_TOL:
+            raise AssertionError(f"[19] {key}: f32 gradient vs f64")
+    leaves = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
+    pos = torch.as_tensor(poses[:1], dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    energy = pg._energy(leaves, pos)[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        back = torch.autograd.grad(energy, list(leaves.values()))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = all(torch.equal(b, g64[k][0]) for b, k in zip(back, leaves))
+    log(f"[19] one pose, f64: forward {(t1 - t0) * 1e3:.1f} ms, backward "
+        f"{(t2 - t1) * 1e3:.1f} ms (host clock, synchronised); the "
+        f"backward ran with no host sync; its gradients bitwise "
+        f"energy_grads' pose 0: {same}")
+    if not same:
+        raise AssertionError("[19] the backward is not repeatable")
+    torch.cuda.synchronize()
+    return path_counts
+
+
+def constraint_violations(sim, pos):
+    """Every replica's worst relative X-H distance error, numpy [R]."""
+    return sim.constraints.max_violation(pos).cpu().numpy()
+
+
+def phase_constrained_replicas(dev, card):
+    """Phase 20: 8 x 1li2 with X-H constraints (SHAKE/RATTLE per replica),
+    strict 1 fs on the lists, 40-step windows: ReplicaEnsemble at R = 1
+    and R = 8 in turns (40 warm-up then 80 timed steps continuing them),
+    replica 0 of R = 8 against the R = 1 run from the same state and
+    generator at every step, every replica's constraint violation within
+    the f32 tolerance, #5-#7 every step; then TemperatureREMD with
+    constraints, 2 cycles of 40 on geometric_ladder(300, 450, 8)."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import (ReplicaEnsemble,
+                                               TemperatureREMD,
+                                               geometric_ladder)
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import \
+        replica_generators, worst_replica
+
+    sim = md_sim(dev, "1li2", constraints=True)
+    cons = sim.constraints
+    tol = cons.tolerance(torch.float32)
+    if cons.n_constraints != 665 or cons.clusters is None:
+        raise AssertionError(f"[20] {cons.n_constraints} constraints")
+    ens8 = ReplicaEnsemble(sim, CONS_REPLICAS)
+    pos8, vel8, gens8 = ens8.initial_states(jitter=1e-3)
+    starts = {CONS_REPLICAS: (pos8, vel8, gens8),
+              1: (pos8[:1].clone(), vel8[:1].clone(),
+                  replica_generators(dev, 1, 0))}
+    energies, ms, path_counts = {}, {}, {}
+    for nrep in (1, CONS_REPLICAS):
+        run = ReplicaEnsemble(sim, nrep).make_runner(
+            neighbor_every=NEIGHBOR_EVERY)
+        PK.reset_launch_counts()
+        states, (e0, *d0) = run(starts[nrep], CONS_WARMUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, (e1, *d1) = run(states, CONS_STEPS)
+        torch.cuda.synchronize()
+        ms[nrep] = (time.perf_counter() - t0) * 1e3 / CONS_STEPS
+        counts = PK.launch_counts()
+        for k, v in counts.items():
+            path_counts[k] = path_counts.get(k, 0) + v
+        nsteps = CONS_WARMUP + CONS_STEPS
+        energies[nrep] = torch.cat([e0, e1], dim=1).double().cpu().numpy()
+        viol = constraint_violations(sim, states[0])
+        shake = max(float(d0[4].max()), float(d1[4].max()))
+        report = sim.overflow_report(*worst_replica(d1))
+        per_step = {k: round(v / nsteps, 3)
+                    for k, v in pair_launches(counts).items()}
+        log(f"[20] 1li2 x {nrep} with {cons.n_constraints} X-H constraints "
+            f"a replica: {ms[nrep]:.3f} ms/step ({86.4 / ms[nrep]:.3f} "
+            f"ns/day a replica, {86.4 * nrep / ms[nrep]:.3f} aggregate) on "
+            f"{card}; worst violation {viol.max():.3e}, SHAKE residual "
+            f"{shake:.3e} (tolerance {tol:.3e}); pair kernel launches a "
+            f"step {per_step}")
+        if report or energies[nrep].shape != (nrep, nsteps) \
+                or not np.isfinite(energies[nrep]).all():
+            raise AssertionError(f"[20] R = {nrep}: overflow {report}")
+        if not (viol <= tol).all() or not shake <= tol:
+            raise AssertionError(f"[20] R = {nrep}: constraint violation "
+                                 f"{viol} over {tol}")
+        check_every_step({k: v / nsteps for k, v in counts.items()},
+                         ("born_sums_tiles", "gb_pair_tiles",
+                          "descreening_tiles"), f"[20] R = {nrep}")
+    e1, e8 = energies[1][0], energies[CONS_REPLICAS][0]
+    worst = float(np.max(np.abs(e8 - e1) / np.abs(e1)))
+    log(f"[20] replica 0 of R = {CONS_REPLICAS} vs the R = 1 run from the "
+        f"same state and generator: worst relative energy difference over "
+        f"{len(e1)} steps {worst:.3e}; R = {CONS_REPLICAS} over R = 1 ms/step "
+        f"{ms[CONS_REPLICAS] / ms[1]:.3f}")
+    if not worst <= CONS_E_TOL:
+        raise AssertionError("[20] replica 0 of the batch differs from R = 1")
+    remd = TemperatureREMD(sim, geometric_ladder(*REMD_T, CONS_REPLICAS))
+    run = remd.make_runner(steps_per_cycle=NEIGHBOR_EVERY,
+                           neighbor_every=NEIGHBOR_EVERY)
+    states, xgen = remd.initial_states(jitter=1e-3)
+    PK.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, out = run(states, xgen, CONS_REMD_CYCLES)
+    torch.cuda.synchronize()
+    steps = CONS_REMD_CYCLES * NEIGHBOR_EVERY
+    rms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = PK.launch_counts()
+    for k, v in counts.items():
+        path_counts[k] = path_counts.get(k, 0) + v
+    viol = constraint_violations(sim, states[0])
+    rungs = out["rung"].cpu().numpy()
+    log(f"[20] T-REMD {CONS_REPLICAS} x 1li2 with constraints, "
+        f"{CONS_REMD_CYCLES} cycles of {NEIGHBOR_EVERY}: {rms:.3f} ms/step "
+        f"(the first cycle included) on {card}; rungs {rungs.tolist()}, "
+        f"worst violation {viol.max():.3e}, SHAKE residual "
+        f"{float(out['shake_residual'].max()):.3e}")
+    if not (viol <= tol).all() or any(sorted(r.tolist()) != list(range(
+            CONS_REPLICAS)) for r in rungs):
+        raise AssertionError("[20] T-REMD with constraints")
+    check_every_step({k: v / steps for k, v in counts.items()},
+                     ("born_sums_tiles", "gb_pair_tiles",
+                      "descreening_tiles"), "[20] T-REMD")
+    torch.cuda.synchronize()
+    return path_counts
+
+
+def trpcage_sites():
+    """tests/test_torch_replica_md.py's two hydration sites on trp-cage:
+    the NH2 hydrogens 212 and 213 on the axes from N 201 to their
+    hydrogen-bond acceptors (O 60, N 179), at their N-H distances."""
+    from openmm_agbnp_plugin_tpu_torch import HydrationSites
+
+    hs = HydrationSites()
+    hs.add_hydrogen_bonding_site(212, heavy=201, hydrogen=60,
+                                 distance=0.0370)
+    hs.add_hydrogen_bonding_site(213, heavy=201, hydrogen=179,
+                                 distance=0.0355)
+    return hs.virtual_sites()
+
+
+def phase_per_step(dev, card):
+    """Phase 21: ReplicaEnsemble.make_runner(neighbor_every=0) on 4 x
+    1li2, 20 steps, its first step against the windowed runner's from the
+    same state (both evaluate a fresh build there); then a 20-step
+    ensemble window of 4 trp-cage replicas with two hydration sites: the
+    sites on their parents' axis, their forces 0 after the spread."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble
+    from openmm_agbnp_plugin_tpu_torch.md.vsites import project_positions
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import \
+        replica_generators, worst_replica
+
+    sim = md_sim(dev, "1li2")
+    ens = ReplicaEnsemble(sim, PER_STEP_REPLICAS)
+    pos, vel, _ = ens.initial_states(jitter=1e-3)
+    path_counts = {}
+    first = {}
+    for every, steps in ((NEIGHBOR_EVERY, 1), (0, PER_STEP_STEPS)):
+        states = (pos.clone(), vel.clone(),
+                  replica_generators(dev, PER_STEP_REPLICAS, 0))
+        PK.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, (e, *diag) = ens.make_runner(neighbor_every=every)(states, steps)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        first[every] = e[:, 0].double().cpu().numpy()
+        if every == 0:
+            counts = PK.launch_counts()
+            path_counts = counts
+            report = sim.overflow_report(*worst_replica(diag))
+            log(f"[21] per-step path, {PER_STEP_REPLICAS} x 1li2: "
+                f"{elapsed * 1e3 / steps:.3f} ms/step on {card} (a tree build "
+                f"a step over the all-pairs candidates); overflow "
+                f"{bool(report)}; pair kernel launches "
+                f"{pair_launches(counts)}")
+            if report or not bool(torch.isfinite(e).all()):
+                raise AssertionError(f"[21] per-step path: {report}")
+            check_every_step({k: v / steps for k, v in counts.items()},
+                             ("born_sums_tiles", "gb_pair_tiles",
+                              "descreening_tiles"), "[21]")
+    worst = float(np.max(np.abs(first[0] - first[NEIGHBOR_EVERY])
+                         / np.abs(first[NEIGHBOR_EVERY])))
+    log(f"[21] first step, per-step vs windowed runner: worst relative "
+        f"energy difference {worst:.3e}")
+    if not worst <= FIRST_STEP_TOL:
+        raise AssertionError("[21] the per-step path's first step differs")
+
+    vs_table = trpcage_sites()
+    vsim = md_sim(dev, "trpcage", vsites=vs_table)
+    vs = vsim.vsites
+    vens = ReplicaEnsemble(vsim, VSITE_REPLICAS)
+    PK.reset_launch_counts()
+    (vpos, _, _), (ve, *vdiag) = vens.make_runner(
+        neighbor_every=VSITE_STEPS)(vens.initial_states(jitter=1e-3),
+                                    VSITE_STEPS)
+    for k, v in PK.launch_counts().items():
+        path_counts[k] = path_counts.get(k, 0) + v
+    proj = project_positions(vpos, vs)
+    want = (vs["w1"][:, None] * vpos[:, vs["p1"]]
+            + vs["w2"][:, None] * vpos[:, vs["p2"]])
+    each = all(torch.equal(proj[r], project_positions(vpos[r], vs))
+               for r in range(VSITE_REPLICAS))
+    force = vsim.force_fn()(vpos)[1]
+    site_f = float(force[:, vs["site"]].abs().max())
+    report = vsim.overflow_report(*worst_replica(vdiag))
+    log(f"[21] trp-cage x {VSITE_REPLICAS} with {len(vs_table.site)} "
+        f"hydration sites, {VSITE_STEPS} steps: sites at w1 p1 + w2 p2 "
+        f"{torch.equal(proj[:, vs['site']], want)}, each replica's "
+        f"projection bitwise its own {each}, site forces after the spread "
+        f"max {site_f}; overflow {bool(report)}")
+    if not (torch.equal(proj[:, vs["site"]], want) and each
+            and site_f == 0.0 and not report
+            and bool(torch.isfinite(ve).all())):
+        raise AssertionError("[21] virtual sites in the replica runner")
+    torch.cuda.synchronize()
+    return path_counts
+
+
+def phase_options(dev, card):
+    """Phase 22: the Simulation options.  1li2 with pair_kernel=False in
+    f64 on the card against the f32 kernel route at the same positions
+    (energy and forces), then 40 steps after an equal warm-up;
+    include_mm=False against the model's own energy; topology_relax=0.5:
+    a 40-step window with no overflow (regrown if the birth-margin rows
+    need room), its first step against relax=None's."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    from openmm_agbnp_plugin_tpu_torch import Simulation
+
+    d, _ = system("1li2")
+    sim32 = md_sim(dev, "1li2")
+    sim64 = Simulation(d, device=dev, version=1, cutoff=1.0,
+                       dtype=torch.float64, skin=0.25,
+                       descreen_horizon="cutoff", pair_kernel=False)
+    e32, f32_, _ = sim32.force_fn()(sim32.positions)
+    e64, f64_, _ = sim64.force_fn()(sim64.positions)
+    e_rel = abs(float(e32) - float(e64)) / abs(float(e64))
+    f_rel = rel_err(f32_, f64_)[0]
+    log(f"[22] 1li2 pair_kernel=False in f64 on the card vs the f32 kernel "
+        f"route: energy {float(e64):.6f} / {float(e32):.6f}, relative "
+        f"{e_rel:.3e}; forces max-err/max|f| {f_rel:.3e}")
+    if not (e_rel <= FIRST_STEP_TOL and f_rel <= FIRST_STEP_TOL):
+        raise AssertionError("[22] f64 plain route vs the f32 kernels")
+    _, counts64, _ = run_md(dev, card, "1li2", OPTION_STEPS, "[22] f64 "
+                            "pair_kernel=False", sim=sim64)
+    if pair_launches(counts64):
+        raise AssertionError("[22] the plain route launched a pair kernel")
+
+    no_mm = md_sim(dev, "1li2", include_mm=False)
+    e_sim = float(no_mm.force_fn()(no_mm.positions)[0])
+    e_model = float(no_mm.agbnp.energy_forces(no_mm.positions)[0])
+    rel = abs(e_sim - e_model) / abs(e_model)
+    log(f"[22] include_mm=False: Simulation energy {e_sim:.6f} vs the "
+        f"model's AGBNP energy {e_model:.6f}, relative {rel:.3e}")
+    if not rel <= NO_MM_TOL:
+        raise AssertionError("[22] include_mm=False energy")
+
+    sim = md_sim(dev, "1li2")
+    regrows = 0
+    PK.reset_launch_counts()
+    while True:
+        run = sim.make_langevin_runner(
+            0.001, 300.0, 1.0, neighbor_every=OPTION_STEPS,
+            topology_relax=TOPOLOGY_RELAX)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, e_rel_run, diag = run(
+            sim.positions, sim.velocities, OPTION_STEPS,
+            generator=torch.Generator(device=dev).manual_seed(22))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        report = sim.overflow_report(*diag)
+        if not report or regrows == 3:
+            break
+        log(f"[22] topology_relax={TOPOLOGY_RELAX}: the window overflowed "
+            f"{report}; PanicButton regrow")
+        sim._regrow(*diag)
+        regrows += 1
+    counts = PK.launch_counts()
+    _, _, e_plain, _ = sim.make_langevin_runner(
+        0.001, 300.0, 1.0, neighbor_every=OPTION_STEPS)(
+            sim.positions, sim.velocities, 1,
+            generator=torch.Generator(device=dev).manual_seed(22))
+    first = abs(float(e_rel_run[0]) - float(e_plain[0])) / abs(
+        float(e_plain[0]))
+    log(f"[22] topology_relax={TOPOLOGY_RELAX}: {OPTION_STEPS}-step window "
+        f"after {regrows} regrows, overflow {bool(report)}, "
+        f"{elapsed * 1e3 / OPTION_STEPS:.3f} ms/step on {card}; first step "
+        f"vs relax=None's: relative {first:.3e}; tree rows "
+        f"{sim.agbnp.caps.caps}")
+    if report or first > FIRST_STEP_TOL \
+            or not np.isfinite(e_rel_run.cpu().numpy()).all():
+        raise AssertionError("[22] topology_relax window")
+    for k, v in counts64.items():
+        counts[k] = counts.get(k, 0) + v
+    torch.cuda.synchronize()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2407,6 +2830,10 @@ def main() -> int:
     counts["ens_2clr"] = phase_ensemble_2clr(dev, card)
     counts["remd"] = phase_remd(dev, card, sim_ens, ens_window)
     score_counts = phase_scoring(dev, card)
+    new_paths = dict(param_grads=phase_param_grads(dev, card),
+                     ens_constraints=phase_constrained_replicas(dev, card),
+                     per_step=phase_per_step(dev, card),
+                     options=phase_options(dev, card))
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
@@ -2436,6 +2863,10 @@ def main() -> int:
         # [16], [17]; within the per-step dict above) and of one batched
         # score of [18] (NoCutoff + CutoffNonPeriodic)
         rec["launches_score_b16"] = score_counts.get(name, 0)
+        # launches on the paths [19]-[22]: gradients, constrained replicas,
+        # the per-step path and sites, the Simulation options
+        rec["launches_19_22"] = {p: c.get(name, 0)
+                                 for p, c in new_paths.items()}
         if "live_pairs" in k:
             rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})

@@ -19,6 +19,8 @@ tested against), with the same module names:
   ops/kernels/rows.py     the tree's row gather and prefix sum (probes)
   api/force.py            AGBNPForce, Context, NonbondedMethod
   api/scoring.py          ConformerScorer (batched pose scoring, FIRE refine)
+  api/fitting.py          ParameterGradients (d energy / d gamma, alpha,
+                          charge over pose batches)
   api/hydration.py        HydrationSites (virtual hydration sites)
   parallel/ensemble.py    ReplicaEnsemble: R replicas' MD as one batch
   parallel/remd.py        TemperatureREMD, attempt_swaps, geometric_ladder
@@ -32,6 +34,7 @@ union, the pair kernels' replica axis).
 This package imports torch and numpy only; nothing is built at import.
 """
 
+from .api.fitting import ParameterGradients
 from .api.force import AGBNPForce, Context, NonbondedMethod
 from .api.hydration import HydrationSites
 from .api.scoring import ConformerScorer
@@ -48,7 +51,7 @@ from .parallel.remd import TemperatureREMD, attempt_swaps, geometric_ladder
 
 __all__ = ["AGBNP2Model", "AGBNPForce", "AGBNPModel", "AGBNPParams",
            "ConformerScorer", "Context", "HydrationSites", "NonbondedMethod",
-           "ReplicaEnsemble", "Simulation", "TemperatureREMD", "TreeCaps",
+           "ParameterGradients", "ReplicaEnsemble", "Simulation", "TemperatureREMD", "TreeCaps",
            "arrays_from_numpy", "attempt_swaps", "batched_diag_max",
            "batched_energy_forces", "energy_forces", "geometric_ladder",
            "load_dms", "load_gaussvol_dat", "prepare_arrays"]

@@ -25,6 +25,14 @@ each hydrogen in one cluster), so a plain indexed add is deterministic;
 the Jacobi path, whose atoms can sit in several constraints, adds through
 the deterministic segment sum.  Results are the same from run to run on
 the GPU too.
+
+Replicas: positions and velocities [R, N, 3] (the replica runners) are
+constrained per replica, every gather, add and contraction on the atom
+axis, and shake's residual is [R] (0-d for one system [N, 3]).  The star
+path's fixed sweeps treat each replica alone.  The Jacobi path stops
+when every replica has converged and freezes a converged replica while
+the others iterate (what JAX's vmapped lax.while_loop does), so replica r
+comes out as it would alone.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.tree import segment_sum
+from ..ops.tree import batched_segment_sum
 
 _KMAX = 3  # constraint_ah1..3: at most 3 hydrogens per heavy atom
 # Newton sweeps of the star-cluster SHAKE: from a 2 fs drift the residual
@@ -181,11 +189,12 @@ class Constraints:
         return f
 
     def _scatter(self, x, dx_heavy, dh):
-        """x[cx] += dx_heavy; x[hydrogens] += dh [ncl, K, 3] (used slots
-        only): unique indices, so one add per atom."""
+        """x[cx] += dx_heavy; x[hydrogens] += dh [..., ncl, K, 3] (used
+        slots only): unique indices, so one add per atom."""
         cx, _, _, _, _, _, hslot, hatom = self._fields(x.dtype)
-        x = x.index_add(0, cx, dx_heavy)
-        return x.index_add(0, hatom, dh.reshape(-1, 3)[hslot])
+        x = x.index_add(-2, cx, dx_heavy)
+        dh = dh.reshape(dh.shape[:-3] + (-1, 3))
+        return x.index_add(-2, hatom, dh[..., hslot, :])
 
     # ------------------------------------------------------------------
     # block-direct star-cluster solvers (the fast path)
@@ -194,7 +203,7 @@ class Constraints:
     def _residual_clustered(self, x):
         cx, ch, d, mask, _, _, _, _ = self._fields(x.dtype)
         d2 = d * d
-        r = x[cx][:, None, :] - x[ch]
+        r = x[..., cx, None, :] - x[..., ch, :]
         diff = torch.where(mask, torch.sum(r * r, dim=-1) - d2, 0.0)
         return diff, r, d2
 
@@ -202,43 +211,45 @@ class Constraints:
         """SHAKE as `sweeps` Newton iterations with exact 3x3 block solves
         (each sweep solves the coupled linearized system of a cluster)."""
         cx, ch, _, mask, imx, imh, _, _ = self._fields(x.dtype)
-        rref = x_ref[cx][:, None, :] - x_ref[ch]          # [ncl, K, 3]
+        rref = x_ref[..., cx, None, :] - x_ref[..., ch, :]  # [.., ncl, K, 3]
         eye = torch.eye(_KMAX, dtype=x.dtype, device=x.device)
         pad = mask[:, :, None] & mask[:, None, :]
         for _ in range(self.sweeps):
             diff, r, d2 = self._residual_clustered(x)
             # A_ij = 2 [imX (r_i . rref_j) + delta_ij imH_i (r_i . rref_i)]
-            rdot = torch.einsum("cid,cjd->cij", r, rref)
-            diag = torch.einsum("cid,cid->ci", r, rref)
+            rdot = torch.einsum("...cid,...cjd->...cij", r, rref)
+            diag = torch.einsum("...cid,...cid->...ci", r, rref)
             # rotated-past-perpendicular guard (as the Jacobi path's)
             diag = torch.where(torch.abs(diag) > 1e-12 * d2, diag, d2)
-            rdot = rdot * (1.0 - eye) + diag[:, :, None] * eye
+            rdot = rdot * (1.0 - eye) + diag[..., None] * eye
             A = 2.0 * (imx[:, None, None] * rdot
-                       + eye * (imh * diag)[:, :, None])
+                       + eye * (imh * diag)[..., None])
             # padded constraints: identity row/col, zero rhs -> lambda = 0
             A = torch.where(pad, A, eye)
             lam = torch.where(mask, _solve3(A, diff), 0.0)
-            dxh = lam[:, :, None] * rref
-            x = self._scatter(x, -imx[:, None] * torch.sum(dxh, dim=1),
+            dxh = lam[..., None] * rref
+            x = self._scatter(x, -imx[:, None] * torch.sum(dxh, dim=-2),
                               imh[:, :, None] * dxh)
         diff, _, d2 = self._residual_clustered(x)
-        return x, 0.5 * torch.amax(torch.abs(diff) / d2)
+        return x, 0.5 * torch.amax(torch.abs(diff) / d2, dim=(-2, -1))
 
     def _velocities_clustered(self, x, v):
         """RATTLE is linear in v: one exact block solve, no iteration."""
         cx, ch, _, mask, imx, imh, _, _ = self._fields(v.dtype)
-        r = x[cx][:, None, :] - x[ch]                     # [ncl, K, 3]
-        rv = torch.einsum("cid,cid->ci", r, v[cx][:, None, :] - v[ch])
+        r = x[..., cx, None, :] - x[..., ch, :]           # [.., ncl, K, 3]
+        rv = torch.einsum("...cid,...cid->...ci", r,
+                          v[..., cx, None, :] - v[..., ch, :])
         rv = torch.where(mask, rv, 0.0)
         eye = torch.eye(_KMAX, dtype=v.dtype, device=v.device)
-        rr = torch.einsum("cid,cjd->cij", r, r)
+        rr = torch.einsum("...cid,...cjd->...cij", r, r)
         A = (imx[:, None, None] * rr
-             + eye * (imh * torch.einsum("cid,cid->ci", r, r))[:, :, None])
+             + eye * (imh * torch.einsum("...cid,...cid->...ci", r,
+                                         r))[..., None])
         pad = mask[:, :, None] & mask[:, None, :]
         A = torch.where(pad, A, eye)
         lam = torch.where(mask, _solve3(A, rv), 0.0)
-        dvh = lam[:, :, None] * r
-        return self._scatter(v, -imx[:, None] * torch.sum(dvh, dim=1),
+        dvh = lam[..., None] * r
+        return self._scatter(v, -imx[:, None] * torch.sum(dvh, dim=-2),
                              imh[:, :, None] * dvh)
 
     # ------------------------------------------------------------------
@@ -252,48 +263,59 @@ class Constraints:
     def _scatter_pairs(self, x, da, db):
         """x[a] += da; x[b] += db, through the deterministic segment sum
         (an atom may sit in several constraints)."""
-        n = x.shape[0]
-        return (x + segment_sum(da, self.a, n)) + segment_sum(db, self.b, n)
+        n = x.shape[-2]
+        return ((x + batched_segment_sum(da, self.a, n))
+                + batched_segment_sum(db, self.b, n))
+
+    @staticmethod
+    def _frozen(active, new, old):
+        """new where a replica is still iterating (active [...]), old where
+        it has converged."""
+        return torch.where(active[..., None, None], new, old)
 
     def _positions_jacobi(self, x, x_ref):
         a, b, d, ima, imb = self._jacobi_tables(x.dtype)
-        rref = x_ref[a] - x_ref[b]
+        rref = x_ref[..., a, :] - x_ref[..., b, :]
         d2 = d * d
         # |r^2 - d^2| / (2 d^2) ~ relative distance error, the OpenMM
         # constraint-tolerance convention
         tol2 = 2.0 * self.tolerance(x.dtype)
 
         def residual(x):
-            r = x[a] - x[b]
+            r = x[..., a, :] - x[..., b, :]
             return torch.sum(r * r, dim=-1) - d2, r
 
         for _ in range(self.max_iter):
             diff, r = residual(x)
-            if not bool(torch.amax(torch.abs(diff) / d2) > tol2):  # host
+            active = torch.amax(torch.abs(diff) / d2, dim=-1) > tol2
+            if not bool(torch.any(active)):  # host
                 break
             rr = torch.sum(r * rref, dim=-1)
             # if the bond rotated past perpendicular the linearized step is
             # invalid; fall back to the current direction
             rr = torch.where(torch.abs(rr) > 1e-12 * d2, rr, d2)
             g = diff / (2.0 * (ima + imb) * rr)
-            dx = g[:, None] * rref
-            x = self._scatter_pairs(x, -ima[:, None] * dx, imb[:, None] * dx)
+            dx = g[..., None] * rref
+            x = self._frozen(active, self._scatter_pairs(
+                x, -ima[:, None] * dx, imb[:, None] * dx), x)
         diff, _ = residual(x)
-        return x, 0.5 * torch.amax(torch.abs(diff) / d2)
+        return x, 0.5 * torch.amax(torch.abs(diff) / d2, dim=-1)
 
     def _velocities_jacobi(self, x, v):
         a, b, d, ima, imb = self._jacobi_tables(v.dtype)
-        r = x[a] - x[b]
+        r = x[..., a, :] - x[..., b, :]
         d2 = d * d
         im = ima + imb
         # velocity tolerance: relative rate |r.dv| / d^2 (1/ps units)
         vtol = self.tolerance(v.dtype)
         for _ in range(self.max_iter):
-            rate = torch.sum(r * (v[a] - v[b]), dim=-1)
-            if not bool(torch.amax(torch.abs(rate) / d2) > vtol):  # host
+            rate = torch.sum(r * (v[..., a, :] - v[..., b, :]), dim=-1)
+            active = torch.amax(torch.abs(rate) / d2, dim=-1) > vtol
+            if not bool(torch.any(active)):  # host
                 break
-            dv = (rate / (im * d2))[:, None] * r
-            v = self._scatter_pairs(v, -ima[:, None] * dv, imb[:, None] * dv)
+            dv = (rate / (im * d2))[..., None] * r
+            v = self._frozen(active, self._scatter_pairs(
+                v, -ima[:, None] * dv, imb[:, None] * dv), v)
         return v
 
     # ------------------------------------------------------------------
@@ -304,10 +326,10 @@ class Constraints:
         """SHAKE: project x onto the constraint manifold using reference
         directions from x_ref (the pre-step constrained positions).
         Returns (x, residual) with residual the largest relative distance
-        error left, a 0-d tensor on x.device (compare with
-        tolerance(x.dtype))."""
+        error left on x.device, per replica for x [R, N, 3] ([R]; 0-d for
+        x [N, 3]; compare with tolerance(x.dtype))."""
         if self.n_constraints == 0:
-            return x, x.new_zeros(())
+            return x, x.new_zeros(x.shape[:-2])
         if self.clusters is not None:
             return self._positions_clustered(x, x_ref)
         return self._positions_jacobi(x, x_ref)
@@ -326,10 +348,11 @@ class Constraints:
         return self._velocities_jacobi(x, v)
 
     def max_violation(self, x):
-        """Worst relative distance error (diagnostic), a 0-d tensor."""
+        """Worst relative distance error (diagnostic): a 0-d tensor for x
+        [N, 3], [R] for x [R, N, 3]."""
         if self.n_constraints == 0:
-            return x.new_zeros(())
+            return x.new_zeros(x.shape[:-2])
         d = self.d.to(x.dtype)
-        r = x[self.a] - x[self.b]
+        r = x[..., self.a, :] - x[..., self.b, :]
         return torch.amax(torch.abs(torch.sqrt(torch.sum(r * r, dim=-1)) - d)
-                          / d)
+                          / d, dim=-1)

@@ -13,8 +13,9 @@ Randomness comes only from noise tensors the caller hands in: one standard
 normal [N, 3] draw per (sub)step, in the order JAX's key splits consume
 them, so a test can feed JAX's exact stream.  Every step returns, last,
 the largest SHAKE residual of its substeps (Constraints.shake: relative
-distance error, a 0-d tensor on the device) or None without constraints;
-the MD runner reads it once per window, with the overflow counts.
+distance error on the device, a 0-d tensor for one system, [R] for R
+replicas) or None without constraints; the MD runners read it once per
+window, with the overflow counts.
 
 Units: nm, ps, kJ/mol, amu.  kB = 0.00831446261815324 kJ/mol/K.
 """
@@ -78,7 +79,7 @@ def _ovrvo(pos, vel, force, noise, dt, inv_m, a, b, sigma, constraints,
            shake):
     """Kick by dt*force, then the middle scheme's drift / O-step / drift,
     constrained when constraints is given.  Returns (pos, vel, shake) with
-    shake the running max SHAKE residual."""
+    shake the running max SHAKE residual (per replica for [R, N, 3])."""
     vel = vel + dt * force * inv_m
     if constraints is not None:
         vel = constraints.velocities(pos, vel)
@@ -110,7 +111,8 @@ def langevin_middle_step(force_fn, masses, dt, temp, friction,
 
     Replicas: with positions, velocities, forces and noise [R, N, 3] (a
     batched force_fn), every replica takes its own step; temp may then be
-    a tensor [R] of per-replica bath temperatures (T-REMD's rungs).
+    a tensor [R] of per-replica bath temperatures (T-REMD's rungs), and
+    the SHAKE residual is [R].
     """
     a = math.exp(-friction * dt)
     b = math.sqrt(1.0 - a * a)

@@ -35,6 +35,13 @@ frozen MS compaction, _v2_build), fixed-topology steps in between, an
 18-entry overflow vector read once a window; no MTS, no WU impulse, no
 vdW-compact WU pass.
 
+Options as the JAX package's: include_mm=False drops the OPLS force field
+(the AGBNP part alone; no MTS then), pair_kernel=False takes the dense
+ops/born.py pair phases (any dtype on any device; the kernels take
+float32 only), pairs gives the tree's candidate pairs, and
+make_langevin_runner(topology_relax=) keeps birth-margin rows in each
+window's tree (ops/tree.py::build_tree, relax).
+
 Not ported here: mesh sharding and `mixed=True`.
 """
 
@@ -77,9 +84,14 @@ class Simulation:
 
     device: where every array lives and every step runs (no default);
     dtype: float64 for CPU parity work, float32 on the GPU (the CUDA pair
-    kernels take float32 only).  pair_tiles and share_qd go to AGBNPModel
-    (interacting-tile-list budgets, None = sized from the initial
-    positions; Q/dQ sharing between the Born and descreening sweeps).
+    kernels take float32 only; pair_kernel=False runs the dense
+    ops/born.py pair phases instead, in any dtype).  pair_tiles, share_qd,
+    pair_kernel and pairs go to AGBNPModel (interacting-tile-list budgets,
+    None = sized from the initial positions; Q/dQ sharing between the Born
+    and descreening sweeps; None = the kernel route; the tree's candidate
+    pairs (i, j[, valid]), None = the model's own).  include_mm=False
+    leaves the OPLS force field out: the forces are the AGBNP part alone
+    (and MTS, which needs the bonded class, raises).
     constraints=True applies the DMS X-H constraint tables
     (md/constraints.py) in every integrator; vsites: a VirtualSites table
     (md/vsites.py) projected before and spread after every evaluation.
@@ -99,7 +111,8 @@ class Simulation:
                  caps=None, skin: float = 0.15, kmax: int | None = None,
                  caps_boost: float = 1.10, descreen_horizon=None,
                  pair_tiles=None, share_qd: bool = True,
-                 constraints: bool = False, vsites=None):
+                 constraints: bool = False, vsites=None,
+                 include_mm: bool = True, pairs=None, pair_kernel=None):
         if version not in (0, 1, 2):
             raise ValueError(f"version {version}: expected 0, 1 or 2")
         self.dms = dms
@@ -114,7 +127,8 @@ class Simulation:
             # window start from a half list within ms_pair_cutoff
             self.agbnp2 = AGBNP2Model(params, device=self.device, dtype=dtype,
                                       positions=np.asarray(dms.positions),
-                                      cutoff=cutoff, caps=caps)
+                                      cutoff=cutoff, caps=caps,
+                                      pair_kernel=pair_kernel)
             self.agbnp = self.agbnp2
             self.ms_rcut = ms_pair_cutoff(params.radii_vdw)
             self.ms_kmax_list = _kmax_for(host_max_neighbors(
@@ -126,9 +140,14 @@ class Simulation:
                                     caps=caps, positions=dms.positions,
                                     caps_boost=caps_boost,
                                     descreen_horizon=descreen_horizon,
-                                    pair_tiles=pair_tiles, share_qd=share_qd)
+                                    pair_tiles=pair_tiles, share_qd=share_qd,
+                                    pair_kernel=(pair_kernel is None
+                                                 or bool(pair_kernel)),
+                                    pairs=pairs)
+        self.pairs = pairs
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
-        self.mm = MMForceField.from_dms(dms, cutoff=cutoff, dtype=np_dtype)
+        self.mm = (MMForceField.from_dms(dms, cutoff=cutoff, dtype=np_dtype)
+                   if include_mm else None)
         self.masses = torch.as_tensor(dms.masses, dtype=dtype,
                                       device=self.device)
         self.positions = torch.as_tensor(dms.positions, dtype=dtype,
@@ -190,7 +209,8 @@ class Simulation:
                                 descreen_horizon=m.descreen_horizon,
                                 pair_tiles=(None if m.pair_tiles is not None
                                             else False),
-                                share_qd=m.share_qd)
+                                share_qd=m.share_qd,
+                                pair_kernel=m.pair_kernel, pairs=self.pairs)
         self.kmax = _kmax_for(host_max_neighbors(
             pos_np, np.asarray(self.heavy_mask.cpu()), self.rcut_list))
         if self.grid is not None:
@@ -212,16 +232,22 @@ class Simulation:
 
     def _fuse_mm(self) -> bool:
         """The MM LJ + Coulomb sum rides the GB sweep: AGBNP1 on the kernel
-        route.  Versions 0 and 2 add the dense sum by autograd."""
-        return self.agbnp.version == 1 and self.agbnp.pair_pad > 0
+        route.  Versions 0 and 2 and the plain route add the dense sum by
+        autograd."""
+        return (self.mm is not None and self.agbnp.version == 1
+                and self.agbnp.pair_pad > 0)
 
     def ff_state(self) -> dict:
         """Force-field tensors the MD step reads: the AGBNP arrays, the MM
         arrays, and the exclusions: as rows in the pair sweeps'
         Morton-permuted row space (rows reordered, atom-id values remapped)
-        where the GB sweep carries the MM sum, else as an [N, N] mask."""
-        ff = dict(a=self.agbnp.arrays,
-                  mm=self.mm.tensors(self.device, self.dtype))
+        where the GB sweep carries the MM sum, else as an [N, N] mask.
+        Without the MM force field (include_mm=False), the AGBNP arrays
+        alone."""
+        ff = dict(a=self.agbnp.arrays)
+        if self.mm is None:
+            return ff
+        ff["mm"] = self.mm.tensors(self.device, self.dtype)
         if not self._fuse_mm():
             ff["mm_excl_mask"] = torch.as_tensor(self.mm.excl_mask(),
                                                  device=self.device)
@@ -265,6 +291,8 @@ class Simulation:
                                  "version 1")
             return self._force_fn_v2(ms_pairs=pairs, topology=topology,
                                      ff=ff)
+        if split and self.mm is None:
+            raise ValueError("MTS needs an MM force field (the fast class)")
         if wu_mode != "fused" and split:
             raise ValueError("wu_mode split/skip (mts_wu) does not combine "
                              "with MTS")
@@ -279,7 +307,7 @@ class Simulation:
         if pairs is not None:
             a = {**a, "pairs_i": pairs[0], "pairs_j": pairs[1],
                  "pairs_valid": pairs[2]}
-        mm = ff["mm"]
+        mm = ff.get("mm")
         fuse_mm = "excl_rows_perm" in ff
         mm_nb = (dict(sigma=mm["sigma"], epsq=mm["epsq"],
                       excl_rows_perm=ff["excl_rows_perm"])
@@ -350,9 +378,11 @@ class Simulation:
         def fn(pos):
             pos = project(pos)
             energy, force, f_wu, counts = agbnp_part(pos)
-            e_mm, f_mm = mm_forces(pos)
-            energy = energy + e_mm
-            force = spread(force + f_mm)
+            if mm is not None:
+                e_mm, f_mm = mm_forces(pos)
+                energy = energy + e_mm
+                force = force + f_mm
+            force = spread(force)
             if wu_mode == "split":
                 return energy, force, spread(f_wu), counts
             if wu_mode == "fused" and f_wu is not None:
@@ -394,7 +424,7 @@ class Simulation:
         (a rescan cannot overflow); without them every call finds the MS
         candidates and builds both trees."""
         ff = self.ff_state() if ff is None else ff
-        a, mm, excl = ff["a"], ff["mm"], ff["mm_excl_mask"]
+        a, mm, excl = ff["a"], ff.get("mm"), ff.get("mm_excl_mask")
         kw = self.agbnp2.energy_kwargs()
         vs = self.vsites
 
@@ -416,20 +446,26 @@ class Simulation:
                                                 ms_pv=mpv, **kw)
                     counts = self._v2_counts(diags, cand_nb)
                 (grad,) = torch.autograd.grad(e, x)
-            e_mm, f_mm = self.mm.forces_of(self.mm.energy, pos, mm, excl)
-            force = -grad + f_mm
+            force = -grad
+            e = e.detach()
+            if mm is not None:
+                e_mm, f_mm = self.mm.forces_of(self.mm.energy, pos, mm, excl)
+                e = e + e_mm
+                force = force + f_mm
             if vs is not None:
                 force = spread_forces(force, vs)
-            return e.detach() + e_mm, force, counts
+            return e, force, counts
 
         return fn
 
-    def window_build(self, pos, ff, vdw_caps=None, vdw_relax: float = 0.5):
+    def window_build(self, pos, ff, vdw_caps=None, vdw_relax: float = 0.5,
+                     relax=None):
         """A rebuild window's start for R replicas pos [R, N, 3] of the
         system (R = 1 for the Simulation's own windows): their neighbor
-        lists, the overlap-tree topology of their disjoint union and, with
-        vdw_caps, its compacted WU topology (the ancestor closure of the
-        vdW-live rows of the build).  Returns (pairs, topology,
+        lists, the overlap-tree topology of their disjoint union (relax:
+        build_tree's birth margin, make_langevin_runner's topology_relax)
+        and, with vdw_caps, its compacted WU topology (the ancestor closure
+        of the vdW-live rows of the build).  Returns (pairs, topology,
         vdw_topology, (build counts [R, 7], neighbor_max [R], sibling
         maxima [R, 7], WU kept rows [R, 7]))."""
         nrep = pos.shape[0]
@@ -442,7 +478,7 @@ class Simulation:
                              a["ishydrogen"])
         levels, bdiag = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
                                      pairs_valid=pv, pair_rows=True,
-                                     nrep=nrep)
+                                     nrep=nrep, relax=relax)
         topo = T.tree_topology(levels)
         vdw_topo = None
         vdw_counts = torch.zeros((nrep, 7), dtype=torch.int64,
@@ -514,7 +550,8 @@ class Simulation:
                              neighbor_every: int = 10,
                              rebuild_topology: bool = True,
                              mts_inner: int = 0, vdw_compact: bool = True,
-                             vdw_relax: float = 0.5, wu_every: int = 1):
+                             vdw_relax: float = 0.5, wu_every: int = 1,
+                             topology_relax=None):
         """Returns run(pos, vel, nsteps, generator=None, noise=None) ->
         (pos, vel, energies [nsteps], diag) with diag = (counts,
         neighbor_max, sibling_max, wu_compact_counts, shake_residual), the
@@ -524,7 +561,11 @@ class Simulation:
         Every `neighbor_every` steps the half neighbor list and, with
         rebuild_topology, the overlap-tree topology are rebuilt; the steps
         of the window run fixed-topology rescans (rebuild_topology=False:
-        a tree build every step from the window's list).  With
+        a tree build every step from the window's list).  topology_relax
+        (below 1) keeps the window tree's birth-margin rows, nodes whose
+        raw volume is above VOLMINA * topology_relax, so volumes that drift
+        across the switching threshold during the window stay in it
+        (build_tree's relax; they contribute 0 at the build).  With
         neighbor_every <= 0 every step runs the all-pairs evaluation, and
         the counts are read once, at the end of the run.
 
@@ -609,7 +650,7 @@ class Simulation:
                 return window_v2(pos, vel, ninner, draw)
             if rebuild_topology:
                 pairs, topo, vdw_topo, bdiag = self.window_build(
-                    pos[None], ff, vdw_caps, vdw_relax)
+                    pos[None], ff, vdw_caps, vdw_relax, topology_relax)
                 # one system: the build's one replica row
                 build_counts, nbmax, sib_max, vdw_counts = (
                     x[0] for x in bdiag)
@@ -850,7 +891,8 @@ class Simulation:
                                   caps=grow_caps(m2.caps, c[:7]),
                                   caps_ms=grow_caps(m2.caps_ms, c[7:14]),
                                   cap_ms=cap_ms, ms_kmax=ms_kmax,
-                                  ms_sub_k=ms_sub_k)
+                                  ms_sub_k=ms_sub_k,
+                                  pair_kernel=m2.pair_kernel)
         self.agbnp = self.agbnp2
 
     def _regrow(self, counts, nbmax, sibs, wu=None, shake=None,
@@ -904,7 +946,8 @@ class Simulation:
                                 descreen_horizon=m.descreen_horizon,
                                 pair_tiles=(m.pair_tiles if m.pair_tiles
                                             is not None else False),
-                                share_qd=m.share_qd)
+                                share_qd=m.share_qd,
+                                pair_kernel=m.pair_kernel, pairs=self.pairs)
 
     def run_md(self, nsteps, dt=0.001, temperature=300.0, friction=1.0,
                seed=0, neighbor_every: int = 20, segment: int | None = None,

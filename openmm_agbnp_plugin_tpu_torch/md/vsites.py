@@ -11,6 +11,8 @@ python/AGBNPUtils.py:23-35).  The MD-loop equivalents here:
 
 Several sites can share a parent, so the spread goes through the
 deterministic segment sum (no float atomics): MD stays bitwise repeatable.
+Both act on the atom axis (-2): one system [N, 3] or R replicas [R, N, 3],
+replica r getting the bits of its own [N, 3] call.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.tree import segment_sum
+from ..ops.tree import batched_segment_sum
 
 
 @dataclasses.dataclass
@@ -54,16 +56,17 @@ class VirtualSites:
 
 
 def project_positions(pos, vs):
-    """Set virtual-site positions from their parents."""
-    new = (vs["w1"][:, None] * pos[vs["p1"]]
-           + vs["w2"][:, None] * pos[vs["p2"]])
-    return pos.index_copy(0, vs["site"], new)
+    """Set virtual-site positions from their parents (pos [..., N, 3])."""
+    new = (vs["w1"][:, None] * pos[..., vs["p1"], :]
+           + vs["w2"][:, None] * pos[..., vs["p2"], :])
+    return pos.index_copy(-2, vs["site"], new)
 
 
 def spread_forces(force, vs):
-    """Redistribute site forces onto parents and zero the site forces."""
-    fsite = force[vs["site"]]
-    n = force.shape[0]
-    add = (segment_sum(vs["w1"][:, None] * fsite, vs["p1"], n)
-           + segment_sum(vs["w2"][:, None] * fsite, vs["p2"], n))
-    return force.index_fill(0, vs["site"], 0.0) + add
+    """Redistribute site forces onto parents and zero the site forces
+    (force [..., N, 3])."""
+    fsite = force[..., vs["site"], :]
+    n = force.shape[-2]
+    add = (batched_segment_sum(vs["w1"][:, None] * fsite, vs["p1"], n)
+           + batched_segment_sum(vs["w2"][:, None] * fsite, vs["p2"], n))
+    return force.index_fill(-2, vs["site"], 0.0) + add

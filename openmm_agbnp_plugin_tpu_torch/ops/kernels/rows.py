@@ -183,7 +183,7 @@ def broadcast_deviation(v, ids) -> float:
 def take_rows(table, ids):
     """out[r] = table[ids[r]] for table [P, C] (or [P], out [R]) and ids [R]
     int32; a row whose id lies outside [0, P) is zero.  The ids need not be
-    sorted.  No gradient passes through it.
+    sorted.
 
     On a CUDA device a float32 table of any width C >= 1 goes through the
     kernel, which moves the widest pieces (16, 8 or 4 bytes) that divide a
@@ -192,20 +192,63 @@ def take_rows(table, ids):
     of its rows (two words a value, so the same bits), which lets the
     tree's passes run in f64 on the card; a table of another dtype there
     raises.
-    """
+
+    Gradients: when grad mode is on and the table requires grad, the
+    gather runs inside TakeRows (an autograd.Function; the same forward
+    route, kernel or twin), whose backward adds each output row's gradient
+    into its parent row by the deterministic segment sum."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return TakeRows.apply(table, ids)
+    return _take_rows(table, ids)
+
+
+def take_rows_backward(grad, ids, nparents: int):
+    """The gradient of take_rows with respect to its table: the rows of
+    grad [R, ...] added into [nparents, ...] by ids, rows whose id lies
+    outside [0, nparents) adding nothing.  Each parent's rows are summed
+    in row order (a stable sort, then torch.segment_reduce): no float
+    atomics, the same bits on every run."""
+    from ..tree import segment_sum  # ops/tree.py imports this module
+
+    ok = (ids >= 0) & (ids < nparents)
+    seg = torch.where(ok, ids.long(), nparents)
+    flat = grad.reshape(grad.shape[0], -1)
+    out = segment_sum(flat, seg, nparents)
+    return out.reshape((nparents,) + tuple(grad.shape[1:]))
+
+
+class TakeRows(torch.autograd.Function):
+    """take_rows with a backward: the forward is take_rows' own route (the
+    kernel on a card, the twin on the CPU), the backward
+    take_rows_backward, a plain-torch scatter-add as the JAX package's
+    jnp.take has (no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.nparents = table.shape[0]
+        ctx.save_for_backward(ids)
+        return _take_rows(table, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return take_rows_backward(grad, ids, ctx.nparents), None
+
+
+def _take_rows(table, ids):
+    """take_rows without autograd: the twin on the CPU, else the kernel."""
     if table.device.type == "cpu":
         return take_rows_reference(table, ids)
     dev = table.device
     if table.dim() not in (1, 2):
         raise ValueError(f"table: shape {tuple(table.shape)}, expected [P, C] "
                          "or [P]")
-    if table.requires_grad:
-        raise ValueError("table: requires grad, and the kernel passes none")
     if table.dtype == torch.float64:
         if not table.is_contiguous():
             raise ValueError("table: not contiguous")
-        words = table.reshape(table.shape[0], -1).view(torch.float32)
-        return take_rows(words, ids).view(torch.float64).reshape(
+        words = table.detach().reshape(table.shape[0], -1).view(
+            torch.float32)
+        return _take_rows(words, ids).view(torch.float64).reshape(
             (ids.shape[0],) + tuple(table.shape[1:]))
     nparents = table.shape[0]
     ncols = table.shape[1] if table.dim() == 2 else 1

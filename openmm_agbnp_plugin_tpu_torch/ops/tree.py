@@ -111,6 +111,23 @@ def segment_sum(x, ids, num_segments: int, ids_sorted: bool = False):
     return sorted_segment_sum(x, lengths[:num_segments])
 
 
+def batched_segment_sum(x, ids, num_segments: int):
+    """segment_sum of x [..., S, C] by ids [S] in [0, num_segments) along
+    the rows' axis: [..., num_segments, C], each leading index (a replica)
+    summed apart over the flattened rows with its ids offset by b *
+    num_segments.  The rows of one replica keep their order, so replica b
+    gets the bits of segment_sum(x[b], ids, num_segments); with no leading
+    axis it is segment_sum."""
+    lead = tuple(x.shape[:-2])
+    if not lead:
+        return segment_sum(x, ids, num_segments)
+    nb = int(np.prod(lead))
+    off = num_segments * torch.arange(nb, device=x.device)[:, None]
+    out = segment_sum(x.reshape(nb * x.shape[-2], x.shape[-1]),
+                      (ids[None, :] + off).reshape(-1), nb * num_segments)
+    return out.reshape(lead + (num_segments, x.shape[-1]))
+
+
 def sorted_segment_sum(x, lengths):
     """Sums of consecutive runs of the rows of x [R, C]: segment s is the
     next lengths[s] rows, added in row order; the rows past the lengths' sum
@@ -257,13 +274,25 @@ def _compact(mask, cand_dat, cand_ints, cap, parent_cap, natoms):
     return lvl, count
 
 
-def _pair_candidates(level1, pairs_i, pairs_j, pairs_valid=None):
+def _survive_mask(dat, sgvol, relax):
+    """Node survival.  relax=None is the reference pruning (switched
+    volume > FLT_MIN, gaussvol.cpp:233); relax < 1 keeps the nodes whose
+    raw volume is above VOLMINA * relax as zero-contribution "birth
+    margin" rows, so a stale topology stays exact while volumes drift
+    across the switching threshold (JAX ops/tree.py::_survive_mask)."""
+    if relax is None:
+        return survives(sgvol)
+    return dat[..., 0] > VOLMINA * relax
+
+
+def _pair_candidates(level1, pairs_i, pairs_j, pairs_valid=None,
+                     relax=None):
     """2-body overlaps for the given (i, j) candidate pairs (i-major order)."""
     at = level1["_at"]
     si = at[pairs_i]
     dat, sgvol = _cand_dat(si[:, 0], si[:, 1], si[:, 2:5], si[:, 5],
                            at[pairs_j])
-    mask = survives(sgvol)
+    mask = _survive_mask(dat, sgvol, relax)
     if pairs_valid is not None:
         mask = mask & pairs_valid
     ints = torch.stack([pairs_j, pairs_i], dim=1).long()
@@ -302,7 +331,7 @@ def _compact_rows(key, mask, cap):
     return row, off, valid, count, cnt
 
 
-def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap):
+def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap, relax=None):
     """Next-level build: the partner of each node is taken from a window of
     the next `offs` rows of the same (parent-grouped) level; partners
     sharing the parent form the sibling-pair candidates.  Returns
@@ -325,7 +354,7 @@ def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap):
     dat_s = prev_lvl["_dat"]
     dat, sgvol = _cand_dat(dat_s[:, 0:1], dat_s[:, 1:2],
                            dat_s[:, None, 2:5], dat_s[:, 11:12], win_a)
-    mask = pair_ok & survives(sgvol)
+    mask = pair_ok & _survive_mask(dat, sgvol, relax)
 
     row, off, valid, _, cnt = _compact_rows(dat[:, :, 5], mask, cap)
     idx = row * offs + off
@@ -340,7 +369,7 @@ def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap):
     return lvl, a6, cnt
 
 
-def _build_pair_level(level1, pj2d, pv2d, cap):
+def _build_pair_level(level1, pj2d, pv2d, cap, relax=None):
     """Level-2 build from a fixed-width i-major neighbor grid [N, kmax]
     (half_neighbor_pairs layout): the i side is a broadcast and compaction
     is row-structured.  Returns (lvl, a6, cnt), cnt the surviving pairs of
@@ -350,7 +379,7 @@ def _build_pair_level(level1, pj2d, pv2d, cap):
     a = at[pj2d]  # [n, kmax, 6]
     dat, sgvol = _cand_dat(at[:, 0:1], at[:, 1:2], at[:, None, 2:5],
                            at[:, 5:6], a)
-    mask = survives(sgvol)
+    mask = _survive_mask(dat, sgvol, relax)
     if pv2d is not None:
         mask = mask & pv2d
 
@@ -388,7 +417,7 @@ def replica_max(x, rep, nrep: int):
 
 
 def build_tree(level1, pairs_i, pairs_j, caps: TreeCaps, pairs_valid=None,
-               pair_rows: bool = False, nrep: int = 1):
+               pair_rows: bool = False, nrep: int = 1, relax=None):
     """Builds all overlap levels 2..MAX_ORDER.
 
     pairs_i/pairs_j: candidate 2-body pairs (i < j), i-major order — from an
@@ -403,6 +432,10 @@ def build_tree(level1, pairs_i, pairs_j, caps: TreeCaps, pairs_valid=None,
     each level holds nrep times as many rows.  Every leaf of the diag has
     a leading [nrep] axis: the counts and sibling maxima of each replica
     (before any cut), against the per-replica caps and windows.
+
+    relax: None prunes as the reference does; a value below 1 keeps the
+    birth-margin rows of _survive_mask at every level (the rebuild-window
+    MD's topology_relax).
     """
     natoms = level1["gv"].shape[0]
     per = natoms // nrep
@@ -418,12 +451,13 @@ def build_tree(level1, pairs_i, pairs_j, caps: TreeCaps, pairs_valid=None,
     if pair_rows:
         pj2d = pairs_j.reshape(natoms, -1)
         pv2d = None if pairs_valid is None else pairs_valid.reshape(natoms, -1)
-        lvl, a6, cnt = _build_pair_level(level1, pj2d, pv2d, lcaps[0])
+        lvl, a6, cnt = _build_pair_level(level1, pj2d, pv2d, lcaps[0],
+                                         relax)
         count = replica_sum(cnt, rep_of(torch.arange(natoms, device=dev)),
                             nrep)
     else:
         dat, cints, mask = _pair_candidates(level1, pairs_i, pairs_j,
-                                            pairs_valid)
+                                            pairs_valid, relax)
         lvl, _ = _compact(mask, dat, cints, lcaps[0], natoms, natoms)
         a6 = level1["_at"][lvl["atom"]]
         cnt = _children(lvl, natoms)
@@ -437,7 +471,7 @@ def build_tree(level1, pairs_i, pairs_j, caps: TreeCaps, pairs_valid=None,
     for l in range(1, NUM_TREE_LEVELS):
         prev = levels[-1]
         lvl, a6, cnt = _build_sibling_level(
-            prev, a6, level1, caps.offs[l - 1], lcaps[l])
+            prev, a6, level1, caps.offs[l - 1], lcaps[l], relax)
         # each row of the previous level is a node of its atom's replica
         # (invalid rows have no children)
         rows = rep_of(prev["atom"])

@@ -14,9 +14,14 @@ Each replica has its own torch.Generator (seeded seed + r, as the JAX
 package keys replica r with PRNGKey(seed + r)), or the runner takes the
 noise as an array.  Rebuild windows, the vdW-compact WU topology, the
 window's host read of its diagnostics and the stop on overflow follow
-Simulation.make_langevin_runner.  Versions 0 and 1; no constraints, MTS
-or virtual sites (the JAX runner builds a version-1 tree and a plain
-Langevin step, ensemble.py:99-129).
+Simulation.make_langevin_runner.  As in JAX, each step is the Simulation's
+own: its forces come from sim.force_fn (which projects virtual sites and
+spreads their forces, on [R, N, 3]) and the Langevin step applies
+sim.constraints (SHAKE/RATTLE per replica; the SHAKE residual [R] rides
+the window's diagnostics and is read with the overflow counts);
+neighbor_every <= 0 evaluates every step on the model's own candidate
+pairs (JAX ensemble.py:73-97).  Versions 0 and 1; version 2 waits for a
+batched AGBNP2 evaluation.  MTS is not in the JAX runners either.
 """
 
 from __future__ import annotations
@@ -32,14 +37,10 @@ from ..ops import tree as T
 def check_replica_sim(sim, what: str):
     """Refuse the Simulation options a replica runner does not carry."""
     if sim.agbnp2 is not None:
-        raise NotImplementedError(f"{what}: version 2 is not ported to the "
-                                  "replica runners")
-    if sim.constraints is not None:
-        raise NotImplementedError(f"{what}: constraints are not ported to "
-                                  "the replica runners")
-    if sim.vsites is not None:
-        raise NotImplementedError(f"{what}: virtual sites are not ported to "
-                                  "the replica runners")
+        raise NotImplementedError(
+            f"{what}: version 2 needs a batched AGBNP2 evaluation (the MS "
+            "stage over the replicas' union), which the port does not have "
+            "yet; versions 0 and 1 run")
 
 
 def replica_generators(device, nrep: int, seed: int):
@@ -68,6 +69,11 @@ def noise_source(shape, dtype, device, generators, noise):
         return out
 
     return draw
+
+
+def diag_max(a, b):
+    """Elementwise maxima of two replica diagnostics tuples."""
+    return b if a is None else tuple(running_max(x, y) for x, y in zip(a, b))
 
 
 def window_start(sim, ff, pos, vdw_caps=None, vdw_relax: float = 0.5):
@@ -104,23 +110,43 @@ def run_window(sim, ff, pos, vel, ninner, temps, draw, dt, friction,
     again (the same values: the build and the evaluation are
     deterministic).  Returns (pos, vel, energies [ninner] of [R], the
     window's diagnostics (counts [R, C], neighbor_max [R], sibling maxima
-    [R, 7], WU kept rows [R, 7]), its build (pairs, topology,
-    vdw_topology))."""
+    [R, 7], WU kept rows [R, 7], SHAKE residual [R] or None without
+    constraints), its build (pairs, topology, vdw_topology))."""
     build = (sim.window_build(pos, ff, vdw_caps, vdw_relax)
              if start is None else start[0])
     pairs, topo, vdw_topo, (bcounts, nbmax, sibs, vdw_counts) = build
     fn = _window_force_fn(sim, ff, build)
     if start is not None:
         fn = _replay_first(fn, start[1])
-    step = langevin_middle_step(fn, sim.masses, dt, temps, friction)
-    energies, counts = [], None
+    step = langevin_middle_step(fn, sim.masses, dt, temps, friction,
+                                constraints=sim.constraints)
+    energies, counts, shake = [], None, None
     for _ in range(ninner):
-        pos, vel, e, c, _ = step(pos, vel, draw())
+        pos, vel, e, c, sh = step(pos, vel, draw())
         energies.append(e)
         counts = running_max(counts, c)
+        shake = running_max(shake, sh)
     counts = T.merge_counts(counts, bcounts)
-    return (pos, vel, energies, (counts, nbmax, sibs, vdw_counts),
+    return (pos, vel, energies, (counts, nbmax, sibs, vdw_counts, shake),
             (pairs, topo, vdw_topo))
+
+
+def run_steps(sim, ff, pos, vel, nsteps, temps, draw, dt, friction):
+    """nsteps Langevin steps of R replicas, each evaluating the full force
+    on the model's own candidate pairs (a tree build a step; the JAX
+    package's per-step replica_run).  Returns (pos, vel, energies [nsteps]
+    of [R], diagnostics as run_window's: the steps' maximum counts, zero
+    neighbor, sibling and WU entries, the SHAKE residual)."""
+    step = langevin_middle_step(sim.force_fn(ff=ff), sim.masses, dt, temps,
+                                friction, constraints=sim.constraints)
+    energies, counts, shake = [], None, None
+    for _ in range(nsteps):
+        pos, vel, e, c, sh = step(pos, vel, draw())
+        energies.append(e)
+        counts = running_max(counts, c)
+        shake = running_max(shake, sh)
+    z = torch.zeros((pos.shape[0], 7), dtype=torch.int64, device=pos.device)
+    return pos, vel, energies, (counts, z[:, 0], z, z, shake)
 
 
 def worst_replica(diag):
@@ -133,7 +159,8 @@ class ReplicaEnsemble:
     """R independent replicas of a Simulation, one batch on its device.
 
     sim: a md.simulation.Simulation (version 0 or 1; its dtype, device,
-    cutoff, capacities and tile budgets apply to every replica)."""
+    cutoff, capacities, tile budgets, constraints and virtual sites apply
+    to every replica)."""
 
     def __init__(self, sim, n_replicas: int):
         check_replica_sim(sim, "ReplicaEnsemble")
@@ -163,7 +190,8 @@ class ReplicaEnsemble:
                     vdw_relax: float = 0.5):
         """run(states, nsteps, noise=None) -> (states, (energies [R,
         nsteps], counts [R, C], neighbor_max [R], sibling maxima [R, 7], WU
-        kept rows [R, 7])).
+        kept rows [R, 7], SHAKE residual [R] or None without
+        constraints)).
 
         Every neighbor_every steps each replica's neighbor list and tree
         topology (with vdw_compact its compacted WU topology) are rebuilt;
@@ -171,21 +199,39 @@ class ReplicaEnsemble:
         divide.  The noise comes from the states' generators (advanced in
         place) or, when given, from noise [nsteps, R, N, 3].  The window's
         diagnostics are read once at its end; a window that overflowed in
-        any replica stops the run, and the energies then cover the steps
-        run.  The diagnostics are maxima over the windows run."""
-        if neighbor_every <= 0:
-            raise ValueError("the replica runner rebuilds in windows: "
-                             "neighbor_every > 0")
+        any replica, or whose SHAKE missed its tolerance, stops the run,
+        and the energies then cover the steps run.  The diagnostics are
+        maxima over the windows run.
+
+        neighbor_every <= 0: every step evaluates the full force on the
+        model's own candidate pairs (run_steps; up to 2000 atoms, as
+        Simulation.force_fn allows), no WU compaction; the diagnostics are
+        the steps' maximum counts with zero neighbor, sibling and WU
+        entries, read by the caller (JAX's per-step replica_run)."""
         sim = self.sim
         ff = sim.ff_state()
-        vdw_caps = sim._ensure_vdw_caps(vdw_relax) if vdw_compact else None
         temps = torch.full((self.n_replicas,), float(temperature),
                            dtype=sim.dtype, device=self.device)
 
-        def run(states, nsteps: int, noise=None):
+        def states_draw(states, noise):
             pos, vel, gens = states
-            draw = noise_source(pos.shape, pos.dtype, pos.device,
-                                None if noise is not None else gens, noise)
+            return pos, vel, gens, noise_source(
+                pos.shape, pos.dtype, pos.device,
+                None if noise is not None else gens, noise)
+
+        if neighbor_every <= 0:
+            def run_per_step(states, nsteps: int, noise=None):
+                pos, vel, gens, draw = states_draw(states, noise)
+                pos, vel, es, diag = run_steps(sim, ff, pos, vel, nsteps,
+                                               temps, draw, dt, friction)
+                return (pos, vel, gens), (torch.stack(es, dim=1), *diag)
+
+            return run_per_step
+
+        vdw_caps = sim._ensure_vdw_caps(vdw_relax) if vdw_compact else None
+
+        def run(states, nsteps: int, noise=None):
+            pos, vel, gens, draw = states_draw(states, noise)
             energies, diag, done = [], None, 0
             while done < nsteps:
                 ninner = min(neighbor_every, nsteps - done)
@@ -193,8 +239,7 @@ class ReplicaEnsemble:
                     sim, ff, pos, vel, ninner, temps, draw, dt, friction,
                     vdw_caps, vdw_relax)
                 energies.extend(es)
-                diag = wdiag if diag is None else tuple(
-                    running_max(x, y) for x, y in zip(diag, wdiag))
+                diag = diag_max(diag, wdiag)
                 done += ninner
                 if sim._check_overflow(*worst_replica(wdiag)):
                     break  # the window's host read

@@ -22,8 +22,11 @@ next cycle's first window takes it, and its first step the force the
 exchange evaluation gave, instead of building and evaluating again.  The
 evaluation on a remainder window's topology leaves out the WU force pass
 (the energy never depends on it).  The host reads only per-cycle scalars
-(U, rungs, acceptances) and the cycle's overflow counts; an overflow in
-any replica raises.
+(U, rungs, acceptances) and the cycle's overflow counts and SHAKE
+residual; an overflow in any replica raises.  As in JAX (remd.py:92), the
+Simulation's version, cutoff, constraints and virtual sites apply to
+every replica: each window's step is its force_fn and constrained
+Langevin step (parallel/ensemble.py::run_window).
 """
 
 from __future__ import annotations
@@ -33,10 +36,10 @@ import time
 import numpy as np
 import torch
 
-from ..md.integrators import KB, running_max
+from ..md.integrators import KB
 from ..ops.tree import merge_counts
-from .ensemble import check_replica_sim, noise_source, replica_generators, \
-    run_window, window_start, worst_replica
+from .ensemble import diag_max, check_replica_sim, noise_source, \
+    replica_generators, run_window, window_start, worst_replica
 
 
 def geometric_ladder(t_min: float, t_max: float, n: int):
@@ -95,9 +98,9 @@ def pair_acceptance(accept):
 class TemperatureREMD:
     """T-REMD over AGBNP implicit-solvent replicas on one device.
 
-    sim: a md.simulation.Simulation (version 0 or 1; its settings apply to
-    every replica).  temperatures: the rung ladder, one replica per rung;
-    replica r starts at rung r."""
+    sim: a md.simulation.Simulation (version 0 or 1; its version, cutoff,
+    constraints and virtual sites apply to every replica).  temperatures:
+    the rung ladder, one replica per rung; replica r starts at rung r."""
 
     def __init__(self, sim, temperatures):
         check_replica_sim(sim, "TemperatureREMD")
@@ -132,14 +135,16 @@ class TemperatureREMD:
         out) with out: U [C, R] (the potential at each exchange attempt),
         rung [C, R] (each replica's rung after the cycle), accept [C, R]
         (per rung), energies [R, C * steps_per_cycle], counts [R, C],
-        neighbor_max [R], sibling maxima [R, 7] and WU kept rows [R, 7]
-        (maxima over the cycles).
+        neighbor_max [R], sibling maxima [R, 7], WU kept rows [R, 7] and
+        shake_residual [R] (None without constraints; maxima over the
+        cycles).
 
         A cycle's windows rebuild every neighbor_every steps (clamped to
         the cycle; a short remainder window takes the rest).  The noise
         comes from the replicas' generators or noise [C * steps_per_cycle,
         R, N, 3]; the exchange uniforms from xgen (R a cycle) or uniforms
-        [C, R].  An overflow in any replica raises RuntimeError."""
+        [C, R].  An overflow in any replica, or a SHAKE residual over the
+        tolerance, raises RuntimeError."""
         sim = self.sim
         R = self.n_replicas
         dtype, dev = sim.dtype, self.device
@@ -164,8 +169,7 @@ class TemperatureREMD:
                     dt, friction, vdw_caps, vdw_relax,
                     start=start if k == 0 else None)
                 energies.extend(es)
-                diag = wdiag if diag is None else tuple(
-                    running_max(x, y) for x, y in zip(diag, wdiag))
+                diag = diag_max(diag, wdiag)
             if rem:
                 ev = sim.force_fn(pairs=build[0], topology=build[1], ff=ff,
                                   vdw_topology=build[2],
@@ -178,7 +182,8 @@ class TemperatureREMD:
                 ev = start[1]
                 bc, nb, sb, wc = start[0][3]
                 diag = (merge_counts(diag[0], bc), torch.maximum(diag[1], nb),
-                        torch.maximum(diag[2], sb), torch.maximum(diag[3], wc))
+                        torch.maximum(diag[2], sb), torch.maximum(diag[3], wc),
+                        diag[4])
             # the exchange evaluation's tile counts are checked too
             U = ev[0]
             diag = (merge_counts(diag[0], ev[-1]), *diag[1:])
@@ -200,8 +205,7 @@ class TemperatureREMD:
                 pos, vel, rung, accept, U, es, cdiag, start = cycle(
                     pos, vel, rung, draw, u, c % 2, start)
                 energies.extend(es)
-                diag = cdiag if diag is None else tuple(
-                    running_max(x, y) for x, y in zip(diag, cdiag))
+                diag = diag_max(diag, cdiag)
                 rep = sim.overflow_report(*worst_replica(cdiag))
                 if rep:  # the cycle's host read
                     raise RuntimeError(
@@ -213,7 +217,8 @@ class TemperatureREMD:
             res = {k: torch.stack(v) for k, v in out.items()}
             res.update(energies=torch.stack(energies, dim=1),
                        counts=diag[0], neighbor_max=diag[1],
-                       sibling_max=diag[2], wu_counts=diag[3])
+                       sibling_max=diag[2], wu_counts=diag[3],
+                       shake_residual=diag[4])
             return (pos, vel, gens, rung), res
 
         return run

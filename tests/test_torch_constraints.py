@@ -228,3 +228,58 @@ def test_every_port_module_imports_without_jax():
     n, has_jax, has_ref = out.stdout.split()
     assert int(n) >= 20 and (has_jax, has_ref) == ("False", "False"), \
         out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("jacobi", [False, True], ids=["star", "jacobi"])
+def test_batched_shake_rattle_equal_single_calls(dms, jacobi):
+    """SHAKE and RATTLE on [R, N, 3] (the replica runners) against R single
+    [N, 3] calls: bitwise on the star path's fixed sweeps; the Jacobi path
+    freezes a converged replica while another iterates, so replica r comes
+    out as it would alone (within 1e-14; bitwise here).  The residual and
+    the violation are per replica, [R]."""
+    t, _ = _pair(dms, 1e-13, jacobi=jacobi, sweeps=5)
+    pos = np.asarray(dms[0].positions, np.float64)
+    rng = np.random.default_rng(21)
+    # replica 1 drifts ten times as far, so the Jacobi replicas converge
+    # after different sweep counts
+    scale = np.array([0.001, 0.01, 0.003])[:, None, None]
+    x = torch.as_tensor(pos[None] + scale * rng.normal(size=(3,) + pos.shape))
+    ref = torch.as_tensor(np.broadcast_to(pos, x.shape).copy())
+    v = torch.as_tensor(rng.normal(size=x.shape))
+    xb, rb = t.shake(x, ref)
+    vb = t.velocities(xb, v)
+    assert rb.shape == (3,) and t.max_violation(xb).shape == (3,)
+    for r in range(3):
+        xs, rs = t.shake(x[r], ref[r])
+        vs = t.velocities(xs, v[r])
+        if jacobi:
+            assert float((xs - xb[r]).abs().max()) <= 1e-14
+            assert float((vs - vb[r]).abs().max()) <= 1e-14
+        else:
+            assert torch.equal(xs, xb[r]) and torch.equal(vs, vb[r])
+        assert torch.equal(rs, rb[r])
+        assert torch.equal(t.max_violation(xs), t.max_violation(xb)[r])
+    assert float(rb.max()) <= 1e-13
+
+
+def test_batched_virtual_sites_equal_single_calls():
+    """project_positions and spread_forces on [R, N, 3] against R single
+    calls, bit for bit (the spread's segment sum per replica), and against
+    JAX's vmapped functions."""
+    jvs, tvs = _sites()
+    ta = tvs.arrays(torch.float64, device="cpu")
+    ja = jvs.arrays(np.float64)
+    rng = np.random.default_rng(4)
+    pos = rng.normal(size=(3, 5, 3))
+    force = rng.normal(size=(3, 5, 3))
+    pb = project_positions(torch.as_tensor(pos), ta)
+    fb = spread_forces(torch.as_tensor(force), ta)
+    for r in range(3):
+        assert torch.equal(pb[r], project_positions(torch.as_tensor(pos[r]),
+                                                    ta))
+        assert torch.equal(fb[r], spread_forces(torch.as_tensor(force[r]),
+                                                ta))
+    pj = jax.vmap(lambda p: JV.project_positions(p, ja))(jnp.asarray(pos))
+    fj = jax.vmap(lambda f: JV.spread_forces(f, ja))(jnp.asarray(force))
+    np.testing.assert_allclose(pb.numpy(), np.asarray(pj), atol=1e-15)
+    np.testing.assert_allclose(fb.numpy(), np.asarray(fj), atol=1e-15)

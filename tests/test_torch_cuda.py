@@ -932,8 +932,8 @@ def test_row_wrappers_reject_bad_inputs(cuda):
         RW.take_rows(table.view(16, 4, 2), ids)
     with pytest.raises(ValueError, match="no columns"):
         RW.take_rows(table[:, :0].contiguous(), ids)
-    with pytest.raises(ValueError, match="requires grad"):
-        RW.take_rows(table.clone().requires_grad_(True), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        RW.take_rows(table[:, :4].requires_grad_(True), ids)
     with pytest.raises(ValueError):
         RW.take_rows(table, ids.cpu())
     with pytest.raises(TypeError):
@@ -1458,3 +1458,103 @@ def test_batched_model_on_card_matches_each_conformer(cuda, fixture_system):
             assert abs(float(out["energy"][b]) - float(e)) <= 1e-6 * abs(
                 float(e))
             assert rel(out["force"][b], f) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_take_rows_backward_on_the_card(cuda, dtype):
+    """TakeRows on the card: the kernel's forward (one launch; an f64
+    table moves as its float32 words) and the segment-sum backward, equal
+    to the CPU's bit for bit on integer-valued gradients, in the table's
+    dtype, and the same bits again on a second pass."""
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    rng = np.random.default_rng(3)
+    nparents, ncols, nrows = 1000, 6, 5000
+    ids = torch.as_tensor(rng.integers(-3, nparents + 3, nrows).astype(
+        np.int32))
+    tab = torch.as_tensor(rng.standard_normal((nparents, ncols)),
+                          dtype=dtype)
+    g = torch.as_tensor(rng.integers(-64, 64, (nrows, ncols)), dtype=dtype)
+    t_cpu = tab.clone().requires_grad_(True)
+    t_gpu = tab.to(cuda).requires_grad_(True)
+    grads = []
+    for _ in range(2):
+        before = PK.LAUNCHES["take_rows"]
+        out = RW.take_rows(t_gpu, ids.to(cuda))
+        assert PK.LAUNCHES["take_rows"] == before + 1
+        assert type(out.grad_fn).__name__ == "TakeRowsBackward"
+        assert torch.equal(out.detach().cpu(),
+                           RW.take_rows_reference(tab, ids))
+        grads.append(torch.autograd.grad(out, t_gpu, g.to(cuda))[0])
+    (ref,) = torch.autograd.grad(RW.take_rows(t_cpu, ids), t_cpu, g)
+    assert grads[0].dtype == dtype
+    assert torch.equal(grads[0].cpu(), ref)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_gamma_gradient_on_the_card(cuda, fixture_system):
+    """ParameterGradients on the card (f64, the plain pair route, the
+    tree's gathers through TakeRows) against the CPU on the fixture's
+    first 48 atoms, 2 poses: energies and gamma gradients within 1e-10
+    relative, the hydrogens' entries exactly 0."""
+    from openmm_agbnp_plugin_tpu_torch import ParameterGradients
+
+    params, pos = fixture_system
+    n = 48
+    p = AGBNPParams(radius=params.radius[:n], gamma=params.gamma[:n],
+                    alpha=params.alpha[:n], charge=params.charge[:n],
+                    ishydrogen=params.ishydrogen[:n])
+    poses = pos[None, :n] + 0.005 * np.random.default_rng(3).standard_normal(
+        (2, n, 3))
+    outs = []
+    for dev in ("cpu", cuda):
+        m = AGBNPModel(p, device=dev, dtype=torch.float64, version=1,
+                       pair_kernel=False, positions=pos[:n])
+        pg = ParameterGradients(m)
+        before = PK.LAUNCHES["take_rows"]
+        outs.append(pg.energy_grads(pg.initial_theta(("gamma",)), poses))
+        if dev != "cpu":
+            assert PK.LAUNCHES["take_rows"] > before
+            assert outs[-1]["gamma"].device.type == "cuda"
+    for k in ("energy", "gamma"):
+        assert rel(outs[1][k], outs[0][k]) <= 1e-10
+    hyd = torch.as_tensor(np.asarray(p.ishydrogen) > 0)
+    assert (outs[1]["gamma"].cpu()[:, hyd] == 0).all()
+
+
+def test_constrained_two_replica_window_on_the_card(cuda):
+    """A 10-step ensemble window of 2 trp-cage replicas with X-H
+    constraints (SHAKE/RATTLE per replica) in f32 on the card: every
+    replica's violation within the f32 tolerance, the SHAKE channel and
+    the capacities clean, the list kernels every step, and the first
+    step's energies (the jittered start) within 1e-5 of the f64 CPU
+    run's."""
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble, Simulation
+    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import worst_replica
+
+    d = load_dms(os.path.join(DATA, "trpcage_agbnp1.dms"))
+    kw = dict(version=1, cutoff=1.0, skin=0.25, descreen_horizon="cutoff",
+              constraints=True)
+    steps, first, pos0 = 10, {}, None
+    for dev, dtype in (("cpu", torch.float64), (cuda, torch.float32)):
+        sim = Simulation(d, device=dev, dtype=dtype, **kw)
+        ens = ReplicaEnsemble(sim, 2)
+        states = ens.initial_states(jitter=1e-3)
+        if pos0 is None:
+            pos0 = states[0]
+        states = (pos0.to(dev, dtype), states[1], states[2])
+        PK.reset_launch_counts()
+        (pos, _, _), (e, *diag) = ens.make_runner(neighbor_every=steps)(
+            states, steps)
+        first[str(dev)] = e[:, 0].double().cpu()
+        assert not sim.overflow_report(*worst_replica(diag))
+        viol = sim.constraints.max_violation(pos)
+        assert viol.shape == (2,)
+        assert float(viol.max()) <= sim.constraints.tolerance(dtype)
+        assert float(diag[4].max()) <= sim.constraints.tolerance(dtype)
+        if dev != "cpu":
+            counts = PK.launch_counts()
+            for k in ("born_sums_tiles", "gb_pair_tiles",
+                      "descreening_tiles"):
+                assert counts[k] >= steps
+    assert rel(first[str(cuda)], first["cpu"]) <= 1e-5

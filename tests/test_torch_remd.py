@@ -168,10 +168,11 @@ def test_ensemble_window_matches_jax(sims):
     ens = ReplicaEnsemble(tsim, R)
     pos0 = torch.as_tensor(np.asarray(states[0]))
     vel0 = torch.as_tensor(np.asarray(states[1]))
-    (pos, vel, _), (e, counts, nbmax, sibs, wu) = ens.make_runner(
+    (pos, vel, _), (e, counts, nbmax, sibs, wu, shake) = ens.make_runner(
         dt=0.001, neighbor_every=STEPS)((pos0, vel0, None), STEPS,
                                         noise=noise)
     assert e.shape == (R, STEPS) and counts.shape[0] == R
+    assert shake is None  # no constraints
     assert not tsim._check_overflow(counts.amax(0), nbmax.amax(),
                                     sibs.amax(0), wu.amax(0))
     _close(e, je)

@@ -234,9 +234,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         RW.take_rows(torch.empty((16, 0), device="meta"), ids)
     with pytest.raises(ValueError, match="contiguous"):
         RW.take_rows(torch.empty((16, 8), device="meta")[:, :6], ids)
-    with pytest.raises(ValueError, match="requires grad"):
-        RW.take_rows(torch.empty((16, 6), device="meta", requires_grad=True),
-                     ids)
+    # a table that requires grad goes through TakeRows to the same checks
+    with pytest.raises(ValueError, match=r"\[P, C\]"):
+        RW.take_rows(torch.empty((16, 6, 2), device="meta",
+                                 requires_grad=True), ids)
     with pytest.raises(TypeError, match="dtype"):
         RW.take_rows(tab, ids.long())
     with pytest.raises(TypeError, match="dtype"):
@@ -330,3 +331,36 @@ def test_cumsum_mirror_is_exact_on_integers(rows, cols):
     y = torch.as_tensor(np.random.RandomState(6).randn(rows, cols),
                         dtype=torch.float32)
     assert torch.equal(RW.cumsum_rows_mirror(y), RW.cumsum_rows_mirror(y))
+
+
+@pytest.mark.parametrize("shape", [(7, 3), (7,)], ids=["rows", "vector"])
+def test_take_rows_gradient_through_its_function(shape):
+    """take_rows passes a gradient through TakeRows, the autograd.Function
+    the card runs too (its forward the kernel there): gradcheck in f64
+    with repeated ids and ids outside [0, P); the backward equals an
+    index_add reference exactly on integer-valued gradients; a forward
+    with no grad needed stays the twin, bit for bit, with no graph."""
+    rng = np.random.default_rng(0)
+    nrows = 20
+    plain = torch.as_tensor(rng.standard_normal(shape))
+    table = plain.clone().requires_grad_(True)
+    ids = torch.as_tensor(rng.integers(-2, shape[0] + 3,
+                                       size=nrows).astype(np.int32))
+    ids[:3] = torch.tensor([1, 1, 1], dtype=torch.int32)
+    out = RW.take_rows(table, ids)
+    assert type(out.grad_fn).__name__ == "TakeRowsBackward"
+    assert torch.autograd.gradcheck(lambda t: RW.take_rows(t, ids),
+                                    (table,))
+    g = torch.as_tensor(rng.integers(-50, 50, size=(nrows,) + shape[1:]),
+                        dtype=torch.float64)
+    ok = (ids >= 0) & (ids < shape[0])
+    ref = torch.zeros(shape, dtype=torch.float64).index_add_(
+        0, ids[ok].long(), g[ok])
+    assert torch.equal(RW.take_rows_backward(g, ids, shape[0]), ref)
+    (got,) = torch.autograd.grad(out, table, g)
+    assert got.dtype == torch.float64 and torch.equal(got, ref)
+    for t, grad in ((plain, True), (table, False)):
+        with torch.set_grad_enabled(grad):
+            fwd = RW.take_rows(t, ids)
+        assert fwd.grad_fn is None
+        assert torch.equal(fwd, RW.take_rows_reference(plain, ids))
