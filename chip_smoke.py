@@ -151,6 +151,26 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      make_langevin_runner(topology_relax=0.5): a 40-step window with no
      overflow (regrown if the birth-margin rows need room), its first step
      against relax=None's (1e-5).
+ 23. the batched AGBNP2 evaluation in ConformerScorer version 2 on 1li2
+     (f32, NoCutoff): 8 poses (0.005 nm, numpy seed) in one call, #1-#3
+     launched once with the replica axis, each pose against its own
+     B = 1 score (1e-6 / 1e-5) and against the port's f64 scorer on the
+     card (1e-5 / 1e-4), the kernels and device ms of a call at B = 1 and
+     8, the peak memory of the B = 8 call;
+ 24. version 2 on the replicas' per-step path: ReplicaEnsemble of 1li2,
+     make_runner(neighbor_every=0), R = 1 and R = 4 fed the same noise, 2
+     warm-up and 10 timed steps: replica 0 of R = 4 within 1e-5 in energy
+     of R = 1 at every step, ms/step, #1-#3 every step; the windowed
+     runner and T-REMD refuse version 2;
+ 25. bench.py's synth10k leg: utils/synthetic.py's run_md on the
+     10,240-atom bonded synthetic ball (AGBNP1 + the MM force field,
+     CutoffNonPeriodic 1 nm, f32, the cell grid and tile lists, rebuilds
+     every 20 steps, 200 timed steps after an equal warm-up, the
+     PanicButton regrow): finite energies, no overflow, #5-#7 once a step
+     and take_rows at every level, ns/day, regrows, windows; one
+     evaluation against the port's f64 pair_kernel=False route on the
+     card (1e-5 / 1e-4).  Phase 14 also logs the peak memory of a
+     version 2 window build (the MS tree's half list in row blocks).
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -159,7 +179,8 @@ name/power-limit line, and the one before that the per-kernel JSON record
 (times, bound and what sets it, library_ms null for the pair sweeps and
 measured for the row kernels, live pairs, launches on its path and per step
 of each MD phase [6]-[9], [14] and of the replica runs [15]-[17], in
-one batched score of [18] and on each of [19]-[22]; for the Born and
+one batched score of [18] and on each of [19]-[22] and [23]-[25]; for the
+Born and
 descreening sweeps also the kept
 32x32 sub-tile pairs or the chunk slots and the Q/dQ bytes written or read).
 """
@@ -1930,6 +1951,18 @@ def phase_v2(dev, card):
              if capacities()[k] != v}
     log(f"[14] 1li2 v2: one {NEIGHBOR_EVERY}-step window first: regrows "
         f"{pre['regrows']}, grown (sized -> grown) {grown}")
+    # a window build's peak with the MS tree's half list built in row
+    # blocks (PR 9's dense [cap_ms, cap_ms] list peaked at 21.8 GB)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sim._v2_build(sim.positions)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[14] 1li2 v2: a window build peaks at {peak / 1e9:.3f} GB "
+        f"allocated ({(peak - base) / 1e9:.3f} GB above the "
+        f"{base / 1e9:.3f} GB held before it; PR 9's dense MS half list: "
+        f"21.8 GB) on {card}, cap_ms {sim.agbnp2.cap_ms}")
     sized = capacities()
     PK.reset_launch_counts()
     r = sim.benchmark_langevin(nsteps=V2_STEPS, temperature=300.0,
@@ -2800,6 +2833,293 @@ def phase_options(dev, card):
     return counts
 
 
+# [23]-[25]: the batched AGBNP2 evaluation and the synthetic ball
+SCORE_V2_POSES = 8        # [23] 1li2 poses (numpy seed)
+SCORE_V2_JITTER = 0.005   # nm
+PER_STEP_V2_REPLICAS = 4  # [24] 1li2 replicas, against one
+PER_STEP_V2_WARMUP = 2    # [24] steps before the timed ones
+PER_STEP_V2_STEPS = 10    # [24] timed steps
+V2_ENS_E_TOL = 1e-5       # relative, replica 0 of R = 4 vs R = 1, each step
+SYNTH_ATOMS = 10240       # [25] bench.py's synth10k leg
+SYNTH_STEPS = 200         # [25] timed steps, after an equal warm-up
+SYNTH_EVERY = 20          # [25] rebuild windows (bench.py's run_md)
+SYNTH_F_TOL = 1e-4        # [25] f32 lists vs f64 plain, of max|f|
+V2_KERNELS = ("born_sums", "gb_pair", "descreening")
+LIST_KERNELS = ("born_sums_tiles", "gb_pair_tiles", "descreening_tiles")
+
+
+def agbnp_force(p, version):
+    """An AGBNPForce of the particle table p at the given version."""
+    from openmm_agbnp_plugin_tpu_torch import AGBNPForce
+
+    force = AGBNPForce()
+    force.setVersion(version)
+    for i in range(p.n):
+        force.addParticle(p.radius[i], p.gamma[i], p.alpha[i], p.charge[i],
+                          bool(p.ishydrogen[i]))
+    return force
+
+
+def phase_score_v2(dev, card):
+    """Phase 23: ConformerScorer version 2 on 1li2 (f32, NoCutoff, the
+    dense kernels #1-#3 with the replica axis), 8 poses jittered 0.005 nm
+    (numpy seed): each pose against its own B = 1 score (energy 1e-6
+    relative, forces 1e-5 of max|f|), against the port's f64 scorer on the
+    card (energy 1e-5 relative, forces 1e-4 of max|f|), #1-#3 launched
+    once a call, two calls bitwise equal; kernels and device ms of a call
+    at B = 8 and B = 1, and the peak memory of the B = 8 call.  Returns
+    the launches of the counted call."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import ConformerScorer
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    d, p = system("1li2")
+    force = agbnp_force(p, 2)
+    nb = SCORE_V2_POSES
+    poses = np.asarray(d.positions)[None] + SCORE_V2_JITTER * \
+        np.random.default_rng(23).standard_normal(
+            (nb,) + np.asarray(d.positions).shape)
+    scorer = ConformerScorer(force, d.positions, device=dev)
+    m = scorer.model
+    sized = (m.cap_ms, m.ms_kmax, scorer._ms_kmax_list)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = scorer.score(poses, forces=True, details=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    m = scorer.model
+    PK.reset_launch_counts()
+    again = scorer.score(poses, forces=True)
+    counts = PK.launch_counts()
+    bitwise = (torch.equal(again["energy"], res["energy"])
+               and torch.equal(again["force"], res["force"]))
+    log(f"[23] v2 scorer, {nb} poses of 1li2 (f32, NoCutoff): the first "
+        f"score (its regrows included) {first_s:.3f} s, peak "
+        f"{peak / 1e9:.3f} GB allocated ({(peak - base) / 1e9:.3f} GB above "
+        f"the {base / 1e9:.3f} GB held before it) on {card}; (cap_ms, "
+        f"MS-tree width, candidate width) {sized} -> "
+        f"{(m.cap_ms, m.ms_kmax, scorer._ms_kmax_list)}; launches of a "
+        f"call {pair_launches(counts)}, take_rows {counts['take_rows']}; "
+        f"two calls bitwise equal {bitwise}")
+    check_once(counts, V2_KERNELS, "[23]")
+    if not bitwise or counts["take_rows"] < 1:
+        raise AssertionError("[23] scorer calls differ, or no take_rows")
+    total = sum(res[k] for k in ("e_vol1", "e_vol2", "e_ms_vdw", "gb_self",
+                                 "gb_pair", "e_vdw", "e_ms_large"))
+    if not (bool(torch.isfinite(res["force"]).all())
+            and rel_err(total, res["energy"])[0] <= 1e-6):
+        raise AssertionError("[23] non-finite forces, or details off")
+
+    worst_e = worst_f = 0.0
+    for b in range(nb):
+        one = scorer.score(poses[b], forces=True)
+        e1 = float(one["energy"][0])
+        worst_e = max(worst_e, abs(float(res["energy"][b]) - e1) / abs(e1))
+        worst_f = max(worst_f, rel_err(res["force"][b], one["force"][0])[0])
+    ref = ConformerScorer(force, d.positions, dtype=torch.float64,
+                          device=dev)
+    e64, f64 = [], []
+    for s in range(0, nb, 2):  # two poses a call keep the f64 peak low
+        r = ref.score(poses[s:s + 2], forces=True)
+        e64.append(r["energy"])
+        f64.append(r["force"])
+    e64, f64 = torch.cat(e64), torch.cat(f64)
+    e_rel = float(torch.max(torch.abs(res["energy"].double() - e64)
+                            / torch.abs(e64)))
+    f_rel = max(rel_err(res["force"][b], f64[b])[0] for b in range(nb))
+    del ref
+    log(f"[23] each pose vs its own B = 1 score: energy rel {worst_e:.3e}, "
+        f"force max-err/max|f| {worst_f:.3e}; f32 vs the port's f64 scorer "
+        f"on the card: energy rel {e_rel:.3e}, force {f_rel:.3e}")
+    if not (worst_e <= BATCH_E_TOL and worst_f <= BATCH_F_TOL):
+        raise AssertionError("[23] a pose differs from its B = 1 score")
+    if not (e_rel <= PARITY_TOL and f_rel <= V2_FORCE_TOL):
+        raise AssertionError("[23] f32 scorer vs f64")
+    calls = {}
+    for k in (1, nb):
+        _, n, ms = device_kernels(
+            lambda k=k: scorer.score(poses[:k], forces=True))
+        calls[k] = (n, ms)
+    log(f"[23] a score call: B = 1 {calls[1][0]} kernels "
+        f"({calls[1][1]:.3f} device ms), B = {nb} {calls[nb][0]} kernels "
+        f"({calls[nb][1]:.3f} device ms) on {card}")
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase_per_step_v2(dev, card):
+    """Phase 24: ReplicaEnsemble of 1li2 in version 2 on the per-step
+    path (make_runner(neighbor_every=0): one batched AGBNP2 evaluation a
+    step, each replica's MS candidates found on the card), f32, R = 1 and
+    R = 4 fed the same noise (numpy seed) from the same states, 2 warm-up
+    steps then 10 timed: replica 0 of R = 4 within 1e-5 in energy of R = 1
+    at every step, finite energies, no overflow, #1-#3 every step; the
+    windowed runner and T-REMD refuse version 2.  Returns the launches of
+    both runs."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import (ReplicaEnsemble, Simulation,
+                                               TemperatureREMD)
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import (
+        diag_max, worst_replica)
+    from openmm_agbnp_plugin_tpu_torch.parallel.remd import geometric_ladder
+
+    d, _ = system("1li2")
+    sim = Simulation(d, device=dev, version=2, cutoff=1.0,
+                     dtype=torch.float32, skin=0.25)
+    nrep, warm, steps = (PER_STEP_V2_REPLICAS, PER_STEP_V2_WARMUP,
+                         PER_STEP_V2_STEPS)
+    n = sim.positions.shape[0]
+    rng = np.random.default_rng(24)
+    pos0 = sim.positions[None] + torch.as_tensor(
+        1e-3 * rng.standard_normal((nrep, n, 3)), dtype=torch.float32,
+        device=dev)
+    vel0 = sim.velocities.expand(nrep, n, 3).clone()
+    noise = torch.as_tensor(rng.standard_normal((warm + steps, nrep, n, 3)),
+                            dtype=torch.float32, device=dev)
+    # JAX's MS-tree neighbor width (64) is short for 1li2: grow the
+    # capacities on one step of the replicas first
+    for _ in range(4):
+        _, (_, *diag) = ReplicaEnsemble(sim, nrep).make_runner(
+            neighbor_every=0)((pos0.clone(), vel0.clone(), None), 1,
+                              noise=noise)
+        report = sim.overflow_report(*worst_replica(diag))
+        if not report:
+            break
+        log(f"[24] per-step v2: overflow {report}; PanicButton regrow")
+        sim._regrow(*worst_replica(diag))
+    runs, path_counts = {}, {}
+    for r in (1, nrep):
+        run = ReplicaEnsemble(sim, r).make_runner(neighbor_every=0)
+        PK.reset_launch_counts()
+        states, (e_w, *diag_w) = run((pos0[:r].clone(), vel0[:r].clone(),
+                                      None), warm, noise=noise[:warm, :r])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, (e_t, *diag_t) = run(states, steps, noise=noise[warm:, :r])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts = PK.launch_counts()
+        for k, v in counts.items():
+            path_counts[k] = path_counts.get(k, 0) + v
+        report = sim.overflow_report(*worst_replica(diag_max(diag_w,
+                                                             diag_t)))
+        energies = torch.cat([e_w, e_t], dim=1).double().cpu()
+        runs[r] = energies
+        log(f"[24] per-step v2, R = {r} x 1li2: {ms:.3f} ms/step, "
+            f"{86.4 / ms * r:.3f} ns/day aggregate (1 fs steps) on {card}; "
+            f"overflow {bool(report)}; pair kernel "
+            f"launches {pair_launches(counts)} in {warm + steps} steps")
+        if report or not bool(torch.isfinite(energies).all()) \
+                or not bool(torch.isfinite(states[0]).all()):
+            raise AssertionError(f"[24] R = {r}: {report} or non-finite")
+        check_every_step({k: counts[k] / (warm + steps) for k in V2_KERNELS},
+                         V2_KERNELS, f"[24] R = {r}")
+    worst = float(torch.max(torch.abs(runs[nrep][0] - runs[1][0])
+                            / torch.abs(runs[1][0])))
+    log(f"[24] replica 0 of R = {nrep} vs R = 1 over {warm + steps} steps: "
+        f"worst relative energy difference {worst:.3e}")
+    if not worst <= V2_ENS_E_TOL:
+        raise AssertionError("[24] replica 0 of the batch differs")
+    for what, make in (("the windowed runner", lambda: ReplicaEnsemble(
+            sim, 2).make_runner(neighbor_every=20)),
+                       ("T-REMD", lambda: TemperatureREMD(
+                           sim, geometric_ladder(300.0, 450.0, 4)))):
+        try:
+            make()
+        except NotImplementedError as exc:
+            log(f"[24] {what} refuses version 2: {exc}")
+        else:
+            raise AssertionError(f"[24] {what} took version 2")
+    torch.cuda.synchronize()
+    return path_counts
+
+
+def window_evaluation(sim, pos):
+    """Energy and forces at pos through what a rebuild window runs: the
+    window's neighbor list and tree topology built at pos (the full WU
+    pass), then the Simulation's force function over them; and the
+    build's overflow report."""
+    ff = sim.ff_state()
+    pairs, topo, _, (bcounts, nbmax, sibs, _) = sim.window_build(pos[None],
+                                                                 ff)
+    e, f, _ = sim.force_fn(pairs=pairs, topology=topo, ff=ff)(pos)
+    return e, f, sim.overflow_report(bcounts[0], nbmax[0], sibs[0])
+
+
+def phase_synthetic(dev, card):
+    """Phase 25: bench.py's synth10k leg on the port: utils/synthetic.py's
+    run_md(10240) (the bonded synthetic ball, AGBNP1 + the MM force field,
+    CutoffNonPeriodic 1 nm, f32, the cell grid and tile lists, rebuilds
+    every 20 steps; 200 timed steps after an equal warm-up, the PanicButton
+    regrow): finite energies, no overflow after the regrows, #5-#7 once a
+    step and take_rows at every level; then one evaluation at the ball's
+    positions against the port's f64 pair_kernel=False route on the card
+    (energy 1e-5 relative, forces 1e-4 of max|f|).  Returns the launches
+    of the MD run."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import Simulation
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.utils.synthetic import run_md as \
+        synth_md, synthetic_dms
+
+    PK.reset_launch_counts()
+    r = synth_md(SYNTH_ATOMS, nsteps=SYNTH_STEPS, device=dev,
+                 neighbor_every=SYNTH_EVERY)
+    counts = PK.launch_counts()
+    sim = r["sim"]
+    e = r["energies"]
+    ms = r["elapsed_s"] * 1e3 / r["steps_run"]
+    log(f"[25] synth10k ({SYNTH_ATOMS} atoms, f32, 1 nm): {r['ns_day']:.3f} "
+        f"ns/day ({ms:.3f} ms/step) on {card}; set-up {r['init_s']:.1f} s, "
+        f"regrows {r['regrows']}, windows {r['windows']}, overflow "
+        f"{r['overflow']}, steps {r['steps_run']}; cell grid "
+        f"{sim.grid is not None}, kmax {sim.kmax}, pair_tiles "
+        f"{sim.agbnp.pair_tiles}, tree rows {sim.agbnp.caps.caps}; E "
+        f"first/last {e[0]:.2f}/{e[-1]:.2f}; launches "
+        f"{pair_launches(counts)}, take_rows {counts['take_rows']}")
+    if r["overflow"] or e.shape != (SYNTH_STEPS,) or \
+            not np.isfinite(e).all():
+        raise AssertionError("[25] overflow or non-finite energies")
+    if sim.grid is None or sim.agbnp.pair_tiles is None:
+        raise AssertionError("[25] the ball must run the cell grid, lists")
+    check_list_launches(counts, 2 * SYNTH_STEPS, "[25]")
+    gathers = GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * 2 * SYNTH_STEPS
+    if counts["take_rows"] < gathers:
+        raise AssertionError(f"[25] take_rows {counts['take_rows']} < "
+                             f"{gathers}")
+
+    e32, f32, rep32 = window_evaluation(sim, sim.positions)
+    del r, sim
+    torch.cuda.empty_cache()
+    sim64 = Simulation(synthetic_dms(SYNTH_ATOMS), device=dev, version=1,
+                       cutoff=1.0, dtype=torch.float64, pair_kernel=False)
+    e64, f64, rep64 = window_evaluation(sim64, sim64.positions)
+    del sim64
+    torch.cuda.empty_cache()
+    e_rel = abs(float(e32) - float(e64)) / abs(float(e64))
+    f_rel = rel_err(f32, f64)[0]
+    log(f"[25] one evaluation, f32 kernels vs f64 pair_kernel=False on the "
+        f"card: energy {float(e32):.4f} / {float(e64):.4f}, relative "
+        f"{e_rel:.3e}; forces max-err/max|f| {f_rel:.3e}; builds' overflow "
+        f"{rep32 or None} / {rep64 or None}")
+    if rep32 or rep64 or not (e_rel <= PARITY_TOL and f_rel <= SYNTH_F_TOL):
+        raise AssertionError("[25] f32 vs f64 on the ball")
+    torch.cuda.synchronize()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2834,6 +3154,9 @@ def main() -> int:
                      ens_constraints=phase_constrained_replicas(dev, card),
                      per_step=phase_per_step(dev, card),
                      options=phase_options(dev, card))
+    v2_paths = dict(score_v2=phase_score_v2(dev, card),
+                    per_step_v2=phase_per_step_v2(dev, card),
+                    synth10k=phase_synthetic(dev, card))
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
@@ -2867,6 +3190,11 @@ def main() -> int:
         # the per-step path and sites, the Simulation options
         rec["launches_19_22"] = {p: c.get(name, 0)
                                  for p, c in new_paths.items()}
+        # and on [23]-[25]: the v2 scorer's counted call (8 poses), the
+        # per-step v2 runs (R = 1 and 4, 12 steps each), the synthetic
+        # ball's MD (every attempt's warm-up and timed run)
+        rec["launches_23_25"] = {p: c.get(name, 0)
+                                 for p, c in v2_paths.items()}
         if "live_pairs" in k:
             rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})

@@ -14,17 +14,24 @@ representative positions.
 Semantics per conformer are those of api.force.Context.getEnergyForces:
 the same energy and forces, and the same 8-try PanicButton regrow, from
 the worst conformer of the batch (batched_diag_max).  Version 2 scores
-each conformer through AGBNP2Model with the capacities shared and regrown
-over the whole batch (AGBNP2Model.check_and_grow); it is B evaluations.
+the batch in one evaluation too (AGBNP2Model.batched_energy_forces: each
+pose's MS candidates found on the device, both overlap trees over the
+poses' unions, the dense kernels' replica axis), with the capacities
+shared and regrown from the 18-entry overflow counts of the worst pose
+(_regrow_v2, JAX's rule).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..md.minimize import make_fire_runner
-from ..models.agbnp2_torch import AGBNP2Model
+from ..models.agbnp2_torch import AGBNP2Model, ms_candidate_pairs, \
+    ms_pair_cutoff, v2_counts
 from ..models.agbnp_torch import AGBNPModel, batched_diag_max
+from ..ops import tree as T
+from ..ops.neighbors import host_max_neighbors
 from .force import AGBNPForce, NonbondedMethod
 
 _DETAIL_TERMS = ("e_cav", "e_vol1", "e_vol2", "gb_self", "gb_pair", "e_vdw")
@@ -78,6 +85,18 @@ class ConformerScorer:
         self._caps = caps
         self._caps_boost = caps_boost
         self._model = self._build(force.to_params())
+        if self._is_v2:
+            # the width of the MS candidate lists built on the device: the
+            # most heavy neighbors within ms_pair_cutoff over the given
+            # poses x 1.5, 16-aligned (JAX api/scoring.py:79-84)
+            params = self._model.params
+            self._ms_rcut = ms_pair_cutoff(params.radii_vdw)
+            heavy = np.asarray(params.ishydrogen) == 0
+            self._heavy = torch.as_tensor(heavy, device=self.device)
+            poses = (pos if pos.dim() == 3 else pos[None]).numpy()
+            seen = max(host_max_neighbors(p, heavy, self._ms_rcut)
+                       for p in poses)
+            self._ms_kmax_list = int(np.ceil(seen * 1.5 / 16) * 16)
 
     def _build(self, params):
         if self._is_v2:
@@ -99,18 +118,25 @@ class ConformerScorer:
         """Parameter-only refresh (AGBNPForce.cpp:76-78 semantics): the
         model's parameter arrays are swapped, its capacities, layouts and
         tile budgets kept (version 2: the model is rebuilt with the new
-        parameters and the grown capacities)."""
+        parameters and the grown capacities; the MS candidate width
+        stays)."""
         self._force = force or self._force
         params = self._force.to_params()
         if self._is_v2:
-            m2 = self._model
-            self._model = AGBNP2Model(
-                params, device=self.device, dtype=self.dtype,
-                positions=self._pos0, cutoff=self._cutoff, caps=m2.caps,
-                caps_ms=m2.caps_ms, cap_ms=m2.cap_ms, ms_kmax=m2.ms_kmax,
-                ms_sub_k=m2.ms_sub_k)
+            self._model = self._build_v2(params)
             return
         self._model.update_params(params)
+
+    def _build_v2(self, params, **grown):
+        """An AGBNP2Model of params with the current model's capacities,
+        those in `grown` replaced."""
+        m2 = self._model
+        caps = dict(caps=m2.caps, caps_ms=m2.caps_ms, cap_ms=m2.cap_ms,
+                    ms_kmax=m2.ms_kmax, ms_sub_k=m2.ms_sub_k)
+        caps.update(grown)
+        return AGBNP2Model(params, device=self.device, dtype=self.dtype,
+                           positions=self._pos0, cutoff=self._cutoff,
+                           **caps)
 
     def _batch(self, positions):
         pos = torch.as_tensor(positions, dtype=self.dtype, device=self.device)
@@ -144,27 +170,68 @@ class ConformerScorer:
         return res
 
     def _score_v2(self, pos, forces: bool, details: bool):
-        """AGBNP2: each conformer through the model (its MS candidates
-        picked at that conformer), the capacities shared by the batch; a
-        growth on any conformer re-scores the whole batch."""
-        m2 = self._model
+        """AGBNP2: one batched evaluation per try, each pose's MS candidates
+        found on the device (ms_candidate_pairs, JAX api/scoring.py:
+        150-152), the capacities shared by the batch and regrown from the
+        18-entry counts of its worst pose (_regrow_v2)."""
         for _ in range(_TRIES):
-            outs, grew = [], False
-            for p in pos:
-                m2.set_positions(p.detach().cpu().numpy())
-                outs.append(m2.energy_forces(p, with_details=True)[2])
-                grew = m2.check_and_grow(outs[-1]["diags"]) or grew
-            if not grew:
+            pairs = ms_candidate_pairs(pos, self._heavy, self._ms_rcut,
+                                       self._ms_kmax_list)
+            out = self._model.batched_energy_forces(pos, ms_pairs=pairs[:3])
+            counts = v2_counts(out["diags"], pairs[3])
+            if not self._regrow_v2(
+                    torch.amax(counts, dim=0).cpu().numpy()):
                 break
         else:
             raise RuntimeError("AGBNP2 capacities failed to converge")
-        res = dict(energy=torch.stack([o["energy"] for o in outs]))
+        res = dict(energy=out["energy"])
         if forces:
-            res["force"] = torch.stack([o["force"] for o in outs])
+            res["force"] = out["force"]
         if details:
-            res.update({k: torch.stack([o["details"][k] for o in outs])
-                        for k in _DETAIL_TERMS_V2 if k in outs[0]["details"]})
+            res.update({k: out["details"][k] for k in _DETAIL_TERMS_V2})
         return res
+
+    def _regrow_v2(self, c, headroom: float = 1.3) -> bool:
+        """The PanicButton of version 2 scoring over the 18-entry counts c
+        (v2_counts, the batch's maxima), JAX's rule (api/scoring.py:
+        195-236): both trees' levels grow to at least double when
+        overflowed and past the counts x headroom, 128-aligned; cap_ms past
+        1.5 x the particles; the MS tree's, the candidate lists' and the
+        subtraction lists' widths past 1.5 x their maxima, 16-aligned.
+        Returns True if the model was rebuilt (a re-score is needed)."""
+        m2 = self._model
+        over = bool((c[:7] > np.asarray(m2.caps.caps)).any()
+                    or (c[7:14] > np.asarray(m2.caps_ms.caps)).any()
+                    or int(c[14]) > m2.cap_ms or int(c[15]) > m2.ms_kmax
+                    or int(c[16]) > self._ms_kmax_list
+                    or int(c[17]) > m2.ms_sub_k)
+        if not over:
+            return False
+
+        def r(x, align=128):
+            return max(align, int(np.ceil(x / align)) * align)
+
+        def k16(x):
+            return int(np.ceil(int(x) * 1.5 / 16) * 16)
+
+        def grow_caps(old, counts):
+            return T.TreeCaps(
+                caps=tuple(max(c0, 2 * c0 if int(k) > c0 else c0,
+                               r(int(k) * headroom))
+                           for c0, k in zip(old.caps, counts)),
+                offs=old.offs)
+
+        if int(c[16]) > self._ms_kmax_list:
+            self._ms_kmax_list = k16(c[16])
+        self._model = self._build_v2(
+            self._force.to_params(), caps=grow_caps(m2.caps, c[:7]),
+            caps_ms=grow_caps(m2.caps_ms, c[7:14]),
+            cap_ms=(r(int(c[14]) * 1.5) if int(c[14]) > m2.cap_ms
+                    else m2.cap_ms),
+            ms_kmax=k16(c[15]) if int(c[15]) > m2.ms_kmax else m2.ms_kmax,
+            ms_sub_k=(k16(c[17]) if int(c[17]) > m2.ms_sub_k
+                      else m2.ms_sub_k))
+        return True
 
     def refine(self, positions, maxiter: int = 200, **fire_kw):
         """FIRE-minimize every conformation (one batch, each pose on its own

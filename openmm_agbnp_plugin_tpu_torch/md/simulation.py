@@ -33,7 +33,9 @@ the dense pair kernels #1-#3 on a card at float32) runs rebuild windows as
 the JAX package does: one build a window (both tree topologies and the
 frozen MS compaction, _v2_build), fixed-topology steps in between, an
 18-entry overflow vector read once a window; no MTS, no WU impulse, no
-vdW-compact WU pass.
+vdW-compact WU pass.  Its force function also takes replicas [R, N, 3]
+(one batched AGBNP2 evaluation: the per-step replica path of
+parallel/ensemble.py).
 
 Options as the JAX package's: include_mm=False drops the OPLS force field
 (the AGBNP part alone; no MTS then), pair_kernel=False takes the dense
@@ -55,7 +57,7 @@ import torch
 
 from ..io.checkpoint import save_checkpoint
 from ..models.agbnp2_torch import AGBNP2Model, agbnp2_energy, \
-    ms_pair_cutoff
+    ms_candidate_pairs, ms_pair_cutoff, v2_counts
 from ..models.agbnp_torch import AGBNPModel, energy_forces, union_arrays
 from ..models.params import AGBNPParams
 from ..ops import tree as T
@@ -391,30 +393,20 @@ class Simulation:
 
         return fn
 
-    @staticmethod
-    def _v2_counts(diags, cand_nb):
-        """AGBNP2's 18-entry overflow vector: the atomic tree's level counts
-        [7], the MS tree's [7], then the MS particle count, the MS tree's
-        neighbor maximum, the MS candidate list's maximum and the MS
-        subtraction lists' maximum."""
-        d0, d1 = diags
-        return torch.cat([d0["counts"].long(), d1["counts"].long(),
-                          torch.stack([d1["ms_count"], d1["ms_nbmax"],
-                                       cand_nb, d1["ms_sub_max"]]).long()])
-
     def _v2_build(self, pos, ff=None):
         """Window-start AGBNP2 build: both tree topologies and the frozen MS
-        compaction at pos, from MS candidate pairs found on the device.
-        Returns (ms_pairs, (topology, counts)) in force_fn's convention
-        (pairs=, topology=)."""
+        compaction at pos ([N, 3], or [R, N, 3] for replicas), from MS
+        candidate pairs found on the device.  Returns (ms_pairs,
+        (topology, counts)) in force_fn's convention (pairs=, topology=),
+        counts the 18-entry vector (v2_counts; [R, 18] for replicas)."""
         a = self.agbnp2.arrays if ff is None else ff["a"]
         with torch.no_grad():
-            mpi, mpj, mpv, cand_nb = half_neighbor_pairs(
+            mpi, mpj, mpv, cand_nb = ms_candidate_pairs(
                 pos, self.heavy_mask, self.ms_rcut, self.ms_kmax_list)
             diags, topo = agbnp2_energy(
                 a, pos, ms_pi=mpi, ms_pj=mpj, ms_pv=mpv, build_only=True,
                 **self.agbnp2.energy_kwargs())
-        return (mpi, mpj, mpv), (topo, self._v2_counts(diags, cand_nb))
+        return (mpi, mpj, mpv), (topo, v2_counts(diags, cand_nb))
 
     def _force_fn_v2(self, ms_pairs=None, topology=None, ff=None):
         """fn(pos) -> (energy, force, counts) for AGBNP2 + the MM force
@@ -422,7 +414,9 @@ class Simulation:
         and topology (from _v2_build) the tree builds are fixed-topology
         rescans (the stale-topology window) and counts are the build's
         (a rescan cannot overflow); without them every call finds the MS
-        candidates and builds both trees."""
+        candidates and builds both trees.  Replicas pos [R, N, 3] evaluate
+        as one batch (energy [R], counts [R, 18]), the MM terms and
+        virtual sites per replica, as versions 0/1 run them."""
         ff = self.ff_state() if ff is None else ff
         a, mm, excl = ff["a"], ff.get("mm"), ff.get("mm_excl_mask")
         kw = self.agbnp2.energy_kwargs()
@@ -439,13 +433,13 @@ class Simulation:
                                       ms_pj=ms_pairs[1], ms_pv=ms_pairs[2],
                                       topology=topo, **kw)[0]
                 else:
-                    mpi, mpj, mpv, cand_nb = half_neighbor_pairs(
+                    mpi, mpj, mpv, cand_nb = ms_candidate_pairs(
                         pos, self.heavy_mask, self.ms_rcut,
                         self.ms_kmax_list)
                     e, diags, _ = agbnp2_energy(a, x, ms_pi=mpi, ms_pj=mpj,
                                                 ms_pv=mpv, **kw)
-                    counts = self._v2_counts(diags, cand_nb)
-                (grad,) = torch.autograd.grad(e, x)
+                    counts = v2_counts(diags, cand_nb)
+                (grad,) = torch.autograd.grad(e.sum(), x)
             force = -grad
             e = e.detach()
             if mm is not None:
@@ -838,7 +832,7 @@ class Simulation:
         return rep
 
     def _overflow_report_v2(self, c) -> dict:
-        """The AGBNP2 channels of overflow_report over _v2_counts' vector
+        """The AGBNP2 channels of overflow_report over v2_counts' vector
         (JAX md/simulation.py::_check_overflow_v2): both trees' level caps,
         cap_ms, the MS tree's neighbor width, the MS candidate list's width
         and the MS subtraction lists' width."""

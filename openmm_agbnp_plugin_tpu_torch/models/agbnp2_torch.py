@@ -26,6 +26,16 @@ CUDA kernels #1-#3 on a GPU, their twins on the CPU) or, with
 pair_kernel=False, through the plain [N, N] phases of ops/born.py.  Tree
 builds carry no gradient: they only pick the topology that the Functions
 rescan.
+
+Replicas (AGBNP2Model.batched_energy_forces, JAX's vmapped energy): B
+conformations [B, N, 3] of one system evaluate as one batch.  Each
+replica's MS candidates compact into its own cap_ms particles; the atomic
+tree and the MS tree are each built once over the disjoint union of the
+replicas' atoms (b N + i) and MS particles (b cap_ms + k), with the
+capacities per replica (ops/tree.py, nrep); the Functions return energies
+[B] and scale each row's gamma rescan by its own replica's cotangent; the
+pair phases run the kernels' replica axis, one launch for the batch.  One
+system is a batch of one, its axis dropped.
 """
 
 from __future__ import annotations
@@ -41,7 +51,8 @@ from ..ops.gaussians import pol_switchfunc
 from ..ops.kernels import pairs as PK
 from ..ops.neighbors import half_neighbor_pairs, tree_pair_cutoff
 from .agbnp_torch import AGBNPModel, _pair_phases_kernel, \
-    _pair_phases_plain, arrays_from_numpy, prepare_arrays
+    _pair_phases_plain, arrays_from_numpy, batched_diag_max, \
+    prepare_arrays, union_arrays
 from .constants import AGBNP2_RADIUS_INCREMENT, ANG3, KFC, PI, \
     SOLVENT_RADIUS, VOLMINA, sphere_volume
 from .params import AGBNPParams
@@ -72,20 +83,36 @@ def ms_pair_cutoff(radii_vdw) -> float:
     return dms + sigma * math.sqrt(2.0 * math.log(volms0 / VOLMINMSA)) + 0.05
 
 
+def _take(x, ids, batched: bool):
+    """Each replica's own entries: x[ids] for one system, x[b, ids[b]] for
+    replicas (x [B, M, ...], ids [B, ...]).  Advanced indexing, whose
+    backward is PyTorch's sorted index_put (no float atomics)."""
+    if not batched:
+        return x[ids]
+    b = torch.arange(x.shape[0], device=x.device).reshape(
+        (-1,) + (1,) * (ids.dim() - 1))
+    return x[b, ids]
+
+
 def ms_particles(pos, radii_vdw, pi, pj, pvalid, cap_ms: int, idx=None,
                  count=None):
     """Padded MS particle set from heavy candidate pairs (reference
     cpp:895-941).  Returns dict(pos, vol0, p1, p2, valid, idx, count).
 
-    With idx/count (the frozen compaction of an earlier build: the stale-
-    topology MD window) the survivors are kept and only their geometry is
-    recomputed at the current positions."""
+    pos [N, 3] with candidates pi, pj, pvalid [K]; or replicas pos [B, N,
+    3] with [B, K] candidates in each replica's own atom ids, every result
+    then [B, ...] (each replica compacted into its own cap_ms slots, count
+    [B]).  With idx/count (the frozen compaction of an earlier build: the
+    stale-topology MD window) the survivors are kept and only their
+    geometry is recomputed at the current positions."""
     radw = SOLVENT_RADIUS
     volw = sphere_volume(radw)
     r1 = radii_vdw[pi]
     r2 = radii_vdw[pj]
     q = torch.sqrt(r1 * r2) / radw
-    dist = pos[pj] - pos[pi]
+    bt = pos.dim() == 3
+    pos_i, pos_j = _take(pos, pi, bt), _take(pos, pj, bt)
+    dist = pos_j - pos_i
     d = torch.sqrt(torch.sum(dist * dist, dim=-1) + 1e-30)
     dms = r1 + r2 + 0.5 * radw
     volms0 = VOL_COEFF * q * q * volw
@@ -93,18 +120,18 @@ def ms_particles(pos, radii_vdw, pi, pj, pvalid, cap_ms: int, idx=None,
     volms = volms0 * torch.exp(-0.5 * (d - dms) ** 2 / (sigma * sigma))
     volmsw = volms * _ms_switch(volms)
     fms = 0.5 * (1.0 + (r1 - r2) / d)
-    posms = pos[pj] * fms[:, None] + pos[pi] * (1.0 - fms)[:, None]
+    posms = pos_j * fms[..., None] + pos_i * (1.0 - fms)[..., None]
 
     if idx is None:
         mask = pvalid & (volmsw > FLT_MIN)
-        count = torch.sum(mask)
+        count = torch.sum(mask, dim=-1)
         idx = T._nonzero_padded(mask, cap_ms)
-    valid = torch.arange(cap_ms, device=pos.device) < count
+    valid = torch.arange(cap_ms, device=pos.device) < count[..., None]
     return dict(
-        pos=torch.where(valid[:, None], posms[idx], 0.0),
-        vol0=torch.where(valid, volmsw[idx], 0.0),
-        p1=torch.where(valid, pi[idx], 0).long(),
-        p2=torch.where(valid, pj[idx], 0).long(),
+        pos=torch.where(valid[..., None], _take(posms, idx, bt), 0.0),
+        vol0=torch.where(valid, _take(volmsw, idx, bt), 0.0),
+        p1=torch.where(valid, _take(pi, idx, bt), 0).long(),
+        p2=torch.where(valid, _take(pj, idx, bt), 0).long(),
         valid=valid, count=count, idx=idx)
 
 
@@ -131,13 +158,15 @@ def ms_subtraction_horizon(radii_vdw, radii_large, margin: float = 0.1):
 def ms_atom_neighbors(ms_pos, ms_valid, pos, heavy, rcut: float, k: int):
     """Per-MS-particle padded list of the heavy atoms within `rcut` (the
     subtraction horizon): [cap_ms, k] indices and validity, and the most
-    in range of one particle (> k means truncation: an overflow)."""
-    dist = pos[None, :, :] - ms_pos[:, None, :]
+    in range of one particle (> k means truncation: an overflow).  Replicas
+    (ms_pos [B, cap_ms, 3] against pos [B, N, 3]): each particle's list
+    within its own replica, [B, cap_ms, k], the most [B]."""
+    dist = pos[..., None, :, :] - ms_pos[..., :, None, :]
     d2 = torch.sum(dist * dist, dim=-1)
-    ok = heavy[None, :] & (d2 < rcut * rcut) & ms_valid[:, None]
-    order = torch.argsort((~ok).to(torch.int8), dim=1, stable=True)[:, :k]
-    nvalid = torch.gather(ok, 1, order)
-    return order, nvalid, torch.max(torch.sum(ok, dim=1))
+    ok = heavy & (d2 < rcut * rcut) & ms_valid[..., None]
+    order = torch.argsort((~ok).to(torch.int8), dim=-1, stable=True)[..., :k]
+    nvalid = torch.gather(ok, -1, order)
+    return order, nvalid, torch.amax(torch.sum(ok, dim=-1), dim=-1)
 
 
 def ms_free_volumes(ms, pos, radii, self_volume, ishydrogen, nbr=None):
@@ -146,30 +175,33 @@ def ms_free_volumes(ms, pos, radii, self_volume, ishydrogen, nbr=None):
     switch, the free volume the MS one.  nbr = (idx [cap_ms, k], valid)
     bounds the subtraction to the atoms inside the static horizon (exact:
     every excluded overlap is switched to 0); without it, the dense
-    [cap_ms, N] form."""
+    [cap_ms, N] form.  Replicas: ms's arrays [B, cap_ms, ...] against pos
+    [B, N, 3] and self_volume [B, N], each replica's particles against its
+    own atoms; radii and ishydrogen [N] are shared."""
     ams = KFC / (SOLVENT_RADIUS * SOLVENT_RADIUS)
+    bt = pos.dim() == 3
     if nbr is not None:
         idx, nvalid = nbr
-        dist = pos[idx] - ms["pos"][:, None, :]
+        dist = _take(pos, idx, bt) - ms["pos"][..., :, None, :]
         d2 = torch.sum(dist * dist, dim=-1)
         ai = KFC / (radii[idx] * radii[idx])
         df = ams * ai / (ams + ai)
-        gvol = (ms["vol0"][:, None] * self_volume[idx]
+        gvol = (ms["vol0"][..., None] * _take(self_volume, idx, bt)
                 / (PI / df) ** 1.5) * torch.exp(-df * d2)
-        sub_mask = (nvalid & (idx != ms["p1"][:, None])
-                    & (idx != ms["p2"][:, None]))
+        sub_mask = (nvalid & (idx != ms["p1"][..., None])
+                    & (idx != ms["p2"][..., None]))
     else:
         ai = KFC / (radii * radii)
-        dist = pos[None, :, :] - ms["pos"][:, None, :]
+        dist = pos[..., None, :, :] - ms["pos"][..., :, None, :]
         d2 = torch.sum(dist * dist, dim=-1)
-        df = ams * ai[None, :] / (ams + ai[None, :])
-        gvol = (ms["vol0"][:, None] * self_volume[None, :]
+        df = ams * ai / (ams + ai)
+        gvol = (ms["vol0"][..., None] * self_volume[..., None, :]
                 / (PI / df) ** 1.5) * torch.exp(-df * d2)
-        atom = torch.arange(pos.shape[0], device=pos.device)[None, :]
-        sub_mask = ((ishydrogen[None, :] == 0) & (atom != ms["p1"][:, None])
-                    & (atom != ms["p2"][:, None]))
+        atom = torch.arange(pos.shape[-2], device=pos.device)
+        sub_mask = ((ishydrogen == 0) & (atom != ms["p1"][..., None])
+                    & (atom != ms["p2"][..., None]))
     s, _ = pol_switchfunc(gvol)
-    fv = ms["vol0"] - torch.sum(torch.where(sub_mask, s * gvol, 0.0), dim=1)
+    fv = ms["vol0"] - torch.sum(torch.where(sub_mask, s * gvol, 0.0), dim=-1)
     return fv * _ms_switch(fv) * ms["valid"].to(fv.dtype)
 
 
@@ -180,36 +212,40 @@ def _atomic_level1(pos, lvl1_args):
 
 
 class _AtomicCavity(torch.autograd.Function):
-    """Both atomic cavity passes over a fixed topology: (E1, E2, self
+    """Both atomic cavity passes over a fixed topology of the replicas'
+    union (nrep replicas, pos [nrep N, 3]): (E1 [nrep], E2 [nrep], self
     volumes at the large radii, at the vdW radii).
 
-    Backward: d/dpos [g1 E1 + g2 E2 + w_l . sv_large + w_v . sv_vdw] is one
-    gamma rescan of each parameterization with gammas g1 gamma/roffset +
-    w_l and -g2 gamma/roffset + w_v (the reduction is linear in the
+    Backward: d/dpos [g1 . E1 + g2 . E2 + w_l . sv_large + w_v . sv_vdw]
+    is one gamma rescan of each parameterization with gammas g1[rep]
+    gamma/roffset + w_l and -g2[rep] gamma/roffset + w_v, each row scaled
+    by its own replica's cotangent (the reduction is linear in the
     per-atom gammas, and E(gamma = w) = w . sv: the identity behind the
     reference's gamma-rescan force passes, ReferenceAGBNPKernels.cpp:
     713-747).  Only positions get a gradient."""
 
     @staticmethod
-    def forward(ctx, pos, lvl1_args, topo):
+    def forward(ctx, pos, lvl1_args, topo, nrep):
         lvl1_l, lvl1_v = _atomic_level1(pos, lvl1_args)
         levels_l, levels_v = T.rescan_volumes2(topo, lvl1_l, lvl1_v)
         red_l, red_v = T.reduce_tree2(levels_l, levels_v, lvl1_l, lvl1_v,
                                       with_selfvol_b=True,
-                                      with_selfvol_a=True)
+                                      with_selfvol_a=True, nrep=nrep)
         ctx.rescanned = (levels_l, levels_v, lvl1_l, lvl1_v, lvl1_args[4])
-        return (red_l["energy"][0], red_v["energy"][0],
-                red_l["self_volume"], red_v["self_volume"])
+        return (red_l["energy"], red_v["energy"], red_l["self_volume"],
+                red_v["self_volume"])
 
     @staticmethod
     def backward(ctx, g1, g2, w_l, w_v):
         levels_l, levels_v, lvl1_l, lvl1_v, gdr = ctx.rescanned
-        gam_l = {**lvl1_l, "gamma1i": g1 * gdr + w_l}
-        gam_v = {**lvl1_v, "gamma1i": -g2 * gdr + w_v}
+        rows = gdr.shape[0] // g1.shape[0]
+        gam_l = {**lvl1_l, "gamma1i": g1.repeat_interleave(rows) * gdr + w_l}
+        gam_v = {**lvl1_v,
+                 "gamma1i": -g2.repeat_interleave(rows) * gdr + w_v}
         red_l, red_v = T.reduce_tree2(T.rescan_gammas(levels_l, gam_l),
                                       T.rescan_gammas(levels_v, gam_v),
                                       gam_l, gam_v, with_selfvol_b=False)
-        return red_l["dr"] + red_v["dr"], None, None
+        return red_l["dr"] + red_v["dr"], None, None, None
 
 
 def _ms_level1(ms_pos, fv_vdw, fv_large, gamma_ms, ish_ms):
@@ -219,29 +255,33 @@ def _ms_level1(ms_pos, fv_vdw, fv_large, gamma_ms, ish_ms):
 
 
 class _MSCavity(torch.autograd.Function):
-    """Both MS tree passes over a fixed topology: (E of the vdW free
-    volumes, E of the large free volumes, MS self volumes).
+    """Both MS tree passes over a fixed topology of the replicas' union of
+    MS particles (nrep replicas of cap_ms particles): (E of the vdW free
+    volumes [nrep], E of the large free volumes [nrep], MS self volumes).
 
-    Backward: the gamma rescans as in _AtomicCavity, for the MS positions,
-    and the cotangents of the free volumes through reduce_tree's dv
-    channel (V dE/dV, divided by the level-1 volume; a zero-volume padding
-    particle gets none).  gamma_ms, ish_ms and the topology get none."""
+    Backward: the gamma rescans as in _AtomicCavity, each row scaled by
+    its own replica's cotangent, for the MS positions, and the cotangents
+    of the free volumes through reduce_tree's dv channel (V dE/dV,
+    divided by the level-1 volume; a zero-volume padding particle gets
+    none).  gamma_ms, ish_ms and the topology get none."""
 
     @staticmethod
-    def forward(ctx, ms_pos, fv_vdw, fv_large, gamma_ms, ish_ms, topo):
+    def forward(ctx, ms_pos, fv_vdw, fv_large, gamma_ms, ish_ms, topo, nrep):
         lvl1_v, lvl1_l = _ms_level1(ms_pos, fv_vdw, fv_large, gamma_ms,
                                     ish_ms)
         levels_v, levels_l = T.rescan_volumes2(topo, lvl1_v, lvl1_l)
         red_l, red_v = T.reduce_tree2(levels_l, levels_v, lvl1_l, lvl1_v,
-                                      with_selfvol_b=True)
+                                      with_selfvol_b=True, nrep=nrep)
         ctx.rescanned = (levels_v, levels_l, lvl1_v, lvl1_l, gamma_ms)
-        return red_v["energy"][0], red_l["energy"][0], red_v["self_volume"]
+        return red_v["energy"], red_l["energy"], red_v["self_volume"]
 
     @staticmethod
     def backward(ctx, g2, g1, w):
         levels_v, levels_l, lvl1_v, lvl1_l, gamma_ms = ctx.rescanned
-        gam_v = {**lvl1_v, "gamma1i": g2 * gamma_ms + w}
-        gam_l = {**lvl1_l, "gamma1i": -g1 * gamma_ms}
+        rows = gamma_ms.shape[0] // g2.shape[0]
+        gam_v = {**lvl1_v,
+                 "gamma1i": g2.repeat_interleave(rows) * gamma_ms + w}
+        gam_l = {**lvl1_l, "gamma1i": -g1.repeat_interleave(rows) * gamma_ms}
         red_v = T.reduce_tree(T.rescan_gammas(levels_v, gam_v), gam_v,
                               with_selfvol=False, with_dv=True)
         red_l = T.reduce_tree(T.rescan_gammas(levels_l, gam_l), gam_l,
@@ -254,7 +294,7 @@ class _MSCavity(torch.autograd.Function):
                                0.0)
 
         return (red_v["dr"] + red_l["dr"], dvol(red_v, lvl1_v),
-                dvol(red_l, lvl1_l), None, None, None)
+                dvol(red_l, lvl1_l), None, None, None, None)
 
 
 class PairCavity(torch.autograd.Function):
@@ -263,10 +303,13 @@ class PairCavity(torch.autograd.Function):
     apply(pos, s_factor, phases) -> (gb_self + gb_pair + e_vdw, born_radius,
     gb_self, gb_pair, e_vdw); phases(pos, s_factor) is
     agbnp_torch._pair_phases_kernel (the CUDA kernels #1-#3 on a GPU, their
-    twins on the CPU) or _pair_phases_plain.  The phases already give the
-    reverse quantities: pair_force = -dE/dpos at fixed volume scaling
-    factors, and W + U = dE/d(s_factor).  Only the energy carries a
-    gradient; the other outputs are for reporting."""
+    twins on the CPU) or plain_pair_phases.  pos [N, 3] and s_factor [N],
+    or replicas [B, N, 3] and [B, N] (the kernels' replica axis, one launch
+    for the batch; energies [B]).  The phases already give the reverse
+    quantities: pair_force = -dE/dpos at fixed volume scaling factors, and
+    W + U = dE/d(s_factor).  Only the energy carries a gradient, each
+    replica's cotangent scaling its own rows; the other outputs are for
+    reporting."""
 
     @staticmethod
     def forward(ctx, pos, s_factor, phases):
@@ -281,62 +324,53 @@ class PairCavity(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_e, *_):
         pair_force, wu = ctx.saved_tensors
-        return -g_e * pair_force, g_e * wu, None
+        return -g_e[..., None, None] * pair_force, g_e[..., None] * wu, None
 
 
-def agbnp2_energy(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
+def _agbnp2_batch(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
                   roffset: float, ms_pi, ms_pj, ms_pv, cap_ms: int,
                   ms_kmax: int, common_gamma: float, pair_phases,
                   topology=None, with_topology: bool = False,
                   build_only: bool = False, ms_sub_k: int = 0,
                   ms_sub_rcut: float = 0.0):
-    """Total AGBNP2 energy as a function of pos (autograd gives forces).
-
-    a: arrays_from_numpy dict; pair_phases(a, pos, s_factor) -> the pair
-    phases' dict (_pair_phases_kernel or _pair_phases_plain).  topology
-    (from an earlier with_topology=True call at nearby positions) replaces
-    both tree builds with fixed-topology rescans and reuses the frozen MS
-    compaction and subtraction lists: the stale-topology MD window (volumes
-    exact at the current positions, node sets from the build).  ms_pi/
-    ms_pj/ms_pv must then be the candidate pairs the topology was built
-    from.
-
-    Returns (energy, (diag, ms_diag), details), plus the topology with
-    with_topology=True.  build_only=True returns ((diag, ms_diag),
-    topology) as soon as both topologies are built (no MS passes, no pair
-    phases): the window start of the MD loop."""
-    gamma_dr = a["gamma"] / roffset
+    """agbnp2_energy of B replicas pos [B, N, 3] with candidates [B, K]:
+    both trees over the replicas' disjoint unions (atom b N + i, MS
+    particle b cap_ms + k; ops/tree.py nrep), caps per replica."""
+    nb, n = pos.shape[:2]
     dev = pos.device
-    zeros7 = torch.zeros(7, dtype=torch.int64, device=dev)
-
-    def level_counts(topo):
-        return torch.stack([torch.sum(t["valid"]) for t in topo]).long()
+    au = union_arrays(a, nb, pairs=topology is None)
+    pos_u = pos.reshape(-1, 3)
+    gamma_dr = au["gamma"] / roffset
+    zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
+    zeros7 = torch.zeros((nb, 7), dtype=torch.int64, device=dev)
 
     if topology is None:
         with torch.no_grad():
-            lvl1 = T.make_level1(pos.detach(), a["radii_large"],
-                                 a["vol_large"], gamma_dr, a["ishydrogen"])
-            levels, diag = T.build_tree(lvl1, a["pairs_i"], a["pairs_j"],
-                                        caps, pairs_valid=a["pairs_valid"])
-            diag = {k: v[0] for k, v in diag.items()}  # one system
+            lvl1 = T.make_level1(pos_u.detach(), au["radii_large"],
+                                 au["vol_large"], gamma_dr, au["ishydrogen"])
+            levels, diag = T.build_tree(lvl1, au["pairs_i"], au["pairs_j"],
+                                        caps, pairs_valid=au["pairs_valid"],
+                                        nrep=nb)
             topo_atoms = T.tree_topology(levels)
     else:
         topo_atoms = topology["atoms"]
-        diag = dict(counts=level_counts(topo_atoms), max_siblings=zeros7)
-    lvl1_args = (a["radii_large"], a["vol_large"], a["radii_vdw"],
-                 a["vol_vdw"], gamma_dr, a["ishydrogen"])
-    e_vol1, e_vol2, sv_large, sv_vdw = _AtomicCavity.apply(pos, lvl1_args,
-                                                           topo_atoms)
+        diag = dict(counts=T.replica_counts(topo_atoms, nb, n),
+                    max_siblings=zeros7, **T.caps_rows(caps, nb, dev))
+    lvl1_args = (au["radii_large"], au["vol_large"], au["radii_vdw"],
+                 au["vol_vdw"], gamma_dr, au["ishydrogen"])
+    e_vol1, e_vol2, sv_large, sv_vdw = _AtomicCavity.apply(
+        pos_u, lvl1_args, topo_atoms, nb)
 
-    # MS particles and free volumes; with ms_sub_k > 0 the subtraction is
-    # bounded to the atoms inside the static horizon, the lists built here
-    # at a full build and frozen into the topology for the window
+    # MS particles and free volumes, each replica within its own atoms;
+    # with ms_sub_k > 0 the subtraction is bounded to the atoms inside the
+    # static horizon, the lists built here at a full build and frozen into
+    # the topology for the window
     ms = ms_particles(pos, a["radii_vdw"], ms_pi, ms_pj, ms_pv, cap_ms,
                       idx=None if topology is None else topology["ms_idx"],
                       count=None if topology is None
                       else topology["ms_count"])
     nbr = None
-    ms_sub_max = torch.zeros((), dtype=torch.int64, device=dev)
+    ms_sub_max = zeros
     if topology is not None:
         nbr = topology["ms_nbr"]
     elif ms_sub_k > 0:
@@ -345,49 +379,55 @@ def agbnp2_energy(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
                 ms["pos"], ms["valid"], pos, a["ishydrogen"] == 0,
                 ms_sub_rcut, ms_sub_k)
         nbr = (idx_n, nvalid_n)
-    fv_large = ms_free_volumes(ms, pos, a["radii_large"], sv_large,
-                               a["ishydrogen"], nbr=nbr)
-    fv_vdw = ms_free_volumes(ms, pos, a["radii_vdw"], sv_vdw,
-                             a["ishydrogen"], nbr=nbr)
+    fv_large = ms_free_volumes(ms, pos, a["radii_large"],
+                               sv_large.reshape(nb, n), a["ishydrogen"],
+                               nbr=nbr).reshape(-1)
+    fv_vdw = ms_free_volumes(ms, pos, a["radii_vdw"], sv_vdw.reshape(nb, n),
+                             a["ishydrogen"], nbr=nbr).reshape(-1)
 
-    # the MS overlap tree: built (no gradient) or fixed, then both passes
-    gamma_ms = torch.full((cap_ms,), -common_gamma / roffset,
+    # the MS overlap tree over the union of the replicas' MS particles
+    # (padding particles, past each replica's count, have zero volume):
+    # built (no gradient) or fixed, then both passes
+    gamma_ms = torch.full((nb * cap_ms,), -common_gamma / roffset,
                           dtype=pos.dtype, device=dev)
-    ish_ms = 1 - ms["valid"].long()
+    ish_ms = 1 - ms["valid"].long().reshape(-1)
+    ms_pos = ms["pos"].reshape(-1, 3)
     if topology is None:
         with torch.no_grad():
-            ms_pos = ms["pos"].detach()
-            lvl1_ms = T.make_level1(ms_pos, torch.full_like(
+            lvl1_ms = T.make_level1(ms_pos.detach(), torch.full_like(
                 gamma_ms, SOLVENT_RADIUS), fv_vdw.detach(), gamma_ms, ish_ms)
             mpi, mpj, mpv, m_nbmax = half_neighbor_pairs(
-                ms_pos, ms["valid"], tree_pair_cutoff([SOLVENT_RADIUS]),
-                ms_kmax)
+                ms["pos"].detach(), ms["valid"],
+                tree_pair_cutoff([SOLVENT_RADIUS]), ms_kmax)
             mlevels, mdiag = T.build_tree(lvl1_ms, mpi, mpj, caps_ms,
-                                          pairs_valid=mpv)
-            mdiag = {k: v[0] for k, v in mdiag.items()}
+                                          pairs_valid=mpv, nrep=nb)
             topo_ms = T.tree_topology(mlevels)
         # MS-capacity overflow channels ride the diagnostics for the MD
         # PanicButton: the particle count against cap_ms, the MS-tree
-        # neighbor list, the subtraction lists
+        # neighbor list, the subtraction lists (each [B])
         mdiag = {**mdiag, "ms_count": ms["count"], "ms_nbmax": m_nbmax,
                  "ms_sub_max": ms_sub_max}
     else:
         topo_ms = topology["ms"]
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        mdiag = dict(counts=level_counts(topo_ms), max_siblings=zeros7,
-                     ms_count=ms["count"], ms_nbmax=zero, ms_sub_max=zero)
+        mdiag = dict(counts=T.replica_counts(topo_ms, nb, cap_ms),
+                     max_siblings=zeros7, **T.caps_rows(caps_ms, nb, dev),
+                     ms_count=ms["count"], ms_nbmax=zeros, ms_sub_max=zeros)
     topo = dict(atoms=topo_atoms, ms=topo_ms, ms_idx=ms["idx"],
                 ms_count=ms["count"], ms_nbr=nbr)
     if build_only:
         return (diag, mdiag), topo
     e_ms_vdw, e_ms_large, sv_ms = _MSCavity.apply(
-        ms["pos"], fv_vdw, fv_large, gamma_ms, ish_ms.to(pos.dtype), topo_ms)
+        ms_pos, fv_vdw, fv_large, gamma_ms, ish_ms.to(pos.dtype), topo_ms, nb)
 
-    # MS self volumes go half to each parent atom (deterministic sums)
-    n = pos.shape[0]
-    svadd = (0.5 * T.segment_sum(sv_ms[:, None], ms["p1"], n)[:, 0]
-             + 0.5 * T.segment_sum(sv_ms[:, None], ms["p2"], n)[:, 0])
-    self_volume = sv_vdw + svadd
+    # MS self volumes go half to each parent atom of the union (sorted
+    # segment sums: deterministic)
+    off = n * torch.arange(nb, device=dev)[:, None]
+    svadd = (0.5 * T.segment_sum(sv_ms[:, None], (ms["p1"] + off).reshape(-1),
+                                 nb * n)[:, 0]
+             + 0.5 * T.segment_sum(sv_ms[:, None],
+                                   (ms["p2"] + off).reshape(-1),
+                                   nb * n)[:, 0])
+    self_volume = (sv_vdw + svadd).reshape(nb, n)
     s_factor = self_volume / a["vol_vdw_all"]
     e_pair, br, gb_self, gb_pair, e_vdw = PairCavity.apply(
         pos, s_factor, functools.partial(pair_phases, a))
@@ -402,15 +442,104 @@ def agbnp2_energy(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
     return energy, (diag, mdiag), details
 
 
+def agbnp2_energy(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
+                  roffset: float, ms_pi, ms_pj, ms_pv, cap_ms: int,
+                  ms_kmax: int, common_gamma: float, pair_phases,
+                  topology=None, with_topology: bool = False,
+                  build_only: bool = False, ms_sub_k: int = 0,
+                  ms_sub_rcut: float = 0.0):
+    """Total AGBNP2 energy as a function of pos (autograd gives forces).
+
+    a: arrays_from_numpy dict; pair_phases(a, pos, s_factor) -> the pair
+    phases' dict (pair_phases_fn's).  pos [N, 3] with MS candidate pairs
+    ms_pi/ms_pj/ms_pv [K] is one system; replicas pos [B, N, 3] take [B, K]
+    candidates in each replica's own atom ids and evaluate as one batch
+    (both overlap trees over the replicas' unions, the pair kernels'
+    replica axis): the energy [B] and every leaf of the diagnostics and
+    details with a leading [B].  One system is a batch of one, the axis
+    dropped.  topology (from an earlier with_topology=True call at nearby
+    positions, of as many replicas) replaces both tree builds with
+    fixed-topology rescans and reuses the frozen MS compaction and
+    subtraction lists: the stale-topology MD window (volumes exact at the
+    current positions, node sets from the build).  The candidates must
+    then be the ones the topology was built from.
+
+    Returns (energy, (diag, ms_diag), details), plus the topology with
+    with_topology=True.  build_only=True returns ((diag, ms_diag),
+    topology) as soon as both topologies are built (no MS passes, no pair
+    phases): the window start of the MD loop."""
+    kw = dict(caps=caps, caps_ms=caps_ms, roffset=roffset, cap_ms=cap_ms,
+              ms_kmax=ms_kmax, common_gamma=common_gamma,
+              pair_phases=pair_phases, topology=topology,
+              with_topology=with_topology, build_only=build_only,
+              ms_sub_k=ms_sub_k, ms_sub_rcut=ms_sub_rcut)
+    if pos.dim() == 3:
+        return _agbnp2_batch(a, pos, ms_pi=ms_pi, ms_pj=ms_pj, ms_pv=ms_pv,
+                             **kw)
+    out = _agbnp2_batch(a, pos[None], ms_pi=ms_pi[None], ms_pj=ms_pj[None],
+                        ms_pv=ms_pv[None], **kw)
+
+    def row0(d):
+        return {k: v[0] for k, v in d.items()}
+
+    if build_only:
+        (diag, mdiag), topo = out
+        return (row0(diag), row0(mdiag)), topo
+    energy, (diag, mdiag), details = out[:3]
+    return (energy[0], (row0(diag), row0(mdiag)), row0(details)) + out[3:]
+
+
+def plain_pair_phases(a, pos, s_factor, cutoff, ntypes_j: int):
+    """The plain ops/born.py phases (no box, the 2 nm horizon) of pos
+    [N, 3], or of each replica of pos [B, N, 3] in turn (the plain phases
+    have no replica axis)."""
+    kw = dict(a=a, cutoff=cutoff, box=None, ntypes_j=ntypes_j)
+    if pos.dim() == 2:
+        return _pair_phases_plain(pos=pos, s_factor=s_factor, **kw)
+    return PK.per_replica(_pair_phases_plain, pos.shape[0],
+                          dict(pos=pos, s_factor=s_factor), **kw)
+
+
 def pair_phases_fn(pair_kernel: bool, cutoff, pair_pad: int, ntypes_j: int):
     """pair_phases(a, pos, s_factor) for agbnp2_energy: the dense kernel
     route (pair_pad > 0, no box, no fused MM, the 2 nm horizon, as JAX's
-    v2 runs its Pallas phases) or the plain ops/born.py phases."""
+    v2 runs its Pallas phases; replicas through the kernels' replica axis)
+    or the plain ops/born.py phases."""
     if pair_kernel:
         return functools.partial(_pair_phases_kernel, cutoff=cutoff,
                                  box=None, pair_pad=pair_pad)
-    return functools.partial(_pair_phases_plain, cutoff=cutoff, box=None,
+    return functools.partial(plain_pair_phases, cutoff=cutoff,
                              ntypes_j=ntypes_j)
+
+
+def ms_candidate_pairs(pos, heavy, rcut: float, kmax: int):
+    """MS candidate pairs found on the device (JAX's scorer and per-step
+    force, api/scoring.py:150-152): the heavy pairs i < j within rcut as a
+    padded half list of width kmax (i-major, ascending j: the order of
+    ms_candidates' host pairs).  pos [N, 3] gives flat [N kmax] pairs;
+    replicas pos [B, N, 3] give [B, N kmax] in each replica's own atom
+    ids.  Returns (pi, pj, pvalid, the most candidates of one atom: [B]
+    for replicas; > kmax means truncation)."""
+    pi, pj, pv, nbmax = half_neighbor_pairs(pos, heavy, rcut, kmax)
+    if pos.dim() == 3:
+        nb, n = pos.shape[:2]
+        off = n * torch.arange(nb, device=pos.device)[:, None]
+        pi = pi.reshape(nb, -1) - off
+        pj = pj.reshape(nb, -1) - off
+        pv = pv.reshape(nb, -1)
+    return pi, pj, pv, nbmax
+
+
+def v2_counts(diags, cand_nb):
+    """AGBNP2's 18-entry overflow vector ([B, 18] for replicas): the atomic
+    tree's level counts [7], the MS tree's [7], then the MS particle count,
+    the MS tree's neighbor maximum, the MS candidate list's maximum and the
+    MS subtraction lists' maximum (JAX md/simulation.py's countsvec)."""
+    d0, d1 = diags
+    return torch.cat([d0["counts"].long(), d1["counts"].long(),
+                      torch.stack([d1["ms_count"], d1["ms_nbmax"], cand_nb,
+                                   d1["ms_sub_max"]], dim=-1).long()],
+                     dim=-1)
 
 
 def ms_candidates(pos, params: AGBNPParams):
@@ -533,12 +662,14 @@ class AGBNP2Model:
 
     def check_and_grow(self, diags) -> bool:
         """PanicButton over one evaluation's diagnostics (agbnp2_energy's
-        (diag, ms_diag), from tree builds): double each overflowed level
-        or sibling window of either tree, and grow cap_ms, the MS tree's
-        neighbor width and the MS subtraction width past the counts seen,
-        as the Simulation's regrow does.  Returns True if a re-evaluation
-        is needed."""
+        (diag, ms_diag), from tree builds; a batch's are reduced to its
+        worst replica): double each overflowed level or sibling window of
+        either tree, and grow cap_ms, the MS tree's neighbor width and the
+        MS subtraction width past the counts seen, as the Simulation's
+        regrow does.  Returns True if a re-evaluation is needed."""
         d0, d1 = diags
+        if torch.as_tensor(d0["counts"]).dim() == 2:
+            d0, d1 = batched_diag_max(d0), batched_diag_max(d1)
         over = False
         for name, d in (("caps", d0), ("caps_ms", d1)):
             ov = T.check_overflow(d)
@@ -568,19 +699,41 @@ class AGBNP2Model:
                     pair_phases=self.pair_phases, ms_sub_k=self.ms_sub_k,
                     ms_sub_rcut=self.ms_sub_rcut)
 
-    def energy_forces(self, pos, with_details: bool = False):
-        """(energy, force[, out]): force = -d(energy)/d(pos) by autograd;
-        out = dict(energy, force, diags, details)."""
+    def batched_energy_forces(self, pos, ms_pairs=None) -> dict:
+        """Energy and autograd forces of B conformations pos [B, N, 3] in
+        one batched evaluation (JAX's vmapped agbnp2_energy): dict(energy
+        [B], force [B, N, 3], diags ((diag, ms_diag), every leaf [B, ...]),
+        details (each [B, ...])).  ms_pairs: each replica's MS candidate
+        pairs (pi, pj, pvalid) [B, K] (ms_candidate_pairs builds them on
+        the device); None gives every replica the model's own
+        (set_positions')."""
         x = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        if x.dim() != 3:
+            raise ValueError(f"positions [B, N, 3], got {tuple(x.shape)}")
+        if ms_pairs is None:
+            ms_pairs = tuple(t[None].expand(x.shape[0], -1) for t in
+                             (self.ms_pi, self.ms_pj, self.ms_pv))
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
             e, diags, details = agbnp2_energy(
-                self.arrays, x, ms_pi=self.ms_pi, ms_pj=self.ms_pj,
-                ms_pv=self.ms_pv, **self.energy_kwargs())
-            (grad,) = torch.autograd.grad(e, x)
-        energy, force = e.detach(), -grad
+                self.arrays, x, ms_pi=ms_pairs[0], ms_pj=ms_pairs[1],
+                ms_pv=ms_pairs[2], **self.energy_kwargs())
+            (grad,) = torch.autograd.grad(e.sum(), x)
+        return dict(energy=e.detach(), force=-grad, diags=diags,
+                    details={k: v.detach() for k, v in details.items()})
+
+    def energy_forces(self, pos, with_details: bool = False):
+        """(energy, force[, out]) of one system pos [N, 3], on the model's
+        own MS candidates: row 0 of batched_energy_forces of a batch of
+        one.  force = -d(energy)/d(pos) by autograd; out = dict(energy,
+        force, diags, details), the replica axis dropped."""
+        x = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        out = self.batched_energy_forces(x[None])
+        energy, force = out["energy"][0], out["force"][0]
         if with_details:
             return energy, force, dict(
-                energy=energy, force=force, diags=diags,
-                details={k: v.detach() for k, v in details.items()})
+                energy=energy, force=force,
+                diags=tuple({k: v[0] for k, v in d.items()}
+                            for d in out["diags"]),
+                details={k: v[0] for k, v in out["details"].items()})
         return energy, force

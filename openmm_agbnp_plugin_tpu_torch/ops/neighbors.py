@@ -188,6 +188,11 @@ def cell_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int,
     return pi.reshape(-1), pj.reshape(-1), valid.reshape(-1), max_neighbors
 
 
+# elements of the largest [B, rows, N] temporary of a row block of
+# half_neighbor_pairs (its distance block holds three times as many)
+HALF_LIST_BLOCK = 1 << 26
+
+
 def half_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int):
     """Fixed-width half neighbor list as flat i-major candidate pairs.
 
@@ -195,25 +200,38 @@ def half_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int):
     pos.device.  Invalid slots have pairs_j == pairs_i (masked out
     downstream).  max_neighbors > kmax signals overflow.  Positions [B, N,
     3]: each replica's list within its own atoms, ids offset by b N,
-    max_neighbors [B].
+    max_neighbors [B]; heavy_mask [N] or, per replica, [B, N].
+
+    The list is built in blocks of as many rows as keep B x rows x N
+    within HALF_LIST_BLOCK, so the temporaries stay bounded; a row's sort
+    sees only its own row, so the result is bitwise the one-block list's.
     """
     pos, nb, batched = _batch(pos)
     n = pos.shape[1]
-    dist = pos[:, None, :, :] - pos[:, :, None, :]
-    d2 = torch.sum(dist * dist, dim=-1)
-    jj = torch.arange(n, device=pos.device)
-    pair_ok = ((jj[None, :] > jj[:, None])
-               & (d2 < rcut * rcut)
-               & heavy_mask[:, None] & heavy_mask[None, :])
-    # ascending-j order with invalid slots pushed to the end: the key IS the
-    # neighbor index, so a value sort yields pj directly
-    key = torch.where(pair_ok, jj[None, :], n)
-    pj = torch.sort(key, dim=-1).values[..., :kmax]
+    dev = pos.device
+    heavy = heavy_mask if heavy_mask.dim() == 2 else heavy_mask[None]
+    block_rows = max(1, HALF_LIST_BLOCK // max(nb * n, 1))
+    jj = torch.arange(n, device=dev)
+    width = min(kmax, n)
+    pj = torch.empty((nb, n, width), dtype=torch.int64, device=dev)
+    counts = torch.empty((nb, n), dtype=torch.int64, device=dev)
+    for s in range(0, n, block_rows):
+        e = min(s + block_rows, n)
+        dist = pos[:, None, :, :] - pos[:, s:e, None, :]
+        d2 = torch.sum(dist * dist, dim=-1)
+        pair_ok = ((jj[None, :] > jj[s:e, None])
+                   & (d2 < rcut * rcut)
+                   & heavy[:, s:e, None] & heavy[:, None, :])
+        # ascending-j order with invalid slots pushed to the end: the key IS
+        # the neighbor index, so a value sort yields pj directly
+        key = torch.where(pair_ok, jj[None, :], n)
+        pj[:, s:e] = torch.sort(key, dim=-1).values[..., :kmax]
+        counts[:, s:e] = torch.sum(pair_ok, dim=-1)
     valid = pj < n
-    pi = jj[:, None].expand(n, pj.shape[-1])
+    pi = jj[:, None].expand(n, width)
     pj = torch.where(valid, pj, pi)
-    off = n * torch.arange(nb, device=pos.device)[:, None, None]
-    max_neighbors = torch.amax(torch.sum(pair_ok, dim=-1), dim=-1)
+    off = n * torch.arange(nb, device=dev)[:, None, None]
+    max_neighbors = torch.amax(counts, dim=-1)
     if not batched:
         max_neighbors = max_neighbors[0]
     return ((pi + off).reshape(-1), (pj + off).reshape(-1), valid.reshape(-1),

@@ -240,12 +240,16 @@ def _cand_dat(s_gv, s_ga, s_gc, s_gamma, a):
 
 
 def _nonzero_padded(mask, size: int):
-    """Indices of the True entries of a 1-D mask, in order, padded or cut to
-    `size` without a host sync (the tail past the True count is junk that
-    callers mask)."""
-    idx = torch.argsort((~mask).to(torch.int32), stable=True)[:size]
-    if idx.shape[0] < size:
-        idx = torch.cat([idx, idx.new_zeros(size - idx.shape[0])])
+    """Indices of the True entries of a mask along its last axis, in order,
+    padded or cut to `size` without a host sync (the tail past the True
+    count is junk that callers mask).  A mask [B, K] gives each row's
+    indices (the MS particles of each replica)."""
+    idx = torch.argsort((~mask).to(torch.int32), dim=-1,
+                        stable=True)[..., :size]
+    if idx.shape[-1] < size:
+        idx = torch.cat([idx, idx.new_zeros(idx.shape[:-1]
+                                            + (size - idx.shape[-1],))],
+                        dim=-1)
     return idx
 
 

@@ -20,8 +20,13 @@ spreads their forces, on [R, N, 3]) and the Langevin step applies
 sim.constraints (SHAKE/RATTLE per replica; the SHAKE residual [R] rides
 the window's diagnostics and is read with the overflow counts);
 neighbor_every <= 0 evaluates every step on the model's own candidate
-pairs (JAX ensemble.py:73-97).  Versions 0 and 1; version 2 waits for a
-batched AGBNP2 evaluation.  MTS is not in the JAX runners either.
+pairs (JAX ensemble.py:73-97).  Versions 0 and 1 on both paths; version 2
+on the per-step path only, through the batched AGBNP2 evaluation (each
+replica's MS candidates found on the device every step, the 18-entry
+counts [R, 18]): the JAX package's windowed runner fails on version 2 (its
+window hands the atomic tree's levels to a force function that unpacks an
+AGBNP2 topology, reference md/simulation.py:421-422), so the port's
+refuses it.  MTS is not in the JAX runners either.
 """
 
 from __future__ import annotations
@@ -35,12 +40,16 @@ from ..ops import tree as T
 
 
 def check_replica_sim(sim, what: str):
-    """Refuse the Simulation options a replica runner does not carry."""
+    """Refuse version 2 on a windowed replica path (rebuild windows,
+    T-REMD cycles): it runs on the per-step path only."""
     if sim.agbnp2 is not None:
         raise NotImplementedError(
-            f"{what}: version 2 needs a batched AGBNP2 evaluation (the MS "
-            "stage over the replicas' union), which the port does not have "
-            "yet; versions 0 and 1 run")
+            f"{what}: version 2 runs on the per-step path only, "
+            "ReplicaEnsemble.make_runner(neighbor_every=0) (one batched "
+            "AGBNP2 evaluation a step); the JAX package's windowed replica "
+            "runners and T-REMD fail on version 2 too (their window hands "
+            "the atomic tree to a force function that unpacks an AGBNP2 "
+            "topology); versions 0 and 1 run everywhere")
 
 
 def replica_generators(device, nrep: int, seed: int):
@@ -158,12 +167,11 @@ def worst_replica(diag):
 class ReplicaEnsemble:
     """R independent replicas of a Simulation, one batch on its device.
 
-    sim: a md.simulation.Simulation (version 0 or 1; its dtype, device,
-    cutoff, capacities, tile budgets, constraints and virtual sites apply
-    to every replica)."""
+    sim: a md.simulation.Simulation (its dtype, device, cutoff,
+    capacities, tile budgets, constraints and virtual sites apply to every
+    replica; version 2 on the per-step path only)."""
 
     def __init__(self, sim, n_replicas: int):
-        check_replica_sim(sim, "ReplicaEnsemble")
         if n_replicas < 1:
             raise ValueError("need at least one replica")
         self.sim = sim
@@ -207,7 +215,9 @@ class ReplicaEnsemble:
         model's own candidate pairs (run_steps; up to 2000 atoms, as
         Simulation.force_fn allows), no WU compaction; the diagnostics are
         the steps' maximum counts with zero neighbor, sibling and WU
-        entries, read by the caller (JAX's per-step replica_run)."""
+        entries, read by the caller (JAX's per-step replica_run).  Version
+        2 runs here only (its counts [R, 18]); neighbor_every > 0 raises
+        NotImplementedError for it (check_replica_sim)."""
         sim = self.sim
         ff = sim.ff_state()
         temps = torch.full((self.n_replicas,), float(temperature),
@@ -228,6 +238,8 @@ class ReplicaEnsemble:
 
             return run_per_step
 
+        check_replica_sim(sim, "ReplicaEnsemble.make_runner(neighbor_every "
+                          "> 0)")
         vdw_caps = sim._ensure_vdw_caps(vdw_relax) if vdw_compact else None
 
         def run(states, nsteps: int, noise=None):
@@ -252,7 +264,11 @@ class ReplicaEnsemble:
         """Timed run of nsteps after a warm-up run of as many, which the
         timed run continues.  Returns ns/day per replica and aggregate, ms
         per step, the energies [R, steps run], the final states and whether
-        any replica overflowed (its channels in overflow_report)."""
+        any replica overflowed (its channels in overflow_report).  Version
+        2 runs the per-step path whatever neighbor_every says (its only
+        replica path)."""
+        if self.sim.agbnp2 is not None:
+            neighbor_every = 0
         run = self.make_runner(dt, temperature, friction,
                                neighbor_every=neighbor_every)
         states, _ = run(self.initial_states(jitter=jitter), nsteps)

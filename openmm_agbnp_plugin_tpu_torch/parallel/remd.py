@@ -98,8 +98,9 @@ def pair_acceptance(accept):
 class TemperatureREMD:
     """T-REMD over AGBNP implicit-solvent replicas on one device.
 
-    sim: a md.simulation.Simulation (version 0 or 1; its version, cutoff,
-    constraints and virtual sites apply to every replica).  temperatures:
+    sim: a md.simulation.Simulation (version 0 or 1, as the JAX
+    package's T-REMD runs; its version, cutoff, constraints and virtual
+    sites apply to every replica; version 2 raises NotImplementedError).  temperatures:
     the rung ladder, one replica per rung; replica r starts at rung r."""
 
     def __init__(self, sim, temperatures):

@@ -1558,3 +1558,64 @@ def test_constrained_two_replica_window_on_the_card(cuda):
                       "descreening_tiles"):
                 assert counts[k] >= steps
     assert rel(first[str(cuda)], first["cpu"]) <= 1e-5
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+def test_batched_v2_on_card_against_each_pose(cuda, v2_systems, nb):
+    """The batched AGBNP2 evaluation on the card (f32, #1-#3 with the
+    replica axis, one launch each for the batch) of nb poses of the
+    264-atom fixture (0.005 nm, numpy seed), each pose's MS candidates
+    found on the device, against each pose's own B = 1 evaluation (its
+    host candidates) at the capacities the batch grew to: energy to 1e-6
+    relative, forces to 1e-5 of max|f|."""
+    from openmm_agbnp_plugin_tpu_torch.models.agbnp2_torch import (
+        AGBNP2Model, ms_candidate_pairs, ms_pair_cutoff, v2_counts)
+
+    params, pos = v2_systems["fixture264"]
+    m = AGBNP2Model(params, device=cuda, dtype=torch.float32, positions=pos)
+    poses = pos[None] + 0.005 * np.random.default_rng(23).standard_normal(
+        (nb,) + pos.shape)
+    heavy = torch.as_tensor(np.asarray(params.ishydrogen) == 0, device=cuda)
+    x = torch.as_tensor(poses, dtype=torch.float32, device=cuda)
+    pairs = ms_candidate_pairs(x, heavy, ms_pair_cutoff(m.params.radii_vdw),
+                               256)
+    for _ in range(8):  # JAX's MS-tree neighbor width 64 is short here
+        PK.reset_launch_counts()
+        out = m.batched_energy_forces(x, ms_pairs=pairs[:3])
+        if not m.check_and_grow(out["diags"]):
+            break
+    counts = PK.launch_counts()
+    for k in ("born_sums", "gb_pair", "descreening"):
+        assert counts[k] == 1, (k, counts)
+    c = v2_counts(out["diags"], pairs[3])
+    assert c.shape == (nb, 18) and int(c[:, 16].max()) <= 256
+    assert out["energy"].shape == (nb,) and out["force"].shape == x.shape
+    for b in range(nb):
+        m.set_positions(poses[b])
+        e, f = m.energy_forces(poses[b])
+        assert abs(float(out["energy"][b]) - float(e)) <= 1e-6 * abs(
+            float(e))
+        assert rel(out["force"][b], f) <= 1e-5
+
+
+def test_row_blocked_half_list_on_card(cuda, monkeypatch):
+    """half_neighbor_pairs on the card in blocks of 17 and 256 rows (its
+    HALF_LIST_BLOCK set to that many rows) bitwise the one-block list,
+    replicas with per-replica masks and one system with a shared mask."""
+    from openmm_agbnp_plugin_tpu_torch.ops import neighbors as NBM
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    pos = torch.as_tensor(rng.uniform(0.0, 3.0, (2, n, 3)),
+                          dtype=torch.float32, device=cuda)
+    heavy = torch.as_tensor(rng.random((2, n)) < 0.6, device=cuda)
+    for p, h in ((pos, heavy), (pos[0], heavy[0])):
+        nb = p.shape[0] if p.dim() == 3 else 1
+        monkeypatch.setattr(NBM, "HALF_LIST_BLOCK", n * nb * n)
+        want = NBM.half_neighbor_pairs(p, h, 0.6, 96)
+        assert int(want[3].max()) > 0
+        for rows in (17, 256):
+            monkeypatch.setattr(NBM, "HALF_LIST_BLOCK", rows * nb * n)
+            got = NBM.half_neighbor_pairs(p, h, 0.6, 96)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), rows
