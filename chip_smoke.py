@@ -171,6 +171,26 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      evaluation against the port's f64 pair_kernel=False route on the
      card (1e-5 / 1e-4).  Phase 14 also logs the peak memory of a
      version 2 window build (the MS tree's half list in row blocks).
+26. the native f64 engine (runtime/native.py, built with the host's
+     make/g++ into the package's _build/): AGBNP1 on the 264-atom fixture
+     against the goldens (-2476.66, E_cav 872.514, the displacement check
+     0.0874992 / 0.0886249), then 1li2 in f32 on the dense sweeps (#1-#3)
+     on the card against the native f64 result (1e-5 / 1e-5);
+ 27. the port's four examples through their main() on the card: test_agbnp
+     (AGBNP_TEST_* step counts: 20 FIRE, 200 Langevin, 100 Verlet),
+     rescore_conformers (64 poses, 5 reps), remd_trpcage (2 cycles of 40)
+     and multichip_md (20 steps over 2 ranks sharing the card): each
+     returns 0 and prints finite energies;
+ 28. sharding over torch.distributed on the card (parallel/sharding.py,
+     ranks started by run_ranks, gloo: the ranks share cuda:0): trp-cage
+     v1 f64 MD over a 2-rank atoms mesh, 12 steps in windows of 6, against
+     the unsharded runner on the card at the JAX test's tolerances (rtol
+     1e-12 / atol 1e-9 in energy, 1e-12 nm in positions), the ranks
+     bitwise equal, take_rows on the row blocks; ms/step of the plain
+     runner, a 1-rank and the 2-rank mesh over 60 more steps; then a
+     2-rank replica mesh: ReplicaEnsemble 4 x trp-cage (20 steps) and
+     ConformerScorer 8 poses against one process (bitwise or within
+     1e-5 / 1e-4 nm and 1e-6 / 1e-5).
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -179,7 +199,8 @@ name/power-limit line, and the one before that the per-kernel JSON record
 (times, bound and what sets it, library_ms null for the pair sweeps and
 measured for the row kernels, live pairs, launches on its path and per step
 of each MD phase [6]-[9], [14] and of the replica runs [15]-[17], in
-one batched score of [18] and on each of [19]-[22] and [23]-[25]; for the
+one batched score of [18] and on each of [19]-[22], [23]-[25] and
+[26]-[28]; for the
 Born and
 descreening sweeps also the kept
 32x32 sub-tile pairs or the chunk slots and the Q/dQ bytes written or read).
@@ -3120,6 +3141,374 @@ def phase_synthetic(dev, card):
     return counts
 
 
+NATIVE_GOLDEN = (-2476.66, 872.514, 0.0874992, 0.0886249)  # E, E_cav, dE, pred
+NATIVE_DE_TOL = 1e-6  # kJ/mol, the displacement check (tests/test_native.py)
+# [27]: the examples' sizes on the card (AGBNP_TEST_* as the JAX package's
+# tests/test_example.py sets them, the drift bar off: 0.05 ps of an
+# unequilibrated state says nothing of energy conservation)
+EXAMPLE_ENV = dict(AGBNP_TEST_LANGEVIN_STEPS="200",
+                   AGBNP_TEST_VERLET_STEPS="100",
+                   AGBNP_TEST_MINIMIZE_ITERS="20",
+                   AGBNP_TEST_DRIFT_TOL="1e9")
+EXAMPLE_POSES, EXAMPLE_REPS = 64, 5       # rescore_conformers' defaults
+EXAMPLE_REMD = (2, 40)                    # remd_trpcage: cycles, steps
+EXAMPLE_MD_STEPS, EXAMPLE_RANKS = 20, 2   # multichip_md on one card
+# [28]: trp-cage v1 f64 atoms-mesh MD (JAX test_parallel.py:144-164: 12
+# steps in windows of 6, seed 7, rtol 1e-12 / atol 1e-9 on the energies,
+# atol 1e-12 nm on the positions), then SHARD_TIMED steps timed
+SHARD_RANKS, SHARD_STEPS, SHARD_EVERY, SHARD_SEED = 2, 12, 6, 7
+SHARD_TIMED = 60
+SHARD_E_RTOL, SHARD_E_ATOL, SHARD_POS_ATOL = 1e-12, 1e-9, 1e-12
+# the replica mesh: 4 x trp-cage f32 on the dense sweeps, 20 steps in
+# windows of 10; 8 poses scored
+REP_MESH_REPLICAS, REP_MESH_STEPS, REP_MESH_EVERY = 4, 20, 10
+REP_MESH_POSES = 8
+REP_MESH_POS_TOL = 1e-4   # nm, were the blocks not bitwise one batch
+
+
+def launches_of(counts, kernels=("born_sums", "gb_pair", "descreening",
+                                 "take_rows")):
+    return {k: counts.get(k, 0) for k in kernels}
+
+
+def check_launched(counts, kernels, label):
+    """Each of kernels launched at least once."""
+    for k in kernels:
+        if counts.get(k, 0) < 1:
+            raise AssertionError(f"{label}: {k} not launched")
+
+
+def phase_native(dev, card):
+    """Phase 26: the native f64 engine (runtime/native.py) built with the
+    host's make/g++ into the package's _build/: f64 AGBNP1 on the 264-atom
+    fixture against the goldens (-2476.66, E_cav 872.514, the displacement
+    check 0.0874992 / 0.0886249), then the port's f32 1li2 on the dense
+    sweeps (#1-#3, pair_tiles=False) on the card against the native f64
+    result (energy and forces within PARITY_TOL).  Returns the launches of
+    that evaluation."""
+    import numpy as np
+
+    from openmm_agbnp_plugin_tpu_torch import AGBNPParams, load_gaussvol_dat
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("[26] the native engine did not build")
+    build_s = time.perf_counter() - t0
+    pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(
+        os.path.join(HERE, "tests", "fixtures", "gaussvol.dat"))
+    p = AGBNPParams(radius=radius, gamma=gamma, alpha=alpha, charge=charge,
+                    ishydrogen=ish)
+    nat = native.NativeAGBNP1(p)
+    out = nat.energy_forces(pos)
+    pos2 = np.array(pos)
+    pos2[121, 1] += 0.002
+    de = nat.energy_forces(pos2)["energy"] - out["energy"]
+    pred = out["force"][121][1] * -0.002
+    log(f"[26] native engine built/loaded in {build_s:.2f} s "
+        f"({native.library_path().parent.name}): fixture E "
+        f"{out['energy']:.6f}, E_cav {out['e_cav']:.6f}, displacement dE "
+        f"{de:.7f}, gradient prediction {pred:.7f}")
+    e_gold, cav_gold, de_gold, pred_gold = NATIVE_GOLDEN
+    if not (abs(out["energy"] - e_gold) <= GOLDEN_TOL
+            and abs(out["e_cav"] - cav_gold) <= 1e-3
+            and abs(de - de_gold) <= NATIVE_DE_TOL
+            and abs(pred - pred_gold) <= NATIVE_DE_TOL):
+        raise AssertionError("[26] native goldens")
+
+    d, p1 = system("1li2")
+    t0 = time.perf_counter()
+    ref = native.NativeAGBNP1(p1).energy_forces(d.positions)
+    native_s = time.perf_counter() - t0
+    m, e, f = sized_model(dev, p1, d.positions, pair_tiles=False)
+    PK.reset_launch_counts()
+    e, f = m.energy_forces(d.positions)
+    counts = PK.launch_counts()
+    e_rel = abs(float(e) - ref["energy"]) / abs(ref["energy"])
+    fn = f.double().cpu().numpy()
+    f_rel = float(np.abs(fn - ref["force"]).max()
+                  / np.abs(ref["force"]).max())
+    log(f"[26] 1li2 f32 dense sweeps on the card vs the native f64 engine "
+        f"({native_s:.2f} s on the host): E {float(e):.4f} / "
+        f"{ref['energy']:.4f}, energy rel {e_rel:.3e}, force max-err/max|f| "
+        f"{f_rel:.3e}; launches {launches_of(counts)} on {card}")
+    if not (e_rel <= PARITY_TOL and f_rel <= PARITY_TOL):
+        raise AssertionError("[26] 1li2 f32 vs native f64")
+    check_launched(counts, ("born_sums", "gb_pair", "descreening",
+                            "take_rows"), "[26]")
+    return counts
+
+
+def finite_energies(text, label):
+    import re
+
+    # "<x> kJ/mol" and multichip_md's "E[0]=<x> E[-1]=<x> kJ/mol"
+    found = [float(a or b) for a, b in re.findall(
+        r"(-?\d+\.\d+) kJ/mol|E\[-?\d\]=(-?\d+\.\d+)", text)]
+    if not found or not all(math.isfinite(x) and abs(x) < 1e7
+                            for x in found):
+        raise AssertionError(f"{label}: energies {found}")
+    return found
+
+
+def phase_examples(dev, card):
+    """Phase 27: the port's four examples on the card through their main()
+    (the scripts' code path, f32): test_agbnp at EXAMPLE_ENV's step counts,
+    rescore_conformers (64 poses, 5 reps), remd_trpcage (2 cycles of 40)
+    and multichip_md (20 steps over 2 ranks sharing the card, gloo); each
+    returns 0 and prints finite energies.  Returns the launches of the
+    first three (the ranks' are counted in [28])."""
+    import contextlib
+    import io
+
+    from openmm_agbnp_plugin_tpu_torch.examples import multichip_md, \
+        remd_trpcage, rescore_conformers, test_agbnp
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    saved = {k: os.environ.get(k) for k in EXAMPLE_ENV}
+    os.environ.update(EXAMPLE_ENV)
+    where = str(dev)
+    runs = (("test_agbnp", lambda: test_agbnp.main("trpcage_agbnp1",
+                                                   where)),
+            ("rescore_conformers",
+             lambda: rescore_conformers.main(EXAMPLE_POSES, EXAMPLE_REPS,
+                                             where)),
+            ("remd_trpcage", lambda: remd_trpcage.main(*EXAMPLE_REMD,
+                                                       device=where)),
+            ("multichip_md", lambda: multichip_md.main(
+                EXAMPLE_MD_STEPS, EXAMPLE_RANKS, where)))
+    total = {}
+    try:
+        for name, run in runs:
+            PK.reset_launch_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = run()
+            secs = time.perf_counter() - t0
+            counts = PK.launch_counts()
+            for line in buf.getvalue().splitlines():
+                log(f"[27] {name}: {line}")
+            found = finite_energies(buf.getvalue(), f"[27] {name}")
+            log(f"[27] {name}: rc {rc} in {secs:.1f} s on {card}, "
+                f"{len(found)} finite energies, launches "
+                f"{pair_launches(counts)}, take_rows {counts['take_rows']}")
+            if rc != 0:
+                raise AssertionError(f"[27] {name} returned {rc}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return total
+
+
+def trpcage_sim(dev, dtype, **kw):
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import Simulation
+
+    d, _ = system("trpcage")
+    return Simulation(d, device=torch.device(dev), version=1, dtype=dtype,
+                      **kw)
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed_run(run, pos, vel, steps, gen):
+    """ms/step of `steps` more steps continuing (pos, vel) (host clock
+    around a synchronised run)."""
+    sync(pos.device)
+    t0 = time.perf_counter()
+    run(pos, vel, steps, generator=gen)
+    sync(pos.device)
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def atoms_md(mesh, dev):
+    """trp-cage v1 f64 (the dense ops/born.py route; the mesh path's pair
+    phases are plain torch too): SHARD_STEPS steps in windows of
+    SHARD_EVERY from generator seed SHARD_SEED, then SHARD_TIMED timed
+    steps continuing them.  mesh None: the plain runner."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    sim = trpcage_sim(dev, torch.float64, pair_kernel=False)
+    run = sim.make_langevin_runner(dt=0.001, neighbor_every=SHARD_EVERY,
+                                   mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(SHARD_SEED)
+    PK.reset_launch_counts()
+    pos, vel, energies, diag = run(sim.positions, sim.velocities,
+                                   SHARD_STEPS, generator=gen)
+    sync(dev)
+    counts = PK.launch_counts()
+    return dict(pos=pos, vel=vel, energies=energies,
+                overflow=sim._check_overflow(*diag), counts=counts,
+                ms=timed_run(run, pos, vel, SHARD_TIMED, gen))
+
+
+def rank_atoms_md():
+    from openmm_agbnp_plugin_tpu_torch.parallel.sharding import atom_mesh
+
+    mesh = atom_mesh()
+    return atoms_md(mesh, mesh.device)
+
+
+def replica_work(mesh, dev):
+    """4 x trp-cage f32 ReplicaEnsemble on the dense sweeps and an 8-pose
+    ConformerScorer (NoCutoff: the dense grid) over the replica mesh (or
+    mesh None: one process); every output whole, and the launches."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import AGBNPForce, ConformerScorer, \
+        ReplicaEnsemble
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    sim = trpcage_sim(dev, torch.float32, pair_tiles=False)
+    ens = ReplicaEnsemble(sim, REP_MESH_REPLICAS, mesh=mesh)
+    PK.reset_launch_counts()
+    states, (energies, *diag) = ens.make_runner(
+        neighbor_every=REP_MESH_EVERY)(ens.initial_states(jitter=1e-3),
+                                       REP_MESH_STEPS)
+    d, p = system("trpcage")
+    force = AGBNPForce()
+    force.setVersion(1)
+    for i in range(p.n):
+        force.addParticle(p.radius[i], p.gamma[i], p.alpha[i], p.charge[i],
+                          bool(p.ishydrogen[i]))
+    poses = jittered(d.positions, REP_MESH_POSES, 28)
+    scorer = ConformerScorer(force, d.positions, device=dev, mesh=mesh)
+    score = scorer.score(poses, forces=True)
+    sync(dev)
+    pos = states[0] if mesh is None else mesh.gather(states[0])
+    return dict(energies=energies, pos=pos, counts_max=diag[0],
+                overflow=sim._check_overflow(
+                    *(None if x is None else torch.amax(x, dim=0)
+                      for x in diag)),
+                score_e=score["energy"], score_f=score["force"],
+                launches=PK.launch_counts(),
+                finite=bool(np.isfinite(energies.cpu().numpy()).all()))
+
+
+def rank_replica_work():
+    from openmm_agbnp_plugin_tpu_torch.parallel.sharding import replica_mesh
+
+    mesh = replica_mesh()
+    return replica_work(mesh, mesh.device)
+
+
+def phase_sharding(dev, card):
+    """Phase 28: sharding over torch.distributed on the card.  The atoms
+    mesh: trp-cage v1 f64 MD over 2 gloo ranks sharing cuda:0 (12 steps in
+    windows of 6) against the unsharded runner on the card at the JAX
+    test's tolerances, the ranks bitwise equal, the tree's take_rows on
+    each row block; then the ms/step of 1 rank, 2 ranks and the plain
+    runner over SHARD_TIMED more steps (the decomposition's cost on one
+    card, not a scale-out).  The replica mesh: ReplicaEnsemble 4 x trp-cage
+    and ConformerScorer 8 poses over 2 ranks against one process, replica
+    by replica.  Returns the launches in the ranks."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.parallel.sharding import \
+        choose_backend, run_ranks
+
+    backend = choose_backend(SHARD_RANKS, dev.type)
+    plain = atoms_md(None, dev)
+    t0 = time.perf_counter()
+    ranks = run_ranks(rank_atoms_md, SHARD_RANKS, device=dev.type)
+    wall = time.perf_counter() - t0
+    one = run_ranks(rank_atoms_md, 1, device=dev.type)[0]
+    e_p = plain["energies"].cpu().numpy()
+    pos_p = plain["pos"].cpu().numpy()
+    r0 = ranks[0]
+    same = all(np.array_equal(r[k], r0[k]) for r in ranks[1:]
+               for k in ("pos", "vel", "energies"))
+    e_err = float(np.max(np.abs(r0["energies"] - e_p)
+                         - SHARD_E_RTOL * np.abs(e_p)))
+    pos_err = float(np.max(np.abs(r0["pos"] - pos_p)))
+    e1_same = np.array_equal(one["energies"], r0["energies"])
+    log(f"[28] atoms mesh: {SHARD_RANKS} ranks on {dev} ({backend}), "
+        f"trp-cage v1 f64, {SHARD_STEPS} steps in windows of {SHARD_EVERY}:"
+        f" vs the unsharded runner on the card max|dE| - rtol|E| "
+        f"{e_err:.3e} (atol {SHARD_E_ATOL}), max|dx| {pos_err:.3e} nm "
+        f"(atol {SHARD_POS_ATOL}); ranks bitwise equal: {same}; 1-rank "
+        f"mesh energies bitwise the 2-rank: {e1_same}; launches in rank 0 "
+        f"{launches_of(r0['counts'])}; {wall:.1f} s for the 2-rank call")
+    log(f"[28] ms/step over {SHARD_TIMED} steps on {card}: plain runner "
+        f"{plain['ms']:.3f}, 1-rank mesh {one['ms']:.3f}, 2-rank mesh "
+        f"(ranks sharing the card) {[round(r['ms'], 3) for r in ranks]}: "
+        f"2 ranks / 1 rank {max(r['ms'] for r in ranks) / one['ms']:.3f}, "
+        f"1 rank / plain {one['ms'] / plain['ms']:.3f}")
+    if not (same and e_err <= SHARD_E_ATOL and pos_err <= SHARD_POS_ATOL
+            and not r0["overflow"] and not plain["overflow"]):
+        raise AssertionError("[28] the atoms mesh differs")
+    check_launched(r0["counts"], ("take_rows",), "[28] atoms mesh")
+
+    single = replica_work(None, dev)
+    t0 = time.perf_counter()
+    reps = run_ranks(rank_replica_work, SHARD_RANKS, device=dev.type)
+    wall = time.perf_counter() - t0
+    s = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+         for k, v in single.items()}
+    bitwise = {k: all(np.array_equal(r[k], s[k]) for r in reps)
+               for k in ("energies", "pos", "score_e", "score_f")}
+    r0 = reps[0]
+    e_rel = float(np.max(np.abs(r0["energies"] - s["energies"])
+                         / np.abs(s["energies"])))
+    pos_err = float(np.max(np.abs(r0["pos"] - s["pos"])))
+    se_rel = float(np.max(np.abs(r0["score_e"] - s["score_e"])
+                          / np.abs(s["score_e"])))
+    sf_rel = float(np.max(np.abs(r0["score_f"] - s["score_f"]))
+                   / np.max(np.abs(s["score_f"])))
+    ranks_same = all(np.array_equal(r[k], r0[k]) for r in reps[1:]
+                     for k in ("energies", "score_e", "score_f"))
+    # the energies are per-replica row sums (over the atoms, over the MM
+    # terms: trp-cage's 811 dihedrals x 7 orders): does a row sum on the
+    # card give a block of rows the bits it gives them among more rows?
+    d, p = system("trpcage")
+    g = torch.Generator(device=dev).manual_seed(28)
+    half = REP_MESH_REPLICAS // SHARD_RANKS
+    sums_same = {}
+    for what, width in (("atoms", p.n),
+                        ("dihedral terms", np.asarray(d.dihedral_fc).size)):
+        x = torch.randn((REP_MESH_REPLICAS, width), generator=g, device=dev)
+        sums_same[f"{what} ({width})"] = bool(torch.equal(
+            torch.sum(x[:half], dim=1), torch.sum(x, dim=1)[:half]))
+    log(f"[28] replica mesh: {SHARD_RANKS} ranks x {REP_MESH_REPLICAS // SHARD_RANKS}"
+        f" trp-cage replicas ({REP_MESH_STEPS} steps, windows of "
+        f"{REP_MESH_EVERY}) and {REP_MESH_POSES} poses scored, vs one "
+        f"process: bitwise {bitwise}; energy rel {e_rel:.3e}, max|dx| "
+        f"{pos_err:.3e} nm, score energy rel {se_rel:.3e}, force "
+        f"max-err/max|f| {sf_rel:.3e}; ranks equal {ranks_same}; f32 "
+        f"row sums of {half} rows bitwise the same rows' of "
+        f"{REP_MESH_REPLICAS}: {sums_same}; launches "
+        f"in rank 0 {launches_of(r0['launches'])}, one process "
+        f"{launches_of(s['launches'])}; {wall:.1f} s for the call")
+    if not (ranks_same and r0["finite"] and not r0["overflow"]
+            and e_rel <= PARITY_TOL and pos_err <= REP_MESH_POS_TOL
+            and se_rel <= BATCH_E_TOL and sf_rel <= BATCH_F_TOL):
+        raise AssertionError("[28] the replica mesh differs")
+    check_launched(r0["launches"], ("born_sums", "gb_pair", "descreening",
+                                    "take_rows"), "[28] replica mesh")
+    total = {}
+    for c in [r["counts"] for r in ranks] + [r["launches"] for r in reps]:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + int(v)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3157,6 +3546,9 @@ def main() -> int:
     v2_paths = dict(score_v2=phase_score_v2(dev, card),
                     per_step_v2=phase_per_step_v2(dev, card),
                     synth10k=phase_synthetic(dev, card))
+    port_paths = dict(native=phase_native(dev, card),
+                      examples=phase_examples(dev, card),
+                      sharding=phase_sharding(dev, card))
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
@@ -3195,6 +3587,10 @@ def main() -> int:
         # ball's MD (every attempt's warm-up and timed run)
         rec["launches_23_25"] = {p: c.get(name, 0)
                                  for p, c in v2_paths.items()}
+        # and on [26]-[28]: the 1li2 evaluation held against the native
+        # engine, the examples run in this process, the ranks of [28]
+        rec["launches_26_28"] = {p: c.get(name, 0)
+                                 for p, c in port_paths.items()}
         if "live_pairs" in k:
             rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})

@@ -24,12 +24,18 @@ tested against), with the same module names:
   api/hydration.py        HydrationSites (virtual hydration sites)
   parallel/ensemble.py    ReplicaEnsemble: R replicas' MD as one batch
   parallel/remd.py        TemperatureREMD, attempt_swaps, geometric_ladder
+  parallel/sharding.py    atom and replica meshes over torch.distributed,
+                          sharded_energy_forces, run_ranks
+  runtime/native.py       the f64 native GaussVol/AGBNP1 engine (g++)
+  examples/               the JAX package's four examples on the port
   utils/                  AGBNPHtable; energy_breakdown, tree_stats, trace
   runtime/build.py        builds csrc/*.cu with nvcc at first kernel use
 
 Replicas of one system run as a batch on one device: positions [B, N, 3]
 through batched_energy_forces (one overlap tree over the replicas' disjoint
-union, the pair kernels' replica axis).
+union, the pair kernels' replica axis).  Across processes, a replica mesh
+splits the replicas into blocks and an atoms mesh one system's tree levels
+and pair rows (parallel/sharding.py).
 
 This package imports torch and numpy only; nothing is built at import.
 """

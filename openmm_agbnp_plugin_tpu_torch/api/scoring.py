@@ -19,6 +19,13 @@ pose's MS candidates found on the device, both overlap trees over the
 poses' unions, the dense kernels' replica axis), with the capacities
 shared and regrown from the 18-entry overflow counts of the worst pose
 (_regrow_v2, JAX's rule).
+
+With mesh (a `replica` mesh, parallel/sharding.py::replica_mesh, one rank
+a process), the batch is padded to a multiple of the mesh size with copies
+of its last pose and each rank scores its contiguous block (JAX
+api/scoring.py:120-132); every rank's overflow counts enter each try's
+regrow, so all ranks grow alike, and the results come back from every
+rank by all_gather, the padding cut off.
 """
 
 from __future__ import annotations
@@ -53,6 +60,9 @@ class ConformerScorer:
     device: where the batch is scored; None is the first CUDA device and
         raises where there is none.
     caps, caps_boost: tree capacities, or the headroom they are sized with.
+    mesh: a `replica` mesh over which the batch is split (None: the whole
+        batch in this process); every rank is given the same positions and
+        gets the whole results.
 
     Results are tensors on the scorer's device: "energy" [B] (kJ/mol),
     "force" [B, N, 3] with forces=True, and per-term energies with
@@ -60,7 +70,7 @@ class ConformerScorer:
     """
 
     def __init__(self, force: AGBNPForce, positions, dtype=torch.float32,
-                 device=None, caps=None, caps_boost: float = 1.6):
+                 device=None, caps=None, caps_boost: float = 1.6, mesh=None):
         if force.getVersion() not in (0, 1, 2):
             raise ValueError("ConformerScorer supports versions 0, 1 and 2")
         if force.getNonbondedMethod() == NonbondedMethod.CutoffPeriodic:
@@ -75,6 +85,7 @@ class ConformerScorer:
             device = "cuda:0"
         self.device = torch.device(device)
         self.dtype = dtype
+        self._mesh = mesh
         pos = torch.as_tensor(positions, dtype=torch.float64)
         pos0 = (pos[0] if pos.dim() == 3 else pos).numpy()
         no_cutoff = force.getNonbondedMethod() == NonbondedMethod.NoCutoff
@@ -148,16 +159,43 @@ class ConformerScorer:
                              f"{tuple(pos.shape)}")
         return pos
 
+    def _shard(self, pos):
+        """This rank's block of the batch padded to a multiple of the mesh
+        size with copies of its last pose (the whole batch without a
+        mesh), and the batch size."""
+        nb = pos.shape[0]
+        if self._mesh is None:
+            return pos, nb
+        pad = (-nb) % self._mesh.size
+        if pad:
+            pos = torch.cat([pos, pos[-1:].expand((pad,) + pos.shape[1:])])
+        return pos[self._mesh.block(pos.shape[0])], nb
+
+    def _gather(self, res: dict, nb: int) -> dict:
+        """Every rank's results, the padding cut off."""
+        if self._mesh is None:
+            return res
+        return {k: self._mesh.gather(v)[:nb] for k, v in res.items()}
+
+    def _all_diag(self, diag: dict) -> dict:
+        """A batched diag with every rank's poses (the worst of them decides
+        each try's regrow on every rank)."""
+        if self._mesh is None:
+            return diag
+        return {k: self._mesh.gather(torch.as_tensor(v, device=self.device))
+                for k, v in diag.items()}
+
     def score(self, positions, forces: bool = False, details: bool = False):
         """Score a batch of conformations positions [B, N, 3] (or [N, 3],
         a batch of one)."""
-        pos = self._batch(positions)
+        pos, nb = self._shard(self._batch(positions))
         if self._is_v2:
-            return self._score_v2(pos, forces, details)
+            return self._gather(self._score_v2(pos, forces, details), nb)
         m = self._model
         for _ in range(_TRIES):
             out = m.batched_energy_forces(pos)
-            if not m.check_and_grow(batched_diag_max(out["diag"])):
+            if not m.check_and_grow(batched_diag_max(
+                    self._all_diag(out["diag"]))):
                 break
         else:
             raise RuntimeError("overlap tree capacities failed to converge")
@@ -167,7 +205,7 @@ class ConformerScorer:
         if details:
             res.update({k: out["details"][k] for k in _DETAIL_TERMS
                         if k in out["details"]})
-        return res
+        return self._gather(res, nb)
 
     def _score_v2(self, pos, forces: bool, details: bool):
         """AGBNP2: one batched evaluation per try, each pose's MS candidates
@@ -178,7 +216,9 @@ class ConformerScorer:
             pairs = ms_candidate_pairs(pos, self._heavy, self._ms_rcut,
                                        self._ms_kmax_list)
             out = self._model.batched_energy_forces(pos, ms_pairs=pairs[:3])
-            counts = v2_counts(out["diags"], pairs[3])
+            counts = self._mesh.gather(v2_counts(out["diags"], pairs[3])) \
+                if self._mesh is not None else v2_counts(out["diags"],
+                                                         pairs[3])
             if not self._regrow_v2(
                     torch.amax(counts, dim=0).cpu().numpy()):
                 break
@@ -244,17 +284,17 @@ class ConformerScorer:
         if self._is_v2:
             raise ValueError("refine() supports versions 0/1; score AGBNP2 "
                              "poses directly or minimize through md/")
-        pos = self._batch(positions)
+        pos, nb = self._shard(self._batch(positions))
         m = self._model
         for _ in range(_TRIES):
             run = make_fire_runner(m.batched_energy_forces, maxiter=maxiter,
                                    **fire_kw)
             pmin, etrace, diag = run(pos)
-            if not m.check_and_grow(batched_diag_max(diag)):
+            if not m.check_and_grow(batched_diag_max(self._all_diag(diag))):
                 break
         else:
             raise RuntimeError("overlap tree capacities failed to converge")
-        res = self.score(pmin)
-        res["positions"] = pmin
-        res["energy_trace"] = etrace
+        got = self._gather(dict(positions=pmin, energy_trace=etrace), nb)
+        res = self.score(got["positions"])
+        res.update(got)
         return res

@@ -44,7 +44,16 @@ float32 only), pairs gives the tree's candidate pairs, and
 make_langevin_runner(topology_relax=) keeps birth-margin rows in each
 window's tree (ops/tree.py::build_tree, relax).
 
-Not ported here: mesh sharding and `mixed=True`.
+Mesh sharding (JAX md/simulation.py:237-310, 466-551): force_fn(mesh=)
+and make_langevin_runner(mesh=) take an `atoms` mesh
+(parallel/sharding.py::atom_mesh, one rank a process) and run each step's
+fixed-topology tree passes and pair phases in row blocks over it
+(sharded_energy_forces); the tree build at each rebuild boundary, the MM
+terms (by autograd, not fused into a sweep) and the integrator stay
+replicated, the same bits on every rank.  Version 1 with rebuild windows
+only; no MTS, no WU impulse and no vdW-compact WU pass under a mesh.
+
+Not ported here: `mixed=True`.
 """
 
 from __future__ import annotations
@@ -239,18 +248,21 @@ class Simulation:
         return (self.mm is not None and self.agbnp.version == 1
                 and self.agbnp.pair_pad > 0)
 
-    def ff_state(self) -> dict:
+    def ff_state(self, fuse_mm: bool | None = None) -> dict:
         """Force-field tensors the MD step reads: the AGBNP arrays, the MM
         arrays, and the exclusions: as rows in the pair sweeps'
         Morton-permuted row space (rows reordered, atom-id values remapped)
         where the GB sweep carries the MM sum, else as an [N, N] mask.
         Without the MM force field (include_mm=False), the AGBNP arrays
-        alone."""
+        alone.  fuse_mm=False keeps the MM sum out of the sweeps (the mesh
+        path); None fuses it wherever the kernel route can carry it."""
         ff = dict(a=self.agbnp.arrays)
         if self.mm is None:
             return ff
         ff["mm"] = self.mm.tensors(self.device, self.dtype)
-        if not self._fuse_mm():
+        if fuse_mm is None:
+            fuse_mm = self._fuse_mm()
+        if not fuse_mm:
             ff["mm_excl_mask"] = torch.as_tensor(self.mm.excl_mask(),
                                                  device=self.device)
             return ff
@@ -262,9 +274,32 @@ class Simulation:
             epm[a["rperm"]].astype(np.int32), device=self.device)
         return ff
 
+    def _sharded_ef(self, mesh):
+        """The sharded_energy_forces closure for this mesh, cached (the
+        fixed-topology AGBNP1 evaluation over the `atoms` mesh)."""
+        if getattr(self, "_sharded_fn_mesh", None) is not mesh:
+            from ..parallel.sharding import sharded_energy_forces
+
+            m = self.agbnp
+            self._sharded_fn = sharded_energy_forces(
+                mesh, m.arrays, m.params.roffset, m.ntypes_j,
+                cutoff=m.cutoff, box=m.box,
+                descreen_horizon=m.descreen_horizon)
+            self._sharded_fn_mesh = mesh
+        return self._sharded_fn
+
+    def _check_mesh(self, mesh, topology_ok: bool = True):
+        if mesh is None:
+            return
+        if self.agbnp2 is not None or self.agbnp.version != 1:
+            raise ValueError("mesh-sharded force requires version 1")
+        if not topology_ok:
+            raise ValueError("mesh-sharded force requires version 1 and a "
+                             "prebuilt topology")
+
     def force_fn(self, pairs=None, topology=None, ff=None,
                  split: bool = False, vdw_topology=None,
-                 wu_mode: str = "fused"):
+                 wu_mode: str = "fused", mesh=None):
         """Returns fn(pos) -> (energy, force, counts).
 
         AGBNP1 energy + analytic forces with the OPLS dense LJ + Coulomb
@@ -284,7 +319,18 @@ class Simulation:
         block's two evaluations).  With split=True, returns (slow_fn,
         fast_fn) for the r-RESPA integrators instead: slow_fn(pos) ->
         (e, f, counts) is AGBNP + the fused MM nonbonded sum, fast_fn(pos)
-        -> (e, f) the stiff bonded + 1-4 class."""
+        -> (e, f) the stiff bonded + 1-4 class.
+
+        With mesh (an `atoms` mesh, parallel/sharding.py::atom_mesh), the
+        AGBNP1 tree passes and pair phases of the fixed topology run in
+        row blocks over the mesh (sharded_energy_forces): version 1 with a
+        topology, no MTS, no WU split or skip, no compacted WU topology,
+        the MM terms by autograd (ff from ff_state(fuse_mm=False))."""
+        self._check_mesh(mesh, topology is not None)
+        if mesh is not None and (split or wu_mode != "fused"
+                                 or vdw_topology is not None):
+            raise ValueError("mesh-sharded force: no MTS split, no WU "
+                             "split/skip and no compacted WU topology")
         if self.agbnp2 is not None:
             if split:
                 raise ValueError("MTS supports AGBNP versions 0/1")
@@ -300,7 +346,8 @@ class Simulation:
                              "with MTS")
         if wu_mode != "fused" and self.agbnp.version != 1:
             raise ValueError("wu_mode split/skip (mts_wu) requires version 1")
-        ff = self.ff_state() if ff is None else ff
+        if ff is None:
+            ff = self.ff_state(fuse_mm=False if mesh is not None else None)
         m = self.agbnp
         if pairs is None and m.neighbor_kmax > 0:
             raise ValueError("the all-pairs evaluation (no neighbor list) "
@@ -311,10 +358,21 @@ class Simulation:
                  "pairs_valid": pairs[2]}
         mm = ff.get("mm")
         fuse_mm = "excl_rows_perm" in ff
+        if fuse_mm and mesh is not None:
+            raise ValueError("mesh-sharded force: take ff_state(fuse_mm="
+                             "False)")
         mm_nb = (dict(sigma=mm["sigma"], epsq=mm["epsq"],
                       excl_rows_perm=ff["excl_rows_perm"])
                  if fuse_mm else None)
         vs = self.vsites
+        if mesh is not None:
+            sfn = self._sharded_ef(mesh)
+            # the fixed topology's level counts (a rescan cannot overflow)
+            mesh_counts = T.replica_counts(topology, 1, m.params.n)[0]
+
+            def sharded_part(pos):
+                out = sfn(pos, topology, arrays=a)
+                return out["energy"], out["force"], None, mesh_counts
 
         def agbnp_part(pos):
             # the WU force comes back apart and is added last, so the fused
@@ -377,9 +435,11 @@ class Simulation:
 
             return slow_fn, fast_fn
 
+        part = agbnp_part if mesh is None else sharded_part
+
         def fn(pos):
             pos = project(pos)
-            energy, force, f_wu, counts = agbnp_part(pos)
+            energy, force, f_wu, counts = part(pos)
             if mm is not None:
                 e_mm, f_mm = mm_forces(pos)
                 energy = energy + e_mm
@@ -545,7 +605,7 @@ class Simulation:
                              rebuild_topology: bool = True,
                              mts_inner: int = 0, vdw_compact: bool = True,
                              vdw_relax: float = 0.5, wu_every: int = 1,
-                             topology_relax=None):
+                             topology_relax=None, mesh=None):
         """Returns run(pos, vel, nsteps, generator=None, noise=None) ->
         (pos, vel, energies [nsteps], diag) with diag = (counts,
         neighbor_max, sibling_max, wu_compact_counts, shake_residual), the
@@ -577,7 +637,26 @@ class Simulation:
         The window's diagnostics are read once at its end; a window that
         overflowed, or whose SHAKE missed tolerance, stops the run (its
         forces are invalid) and its counts come back for the regrow.
+
+        With mesh (an `atoms` mesh, parallel/sharding.py::atom_mesh), every
+        step's tree passes and pair phases run in row blocks over the mesh
+        (force_fn(mesh=)); the window's neighbor list and tree build, the
+        MM terms and the integrator stay replicated: every rank runs them
+        on the same positions and its own generator seeded alike, and ends
+        with the same bits.  Version 1 with rebuild windows
+        (neighbor_every > 0, rebuild_topology) only; no MTS, no wu_every >
+        1, and no vdW-compact WU pass (vdw_compact is ignored, as in JAX).
         """
+        if mesh is not None:
+            self._check_mesh(mesh)
+            if neighbor_every <= 0 or not rebuild_topology:
+                raise ValueError("mesh-sharded MD requires topology-rebuild "
+                                 "windows (neighbor_every > 0, "
+                                 "rebuild_topology=True)")
+            if mts_inner or wu_every > 1:
+                raise ValueError("mesh-sharded MD runs the plain Langevin "
+                                 "step: no MTS (mts_inner) and no WU "
+                                 "impulse (wu_every > 1)")
         if wu_every > 1 and (mts_inner or neighbor_every <= 0
                              or self.agbnp.version != 1):
             raise ValueError("wu_every > 1 (mts_wu) requires version 1 "
@@ -586,10 +665,10 @@ class Simulation:
         heavy = self.heavy_mask
         neighbor_fn = self.neighbor_fn
         cons = self.constraints
-        ff = self.ff_state()
+        ff = self.ff_state(fuse_mm=False if mesh is not None else None)
         nsub = max(mts_inner, 1)
         use_vdwc = (vdw_compact and rebuild_topology and neighbor_every > 0
-                    and self.agbnp2 is None)
+                    and self.agbnp2 is None and mesh is None)
         vdw_caps = self._ensure_vdw_caps(vdw_relax) if use_vdwc else None
 
         def make_step(pairs=None, topology=None, vdw_topology=None):
@@ -602,7 +681,7 @@ class Simulation:
                                          constraints=cons)
             return langevin_middle_step(
                 self.force_fn(pairs=pairs, topology=topology, ff=ff,
-                              vdw_topology=vdw_topology),
+                              vdw_topology=vdw_topology, mesh=mesh),
                 masses, dt, temperature, friction, constraints=cons)
 
         def step_noise(draw):

@@ -440,7 +440,8 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
                           descreen_horizon=None, neighbor_rcut: float = 0.0,
                           neighbor_kmax: int = 0, neighbor_grid=None,
                           pair_tiles=None, share_qd: bool = True,
-                          vdw_topology=None, wu_mode: str = "fused"):
+                          vdw_topology=None, wu_mode: str = "fused",
+                          pair_shard=None):
     """Energy and forces of B conformations pos [B, N, 3] of one system in
     one batched evaluation (counterpart of the JAX package's vmapped
     energy_forces, models/agbnp_jax.py:751-774): the overlap tree of the
@@ -473,6 +474,10 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     depends on this pass.  topology and vdw_topology are those of the
     replicas' union tree.
 
+    pair_shard: fn(pos [N, 3], s_factor [N]) -> the pair phases' dict
+    (parallel/sharding.py::sharded_pair_phases, the screened-atom rows in
+    blocks over an atoms mesh) in place of the pair route; one system only.
+
     Returns dict(energy, force, diag, details).
     """
     if pos.dim() != 3:
@@ -500,7 +505,11 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
 
     # volume scaling factors (ReferenceAGBNPKernels.cpp:420-430)
     s_factor = self_volume / a["vol_vdw_all"]
-    if pair_pad > 0:
+    if pair_shard is not None:
+        if nb != 1:
+            raise ValueError("pair_shard evaluates one system")
+        pp = {k: v[None] for k, v in pair_shard(pos[0], s_factor[0]).items()}
+    elif pair_pad > 0:
         pp = _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad,
                                  horizon=descreen_horizon, mm_nb=mm_nb,
                                  pair_tiles=pair_tiles, share_qd=share_qd)

@@ -6,7 +6,9 @@ AGBNPGBEnergy.cl tile kernels on GPU).  The spline lookup is a plain gather
 from the dense [ntypes_i, ntypes_j, NA] tables of models/i4_tables.py.
 These back `AGBNPModel(pair_kernel=False)`; the per-atom tails
 (`agbnp_swf_invbr`, `vdw_energy`, `born_chain_factors`) also serve the
-kernel route.
+kernel route.  `pair_phases_rows` runs all four phases on a row block of
+screened atoms against every screener: the unit of the atom-sharded path
+(parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -199,3 +201,100 @@ def descreening_sweep(geom, s_factor, evdw_der_brw, egb_der_bru):
     csym = c + c.T
     force = torch.sum(csym[:, :, None] * dist, dim=1)
     return dict(evdw_der_W=evdw_der_W, egb_der_U=egb_der_U, force=force)
+
+
+def _identity(x):
+    return x
+
+
+def pair_phases_rows(pos_blk, row_ids, pos, radii_vdw_blk, s_factor,
+                     ishydrogen, type_i_blk, type_j, yflat, y2flat,
+                     ntypes_j, charge_blk, charge, alpha_blk, cutoff=None,
+                     box=None, psum=_identity, all_gather=_identity,
+                     horizon=None):
+    """All four pair phases (Born radii -> GB -> vdW -> descreening) for a
+    row block of screened atoms against all screeners: the decomposition
+    unit of the atom-sharded path (JAX ops/born.py::pair_phases_rows).
+
+    The `_blk` arrays hold this rank's rows (global indices `row_ids`);
+    everything else is whole.  `psum` sums partial results that take
+    contributions from every row block (the scalar energies, the W/U
+    screener accumulators, the screener-side forces); `all_gather` turns the
+    block's Born radii into the full vector the GB pair term needs.  With
+    the identity defaults and a full row block this is the dense path of
+    born_radii, gb_energy and descreening_sweep.
+
+    Returns dict(gb_self, gb_pair, e_vdw [whole scalars], born_radius
+    [rows], born_radius_all [N, the gathered radii], row_force [rows, 3],
+    col_force [N, 3, whole], evdw_der_W, egb_der_U [N, whole]).
+    """
+    n = pos.shape[0]
+    dist = pos[None, :, :] - pos_blk[:, None, :]  # [nb, N, 3], j - i
+    if box is not None:
+        dist = min_image(dist, box)
+    d2 = torch.sum(dist * dist, dim=-1)
+    eye = row_ids[:, None] == torch.arange(n, device=pos.device)[None, :]
+    d = torch.sqrt(torch.where(eye, 1.0, d2))
+    # padded rows can land at raw distance 0 from a real atom after a
+    # minimum-image wrap; every division below is masked, so only the
+    # 0/0 -> NaN path needs the guard
+    d_div = torch.where(d > 0.0, d, 1.0)
+
+    screener = ishydrogen[None, :] == 0
+    hmax = AGBNP_I4LOOKUP_MAXA if horizon is None \
+        else min(horizon, AGBNP_I4LOOKUP_MAXA)
+    pair_mask = (~eye) & screener & (d < hmax)
+    tj_cols = torch.clamp(type_j, min=0)
+    q, dq = spline_lookup(d, type_i_blk[:, None], tj_cols[None, :], yflat,
+                          y2flat, ntypes_j, deriv=True)
+    q = torch.where(pair_mask, q, 0.0)
+    dq = torch.where(pair_mask, dq, 0.0)
+
+    # Born radii (ReferenceAGBNPKernels.cpp:437-454): row-local sums
+    beta = 1.0 / radii_vdw_blk - PIFAC * torch.sum(s_factor[None, :] * q,
+                                                   dim=1)
+    filt, fp = agbnp_swf_invbr(beta)
+    br_blk = 1.0 / filt
+    br = all_gather(br_blk)[:n]
+
+    # GB energy (ReferenceAGBNPKernels.cpp:464-504).  mw/fmask are
+    # symmetric, so each row's local sum is that atom's complete force.
+    bb = br_blk[:, None] * br[None, :]
+    etij = torch.exp(-0.25 * torch.where(eye, 0.0, d2) / bb)
+    fgb = 1.0 / torch.sqrt(torch.where(eye, 1.0, d2 + bb * etij))
+    mask = ~eye
+    if cutoff is not None:
+        mask = mask & (d < cutoff)
+    fmask = mask.to(pos.dtype)
+    qq_f = charge_blk[:, None] * charge[None, :]
+    qq = DIELECTRIC_FACTOR * qq_f
+    gb_self = psum(torch.sum(DIELECTRIC_FACTOR * charge_blk * charge_blk
+                             / br_blk))
+    gb_pair = psum(torch.sum(fmask * qq * fgb))
+    fgb3 = fgb ** 3
+    mw = -2.0 * qq * (1.0 - 0.25 * etij) * fgb3
+    gb_force = torch.sum(fmask[:, :, None] * dist * mw[:, :, None], dim=1)
+    egb_der_Y = torch.sum(fmask * qq_f * (bb + 0.25 * d2) * etij * fgb3,
+                          dim=1)
+
+    # vdW dispersion + chain factors (cpp:513-549)
+    e_vdw = psum(vdw_energy(alpha_blk, br_blk))
+    evdw_der_brw, egb_der_bru = born_chain_factors(
+        alpha_blk, charge_blk, br_blk, fp, egb_der_Y)
+
+    # descreening sweep (cpp:555-586): W/U are screener-side (column)
+    # sums -> psum across row blocks; the direct force splits into a row
+    # part (this block's screened atoms) and a column part (the reaction on
+    # the screeners, which every block adds to -> psum)
+    evdw_der_W = psum(torch.sum(evdw_der_brw[:, None] * q, dim=0))
+    egb_der_U = psum(torch.sum(egb_der_bru[:, None] * q, dim=0))
+    c = ((evdw_der_brw + egb_der_bru)[:, None] * s_factor[None, :]
+         * dq / d_div)
+    c = torch.where(pair_mask, c, 0.0)
+    row_force = torch.sum(c[:, :, None] * dist, dim=1)
+    col_force = psum(torch.sum(-c[:, :, None] * dist, dim=0))
+
+    return dict(gb_self=gb_self, gb_pair=gb_pair, e_vdw=e_vdw,
+                born_radius=br_blk, born_radius_all=br,
+                row_force=gb_force + row_force, col_force=col_force,
+                evdw_der_W=evdw_der_W, egb_der_U=egb_der_U)

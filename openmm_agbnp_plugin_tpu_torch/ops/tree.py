@@ -50,6 +50,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.constants import MAX_ORDER, PI, VOLMINA
 from .gaussians import atomic_gaussian_exponent, pol_switchfunc, survives
@@ -57,6 +58,99 @@ from .kernels.rows import take_rows
 
 # Levels 2..MAX_ORDER are stored; index l in tuples below is level l+2.
 NUM_TREE_LEVELS = MAX_ORDER - 1  # 7
+
+
+# --- collective byte accounting --------------------------------------------
+# Every TreeComm / pair-phase collective records its logical kind (the JAX
+# package's names: all_gather, psum_scatter, psum) with its operand's shape,
+# dtype and bytes, so the communication of one sharded evaluation can be
+# read off and set beside the JAX package's log entry by entry.
+_COMM_LOG = None
+
+
+def start_comm_log() -> list:
+    """Begin recording every TreeComm/pair-phase collective from now on;
+    returns the live list (entries: dict(kind, shape, dtype, bytes,
+    ndev))."""
+    global _COMM_LOG
+    _COMM_LOG = []
+    return _COMM_LOG
+
+
+def stop_comm_log() -> list:
+    global _COMM_LOG
+    log, _COMM_LOG = _COMM_LOG, None
+    return log
+
+
+def record_comm(kind: str, x, ndev: int):
+    if _COMM_LOG is not None:
+        _COMM_LOG.append(dict(
+            kind=kind, shape=tuple(int(s) for s in x.shape),
+            dtype=str(x.dtype).replace("torch.", ""),
+            bytes=x.numel() * x.element_size(), ndev=ndev))
+
+
+def gather_blocks(x, group, size: int):
+    """The row blocks x [blk, ...] of every rank of `group`, concatenated in
+    rank order: [size blk, ...] (a list all_gather)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=0)
+
+
+def sum_over_ranks(x, group, size: int):
+    """The sum of x over the ranks of `group`, added in rank order from an
+    all_gather: every rank holds the same bits whatever order the backend
+    would reduce in (the replicated MD state rests on it)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeComm:
+    """Collective hooks that let the fixed-topology passes run on row BLOCKS
+    of the level arrays, one block a rank of a torch.distributed process
+    group (parallel/sharding.py::sharded_energy_forces; the JAX package's
+    TreeComm inside shard_map).
+
+    The downward rescans keep the parent level whole on every rank (each
+    level's freshly computed block is gathered), so the per-row parent
+    gathers stay local; the upward reductions segment-sum each rank's rows
+    into the full parent space and sum across ranks: back to the rank's
+    parent block between levels, whole at the atom level, where the results
+    (energy, deposits, level-1 accumulators) are needed on every rank.
+
+    group: the process group (None: the default one); rank, size: this
+    rank's index in it and its size.
+    """
+
+    group: object
+    rank: int
+    size: int
+
+    def full(self, x):
+        """Row block -> the full rows on every rank."""
+        record_comm("all_gather", x, self.size)
+        return gather_blocks(x, self.group, self.size)
+
+    def reduce_blocks(self, x):
+        """Full-space partial sums -> this rank's row block of the total."""
+        record_comm("psum_scatter", x, self.size)
+        blk = x.shape[0] // self.size
+        tot = sum_over_ranks(x, self.group, self.size)
+        return tot[self.rank * blk:(self.rank + 1) * blk]
+
+    def reduce_full(self, x):
+        """Full-space partial sums -> the total on every rank."""
+        record_comm("psum", x, self.size)
+        return sum_over_ranks(x, self.group, self.size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -551,9 +645,15 @@ def _atom_gather(x, lvl):
     return take_rows(x, lvl["bnd"]["atom32"])
 
 
-def _upward_segment_sum(x, lvl, num_parents):
+def _upward_segment_sum(x, lvl, num_parents, comm=None):
     """The per-level child -> parent reduction of x [cap, C], over the
-    level's valid rows."""
+    level's valid rows.  With comm, x is a rank's row block of the level:
+    its rows go into the full parent space by their own monotone parent ids
+    (a sorted segment sum, no float atomics; the block's invalid rows carry
+    zeros), for the caller's cross-rank reduction."""
+    if comm is not None:
+        return segment_sum(x, lvl["bnd"]["pmono"], num_parents,
+                           ids_sorted=True)
     lengths = lvl["bnd"]["lengths"]
     if lengths.shape != (num_parents,):
         raise ValueError(f"level bounds for {lengths.shape[0]} parents, "
@@ -631,11 +731,13 @@ def compact_topology(levels, caps, relax: float = 0.5, nrep: int = 1):
     return tuple(out), rep_counts
 
 
-def rescan_volumes(levels, level1):
+def rescan_volumes(levels, level1, comm: TreeComm | None = None):
     """Recompute all node volumes/Gaussians on the fixed topology (the
     analogue of rescan_tree_v, gaussvol.cpp:254-327): new level-1 data, same
     parent/atom indices, no re-pruning.  Accepts full levels or a
-    tree_topology() result."""
+    tree_topology() result.  With comm, the levels are this rank's row
+    blocks (parallel/sharding.py::_shard_topology); each level's block is
+    gathered whole so the next level's parent gathers see every row."""
     new_levels = []
     # level-1 "dat" is the packed atomic table; map its columns to the same
     # (gv, ga, gc, gamma) positions the level matrices use
@@ -650,26 +752,28 @@ def rescan_volumes(levels, level1):
         nl = _level_views(dat, lvl["_ints"], lvl["valid"])
         nl["bnd"] = lvl["bnd"]
         new_levels.append(nl)
-        prev_dat = dat
+        prev_dat = dat if comm is None else comm.full(dat)
         cols = (0, 1, 2, 11)
     return tuple(new_levels)
 
 
-def rescan_gammas(levels, level1):
+def rescan_gammas(levels, level1, comm: TreeComm | None = None):
     """Propagate new per-atom gammas down the fixed topology
-    (rescan_tree_g, gaussvol.cpp:330-372)."""
+    (rescan_tree_g, gaussvol.cpp:330-372); with comm, on row blocks as
+    rescan_volumes."""
     gam = level1["gamma1i"]
     new_levels = []
     pg = gam
     for lvl in levels:
         g = _parent_gather(pg, lvl) + _atom_gather(gam, lvl)
         new_levels.append({**lvl, "gamma1i": g})
-        pg = g
+        pg = g if comm is None else comm.full(g)
     return tuple(new_levels)
 
 
 def reduce_tree(levels, level1, with_selfvol: bool = True,
-                with_dv: bool = False, nrep: int = 1):
+                with_dv: bool = False, nrep: int = 1,
+                comm: TreeComm | None = None):
     """Bottom-up reduction: energy, gradients, self volumes.
 
     The flattened form of compute_volume_underslot2_r (gaussvol.cpp:400-519):
@@ -689,6 +793,11 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
     Returns dict(energy, dr[, self_volume][, dv]); dr is the energy
     gradient wrt positions (negate for force); the energy is [nrep], each
     replica's sum (a union tree over nrep replicas).
+
+    With comm, the levels are this rank's row blocks: each level's upward
+    partial sums over the full parent space are summed across ranks, back
+    to the rank's parent block between levels and whole at the atom level,
+    as are the deposits, so every result is whole on every rank.
     """
     natoms = level1["gv"].shape[0]
     dtype = level1["gv"].dtype
@@ -740,11 +849,9 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
             p_out,                             # e_p
             tot[:, 5:],                        # sv psi passes through
         ], dim=1) * vmask[:, None]
-        num_parents = natoms if l == 0 else levels[l - 1]["valid"].shape[0]
-        acc = _upward_segment_sum(up, lvl, num_parents)
+        acc = _reduce_up(up, levels, l, natoms, comm)
 
-    deposits = segment_sum(torch.cat(dep_rows, dim=0),
-                           torch.cat(dep_atoms, dim=0), natoms)
+    deposits = _deposits(dep_rows, dep_atoms, natoms, comm)
 
     # level 1 (atoms): volcoeff = volcoeffp = 1, sfp = 1, dvv1 = 1, dv1 = 0,
     # c2 = 1, c2p = 0 (gaussvol.cpp:413-435 with level == 1)
@@ -762,16 +869,39 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
     return result
 
 
+def _reduce_up(up, levels, l, natoms: int, comm):
+    """Level l's upward sums into its parents' accumulators (the atoms at
+    l = 0); with comm, summed across ranks: the rank's parent block, or the
+    whole atom rows at l = 0."""
+    nmul = 1 if comm is None else comm.size
+    num_parents = natoms if l == 0 else (
+        levels[l - 1]["valid"].shape[0] * nmul)
+    acc = _upward_segment_sum(up, levels[l], num_parents, comm)
+    if comm is not None:
+        acc = comm.reduce_full(acc) if l == 0 else comm.reduce_blocks(acc)
+    return acc
+
+
+def _deposits(dep_rows, dep_atoms, natoms: int, comm):
+    """Every level's deposits summed onto their atoms (whole on every rank
+    with comm)."""
+    deposits = segment_sum(torch.cat(dep_rows, dim=0),
+                           torch.cat(dep_atoms, dim=0), natoms)
+    return deposits if comm is None else comm.reduce_full(deposits)
+
+
 def _energy(e_psi, nrep: int):
     """The energy of per-atom terms, each replica's sum [nrep]."""
     return torch.sum(e_psi.reshape(nrep, -1), dim=1)
 
 
-def rescan_volumes2(levels, level1_a, level1_b):
+def rescan_volumes2(levels, level1_a, level1_b,
+                    comm: TreeComm | None = None):
     """Fixed-topology volume rescan for TWO parameterizations at once (the
     cavity term's large and vdW radii, ReferenceAGBNPKernels.cpp:293-384):
     one parent gather of the packed [cap, 2*_D] matrix per level.  Invalid
-    rows carry finite junk that every consumer masks.
+    rows carry finite junk that every consumer masks.  With comm, on row
+    blocks as rescan_volumes.
 
     Returns (levels_a, levels_b).
     """
@@ -793,20 +923,22 @@ def rescan_volumes2(levels, level1_a, level1_b):
         out_a.append(la)
         out_b.append(lb)
         prev = torch.cat([dat_a, dat_b], dim=1)  # [cap, 2*_D]
+        if comm is not None:
+            prev = comm.full(prev)
         prev_cols = ((0, 1, 2, 11), (_D, _D + 1, _D + 2, _D + 11))
     return tuple(out_a), tuple(out_b)
 
 
 def reduce_tree2(levels_a, levels_b, level1_a, level1_b,
                  with_selfvol_b: bool = True, with_selfvol_a: bool = False,
-                 nrep: int = 1):
+                 nrep: int = 1, comm: TreeComm | None = None):
     """Bottom-up reduction of two same-topology trees in one sweep.
 
     Packs both trees' accumulator channels into one matrix so each level
     runs a single upward segment sum; deposits are batched into one.
     Returns (result_a, result_b) like reduce_tree(with_selfvol=
     with_selfvol_a) and reduce_tree(with_selfvol=with_selfvol_b), energies
-    per replica with nrep.
+    per replica with nrep.  With comm, on row blocks as reduce_tree.
     """
     natoms = level1_a["gv"].shape[0]
     dtype = level1_a["gv"].dtype
@@ -861,11 +993,9 @@ def reduce_tree2(levels_a, levels_b, level1_a, level1_b,
         dep_atoms.append(la["bnd"]["atom_dep"])
 
         up = torch.cat(ups, dim=1) * vmask[:, None]
-        num_parents = natoms if l == 0 else levels_a[l - 1]["valid"].shape[0]
-        acc = _upward_segment_sum(up, la, num_parents)
+        acc = _reduce_up(up, levels_a, l, natoms, comm)
 
-    deposits = segment_sum(torch.cat(dep_rows, dim=0),
-                           torch.cat(dep_atoms, dim=0), natoms)
+    deposits = _deposits(dep_rows, dep_atoms, natoms, comm)
 
     results = []
     for base, dbase, l1 in ((0, 0, level1_a), (5, 3, level1_b)):

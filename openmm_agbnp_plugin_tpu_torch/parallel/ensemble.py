@@ -27,6 +27,13 @@ counts [R, 18]): the JAX package's windowed runner fails on version 2 (its
 window hands the atomic tree's levels to a force function that unpacks an
 AGBNP2 topology, reference md/simulation.py:421-422), so the port's
 refuses it.  MTS is not in the JAX runners either.
+
+With mesh (a `replica` mesh, parallel/sharding.py::replica_mesh, one rank a
+process), each rank holds a contiguous block of the replicas, with their
+generators seeded seed + r by their global index r, and runs the same
+batched path on its block; the energies and diagnostics come back from
+every rank by all_gather (each window's overflow check reads every
+rank's, so all ranks stop together), the states stay on their rank.
 """
 
 from __future__ import annotations
@@ -52,10 +59,28 @@ def check_replica_sim(sim, what: str):
             "topology); versions 0 and 1 run everywhere")
 
 
-def replica_generators(device, nrep: int, seed: int):
-    """One generator per replica, replica r seeded seed + r."""
+def replica_generators(device, nrep: int, seed: int, start: int = 0):
+    """One generator per replica start .. start + nrep - 1, replica r seeded
+    seed + r."""
     return [torch.Generator(device=device).manual_seed(seed + r)
-            for r in range(nrep)]
+            for r in range(start, start + nrep)]
+
+
+def replica_block(mesh, nrep: int) -> slice:
+    """The replicas of this rank: all of them without a mesh, its
+    contiguous block of the replica mesh otherwise."""
+    return slice(0, nrep) if mesh is None else mesh.block(nrep)
+
+
+def gather_replicas(mesh, x):
+    """x [Rb, ...] of this rank's replicas -> [R, ...] of every rank's (x
+    itself without a mesh; None stays None)."""
+    return x if mesh is None or x is None else mesh.gather(x)
+
+
+def gather_diag(mesh, diag):
+    """A replica diagnostics tuple with every rank's replicas."""
+    return tuple(gather_replicas(mesh, x) for x in diag)
 
 
 def noise_source(shape, dtype, device, generators, noise):
@@ -169,29 +194,36 @@ class ReplicaEnsemble:
 
     sim: a md.simulation.Simulation (its dtype, device, cutoff,
     capacities, tile budgets, constraints and virtual sites apply to every
-    replica; version 2 on the per-step path only)."""
+    replica; version 2 on the per-step path only).  mesh: a `replica`
+    mesh whose size divides n_replicas; each rank runs its block (None:
+    every replica in this process)."""
 
-    def __init__(self, sim, n_replicas: int):
+    def __init__(self, sim, n_replicas: int, mesh=None):
         if n_replicas < 1:
             raise ValueError("need at least one replica")
         self.sim = sim
         self.n_replicas = int(n_replicas)
         self.device = sim.device
+        self.mesh = mesh
+        self.block = replica_block(mesh, self.n_replicas)
 
     def initial_states(self, jitter: float = 0.0, seed: int = 0):
         """(pos [R, N, 3], vel [R, N, 3], generators): the Simulation's
         state on every replica, positions displaced by jitter nm of
         standard-normal noise (a generator seeded `seed`), and one noise
-        generator per replica (seed + r)."""
-        sim, R = self.sim, self.n_replicas
+        generator per replica (seed + r).  With a mesh, this rank's block
+        of them (the same numbers as without)."""
+        sim, R, blk = self.sim, self.n_replicas, self.block
         pos = sim.positions.expand((R,) + tuple(sim.positions.shape)).clone()
         if jitter > 0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             pos = pos + jitter * torch.randn(pos.shape, generator=gen,
                                              dtype=pos.dtype,
                                              device=self.device)
+        pos = pos[blk].clone()
         vel = sim.velocities.expand(pos.shape).clone()
-        return pos, vel, replica_generators(self.device, R, seed)
+        return pos, vel, replica_generators(self.device, pos.shape[0], seed,
+                                            start=blk.start)
 
     def make_runner(self, dt=0.001, temperature=300.0, friction=1.0,
                     neighbor_every: int = 20, vdw_compact: bool = True,
@@ -217,10 +249,15 @@ class ReplicaEnsemble:
         the steps' maximum counts with zero neighbor, sibling and WU
         entries, read by the caller (JAX's per-step replica_run).  Version
         2 runs here only (its counts [R, 18]); neighbor_every > 0 raises
-        NotImplementedError for it (check_replica_sim)."""
-        sim = self.sim
+        NotImplementedError for it (check_replica_sim).
+
+        With a mesh, states are this rank's block (initial_states) and
+        noise [nsteps, Rb, N, 3] its block's; the energies and
+        diagnostics are every rank's, [R, ...]."""
+        sim, mesh = self.sim, self.mesh
         ff = sim.ff_state()
-        temps = torch.full((self.n_replicas,), float(temperature),
+        nloc = self.block.stop - self.block.start
+        temps = torch.full((nloc,), float(temperature),
                            dtype=sim.dtype, device=self.device)
 
         def states_draw(states, noise):
@@ -234,7 +271,9 @@ class ReplicaEnsemble:
                 pos, vel, gens, draw = states_draw(states, noise)
                 pos, vel, es, diag = run_steps(sim, ff, pos, vel, nsteps,
                                                temps, draw, dt, friction)
-                return (pos, vel, gens), (torch.stack(es, dim=1), *diag)
+                return (pos, vel, gens), (
+                    gather_replicas(mesh, torch.stack(es, dim=1)),
+                    *gather_diag(mesh, diag))
 
             return run_per_step
 
@@ -251,11 +290,13 @@ class ReplicaEnsemble:
                     sim, ff, pos, vel, ninner, temps, draw, dt, friction,
                     vdw_caps, vdw_relax)
                 energies.extend(es)
+                wdiag = gather_diag(mesh, wdiag)
                 diag = diag_max(diag, wdiag)
                 done += ninner
                 if sim._check_overflow(*worst_replica(wdiag)):
                     break  # the window's host read
-            return (pos, vel, gens), (torch.stack(energies, dim=1), *diag)
+            return (pos, vel, gens), (
+                gather_replicas(mesh, torch.stack(energies, dim=1)), *diag)
 
         return run
 

@@ -27,6 +27,14 @@ residual; an overflow in any replica raises.  As in JAX (remd.py:92), the
 Simulation's version, cutoff, constraints and virtual sites apply to
 every replica: each window's step is its force_fn and constrained
 Langevin step (parallel/ensemble.py::run_window).
+
+With mesh (a `replica` mesh), each rank runs the windows of its contiguous
+block of replicas and only scalars cross ranks, as the JAX package's
+docstring has it: each cycle gathers the replicas' exchange energies (and
+the overflow counts); every rank holds the whole rung vector and the
+exchange generator seeded alike, so each makes the same swap decision, and
+rescales the velocities of its own replicas.  Coordinates never leave
+their rank.
 """
 
 from __future__ import annotations
@@ -38,8 +46,9 @@ import torch
 
 from ..md.integrators import KB
 from ..ops.tree import merge_counts
-from .ensemble import diag_max, check_replica_sim, noise_source, \
-    replica_generators, run_window, window_start, worst_replica
+from .ensemble import diag_max, check_replica_sim, gather_diag, \
+    gather_replicas, noise_source, replica_block, replica_generators, \
+    run_window, window_start, worst_replica
 
 
 def geometric_ladder(t_min: float, t_max: float, n: int):
@@ -96,14 +105,18 @@ def pair_acceptance(accept):
 
 
 class TemperatureREMD:
-    """T-REMD over AGBNP implicit-solvent replicas on one device.
+    """T-REMD over AGBNP implicit-solvent replicas on one device, or over
+    the ranks of a replica mesh.
 
     sim: a md.simulation.Simulation (version 0 or 1, as the JAX
     package's T-REMD runs; its version, cutoff, constraints and virtual
-    sites apply to every replica; version 2 raises NotImplementedError).  temperatures:
-    the rung ladder, one replica per rung; replica r starts at rung r."""
+    sites apply to every replica; version 2 raises NotImplementedError).
+    temperatures: the rung ladder, one replica per rung; replica r starts
+    at rung r.  mesh: a `replica` mesh whose size divides the replica
+    count; each rank runs its block (None: every replica in this
+    process)."""
 
-    def __init__(self, sim, temperatures):
+    def __init__(self, sim, temperatures, mesh=None):
         check_replica_sim(sim, "TemperatureREMD")
         self.sim = sim
         self.temps = np.asarray(temperatures, dtype=np.float64)
@@ -111,23 +124,30 @@ class TemperatureREMD:
             raise ValueError("need at least one temperature")
         self.n_replicas = int(self.temps.shape[0])
         self.device = sim.device
+        self.mesh = mesh
+        self.block = replica_block(mesh, self.n_replicas)
 
     def initial_states(self, jitter: float = 0.0, seed: int = 0):
         """((pos [R, N, 3], vel, generators, rung [R]), exchange
         generator): positions displaced by jitter nm (a generator seeded
         seed + 7919), replica r's noise generator seeded seed + r, the
-        exchanges' seeded seed + 104729 (the JAX package's offsets)."""
-        R, sim = self.n_replicas, self.sim
+        exchanges' seeded seed + 104729 (the JAX package's offsets).  With
+        a mesh, pos, vel and the generators are this rank's block; rung
+        stays whole."""
+        R, sim, blk = self.n_replicas, self.sim, self.block
         pos = sim.positions.expand((R,) + tuple(sim.positions.shape)).clone()
         if jitter > 0:
             gen = torch.Generator(device=self.device).manual_seed(seed + 7919)
             pos = pos + jitter * torch.randn(pos.shape, generator=gen,
                                              dtype=pos.dtype,
                                              device=self.device)
+        pos = pos[blk].clone()
         vel = sim.velocities.expand(pos.shape).clone()
         rung = torch.arange(R, dtype=torch.int64, device=self.device)
         xgen = torch.Generator(device=self.device).manual_seed(seed + 104729)
-        return (pos, vel, replica_generators(self.device, R, seed), rung), xgen
+        gens = replica_generators(self.device, pos.shape[0], seed,
+                                  start=blk.start)
+        return (pos, vel, gens, rung), xgen
 
     def make_runner(self, dt=0.001, friction=1.0, steps_per_cycle: int = 40,
                     neighbor_every: int = 40, vdw_compact: bool = True,
@@ -145,8 +165,10 @@ class TemperatureREMD:
         comes from the replicas' generators or noise [C * steps_per_cycle,
         R, N, 3]; the exchange uniforms from xgen (R a cycle) or uniforms
         [C, R].  An overflow in any replica, or a SHAKE residual over the
-        tolerance, raises RuntimeError."""
-        sim = self.sim
+        tolerance, raises RuntimeError.  With a mesh, states and noise
+        [C * steps_per_cycle, Rb, N, 3] are this rank's block; the outputs
+        are every replica's."""
+        sim, mesh, blk = self.sim, self.mesh, self.block
         R = self.n_replicas
         dtype, dev = sim.dtype, self.device
         temps = torch.as_tensor(self.temps, dtype=dtype, device=dev)
@@ -161,7 +183,7 @@ class TemperatureREMD:
         u_mode = "skip" if sim.agbnp.version == 1 else "fused"
 
         def cycle(pos, vel, rung, draw, u, parity, start):
-            temp = temps[rung]
+            temp = temps[rung[blk]]
             diag = None
             energies = []
             for k in range(nwin + (1 if rem else 0)):
@@ -186,12 +208,13 @@ class TemperatureREMD:
                         torch.maximum(diag[2], sb), torch.maximum(diag[3], wc),
                         diag[4])
             # the exchange evaluation's tile counts are checked too
-            U = ev[0]
-            diag = (merge_counts(diag[0], ev[-1]), *diag[1:])
+            U = gather_replicas(mesh, ev[0])
+            diag = gather_diag(mesh, (merge_counts(diag[0], ev[-1]),
+                                      *diag[1:]))
             new_rung, accept = attempt_swaps(u, rung, U, betas, parity)
             # accepted swap: momenta rescaled to the new bath temperature
-            vel = vel * torch.sqrt(temps[new_rung] / temps[rung])[:, None,
-                                                                  None]
+            vel = vel * torch.sqrt(temps[new_rung[blk]]
+                                   / temps[rung[blk]])[:, None, None]
             return pos, vel, new_rung, accept, U, energies, diag, start
 
         def run(states, xgen, ncycles: int, noise=None, uniforms=None):
@@ -216,7 +239,8 @@ class TemperatureREMD:
                 out["rung"].append(rung)
                 out["accept"].append(accept)
             res = {k: torch.stack(v) for k, v in out.items()}
-            res.update(energies=torch.stack(energies, dim=1),
+            res.update(energies=gather_replicas(
+                           mesh, torch.stack(energies, dim=1)),
                        counts=diag[0], neighbor_max=diag[1],
                        sibling_max=diag[2], wu_counts=diag[3],
                        shake_residual=diag[4])

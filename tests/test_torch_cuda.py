@@ -1619,3 +1619,77 @@ def test_row_blocked_half_list_on_card(cuda, monkeypatch):
             got = NBM.half_neighbor_pairs(p, h, 0.6, 96)
             for a, b in zip(got, want):
                 assert torch.equal(a, b), rows
+
+
+def rank_atoms_mesh_evaluation():
+    """One rank's sharded_energy_forces of the fixture on the card (f64)
+    and the unsharded energy_forces beside it."""
+    from openmm_agbnp_plugin_tpu_torch.models.agbnp_torch import (
+        arrays_from_numpy, energy_forces, prepare_arrays)
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    from openmm_agbnp_plugin_tpu_torch.parallel import sharding as S
+
+    mesh = S.atom_mesh()
+    dev = mesh.device
+    pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(FIXTURE)
+    p = AGBNPParams(radius=radius, gamma=gamma, alpha=alpha, charge=charge,
+                    ishydrogen=ish)
+    a = arrays_from_numpy(prepare_arrays(p), dev, torch.float64)
+    pos = torch.as_tensor(pos, dtype=torch.float64, device=dev)
+    caps = TreeCaps.for_natoms(p.n)
+    lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
+                         a["gamma"] / p.roffset, a["ishydrogen"])
+    levels, _ = T.build_tree(lvl1, a["pairs_i"], a["pairs_j"], caps,
+                             pairs_valid=a["pairs_valid"])
+    topo = T.tree_topology(levels)
+    ntj = int(a["type_j"].max()) + 1
+    out = S.sharded_energy_forces(mesh, a, p.roffset, ntj)(pos, topo)
+    ref = energy_forces(a, pos, caps=caps, version=1, roffset=p.roffset,
+                        ntypes_j=ntj, topology=topo)
+    return dict(energy=out["energy"], force=out["force"],
+                ref_energy=ref["energy"], ref_force=ref["force"],
+                device=str(dev))
+
+
+def test_atoms_mesh_two_ranks_on_the_card(cuda, tmp_path):
+    """sharded_energy_forces over 2 gloo ranks sharing cuda:0 (f64, the
+    264-atom fixture) equals the unsharded evaluation on the card to 1e-12
+    and -2476.66, every rank the same bits."""
+    from openmm_agbnp_plugin_tpu_torch.parallel.sharding import run_ranks
+
+    out = run_ranks(rank_atoms_mesh_evaluation, 2, device="cuda",
+                    timeout=300.0, init_file=tmp_path / "rdv")
+    r0 = out[0]
+    assert r0["device"].startswith("cuda")
+    assert abs(float(r0["energy"]) - float(r0["ref_energy"])) <= 1e-12 * abs(
+        float(r0["ref_energy"]))
+    assert float(np.abs(r0["force"] - r0["ref_force"]).max()) <= 1e-12 * \
+        float(np.abs(r0["ref_force"]).max())
+    assert float(r0["energy"]) == pytest.approx(-2476.66, abs=1e-2)
+    assert np.array_equal(out[1]["energy"], r0["energy"])
+    assert np.array_equal(out[1]["force"], r0["force"])
+
+
+def test_native_engine_golden_on_the_card_host(cuda, fixture_system):
+    """The native f64 engine builds on the GPU host and gives the goldens
+    (-2476.66, E_cav 872.514, the displacement check), and the f32 model
+    on the card holds to it within 1e-5."""
+    from openmm_agbnp_plugin_tpu_torch.runtime import native
+
+    params, pos = fixture_system
+    assert native.available()
+    out = native.NativeAGBNP1(params).energy_forces(pos)
+    assert out["energy"] == pytest.approx(-2476.66, abs=1e-2)
+    assert out["e_cav"] == pytest.approx(872.514, abs=1e-3)
+    pos2 = np.array(pos)
+    pos2[121, 1] += 0.002
+    de = native.NativeAGBNP1(params).energy_forces(pos2)["energy"] - \
+        out["energy"]
+    assert de == pytest.approx(0.0874992, abs=1e-6)
+    assert out["force"][121][1] * -0.002 == pytest.approx(0.0886249,
+                                                          abs=1e-6)
+    m = AGBNPModel(params, device=cuda, dtype=torch.float32, version=1,
+                   positions=pos)
+    e, f = m.energy_forces(pos)
+    assert abs(float(e) - out["energy"]) <= 1e-5 * abs(out["energy"])
+    assert rel(f, torch.as_tensor(out["force"])) <= 1e-5
