@@ -190,7 +190,25 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      runner, a 1-rank and the 2-rank mesh over 60 more steps; then a
      2-rank replica mesh: ReplicaEnsemble 4 x trp-cage (20 steps) and
      ConformerScorer 8 poses against one process (bitwise or within
-     1e-5 / 1e-4 nm and 1e-6 / 1e-5).
+     1e-5 / 1e-4 nm and 1e-6 / 1e-5);
+29. mixed=True (f32 pair math, f64 sums, the plain route) on 1li2: f32
+     mixed, f32 plain and f64 plain over the DMS pose and 31 poses
+     jittered 0.02 nm (numpy seed), at NoCutoff and at 1 nm with the
+     horizon at the cutoff: each mode's energy error and max|df|/max|f|
+     against f64, the mean energy error of mixed below plain f32's, every
+     error within 1e-5; Langevin MD of the mixed Simulation, the f64 plain
+     route of [22] and the f32 dense kernels of [6] in turns (40 timed
+     steps after 40 each, rebuilds every 40), ms/step each;
+     ConformerScorer(mixed=True) on 16 poses, each against its own B = 1
+     score (1e-6 / 1e-5); the refusals (pair_kernel=True, version 2, an
+     atoms mesh); no pair kernel launched, take_rows (#8) launched;
+30. the port's f64 NumPy oracles on this host (no JAX): their goldens
+     (872.514 with 2287.78 / -1415.27, -2476.66, the displacement check
+     0.0874992 / 0.0886249, the v2 anchors on the fixture's first 40
+     atoms) and their host seconds; then the card against them on all 264
+     atoms: f32 v1 and v2 through #1-#3 on the dense grid (energy 1e-5,
+     v1 forces 1e-4 of max|f|), f64 v1 and v2 on the plain route (energy
+     1e-9).
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -199,8 +217,8 @@ name/power-limit line, and the one before that the per-kernel JSON record
 (times, bound and what sets it, library_ms null for the pair sweeps and
 measured for the row kernels, live pairs, launches on its path and per step
 of each MD phase [6]-[9], [14] and of the replica runs [15]-[17], in
-one batched score of [18] and on each of [19]-[22], [23]-[25] and
-[26]-[28]; for the
+one batched score of [18] and on each of [19]-[22], [23]-[25],
+[26]-[28] and [29]-[30]; for the
 Born and
 descreening sweeps also the kept
 32x32 sub-tile pairs or the chunk slots and the Q/dQ bytes written or read).
@@ -3509,6 +3527,313 @@ def phase_sharding(dev, card):
     return total
 
 
+# [29]: mixed=True (f32 pair math, f64 sums, the plain route) on 1li2
+MIXED_POSES = 32          # the DMS pose and 31 jittered (numpy seed)
+MIXED_JITTER = 0.02       # nm
+MIXED_TOL = 1e-5          # relative energy, BASELINE.json's bar, each pose
+MIXED_STEPS = 40          # timed steps a run, after an equal warm-up
+MIXED_SCORE_POSES = 16    # ConformerScorer(mixed=True), B = 16 vs B = 1
+# [30]: the f64 NumPy oracles on the card host
+ORACLE_GOLDEN = dict(v0=872.514, v0_e1=2287.78, v0_e2=-1415.27,
+                     v1=-2476.66, v1_de=0.0874992, v1_pred=0.0886249)
+ORACLE_DE_TOL = 1e-6      # kJ/mol, the displacement check
+ORACLE_F32_TOL = 1e-5     # relative energy, f32 #1-#3 vs the oracle
+ORACLE_F32_FTOL = 1e-4    # of max|f|, f32 v1 forces vs the oracle
+ORACLE_F64_TOL = 1e-9     # relative energy, f64 plain vs the oracle
+# tests/test_agbnp2.py:62-82, the v2 anchors on the fixture's first 40 atoms
+V2_ORACLE_TERMS = dict(e_vol1=1296.819385880833, e_vol2=-1148.76359737392,
+                       e_ms1=27.57599932202746, e_vdw=-279.30181003341033,
+                       gb_pair=1114.5651675110894,
+                       gb_self=-1476.1241599496998)
+V2_ORACLE_FORCES = {0: (2.7244478045, -22.2829483825, -34.7403199228),
+                    17: (-116.3420644047, 8.9736090847, -130.7872966600),
+                    39: (12.2302176390, 25.9733147403, -30.5733421377)}
+
+
+def phase_mixed(dev, card):
+    """Phase 29: mixed=True on the card, 1li2.  f32 mixed, f32 on the
+    plain route and f64 on the plain route over the DMS pose and
+    MIXED_POSES - 1 poses jittered MIXED_JITTER nm, at NoCutoff and at
+    [22]'s configuration (1 nm, horizon at the cutoff): each mode's energy
+    error and max|df|/max|f| against f64, the mean energy error of mixed
+    below plain f32's (a single pose can tie: torch's f32 sums are blocked,
+    so the plain error already sits at the terms' own roundoff), every
+    error within MIXED_TOL.  Then Langevin MD (rebuild windows) of the
+    mixed Simulation, [22]'s f64 plain route and [6]'s f32 dense kernels,
+    in turns (mixed, f64, kernels, kernels, f64, mixed; MIXED_STEPS timed
+    after as many warm-up steps each); ConformerScorer(mixed=True) on
+    MIXED_SCORE_POSES poses, each against its own B = 1 score; the
+    refusals.  No pair kernel runs under mixed; take_rows (#8) must.
+    Returns the launches of the mixed MD and scoring."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import (AGBNPModel, ConformerScorer,
+                                               Simulation)
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.parallel import sharding as S
+
+    d, p = system("1li2")
+    rng = np.random.default_rng(29)
+    pos0 = np.asarray(d.positions)
+    poses = [pos0] + [pos0 + MIXED_JITTER * rng.standard_normal(pos0.shape)
+                      for _ in range(MIXED_POSES - 1)]
+    for cut in (None, 1.0):
+        kw = dict(cutoff=cut, descreen_horizon="cutoff" if cut else None)
+        m64 = AGBNPModel(p, device=dev, dtype=torch.float64,
+                         pair_kernel=False, positions=pos0, **kw)
+        for _ in range(8):  # capacities that hold every pose
+            if not any([m64.check_and_grow(m64.energy_forces(
+                    x, with_details=True)[2]["diag"]) for x in poses]):
+                break
+        else:
+            raise AssertionError("[29] capacities did not converge")
+        plain = AGBNPModel(p, device=dev, dtype=torch.float32,
+                           pair_kernel=False, caps=m64.caps, **kw)
+        mixed = AGBNPModel(p, device=dev, dtype=torch.float32, mixed=True,
+                           caps=m64.caps, **kw)
+        if mixed.pair_pad or not mixed.mixed:
+            raise AssertionError("[29] mixed must take the plain route")
+        errs = {"plain": [], "mixed": []}
+        ferrs = {"plain": [], "mixed": []}
+        for x in poses:
+            e64, f64, out = m64.energy_forces(x, with_details=True)
+            if m64.check_and_grow(out["diag"]):
+                raise AssertionError("[29] the f64 capacities overflowed")
+            for name, m in (("plain", plain), ("mixed", mixed)):
+                e, f, out = m.energy_forces(x, with_details=True)
+                if m.check_and_grow(out["diag"]):
+                    raise AssertionError(f"[29] {name}: capacities "
+                                         "overflowed")
+                if e.device.type != dev.type or f.device.type != dev.type \
+                        or e.dtype != torch.float32:
+                    raise AssertionError(f"[29] {name}: {e.device} "
+                                         f"{e.dtype}")
+                errs[name].append(abs(float(e) - float(e64))
+                                  / abs(float(e64)))
+                ferrs[name].append(rel_err(f, f64)[0])
+        mean = {k: float(np.mean(v)) for k, v in errs.items()}
+        log(f"[29] 1li2 cutoff {cut}: energy error vs f64 on the card, DMS "
+            f"pose plain {errs['plain'][0]:.3e} mixed "
+            f"{errs['mixed'][0]:.3e}; over {MIXED_POSES} poses mean plain "
+            f"{mean['plain']:.3e} mixed {mean['mixed']:.3e}, max plain "
+            f"{max(errs['plain']):.3e} mixed {max(errs['mixed']):.3e}; "
+            f"max|df|/max|f| max plain {max(ferrs['plain']):.3e} mixed "
+            f"{max(ferrs['mixed']):.3e}; mixed closer at "
+            f"{sum(a < b for a, b in zip(errs['mixed'], errs['plain']))}, "
+            f"tied at "
+            f"{sum(a == b for a, b in zip(errs['mixed'], errs['plain']))} "
+            f"of {MIXED_POSES}; on {card}")
+        if not mean["mixed"] < mean["plain"]:
+            raise AssertionError(f"[29] cutoff {cut}: mixed not closer to "
+                                 "f64 than plain f32")
+        if max(errs["plain"] + errs["mixed"]) > MIXED_TOL:
+            raise AssertionError(f"[29] cutoff {cut}: energy error above "
+                                 f"{MIXED_TOL}")
+        del m64, plain, mixed
+
+    sims = dict(mixed=md_sim(dev, "1li2", mixed=True),
+                f64=Simulation(d, device=dev, version=1, cutoff=1.0,
+                               dtype=torch.float64, skin=0.25,
+                               descreen_horizon="cutoff", pair_kernel=False),
+                kernels=md_sim(dev, "1li2", pair_tiles=False))
+    if not (sims["mixed"].agbnp.mixed and sims["mixed"].agbnp.pair_pad == 0
+            and sims["kernels"].agbnp.pair_pad > 0):
+        raise AssertionError("[29] the three routes")
+    for t in (sims["mixed"].positions, sims["mixed"].masses,
+              *sims["mixed"].agbnp.arrays.values()):
+        if isinstance(t, torch.Tensor) and t.device.type != dev.type:
+            raise AssertionError("[29] a mixed Simulation tensor off the "
+                                 "card")
+    ms = {k: [] for k in sims}
+    counts = {}
+    for name in ("mixed", "f64", "kernels", "kernels", "f64", "mixed"):
+        _, c, r = run_md(dev, card, "1li2", MIXED_STEPS, f"[29] {name}",
+                         sim=sims[name])
+        ms[name].append(r["elapsed_s"] / r["steps_run"] * 1e3)
+        if name == "mixed":
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+            if pair_launches(c):
+                raise AssertionError(f"[29] mixed launched pair kernels "
+                                     f"{pair_launches(c)}")
+    log(f"[29] 1li2 MD ms/step in turns (mixed, f64, kernels, kernels, "
+        f"f64, mixed; {MIXED_STEPS} timed steps after {MIXED_STEPS}, "
+        f"rebuilds every {NEIGHBOR_EVERY}): "
+        f"{ {k: [round(x, 4) for x in v] for k, v in ms.items()} } on "
+        f"{card}")
+
+    force = agbnp_force(p, 1)
+    scorer = ConformerScorer(force, pos0, device=dev, mixed=True)
+    batch = np.stack(poses[:MIXED_SCORE_POSES])
+    PK.reset_launch_counts()
+    res = scorer.score(batch, forces=True)
+    c = PK.launch_counts()
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    worst_e = worst_f = 0.0
+    for b in range(MIXED_SCORE_POSES):
+        one = scorer.score(batch[b], forces=True)
+        e1 = float(one["energy"][0])
+        worst_e = max(worst_e, abs(float(res["energy"][b]) - e1) / abs(e1))
+        worst_f = max(worst_f, rel_err(res["force"][b], one["force"][0])[0])
+    log(f"[29] ConformerScorer(mixed=True), {MIXED_SCORE_POSES} poses: "
+        f"B = {MIXED_SCORE_POSES} vs each pose's B = 1 score: energy rel "
+        f"{worst_e:.3e}, force max-err/max|f| {worst_f:.3e}; launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    if not (worst_e <= BATCH_E_TOL and worst_f <= BATCH_F_TOL) \
+            or res["energy"].device.type != dev.type:
+        raise AssertionError("[29] mixed scorer batch vs each pose")
+    if pair_launches(c):
+        raise AssertionError("[29] the mixed scorer launched pair kernels")
+
+    refused = 0
+    mesh = S.Mesh(group=None, rank=0, size=2, device=dev, axis="atoms")
+    for what, fn in (
+            ("pair_kernel=True", lambda: AGBNPModel(
+                p, device=dev, dtype=torch.float32, pair_kernel=True,
+                mixed=True)),
+            ("version 2", lambda: Simulation(d, device=dev, version=2,
+                                             dtype=torch.float32,
+                                             mixed=True)),
+            ("atoms mesh", lambda: sims["mixed"].make_langevin_runner(
+                mesh=mesh))):
+        try:
+            fn()
+        except ValueError as exc:
+            refused += 1
+            log(f"[29] refused, {what}: {exc}")
+    if refused != 3:
+        raise AssertionError("[29] a mixed refusal did not fire")
+    if counts.get("take_rows", 0) < 1:
+        raise AssertionError("[29] take_rows not launched on the mixed "
+                             "path")
+    log(f"[29] launches on the mixed path (MD and scoring): "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase_oracle(dev, card):
+    """Phase 30: the port's f64 NumPy oracles (models/oracle.py,
+    models/oracle_agbnp2.py; no JAX on this host) as the golden.  Their
+    own goldens first: GVolSA 872.514 (2287.78 / -1415.27), AGBNP1
+    -2476.66 and the displacement check 0.0874992 / 0.0886249, the v2
+    anchors on the fixture's first 40 atoms.  Then the card against them on
+    all 264 atoms: f32 v1 and v2 through #1-#3 (the dense grid at
+    NoCutoff; energy ORACLE_F32_TOL, v1 forces ORACLE_F32_FTOL of max|f|),
+    f64 v1 and v2 on the plain route (energy ORACLE_F64_TOL).  v2 forces
+    are not compared: the oracle's v2 force chain is the reference's
+    knowingly incomplete hand chain.  Returns the launches of the card's
+    evaluations."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import (AGBNP2Model, AGBNPModel,
+                                               AGBNPParams,
+                                               load_gaussvol_dat)
+    from openmm_agbnp_plugin_tpu_torch.models import oracle as O
+    from openmm_agbnp_plugin_tpu_torch.models import oracle_agbnp2 as O2
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(
+        os.path.join(HERE, "tests", "fixtures", "gaussvol.dat"))
+    p = AGBNPParams(radius=radius, gamma=gamma, alpha=alpha, charge=charge,
+                    ishydrogen=ish)
+    n = V2_GOLDEN_ATOMS
+    p40 = AGBNPParams(radius=radius[:n], gamma=gamma[:n], alpha=alpha[:n],
+                      charge=charge[:n], ishydrogen=ish[:n])
+    host = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        host[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    e0, _, (e1, e2) = timed("v0", O.gvolsa_energy_forces, p, pos)
+    ev1, fv1 = timed("v1", O.agbnp1_energy_forces, p, pos)
+    pos2 = np.array(pos)
+    pos2[121, 1] += 0.002
+    ev1b, _ = timed("v1_displaced", O.agbnp1_energy_forces, p, pos2)
+    de, pred = ev1b - ev1, -fv1[121, 1] * 0.002
+    e40, f40, det40 = timed("v2_40", O2.agbnp2_energy_forces, p40, pos[:n],
+                            return_details=True)
+    ev2 = timed("v2_264", O2.agbnp2_energy_forces, p, pos)[0]
+    g = ORACLE_GOLDEN
+    log(f"[30] the port's oracle on the host (s {host}): v0 {e0:.6f} "
+        f"({e1:.4f} / {e2:.4f}), v1 {ev1:.6f}, displacement dE {de:.7f} "
+        f"prediction {pred:.7f}, v2 40 atoms {e40:.10f}, v2 264 atoms "
+        f"{ev2:.10f}")
+    if not (abs(e0 - g["v0"]) <= 1e-3 and abs(e1 - g["v0_e1"]) <= 0.01
+            and abs(e2 - g["v0_e2"]) <= 0.01
+            and abs(ev1 - g["v1"]) <= GOLDEN_TOL
+            and abs(de - g["v1_de"]) <= ORACLE_DE_TOL
+            and abs(pred - g["v1_pred"]) <= ORACLE_DE_TOL):
+        raise AssertionError("[30] the oracle's v0/v1 goldens")
+    if not (abs(e40 - V2_GOLDEN_E) <= 1e-10 * abs(V2_GOLDEN_E)
+            and det40["num_ms"] == 28
+            and all(abs(det40[k] - v) <= 1e-9 * abs(v)
+                    for k, v in V2_ORACLE_TERMS.items())
+            and all(np.allclose(f40[i], v, rtol=1e-8, atol=0)
+                    for i, v in V2_ORACLE_FORCES.items())):
+        raise AssertionError("[30] the oracle's v2 anchors")
+
+    counts = {}
+    rows = []
+
+    def card_eval(label, m, want, ftol=None, f_want=None):
+        PK.reset_launch_counts()
+        for _ in range(8):
+            e, f, out = m.energy_forces(pos, with_details=True)
+            diag = out["diags"] if "diags" in out else out["diag"]
+            if not m.check_and_grow(diag):
+                break
+        else:
+            raise AssertionError(f"[30] {label}: capacities")
+        c = PK.launch_counts()
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        e_rel = abs(float(e) - want) / abs(want)
+        f_rel = (float(np.abs(f.double().cpu().numpy() - f_want).max()
+                       / np.abs(f_want).max()) if f_want is not None
+                 else None)
+        rows.append((label, float(e), e_rel, f_rel,
+                     {k: v for k, v in c.items() if v}))
+        return e_rel, f_rel, c
+
+    dense = ("born_sums", "gb_pair", "descreening")
+    e_rel, f_rel, c = card_eval(
+        "v1 f32 #1-#3", AGBNPModel(p, device=dev, dtype=torch.float32,
+                                   positions=pos, pair_tiles=False),
+        ev1, f_want=fv1)
+    if not (e_rel <= ORACLE_F32_TOL and f_rel <= ORACLE_F32_FTOL):
+        raise AssertionError("[30] v1 f32 vs the oracle")
+    check_launched(c, dense + ("take_rows",), "[30] v1 f32")
+    e_rel, _, c = card_eval(
+        "v2 f32 #1-#3", AGBNP2Model(p, device=dev, dtype=torch.float32,
+                                    positions=pos), ev2)
+    if not e_rel <= ORACLE_F32_TOL:
+        raise AssertionError("[30] v2 f32 vs the oracle")
+    check_launched(c, dense + ("take_rows",), "[30] v2 f32")
+    e_rel, _, _ = card_eval(
+        "v1 f64 plain", AGBNPModel(p, device=dev, dtype=torch.float64,
+                                   pair_kernel=False), ev1, f_want=fv1)
+    if not e_rel <= ORACLE_F64_TOL:
+        raise AssertionError("[30] v1 f64 vs the oracle")
+    e_rel, _, _ = card_eval(
+        "v2 f64 plain", AGBNP2Model(p, device=dev, dtype=torch.float64,
+                                    positions=pos, pair_kernel=False), ev2)
+    if not e_rel <= ORACLE_F64_TOL:
+        raise AssertionError("[30] v2 f64 vs the oracle")
+    for label, e, e_rel, f_rel, c in rows:
+        log(f"[30] card {label}: E {e:.10f}, energy rel {e_rel:.3e}"
+            + ("" if f_rel is None else f", force max-err/max|f| "
+               f"{f_rel:.3e}") + f"; launches {c} on {card}")
+    torch.cuda.synchronize()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3549,6 +3874,8 @@ def main() -> int:
     port_paths = dict(native=phase_native(dev, card),
                       examples=phase_examples(dev, card),
                       sharding=phase_sharding(dev, card))
+    last_paths = dict(mixed=phase_mixed(dev, card),
+                      oracle=phase_oracle(dev, card))
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
@@ -3591,6 +3918,10 @@ def main() -> int:
         # engine, the examples run in this process, the ranks of [28]
         rec["launches_26_28"] = {p: c.get(name, 0)
                                  for p, c in port_paths.items()}
+        # and on [29]-[30]: the mixed MD runs and scoring, the card's
+        # evaluations held against the f64 oracles
+        rec["launches_29_30"] = {p: c.get(name, 0)
+                                 for p, c in last_paths.items()}
         if "live_pairs" in k:
             rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})

@@ -5,6 +5,9 @@ tested against), with the same module names:
 
   models/agbnp_torch.py   AGBNPModel, energy_forces, prepare_arrays
   models/agbnp2_torch.py  AGBNP2Model, agbnp2_energy (version 2)
+  models/oracle.py        float64 golden reference implementation (NumPy:
+                          GaussVol's L0 API, gvolsa/agbnp1_energy_forces;
+                          models/oracle_agbnp2.py agbnp2_energy_forces)
   ops/tree.py             the flattened Gaussian overlap tree
   ops/born.py             dense pair phases (the plain route)
   ops/kernels/pairs.py    the three pair sweeps on the dense tile grid, and

@@ -24,7 +24,9 @@ the dense ops/born.py pair phases), as in JAX: the pair kernels have no
 backward.  The overlap tree's row gathers (ops/kernels/rows.py::take_rows)
 run their kernel on a card inside an autograd.Function whose backward is
 a deterministic segment sum, so gradients are the same bits from run to
-run.  Everything runs on the model's device.
+run.  A mixed model (AGBNPModel(mixed=True)) evaluates with its pair
+sums widened to float64, as JAX's does (api/fitting.py:87), and autograd
+goes through the widened sums.  Everything runs on the model's device.
 """
 
 from __future__ import annotations
@@ -112,7 +114,7 @@ class ParameterGradients:
             ntypes_j=m.ntypes_j, cutoff=m.cutoff, box=m.box,
             descreen_horizon=m.descreen_horizon,
             neighbor_rcut=m.neighbor_rcut, neighbor_kmax=m.neighbor_kmax,
-            neighbor_grid=m.neighbor_grid, wu_mode="skip")
+            neighbor_grid=m.neighbor_grid, wu_mode="skip", mixed=m.mixed)
         return out["energy"]
 
     def energies(self, theta: dict, poses):

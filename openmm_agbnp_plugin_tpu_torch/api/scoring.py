@@ -9,7 +9,8 @@ evaluation: the overlap tree of the poses' disjoint union and the pair
 kernels' replica axis (one launch each for the batch), as
 AGBNPModel.batched_energy_forces runs them.  NoCutoff scores on the dense
 tile grid; CutoffNonPeriodic on interacting-tile lists sized from the
-representative positions.
+representative positions; mixed=True (f32 pair math, f64 sums) on the
+plain ops/born.py route, as the JAX scorer always scores.
 
 Semantics per conformer are those of api.force.Context.getEnergyForces:
 the same energy and forces, and the same 8-try PanicButton regrow, from
@@ -63,6 +64,11 @@ class ConformerScorer:
     mesh: a `replica` mesh over which the batch is split (None: the whole
         batch in this process); every rank is given the same positions and
         gets the whole results.
+    mixed: f32 pair math with f64 sums (versions 0/1; version 2 raises, as
+        in JAX): the model takes the plain pair route, as JAX's scorer
+        always does (api/scoring.py:88-91), and score and refine evaluate
+        with its pair sums widened (AGBNPModel(mixed=True)).  Without it
+        the pair kernels run.
 
     Results are tensors on the scorer's device: "energy" [B] (kJ/mol),
     "force" [B, N, 3] with forces=True, and per-term energies with
@@ -70,9 +76,14 @@ class ConformerScorer:
     """
 
     def __init__(self, force: AGBNPForce, positions, dtype=torch.float32,
-                 device=None, caps=None, caps_boost: float = 1.6, mesh=None):
+                 device=None, caps=None, caps_boost: float = 1.6, mesh=None,
+                 mixed: bool = False):
         if force.getVersion() not in (0, 1, 2):
             raise ValueError("ConformerScorer supports versions 0, 1 and 2")
+        if mixed and force.getVersion() == 2:
+            raise ValueError(
+                "mixed=True is a version-0/1 option; AGBNP2 scoring runs the "
+                "f32 (or f64) pipeline directly")
         if force.getNonbondedMethod() == NonbondedMethod.CutoffPeriodic:
             raise ValueError(
                 "ConformerScorer is for gas-phase/implicit-solvent poses; "
@@ -95,6 +106,7 @@ class ConformerScorer:
         self._force = force
         self._caps = caps
         self._caps_boost = caps_boost
+        self._mixed = bool(mixed)
         self._model = self._build(force.to_params())
         if self._is_v2:
             # the width of the MS candidate lists built on the device: the
@@ -114,12 +126,14 @@ class ConformerScorer:
             return AGBNP2Model(params, device=self.device, dtype=self.dtype,
                                positions=self._pos0, cutoff=self._cutoff,
                                caps=self._caps)
-        # the dense grid without a cutoff, interacting-tile lists with one
+        # the dense grid without a cutoff, interacting-tile lists with one;
+        # mixed takes the plain route
         return AGBNPModel(params, device=self.device, dtype=self.dtype,
                           version=self._force.getVersion(),
                           cutoff=self._cutoff, caps=self._caps,
                           caps_boost=self._caps_boost, positions=self._pos0,
-                          pair_tiles=None if self._cutoff else False)
+                          pair_tiles=None if self._cutoff else False,
+                          mixed=self._mixed)
 
     @property
     def model(self):

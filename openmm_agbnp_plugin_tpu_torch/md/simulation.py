@@ -53,7 +53,14 @@ terms (by autograd, not fused into a sweep) and the integrator stay
 replicated, the same bits on every rank.  Version 1 with rebuild windows
 only; no MTS, no WU impulse and no vdW-compact WU pass under a mesh.
 
-Not ported here: `mixed=True`.
+mixed=True (JAX md/simulation.py:53, 89): f32 pair math with f64 sums.
+The AGBNP1 pair phases take the plain route of ops/born.py with their pair
+sums accumulated in float64 (AGBNPModel(mixed=True)); the tree passes, the
+MM force field and the integrator stay in the working dtype.  Every runner,
+run_md, benchmark_langevin and the replica runners get it through the
+model, and the rebuilds of resize_caps_to_current and the PanicButton keep
+it.  It raises with version 2, with pair_kernel=True and with an atoms
+mesh: the JAX package drops it there without a word.
 """
 
 from __future__ import annotations
@@ -97,12 +104,14 @@ class Simulation:
     dtype: float64 for CPU parity work, float32 on the GPU (the CUDA pair
     kernels take float32 only; pair_kernel=False runs the dense
     ops/born.py pair phases instead, in any dtype).  pair_tiles, share_qd,
-    pair_kernel and pairs go to AGBNPModel (interacting-tile-list budgets,
-    None = sized from the initial positions; Q/dQ sharing between the Born
-    and descreening sweeps; None = the kernel route; the tree's candidate
-    pairs (i, j[, valid]), None = the model's own).  include_mm=False
-    leaves the OPLS force field out: the forces are the AGBNP part alone
-    (and MTS, which needs the bonded class, raises).
+    pair_kernel, pairs and mixed go to AGBNPModel (interacting-tile-list
+    budgets, None = sized from the initial positions; Q/dQ sharing between
+    the Born and descreening sweeps; None = the kernel route unless mixed;
+    the tree's candidate pairs (i, j[, valid]), None = the model's own;
+    f32 pair math with f64 sums on the plain route, versions 0/1, see the
+    module docstring).  include_mm=False leaves the OPLS force field out:
+    the forces are the AGBNP part alone (and MTS, which needs the bonded
+    class, raises).
     constraints=True applies the DMS X-H constraint tables
     (md/constraints.py) in every integrator; vsites: a VirtualSites table
     (md/vsites.py) projected before and spread after every evaluation.
@@ -123,9 +132,14 @@ class Simulation:
                  caps_boost: float = 1.10, descreen_horizon=None,
                  pair_tiles=None, share_qd: bool = True,
                  constraints: bool = False, vsites=None,
-                 include_mm: bool = True, pairs=None, pair_kernel=None):
+                 include_mm: bool = True, pairs=None, pair_kernel=None,
+                 mixed: bool = False):
         if version not in (0, 1, 2):
             raise ValueError(f"version {version}: expected 0, 1 or 2")
+        if mixed and version == 2:
+            raise ValueError(
+                "mixed=True is a version-0/1 option: AGBNP2 runs its pair "
+                "phases in the working dtype")
         self.dms = dms
         self.device = torch.device(device)
         self.dtype = dtype
@@ -152,9 +166,8 @@ class Simulation:
                                     caps_boost=caps_boost,
                                     descreen_horizon=descreen_horizon,
                                     pair_tiles=pair_tiles, share_qd=share_qd,
-                                    pair_kernel=(pair_kernel is None
-                                                 or bool(pair_kernel)),
-                                    pairs=pairs)
+                                    pair_kernel=pair_kernel, pairs=pairs,
+                                    mixed=mixed)
         self.pairs = pairs
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         self.mm = (MMForceField.from_dms(dms, cutoff=cutoff, dtype=np_dtype)
@@ -221,7 +234,8 @@ class Simulation:
                                 pair_tiles=(None if m.pair_tiles is not None
                                             else False),
                                 share_qd=m.share_qd,
-                                pair_kernel=m.pair_kernel, pairs=self.pairs)
+                                pair_kernel=m.pair_kernel, pairs=self.pairs,
+                                mixed=m.mixed)
         self.kmax = _kmax_for(host_max_neighbors(
             pos_np, np.asarray(self.heavy_mask.cpu()), self.rcut_list))
         if self.grid is not None:
@@ -293,6 +307,10 @@ class Simulation:
             return
         if self.agbnp2 is not None or self.agbnp.version != 1:
             raise ValueError("mesh-sharded force requires version 1")
+        if self.agbnp.mixed:
+            raise ValueError("mesh-sharded force: the atoms mesh sums the "
+                             "pair rows in the working dtype; mixed=True "
+                             "runs unsharded (or over a replica mesh)")
         if not topology_ok:
             raise ValueError("mesh-sharded force requires version 1 and a "
                              "prebuilt topology")
@@ -385,7 +403,7 @@ class Simulation:
                                 pair_rows=pairs is not None, mm_nb=mm_nb,
                                 descreen_horizon=m.descreen_horizon,
                                 pair_tiles=m.pair_tiles,
-                                share_qd=m.share_qd,
+                                share_qd=m.share_qd, mixed=m.mixed,
                                 vdw_topology=vdw_topology,
                                 wu_mode="skip" if wu_mode == "skip"
                                 else "split")
@@ -1020,7 +1038,8 @@ class Simulation:
                                 pair_tiles=(m.pair_tiles if m.pair_tiles
                                             is not None else False),
                                 share_qd=m.share_qd,
-                                pair_kernel=m.pair_kernel, pairs=self.pairs)
+                                pair_kernel=m.pair_kernel, pairs=self.pairs,
+                                mixed=m.mixed)
 
     def run_md(self, nsteps, dt=0.001, temperature=300.0, friction=1.0,
                seed=0, neighbor_every: int = 20, segment: int | None = None,

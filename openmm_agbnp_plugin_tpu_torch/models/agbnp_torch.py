@@ -376,18 +376,22 @@ def _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad: int,
 
 
 def _pair_phases_plain(a, pos, s_factor, cutoff, box, ntypes_j: int,
-                       horizon=None):
+                       horizon=None, accum=None):
     """The same phases as _pair_phases_kernel (born sums, GB self/pair +
     vdW + direct forces, BrW/BrU, the descreening sweep) as the dense
-    [N, N] torch ops of ops/born.py, in atom order: the plain route."""
+    [N, N] torch ops of ops/born.py, in atom order: the plain route.
+    accum (torch.float64 under `mixed`) widens the pair sums."""
     geom = B.born_radii(pos, a["radii_vdw"], s_factor, a["ishydrogen"],
                         a["type_i"], a["type_j"], a["yflat"], a["y2flat"],
-                        ntypes_j, box=box, horizon=horizon)
+                        ntypes_j, accum_dtype=accum, box=box,
+                        horizon=horizon)
     br = geom["born_radius"]
-    gb = B.gb_energy(pos, a["charge"], br, geom, cutoff=cutoff)
+    gb = B.gb_energy(pos, a["charge"], br, geom, cutoff=cutoff,
+                     accum_dtype=accum)
     evdw_der_brw, egb_der_bru = B.born_chain_factors(
         a["alpha"], a["charge"], br, geom["inv_br_fp"], gb["egb_der_Y"])
-    sweep = B.descreening_sweep(geom, s_factor, evdw_der_brw, egb_der_bru)
+    sweep = B.descreening_sweep(geom, s_factor, evdw_der_brw, egb_der_bru,
+                                accum_dtype=accum)
     return dict(gb_self=gb["gb_self"], gb_pair=gb["gb_pair"],
                 e_vdw=B.vdw_energy(a["alpha"], br), born_radius=br,
                 pair_force=gb["force"] + sweep["force"],
@@ -441,7 +445,7 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
                           neighbor_kmax: int = 0, neighbor_grid=None,
                           pair_tiles=None, share_qd: bool = True,
                           vdw_topology=None, wu_mode: str = "fused",
-                          pair_shard=None):
+                          pair_shard=None, mixed: bool = False):
     """Energy and forces of B conformations pos [B, N, 3] of one system in
     one batched evaluation (counterpart of the JAX package's vmapped
     energy_forces, models/agbnp_jax.py:751-774): the overlap tree of the
@@ -478,12 +482,23 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     (parallel/sharding.py::sharded_pair_phases, the screened-atom rows in
     blocks over an atoms mesh) in place of the pair route; one system only.
 
+    mixed: f32 pair math with f64 sums (JAX models/agbnp_jax.py:446): the
+    plain route's pair sums accumulate in float64 when pos is not float64
+    (ops/born.py::_sum1); the tree passes stay in pos's dtype.  It rides
+    the plain route only: with pair_pad > 0 or pair_shard it raises, where
+    the JAX package would drop it without a word.
+
     Returns dict(energy, force, diag, details).
     """
     if pos.dim() != 3:
         raise ValueError(f"positions [B, N, 3], got {tuple(pos.shape)}")
     if wu_mode not in ("fused", "split", "skip"):
         raise ValueError(f"wu_mode {wu_mode!r}: fused, split or skip")
+    if mixed and (pair_pad > 0 or pair_shard is not None):
+        raise ValueError(
+            "mixed=True widens the plain route's pair sums only; the kernel "
+            "route (pair_pad > 0) and the atoms mesh (pair_shard) sum in the "
+            "working dtype")
     nb = pos.shape[0]
     if neighbor_kmax > 0:
         a, pair_rows, nbmax = tree_candidates(a, pos, neighbor_rcut,
@@ -523,10 +538,12 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
         if mm_nb is not None:
             raise ValueError("the fused MM sum rides the kernel route only")
         # the plain route has no replica axis: one replica at a time
+        accum = (torch.float64 if mixed and pos.dtype != torch.float64
+                 else None)
         pp = PK.per_replica(
             _pair_phases_plain, nb, dict(pos=pos, s_factor=s_factor),
             a=a, cutoff=cutoff, box=box, ntypes_j=ntypes_j,
-            horizon=descreen_horizon)
+            horizon=descreen_horizon, accum=accum)
     gb_self, gb_pair_e, e_vdw = pp["gb_self"], pp["gb_pair"], pp["e_vdw"]
     br, pair_force = pp["born_radius"], pp["pair_force"]
     evdw_der_W, egb_der_U = pp["evdw_der_W"], pp["egb_der_U"]
@@ -583,8 +600,13 @@ class AGBNPModel:
     device: where the arrays live and the evaluation runs (no default).
     pair_kernel: version 1 pair phases through the kernel route (CUDA
     kernels on a GPU, their plain twins on the CPU); False takes the dense
-    ops/born.py route.  pair_tiles: the kernel route's interacting-tile-list
-    budgets — None (auto: sized from `positions` when given, else the dense
+    ops/born.py route; None (the default) is the kernel route unless
+    `mixed`.  mixed=True: f32 pair math with f64 sums on the plain route
+    (JAX's `mixed`; the pair sums of ops/born.py accumulate in float64 at
+    a float32 dtype, the tree passes stay float32); it takes the plain
+    route, and an explicit pair_kernel=True with it raises (JAX's kernel
+    branch would drop it).  pair_tiles: the kernel route's
+    interacting-tile-list budgets — None (auto: sized from `positions` when given, else the dense
     grid), False (the dense grid) or (lmax_born, lmax_gb) with lmax_gb None
     for a dense GB sweep.  share_qd=False makes descreening recompute the
     spline instead of reloading the Born sweep's Q/dQ (the JAX package's
@@ -602,12 +624,18 @@ class AGBNPModel:
     def __init__(self, params: AGBNPParams, *, device, dtype=torch.float64,
                  caps: T.TreeCaps | None = None, version: int = 1,
                  cutoff: float | None = None, pairs=None, positions=None,
-                 box=None, pair_kernel: bool = True,
+                 box=None, pair_kernel: bool | None = None,
                  caps_boost: float = 1.6, descreen_horizon=None,
-                 pair_tiles=None, share_qd: bool = True):
+                 pair_tiles=None, share_qd: bool = True,
+                 mixed: bool = False):
         if version not in (0, 1):
             raise ValueError(f"version {version}: only 0 and 1 are ported")
+        if mixed and pair_kernel:
+            raise ValueError(
+                "mixed=True rides the plain pair route (pair_kernel=False): "
+                "the CUDA pair kernels sum in float32")
         self.params = params
+        self.mixed = bool(mixed)
         self.version = version
         self.cutoff = cutoff
         self.device = torch.device(device)
@@ -620,6 +648,8 @@ class AGBNPModel:
                     else torch.as_tensor(box, dtype=dtype, device=self.device))
         self.caps = caps if caps is not None else \
             T.TreeCaps.for_natoms(params.n, boost=max(1.0, caps_boost / 1.6))
+        if pair_kernel is None:
+            pair_kernel = not mixed
         self.pair_kernel = bool(pair_kernel) and version == 1
         self.pair_pad = (PK.pad_to(params.n, PK.pick_tile(params.n))
                          if self.pair_kernel else 0)
@@ -782,7 +812,8 @@ class AGBNPModel:
                              neighbor_kmax=self.neighbor_kmax,
                              neighbor_grid=self.neighbor_grid,
                              pair_tiles=self.pair_tiles,
-                             share_qd=self.share_qd, wu_mode=wu_mode)
+                             share_qd=self.share_qd, wu_mode=wu_mode,
+                             mixed=self.mixed)
 
     def energy_forces(self, pos, with_details: bool = False):
         out = self._evaluate(pos, "fused")

@@ -1693,3 +1693,47 @@ def test_native_engine_golden_on_the_card_host(cuda, fixture_system):
     e, f = m.energy_forces(pos)
     assert abs(float(e) - out["energy"]) <= 1e-5 * abs(out["energy"])
     assert rel(f, torch.as_tensor(out["force"])) <= 1e-5
+
+
+def test_mixed_f32_on_card_against_f64_on_card(cuda):
+    """mixed=True on the card (f32 pair math, f64 sums, the plain route)
+    against f64 on the card, 1li2 at NoCutoff: energy within 2e-6
+    relative, forces within 1e-5 of max|f|; the tree's row gathers still
+    run their kernel."""
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    d = load_dms(os.path.join(DATA, "1li2_agbnp1.dms"))
+    params = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                         alpha=d.agbnp_alpha, charge=d.charges,
+                         ishydrogen=d.ishydrogen)
+    pos = np.asarray(d.positions)
+    ref = AGBNPModel(params, device=cuda, dtype=torch.float64,
+                     pair_kernel=False, positions=pos)
+    m = AGBNPModel(params, device=cuda, dtype=torch.float32, mixed=True,
+                   caps=ref.caps)
+    assert m.pair_pad == 0
+    e0, f0 = ref.energy_forces(pos)
+    before = RW.LAUNCHES["take_rows"]
+    e1, f1 = m.energy_forces(pos)
+    assert RW.LAUNCHES["take_rows"] > before
+    assert e1.dtype == torch.float32 and e1.device == cuda
+    assert abs(float(e1) - float(e0)) <= 2e-6 * abs(float(e0))
+    assert rel(f1, f0) <= 1e-5
+
+
+def test_port_oracle_against_f64_v1_on_the_card(cuda, fixture_system):
+    """The port's f64 NumPy oracle (the card host's golden, no JAX) against
+    the card's f64 AGBNP1 on the fixture (the plain pair route; the pair
+    kernels take f32 only): energy to 1e-8, forces to 1e-9, as on the
+    CPU."""
+    from openmm_agbnp_plugin_tpu_torch.models.oracle import \
+        agbnp1_energy_forces
+
+    params, pos = fixture_system
+    e_o, f_o = agbnp1_energy_forces(params, pos)
+    assert e_o == pytest.approx(-2476.66, abs=0.01)
+    m = AGBNPModel(params, device=cuda, dtype=torch.float64,
+                   pair_kernel=False)
+    e, f = m.energy_forces(pos)
+    assert float(e) == pytest.approx(e_o, abs=1e-8)
+    np.testing.assert_allclose(f.cpu().numpy(), f_o, rtol=0, atol=1e-9)

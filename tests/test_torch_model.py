@@ -121,7 +121,9 @@ def test_port_never_imports_jax():
             "openmm_agbnp_plugin_tpu_torch.ops.kernels.rows, "
             "openmm_agbnp_plugin_tpu_torch.api.force, "
             "openmm_agbnp_plugin_tpu_torch.utils.hashtable, "
-            "openmm_agbnp_plugin_tpu_torch.utils.profiling; "
+            "openmm_agbnp_plugin_tpu_torch.utils.profiling, "
+            "openmm_agbnp_plugin_tpu_torch.models.oracle, "
+            "openmm_agbnp_plugin_tpu_torch.models.oracle_agbnp2; "
             "print('jax' in sys.modules, "
             "'openmm_agbnp_plugin_tpu' in sys.modules)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -16,7 +16,8 @@ under tmp_path, one thread each, a timeout that kills them):
   * make_langevin_runner(mesh=) on 4 ranks equals the plain runner to
     rtol 1e-12 (trp-cage f64, 12 steps in windows of 6);
   * ReplicaEnsemble, TemperatureREMD and ConformerScorer over a 2-rank
-    replica mesh equal their mesh=None results bit for bit;
+    replica mesh equal their mesh=None results bit for bit, and so does a
+    mixed=True (f32 pair math, f64 sums) scorer;
   * the refusals, and run_ranks failing (not hanging) on a lost rank.
 
 The functions the ranks run live in this module and import only the port
@@ -376,6 +377,40 @@ def test_replica_mesh_matches_one_process(replica_runs, part):
         # the states stay on their rank: each holds its block
         assert np.array_equal(ranks[0]["ens_pos"], single["ens_pos"][:2])
         assert np.array_equal(ranks[1]["ens_pos"], single["ens_pos"][2:])
+
+
+def mixed_scores(mesh):
+    """Five trp-cage poses scored in f32 with mixed=True (f32 pair math,
+    f64 sums), with forces."""
+    from openmm_agbnp_plugin_tpu_torch import AGBNPForce, ConformerScorer
+
+    dms, poses = _poses(5)
+    force = AGBNPForce()
+    force.setVersion(1)
+    for i in range(dms.n):
+        force.addParticle(dms.agbnp_radius[i], dms.agbnp_gamma[i],
+                          dms.agbnp_alpha[i], dms.charges[i],
+                          bool(dms.ishydrogen[i]))
+    scorer = ConformerScorer(force, dms.positions, dtype=torch.float32,
+                             device="cpu", mesh=mesh, mixed=True)
+    assert scorer.model.mixed and scorer.model.pair_pad == 0
+    return scorer.score(poses, forces=True)
+
+
+def rank_mixed_scores():
+    return mixed_scores(S.replica_mesh())
+
+
+def test_replica_mesh_keeps_mixed(tmp_path):
+    """A replica mesh runs each rank's block on the unsharded path, so
+    `mixed` rides it as in JAX (only the atoms mesh refuses it): the
+    2-rank mixed scores are mesh=None's bit for bit."""
+    ranks = _ranks(tmp_path, rank_mixed_scores, 2)
+    torch.set_num_threads(1)
+    single = S._to_host(mixed_scores(None))
+    for r in ranks:
+        for k, v in single.items():
+            assert np.array_equal(r[k], v), k
 
 
 def _double_and_shift(state):
