@@ -59,7 +59,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      package (benchmarks/.parity_cache), then 2clr with Q/dQ sharing off against
      sharing on, on the list route and on the dense route;
   5. checks that two evaluations of 1li2, and of 2clr, are bitwise equal;
-  6. runs the port's Simulation on 1li2 on the dense grid (f32, 400
+  6. runs the port's Simulation on 1li2 on the dense grid (f32, 200
      Langevin steps at 1 fs, neighbor list and tree topology rebuilt every
      40 steps, the vdW-compact WU pass: bench.py's strict run on the dense
      route) and checks that every energy is finite, no capacity overflow
@@ -72,7 +72,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
   8. bench.py's headline configuration on 1li2 (mts_wu4: the WU pass as
      an r-RESPA impulse every 4 steps, vdW-compact, tile lists): the
      compacted WU force against the full pass at a window start, a window
-     of k=1 impulse blocks against the plain fused step, then 400 timed
+     of k=1 impulse blocks against the plain fused step, then 200 timed
      steps after an equal warm-up with the checks of 6-7;
   9. bench.py's mts4fs_constraints configuration on 1li2 (4 fs outer
      step, 2 bonded substeps, SHAKE/RATTLE, rebuilds every 10 outer
@@ -108,7 +108,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      of max|f|, each list kernel launched once); then ReplicaEnsemble on
      1li2 (strict 1 fs Langevin, 300 K, 1/ps, rebuilds every 40 steps,
      vdW-compact WU pass), R = 1 and R = 8 in turns through the same
-     runner (40 warm-up and 200 timed steps, then 200 timed again): ms/step,
+     runner (40 warm-up and 100 timed steps, then 100 timed again): ms/step,
      ns/day per replica and aggregate, no overflow, finite energies that
      differ across replicas, the list kernels every step; kernels and
      device ms a step of a profiled window at R = 1 and R = 8;
@@ -165,7 +165,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
  25. bench.py's synth10k leg: utils/synthetic.py's run_md on the
      10,240-atom bonded synthetic ball (AGBNP1 + the MM force field,
      CutoffNonPeriodic 1 nm, f32, the cell grid and tile lists, rebuilds
-     every 20 steps, 200 timed steps after an equal warm-up, the
+     every 20 steps, 60 timed steps after an equal warm-up, the
      PanicButton regrow): finite energies, no overflow, #5-#7 once a step
      and take_rows at every level, ns/day, regrows, windows; one
      evaluation against the port's f64 pair_kernel=False route on the
@@ -209,6 +209,29 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      atoms: f32 v1 and v2 through #1-#3 on the dense grid (energy 1e-5,
      v1 forces 1e-4 of max|f|), f64 v1 and v2 on the plain route (energy
      1e-9).
+31. large N (the JAX package's large-system path): (a) the overlap tree
+     of 1li2, 2clr and the synthetic ball at 10,240 and 16,384 atoms
+     (AGBNPModel f32, cutoff 1 nm, sized from the positions) built one-shot
+     and chunked (ops/tree.py's dispatch thresholds forced), levels and
+     diag bitwise equal, each build's ms and peak memory, the chunked peak
+     below the one-shot's; (b) utils/synthetic.py's run_md at 16,384 atoms
+     (20-step windows, tile lists, the cell grid, 60 timed steps after an
+     equal warm-up): no overflow after the regrows, finite energies, #5-#7
+     every step (#7 recomputing where the lists' Q/dQ exceed
+     QD_BYTES_LIMIT), take_rows at every level; (c) synthetic.run at
+     24,576 atoms (5 timed evaluations): whether Q/dQ is shared, one
+     evaluation with share_qd=False (#7 recomputing) against one with the
+     lists' Q/dQ shared (#7 reloading; QD_BYTES_LIMIT raised to their
+     bytes for that evaluation alone) and the model's own (1e-5), the f32
+     evaluation against the native f64 engine on the card's host (energy
+     1e-5, forces 1e-4 of max|f|), its tree built chunked (and one-shot
+     when the 16,384-atom build's bytes a candidate say it fits), and
+     #5-#8 again on the inputs that evaluation gave them, against their
+     twins and timed beside their bounds.
+
+    python3 chip_smoke.py --only 31
+
+builds the kernels and runs phase 31 alone.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -218,7 +241,8 @@ name/power-limit line, and the one before that the per-kernel JSON record
 measured for the row kernels, live pairs, launches on its path and per step
 of each MD phase [6]-[9], [14] and of the replica runs [15]-[17], in
 one batched score of [18] and on each of [19]-[22], [23]-[25],
-[26]-[28] and [29]-[30]; for the
+[26]-[28], [29]-[30] and [31], and the list kernels' and take_rows' times
+at [31]'s 24,576-atom shapes; for the
 Born and
 descreening sweeps also the kept
 32x32 sub-tile pairs or the chunk slots and the Q/dQ bytes written or read).
@@ -226,6 +250,7 @@ descreening sweeps also the kept
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -490,26 +515,36 @@ def live_pairs(inp, kind, rng_dist):
     twins' own masks: GB's unordered pairs i < j < n within the cutoff
     (each list or dense sweep needs every one once), the Born sweep's
     (which both descreening variants share) within the horizon."""
+    pos_pad, pos_h = inp["born_args"][:2]
+    return count_live(pos_pad, pos_h, inp["born_args"][-1], inp["spline"],
+                      kind, rng_dist)
+
+
+def count_live(pos_pad, pos_h, n, spline, kind, rng_dist, block=2048):
+    """live_pairs of the rows pos_pad [3, NP] against the columns pos_h
+    [3, NHP] (GB: against the rows themselves), counted in blocks of rows
+    so the masks of a large system stay small."""
     import torch
 
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
 
-    pos_pad, pos_h = inp["born_args"][:2]
-    n = inp["born_args"][-1]
     ids = torch.arange(pos_pad.shape[1], device=pos_pad.device)
-    if kind == "gb":
-        d2 = PK._pair_geom(pos_pad, pos_pad, None)[3]
-        mask = ((ids[:, None] < ids[None, :]) & (ids[None, :] < n)
-                & (d2 < rng_dist * rng_dist))
-    else:
-        sp = inp["spline"]
-        d2 = PK._pair_geom(pos_pad, pos_h, None)[3]
-        mask = PK._born_qdq(torch.sqrt(d2), ids[:, None],
-                            sp.hids_perm.long()[None, :], n, rng_dist,
-                            sp.type_rows.long()[:, None],
-                            sp.type_cols.long()[None, :], sp.yval,
-                            sp.y2val)[2]
-    return int(mask.sum())
+    total = 0
+    for lo in range(0, pos_pad.shape[1], block):
+        rows = ids[lo:lo + block]
+        if kind == "gb":
+            d2 = PK._pair_geom(pos_pad[:, rows], pos_pad, None)[3]
+            mask = ((rows[:, None] < ids[None, :]) & (ids[None, :] < n)
+                    & (d2 < rng_dist * rng_dist))
+        else:
+            d2 = PK._pair_geom(pos_pad[:, rows], pos_h, None)[3]
+            mask = PK._born_qdq(torch.sqrt(d2), rows[:, None],
+                                spline.hids_perm.long()[None, :], n,
+                                rng_dist, spline.type_rows.long()[rows, None],
+                                spline.type_cols.long()[None, :],
+                                spline.yval, spline.y2val)[2]
+        total += int(mask.sum())
+    return total
 
 
 def nbytes(*xs) -> int:
@@ -605,6 +640,34 @@ def probe_inputs(dev, rows, parents):
             rand(1, parents), rand(2, rows))
 
 
+def row_timed(kern, plain, lib, moved, live=0):
+    """A row kernel's, its twin's and the library call's device ms, and the
+    bound of moved bytes (or live operations)."""
+    b_ms, b_by = bound_ms(live, 1, moved)
+    return dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
+                library_ms=cuda_time_ms(lib), bound_ms=b_ms,
+                bound_by=b_by, bytes=moved)
+
+
+def take_timed(tab, iv):
+    """take_rows(tab, iv) timed beside its twin and torch.index_select."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+
+    # index_select takes a matrix; a vector is its one column
+    tab2 = tab if tab.dim() == 2 else tab[:, None]
+    row_bytes = tab2.shape[1] * 4
+    # the bytes these ids need: the ids, each table row they name once
+    # (not the rows no id reaches), and the output
+    named = torch.unique(iv[(iv >= 0) & (iv < tab.shape[0])]).numel()
+    rec = row_timed(lambda: RW.take_rows(tab, iv),
+                    lambda: RW.take_rows_reference(tab, iv),
+                    lambda: torch.index_select(tab2, 0, iv),
+                    nbytes(iv) + (named + iv.shape[0]) * row_bytes)
+    return dict(rec, rows_named=named)
+
+
 def check_row_kernels(dev, results):
     """#8 and #9 against their twins, at the probe's default shape and at
     the widest level of 2clr's tree: take_rows bitwise (also with ids out
@@ -696,25 +759,6 @@ def check_row_kernels(dev, results):
         if not dev_b <= limit:
             raise AssertionError(f"broadcast {at}: deviation {dev_b:.3e}")
 
-    def timed(kern, plain, lib, moved, live=0):
-        b_ms, b_by = bound_ms(live, 1, moved)
-        return dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
-                    library_ms=cuda_time_ms(lib), bound_ms=b_ms,
-                    bound_by=b_by, bytes=moved)
-
-    def take_timed(tab, iv):
-        # index_select takes a matrix; a vector is its one column
-        tab2 = tab if tab.dim() == 2 else tab[:, None]
-        row_bytes = tab2.shape[1] * 4
-        # the bytes these ids need: the ids, each table row they name once
-        # (not the rows no id reaches), and the output
-        named = torch.unique(iv[(iv >= 0) & (iv < tab.shape[0])]).numel()
-        rec = timed(lambda: RW.take_rows(tab, iv),
-                    lambda: RW.take_rows_reference(tab, iv),
-                    lambda: torch.index_select(tab2, 0, iv),
-                    nbytes(iv) + (named + iv.shape[0]) * row_bytes)
-        return dict(rec, rows_named=named)
-
     # take_rows at the tree's own shapes: the widest level of 2clr's tree
     # at each width a pass gathers, the twin held first on the timed inputs
     # and on wild ids, then a table that starts one word off a 16-byte
@@ -758,9 +802,9 @@ def check_row_kernels(dev, results):
         shape=(f"{main['rows']} rows x {main['cols']} from "
                f"{main['table_rows']} ({lvl['label']})"),
         tree_widths=widths, probe=probe)
-    rec = timed(lambda: RW.cumsum_rows(x),
-                lambda: RW.cumsum_rows_reference(x),
-                lambda: torch.cumsum(x, 0), 2 * nbytes(x), x.numel())
+    rec = row_timed(lambda: RW.cumsum_rows(x),
+                    lambda: RW.cumsum_rows_reference(x),
+                    lambda: torch.cumsum(x, 0), 2 * nbytes(x), x.numel())
     rec["empty_launch_ms"] = results["gb_pair"].get("empty_launch_ms")
     results["cumsum_rows"].update(rec, library="torch.cumsum")
     log(f"    cumsum_rows at the probe shape: {rec['ms']:.4f} ms in one "
@@ -1607,9 +1651,13 @@ def phase_md(dev, card):
     return counts_1li2, counts_2clr
 
 
-def check_list_launches(counts, steps, label):
-    """Every list kernel launched at least once per (outer) step."""
-    for name in ("born_sums_tiles", "gb_pair_tiles", "descreening_tiles"):
+def check_list_launches(counts, steps, label, qd_shared=True):
+    """Every list kernel launched at least once per (outer) step: the
+    descreening sweep reloading the Born sweep's Q/dQ, or recomputing the
+    spline where the list's Q/dQ are not shared (lb T^2 8 over
+    QD_BYTES_LIMIT)."""
+    seven = "descreening_tiles" + ("" if qd_shared else "_recompute")
+    for name in ("born_sums_tiles", "gb_pair_tiles", seven):
         if counts[name] < steps:
             raise AssertionError(f"{label} {name}: {counts[name]} launches "
                                  f"< {steps} steps")
@@ -2101,14 +2149,15 @@ PAIR_KERNELS = ("subtile_columns", "born_sums", "gb_pair", "descreening",
 
 def device_kernels(fn):
     """(fn's result, CUDA kernels it launched, their device ms) from a
-    torch.profiler trace of one call."""
+    torch.profiler trace of one call.  The trace records the device alone:
+    the CPU ops' events add nothing to the kernels and their device time
+    and made processing the trace the larger part of [15] and [17]."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -2880,7 +2929,7 @@ PER_STEP_V2_WARMUP = 2    # [24] steps before the timed ones
 PER_STEP_V2_STEPS = 10    # [24] timed steps
 V2_ENS_E_TOL = 1e-5       # relative, replica 0 of R = 4 vs R = 1, each step
 SYNTH_ATOMS = 10240       # [25] bench.py's synth10k leg
-SYNTH_STEPS = 200         # [25] timed steps, after an equal warm-up
+SYNTH_STEPS = 60          # [25] timed steps, after an equal warm-up
 SYNTH_EVERY = 20          # [25] rebuild windows (bench.py's run_md)
 SYNTH_F_TOL = 1e-4        # [25] f32 lists vs f64 plain, of max|f|
 V2_KERNELS = ("born_sums", "gb_pair", "descreening")
@@ -3098,7 +3147,7 @@ def phase_synthetic(dev, card):
     """Phase 25: bench.py's synth10k leg on the port: utils/synthetic.py's
     run_md(10240) (the bonded synthetic ball, AGBNP1 + the MM force field,
     CutoffNonPeriodic 1 nm, f32, the cell grid and tile lists, rebuilds
-    every 20 steps; 200 timed steps after an equal warm-up, the PanicButton
+    every 20 steps; SYNTH_STEPS timed after an equal warm-up, the PanicButton
     regrow): finite energies, no overflow after the regrows, #5-#7 once a
     step and take_rows at every level; then one evaluation at the ball's
     positions against the port's f64 pair_kernel=False route on the card
@@ -3834,9 +3883,580 @@ def phase_oracle(dev, card):
     return counts
 
 
-def main() -> int:
+# [31]: large N, the JAX package's large-system path: ops/tree.py's chunked
+# sibling build (one-shot against chunked, bitwise), synthetic.run_md at
+# 16,384 atoms and synthetic.run at 24,576 (benchmarks/synthetic_scale.py)
+# (a) one-shot and chunked, bitwise: the shipped proteins, then the ball
+LARGE_BUILDS = ("1li2", "2clr", 10240, 16384)
+LARGE_MD_ATOMS = 16384              # (b) run_md
+LARGE_MD_STEPS = 60                 # (b) timed steps, after an equal warm-up
+LARGE_EVAL_ATOMS = 24576            # (c) run, the native engine, the kernels
+LARGE_EVAL_REPEATS = 5              # (c) timed evaluations
+# (a) the one-shot build at 24,576 atoms is tried when its peak, predicted
+# from the 16,384-atom build's bytes a candidate, is below this share of
+# the card's free memory
+ONESHOT_FREE_SHARE = 0.7
+BUILD_TIMES = 5             # (a) builds a mode timed with CUDA events
+# list entries a twin takes at once at the 24,576-atom shapes (each entry
+# is a T x T block of every temporary)
+TWIN_ENTRIES = 256
+DISPATCH = ("_CHUNK_BUILD_ELEMS", "_CHUNK_LEVEL_MIN", "_SLICE_BUILD_TOTAL")
+
+
+@contextlib.contextmanager
+def tree_dispatch(chunked: bool):
+    """Every sibling level built in row blocks (chunked) or in one shot,
+    whatever the shipped thresholds say, for the block's duration."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    old = {k: getattr(T, k) for k in DISPATCH}
+    for k in DISPATCH:
+        setattr(T, k, 0 if chunked else 1 << 62)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(T, k, v)
+
+
+@contextlib.contextmanager
+def qd_limit(nbytes: int):
+    """The model's Q/dQ limit set to nbytes for the block's duration."""
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+
+    old = M.QD_BYTES_LIMIT
+    M.QD_BYTES_LIMIT = nbytes
+    try:
+        yield
+    finally:
+        M.QD_BYTES_LIMIT = old
+
+
+def ball_params(natoms):
+    from openmm_agbnp_plugin_tpu_torch import AGBNPParams
+    from openmm_agbnp_plugin_tpu_torch.utils.synthetic import synthetic_system
+
+    pos, radius, gamma, alpha, charge, ish = synthetic_system(natoms)
+    return pos, AGBNPParams(radius=radius, gamma=gamma, alpha=alpha,
+                            charge=charge, ishydrogen=ish)
+
+
+def level_candidates(caps):
+    """The window candidates of each sibling level, cap_prev x offs."""
+    return [c * o for c, o in zip(caps.caps[:-1], caps.offs)]
+
+
+def tree_builds(dev, m, pos, label, modes):
+    """The model's overlap tree at the large radii built at pos under each
+    of modes (True: chunked, False: one-shot), each twice: the levels and
+    diag of the first build and the peak device memory above what was
+    allocated before either (bytes); then BUILD_TIMES more builds of each
+    mode, one after the other without emptying the cache, timed with CUDA
+    events: their median ms.  Every pair of builds is bitwise equal."""
     import torch
 
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    a = m.arrays
+    pt = torch.as_tensor(pos, dtype=m.dtype, device=dev)
+    ap, pair_rows, _ = M.tree_candidates(a, pt, m.neighbor_rcut,
+                                         m.neighbor_kmax, m.neighbor_grid)
+    lvl1 = T.make_level1(pt, a["radii_large"], a["vol_large"],
+                         a["gamma"] / m.params.roffset, a["ishydrogen"])
+    def build():
+        return T.build_tree(lvl1, ap["pairs_i"], ap["pairs_j"], m.caps,
+                            pairs_valid=ap["pairs_valid"],
+                            pair_rows=pair_rows)
+
+    out = {}
+    for chunked in modes:
+        runs = []
+        for _ in range(2):
+            with tree_dispatch(chunked):
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                levels, diag = build()
+                torch.cuda.synchronize(dev)
+                peak = torch.cuda.max_memory_allocated(dev) - base
+            runs.append((levels, diag, peak))
+        same_tree(f"{label} {'chunked' if chunked else 'one-shot'}, twice",
+                  runs[0][:2], runs[1][:2])
+        if T.check_overflow({k: v[0] for k, v in diag.items()})["any"]:
+            raise AssertionError(f"[31] {label}: the build overflowed")
+        times = []
+        with tree_dispatch(chunked):
+            for _ in range(BUILD_TIMES):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                build()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        out[chunked] = (runs[0][0], runs[0][1], sorted(times)[len(times) // 2],
+                        max(runs[0][2], runs[1][2]))
+        del runs
+    if len(modes) == 2:
+        same_tree(f"{label} chunked vs one-shot", out[True][:2],
+                  out[False][:2])
+    return {k: v[2:] for k, v in out.items()}
+
+
+def same_tree(label, a, b):
+    """Two builds' levels and diags bitwise equal: _ints, _dat, valid and
+    every bnd leaf of every level, and every diag leaf."""
+    import torch
+
+    (la, da), (lb, db) = a, b
+    for k in da:
+        if not torch.equal(da[k], db[k]):
+            raise AssertionError(f"[31] {label}: diag {k} differs")
+    for n, (x, y) in enumerate(zip(la, lb)):
+        for k in ("_ints", "_dat", "valid"):
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"[31] {label}: level {n + 2} {k} "
+                                     "differs")
+        for k in x["bnd"]:
+            if not torch.equal(x["bnd"][k], y["bnd"][k]):
+                raise AssertionError(f"[31] {label}: level {n + 2} bnd {k} "
+                                     "differs")
+
+
+# the arguments of each list kernel that carry the replica axis (the
+# model evaluates one system as a batch of one)
+REPLICA_ARGS = dict(born_sums_tiles=(0, 1, 2, 3, 9),
+                    gb_pair_tiles=(0, 1, 2, 4),
+                    descreening_tiles=(0, 1, 2, 3, 4, 5, 6, 7))
+
+
+def unlead_args(name, args):
+    """A batch-of-one call's arguments as one system's: the replica axis
+    taken off the arguments that carry it."""
+    def one(x):
+        if isinstance(x, tuple):
+            return tuple(one(t) for t in x)
+        if x is None:
+            return None
+        if x.shape[0] != 1:
+            raise AssertionError(f"[31] {name}: a batch of {x.shape[0]}")
+        return x[0]
+
+    lead = REPLICA_ARGS.get(name, ())
+    return tuple(one(a) if k in lead else a for k, a in enumerate(args))
+
+
+@contextlib.contextmanager
+def recorded_calls(calls):
+    """The arguments of the list kernels' and take_rows' calls made inside
+    the block, kept in calls[name] as one system's (the list kernels'
+    first call; the take_rows call that moves the most bytes)."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
+
+    def recorder(mod, name, key=None):
+        orig = getattr(mod, name)
+
+        def call(*args, **kw):
+            k = key(args) if key else 0
+            if name not in calls or k > calls[name][2]:
+                calls[name] = (unlead_args(name, args), kw, k)
+            return orig(*args, **kw)
+        return mod, name, orig, call
+
+    def moved(args):
+        tab, ids = args
+        return ids.shape[0] * (tab[0].numel() + 1)
+
+    hooks = [recorder(TL, "born_sums_tiles"), recorder(TL, "gb_pair_tiles"),
+             recorder(TL, "descreening_tiles"),
+             recorder(T, "take_rows", key=moved)]
+    for mod, name, _, call in hooks:
+        setattr(mod, name, call)
+    try:
+        yield calls
+    finally:
+        for mod, name, orig, _ in hooks:
+            setattr(mod, name, orig)
+
+
+def twin_in_parts(twin, nv, tl, *args, **kw):
+    """A list twin over its list TWIN_ENTRIES entries at a time: the row
+    and column sums of every part added, the per-entry Q/dQ the Born twin
+    returns joined, those the reload takes cut with their entries."""
+    import torch
+
+    lmax = tl.shape[1]
+
+    def entries(a, lo, hi):
+        # per-entry Q/dQ ([lmax, T, T] each) go with their entries
+        if isinstance(a, tuple) and all(
+                isinstance(t, torch.Tensor) and t.dim() == 3
+                and t.shape[0] == lmax for t in a):
+            return tuple(t[lo:hi] for t in a)
+        return a
+
+    outs = []
+    for lo in range(0, lmax, TWIN_ENTRIES):
+        hi = min(lo + TWIN_ENTRIES, lmax)
+        part = twin(torch.clamp(nv - lo, 0, hi - lo), tl[:, lo:hi],
+                    *(entries(a, lo, hi) for a in args), **kw)
+        outs.append(part if isinstance(part, tuple) else (part,))
+    joined = []
+    for k, first in enumerate(outs[0]):
+        if first is None:
+            joined.append(None)
+        elif first.dim() == 3:
+            joined.append(torch.cat([o[k] for o in outs]))
+        else:
+            joined.append(sum(o[k] for o in outs))
+    return tuple(joined) if len(joined) > 1 else joined[0]
+
+
+def large_kernels(calls, label):
+    """#5-#8 as the 24,576-atom evaluation launched them: each kernel
+    again on its recorded inputs, held against its twin (the list twins
+    in parts of TWIN_ENTRIES entries), and timed beside the twin and its
+    bound, as [2] times them; descreening both reloading the Born
+    kernel's Q/dQ and recomputing the spline.  Returns {name: record}."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import rows as RW
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import tiles as TL
+
+    out = {}
+
+    def check(name, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        worst = 0.0
+        for k, (o, r) in enumerate(zip(got, want)):
+            if r is None:
+                continue
+            rel, diff = rel_err(o, r)
+            log(f"    {name:27s} {label} out{k}: max|d|/max|ref| = "
+                f"{rel:.3e}")
+            if not rel <= KERNEL_TOL:
+                raise AssertionError(f"[31] {name} {label} output {k}: "
+                                     f"{rel:.3e} > {KERNEL_TOL}")
+            worst = max(worst, diff)
+        return worst
+
+    def record(name, kern, plain, err, live, ops, moved, **info):
+        b_ms, b_by = bound_ms(live, OPS_PER_PAIR[ops], moved)
+        rec = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, 3),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   max_abs_err=err, live_pairs=live, bytes=moved, **info)
+        out[name] = rec
+        log(f"    {label} {name:27s} kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {live} "
+            f"live pairs, {moved} bytes; {info})")
+
+    b_args, b_kw, _ = calls["born_sums_tiles"]
+    nv, tl, pos_pad, pos_h = b_args[:4]
+    n, tile = b_args[10], b_args[11]
+    horizon = b_kw.get("horizon")
+    spline = PK.SplineArgs(*b_args[4:9], n, horizon)
+    live_b = count_live(pos_pad, pos_h, n, spline, "born", horizon)
+    path_qd = bool(b_kw.get("save_qd", False))
+    kw_qd = dict(b_kw, save_qd=True)
+    got = TL.born_sums_tiles(*b_args, **kw_qd)
+    want = twin_in_parts(TL.born_sums_tiles_reference, *b_args, **kw_qd)
+    err = check("born_sums_tiles", got[0], want[0])
+    record("born_sums_tiles", lambda: TL.born_sums_tiles(*b_args, **b_kw),
+           lambda: twin_in_parts(TL.born_sums_tiles_reference, *b_args,
+                                 **b_kw),
+           err, live_b, "born", nbytes(b_args, got[0])
+           + (nbytes(got[3:]) + 8 * live_b if path_qd else 0),
+           list=f"nv {int(nv[0])}/lmax {tl.shape[1]}", save_qd=path_qd)
+    qd_k, qd_t = got[1:], want[1:]
+    del got, want
+
+    g_args, g_kw, _ = calls["gb_pair_tiles"]
+    got = TL.gb_pair_tiles(*g_args, **g_kw)
+    err = check("gb_pair_tiles", got,
+                twin_in_parts(TL.gb_pair_tiles_reference, *g_args, **g_kw))
+    live_g = count_live(g_args[2], g_args[2], g_args[5], None, "gb",
+                        g_kw["cutoff"])
+    record("gb_pair_tiles", lambda: TL.gb_pair_tiles(*g_args, **g_kw),
+           lambda: twin_in_parts(TL.gb_pair_tiles_reference, *g_args,
+                                 **g_kw),
+           err, live_g, "gb_mm" if g_kw.get("sig_pad") is not None
+           else "gb", nbytes(g_args, g_kw, got),
+           list=f"nv {int(g_args[0][0])}/lmax {g_args[1].shape[1]}")
+    del got
+
+    d_args, d_kw, _ = calls["descreening_tiles"]
+    d_in = d_args[:7]
+    for name, qd, tw_qd, spl, ops, extra in (
+            ("descreening_tiles", qd_k, qd_t, spline, "descreen",
+             8 * live_b),
+            ("descreening_tiles_recompute", None, None, spline,
+             "descreen_spline", 0)):
+        dkw = dict(d_kw, spline=spl)
+        got = TL.descreening_tiles(*d_in, qd, tile, **dkw)
+        err = check(name, got, twin_in_parts(
+            TL.descreening_tiles_reference, *d_in, tw_qd, tile, **dkw))
+        record(name, lambda: TL.descreening_tiles(*d_in, qd, tile, **dkw),
+               lambda: twin_in_parts(TL.descreening_tiles_reference, *d_in,
+                                     tw_qd, tile, **dkw),
+               err, live_b, ops,
+               nbytes(d_in, got, qd[2:] if qd else None) + extra,
+               on_the_path=(d_args[7] is None) == (qd is None))
+        del got
+    del qd_k, qd_t
+
+    t_args, _, _ = calls["take_rows"]
+    tab, iv = t_args
+    got = RW.take_rows(tab, iv)
+    if not torch.equal(got, RW.take_rows_reference(tab, iv)):
+        raise AssertionError(f"[31] take_rows {label}: differs from the twin")
+    rec = take_timed(tab, iv)
+    cols = 1 if tab.dim() == 1 else tab.shape[1]
+    rec.update(max_abs_err=0.0, library="torch.index_select",
+               shape=f"{iv.shape[0]} rows x {cols} from {tab.shape[0]}")
+    out["take_rows"] = rec
+    log(f"    {label} take_rows {rec['shape']}: bitwise the twin; kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"torch.index_select {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['bytes']} bytes)")
+    return out
+
+
+def phase_large(dev, card):
+    """Phase 31: large N.  (a) The overlap tree of each of LARGE_BUILDS
+    (AGBNPModel f32, cutoff 1 nm, sized from the positions) built one-shot
+    and chunked: levels bitwise equal, ms and peak memory of each, the
+    chunked peak below the one-shot's.  (b) synthetic.run_md at
+    16,384 atoms (20-step windows, tile lists, the cell grid;
+    LARGE_MD_STEPS timed after an equal warm-up): no overflow after the
+    regrows, finite energies, #5-#7 every step (#7 recomputing where the
+    lists' Q/dQ are not shared), take_rows at every level.
+    (c) synthetic.run at 24,576 atoms (LARGE_EVAL_REPEATS timed
+    evaluations): whether its lists share Q/dQ (lb T^2 8 against
+    QD_BYTES_LIMIT), one evaluation with share_qd=False against one with
+    the lists' Q/dQ shared (the limit raised to their bytes for it) and the
+    model's own (1e-5), the f32 evaluation against the native f64 engine on
+    the card's host (energy PARITY_TOL, forces SYNTH_F_TOL of max|f|), its
+    tree built chunked (and one-shot when it fits), and #5-#8 timed at its
+    shapes.  Returns (launches of (b) and (c), the kernel records of
+    (c))."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import AGBNPModel
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.runtime import native
+    from openmm_agbnp_plugin_tpu_torch.utils import synthetic
+
+    torch.cuda.empty_cache()
+    gb = 1024 ** 3
+    log(f"[31] large N on {card}; dispatch thresholds "
+        f"{ {k: getattr(T, k) for k in DISPATCH + ('_CHUNK_ROWS',)} }")
+    per_cand = None
+    for what in LARGE_BUILDS:
+        if isinstance(what, str):
+            d, p = system(what)
+            pos = d.positions
+        else:
+            pos, p = ball_params(what)
+        label = f"{what} ({p.n} atoms)" if isinstance(what, str) else \
+            f"{what} atoms"
+        t0 = time.perf_counter()
+        m = AGBNPModel(p, device=dev, dtype=torch.float32, version=1,
+                       cutoff=1.0, positions=pos)
+        init_s = time.perf_counter() - t0
+        cands = level_candidates(m.caps)
+        b = tree_builds(dev, m, pos, label, (False, True))
+        (ms1, peak1), (msc, peakc) = b[False], b[True]
+        per_cand = peak1 / max(cands)
+        pressured = sum(cands) > T._SLICE_BUILD_TOTAL
+        log(f"[31] (a) {label}: model sized in {init_s:.1f} s, caps "
+            f"{m.caps.caps}, offs {m.caps.offs}; window candidates "
+            f"{cands} (total {sum(cands)}; the shipped dispatch chunks "
+            f"{[c for c in cands if pressured and c > T._CHUNK_LEVEL_MIN]}"
+            f"); one-shot {ms1:.1f} ms, peak {peak1 / gb:.3f} GiB "
+            f"({per_cand:.1f} bytes a candidate of its largest level); "
+            f"chunked {msc:.1f} ms, peak {peakc / gb:.3f} GiB; levels and "
+            "diag bitwise equal")
+        if not peakc < peak1:
+            raise AssertionError(f"[31] {label}: the chunked peak is not "
+                                 "below the one-shot peak")
+        del m
+    torch.cuda.empty_cache()
+
+    PK.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = synthetic.run_md(LARGE_MD_ATOMS, nsteps=LARGE_MD_STEPS, device=dev,
+                         neighbor_every=SYNTH_EVERY)
+    md_counts = PK.launch_counts()
+    sim, e = r["sim"], r["energies"]
+    ms = r["elapsed_s"] * 1e3 / r["steps_run"]
+    lb = sim.agbnp.pair_tiles[0] if sim.agbnp.pair_tiles else 0
+    tile = PK.pick_tile(LARGE_MD_ATOMS)
+    md_shared = lb * tile * tile * 8 <= M.QD_BYTES_LIMIT
+    log(f"[31] (b) run_md({LARGE_MD_ATOMS}), f32, 1 nm: {r['ns_day']:.3f} "
+        f"ns/day ({ms:.3f} ms/step) on {card}; set-up {r['init_s']:.1f} s, "
+        f"regrows {r['regrows']}, windows {r['windows']}, overflow "
+        f"{r['overflow']}, steps {r['steps_run']}; cell grid "
+        f"{sim.grid is not None}, kmax {sim.kmax}, pair_tiles "
+        f"{sim.agbnp.pair_tiles} (Q/dQ {lb * tile * tile * 8} bytes, "
+        f"shared {md_shared}), tree rows "
+        f"{sim.agbnp.caps.caps}, offs {sim.agbnp.caps.offs}; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / gb:.3f} GiB; E first/last "
+        f"{e[0]:.2f}/{e[-1]:.2f}; launches {pair_launches(md_counts)}, "
+        f"take_rows {md_counts['take_rows']}")
+    if r["overflow"] or e.shape != (LARGE_MD_STEPS,) or \
+            not np.isfinite(e).all():
+        raise AssertionError("[31] (b) overflow or non-finite energies")
+    if sim.grid is None or sim.agbnp.pair_tiles is None:
+        raise AssertionError("[31] (b) the ball must run the cell grid, "
+                             "lists")
+    check_list_launches(md_counts, 2 * LARGE_MD_STEPS, "[31] (b)",
+                        qd_shared=md_shared)
+    gathers = GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * 2 * LARGE_MD_STEPS
+    if md_counts["take_rows"] < gathers:
+        raise AssertionError(f"[31] (b) take_rows {md_counts['take_rows']} "
+                             f"< {gathers}")
+    del r, sim
+    torch.cuda.empty_cache()
+
+    PK.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = synthetic.run(LARGE_EVAL_ATOMS, repeats=LARGE_EVAL_REPEATS,
+                      device=dev)
+    eval_counts = PK.launch_counts()
+    m = r["model"]
+    pos, p = ball_params(LARGE_EVAL_ATOMS)
+    lb = m.pair_tiles[0]
+    tile = PK.pick_tile(LARGE_EVAL_ATOMS)
+    qd_bytes = lb * tile * tile * 8
+    shared = qd_bytes <= M.QD_BYTES_LIMIT
+    log(f"[31] (c) run({LARGE_EVAL_ATOMS}), f32, 1 nm: "
+        f"{r['s_per_eval'] * 1e3:.2f} ms an evaluation on {card} (the JAX "
+        f"package's TPU figure 10.1 s is the TPU's); set-up "
+        f"{r['init_s']:.1f} s, first evaluations {r['first_s']:.1f} s, "
+        f"regrows {r['regrows']}, overflow {r['overflow']}; grid "
+        f"{r['grid']}, kmax {r['kmax']}, caps {r['caps']}, offs {r['offs']}, "
+        f"pair_tiles {r['pair_tiles']}; Q/dQ lb T^2 8 = {qd_bytes} bytes "
+        f"against QD_BYTES_LIMIT {M.QD_BYTES_LIMIT}: "
+        f"{'shared' if shared else 'recomputed'}; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / gb:.3f} GiB; launches "
+        f"{pair_launches(eval_counts)}, take_rows {eval_counts['take_rows']}")
+    if r["overflow"] or not r["grid"] or m.pair_tiles is None:
+        raise AssertionError("[31] (c) overflow left, or no cell grid, lists")
+    check_list_launches(eval_counts, LARGE_EVAL_REPEATS, "[31] (c)",
+                        qd_shared=shared)
+    calls = {}
+    with recorded_calls(calls):
+        e_on, f_on = m.energy_forces(pos)
+    # share_qd off (#7 recomputing) against the lists' Q/dQ shared (#7
+    # reloading them), with the limit raised for that one evaluation where
+    # the lists' Q/dQ are over it
+    PK.reset_launch_counts()
+    with qd_limit(max(qd_bytes, M.QD_BYTES_LIMIT)):
+        e_re, f_re = m.energy_forces(pos)
+    re_counts = PK.launch_counts()
+    m.share_qd = False
+    PK.reset_launch_counts()
+    e_off, f_off = m.energy_forces(pos)
+    off_counts = PK.launch_counts()
+    m.share_qd = True
+    e_rel = abs(float(e_off) - float(e_re)) / abs(float(e_re))
+    f_rel = rel_err(f_off, f_re)[0]
+    on_rel = abs(float(e_on) - float(e_re)) / abs(float(e_re))
+    on_f_rel = rel_err(f_on, f_re)[0]
+    log(f"[31] (c) share_qd=False vs Q/dQ shared ({qd_bytes} bytes, the "
+        f"limit raised to it for this evaluation): energy rel {e_rel:.3e}, "
+        f"force max-err/max|f| {f_rel:.3e}; the model's own "
+        f"({'shared' if shared else 'recomputed'}) evaluation vs shared: "
+        f"energy rel {on_rel:.3e}, force {on_f_rel:.3e}; launches shared "
+        f"{pair_launches(re_counts)}, off {pair_launches(off_counts)}")
+    if not (e_rel <= PARITY_TOL and f_rel <= PARITY_TOL
+            and on_rel <= PARITY_TOL and on_f_rel <= PARITY_TOL):
+        raise AssertionError("[31] (c) share_qd off vs on")
+    if re_counts["descreening_tiles"] < 1:
+        raise AssertionError("[31] (c) the shared evaluation did not reload")
+    if off_counts["descreening_tiles_recompute"] < 1:
+        raise AssertionError("[31] (c) share_qd=False did not recompute")
+    del f_re, f_off
+    eval_counts = {k: c + re_counts[k] + off_counts[k]
+                   for k, c in eval_counts.items()}
+
+    t0 = time.perf_counter()
+    ref = native.NativeAGBNP1(p).energy_forces(pos, cutoff=1.0)
+    native_s = time.perf_counter() - t0
+    e_rel = abs(float(e_on) - ref["energy"]) / abs(ref["energy"])
+    fn = f_on.double().cpu().numpy()
+    f_rel = float(np.abs(fn - ref["force"]).max()
+                  / np.abs(ref["force"]).max())
+    log(f"[31] (c) f32 on the card vs the native f64 engine on its host "
+        f"({native_s:.1f} s): E {float(e_on):.4f} / {ref['energy']:.4f}, "
+        f"energy rel {e_rel:.3e}, force max-err/max|f| {f_rel:.3e}")
+    if not (e_rel <= PARITY_TOL and f_rel <= SYNTH_F_TOL):
+        raise AssertionError("[31] (c) f32 vs the native f64 engine")
+    del ref, f_on
+
+    cands = level_candidates(m.caps)
+    free = torch.cuda.mem_get_info(dev)[0]
+    predicted = per_cand * max(cands)
+    fits = predicted < ONESHOT_FREE_SHARE * free
+    b = tree_builds(dev, m, pos, f"{LARGE_EVAL_ATOMS} atoms",
+                    (True, False) if fits else (True,))
+    msc, peakc = b[True]
+    log(f"[31] (a) {LARGE_EVAL_ATOMS} atoms: window candidates {cands} "
+        f"(total {sum(cands)}); chunked {msc:.1f} ms, peak "
+        f"{peakc / gb:.3f} GiB; one-shot predicted peak "
+        f"{predicted / gb:.2f} GiB against {free / gb:.2f} GiB free: "
+        + (f"built in {b[False][0]:.1f} ms, peak {b[False][1] / gb:.3f} "
+           "GiB, bitwise the chunked build" if fits else "not tried"))
+    if fits and not peakc < b[False][1]:
+        raise AssertionError(f"[31] {LARGE_EVAL_ATOMS} atoms: the chunked "
+                             "peak is not below the one-shot peak")
+
+    log(f"[31] (c) #5-#8 at the {LARGE_EVAL_ATOMS}-atom evaluation's shapes "
+        "(CUDA events behind a device sleep; twins in parts of "
+        f"{TWIN_ENTRIES} list entries)")
+    records = large_kernels(calls, f"{LARGE_EVAL_ATOMS // 1024}k")
+    del calls, m, r
+    torch.cuda.empty_cache()
+    return dict(md_16k=md_counts, eval_24k=eval_counts), records
+
+
+def log_phase_times():
+    """Wrap every phase_* function so that it logs its own wall time (the
+    smoke's budget is the sum of them)."""
+    def timed(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            log(f"    {fn.__name__} took {time.perf_counter() - t0:.1f} s")
+            return out
+        return call
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(fn)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", type=int, choices=(31,),
+                    help="build the kernels and run this phase alone "
+                         "(its launches and kernel records, the card's "
+                         "line, then {\"ok_phase\": N}; the contract's "
+                         "ok line is the full run's alone)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3848,7 +4468,16 @@ def main() -> int:
     card = nvidia_smi_line()
     log(f"[1] {card}")
     dev = torch.device("cuda", 0)
+    log_phase_times()
     phase_build()
+    if args.only == 31:
+        large_paths, large_records = phase_large(dev, card)
+        log(f"[31] passed in {time.perf_counter() - t0:.1f} s")
+        print(json.dumps(dict(phase=31, launches=large_paths,
+                              kernels=large_records)))
+        print(card)
+        print(json.dumps(dict(ok_phase=31)), flush=True)
+        return 0
     kernels = phase_kernels(dev)
     phase_goldens(dev)
     counts = dict(share_off=phase_parity(dev))
@@ -3876,6 +4505,7 @@ def main() -> int:
                       sharding=phase_sharding(dev, card))
     last_paths = dict(mixed=phase_mixed(dev, card),
                       oracle=phase_oracle(dev, card))
+    large_paths, large_records = phase_large(dev, card)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
@@ -3922,6 +4552,14 @@ def main() -> int:
         # evaluations held against the f64 oracles
         rec["launches_29_30"] = {p: c.get(name, 0)
                                  for p, c in last_paths.items()}
+        # and on [31]: the 16,384-atom MD (every attempt's warm-up and
+        # timed run) and the 24,576-atom evaluations (the PanicButton
+        # loop, the timed ones, the share_qd=False one); the kernel's
+        # times at the 24,576-atom evaluation's shapes
+        rec["launches_31"] = {p: c.get(name, 0)
+                              for p, c in large_paths.items()}
+        if name in large_records:
+            rec["synth_24k"] = large_records[name]
         if "live_pairs" in k:
             rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})

@@ -308,14 +308,21 @@ def _cand_dat(s_gv, s_ga, s_gc, s_gamma, a):
     a_ga = a[..., 1]
     a_gc = a[..., 2:5]
     dist = a_gc - s_gc
-    d2 = torch.sum(dist * dist, dim=-1)
+    # explicit adds and t * sqrt(t) for t ** 1.5: every operation here then
+    # rounds each element alike whatever the shape it is computed in (the
+    # CPU's pow takes a vector path and a scalar tail that differ in the
+    # last bit), so the chunked build's recompute of the chosen candidates
+    # is bitwise the one-shot build's candidate grid
+    d2 = (dist[..., 0] * dist[..., 0] + dist[..., 1] * dist[..., 1]) \
+        + dist[..., 2] * dist[..., 2]
     a12 = s_ga + a_ga
     ok = (s_ga > 0.0) & (a_ga > 0.0)
     deltai = 1.0 / torch.where(a12 > 0.0, a12, 1.0)
     df = s_ga * a_ga * deltai
     ef = torch.exp(-df * d2)
     df_safe = torch.where(ok, df, 1.0)
-    gvol = torch.where(ok, (s_gv * a_gv * (df_safe / PI) ** 1.5) * ef, 0.0)
+    t = df_safe / PI
+    gvol = torch.where(ok, (s_gv * a_gv * (t * torch.sqrt(t))) * ef, 0.0)
     dgvol = -2.0 * df * gvol
     sv_pos = s_gv > 0
     dgvolv = torch.where(sv_pos, gvol / torch.where(sv_pos, s_gv, 1.0), 0.0)
@@ -397,22 +404,24 @@ def _pair_candidates(level1, pairs_i, pairs_j, pairs_valid=None,
     return dat, ints, mask
 
 
-def _compact_rows(key, mask, cap):
-    """Row-structured compaction: pack survivors of a [rows, width] candidate
-    grid into a fixed-cap level, row-grouped with key-descending order within
-    each row (rows are parents, so this reproduces _compact's
-    (parent asc, volume desc) order with one per-row sort and O(rows)
-    placement).
-
-    Returns (row_of_slot, off_of_slot, valid, count, cnt) where off is the
-    within-row candidate offset; row_of_slot is also pmono, the monotone
-    per-parent segment-id vector of the packed layout.
-    """
-    rows, width = key.shape
-    dev = key.device
+def _row_order(key, mask):
+    """Per row of a [rows, width] candidate grid: the candidate offsets
+    with the survivors first in key-descending order (a stable sort, so
+    ties keep their offset order), and the survivors' count."""
     skey = torch.where(mask, -key, float("inf"))
-    off_sorted = torch.sort(skey, dim=1, stable=True).indices
-    cnt = torch.sum(mask, dim=1)
+    return (torch.sort(skey, dim=1, stable=True).indices,
+            torch.sum(mask, dim=1))
+
+
+def _place_rows(off_sorted, cnt, cap):
+    """The placement of a row-structured compaction: slot s of a
+    fixed-cap level takes survivor number s in (row, order) order.
+    off_sorted [rows, width] and cnt [rows] are _row_order's.  Returns
+    (row_of_slot, off_of_slot, valid, count) where off is the within-row
+    candidate offset; row_of_slot is also pmono, the monotone per-parent
+    segment-id vector of the packed layout."""
+    rows, width = off_sorted.shape
+    dev = cnt.device
     ends = torch.cumsum(cnt, dim=0)
     starts = ends - cnt
     count = ends[-1]
@@ -424,47 +433,147 @@ def _compact_rows(key, mask, cap):
     slot = torch.arange(cap, device=dev)
     row = torch.clamp(torch.cumsum(marks[:cap], dim=0) - 1, 0, rows - 1)
     pos = slot - starts[row]
-    off = off_sorted.reshape(-1)[row * width + torch.clamp(pos, 0, width - 1)]
+    off = off_sorted.reshape(-1)[row * width
+                                 + torch.clamp(pos, 0, width - 1)].long()
     valid = slot < count
-    return row, off, valid, count, cnt
+    return row, off, valid, count
 
 
-def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap, relax=None):
+def _compact_rows(key, mask, cap):
+    """Row-structured compaction: pack survivors of a [rows, width] candidate
+    grid into a fixed-cap level, row-grouped with key-descending order within
+    each row (rows are parents, so this reproduces _compact's
+    (parent asc, volume desc) order with one per-row sort and O(rows)
+    placement).  Returns (row_of_slot, off_of_slot, valid, count, cnt)."""
+    off_sorted, cnt = _row_order(key, mask)
+    return (*_place_rows(off_sorted, cnt, cap), cnt)
+
+
+# The one-shot sibling build holds its whole [cap_prev, offs] candidate
+# grid at once: 210 bytes a candidate of the largest level at float32,
+# measured on an H100 (the window's indices and atomic rows, _cand_dat's
+# temporaries, the packed candidates, the sort's keys and indices).  Above
+# these sizes a level is built in row blocks instead
+# (_build_sibling_level_chunked), which holds _CHUNK_ROWS rows of
+# candidates at a time (1.3-1.5 GiB at the synthetic balls' windows) and
+# gives the same level bit for bit.  The JAX package's names and rule:
+# build_tree counts the window candidates of every sibling level from the
+# static capacities; when the total is over _SLICE_BUILD_TOTAL, each level
+# over _CHUNK_LEVEL_MIN is chunked; a level built outside build_tree
+# chunks over _CHUNK_BUILD_ELEMS.  The thresholds rest on the one-shot
+# build's peak memory on an H100 (PERF.md): 1li2 (3.5M candidates), 2clr
+# (18M, 1.5 GiB), four 2clr replicas and the 10,240-atom ball (84M,
+# 7 GiB) build in one shot; the balls of 16,384 (143M, 11.8 GiB) and
+# 24,576 atoms (224M, 19.5 GiB in one shot) chunk their levels over 2^24
+# candidates.
+_CHUNK_BUILD_ELEMS = 1 << 25
+_CHUNK_LEVEL_MIN = 1 << 24
+_SLICE_BUILD_TOTAL = 1 << 27
+_CHUNK_ROWS = 1 << 16
+
+
+def _sibling_window(prev_lvl, prev_a6, offs):
+    """The previous level's rows padded for a window of offs partners:
+    (srcp_i [cap_prev + offs, 3] atom, parent, valid (-1 on the padding);
+    srcp_a [cap_prev + offs, 6] atomic rows, zero on the padding)."""
+    src_i = torch.cat([prev_lvl["_ints"],
+                       prev_lvl["valid"][:, None].long()], dim=1)
+    return (torch.cat([src_i, src_i.new_full((offs, 3), -1)]),
+            torch.cat([prev_a6, prev_a6.new_zeros((offs, 6))]))
+
+
+def _window_candidates(prev_lvl, srcp_i, srcp_a, offs, relax, lo, hi):
+    """The sibling candidates of rows lo..hi-1 of the previous level, each
+    against its next offs rows: (win_i [rows, offs, 3], dat [rows, offs,
+    _D], mask [rows, offs]), mask the sibling pairs that survive."""
+    dev = srcp_a.device
+    win = (torch.arange(lo, hi, device=dev)[:, None]
+           + torch.arange(1, offs + 1, device=dev)[None, :])
+    win_i = srcp_i[win]   # [rows, offs, 3]
+    win_a = srcp_a[win]   # [rows, offs, 6]
+    pair_ok = ((win_i[:, :, 2] > 0)
+               & prev_lvl["valid"][lo:hi, None]
+               & (win_i[:, :, 1] == prev_lvl["parent"][lo:hi, None]))
+    dat_s = prev_lvl["_dat"][lo:hi]
+    dat, sgvol = _cand_dat(dat_s[:, 0:1], dat_s[:, 1:2],
+                           dat_s[:, None, 2:5], dat_s[:, 11:12], win_a)
+    return win_i, dat, pair_ok & _survive_mask(dat, sgvol, relax)
+
+
+def _placed_level(level1, row, atom2, valid, out_dat, cap_prev):
+    """A sibling level from its placed slots: (lvl, a6)."""
+    ints = torch.stack([atom2, torch.where(valid, row, 0)], dim=1)
+    lvl = _level_views(out_dat, ints, valid)
+    lvl["bnd"] = level_bounds(row, atom2, valid, cap_prev,
+                              level1["gv"].shape[0])
+    return lvl, level1["_at"][atom2]
+
+
+def _build_sibling_level(prev_lvl, prev_a6, level1, offs, cap, relax=None,
+                         pressured=None):
     """Next-level build: the partner of each node is taken from a window of
     the next `offs` rows of the same (parent-grouped) level; partners
     sharing the parent form the sibling-pair candidates.  Returns
     (lvl, a6, cnt) with a6 the atomic rows of each node's atom and cnt the
-    surviving children of each row of the previous level."""
+    surviving children of each row of the previous level.
+
+    pressured: whether the whole build is over _SLICE_BUILD_TOTAL
+    candidates (build_tree's count); with it, a level over
+    _CHUNK_LEVEL_MIN candidates is built in row blocks; None chunks a
+    level over _CHUNK_BUILD_ELEMS."""
     cap_prev = prev_lvl["_dat"].shape[0]
-    dev = prev_a6.device
-    src_i = torch.cat([prev_lvl["_ints"],
-                       prev_lvl["valid"][:, None].long()], dim=1)
-    srcp_i = torch.cat([src_i, src_i.new_full((offs, 3), -1)])
-    srcp_a = torch.cat([prev_a6, prev_a6.new_zeros((offs, 6))])
-    win = (torch.arange(cap_prev, device=dev)[:, None]
-           + torch.arange(1, offs + 1, device=dev)[None, :])
-    win_i = srcp_i[win]   # [cap_prev, offs, 3]
-    win_a = srcp_a[win]   # [cap_prev, offs, 6]
-    pair_ok = ((win_i[:, :, 2] > 0)
-               & prev_lvl["valid"][:, None]
-               & (win_i[:, :, 1] == prev_lvl["parent"][:, None]))
-
-    dat_s = prev_lvl["_dat"]
-    dat, sgvol = _cand_dat(dat_s[:, 0:1], dat_s[:, 1:2],
-                           dat_s[:, None, 2:5], dat_s[:, 11:12], win_a)
-    mask = pair_ok & _survive_mask(dat, sgvol, relax)
-
+    elems = cap_prev * offs
+    chunk = (elems > _CHUNK_BUILD_ELEMS if pressured is None
+             else pressured and elems > _CHUNK_LEVEL_MIN)
+    if chunk:
+        return _build_sibling_level_chunked(prev_lvl, prev_a6, level1, offs,
+                                            cap, relax)
+    srcp_i, srcp_a = _sibling_window(prev_lvl, prev_a6, offs)
+    win_i, dat, mask = _window_candidates(prev_lvl, srcp_i, srcp_a, offs,
+                                          relax, 0, cap_prev)
     row, off, valid, _, cnt = _compact_rows(dat[:, :, 5], mask, cap)
     idx = row * offs + off
     out_dat = torch.where(valid[:, None],
                           dat.reshape(cap_prev * offs, _D)[idx], 0.0)
     atom2 = torch.where(valid, win_i[:, :, 0].reshape(-1)[idx], 0)
-    ints = torch.stack([atom2, torch.where(valid, row, 0)], dim=1)
-    a6 = level1["_at"][atom2]
-    lvl = _level_views(out_dat, ints, valid)
-    lvl["bnd"] = level_bounds(row, atom2, valid, cap_prev,
-                              level1["gv"].shape[0])
-    return lvl, a6, cnt
+    return (*_placed_level(level1, row, atom2, valid, out_dat, cap_prev),
+            cnt)
+
+
+def _build_sibling_level_chunked(prev_lvl, prev_a6, level1, offs, cap,
+                                 relax=None):
+    """_build_sibling_level in bounded memory (the JAX package's
+    _build_sibling_level_chunked).  Phase 1 walks the previous level in
+    blocks of _CHUNK_ROWS rows and keeps of each row only its survivors'
+    order and count (int32 [cap_prev, offs] and [cap_prev]), never the
+    [cap_prev, offs, _D] candidates.  Phase 2 is the one-shot path's
+    placement (_place_rows).  Phase 3 recomputes the candidate data of the
+    cap chosen (row, partner) slots alone.  _cand_dat rounds alike at any
+    shape, so the level, its a6 and cnt are bitwise the one-shot build's.
+    No value is read back to the host."""
+    cap_prev = prev_lvl["_dat"].shape[0]
+    srcp_i, srcp_a = _sibling_window(prev_lvl, prev_a6, offs)
+    orders, cnts = [], []
+    for lo in range(0, cap_prev, _CHUNK_ROWS):
+        hi = min(lo + _CHUNK_ROWS, cap_prev)
+        _, dat, mask = _window_candidates(prev_lvl, srcp_i, srcp_a, offs,
+                                          relax, lo, hi)
+        order, c = _row_order(dat[:, :, 5], mask)
+        orders.append(order.to(torch.int32))
+        cnts.append(c)
+        del dat, mask, order  # freed before the next block is made
+    cnt = torch.cat(cnts)
+    row, off, valid, _ = _place_rows(torch.cat(orders), cnt, cap)
+    del orders
+    src = torch.where(valid, row + 1 + off, 0)
+    atom2 = torch.where(valid, srcp_i[src, 0], 0)
+    rows_sel = prev_lvl["_dat"][row]
+    dat_sel, _ = _cand_dat(rows_sel[:, 0:1], rows_sel[:, 1:2],
+                           rows_sel[:, None, 2:5], rows_sel[:, 11:12],
+                           srcp_a[src][:, None, :])
+    out_dat = torch.where(valid[:, None], dat_sel[:, 0, :], 0.0)
+    return (*_placed_level(level1, row, atom2, valid, out_dat, cap_prev),
+            cnt)
 
 
 def _build_pair_level(level1, pj2d, pv2d, cap, relax=None):
@@ -566,10 +675,15 @@ def build_tree(level1, pairs_i, pairs_j, caps: TreeCaps, pairs_valid=None,
     counts.append(count)
     sib_max.append(msib)
 
+    # the sibling levels' candidates, from the static capacities (host
+    # integers: no device value is read)
+    pressured = sum(c * o for c, o in zip(lcaps[:-1], caps.offs)) \
+        > _SLICE_BUILD_TOTAL
     for l in range(1, NUM_TREE_LEVELS):
         prev = levels[-1]
         lvl, a6, cnt = _build_sibling_level(
-            prev, a6, level1, caps.offs[l - 1], lcaps[l], relax)
+            prev, a6, level1, caps.offs[l - 1], lcaps[l], relax,
+            pressured=pressured)
         # each row of the previous level is a node of its atom's replica
         # (invalid rows have no children)
         rows = rep_of(prev["atom"])

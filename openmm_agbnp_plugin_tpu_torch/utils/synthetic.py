@@ -1,14 +1,15 @@
-"""Large-system MD on a synthetic protein-like ball (the JAX package's
-benchmarks/synthetic_scale.py: its generator and the harness's synth10k
-leg, bench.py's 10,240-atom run).
+"""Large systems on a synthetic protein-like ball (the JAX package's
+benchmarks/synthetic_scale.py: its generator, its scaling run and the
+harness's synth10k leg, bench.py's 10,240-atom run).
 
 synthetic_system and synthetic_dms are copies of the reference generator
 (numpy and scipy only, so the port never imports the JAX package): for the
-same natoms and seed their arrays are bitwise the reference's.  run_md
-drives the port's Simulation on the bonded ball (AGBNP1 + the MM force
-field, CutoffNonPeriodic 1 nm, rebuild windows, the cell-grid neighbor
-build above 3000 atoms) through benchmark_langevin and its PanicButton
-regrow.
+same natoms and seed their arrays are bitwise the reference's.  run times
+AGBNPModel evaluations of the ball (AGBNP1, CutoffNonPeriodic 1 nm, the
+cell-grid candidates above 3000 atoms, the tile lists) after its
+PanicButton loop.  run_md drives the port's Simulation on the bonded ball
+(AGBNP1 + the MM force field, rebuild windows) through
+benchmark_langevin and its PanicButton regrow.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-# PanicButton regrows a run_md call may take: the 10,240-atom ball took 4
-# on an H100 from its initial sizing (capacities drift up as it heats)
+# PanicButton regrows a run_md call may take (the 10,240-atom ball took 4
+# on an H100 from its initial sizing: capacities drift up as it heats),
+# and the evaluations of run's PanicButton loop (the reference's 8)
 MAX_REGROW = 8
 
 
@@ -93,6 +95,80 @@ def synthetic_dms(natoms: int):
         pair_bij=np.zeros(0), pair_qij=np.zeros(0))
 
 
+def _device(device, what: str):
+    """The device a run takes: None is the first CUDA device (raises
+    without one)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{what}: no CUDA device; pass device='cpu'")
+        device = "cuda:0"
+    return torch.device(device)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(natoms: int, repeats: int = 10, device=None):
+    """The reference's scaling run (benchmarks/synthetic_scale.py:58-89):
+    an AGBNPModel (version 1, cutoff 1 nm, given the ball's positions, so
+    its capacities, neighbor width, cell grid and tile-list budgets are
+    sized from them) of the natoms-atom synthetic ball, the PanicButton
+    loop of up to 8 evaluations and check_and_grow, then `repeats` timed
+    evaluations, synchronised.  Prints the reference's three lines.
+
+    device: None is the first CUDA device (raises without one); float32
+    on a card, float64 on the CPU (as the reference picks by platform).
+    Returns dict(s_per_eval, natoms, init_s, first_s (the PanicButton
+    loop, the kernels' first launches included), regrows, overflow (left
+    after the loop), energy, force (of the last timed evaluation), grid,
+    kmax, caps, offs, pair_tiles, model)."""
+    from ..models.agbnp_torch import AGBNPModel
+    from ..models.params import AGBNPParams
+
+    device = _device(device, "run")
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    pos, radius, gamma, alpha, charge, ish = synthetic_system(natoms)
+    params = AGBNPParams(radius=radius, gamma=gamma, alpha=alpha,
+                         charge=charge, ishydrogen=ish)
+    t0 = time.perf_counter()
+    m = AGBNPModel(params, device=device, dtype=dtype, version=1,
+                   cutoff=1.0, positions=pos)
+    init_s = time.perf_counter() - t0
+    print(f"n={natoms} init {init_s:.1f}s "
+          f"grid={'on' if m.neighbor_grid is not None else 'off'} "
+          f"kmax={m.neighbor_kmax} caps={m.caps.caps}", flush=True)
+
+    t0 = time.perf_counter()
+    regrows = 0
+    for _ in range(MAX_REGROW):  # PanicButton loop
+        e, f, out = m.energy_forces(pos, with_details=True)
+        overflow = m.check_and_grow(out["diag"])
+        if not overflow:
+            break
+        regrows += 1
+    _sync(device)
+    first_s = time.perf_counter() - t0
+    print(f"  first eval (incl the kernels' first launches) {first_s:.1f}s "
+          f"E={float(e):.2f}", flush=True)
+    if not (torch.isfinite(e) and torch.isfinite(f).all()):
+        raise RuntimeError(f"run({natoms}): non-finite energy or forces")
+
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        e, f = m.energy_forces(pos)
+    _sync(device)
+    dt = (time.perf_counter() - t0) / max(repeats, 1)
+    print(f"  steady-state eval {dt * 1e3:.2f} ms", flush=True)
+    return dict(s_per_eval=dt, natoms=natoms, init_s=init_s,
+                first_s=first_s, regrows=regrows, overflow=overflow,
+                energy=float(e), force=f,
+                grid=m.neighbor_grid is not None, kmax=m.neighbor_kmax,
+                caps=m.caps.caps, offs=m.caps.offs,
+                pair_tiles=m.pair_tiles, model=m)
+
+
 def run_md(natoms: int, nsteps: int = 100, device=None,
            neighbor_every: int = 20):
     """MD of the natoms-atom synthetic ball (the reference's run_md,
@@ -108,11 +184,7 @@ def run_md(natoms: int, nsteps: int = 100, device=None,
     Returns benchmark_langevin's dict plus "windows" (rebuild windows of
     the timed run), "natoms", "init_s" (the Simulation's set-up) and
     "sim"."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("run_md: no CUDA device; pass device='cpu'")
-        device = "cuda:0"
-    device = torch.device(device)
+    device = _device(device, "run_md")
     dtype = torch.float32 if device.type == "cuda" else torch.float64
     from ..md.simulation import Simulation
 

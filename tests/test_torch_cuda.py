@@ -1737,3 +1737,65 @@ def test_port_oracle_against_f64_v1_on_the_card(cuda, fixture_system):
     e, f = m.energy_forces(pos)
     assert float(e) == pytest.approx(e_o, abs=1e-8)
     np.testing.assert_allclose(f.cpu().numpy(), f_o, rtol=0, atol=1e-9)
+
+
+def test_chunked_build_and_cell_grid_on_the_card(cuda, fixture_system,
+                                                 monkeypatch):
+    """The large-system paths on the card at fixture scale (the JAX
+    package's tests/test_tpu.py::test_chunked_build_and_cell_grid_on_chip):
+    every sibling level built chunked (thresholds 0, blocks of 128 rows)
+    against the one-shot build, levels and diag bitwise; the f32 model
+    with chunking forced against the unforced one (energy 1e-6 relative,
+    forces 1e-5 of max|f|); the cell grid's candidate pairs equal to the
+    dense half list's."""
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    from openmm_agbnp_plugin_tpu_torch.ops.neighbors import (
+        CellGrid, cell_neighbor_pairs, half_neighbor_pairs,
+        tree_pair_cutoff)
+
+    params, pos = fixture_system
+    kw = dict(device=cuda, dtype=torch.float32, version=1, cutoff=1.0,
+              positions=pos, descreen_horizon="cutoff")
+    m = AGBNPModel(params, **kw)
+    e0, f0 = m.energy_forces(pos)
+    a = m.arrays
+    pt = torch.as_tensor(pos, dtype=torch.float32, device=cuda)
+    lvl1 = T.make_level1(pt, a["radii_large"], a["vol_large"],
+                         a["gamma"] / params.roffset, a["ishydrogen"])
+
+    def build():
+        return T.build_tree(lvl1, a["pairs_i"], a["pairs_j"], m.caps,
+                            pairs_valid=a["pairs_valid"])
+
+    levels0, diag0 = build()
+    for k in ("_CHUNK_BUILD_ELEMS", "_CHUNK_LEVEL_MIN", "_SLICE_BUILD_TOTAL"):
+        monkeypatch.setattr(T, k, 0)
+    monkeypatch.setattr(T, "_CHUNK_ROWS", 128)
+    levels1, diag1 = build()
+    for k in diag0:
+        assert torch.equal(diag0[k], diag1[k]), k
+    for x, y in zip(levels0, levels1):
+        for k in ("_ints", "_dat", "valid"):
+            assert torch.equal(x[k], y[k]), k
+        for k in x["bnd"]:
+            assert torch.equal(x["bnd"][k], y["bnd"][k]), k
+    e1, f1 = AGBNPModel(params, caps=m.caps, **kw).energy_forces(pos)
+    assert abs(float(e1) - float(e0)) <= 1e-6 * abs(float(e0))
+    assert rel(f1, f0) <= 1e-5
+    assert not T.check_overflow({k: v[0] for k, v in diag0.items()})["any"]
+    assert M.QD_BYTES_LIMIT == 1 << 30
+
+    heavy = np.asarray(params.ishydrogen) == 0
+    rcut = tree_pair_cutoff(params.radii_large) + 0.05
+    grid = CellGrid(np.asarray(pos), rcut, heavy_mask=heavy)
+    hm = torch.as_tensor(heavy, device=cuda)
+    pg = cell_neighbor_pairs(pt, hm, rcut, 64, grid=grid)
+    ph = half_neighbor_pairs(pt, hm, rcut, 64)
+    assert int(pg[3]) <= 64 and int(ph[3]) <= 64
+
+    def pairs(out):
+        i, j, v = (x.cpu().numpy() for x in out[:3])
+        return {tuple(sorted((int(x), int(y)))) for x, y, ok in zip(i, j, v)
+                if ok}
+    assert pairs(pg) == pairs(ph) and len(pairs(ph)) > 0
