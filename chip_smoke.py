@@ -162,14 +162,19 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      warm-up and 10 timed steps: replica 0 of R = 4 within 1e-5 in energy
      of R = 1 at every step, ms/step, #1-#3 every step; the windowed
      runner and T-REMD refuse version 2;
- 25. bench.py's synth10k leg: utils/synthetic.py's run_md on the
-     10,240-atom bonded synthetic ball (AGBNP1 + the MM force field,
-     CutoffNonPeriodic 1 nm, f32, the cell grid and tile lists, rebuilds
-     every 20 steps, 60 timed steps after an equal warm-up, the
-     PanicButton regrow): finite energies, no overflow, #5-#7 once a step
-     and take_rows at every level, ns/day, regrows, windows; one
-     evaluation against the port's f64 pair_kernel=False route on the
-     card (1e-5 / 1e-4).  Phase 14 also logs the peak memory of a
+ 25. bench.py's synth10k leg: utils/synthetic.py's run_md(10240,
+     nsteps=160) on the bonded synthetic ball (AGBNP1 + the MM force
+     field, CutoffNonPeriodic 1 nm, f32, the cell grid and tile lists,
+     rebuilds every 20 steps) through the reference's windowed protocol:
+     4 heat windows from 300 K, shrink-to-fit if they regrew, 4 timed
+     windows (bench.py's 400 steps blow up near step 200: SYNTH_STEPS),
+     every overflowed window regrown and retried from its start:
+     finite energies, no overflow left, #5-#7 once a step run and
+     take_rows at every level, the clean windows' median ms/step and
+     ns/day, regrows by channel, each window's kinetic temperature; one
+     evaluation at the final positions against the port's f64
+     pair_kernel=False route on the card (1e-5 / 1e-4).  Phase 14 also
+     logs the peak memory of a
      version 2 window build (the MS tree's half list in row blocks).
 26. the native f64 engine (runtime/native.py, built with the host's
      make/g++ into the package's _build/): AGBNP1 on the 264-atom fixture
@@ -215,10 +220,11 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      and chunked (ops/tree.py's dispatch thresholds forced), levels and
      diag bitwise equal, each build's ms and peak memory, the chunked peak
      below the one-shot's; (b) utils/synthetic.py's run_md at 16,384 atoms
-     (20-step windows, tile lists, the cell grid, 60 timed steps after an
-     equal warm-up): no overflow after the regrows, finite energies, #5-#7
-     every step (#7 recomputing where the lists' Q/dQ exceed
-     QD_BYTES_LIMIT), take_rows at every level; (c) synthetic.run at
+     (20-step windows, tile lists, the cell grid, the windowed protocol of
+     [25] over 120 steps: 4 heat and 2 timed windows): no overflow left,
+     finite energies, #5-#7 every step run (#7 recomputing where the
+     lists' Q/dQ exceed QD_BYTES_LIMIT), take_rows at every level;
+     (c) synthetic.run at
      24,576 atoms (5 timed evaluations): whether Q/dQ is shared, one
      evaluation with share_qd=False (#7 recomputing) against one with the
      lists' Q/dQ shared (#7 reloading; QD_BYTES_LIMIT raised to their
@@ -228,10 +234,16 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      when the 16,384-atom build's bytes a candidate say it fits), and
      #5-#8 again on the inputs that evaluation gave them, against their
      twins and timed beside their bounds.
+32. GaussVol's free volumes on the card: ops/tree.py's
+     reduce_tree(with_freevol=True) in f32 on 1li2's overlap tree as the
+     model builds it (large radii, the model's capacities) against the
+     native f64 engine's free_volume and volume on the host (1e-5 of
+     max|free_volume|, 1e-5 relative), over the fixed-topology rescan of
+     its volumes, twice bitwise; take_rows at every level of each rescan.
 
-    python3 chip_smoke.py --only 31
+    python3 chip_smoke.py --only N      (N = 25, 31 or 32)
 
-builds the kernels and runs phase 31 alone.
+builds the kernels and runs phase N alone.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits non-zero before doing anything.  The last line of standard
@@ -241,10 +253,9 @@ name/power-limit line, and the one before that the per-kernel JSON record
 measured for the row kernels, live pairs, launches on its path and per step
 of each MD phase [6]-[9], [14] and of the replica runs [15]-[17], in
 one batched score of [18] and on each of [19]-[22], [23]-[25],
-[26]-[28], [29]-[30] and [31], and the list kernels' and take_rows' times
-at [31]'s 24,576-atom shapes; for the
-Born and
-descreening sweeps also the kept
+[26]-[28], [29]-[30], [31] and [32], and the list kernels' and take_rows'
+times at [31]'s 24,576-atom shapes; for the Born and descreening sweeps
+also the kept
 32x32 sub-tile pairs or the chunk slots and the Q/dQ bytes written or read).
 """
 
@@ -2929,7 +2940,12 @@ PER_STEP_V2_WARMUP = 2    # [24] steps before the timed ones
 PER_STEP_V2_STEPS = 10    # [24] timed steps
 V2_ENS_E_TOL = 1e-5       # relative, replica 0 of R = 4 vs R = 1, each step
 SYNTH_ATOMS = 10240       # [25] bench.py's synth10k leg
-SYNTH_STEPS = 60          # [25] timed steps, after an equal warm-up
+# [25] run_md's nsteps: 4 heat and 4 timed windows of SYNTH_EVERY steps.
+# bench.py runs 400, but the ball's dynamics blow up near step 200 on the
+# card: its potential falls ~3e6 kJ/mol in the first 180 steps and heats
+# it to ~2e4 K, and the f64 plain route replays the same blow-up
+# (profile_port_step.py --synth-trace); 160 ends two windows before it
+SYNTH_STEPS = 160
 SYNTH_EVERY = 20          # [25] rebuild windows (bench.py's run_md)
 SYNTH_F_TOL = 1e-4        # [25] f32 lists vs f64 plain, of max|f|
 V2_KERNELS = ("born_sums", "gb_pair", "descreening")
@@ -3145,67 +3161,103 @@ def window_evaluation(sim, pos):
 
 def phase_synthetic(dev, card):
     """Phase 25: bench.py's synth10k leg on the port: utils/synthetic.py's
-    run_md(10240) (the bonded synthetic ball, AGBNP1 + the MM force field,
-    CutoffNonPeriodic 1 nm, f32, the cell grid and tile lists, rebuilds
-    every 20 steps; SYNTH_STEPS timed after an equal warm-up, the PanicButton
-    regrow): finite energies, no overflow after the regrows, #5-#7 once a
-    step and take_rows at every level; then one evaluation at the ball's
-    positions against the port's f64 pair_kernel=False route on the card
+    run_md(10240, nsteps=SYNTH_STEPS) (the bonded synthetic ball, AGBNP1 +
+    the MM force field, CutoffNonPeriodic 1 nm, f32, the cell grid and tile
+    lists, rebuilds every 20 steps) through the reference's windowed
+    protocol: 4 heat windows from 300 K, shrink-to-fit if they regrew, then
+    the timed windows, every overflowed window regrown and retried.
+    Finite energies in the last window, no overflow left, #5-#7 once a
+    step run (retries and heat windows included) and take_rows at every
+    level; then one evaluation at the final positions against the port's
+    f64 pair_kernel=False route on the card, sized at those positions
     (energy 1e-5 relative, forces 1e-4 of max|f|).  Returns the launches
     of the MD run."""
-    import numpy as np
     import torch
 
-    from openmm_agbnp_plugin_tpu_torch import Simulation
-    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
     from openmm_agbnp_plugin_tpu_torch.utils.synthetic import run_md as \
-        synth_md, synthetic_dms
+        synth_md
 
     PK.reset_launch_counts()
     r = synth_md(SYNTH_ATOMS, nsteps=SYNTH_STEPS, device=dev,
                  neighbor_every=SYNTH_EVERY)
     counts = PK.launch_counts()
-    sim = r["sim"]
-    e = r["energies"]
-    ms = r["elapsed_s"] * 1e3 / r["steps_run"]
-    log(f"[25] synth10k ({SYNTH_ATOMS} atoms, f32, 1 nm): {r['ns_day']:.3f} "
-        f"ns/day ({ms:.3f} ms/step) on {card}; set-up {r['init_s']:.1f} s, "
-        f"regrows {r['regrows']}, windows {r['windows']}, overflow "
-        f"{r['overflow']}, steps {r['steps_run']}; cell grid "
+    check_windowed_md(r, counts, card, "[25]")
+    e32, f32, rep32 = window_evaluation(r["sim"], r["final_pos"])
+    pos = r["final_pos"].double().cpu().numpy()
+    del r
+    torch.cuda.empty_cache()
+    f64_against(dev, pos, e32, f32, rep32, "[25]")
+    torch.cuda.synchronize()
+    return counts
+
+
+def check_windowed_md(r, counts, card, label, qd_shared=True):
+    """Log a synthetic.run_md result of the windowed protocol (heat and
+    timed windows, regrows by channel, the capacities after shrink-to-fit,
+    the clean windows' median ms/step and ns/day, steps done and run, each
+    clean window's last energy and kinetic temperature) and check it: no
+    overflow, finite energies in the last window, the cell
+    grid and tile lists on, #5-#7 launched once a step run (#7 recomputing
+    where the lists' Q/dQ are not shared) and take_rows at every level."""
+    import numpy as np
+
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    sim, e = r["sim"], r["energies"]
+    heat = r["steps_done"] // SYNTH_EVERY - r["windows"]
+    log(f"{label} run_md({r['natoms']}), f32, 1 nm, windowed: "
+        f"{r['ns_day']:.3f} ns/day ({r['ms_step']:.3f} ms/step, the median "
+        f"of {r['windows']} clean timed windows) on {card}; set-up "
+        f"{r['init_s']:.1f} s; {heat} heat windows; regrows {r['regrows']} "
+        f"{[(w, sorted(rep)) for w, rep in r['regrow_log']]}; shrink-to-fit "
+        f"{r['shrunk']}; steps done {r['steps_done']}, run "
+        f"{r['steps_run']}; overflow {r['overflow']}; cell grid "
         f"{sim.grid is not None}, kmax {sim.kmax}, pair_tiles "
-        f"{sim.agbnp.pair_tiles}, tree rows {sim.agbnp.caps.caps}; E "
-        f"first/last {e[0]:.2f}/{e[-1]:.2f}; launches "
-        f"{pair_launches(counts)}, take_rows {counts['take_rows']}")
-    if r["overflow"] or e.shape != (SYNTH_STEPS,) or \
+        f"{sim.agbnp.pair_tiles}, tree rows {sim.agbnp.caps.caps}, offs "
+        f"{sim.agbnp.caps.offs}; last window E first/last "
+        f"{e[0]:.2f}/{e[-1]:.2f}; launches {pair_launches(counts)}, "
+        f"take_rows {counts['take_rows']}")
+    log(f"{label} clean windows (label, last E, K): "
+        f"{[(w[0], round(w[2], 1), round(w[3], 1)) for w in r['window_log']]}")
+    if r["overflow"] or e.shape != (SYNTH_EVERY,) or \
             not np.isfinite(e).all():
-        raise AssertionError("[25] overflow or non-finite energies")
+        raise AssertionError(f"{label} overflow or non-finite energies")
     if sim.grid is None or sim.agbnp.pair_tiles is None:
-        raise AssertionError("[25] the ball must run the cell grid, lists")
-    check_list_launches(counts, 2 * SYNTH_STEPS, "[25]")
-    gathers = GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * 2 * SYNTH_STEPS
+        raise AssertionError(f"{label} the ball must run the cell grid, "
+                             "lists")
+    check_list_launches(counts, r["steps_run"], label, qd_shared=qd_shared)
+    gathers = GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * r["steps_run"]
     if counts["take_rows"] < gathers:
-        raise AssertionError(f"[25] take_rows {counts['take_rows']} < "
+        raise AssertionError(f"{label} take_rows {counts['take_rows']} < "
                              f"{gathers}")
 
-    e32, f32, rep32 = window_evaluation(sim, sim.positions)
-    del r, sim
-    torch.cuda.empty_cache()
-    sim64 = Simulation(synthetic_dms(SYNTH_ATOMS), device=dev, version=1,
-                       cutoff=1.0, dtype=torch.float64, pair_kernel=False)
+
+def f64_against(dev, pos, e32, f32, rep32, label):
+    """The ball's f32 evaluation at pos against the port's f64
+    pair_kernel=False route on the card, its Simulation sized at pos
+    (energy PARITY_TOL relative, forces SYNTH_F_TOL of max|f|); neither
+    window build may overflow."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import Simulation
+    from openmm_agbnp_plugin_tpu_torch.utils.synthetic import synthetic_dms
+
+    dms = synthetic_dms(pos.shape[0])
+    dms.positions = pos
+    sim64 = Simulation(dms, device=dev, version=1, cutoff=1.0,
+                       dtype=torch.float64, pair_kernel=False)
     e64, f64, rep64 = window_evaluation(sim64, sim64.positions)
     del sim64
     torch.cuda.empty_cache()
     e_rel = abs(float(e32) - float(e64)) / abs(float(e64))
     f_rel = rel_err(f32, f64)[0]
-    log(f"[25] one evaluation, f32 kernels vs f64 pair_kernel=False on the "
-        f"card: energy {float(e32):.4f} / {float(e64):.4f}, relative "
-        f"{e_rel:.3e}; forces max-err/max|f| {f_rel:.3e}; builds' overflow "
-        f"{rep32 or None} / {rep64 or None}")
+    log(f"{label} one evaluation at the final positions, f32 kernels vs f64 "
+        f"pair_kernel=False on the card: energy {float(e32):.4f} / "
+        f"{float(e64):.4f}, relative {e_rel:.3e}; forces max-err/max|f| "
+        f"{f_rel:.3e}; builds' overflow {rep32 or None} / {rep64 or None}")
     if rep32 or rep64 or not (e_rel <= PARITY_TOL and f_rel <= SYNTH_F_TOL):
-        raise AssertionError("[25] f32 vs f64 on the ball")
-    torch.cuda.synchronize()
-    return counts
+        raise AssertionError(f"{label} f32 vs f64 on the ball")
 
 
 NATIVE_GOLDEN = (-2476.66, 872.514, 0.0874992, 0.0886249)  # E, E_cav, dE, pred
@@ -3889,7 +3941,8 @@ def phase_oracle(dev, card):
 # (a) one-shot and chunked, bitwise: the shipped proteins, then the ball
 LARGE_BUILDS = ("1li2", "2clr", 10240, 16384)
 LARGE_MD_ATOMS = 16384              # (b) run_md
-LARGE_MD_STEPS = 60                 # (b) timed steps, after an equal warm-up
+LARGE_MD_STEPS = 120                # (b) run_md's nsteps: 4 heat and 2
+#                                     timed windows of SYNTH_EVERY steps
 LARGE_EVAL_ATOMS = 24576            # (c) run, the native engine, the kernels
 LARGE_EVAL_REPEATS = 5              # (c) timed evaluations
 # (a) the one-shot build at 24,576 atoms is tried when its peak, predicted
@@ -4231,9 +4284,9 @@ def phase_large(dev, card):
     (AGBNPModel f32, cutoff 1 nm, sized from the positions) built one-shot
     and chunked: levels bitwise equal, ms and peak memory of each, the
     chunked peak below the one-shot's.  (b) synthetic.run_md at
-    16,384 atoms (20-step windows, tile lists, the cell grid;
-    LARGE_MD_STEPS timed after an equal warm-up): no overflow after the
-    regrows, finite energies, #5-#7 every step (#7 recomputing where the
+    16,384 atoms (20-step windows, tile lists, the cell grid; the windowed
+    protocol, LARGE_MD_STEPS: 4 heat and 2 timed windows): no overflow
+    left, finite energies, #5-#7 every step run (#7 recomputing where the
     lists' Q/dQ are not shared), take_rows at every level.
     (c) synthetic.run at 24,576 atoms (LARGE_EVAL_REPEATS timed
     evaluations): whether its lists share Q/dQ (lb T^2 8 against
@@ -4295,34 +4348,13 @@ def phase_large(dev, card):
     r = synthetic.run_md(LARGE_MD_ATOMS, nsteps=LARGE_MD_STEPS, device=dev,
                          neighbor_every=SYNTH_EVERY)
     md_counts = PK.launch_counts()
-    sim, e = r["sim"], r["energies"]
-    ms = r["elapsed_s"] * 1e3 / r["steps_run"]
+    sim = r["sim"]
     lb = sim.agbnp.pair_tiles[0] if sim.agbnp.pair_tiles else 0
     tile = PK.pick_tile(LARGE_MD_ATOMS)
     md_shared = lb * tile * tile * 8 <= M.QD_BYTES_LIMIT
-    log(f"[31] (b) run_md({LARGE_MD_ATOMS}), f32, 1 nm: {r['ns_day']:.3f} "
-        f"ns/day ({ms:.3f} ms/step) on {card}; set-up {r['init_s']:.1f} s, "
-        f"regrows {r['regrows']}, windows {r['windows']}, overflow "
-        f"{r['overflow']}, steps {r['steps_run']}; cell grid "
-        f"{sim.grid is not None}, kmax {sim.kmax}, pair_tiles "
-        f"{sim.agbnp.pair_tiles} (Q/dQ {lb * tile * tile * 8} bytes, "
-        f"shared {md_shared}), tree rows "
-        f"{sim.agbnp.caps.caps}, offs {sim.agbnp.caps.offs}; peak "
-        f"{torch.cuda.max_memory_allocated(dev) / gb:.3f} GiB; E first/last "
-        f"{e[0]:.2f}/{e[-1]:.2f}; launches {pair_launches(md_counts)}, "
-        f"take_rows {md_counts['take_rows']}")
-    if r["overflow"] or e.shape != (LARGE_MD_STEPS,) or \
-            not np.isfinite(e).all():
-        raise AssertionError("[31] (b) overflow or non-finite energies")
-    if sim.grid is None or sim.agbnp.pair_tiles is None:
-        raise AssertionError("[31] (b) the ball must run the cell grid, "
-                             "lists")
-    check_list_launches(md_counts, 2 * LARGE_MD_STEPS, "[31] (b)",
-                        qd_shared=md_shared)
-    gathers = GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * 2 * LARGE_MD_STEPS
-    if md_counts["take_rows"] < gathers:
-        raise AssertionError(f"[31] (b) take_rows {md_counts['take_rows']} "
-                             f"< {gathers}")
+    log(f"[31] (b) Q/dQ {lb * tile * tile * 8} bytes, shared {md_shared}; "
+        f"peak {torch.cuda.max_memory_allocated(dev) / gb:.3f} GiB")
+    check_windowed_md(r, md_counts, card, "[31] (b)", qd_shared=md_shared)
     del r, sim
     torch.cuda.empty_cache()
 
@@ -4428,6 +4460,82 @@ def phase_large(dev, card):
     return dict(md_16k=md_counts, eval_24k=eval_counts), records
 
 
+# [32]: reduce_tree's free volumes (GaussVol's compute_volume outputs)
+FREEVOL_TOL = 1e-5        # of max|free_volume|, and relative in the volume
+
+
+def phase_freevol(dev, card):
+    """Phase 32: reduce_tree(with_freevol=True) in f32 on the card on the
+    large-radii overlap tree of 1li2 as AGBNPModel builds it (sized from
+    the positions), over the fixed-topology rescan of its volumes (the MD
+    window's pass), against the native f64 engine (runtime/native.py,
+    NativeGaussVol.compute_volume) on the host: free volumes within
+    FREEVOL_TOL of their max, the total volume FREEVOL_TOL relative;
+    rescan and reduction twice bitwise; take_rows at every level of each
+    rescan (the reduction itself sums segments and moves no rows).
+    Returns the launches of the two rescans and reductions."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import AGBNPModel
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.models.constants import sphere_volume
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.runtime import native
+
+    d, p = system("1li2")
+    m = AGBNPModel(p, device=dev, dtype=torch.float32, positions=d.positions)
+    pos = torch.as_tensor(d.positions, dtype=torch.float32, device=dev)
+    a, pair_rows, _ = M.tree_candidates(m.arrays, pos, m.neighbor_rcut,
+                                        m.neighbor_kmax, m.neighbor_grid)
+    lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
+                         a["gamma"] / p.roffset, a["ishydrogen"])
+    levels, diag = T.build_tree(lvl1, a["pairs_i"], a["pairs_j"], m.caps,
+                                pairs_valid=a["pairs_valid"],
+                                pair_rows=pair_rows)
+    if T.check_overflow({k: v[0] for k, v in diag.items()})["any"]:
+        raise AssertionError("[32] the tree overflowed its capacities")
+    topo = T.tree_topology(levels)
+    PK.reset_launch_counts()
+    t0 = time.perf_counter()
+    red = T.reduce_tree(T.rescan_volumes(topo, lvl1), lvl1, with_freevol=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    again = T.reduce_tree(T.rescan_volumes(topo, lvl1), lvl1,
+                          with_freevol=True)
+    counts = PK.launch_counts()
+    gathers = GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * 2
+    if counts["take_rows"] < gathers:
+        raise AssertionError(f"[32] take_rows {counts['take_rows']} < "
+                             f"{gathers}")
+    for k in ("free_volume", "volume", "self_volume", "energy", "dr"):
+        if not torch.equal(red[k], again[k]):
+            raise AssertionError(f"[32] {k} differs between two reductions")
+
+    radii = np.asarray(p.radii_large, np.float64)
+    volumes = np.where(np.asarray(p.ishydrogen) > 0, 0.0,
+                       sphere_volume(radii))
+    t0 = time.perf_counter()
+    ng = native.NativeGaussVol(p.n, p.ishydrogen)
+    ng.compute_tree(d.positions, radii, volumes,
+                    np.asarray(p.gamma) / p.roffset)
+    _, volume, _, _, fv, _ = ng.compute_volume()
+    native_s = time.perf_counter() - t0
+    got = red["free_volume"].double().cpu().numpy()
+    fv_err = float(np.abs(got - fv).max() / np.abs(fv).max())
+    v_err = abs(float(red["volume"][0]) - volume) / abs(volume)
+    log(f"[32] 1li2 free volumes, f32 reduce_tree(with_freevol=True) on "
+        f"{card} ({ms:.2f} ms, the first call) vs the native f64 engine "
+        f"({native_s:.2f} s on the host): volume {float(red['volume'][0]):.6f}"
+        f" / {volume:.6f} nm^3, relative {v_err:.3e}; free volumes "
+        f"max-err/max {fv_err:.3e} (sum {got.sum():.6f} / {fv.sum():.6f}); "
+        f"tree rows {m.caps.caps}; take_rows {counts['take_rows']}")
+    if not (fv_err <= FREEVOL_TOL and v_err <= FREEVOL_TOL):
+        raise AssertionError("[32] free volumes f32 vs the native engine")
+    return counts
+
+
 def log_phase_times():
     """Wrap every phase_* function so that it logs its own wall time (the
     smoke's budget is the sum of them)."""
@@ -4451,7 +4559,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", type=int, choices=(31,),
+    ap.add_argument("--only", type=int, choices=(25, 31, 32),
                     help="build the kernels and run this phase alone "
                          "(its launches and kernel records, the card's "
                          "line, then {\"ok_phase\": N}; the contract's "
@@ -4470,13 +4578,19 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     log_phase_times()
     phase_build()
-    if args.only == 31:
-        large_paths, large_records = phase_large(dev, card)
-        log(f"[31] passed in {time.perf_counter() - t0:.1f} s")
-        print(json.dumps(dict(phase=31, launches=large_paths,
-                              kernels=large_records)))
+    if args.only is not None:
+        records = {}
+        if args.only == 31:
+            paths, records = phase_large(dev, card)
+        elif args.only == 25:
+            paths = dict(synth10k=phase_synthetic(dev, card))
+        else:
+            paths = dict(freevol=phase_freevol(dev, card))
+        log(f"[{args.only}] passed in {time.perf_counter() - t0:.1f} s")
+        print(json.dumps(dict(phase=args.only, launches=paths,
+                              kernels=records)))
         print(card)
-        print(json.dumps(dict(ok_phase=31)), flush=True)
+        print(json.dumps(dict(ok_phase=args.only)), flush=True)
         return 0
     kernels = phase_kernels(dev)
     phase_goldens(dev)
@@ -4506,6 +4620,7 @@ def main(argv=None) -> int:
     last_paths = dict(mixed=phase_mixed(dev, card),
                       oracle=phase_oracle(dev, card))
     large_paths, large_records = phase_large(dev, card)
+    freevol_counts = phase_freevol(dev, card)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps
@@ -4560,6 +4675,8 @@ def main(argv=None) -> int:
                               for p, c in large_paths.items()}
         if name in large_records:
             rec["synth_24k"] = large_records[name]
+        # and on [32]: the free-volume reductions
+        rec["launches_32"] = freevol_counts.get(name, 0)
         if "live_pairs" in k:
             rec["live_pairs"] = k["live_pairs"]
         rec.update({x: k[x] for x in RECORD_EXTRAS if x in k})

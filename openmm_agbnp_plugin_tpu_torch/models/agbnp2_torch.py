@@ -61,7 +61,6 @@ VOLMINMSA = 0.25 * ANG3
 VOLMINMSB = 1.00 * ANG3
 VOL_COEFF = 0.17
 FLT_MIN = 1.1754943508222875e-38
-MS_BOOST = 1.6  # cap_ms over the MS candidate pairs at the sizing positions
 
 
 def _ms_switch(v):
@@ -587,7 +586,8 @@ class AGBNP2Model:
     positions are required: they size the tree capacities (the atomic tree
     by one build on the device, AGBNPModel.size_caps; the MS capacities by
     the JAX package's rules) and pick the MS candidate pairs, which stay
-    fixed until set_positions picks them anew.  An evaluation does not
+    fixed until set_positions picks them anew; without cap_ms, cap_ms is
+    ms_boost x those candidates, 128-aligned.  An evaluation does not
     check its capacities: check_and_grow does, on its diagnostics (the
     Context's PanicButton loop).  pair_kernel: None takes the CUDA
     pair kernels on a CUDA device at float32 and the plain phases
@@ -598,7 +598,7 @@ class AGBNP2Model:
 
     def __init__(self, params_in, *, device, dtype=torch.float64,
                  positions=None, cutoff: float | None = None,
-                 caps: T.TreeCaps | None = None,
+                 ms_boost: float = 1.6, caps: T.TreeCaps | None = None,
                  caps_ms: T.TreeCaps | None = None, cap_ms: int | None = None,
                  ms_kmax: int | None = None, ms_sub_k: int | None = None,
                  pair_kernel: bool | None = None):
@@ -636,7 +636,7 @@ class AGBNP2Model:
 
         pi, pj = self.set_positions(pos)
         self.cap_ms = (cap_ms if cap_ms is not None else
-                       max(128, int(np.ceil(len(pi) * MS_BOOST / 128)) * 128))
+                       max(128, int(np.ceil(len(pi) * ms_boost / 128)) * 128))
         self.ms_kmax = ms_kmax if ms_kmax is not None else 64
         self.caps_ms = (caps_ms if caps_ms is not None else
                         T.TreeCaps.for_natoms(max(self.cap_ms // 8, 64)))

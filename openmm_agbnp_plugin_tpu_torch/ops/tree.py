@@ -886,27 +886,32 @@ def rescan_gammas(levels, level1, comm: TreeComm | None = None):
 
 
 def reduce_tree(levels, level1, with_selfvol: bool = True,
-                with_dv: bool = False, nrep: int = 1,
-                comm: TreeComm | None = None):
-    """Bottom-up reduction: energy, gradients, self volumes.
+                with_freevol: bool = False, with_dv: bool = False,
+                nrep: int = 1, comm: TreeComm | None = None):
+    """Bottom-up reduction: energy, gradients, self and free volumes.
 
     The flattened form of compute_volume_underslot2_r (gaussvol.cpp:400-519):
     for each level from the deepest up, per-node subtree accumulators are
     combined with the children's segment-summed accumulators, deposited onto
     the node's last atom, transformed by the (dv1, dvv1, a1/a1i) recursion
     and passed to the parents.  The gamma-weighted energy family carries the
-    full (psi, F, P) chain (5 channels); the self-volume family only its psi
-    scalar.  All channels ride one [cap, C] matrix: one upward segment sum
-    per level and one atom-deposit segment sum at the end.
+    full (psi, F, P) chain (5 channels); the self- and free-volume families
+    only their psi scalars.  All channels ride one [cap, C] matrix: one
+    upward segment sum per level and one atom-deposit segment sum at the end.
+
+    with_freevol adds GaussVol's free volumes (the reference plugin's
+    compute_volume outputs): the psi channel cf x volume, whose per-atom
+    sum is each atom's free volume and whose whole sum the total volume.
 
     with_dv adds the dv channel, V_i dE/dV_i of each atomic volume: an
     n-body Gaussian product volume is linear in each constituent volume,
     so each node deposits gv * e_f on its last atom (the AGBNP2 MS tree's
     free-volume chain, JAX ops/tree.py::reduce_tree).
 
-    Returns dict(energy, dr[, self_volume][, dv]); dr is the energy
-    gradient wrt positions (negate for force); the energy is [nrep], each
-    replica's sum (a union tree over nrep replicas).
+    Returns dict(energy, dr[, self_volume][, free_volume, volume][, dv]);
+    dr is the energy gradient wrt positions (negate for force); the energy
+    and the volume are [nrep], each replica's sum (a union tree over nrep
+    replicas), the per-atom volumes in the union's atom order.
 
     With comm, the levels are this rank's row blocks: each level's upward
     partial sums over the full parent space are summed across ranks, back
@@ -915,6 +920,9 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
     """
     natoms = level1["gv"].shape[0]
     dtype = level1["gv"].dtype
+    # upward psi channels after the energy family's five: (sv) (fv)
+    i_sv = 5
+    i_fv = 5 + (1 if with_selfvol else 0)
 
     acc = None
     dep_rows = []
@@ -940,6 +948,8 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
                 gsfp, zero, zero, zero]                       # e_f, e_p
         if with_selfvol:
             cols.append(volcoeffp * lvl["volume"])            # sv_psi
+        if with_freevol:
+            cols.append(cf * lvl["volume"])                   # fv_psi
         tot = torch.stack(cols, dim=1) * vmask[:, None]
         if acc is not None:
             tot = tot + acc
@@ -950,7 +960,9 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
         dr_dep = (-lvl["dv1"]) * e_f[:, None] + e_p * c2[:, None]
         dep_cols = [dr_dep]
         if with_selfvol:
-            dep_cols.append(tot[:, 5:6])
+            dep_cols.append(tot[:, i_sv:i_sv + 1])
+        if with_freevol:
+            dep_cols.append(tot[:, i_fv:i_fv + 1])
         if with_dv:
             dep_cols.append((lvl["gv"] * e_f)[:, None])
         dep_rows.append(torch.cat(dep_cols, dim=1) * vmask[:, None])
@@ -961,7 +973,7 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
             tot[:, 0:1],                       # e_psi passes through
             (lvl["dvv1"] * e_f)[:, None],      # e_f
             p_out,                             # e_p
-            tot[:, 5:],                        # sv psi passes through
+            tot[:, 5:],                        # sv/fv psi pass through
         ], dim=1) * vmask[:, None]
         acc = _reduce_up(up, levels, l, natoms, comm)
 
@@ -976,7 +988,12 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
     result = dict(energy=_energy(e_psi, nrep), dr=dr)
     col = 3
     if with_selfvol:
-        result["self_volume"] = vol + acc[:, 5] + deposits[:, col]
+        result["self_volume"] = vol + acc[:, i_sv] + deposits[:, col]
+        col += 1
+    if with_freevol:
+        fv_psi = vol + acc[:, i_fv]
+        result["free_volume"] = fv_psi + deposits[:, col]
+        result["volume"] = _energy(fv_psi, nrep)
         col += 1
     if with_dv:
         result["dv"] = vol * (gamma + acc[:, 1]) + deposits[:, col]

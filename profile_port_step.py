@@ -10,6 +10,7 @@
                                  [--steps 200] [--root DIR] [--dump F.npz]
                                  [--version 0|1|2]
     python3 profile_port_step.py --same A.npz B.npz
+    python3 profile_port_step.py --synth-trace [NATOMS] [--steps 400]
 
 Runs the port's MD configuration on SYSTEM (a name under benchmarks/data,
 1li2 by default, e.g. 2clr; or a path to a .dms file): AGBNP1 + OPLS, f32,
@@ -84,6 +85,17 @@ one call on one card; --dump F.npz saves what the run computed (one force
 evaluation of each kind at the start, the timed run's energies and final
 state), and --same A.npz B.npz reports whether two such files are equal
 bit for bit.
+
+With --synth-trace [NATOMS] (10,240 by default) it runs
+utils/synthetic.py's windowed protocol on the synthetic ball (f32, 1 nm,
+20-step windows, --steps of it, 400 by default: bench.py's synth10k leg)
+and prints each clean window's first and last energy, kinetic temperature
+and largest speed, until the protocol ends or stops on a window whose
+dynamics blew up; then it replays the last two windows it started from
+their recorded start (positions, velocities, the generator's noise), a
+step a call, once with the f32 kernels and once on the f64 plain route
+(pair_kernel=False), printing each step's energy and largest speed: the
+two agree where the blow-up is the dynamics', not a kernel's or f32's.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -550,6 +562,81 @@ def same_dumps(path_a, path_b) -> int:
     return 0 if equal else 1
 
 
+def synth_trace(dev, card, natoms: int = 10240, steps: int = 400) -> int:
+    """The synthetic ball's windowed MD, window by window, and a replay in
+    f32 kernels and f64 plain of the last two windows it started (see the
+    module docstring)."""
+    import json
+
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import Simulation
+    from openmm_agbnp_plugin_tpu_torch.runtime import build
+    from openmm_agbnp_plugin_tpu_torch.utils import synthetic as S
+
+    build.load_library()
+    every = 20
+    sim = Simulation(S.synthetic_dms(natoms), device=dev, version=1,
+                     cutoff=1.0, dtype=torch.float32)
+    make = sim.make_langevin_runner
+    starts = []
+
+    def recording(*args, **kw):
+        run = make(*args, **kw)
+
+        def window(pos, vel, nsteps, generator=None):
+            starts.append((pos, vel, generator.get_state()))
+            out = run(pos, vel, nsteps, generator=generator)
+            print(json.dumps(dict(
+                window=len(starts) - 1, e_first=float(out[2][0]),
+                e_last=float(out[2][-1]),
+                vmax=float(out[1].abs().max()),
+                overflow=sorted(sim.overflow_report(*out[3])))), flush=True)
+            return out
+
+        return window
+
+    sim.make_langevin_runner = recording
+    print(f"synth-trace: {natoms} atoms, {steps} steps in {every}-step "
+          f"windows on {card}", flush=True)
+    try:
+        r = S._run_md_windows(sim, steps, every)
+        print(f"ended clean: {r['windows']} timed windows, {r['regrows']} "
+              f"regrows; temperatures "
+              f"{[round(w[3], 1) for w in r['window_log']]}", flush=True)
+    except RuntimeError as exc:
+        print(f"stopped: {exc}", flush=True)
+    sim.make_langevin_runner = make
+    for back in (2, 1):
+        pos, vel, state = starts[-back]
+        gen = torch.Generator(device=dev)
+        gen.set_state(state)
+        noise = torch.stack([torch.randn(pos.shape, generator=gen,
+                                         dtype=torch.float32, device=dev)
+                             for _ in range(every)])
+        dms = S.synthetic_dms(natoms)
+        dms.positions = pos.double().cpu().numpy()
+        for dtype in (torch.float32, torch.float64):
+            s = Simulation(dms, device=dev, version=1, cutoff=1.0,
+                           dtype=dtype, pair_kernel=dtype == torch.float32)
+            run = s.make_langevin_runner(0.001, 300.0, 1.0,
+                                         neighbor_every=every)
+            p, v = pos.to(dtype), vel.to(dtype)
+            es, vmax, over = [], [], []
+            for i in range(every):
+                p, v, e, diag = run(p, v, 1, noise=noise[i:i + 1].to(dtype))
+                es.append(float(e[0]))
+                vmax.append(float(v.abs().max()))
+                over += [i] if s.overflow_report(*diag) else []
+            print(json.dumps(dict(
+                replay=len(starts) - back, dtype=str(dtype),
+                pair_kernel=s.agbnp.pair_kernel, energies=es,
+                vmax=vmax, overflowed_steps=over)), flush=True)
+            del s, run
+            torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("system", nargs="?",
@@ -581,6 +668,11 @@ def main() -> int:
                     help="with --device-shares: the AGBNP version (1)")
     ap.add_argument("--dump", metavar="F.npz",
                     help="with --device-shares: save what the run computed")
+    ap.add_argument("--synth-trace", nargs="?", type=int, const=10240,
+                    metavar="NATOMS",
+                    help="the synthetic ball's windowed MD window by "
+                         "window, and an f32 / f64 replay of its last two "
+                         "windows (10240 atoms; --steps, 400)")
     ap.add_argument("--same", nargs=2, metavar="F.npz",
                     help="compare two --dump files bit for bit")
     args = ap.parse_args()
@@ -599,11 +691,14 @@ def main() -> int:
     from openmm_agbnp_plugin_tpu_torch.ops import tree as T
 
     if args.steps is None:
-        args.steps = 200 if args.device_shares else 40
+        args.steps = (200 if args.device_shares else
+                      400 if args.synth_trace is not None else 40)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
+    if args.synth_trace is not None:
+        return synth_trace(dev, card, args.synth_trace, args.steps)
     if args.list_kernels or args.row_probes is not None:
         from openmm_agbnp_plugin_tpu_torch.runtime import build
         build.load_library()

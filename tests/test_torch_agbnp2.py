@@ -466,3 +466,30 @@ def test_ms_candidates_and_sizing_rules_match_jax(jax_refs):
     assert big == min(int(np.ceil(seen * 1.5 / 16) * 16), int(heavy.sum()))
     prep = prepare_arrays(tm.params, dtype=np.float64, positions=pos)
     assert len(prep["pairs_i"]) == params.n * (params.n - 1) // 2
+
+
+@pytest.mark.parametrize("ms_boost", [1.6, 2.0])
+def test_ms_boost_sizes_cap_ms_like_jax(jax_refs, ms_boost):
+    """AGBNP2Model(ms_boost=) on the first 40 atoms (the V2 anchor): cap_ms
+    (ms_boost x the MS candidates, 128-aligned) and the MS tree's
+    capacities equal JAX's AGBNP2Model(ms_boost=) at 1.6 (the default) and
+    2.0, and the model so grown gives JAX's energy and forces to 1e-10
+    with no overflow."""
+    params, pos, jm, *_ = jax_refs[40]
+    if ms_boost != 1.6:
+        jm = J2.AGBNP2Model(params, dtype=np.float64, positions=pos,
+                            ms_boost=ms_boost)
+    tm = P2.AGBNP2Model(params, device="cpu", positions=pos,
+                        ms_boost=ms_boost)
+    default = P2.AGBNP2Model(params, device="cpu", positions=pos)
+    assert tm.cap_ms == jm.cap_ms == max(128, int(np.ceil(
+        len(tm.ms_pi) * ms_boost / 128)) * 128)
+    assert (ms_boost == 1.6) == (tm.cap_ms == default.cap_ms)
+    assert tm.caps_ms == T.TreeCaps(tuple(jm.caps_ms.caps),
+                                    tuple(jm.caps_ms.offs))
+    e, f, out = tm.energy_forces(pos, with_details=True)
+    assert not tm.check_and_grow(out["diags"])
+    e_j, f_j = jm.energy_forces(pos)
+    assert abs(float(e) - float(e_j)) <= PARITY * abs(float(e_j))
+    assert rel(f.numpy(), np.asarray(f_j)) <= PARITY
+    assert abs(float(e) - V2_GOLDEN["energy"]) <= 1e-8

@@ -1799,3 +1799,39 @@ def test_chunked_build_and_cell_grid_on_the_card(cuda, fixture_system,
         return {tuple(sorted((int(x), int(y)))) for x, y, ok in zip(i, j, v)
                 if ok}
     assert pairs(pg) == pairs(ph) and len(pairs(ph)) > 0
+
+
+def test_free_volumes_on_the_card(cuda, fixture_system):
+    """reduce_tree(with_freevol=True) in f32 on the card, on the tree the
+    model's pass builds of the fixture, against the port's f64 oracle
+    (GaussVol.compute_volume): free volumes within 1e-5 of their max,
+    the volume 1e-5 relative; twice bitwise, take_rows at every level."""
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.models.constants import sphere_volume
+    from openmm_agbnp_plugin_tpu_torch.models.oracle import GaussVol
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    params, pos = fixture_system
+    m = AGBNPModel(params, device=cuda, dtype=torch.float32, positions=pos)
+    p = torch.as_tensor(pos, dtype=torch.float32, device=cuda)
+    a, pair_rows, _ = M.tree_candidates(m.arrays, p, m.neighbor_rcut,
+                                        m.neighbor_kmax, m.neighbor_grid)
+    out = M.tree_passes(a, p, m.caps, params.roffset, pair_rows=pair_rows)
+    assert not T.check_overflow(out[5])["any"]
+    l1 = T.make_level1(p, a["radii_large"], a["vol_large"],
+                       a["gamma"] / params.roffset, a["ishydrogen"])
+    before = PK.launch_counts()["take_rows"]
+    got = [T.reduce_tree(T.rescan_volumes(T.tree_topology(out[3]), l1), l1,
+                         with_freevol=True) for _ in range(2)]
+    assert PK.launch_counts()["take_rows"] - before >= 2 * T.NUM_TREE_LEVELS
+    for k in ("free_volume", "volume", "self_volume", "energy"):
+        assert torch.equal(got[0][k], got[1][k]), k
+    radii = np.asarray(params.radii_large)
+    gv = GaussVol(params.n, params.ishydrogen)
+    gv.set_radii(radii)
+    gv.set_volumes(np.where(params.ishydrogen > 0, 0.0, sphere_volume(radii)))
+    gv.set_gammas(np.asarray(params.gamma / params.roffset))
+    gv.compute_tree(pos)
+    v_o, _, _, _, fv_o, _ = gv.compute_volume(pos)
+    assert rel(got[0]["free_volume"], torch.as_tensor(fv_o)) <= 1e-5
+    assert abs(float(got[0]["volume"][0]) - v_o) <= 1e-5 * abs(v_o)

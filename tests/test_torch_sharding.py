@@ -87,7 +87,22 @@ def rank_fixture_evaluation():
                        pair_shard=S.sharded_pair_phases(mesh, a, ntj))
     return dict(tree=out, log=log,
                 pair=dict(energy=pp["energy"], force=pp["force"],
-                          born_radius=pp["details"]["born_radius"]))
+                          born_radius=pp["details"]["born_radius"]),
+                freevol=_free_volumes(a, pos, p.roffset, topo, mesh))
+
+
+def _free_volumes(a, pos, roffset, topo, mesh=None):
+    """reduce_tree(with_freevol=True) of the large-radii tree on the
+    topology: on the mesh's row blocks (TreeComm) when given."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    comm = None if mesh is None else mesh.comm
+    if mesh is not None:
+        topo = S._shard_topology(topo, mesh)
+    lvl1 = T.make_level1(pos, a["radii_large"], a["vol_large"],
+                         a["gamma"] / roffset, a["ishydrogen"])
+    return T.reduce_tree(T.rescan_volumes(topo, lvl1, comm=comm), lvl1,
+                         with_freevol=True, comm=comm)
 
 
 @pytest.fixture(scope="module")
@@ -168,6 +183,25 @@ def test_sharded_evaluations_match_the_port(fixture_ranks, port_reference):
         for part in ("tree", "pair"):
             for k, v in first[part].items():
                 assert np.array_equal(r[part][k], v), (part, k)
+
+
+def test_sharded_free_volumes_match_the_port(fixture_ranks):
+    """reduce_tree(with_freevol=True) on 4 ranks' row blocks (the free-
+    volume channel riding TreeComm's reduce_blocks / reduce_full with the
+    others) equals the unsharded reduction to 1e-12, the same bits on
+    every rank."""
+    p, a, pos, caps, topo, ntj = fixture_system()
+    ref = _free_volumes(a, pos, p.roffset, topo)
+    for r in fixture_ranks:
+        fv = r["freevol"]
+        assert sorted(fv) == sorted(ref)
+        for k in ("free_volume", "self_volume", "dr"):
+            assert _rel(fv[k], ref[k]) <= 1e-12, k
+        for k in ("volume", "energy"):
+            assert abs(float(fv[k][0]) - float(ref[k][0])) <= 1e-12 * \
+                abs(float(ref[k][0])), k
+        for k, v in fixture_ranks[0]["freevol"].items():
+            assert np.array_equal(fv[k], v), k
 
 
 @pytest.fixture(scope="module")

@@ -386,3 +386,113 @@ def test_deposits_leave_out_the_padding_rows(system, all_pairs_build):
     ref = T.reduce_tree(tuple(on_atom0), l1t, with_selfvol=True)
     for k in ("energy", "dr", "self_volume"):
         assert torch.equal(got[k], ref[k]), k
+
+
+# ---------------------------------------------------------------------------
+# reduce_tree's free volumes (with_freevol): GaussVol's compute_volume
+# ---------------------------------------------------------------------------
+
+jax_reduce_freevol = jax.jit(JT.reduce_tree,
+                             static_argnames=("with_selfvol", "with_freevol"))
+REPLICA_JITTER = 0.005  # nm, the second replica's displacement (numpy seed)
+
+
+def _replica_positions(pos, nrep):
+    rng = np.random.default_rng(5)
+    return [pos] + [pos + rng.normal(0.0, REPLICA_JITTER, pos.shape)
+                    for _ in range(nrep - 1)]
+
+
+def _jax_rows_build(params, aj, pos):
+    """JAX's tree of one system on its neighbor rows (build_both's)."""
+    (l1j, _), _ = level1_pair(aj, arrays_from_numpy(aj, "cpu", torch.float64),
+                              pos, params.roffset)
+    rcut = tree_pair_cutoff(params.radii_large) + 0.1
+    heavy = np.asarray(params.ishydrogen) == 0
+    pij = jax_half_neighbor_pairs(jnp.asarray(pos), jnp.asarray(heavy), rcut,
+                                  64)
+    levels, _ = jax_build_tree(l1j, pij[0], pij[1], JT.TreeCaps(*CAPS),
+                               pairs_valid=pij[2], pair_rows=True)
+    return levels, l1j
+
+
+def _union_build(system, nrep):
+    """The port's tree over nrep replicas' union (the fixture and jittered
+    copies) on the batched neighbor rows, and the union's level-1 table."""
+    params, pos, aj, at = system
+    reps = _replica_positions(pos, nrep)
+    p = torch.as_tensor(np.stack(reps))
+    heavy = torch.as_tensor(np.asarray(params.ishydrogen) == 0)
+    rcut = tree_pair_cutoff(params.radii_large) + 0.1
+    pi, pj, pv, _ = half_neighbor_pairs(p, heavy, rcut, 64)
+    l1 = T.make_level1(p.reshape(-1, 3), at["radii_large"].repeat(nrep),
+                       at["vol_large"].repeat(nrep),
+                       (at["gamma"] / params.roffset).repeat(nrep),
+                       at["ishydrogen"].repeat(nrep))
+    levels, diag = T.build_tree(l1, pi, pj, T.TreeCaps(*CAPS),
+                                pairs_valid=pv, pair_rows=True, nrep=nrep)
+    assert not T.check_overflow({k: v.max(0).values if v.dim() == 2 else v
+                                 for k, v in diag.items()})["any"]
+    return reps, levels, l1
+
+
+@pytest.mark.parametrize("with_selfvol", [True, False],
+                         ids=["selfvol", "no_selfvol"])
+@pytest.mark.parametrize("nrep", [1, 2])
+def test_free_volumes_match_jax(system, nrep, with_selfvol):
+    """reduce_tree(with_freevol=True) on the fixture (and a jittered copy
+    in a two-replica union tree) gives JAX's free_volume and volume for
+    each replica to 1e-10, and leaves energy, dr and self_volume bitwise
+    those of with_freevol=False."""
+    params, pos, aj, at = system
+    reps, levels, l1 = _union_build(system, nrep)
+    n = params.n
+    got = T.reduce_tree(levels, l1, with_selfvol=with_selfvol,
+                        with_freevol=True, nrep=nrep)
+    base = T.reduce_tree(levels, l1, with_selfvol=with_selfvol, nrep=nrep)
+    assert got["volume"].shape == (nrep,)
+    assert got["free_volume"].shape == (nrep * n,)
+    for k in ("energy", "dr") + (("self_volume",) if with_selfvol else ()):
+        assert torch.equal(got[k], base[k]), k
+    assert sorted(got) == sorted(list(base) + ["free_volume", "volume"])
+    for b, pb in enumerate(reps):
+        lj, l1j = _jax_rows_build(params, aj, pb)
+        rj = jax_reduce_freevol(lj, l1j, with_selfvol=with_selfvol,
+                                with_freevol=True)
+        rows = slice(b * n, (b + 1) * n)
+        assert rel(got["free_volume"][rows].numpy(),
+                   rj["free_volume"]) <= 1e-10
+        assert abs(float(got["volume"][b]) - float(rj["volume"])) <= \
+            1e-10 * abs(float(rj["volume"]))
+        assert rel(got["dr"][rows].numpy(), rj["dr"]) <= 1e-10
+        assert abs(float(got["energy"][b]) - float(rj["energy"])) <= \
+            1e-10 * abs(float(rj["energy"]))
+
+
+def test_free_volumes_match_the_oracle(system, all_pairs_build):
+    """The port's free volumes and total volume on the fixture against its
+    f64 oracle's GaussVol.compute_volume (models/oracle.py), at the JAX
+    suite's oracle bars (tests/test_native.py: free volumes rtol 1e-9 +
+    atol 1e-12, the volume rtol 1e-12)."""
+    from openmm_agbnp_plugin_tpu_torch.models.constants import sphere_volume
+    from openmm_agbnp_plugin_tpu_torch.models.oracle import GaussVol
+
+    params, pos, aj, at = system
+    lev_t = all_pairs_build[1][0]
+    (_, l1t), _ = level1_pair(aj, at, pos, params.roffset)
+    red = one_system(T.reduce_tree(lev_t, l1t, with_selfvol=True,
+                                   with_freevol=True))
+    radii = np.asarray(params.radii_large)
+    gv = GaussVol(params.n, params.ishydrogen)
+    gv.set_radii(radii)
+    gv.set_volumes(np.where(params.ishydrogen > 0, 0.0,
+                            sphere_volume(radii)))
+    gv.set_gammas(np.asarray(params.gamma / params.roffset))
+    gv.compute_tree(pos)
+    v_o, e_o, _, _, fv_o, sv_o = gv.compute_volume(pos)
+    np.testing.assert_allclose(red["free_volume"].numpy(), fv_o, rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(float(red["volume"][0]), v_o, rtol=1e-12)
+    np.testing.assert_allclose(red["self_volume"].numpy(), sv_o, rtol=1e-9,
+                               atol=1e-12)
+    assert fv_o.sum() > 0 and (fv_o >= -1e-12).all()
