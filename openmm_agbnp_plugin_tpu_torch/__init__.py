@@ -31,7 +31,10 @@ tested against), with the same module names:
                           sharded_energy_forces, run_ranks
   runtime/native.py       the f64 native GaussVol/AGBNP1 engine (g++)
   examples/               the JAX package's four examples on the port
-  utils/                  AGBNPHtable; energy_breakdown, tree_stats, trace
+  utils/                  AGBNPHtable; energy_breakdown, tree_stats;
+                          profiling.py: the program's spans and counters
+                          (span, count, recorded), and trace(logdir): a
+                          torch.profiler trace with program_spans.json
   runtime/build.py        builds csrc/*.cu with nvcc at first kernel use
 
 Replicas of one system run as a batch on one device: positions [B, N, 3]

@@ -31,6 +31,8 @@ rank by all_gather, the padding cut off.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -40,6 +42,7 @@ from ..models.agbnp2_torch import AGBNP2Model, ms_candidate_pairs, \
 from ..models.agbnp_torch import AGBNPModel, batched_diag_max
 from ..ops import tree as T
 from ..ops.neighbors import host_max_neighbors
+from ..utils import profiling
 from .force import AGBNPForce, NonbondedMethod
 
 _DETAIL_TERMS = ("e_cav", "e_vol1", "e_vol2", "gb_self", "gb_pair", "e_vdw")
@@ -108,6 +111,8 @@ class ConformerScorer:
         self._caps_boost = caps_boost
         self._mixed = bool(mixed)
         self._model = self._build(force.to_params())
+        # score calls so far (the request id of a call's spans)
+        self._calls = itertools.count()
         if self._is_v2:
             # the width of the MS candidate lists built on the device: the
             # most heavy neighbors within ms_pair_cutoff over the given
@@ -202,14 +207,22 @@ class ConformerScorer:
     def score(self, positions, forces: bool = False, details: bool = False):
         """Score a batch of conformations positions [B, N, 3] (or [N, 3],
         a batch of one)."""
+        with profiling.span("score.call", next(self._calls)):
+            return self._score(positions, forces, details)
+
+    def _score(self, positions, forces: bool, details: bool):
         pos, nb = self._shard(self._batch(positions))
         if self._is_v2:
             return self._gather(self._score_v2(pos, forces, details), nb)
         m = self._model
         for _ in range(_TRIES):
             out = m.batched_energy_forces(pos)
-            if not m.check_and_grow(batched_diag_max(
-                    self._all_diag(out["diag"]))):
+            with profiling.span("score.host_read"):
+                diag = {k: profiling.host_read(v, "score.diag")
+                        for k, v in self._all_diag(out["diag"]).items()}
+                profiling.count_tree_rows(diag)
+                grown = m.check_and_grow(batched_diag_max(diag))
+            if not grown:
                 break
         else:
             raise RuntimeError("overlap tree capacities failed to converge")

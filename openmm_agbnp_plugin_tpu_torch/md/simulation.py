@@ -66,6 +66,7 @@ mesh: the JAX package drops it there without a word.
 from __future__ import annotations
 
 import functools
+import itertools
 import time
 
 import numpy as np
@@ -79,6 +80,8 @@ from ..models.params import AGBNPParams
 from ..ops import tree as T
 from ..ops.neighbors import CellGrid, cell_neighbor_pairs, \
     half_neighbor_pairs, host_max_neighbors, tree_pair_cutoff
+from ..utils import profiling
+from ..utils.profiling import host_read
 from .constraints import Constraints
 from .forces import MMForceField
 from .integrators import langevin_middle_step, maxwell_boltzmann_velocities, \
@@ -186,6 +189,8 @@ class Simulation:
                             if constraints else None)
         # per-level WU-compact capacities (relax, caps), sized lazily
         self._vdw_caps = None
+        # rebuild windows run so far (the request id of a window's spans)
+        self._window_ids = itertools.count()
 
         # neighbor-list sizing pass (the analogue of the reference's CPU
         # GaussVol pre-pass, OpenCLAGBNPKernels.cpp:566-617)
@@ -427,10 +432,11 @@ class Simulation:
 
         def mm_forces(pos):
             # the MM terms the pair sweeps do not carry
-            if fuse_mm:
-                return self.mm.bonded_and_14_forces(pos, mm)
-            return self.mm.forces_of(self.mm.energy, pos, mm,
-                                     ff["mm_excl_mask"])
+            with profiling.span("eval.mm"):
+                if fuse_mm:
+                    return self.mm.bonded_and_14_forces(pos, mm)
+                return self.mm.forces_of(self.mm.energy, pos, mm,
+                                         ff["mm_excl_mask"])
 
         if split:
             def slow_fn(pos):
@@ -540,27 +546,32 @@ class Simulation:
         of the vdW-live rows of the build).  Returns (pairs, topology,
         vdw_topology, (build counts [R, 7], neighbor_max [R], sibling
         maxima [R, 7], WU kept rows [R, 7]))."""
-        nrep = pos.shape[0]
-        a = union_arrays(ff["a"], nrep, pairs=False)
-        pi, pj, pv, nbmax = self.neighbor_fn(pos, self.heavy_mask,
-                                             self.rcut_list, self.kmax)
-        pos_t = pos.reshape(-1, 3)
-        gdr = a["gamma"] / self.agbnp.params.roffset
-        lvl1 = T.make_level1(pos_t, a["radii_large"], a["vol_large"], gdr,
-                             a["ishydrogen"])
-        levels, bdiag = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
-                                     pairs_valid=pv, pair_rows=True,
-                                     nrep=nrep, relax=relax)
-        topo = T.tree_topology(levels)
-        vdw_topo = None
-        vdw_counts = torch.zeros((nrep, 7), dtype=torch.int64,
-                                 device=pos.device)
-        if vdw_caps is not None:
-            lvl1v = T.make_level1(pos_t, a["radii_vdw"], a["vol_vdw"], -gdr,
-                                  a["ishydrogen"])
-            vdw_topo, vdw_counts = T.compact_topology(
-                T.rescan_volumes(topo, lvl1v), vdw_caps, relax=vdw_relax,
-                nrep=nrep)
+        with profiling.span("window.build"):
+            nrep = pos.shape[0]
+            a = union_arrays(ff["a"], nrep, pairs=False)
+            with profiling.span("window.neighbors"):
+                pi, pj, pv, nbmax = self.neighbor_fn(
+                    pos, self.heavy_mask, self.rcut_list, self.kmax)
+            pos_t = pos.reshape(-1, 3)
+            gdr = a["gamma"] / self.agbnp.params.roffset
+            with profiling.span("window.tree_build"):
+                lvl1 = T.make_level1(pos_t, a["radii_large"], a["vol_large"],
+                                     gdr, a["ishydrogen"])
+                levels, bdiag = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
+                                             pairs_valid=pv, pair_rows=True,
+                                             nrep=nrep, relax=relax)
+                topo = T.tree_topology(levels)
+            vdw_topo = None
+            vdw_counts = torch.zeros((nrep, 7), dtype=torch.int64,
+                                     device=pos.device)
+            if vdw_caps is not None:
+                with profiling.span("window.compact"):
+                    lvl1v = T.make_level1(pos_t, a["radii_vdw"],
+                                          a["vol_vdw"], -gdr,
+                                          a["ishydrogen"])
+                    vdw_topo, vdw_counts = T.compact_topology(
+                        T.rescan_volumes(topo, lvl1v), vdw_caps,
+                        relax=vdw_relax, nrep=nrep)
         return ((pi, pj, pv), topo, vdw_topo,
                 (bdiag["counts"], nbmax, bdiag["max_siblings"], vdw_counts))
 
@@ -683,11 +694,13 @@ class Simulation:
         heavy = self.heavy_mask
         neighbor_fn = self.neighbor_fn
         cons = self.constraints
-        ff = self.ff_state(fuse_mm=False if mesh is not None else None)
         nsub = max(mts_inner, 1)
         use_vdwc = (vdw_compact and rebuild_topology and neighbor_every > 0
                     and self.agbnp2 is None and mesh is None)
-        vdw_caps = self._ensure_vdw_caps(vdw_relax) if use_vdwc else None
+        with profiling.span("md.runner_setup"):
+            ff = self.ff_state(fuse_mm=False if mesh is not None else None)
+            vdw_caps = (self._ensure_vdw_caps(vdw_relax) if use_vdwc
+                        else None)
 
         def make_step(pairs=None, topology=None, vdw_topology=None):
             if mts_inner:
@@ -729,10 +742,11 @@ class Simulation:
             step = make_step(ms_pairs, topo)
             energies, counts, shake = [], None, None
             for _ in range(ninner):
-                pos, vel, e, c, sh = step(pos, vel, step_noise(draw))
-                energies.append(e)
-                counts = running_max(counts, c)
-                shake = running_max(shake, sh)
+                with profiling.span("md.step"):
+                    pos, vel, e, c, sh = step(pos, vel, step_noise(draw))
+                    energies.append(e)
+                    counts = running_max(counts, c)
+                    shake = running_max(shake, sh)
             return pos, vel, energies, self._no_window_diag(counts, shake)
 
         def window(pos, vel, ninner, draw):
@@ -764,17 +778,20 @@ class Simulation:
                         blocks[k] = wu_impulse_langevin_block(
                             split_fn, skip_fn, masses, dt, temperature,
                             friction, k, constraints=cons)
-                    pos, vel, es, c, sh = blocks[k](pos, vel, draw(k))
-                    energies.extend(es.unbind(0))
-                    counts = running_max(counts, c)
-                    shake = running_max(shake, sh)
+                    with profiling.span("md.step"):
+                        pos, vel, es, c, sh = blocks[k](pos, vel, draw(k))
+                        energies.extend(es.unbind(0))
+                        counts = running_max(counts, c)
+                        shake = running_max(shake, sh)
             else:
                 step = make_step(pairs, topo, vdw_topo)
                 for _ in range(ninner):
-                    pos, vel, e, c, sh = step(pos, vel, step_noise(draw))
-                    energies.append(e)
-                    counts = running_max(counts, c)
-                    shake = running_max(shake, sh)
+                    with profiling.span("md.step"):
+                        pos, vel, e, c, sh = step(pos, vel,
+                                                  step_noise(draw))
+                        energies.append(e)
+                        counts = running_max(counts, c)
+                        shake = running_max(shake, sh)
             if build_counts is not None:
                 counts = T.merge_counts(counts, build_counts)
             return pos, vel, energies, (counts, nbmax, sib_max, vdw_counts,
@@ -787,12 +804,18 @@ class Simulation:
             done = 0
             while done < nsteps:
                 ninner = min(neighbor_every, nsteps - done)
-                pos, vel, es, wdiag = window(pos, vel, ninner, draw)
-                energies.extend(es)
-                diag = wdiag if diag is None else tuple(
-                    running_max(x, y) for x, y in zip(diag, wdiag))
-                done += ninner
-                if self._check_overflow(*wdiag):  # the window's host read
+                with profiling.span("md.window", next(self._window_ids)):
+                    pos, vel, es, wdiag = window(pos, vel, ninner, draw)
+                    energies.extend(es)
+                    diag = wdiag if diag is None else tuple(
+                        running_max(x, y) for x, y in zip(diag, wdiag))
+                    done += ninner
+                    with profiling.span("md.host_read"):
+                        # the window's host read
+                        counts = host_read(wdiag[0], "window.counts")
+                        profiling.count_tree_rows(self._tree_rows(counts))
+                        over = self._check_overflow(counts, *wdiag[1:])
+                if over:
                     break
             return pos, vel, torch.stack(energies), diag
 
@@ -874,6 +897,15 @@ class Simulation:
                     regrows=attempt, energies=energies.cpu().numpy(),
                     shake_residual=None if shake is None else float(shake))
 
+    def _tree_rows(self, counts) -> dict:
+        """A diag of the window's tree rows for count_tree_rows: its level
+        counts (counts read on the host, [C] or [R, C]) beside the
+        capacities."""
+        caps = np.asarray(self.agbnp.caps.caps)
+        counts = counts[..., :caps.shape[0]]
+        return dict(counts=counts,
+                    caps=np.tile(caps, counts.shape[:-1] + (1,)))
+
     def _check_overflow(self, counts, nbmax, sibs, wu=None,
                         shake=None) -> bool:
         return bool(self.overflow_report(counts, nbmax, sibs, wu, shake))
@@ -887,17 +919,22 @@ class Simulation:
         (wu_compact_level*), the interacting-tile-list budgets
         (tile_list_born, tile_list_gb), and the SHAKE residual against the
         constraint tolerance (shake_residual)."""
+        with profiling.span("md.host_read"):
+            return self._overflow_report(counts, nbmax, sibs, wu, shake)
+
+    def _overflow_report(self, counts, nbmax, sibs, wu, shake) -> dict:
         rep = {}
-        counts = np.asarray(torch.as_tensor(counts).cpu())
+        counts = host_read(counts, "overflow_report.counts")
         if shake is not None and self.constraints is not None:
             tol = self.constraints.tolerance(self.dtype)
-            resid = float(shake)
+            resid = float(host_read(shake, "overflow_report.shake"))
             if not resid <= tol:
                 rep["shake_residual"] = (resid, tol)
         if self.agbnp2 is not None:
             rep.update(self._overflow_report_v2(counts))
             return rep
-        sibs = np.asarray(torch.as_tensor(sibs).cpu())
+        sibs = host_read(sibs, "overflow_report.sibs")
+        nbmax = int(host_read(nbmax, "overflow_report.neighbor_max"))
         caps = self.agbnp.caps
         for i, (c, c0) in enumerate(zip(counts[:len(caps.caps)], caps.caps)):
             if int(c) > int(c0):
@@ -907,14 +944,13 @@ class Simulation:
         for i, (sb, o0) in enumerate(zip(sibs[:len(caps.offs)], caps.offs)):
             if int(sb) - 1 > int(o0):
                 rep[f"sibling_window{i + 1}"] = (int(sb) - 1, int(o0))
-        if int(nbmax) > self.kmax:
-            rep["neighbor_kmax"] = (int(nbmax), int(self.kmax))
+        if nbmax > self.kmax:
+            rep["neighbor_kmax"] = (nbmax, int(self.kmax))
         if wu is not None and self._vdw_caps is not None:
             # a WU kept-row count past its compact capacity means live rows
             # were truncated out of the WU force pass
             for i, (k, o) in enumerate(zip(
-                    np.asarray(torch.as_tensor(wu).cpu()),
-                    self._vdw_caps[1])):
+                    host_read(wu, "overflow_report.wu"), self._vdw_caps[1])):
                 if int(k) > int(o):
                     rep[f"wu_compact_level{i + 1}"] = (int(k), int(o))
         ncaps = len(caps.caps)
@@ -994,14 +1030,14 @@ class Simulation:
         counts, and give SHAKE two more Newton sweeps if it missed its
         tolerance.  Runners built before this call are stale."""
         if (shake is not None and self.constraints is not None
-                and not float(shake) <= self.constraints.tolerance(
-                    self.dtype)):
+                and not float(host_read(shake, "regrow.shake"))
+                <= self.constraints.tolerance(self.dtype)):
             self.constraints.sweeps = min(self.constraints.sweeps + 2,
                                           self.constraints.max_iter)
         if self.agbnp2 is not None:
             return self._regrow_v2(counts, headroom)
         old = self.agbnp.caps
-        counts = np.asarray(torch.as_tensor(counts).cpu())
+        counts = host_read(counts, "regrow.counts")
         # trailing tile-list counts: grow the model's budgets before the
         # rebuild below copies them over
         if counts.shape[0] > len(old.caps):
@@ -1012,23 +1048,24 @@ class Simulation:
         caps = tuple(max(c0, 2 * c0 if int(c) > c0 else c0,
                          _align(int(c) * headroom))
                      for c0, c in zip(old.caps, counts[:len(old.caps)]))
-        sibs = np.asarray(torch.as_tensor(sibs).cpu())
+        sibs = host_read(sibs, "regrow.sibs")
         offs = tuple(max(o0, 2 * o0 if int(sb) - 1 > o0 else o0,
                          int(np.ceil(max(int(sb) - 1, 1) * headroom)))
                      for o0, sb in zip(old.offs, sibs[:-1]))
         if wu is not None and self._vdw_caps is not None:
             relax, old_wu = self._vdw_caps
-            wu = np.asarray(torch.as_tensor(wu).cpu())
+            wu = host_read(wu, "regrow.wu")
             new_wu = tuple(max(o, 2 * o if int(k) > o else o,
                                max(8, int(np.ceil(int(k) * headroom / 8) * 8)))
                            for o, k in zip(old_wu, wu))
             self._vdw_caps = (relax, new_wu)
-        if int(nbmax) > self.kmax:
+        nbmax = int(host_read(nbmax, "regrow.neighbor_max"))
+        if nbmax > self.kmax:
             if self.grid is not None:
                 # a cell-capacity overflow reports kmax+1 through this
                 # channel; regrow the grid capacity alongside kmax
                 self._set_grid(None, self.grid.grown())
-            self.kmax = _kmax_for(int(nbmax))
+            self.kmax = _kmax_for(nbmax)
         m = self.agbnp
         self.agbnp = AGBNPModel(m.params, device=self.device, dtype=self.dtype,
                                 caps=T.TreeCaps(caps=caps, offs=offs),
@@ -1123,7 +1160,8 @@ class Simulation:
                 generator.set_state(state)
                 continue  # retry the segment from (pos, vel, generator)
             pos, vel = new_pos, new_vel
-            energies.append(e.cpu().numpy())
+            with profiling.span("md.host_read"):
+                energies.append(host_read(e, "run_md.energies"))
             done += n
             if checkpoint_path is not None:
                 save_checkpoint(checkpoint_path, done, pos, vel, generator,
@@ -1132,17 +1170,21 @@ class Simulation:
                                           neighbor_every=neighbor_every,
                                           segment=segment, nsteps=nsteps))
             if report_interval:
-                frames.append(pos.detach().cpu().numpy())
+                with profiling.span("md.host_read"):
+                    frames.append(host_read(pos, "run_md.frame"))
                 frame_steps.append(done)
                 if reporter is not None:
                     reporter(done, pos, vel)
         elapsed = time.perf_counter() - t0
+        with profiling.span("md.host_read"):
+            counts_max = host_read(diag[0], "run_md.counts_max")
+            nbmax = int(host_read(diag[1], "run_md.neighbor_max"))
         out = dict(ns_day=nsteps * dt * 1e-3 / elapsed * 86400.0,
                    elapsed_s=elapsed, steps_per_s=nsteps / elapsed,
                    final_pos=pos, final_vel=vel, regrows=regrows,
                    energies=np.concatenate(energies),
-                   tree_counts_max=diag[0].cpu().numpy(),
-                   neighbor_max=int(diag[1]), overflow=False)
+                   tree_counts_max=counts_max, neighbor_max=nbmax,
+                   overflow=False)
         if report_interval:
             out["frames"] = np.stack(frames)
             out["frame_steps"] = np.asarray(frame_steps)

@@ -42,6 +42,7 @@ from ..ops.neighbors import CellGrid, cell_neighbor_pairs, \
 from .constants import AGBNP_I4LOOKUP_MAXA, AGBNP_I4LOOKUP_NA, \
     DIELECTRIC_FACTOR, PIFAC, sphere_volume
 from .i4_tables import I4LookupTables
+from ..utils import profiling
 from .params import AGBNPParams
 
 # the kernel route shares Q/dQ between the Born and descreening sweeps
@@ -506,9 +507,10 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     # the tree stage: one tree over the replicas' disjoint union
     at = union_arrays(a, nb, pairs=neighbor_kmax <= 0 and topology is None)
     pos_t = pos.reshape(-1, 3)
-    e_cav, f_cav, self_volume, levels_vdw, lvl1_vdw, diag, red1, red2 = \
-        tree_passes(at, pos_t, caps, roffset, topology=topology,
-                    pair_rows=pair_rows, nrep=nb)
+    with profiling.span("eval.tree"):
+        e_cav, f_cav, self_volume, levels_vdw, lvl1_vdw, diag, red1, red2 = \
+            tree_passes(at, pos_t, caps, roffset, topology=topology,
+                        pair_rows=pair_rows, nrep=nb)
     f_cav = f_cav.reshape(pos.shape)
     self_volume = self_volume.reshape(pos.shape[:-1])
     if neighbor_kmax > 0:
@@ -520,30 +522,34 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
 
     # volume scaling factors (ReferenceAGBNPKernels.cpp:420-430)
     s_factor = self_volume / a["vol_vdw_all"]
-    if pair_shard is not None:
-        if nb != 1:
-            raise ValueError("pair_shard evaluates one system")
-        pp = {k: v[None] for k, v in pair_shard(pos[0], s_factor[0]).items()}
-    elif pair_pad > 0:
-        pp = _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad,
-                                 horizon=descreen_horizon, mm_nb=mm_nb,
-                                 pair_tiles=pair_tiles, share_qd=share_qd)
-        if "tile_counts" in pp:
-            budgets = np.asarray(
-                [pair_tiles[0],
-                 -1 if pair_tiles[1] is None else pair_tiles[1]], np.int32)
-            diag = {**diag, "pair_tile_counts": pp["tile_counts"],
-                    "pair_tile_budgets": np.tile(budgets, (nb, 1))}
-    else:
-        if mm_nb is not None:
-            raise ValueError("the fused MM sum rides the kernel route only")
-        # the plain route has no replica axis: one replica at a time
-        accum = (torch.float64 if mixed and pos.dtype != torch.float64
-                 else None)
-        pp = PK.per_replica(
-            _pair_phases_plain, nb, dict(pos=pos, s_factor=s_factor),
-            a=a, cutoff=cutoff, box=box, ntypes_j=ntypes_j,
-            horizon=descreen_horizon, accum=accum)
+    with profiling.span("eval.pairs"):
+        if pair_shard is not None:
+            if nb != 1:
+                raise ValueError("pair_shard evaluates one system")
+            pp = {k: v[None]
+                  for k, v in pair_shard(pos[0], s_factor[0]).items()}
+        elif pair_pad > 0:
+            pp = _pair_phases_kernel(a, pos, s_factor, cutoff, box, pair_pad,
+                                     horizon=descreen_horizon, mm_nb=mm_nb,
+                                     pair_tiles=pair_tiles, share_qd=share_qd)
+            if "tile_counts" in pp:
+                budgets = np.asarray(
+                    [pair_tiles[0],
+                     -1 if pair_tiles[1] is None else pair_tiles[1]],
+                    np.int32)
+                diag = {**diag, "pair_tile_counts": pp["tile_counts"],
+                        "pair_tile_budgets": np.tile(budgets, (nb, 1))}
+        else:
+            if mm_nb is not None:
+                raise ValueError("the fused MM sum rides the kernel route "
+                                 "only")
+            # the plain route has no replica axis: one replica at a time
+            accum = (torch.float64 if mixed and pos.dtype != torch.float64
+                     else None)
+            pp = PK.per_replica(
+                _pair_phases_plain, nb, dict(pos=pos, s_factor=s_factor),
+                a=a, cutoff=cutoff, box=box, ntypes_j=ntypes_j,
+                horizon=descreen_horizon, accum=accum)
     gb_self, gb_pair_e, e_vdw = pp["gb_self"], pp["gb_pair"], pp["e_vdw"]
     br, pair_force = pp["born_radius"], pp["pair_force"]
     evdw_der_W, egb_der_U = pp["evdw_der_W"], pp["egb_der_U"]
@@ -563,20 +569,22 @@ def batched_energy_forces(a: dict, pos, caps: T.TreeCaps, version: int,
     # self-volume gradient components via one gamma rescan over
     # gamma_W + gamma_U (the reference's two passes,
     # ReferenceAGBNPKernels.cpp:713-747, are linear in gamma)
-    gamma_WU = ((evdw_der_W + egb_der_U) / a["vol_vdw_all"]).reshape(-1)
-    if vdw_topology is not None:
-        # compacted WU pass: one rescan_volumes over the ancestor closure of
-        # the vdW-live rows (T.compact_topology) recomputes the volumes and
-        # carries the WU gammas down its packed chain
-        lvl1_WU = T.make_level1(pos_t, at["radii_vdw"], at["vol_vdw"],
-                                gamma_WU, at["ishydrogen"])
-        red_WU = T.reduce_tree(T.rescan_volumes(vdw_topology, lvl1_WU),
-                               lvl1_WU, with_selfvol=False, nrep=nb)
-    else:
-        lvl1_WU = {**lvl1_vdw, "gamma1i": gamma_WU}
-        red_WU = T.reduce_tree(T.rescan_gammas(levels_vdw, lvl1_WU), lvl1_WU,
-                               with_selfvol=False, nrep=nb)
-    f_wu = red_WU["dr"].reshape(pos.shape)
+    with profiling.span("eval.wu"):
+        gamma_WU = ((evdw_der_W + egb_der_U)
+                    / a["vol_vdw_all"]).reshape(-1)
+        if vdw_topology is not None:
+            # compacted WU pass: one rescan_volumes over the ancestor closure
+            # of the vdW-live rows (T.compact_topology) recomputes the
+            # volumes and carries the WU gammas down its packed chain
+            lvl1_WU = T.make_level1(pos_t, at["radii_vdw"], at["vol_vdw"],
+                                    gamma_WU, at["ishydrogen"])
+            red_WU = T.reduce_tree(T.rescan_volumes(vdw_topology, lvl1_WU),
+                                   lvl1_WU, with_selfvol=False, nrep=nb)
+        else:
+            lvl1_WU = {**lvl1_vdw, "gamma1i": gamma_WU}
+            red_WU = T.reduce_tree(T.rescan_gammas(levels_vdw, lvl1_WU),
+                                   lvl1_WU, with_selfvol=False, nrep=nb)
+        f_wu = red_WU["dr"].reshape(pos.shape)
     if wu_mode == "split":
         details["force_wu"] = -f_wu
     else:
@@ -589,7 +597,7 @@ def batched_diag_max(diag) -> dict:
     worst case over the batch, so the PanicButton check (check_and_grow)
     sees the largest tree, list and tile count any replica built (JAX
     models/agbnp_jax.py:520-524)."""
-    return {k: np.max(np.asarray(torch.as_tensor(v).cpu()), axis=0)
+    return {k: np.max(profiling.host_read(v, "batched_diag_max"), axis=0)
             for k, v in diag.items()}
 
 

@@ -53,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.constants import MAX_ORDER, PI, VOLMINA
+from ..utils import profiling
 from .gaussians import atomic_gaussian_exponent, pol_switchfunc, survives
 from .kernels.rows import take_rows
 
@@ -61,34 +62,39 @@ NUM_TREE_LEVELS = MAX_ORDER - 1  # 7
 
 
 # --- collective byte accounting --------------------------------------------
-# Every TreeComm / pair-phase collective records its logical kind (the JAX
-# package's names: all_gather, psum_scatter, psum) with its operand's shape,
-# dtype and bytes, so the communication of one sharded evaluation can be
-# read off and set beside the JAX package's log entry by entry.
+# Every TreeComm / pair-phase collective is a `comm.<kind>` counter of the
+# recorder (utils/profiling.py) carrying its logical kind (the JAX package's
+# names: all_gather, psum_scatter, psum) with its operand's shape, dtype and
+# bytes, so the communication of one sharded evaluation can be read off and
+# set beside the JAX package's log entry by entry.
 _COMM_LOG = None
 
 
 def start_comm_log() -> list:
     """Begin recording every TreeComm/pair-phase collective from now on;
     returns the live list (entries: dict(kind, shape, dtype, bytes,
-    ndev))."""
+    ndev), each a comm.<kind> counter record)."""
     global _COMM_LOG
-    _COMM_LOG = []
+    stop_comm_log()
+    _COMM_LOG = profiling.tap("comm.")
     return _COMM_LOG
 
 
 def stop_comm_log() -> list:
     global _COMM_LOG
     log, _COMM_LOG = _COMM_LOG, None
+    if log is not None:
+        profiling.untap(log)
     return log
 
 
 def record_comm(kind: str, x, ndev: int):
-    if _COMM_LOG is not None:
-        _COMM_LOG.append(dict(
-            kind=kind, shape=tuple(int(s) for s in x.shape),
-            dtype=str(x.dtype).replace("torch.", ""),
-            bytes=x.numel() * x.element_size(), ndev=ndev))
+    if profiling.active():
+        nbytes = x.numel() * x.element_size()
+        profiling.count(f"comm.{kind}", nbytes, kind=kind,
+                        shape=tuple(int(s) for s in x.shape),
+                        dtype=str(x.dtype).replace("torch.", ""),
+                        bytes=nbytes, ndev=ndev)
 
 
 def gather_blocks(x, group, size: int):
@@ -735,11 +741,9 @@ def check_overflow(diag) -> dict:
     """Host-side PanicButton check of one system's diag (levels on the
     last axis). Returns numpy bools per level.  The diag's leaves may be
     tensors or numpy arrays (batched_diag_max's)."""
-    def host(k):
-        return np.asarray(torch.as_tensor(diag[k]).cpu())
-
-    counts, caps, sibs, offs = (host(k) for k in ("counts", "caps",
-                                                 "max_siblings", "offs"))
+    counts, caps, sibs, offs = (
+        profiling.host_read(diag[k], "check_overflow")
+        for k in ("counts", "caps", "max_siblings", "offs"))
     cap_overflow = counts > caps
     sib_overflow = np.zeros_like(cap_overflow)
     sib_overflow[..., :-1] = (sibs[..., :-1] - 1) > offs[..., :-1]

@@ -44,6 +44,7 @@ import torch
 
 from ..md.integrators import langevin_middle_step, running_max
 from ..ops import tree as T
+from ..utils import profiling
 
 
 def check_replica_sim(sim, what: str):
@@ -156,10 +157,11 @@ def run_window(sim, ff, pos, vel, ninner, temps, draw, dt, friction,
                                 constraints=sim.constraints)
     energies, counts, shake = [], None, None
     for _ in range(ninner):
-        pos, vel, e, c, sh = step(pos, vel, draw())
-        energies.append(e)
-        counts = running_max(counts, c)
-        shake = running_max(shake, sh)
+        with profiling.span("md.step"):
+            pos, vel, e, c, sh = step(pos, vel, draw())
+            energies.append(e)
+            counts = running_max(counts, c)
+            shake = running_max(shake, sh)
     counts = T.merge_counts(counts, bcounts)
     return (pos, vel, energies, (counts, nbmax, sibs, vdw_counts, shake),
             (pairs, topo, vdw_topo))
@@ -255,7 +257,8 @@ class ReplicaEnsemble:
         noise [nsteps, Rb, N, 3] its block's; the energies and
         diagnostics are every rank's, [R, ...]."""
         sim, mesh = self.sim, self.mesh
-        ff = sim.ff_state()
+        with profiling.span("md.runner_setup"):
+            ff = sim.ff_state()
         nloc = self.block.stop - self.block.start
         temps = torch.full((nloc,), float(temperature),
                            dtype=sim.dtype, device=self.device)
@@ -279,22 +282,33 @@ class ReplicaEnsemble:
 
         check_replica_sim(sim, "ReplicaEnsemble.make_runner(neighbor_every "
                           "> 0)")
-        vdw_caps = sim._ensure_vdw_caps(vdw_relax) if vdw_compact else None
+        with profiling.span("md.runner_setup"):
+            vdw_caps = (sim._ensure_vdw_caps(vdw_relax) if vdw_compact
+                        else None)
 
         def run(states, nsteps: int, noise=None):
             pos, vel, gens, draw = states_draw(states, noise)
             energies, diag, done = [], None, 0
             while done < nsteps:
                 ninner = min(neighbor_every, nsteps - done)
-                pos, vel, es, wdiag, _ = run_window(
-                    sim, ff, pos, vel, ninner, temps, draw, dt, friction,
-                    vdw_caps, vdw_relax)
-                energies.extend(es)
-                wdiag = gather_diag(mesh, wdiag)
-                diag = diag_max(diag, wdiag)
-                done += ninner
-                if sim._check_overflow(*worst_replica(wdiag)):
-                    break  # the window's host read
+                with profiling.span("md.window", next(sim._window_ids)):
+                    pos, vel, es, wdiag, _ = run_window(
+                        sim, ff, pos, vel, ninner, temps, draw, dt, friction,
+                        vdw_caps, vdw_relax)
+                    energies.extend(es)
+                    wdiag = gather_diag(mesh, wdiag)
+                    diag = diag_max(diag, wdiag)
+                    done += ninner
+                    with profiling.span("md.host_read"):
+                        # the window's host read: every replica's counts,
+                        # the worst replica decides
+                        counts = profiling.host_read(wdiag[0],
+                                                     "window.counts")
+                        profiling.count_tree_rows(sim._tree_rows(counts))
+                        over = sim._check_overflow(
+                            counts.max(axis=0), *worst_replica(wdiag[1:]))
+                if over:
+                    break
             return (pos, vel, gens), (
                 gather_replicas(mesh, torch.stack(energies, dim=1)), *diag)
 

@@ -528,7 +528,10 @@ def test_hashtable_parity():
 
 def test_profiling_helpers(gaussvol_system, tmp_path):
     """energy_breakdown and tree_stats against the JAX package's on the same
-    evaluation; trace() profiles a block."""
+    evaluation; trace() profiles a block and writes its program spans
+    beside the trace, on the trace's time base."""
+    import json
+
     from openmm_agbnp_plugin_tpu.models.agbnp_jax import AGBNPModel as JModel
     from openmm_agbnp_plugin_tpu.utils import profiling as JP
     from openmm_agbnp_plugin_tpu_torch.utils import profiling as TP
@@ -538,6 +541,11 @@ def test_profiling_helpers(gaussvol_system, tmp_path):
     with TP.trace(str(tmp_path)) as prof:
         _, _, out = m.energy_forces(pos, with_details=True)
     assert len(prof.key_averages()) > 0
+    with open(tmp_path / "program_spans.json") as f:
+        spans = json.load(f)
+    assert spans["baseTimeNanoseconds"] > 0
+    names = [e["name"] for e in spans["traceEvents"] if e["ph"] == "X"]
+    assert names.count("eval.tree") == names.count("eval.pairs") == 1
     _, _, out_j = JModel(params, dtype=np.float64, pair_kernel=False,
                          caps=m.caps).energy_forces(pos, with_details=True)
     terms, terms_j = (TP.energy_breakdown(out["details"]),
