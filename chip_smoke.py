@@ -64,7 +64,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      40 steps, the vdW-compact WU pass: bench.py's strict run on the dense
      route) and checks that every energy is finite, no capacity overflow
      remains, and every dense kernel launched at least once per step and
-     the tree's row gather (take_rows) at every level of every pass;
+     the tree kernels at every level of both passes of every step;
   7. runs 2clr MD on the tile lists with the cell-grid neighbor build
      (200 timed steps after a 200-step warm-up) with the same checks for
      the list kernels; like 6, 8 and 9 at the lean tree capacities the
@@ -170,7 +170,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      windows (bench.py's 400 steps blow up near step 200: SYNTH_STEPS),
      every overflowed window regrown and retried from its start:
      finite energies, no overflow left, #5-#7 once a step run and
-     take_rows at every level, the clean windows' median ms/step and
+     the tree kernels at every level, the clean windows' median ms/step and
      ns/day, regrows by channel, each window's kinetic temperature; one
      evaluation at the final positions against the port's f64
      pair_kernel=False route on the card (1e-5 / 1e-4).  Phase 14 also
@@ -223,7 +223,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      (20-step windows, tile lists, the cell grid, the windowed protocol of
      [25] over 120 steps: 4 heat and 2 timed windows): no overflow left,
      finite energies, #5-#7 every step run (#7 recomputing where the
-     lists' Q/dQ exceed QD_BYTES_LIMIT), take_rows at every level;
+     lists' Q/dQ exceed QD_BYTES_LIMIT), the tree kernels at every level;
      (c) synthetic.run at
      24,576 atoms (5 timed evaluations): whether Q/dQ is shared, one
      evaluation with share_qd=False (#7 recomputing) against one with the
@@ -240,8 +240,18 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      native f64 engine's free_volume and volume on the host (1e-5 of
      max|free_volume|, 1e-5 relative), over the fixed-topology rescan of
      its volumes, twice bitwise; take_rows at every level of each rescan.
+33. the fixed-topology tree passes as per-level kernels (csrc/tree.cu) at
+     the MD cells' topologies (1li2, 2clr, 4 x 2clr; f32, a window build
+     at the MD capacities): the step's cavity and WU passes on the route
+     against the torch twin and the f64 twin (TREE_F32_BARS: 1e-5, the
+     cavity force 3e-5), twice bitwise; each kernel's device ms a launch
+     (CUDA events around each launch, the stream held behind a sleep)
+     beside its bytes bound and the two passes' ms on the route and on the
+     twin; MD ms a step on the route and on the twin (window builds
+     without the kernels' prep) in turns in one process, the tree
+     kernels' launches and tree.kernel counters a step.
 
-    python3 chip_smoke.py --only N      (N = 25, 31 or 32)
+    python3 chip_smoke.py --only N      (N = 25, 31, 32 or 33)
 
 builds the kernels and runs phase N alone.
 
@@ -274,13 +284,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PAIRS_SRC = "openmm_agbnp_plugin_tpu_torch/csrc/pairs.cu"
 TILES_SRC = "openmm_agbnp_plugin_tpu_torch/csrc/tiles.cu"
 ROWS_SRC = "openmm_agbnp_plugin_tpu_torch/csrc/rows.cu"
+TREE_SRC = "openmm_agbnp_plugin_tpu_torch/csrc/tree.cu"
 TPU = "openmm_agbnp_plugin_tpu/ops/pallas/pairs.py"
 TPU_PROBE = "benchmarks/micro_pallas_gather.py"
 # name -> (source, TPU kernel it replaces, the phase whose launches count)
 # (the chunk list subtile_columns is the H100 design's own work list for
 # born_sums and the dense descreening, which walk it: it replaces no TPU
 # kernel; on the main path the Born kernel builds its list itself, and the
-# standalone kernel launches for the recompute with sharing off)
+# standalone kernel launches for the recompute with sharing off; the tree
+# kernels replace no TPU kernel either: the JAX package's tree passes are
+# plain jnp; an MD window's passes run the tree kernels, and take_rows moves
+# the rows of the torch passes, as AGBNP2's MD runs them)
 KERNELS = {
     "subtile_columns": (PAIRS_SRC, None, "share_off"),
     "born_sums": (PAIRS_SRC, f"{TPU}:420", "md_1li2"),
@@ -291,8 +305,11 @@ KERNELS = {
     "gb_pair_tiles": (TILES_SRC, f"{TPU}:966", "md_2clr"),
     "descreening_tiles": (TILES_SRC, f"{TPU}:1114", "md_2clr"),
     "descreening_tiles_recompute": (TILES_SRC, f"{TPU}:1114", "share_off"),
-    "take_rows": (ROWS_SRC, f"{TPU_PROBE}:99", "md_2clr"),
+    "take_rows": (ROWS_SRC, f"{TPU_PROBE}:99", "md_v2"),
     "cumsum_rows": (ROWS_SRC, f"{TPU_PROBE}:145", "row_probes"),
+    "tree_rescan": (TREE_SRC, None, "md_1li2"),
+    "tree_reduce": (TREE_SRC, None, "md_1li2"),
+    "tree_deposit": (TREE_SRC, None, "md_1li2"),
 }
 # the row probe's default shape (benchmarks/micro_pallas_gather.py:64-66) and
 # the repetitions of its run as a path of this script
@@ -341,7 +358,7 @@ RECORD_EXTRAS = ("kept_subtile_pairs", "chunk_slots", "qd_written_bytes",
                  "qd_read_bytes", "qd_dense_bytes", "given_list_ms",
                  "column_tests", "f64_abs_err", "twin_f64_abs_err",
                  "empty_launch_ms", "shape", "tree_widths", "probe",
-                 "mirror_abs_err")
+                 "mirror_abs_err", "cases")
 LI2_BOXES = (("ortho", (4.0, 4.2, 4.4)),
              ("triclinic", ((4.0, 0.0, 0.0), (0.6, 4.2, 0.0),
                             (0.4, -0.3, 4.4))))
@@ -1623,11 +1640,10 @@ def run_md(dev, card, name, steps, label, sim=None, bench=None, **kw):
     log(f"    kernel launches { {k: c for k, c in counts.items() if c} }")
     log(f"    first measurement, not a claim: {ms_step:.3f} ms/step, "
         f"{r['ns_day']:.3f} ns/day on {card}")
-    # every pass gathers parent and atom rows at each of the tree's levels
-    # through take_rows, and every (outer) step runs at least one pass
-    if counts["take_rows"] < GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * steps:
-        raise AssertionError(f"{label} take_rows: {counts['take_rows']} "
-                             f"launches in {steps} steps")
+    # the warm-up and the timed run: every (outer) step runs the cavity
+    # pass, and the WU pass every wu_every-th
+    passes = 2 * steps * (1 + 1 / bench.get("wu_every", 1))
+    check_tree_launches(counts, passes, label)
     if r["overflow"]:
         raise AssertionError(f"capacity overflow after {r['regrows']} "
                              "regrows")
@@ -1636,6 +1652,20 @@ def run_md(dev, card, name, steps, label, sim=None, bench=None, **kw):
     if not bool(torch.isfinite(r["final_pos"]).all()):
         raise AssertionError("non-finite final positions")
     return sim, counts, r
+
+
+def check_tree_launches(counts, passes, label):
+    """At least `passes` fixed-topology tree passes in counts: each a
+    tree_rescan and a tree_reduce launch at every level of the tree and a
+    tree_deposit launch (window builds and regrown attempts add more)."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    want = dict(tree_rescan=T.NUM_TREE_LEVELS * passes,
+                tree_reduce=T.NUM_TREE_LEVELS * passes, tree_deposit=passes)
+    short = {k: (counts[k], v) for k, v in want.items() if counts[k] < v}
+    if short:
+        raise AssertionError(f"{label} tree kernel launches (counted, at "
+                             f"least) {short}")
 
 
 def phase_md(dev, card):
@@ -2087,6 +2117,11 @@ def phase_v2(dev, card):
             or counts_v2["descreening_recompute"]:
         raise AssertionError("1li2 v2 MD: #1-#3 not launched every step, "
                              "or the recompute ran")
+    # AGBNP2's window topologies carry no per-level kernels' prep: its
+    # tree passes are the torch ones, their rows moved by take_rows
+    if any(counts_v2[k] for k in TREE_KERNELS) or not counts_v2["take_rows"]:
+        raise AssertionError("1li2 v2 MD: a tree kernel launched, or "
+                             "take_rows did not")
 
     sim0 = Simulation(d, device=dev, version=0, cutoff=1.0,
                       dtype=torch.float32, skin=0.25)
@@ -3167,8 +3202,8 @@ def phase_synthetic(dev, card):
     protocol: 4 heat windows from 300 K, shrink-to-fit if they regrew, then
     the timed windows, every overflowed window regrown and retried.
     Finite energies in the last window, no overflow left, #5-#7 once a
-    step run (retries and heat windows included) and take_rows at every
-    level; then one evaluation at the final positions against the port's
+    step run (retries and heat windows included) and the tree kernels at
+    every level; then one evaluation at the final positions against the port's
     f64 pair_kernel=False route on the card, sized at those positions
     (energy 1e-5 relative, forces 1e-4 of max|f|).  Returns the launches
     of the MD run."""
@@ -3199,10 +3234,9 @@ def check_windowed_md(r, counts, card, label, qd_shared=True):
     clean window's last energy and kinetic temperature) and check it: no
     overflow, finite energies in the last window, the cell
     grid and tile lists on, #5-#7 launched once a step run (#7 recomputing
-    where the lists' Q/dQ are not shared) and take_rows at every level."""
+    where the lists' Q/dQ are not shared) and the tree kernels at every
+    level of both passes of every step run."""
     import numpy as np
-
-    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
 
     sim, e = r["sim"], r["energies"]
     heat = r["steps_done"] // SYNTH_EVERY - r["windows"]
@@ -3217,7 +3251,7 @@ def check_windowed_md(r, counts, card, label, qd_shared=True):
         f"{sim.agbnp.pair_tiles}, tree rows {sim.agbnp.caps.caps}, offs "
         f"{sim.agbnp.caps.offs}; last window E first/last "
         f"{e[0]:.2f}/{e[-1]:.2f}; launches {pair_launches(counts)}, "
-        f"take_rows {counts['take_rows']}")
+        f"tree kernels { {k: counts[k] for k in TREE_KERNELS} }")
     log(f"{label} clean windows (label, last E, K): "
         f"{[(w[0], round(w[2], 1), round(w[3], 1)) for w in r['window_log']]}")
     if r["overflow"] or e.shape != (SYNTH_EVERY,) or \
@@ -3227,10 +3261,8 @@ def check_windowed_md(r, counts, card, label, qd_shared=True):
         raise AssertionError(f"{label} the ball must run the cell grid, "
                              "lists")
     check_list_launches(counts, r["steps_run"], label, qd_shared=qd_shared)
-    gathers = GATHERS_PER_LEVEL * T.NUM_TREE_LEVELS * r["steps_run"]
-    if counts["take_rows"] < gathers:
-        raise AssertionError(f"{label} take_rows {counts['take_rows']} < "
-                             f"{gathers}")
+    # the cavity and the WU pass every step run
+    check_tree_launches(counts, 2 * r["steps_run"], label)
 
 
 def f64_against(dev, pos, e32, f32, rep32, label):
@@ -4287,7 +4319,7 @@ def phase_large(dev, card):
     16,384 atoms (20-step windows, tile lists, the cell grid; the windowed
     protocol, LARGE_MD_STEPS: 4 heat and 2 timed windows): no overflow
     left, finite energies, #5-#7 every step run (#7 recomputing where the
-    lists' Q/dQ are not shared), take_rows at every level.
+    lists' Q/dQ are not shared), the tree kernels at every level.
     (c) synthetic.run at 24,576 atoms (LARGE_EVAL_REPEATS timed
     evaluations): whether its lists share Q/dQ (lb T^2 8 against
     QD_BYTES_LIMIT), one evaluation with share_qd=False against one with
@@ -4536,6 +4568,347 @@ def phase_freevol(dev, card):
     return counts
 
 
+# [33]: the fixed-topology tree passes as per-level kernels (csrc/tree.cu)
+TREE_KERNELS = ("tree_rescan", "tree_reduce", "tree_deposit")
+# each kernel's wrapper in ops/kernels/tree.py, one launch a call
+TREE_WRAPPERS = dict(tree_rescan="rescan_level", tree_reduce="reduce_level",
+                     tree_deposit="deposit_atoms")
+# (system, replicas) of each fixed topology: the MD cells' three
+TREE_CASES = (("1li2", 1), ("2clr", 1), ("2clr", 4))
+TREE_REPEATS = 40       # pass repetitions a timing
+TREE_MD_STEPS = 80      # MD steps a turn (two rebuild windows)
+TREE_TURNS = 2          # turns of the route and the torch twin in MD
+# f32 against the f64 twin, of max|x| (energies relative): the f32 path's
+# 1e-5, and for the cavity force 3e-5, about twice what the f32 twin itself
+# reads at 1li2 (1.55e-5; the route 1.10e-5): that force is the small
+# difference of the two parameterizations' larger ones
+TREE_F32_BARS = dict(e_cav=1e-5, f_cav=3e-5, self_volume=1e-5, f_wu=1e-5)
+# clock cycles the stream sleeps before the timed launches are queued
+# behind it (~0.1 s at the H100's clock: longer than the host takes to
+# queue the step's two passes)
+TREE_SLEEP_CYCLES = 200_000_000
+# launches of each tree kernel in the step's two passes (7 levels each)
+TREE_PASS_LAUNCHES = dict(tree_rescan=14, tree_reduce=14, tree_deposit=2)
+
+
+@contextlib.contextmanager
+def without_kernel_prep():
+    """Window builds inside give their topologies without the per-level
+    kernels' prep (ops/tree.py::kernel_prep), so their tree passes run the
+    torch twin."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    prep = T.kernel_prep
+    T.kernel_prep = lambda topology: topology
+    try:
+        yield
+    finally:
+        T.kernel_prep = prep
+
+
+def tree_case(dev, name, nrep):
+    """What a window build gives the tree passes, f32 on the card, at
+    md_sim's capacities: the replicas' union level-1 tables (the DMS state
+    and jittered copies, ReplicaEnsemble.initial_states), the union's
+    fixed topology and its compacted WU topology, each as the twin runs it
+    (`twin_topo`, `twin_vt`) and with the kernels' prep (`topo`, `vt`),
+    and a WU gamma per atom (numpy seed)."""
+    import numpy as np
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble
+    from openmm_agbnp_plugin_tpu_torch.models.agbnp_torch import union_arrays
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    sim = md_sim(dev, name)
+    pos = ReplicaEnsemble(sim, nrep).initial_states(jitter=1e-3)[0]
+    ff = sim.ff_state()
+    vdw_caps = sim._ensure_vdw_caps()
+    with without_kernel_prep():
+        _, topo, vt, (counts, _, _, wu) = sim.window_build(pos, ff, vdw_caps)
+    if (counts > torch.as_tensor(sim.agbnp.caps.caps, device=dev)).any() \
+            or (wu > torch.as_tensor(sim._vdw_caps[1], device=dev)).any():
+        raise AssertionError(f"[33] {name} x {nrep}: the window overflowed")
+    a = union_arrays(sim.agbnp.arrays, nrep, pairs=False)
+    pt = pos.reshape(-1, 3)
+    gdr = a["gamma"] / sim.agbnp.params.roffset
+    l1 = T.make_level1(pt, a["radii_large"], a["vol_large"], gdr,
+                       a["ishydrogen"])
+    v1 = T.make_level1(pt, a["radii_vdw"], a["vol_vdw"], -gdr,
+                       a["ishydrogen"])
+    gam = torch.as_tensor(np.random.default_rng(33).normal(
+        0.0, 10.0, pt.shape[0]), dtype=torch.float32, device=dev)
+    return dict(sim=sim, nrep=nrep, twin_topo=topo, twin_vt=vt,
+                topo=T.kernel_prep(topo), vt=T.kernel_prep(vt), l1=l1, v1=v1,
+                wu={**v1, "gamma1i": gam})
+
+
+def tree_step_passes(c, twin=False):
+    """The MD step's two tree passes on c's topologies: the cavity pass
+    (rescan_volumes2 + reduce_tree2) and the compacted WU pass; on the
+    kernel route, or with twin on the torch passes (the topologies
+    without the kernels' prep)."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    topo, vt = ((c["twin_topo"], c["twin_vt"]) if twin
+                else (c["topo"], c["vt"]))
+    la, lb = T.rescan_volumes2(topo, c["l1"], c["v1"])
+    r1, r2 = T.reduce_tree2(la, lb, c["l1"], c["v1"], nrep=c["nrep"])
+    wu = c["wu"]
+    rw = T.reduce_tree(T.rescan_volumes(vt, wu), wu, with_selfvol=False,
+                       nrep=c["nrep"])
+    return dict(e_cav=r1["energy"] + r2["energy"],
+                f_cav=-(r1["dr"] + r2["dr"]), self_volume=r2["self_volume"],
+                f_wu=rw["dr"])
+
+
+def tree_bytes(c):
+    """Bytes each tree kernel moves over the step's two passes, f32: each
+    input byte read once, each output byte written once, the reductions
+    reading the valid rows alone.  {kernel: bytes}."""
+    out = dict.fromkeys(TREE_KERNELS, 0)
+    natoms = c["l1"]["gv"].shape[0]
+    for tp, k, sv in ((c["topo"], 2, 1), (c["vt"], 1, 0)):
+        nch, ndep = 5 * k + sv, 3 * k + sv
+        caps = [l["valid"].shape[0] for l in tp]
+        valid = [int(l["bnd"]["starts"][-1]) for l in tp]
+        parents = [natoms] + caps[:-1]
+        for li, cap in enumerate(caps):
+            width = 6 if li == 0 else 13
+            out["tree_rescan"] += 4 * (k * (parents[li] * width + natoms * 6
+                                            + cap * 13) + 2 * cap) + cap
+            acc_in = nch * valid[li] if li + 1 < len(caps) else 0
+            out["tree_reduce"] += 4 * (valid[li] * (14 * k + ndep) + acc_in
+                                       + parents[li] * (nch + 1) + 1)
+        out["tree_deposit"] += 4 * (sum(valid) * (ndep + 1) + natoms + 1
+                                    + natoms * (nch + 2 * k)
+                                    + natoms * (4 * k + sv))
+    return out
+
+
+def timed_passes(fn):
+    """ms a call of fn, TREE_REPEATS calls between CUDA events after a
+    warm-up call (the host's launches and the device's work both)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(TREE_REPEATS):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / TREE_REPEATS
+
+
+def tree_device_ms(fn):
+    """Device ms a launch of each tree kernel over one call of fn: a CUDA
+    event recorded before and after each launch (each wrapper of
+    ops/kernels/tree.py wrapped for the call), all queued behind
+    TREE_SLEEP_CYCLES of torch.cuda._sleep so that the host's time between
+    launches falls inside the sleep and not between an event pair.
+    Returns ({kernel: (ms, launches timed)}, whether the host queued the
+    whole call inside the sleep); ms None where it did not."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import tree as TK
+
+    events = {k: [] for k in TREE_WRAPPERS}
+    saved = {k: getattr(TK, w) for k, w in TREE_WRAPPERS.items()}
+
+    def timed(k):
+        def call(*args, **kw):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            out = saved[k](*args, **kw)
+            t1.record()
+            events[k].append((t0, t1))
+            return out
+        return call
+
+    fn()
+    torch.cuda.synchronize()
+    s0, s1, done = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    try:
+        for k, w in TREE_WRAPPERS.items():
+            setattr(TK, w, timed(k))
+        s0.record()
+        torch.cuda._sleep(TREE_SLEEP_CYCLES)
+        s1.record()
+        h0 = time.perf_counter()
+        fn()
+        done.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+    finally:
+        for k, w in TREE_WRAPPERS.items():
+            setattr(TK, w, saved[k])
+    queued = host_ms < s0.elapsed_time(s1)
+    return {k: ((sum(a.elapsed_time(b) for a, b in ev) / len(ev)
+                 if ev and queued else None), len(ev))
+            for k, ev in events.items()}, queued
+
+
+def tree_md_turn(c, steps, gen):
+    """ms a step of `steps` MD steps of c's system (the Simulation's
+    runner for one replica, ReplicaEnsemble's for more; 40-step windows)
+    after a warm-up window, with the tree kernels' launches and the
+    tree.kernel counters a step."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import worst_replica
+    from openmm_agbnp_plugin_tpu_torch.utils import profiling
+
+    sim, nrep = c["sim"], c["nrep"]
+    if nrep == 1:
+        run = sim.make_langevin_runner(neighbor_every=NEIGHBOR_EVERY)
+        state = (sim.positions, sim.velocities)
+
+        def go(st, n):
+            pos, vel, e, diag = run(*st, n, generator=gen)
+            return (pos, vel), e, diag
+    else:
+        ens = ReplicaEnsemble(sim, nrep)
+        run = ens.make_runner(neighbor_every=NEIGHBOR_EVERY)
+        state = ens.initial_states(jitter=1e-3)
+
+        def go(st, n):
+            st, (e, *diag) = run(st, n)
+            return st, e, worst_replica(diag)
+    state, _, _ = go(state, NEIGHBOR_EVERY)
+    torch.cuda.synchronize()
+    before = PK.launch_counts()
+    with profiling.record():
+        profiling.reset()
+        t0 = time.perf_counter()
+        state, e, diag = go(state, steps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        counters = [x["site"] for x in profiling.recorded()["counts"]
+                    if x["name"] == "tree.kernel"]
+    after = PK.launch_counts()
+    if sim.overflow_report(*diag) or not bool(torch.isfinite(e).all()):
+        raise AssertionError("[33] MD overflowed or gave non-finite "
+                             "energies")
+    launches = {k: (after[k] - before[k]) / steps for k in TREE_KERNELS}
+    return ms, launches, len(counters) / steps
+
+
+def phase_tree_kernels(dev, card):
+    """Phase 33: the fixed-topology tree passes as per-level kernels at
+    the MD cells' topologies (1li2, 2clr, 4 x 2clr; f32, a window build
+    at md_sim's capacities): the MD step's cavity and WU passes on the
+    route against the torch twin on the card and against the f64 twin
+    (TREE_F32_BARS), twice bitwise; each kernel's device ms a launch
+    (tree_device_ms) beside its bytes bound, the step's two passes' ms on
+    the route and on the twin (CUDA events); then MD ms a step on the
+    route and on the twin in turns in one process (the twin's window
+    builds without_kernel_prep), the tree kernels' launches a step and
+    the tree.kernel counters a step.  Returns (launches of the phase,
+    kernel records: the 1li2 case's device ms, the cases beside)."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+
+    records = {k: dict(cases={}) for k in TREE_KERNELS}
+    PK.reset_launch_counts()
+    for name, nrep in TREE_CASES:
+        label = f"{name} x {nrep}"
+        c = tree_case(dev, name, nrep)
+        got = tree_step_passes(c)
+        again = tree_step_passes(c)
+        twin = tree_step_passes(c, twin=True)
+        c64 = {**c, **{k: {kk: (v.double() if torch.is_tensor(v)
+                                and v.is_floating_point() else v)
+                           for kk, v in c[k].items()}
+                       for k in ("l1", "v1", "wu")}}
+        ref = tree_step_passes(c64, twin=True)
+        errs = {}
+        for k, v in got.items():
+            if not torch.equal(v, again[k]):
+                raise AssertionError(f"[33] {label} {k}: two calls differ")
+            scale = ref[k].abs().max() if k != "e_cav" else ref[k].abs()
+            errs[k] = (float(((v.double() - ref[k]).abs() / scale).max()),
+                       float(((twin[k].double() - ref[k]).abs()
+                              / scale).max()),
+                       float(((v - twin[k]).abs().double()
+                              / scale).max()))
+        log(f"[33] {label}: f32 route / f32 twin / route-twin, each against "
+            f"max|f64 twin| (energy relative): "
+            f"{ {k: tuple(f'{x:.2e}' for x in e) for k, e in errs.items()} }"
+            f"; the route's bars {TREE_F32_BARS}")
+        if any(e[0] > TREE_F32_BARS[k] for k, e in errs.items()):
+            raise AssertionError(f"[33] {label}: the route vs f64")
+        dev_ms, queued = tree_device_ms(lambda: tree_step_passes(c))
+        nbytes = tree_bytes(c)
+        route_ms = timed_passes(lambda: tree_step_passes(c))
+        twin_ms = timed_passes(lambda: tree_step_passes(c, twin=True))
+        for k in TREE_KERNELS:
+            ms, seen = dev_ms[k]
+            launches = TREE_PASS_LAUNCHES[k]
+            if seen != launches:
+                raise AssertionError(f"[33] {label} {k}: {seen} launches "
+                                     f"timed, the passes make {launches}")
+            bound = nbytes[k] / PEAK_BYTES * 1e3 / launches
+            records[k]["cases"][label] = dict(
+                ms=None if ms is None else round(ms, 5),
+                bound_ms=round(bound, 6), launches=launches,
+                bytes=nbytes[k], passes_ms=round(route_ms, 4),
+                plain_passes_ms=round(twin_ms, 4))
+            shown = "not measured" if ms is None else f"{ms:.4f}"
+            log(f"    {k:13s} {label}: {shown} device ms a launch (CUDA "
+                f"events, the mean of the passes' {launches}), bound "
+                f"{bound:.5f} ms ({nbytes[k]} bytes / 3.35 TB/s, the "
+                f"levels' tables as if read from HBM)")
+        if not queued:
+            log(f"    {label}: the host did not queue the passes inside "
+                f"the sleep: device ms not measured")
+        log(f"    {label}: the step's two tree passes {route_ms:.3f} ms on "
+            f"the route, {twin_ms:.3f} ms on the torch twin (CUDA events, "
+            f"{TREE_REPEATS} repeats) on {card}")
+        turns = {"route": [], "twin": []}
+        gen = torch.Generator(device=dev).manual_seed(33)
+        for _ in range(TREE_TURNS):
+            turns["route"].append(tree_md_turn(c, TREE_MD_STEPS, gen))
+            with without_kernel_prep():
+                turns["twin"].append(tree_md_turn(c, TREE_MD_STEPS, gen))
+        r_ms = [t[0] for t in turns["route"]]
+        w_ms = [t[0] for t in turns["twin"]]
+        launches, counters = turns["route"][0][1], turns["route"][0][2]
+        log(f"    {label} MD ({TREE_MD_STEPS} steps a turn, 40-step "
+            f"windows): route {[round(x, 2) for x in r_ms]} ms/step, twin "
+            f"{[round(x, 2) for x in w_ms]} ms/step; tree kernel launches a "
+            f"step {launches}, tree.kernel counters a step {counters}; "
+            f"twin turns {turns['twin'][0][1]}")
+        # two passes a step; each window's build rescans once more
+        lv = T.NUM_TREE_LEVELS
+        want = dict(tree_rescan=2 * lv + lv / NEIGHBOR_EVERY,
+                    tree_reduce=2 * lv, tree_deposit=2)
+        if any(abs(launches[k] - v) > 1e-9 for k, v in want.items()) \
+                or abs(counters - sum(want.values())) > 1e-9 \
+                or any(v for v in turns["twin"][0][1].values()):
+            raise AssertionError(f"[33] {label}: the route did not engage "
+                                 "on every pass, or the twin launched it")
+        for k in TREE_KERNELS:
+            records[k]["cases"][label].update(
+                launches_per_step=launches[k], md_ms=r_ms, twin_md_ms=w_ms)
+        del c
+        torch.cuda.empty_cache()
+    counts = PK.launch_counts()
+    for k in TREE_KERNELS:
+        cases = records[k]["cases"]
+        first = cases["1li2 x 1"]
+        records[k].update(ms=first["ms"], bound_ms=first["bound_ms"],
+                          plain_ms=first["plain_passes_ms"], library_ms=None,
+                          max_abs_err=None, bound_by="bytes",
+                          library="none: no PyTorch call fuses a tree level")
+    return counts, records
+
+
 def log_phase_times():
     """Wrap every phase_* function so that it logs its own wall time (the
     smoke's budget is the sum of them)."""
@@ -4559,7 +4932,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", type=int, choices=(25, 31, 32),
+    ap.add_argument("--only", type=int, choices=(25, 31, 32, 33),
                     help="build the kernels and run this phase alone "
                          "(its launches and kernel records, the card's "
                          "line, then {\"ok_phase\": N}; the contract's "
@@ -4584,6 +4957,9 @@ def main(argv=None) -> int:
             paths, records = phase_large(dev, card)
         elif args.only == 25:
             paths = dict(synth10k=phase_synthetic(dev, card))
+        elif args.only == 33:
+            tree_counts, records = phase_tree_kernels(dev, card)
+            paths = dict(tree=tree_counts)
         else:
             paths = dict(freevol=phase_freevol(dev, card))
         log(f"[{args.only}] passed in {time.perf_counter() - t0:.1f} s")
@@ -4621,6 +4997,8 @@ def main(argv=None) -> int:
                       oracle=phase_oracle(dev, card))
     large_paths, large_records = phase_large(dev, card)
     freevol_counts = phase_freevol(dev, card)
+    counts["tree"], tree_records = phase_tree_kernels(dev, card)
+    kernels.update(tree_records)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps

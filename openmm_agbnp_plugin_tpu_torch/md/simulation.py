@@ -543,7 +543,9 @@ class Simulation:
         lists, the overlap-tree topology of their disjoint union (relax:
         build_tree's birth margin, make_langevin_runner's topology_relax)
         and, with vdw_caps, its compacted WU topology (the ancestor closure
-        of the vdW-live rows of the build).  Returns (pairs, topology,
+        of the vdW-live rows of the build), both with the per-level tree
+        kernels' prep (ops/tree.py::kernel_prep: on the card the window's
+        tree passes run one launch a level).  Returns (pairs, topology,
         vdw_topology, (build counts [R, 7], neighbor_max [R], sibling
         maxima [R, 7], WU kept rows [R, 7]))."""
         with profiling.span("window.build"):
@@ -560,7 +562,7 @@ class Simulation:
                 levels, bdiag = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
                                              pairs_valid=pv, pair_rows=True,
                                              nrep=nrep, relax=relax)
-                topo = T.tree_topology(levels)
+                topo = T.kernel_prep(T.tree_topology(levels))
             vdw_topo = None
             vdw_counts = torch.zeros((nrep, 7), dtype=torch.int64,
                                      device=pos.device)
@@ -572,6 +574,7 @@ class Simulation:
                     vdw_topo, vdw_counts = T.compact_topology(
                         T.rescan_volumes(topo, lvl1v), vdw_caps,
                         relax=vdw_relax, nrep=nrep)
+                    vdw_topo = T.kernel_prep(vdw_topo)
         return ((pi, pj, pv), topo, vdw_topo,
                 (bdiag["counts"], nbmax, bdiag["max_siblings"], vdw_counts))
 

@@ -37,7 +37,8 @@ subtile_columns in 32-column steps and keep Q/dQ in the chunk layout [NP /
 32, NHP, 32]; `*_chunks_reference` are the torch mirrors of those walks,
 and chunk_layout / chunk_slots say where a dense [NP, NHP] value lands and
 which slots the Born kernel writes.  tiles.py holds the same sweeps over
-interacting-tile lists and rows.py the tree's row moves, counted here too.
+interacting-tile lists, rows.py the tree's row moves and tree.py the
+tree's fixed-topology passes, counted here too.
 """
 
 from __future__ import annotations
@@ -82,13 +83,13 @@ def _horizon(horizon):
 
 
 # launches of each CUDA kernel (one per wrapper call on a CUDA device); the
-# two descreening variants of each route are counted apart; the last two
-# are rows.py's
+# two descreening variants of each route are counted apart; take_rows and
+# cumsum_rows are rows.py's, the last three tree.py's
 LAUNCHES = dict.fromkeys((
     "subtile_columns", "born_sums", "gb_pair", "descreening",
     "descreening_recompute", "born_sums_tiles", "gb_pair_tiles",
     "descreening_tiles", "descreening_tiles_recompute", "take_rows",
-    "cumsum_rows"), 0)
+    "cumsum_rows", "tree_rescan", "tree_reduce", "tree_deposit"), 0)
 
 
 def launch_counts() -> dict:

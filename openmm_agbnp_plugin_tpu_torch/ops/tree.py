@@ -28,6 +28,14 @@ ops/kernels/rows.py::take_rows (a CUDA kernel on the card, the stock gather
 on the CPU), with int32 ids that each topology carries beside its int64
 ones (level_bounds).
 
+An MD window's fixed topology (Simulation.window_build) also carries
+what the per-level CUDA kernels of ops/kernels/tree.py need (kernel_prep),
+and on the card its rescans and reductions run as those kernels, one
+launch a level (kernel_route).  The torch passes here are the kernels'
+plain twin and run everything else: the CPU, a topology without the prep
+(tree_topology and compact_topology give none: a tree built in the call,
+AGBNP2's trees), the atoms mesh, AGBNP2's extra channels.
+
 Capacity overflow is detected and reported (the PanicButton analogue,
 OpenCLAGBNPKernels.cpp:3598-3634): the host checks the returned diagnostics
 and rebuilds with larger capacities.
@@ -55,6 +63,7 @@ import torch.distributed as dist
 from ..models.constants import MAX_ORDER, PI, VOLMINA
 from ..utils import profiling
 from .gaussians import atomic_gaussian_exponent, pol_switchfunc, survives
+from .kernels import tree as TK
 from .kernels.rows import take_rows
 
 # Levels 2..MAX_ORDER are stored; index l in tuples below is level l+2.
@@ -779,6 +788,59 @@ def _upward_segment_sum(x, lvl, num_parents, comm=None):
     return sorted_segment_sum(x, lengths)
 
 
+def kernel_prep(topology):
+    """A topology with what the per-level kernels (ops/kernels/tree.py)
+    need beside level_bounds, made once a window (Simulation.window_build;
+    its passes then take kernel_route on the card): each level's `starts`
+    [P + 1] int32, the exclusive cumsum of its lengths followed by their
+    total (parent p's children are the rows starts[p] .. starts[p + 1] -
+    1), and on the first level the deposit list: `dep_order` int32, the
+    rows of every level (deepest level first, row order within, as
+    _deposits concatenates them) stably sorted by the atom they deposit
+    on, and `dep_starts` [natoms + 1] int32, where each atom's rows begin
+    in it (the padding rows, on atom natoms, come last and are left out).
+    No value is read back to the host."""
+    out = []
+    for lvl in topology:
+        lengths = lvl["bnd"]["lengths"]
+        starts = torch.cat([lengths.new_zeros(1), torch.cumsum(lengths, 0)])
+        out.append({**lvl, "bnd": {**lvl["bnd"],
+                                   "starts": starts.to(torch.int32)}})
+    natoms = topology[0]["bnd"]["lengths"].shape[0]
+    atoms = torch.cat([lvl["bnd"]["atom_dep"] for lvl in topology[::-1]])
+    counts = torch.zeros(natoms + 1, dtype=torch.int64,
+                         device=atoms.device).index_add_(
+        0, atoms, torch.ones_like(atoms))
+    out[0]["bnd"].update(
+        dep_order=torch.argsort(atoms, stable=True).to(torch.int32),
+        dep_starts=torch.cat([counts.new_zeros(1), torch.cumsum(
+            counts[:natoms], 0)]).to(torch.int32))
+    return tuple(out)
+
+
+def kernel_route(levels, tensors, comm) -> bool:
+    """Whether a fixed-topology pass runs as the per-level CUDA kernels
+    (ops/kernels/tree.py) rather than its torch twin here: the levels
+    carry kernel_prep's lists (an MD window's topology), the pass's
+    tensors are CUDA float32 or float64, there is no
+    comm (the atoms mesh) and no autograd history to keep.  The kernels
+    then run or raise."""
+    x = tensors[0]
+    return (comm is None and x.is_cuda
+            and x.dtype in (torch.float32, torch.float64)
+            and "dep_order" in levels[0]["bnd"]
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in tensors)))
+
+
+def _rescanned(lvl, dat):
+    """A level of the kernel route's rescan: its packed rows dat [cap, 13]
+    viewed as the torch twin's level dict."""
+    nl = _level_views(dat, lvl["_ints"], lvl["valid"])
+    nl["bnd"] = lvl["bnd"]
+    return nl
+
+
 def tree_topology(levels):
     """Extract the shape-static topology (indices + validity) of a built
     tree; rescan_volumes reconstructs full levels from it, so the MD loop
@@ -855,7 +917,11 @@ def rescan_volumes(levels, level1, comm: TreeComm | None = None):
     parent/atom indices, no re-pruning.  Accepts full levels or a
     tree_topology() result.  With comm, the levels are this rank's row
     blocks (parallel/sharding.py::_shard_topology); each level's block is
-    gathered whole so the next level's parent gathers see every row."""
+    gathered whole so the next level's parent gathers see every row.  On
+    the kernel route (kernel_route), one launch a level."""
+    if kernel_route(levels, (level1["_at"],), comm):
+        return tuple(_rescanned(lvl, dat) for lvl, (dat,) in zip(
+            levels, TK.rescan_levels(levels, (level1["_at"],))))
     new_levels = []
     # level-1 "dat" is the packed atomic table; map its columns to the same
     # (gv, ga, gc, gamma) positions the level matrices use
@@ -921,7 +987,19 @@ def reduce_tree(levels, level1, with_selfvol: bool = True,
     partial sums over the full parent space are summed across ranks, back
     to the rank's parent block between levels and whole at the atom level,
     as are the deposits, so every result is whole on every rank.
+
+    Without the free-volume and dv channels, on the kernel route
+    (kernel_route): one launch a level and one for the deposits.
     """
+    if not (with_freevol or with_dv) and kernel_route(
+            levels, (levels[0]["_dat"], level1["gv"], level1["gamma1i"]),
+            comm):
+        (dr,), (e_psi,), sv = TK.reduce_levels((levels,), (level1,),
+                                               with_selfvol)
+        result = dict(energy=_energy(e_psi, nrep), dr=dr)
+        if with_selfvol:
+            result["self_volume"] = sv
+        return result
     natoms = level1["gv"].shape[0]
     dtype = level1["gv"].dtype
     # upward psi channels after the energy family's five: (sv) (fv)
@@ -1036,10 +1114,17 @@ def rescan_volumes2(levels, level1_a, level1_b,
     cavity term's large and vdW radii, ReferenceAGBNPKernels.cpp:293-384):
     one parent gather of the packed [cap, 2*_D] matrix per level.  Invalid
     rows carry finite junk that every consumer masks.  With comm, on row
-    blocks as rescan_volumes.
+    blocks as rescan_volumes; on the kernel route (kernel_route), one launch
+    a level for both, the invalid rows zero.
 
     Returns (levels_a, levels_b).
     """
+    tables = (level1_a["_at"], level1_b["_at"])
+    if kernel_route(levels, tables, comm):
+        dats = TK.rescan_levels(levels, tables)
+        return tuple(tuple(_rescanned(lvl, d[j]) for lvl, d in zip(levels,
+                                                                   dats))
+                     for j in (0, 1))
     out_a, out_b = [], []
     at2 = torch.cat([level1_a["_at"], level1_b["_at"]], dim=1)  # [N, 12]
     prev = at2
@@ -1074,7 +1159,20 @@ def reduce_tree2(levels_a, levels_b, level1_a, level1_b,
     Returns (result_a, result_b) like reduce_tree(with_selfvol=
     with_selfvol_a) and reduce_tree(with_selfvol=with_selfvol_b), energies
     per replica with nrep.  With comm, on row blocks as reduce_tree.
+    Without with_selfvol_a, on the kernel route (kernel_route): one launch
+    a level and one for the deposits.
     """
+    if not with_selfvol_a and kernel_route(
+            levels_a, (levels_a[0]["_dat"], levels_b[0]["_dat"],
+                       level1_a["gv"], level1_a["gamma1i"], level1_b["gv"],
+                       level1_b["gamma1i"]), comm):
+        dr, e_psi, sv = TK.reduce_levels((levels_a, levels_b),
+                                         (level1_a, level1_b), with_selfvol_b)
+        result_a, result_b = (dict(energy=_energy(e, nrep), dr=d)
+                              for e, d in zip(e_psi, dr))
+        if with_selfvol_b:
+            result_b["self_volume"] = sv
+        return result_a, result_b
     natoms = level1_a["gv"].shape[0]
     dtype = level1_a["gv"].dtype
 

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # argument types of every exported function (pointers and the stream as
 # c_void_p so 64-bit addresses are never cut); the pair sweeps take the
@@ -62,6 +63,11 @@ SIGNATURES = {
     "agbnp_cumsum_tile_rows": (_I,),
     "agbnp_cumsum_state_ints": (_I, _I),
     "agbnp_cumsum_rows": (_P, _I, _I, _P, _P, _P, _P),
+    "agbnp_tree_rescan": (_I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P,
+                          _P),
+    "agbnp_tree_reduce": (_I, _I, _I, _D, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    "agbnp_tree_deposit": (_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P),
 }
 
 

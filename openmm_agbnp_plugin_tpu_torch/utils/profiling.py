@@ -49,6 +49,8 @@ Spans and counters the package records:
   host_read         counter: one blocking device-to-host read, with its site
   tree.rows_valid   counter: the overlap tree's valid rows of an evaluation,
   tree.rows_cap     and its capacity rows, summed over levels and replicas
+  tree.kernel       counter: one launch of a fixed-topology tree kernel
+                    (ops/kernels/tree.py), site rescan, reduce or deposit
   comm.<kind>       counter: one collective of the sharded passes (its bytes;
                     ops/tree.py's comm log)
 """

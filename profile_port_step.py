@@ -748,7 +748,9 @@ def main() -> int:
         return T.build_tree(lvl1, pairs[0], pairs[1], m.caps,
                             pairs_valid=pairs[2], pair_rows=True)
 
-    topo = T.tree_topology(build()[0])
+    # the window's topology as Simulation.window_build gives it, with the
+    # per-level tree kernels' prep
+    topo = T.kernel_prep(T.tree_topology(build()[0]))
     ap_ = {**a, "pairs_i": pairs[0], "pairs_j": pairs[1],
            "pairs_valid": pairs[2]}
     passes = M.tree_passes(ap_, pos, m.caps, m.params.roffset, topology=topo)
@@ -764,7 +766,9 @@ def main() -> int:
     vdw_caps = sim._ensure_vdw_caps()
 
     def compaction():
-        return T.compact_topology(T.rescan_volumes(topo, lvl1v), vdw_caps)
+        vt, counts = T.compact_topology(T.rescan_volumes(topo, lvl1v),
+                                        vdw_caps)
+        return T.kernel_prep(vt), counts
 
     vdw_topo = compaction()[0]
     lvl1_wuc = T.make_level1(pos, a["radii_vdw"], a["vol_vdw"], gamma_wu,

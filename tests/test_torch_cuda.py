@@ -205,12 +205,17 @@ def test_md_window_bitwise_repeatable(cuda):
     sim = Simulation(load_dms(dms), device=cuda, dtype=torch.float32,
                      cutoff=1.0, skin=0.25, descreen_horizon="cutoff")
     run = sim.make_langevin_runner(neighbor_every=5)
+    before = PK.launch_counts()
     outs = [run(sim.positions, sim.velocities, 10,
                 generator=torch.Generator(device=cuda).manual_seed(1))
             for _ in range(2)]
     for x, y in zip(outs[0][:3], outs[1][:3]):
         assert torch.equal(x, y)
     assert bool(torch.isfinite(outs[0][2]).all())
+    # the fixed-topology tree passes ran as the per-level kernels
+    after = PK.launch_counts()
+    for k in ("tree_rescan", "tree_reduce", "tree_deposit"):
+        assert after[k] > before[k], k
 
 
 def sweep_inputs(params, pos, dev, cutoff):
@@ -1835,3 +1840,188 @@ def test_free_volumes_on_the_card(cuda, fixture_system):
     v_o, _, _, _, fv_o, _ = gv.compute_volume(pos)
     assert rel(got[0]["free_volume"], torch.as_tensor(fv_o)) <= 1e-5
     assert abs(float(got[0]["volume"][0]) - v_o) <= 1e-5 * abs(v_o)
+
+
+# ---------------------------------------------------------------------------
+# The fixed-topology tree passes as per-level kernels (csrc/tree.cu)
+# ---------------------------------------------------------------------------
+
+# (system, replicas) of each fixed topology the kernels are held to
+TREE_TOPOLOGIES = {"1li2": ("1li2", 1), "2clr": ("2clr", 1),
+                   "2clr-x4": ("2clr", 4)}
+# f32 against the f64 twin, of max|x| (energies relative): the f32 path's
+# 1e-5, and for the cavity force 3e-5, about twice what the f32 twin itself
+# reads at 1li2 (1.55e-5 on the H100; the route 1.10e-5 there and 1.36e-5
+# in this test): that force is the small difference of the two
+# parameterizations' larger ones
+TREE_F32_BARS = dict(e_cav=1e-5, f_cav=3e-5, self_volume=1e-5, f_wu=1e-5)
+
+
+def _fixed_topologies(name, dev):
+    """f64 on the card: the replicas' union arrays and positions (the DMS
+    state and jittered copies, 0.003 nm, numpy seed), the model's caps,
+    the union's fixed topology and its compacted WU topology, as a
+    window build makes them but without the per-level kernels' prep."""
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    system, nrep = TREE_TOPOLOGIES[name]
+    d = load_dms(os.path.join(DATA, f"{system}_agbnp1.dms"))
+    p = AGBNPParams(radius=d.agbnp_radius, gamma=d.agbnp_gamma,
+                    alpha=d.agbnp_alpha, charge=d.charges,
+                    ishydrogen=d.ishydrogen)
+    m = AGBNPModel(p, device=dev, dtype=torch.float64,
+                   positions=d.positions)
+    rng = np.random.default_rng(17)
+    pos = torch.as_tensor(np.stack(
+        [d.positions] + [d.positions + rng.normal(0.0, 0.003,
+                                                  d.positions.shape)
+                         for _ in range(nrep - 1)]), device=dev)
+    a, pair_rows, _ = M.tree_candidates(m.arrays, pos, m.neighbor_rcut,
+                                        m.neighbor_kmax, m.neighbor_grid)
+    at = M.union_arrays(a, nrep, pairs=False)
+    pt = pos.reshape(-1, 3)
+    gdr = at["gamma"] / p.roffset
+    l1 = T.make_level1(pt, at["radii_large"], at["vol_large"], gdr,
+                       at["ishydrogen"])
+    levels, diag = T.build_tree(l1, at["pairs_i"], at["pairs_j"], m.caps,
+                                pairs_valid=at["pairs_valid"],
+                                pair_rows=pair_rows, nrep=nrep)
+    assert not T.check_overflow(M.batched_diag_max(diag))["any"]
+    topo = T.tree_topology(levels)
+    v1 = T.make_level1(pt, at["radii_vdw"], at["vol_vdw"], -gdr,
+                       at["ishydrogen"])
+    lv = T.rescan_volumes(topo, v1)
+    kept = T.compact_topology(lv, [l["valid"].shape[0] // nrep for l in lv],
+                              nrep=nrep)[1]
+    vt, _ = T.compact_topology(lv, [max(8, int(k)) for k in kept.max(0)[0]],
+                               nrep=nrep)
+    gam = torch.as_tensor(rng.normal(0.0, 10.0, pt.shape[0]), device=dev)
+    return dict(at=at, pos=pt, caps=m.caps, roffset=p.roffset, topo=topo,
+                vt=vt, nrep=nrep, gam=gam)
+
+
+@pytest.fixture(scope="module")
+def fixed_topologies(cuda):
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = _fixed_topologies(name, cuda)
+        return cache[name]
+    return get
+
+
+def _tree_passes(t, dtype, twin):
+    """The MD step's two tree passes on a fixed topology in dtype: the
+    cavity pass (rescan_volumes2 + reduce_tree2 with the vdW self volumes)
+    and the compacted WU pass (rescan_volumes + reduce_tree without them);
+    on the kernel route (the topologies with ops/tree.py::kernel_prep,
+    as Simulation.window_build gives them), or with twin on the torch
+    passes (the topologies as they are)."""
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+
+    at = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+          else v for k, v in t["at"].items()}
+    pos = t["pos"].to(dtype)
+    topo, vt = t["topo"], t["vt"]
+    if not twin:
+        topo, vt = T.kernel_prep(topo), T.kernel_prep(vt)
+    e_cav, f_cav, sv, _, v1, _, _, _ = M.tree_passes(
+        at, pos, t["caps"], t["roffset"], topology=topo, nrep=t["nrep"])
+    wu = {**v1, "gamma1i": t["gam"].to(dtype)}
+    red = T.reduce_tree(T.rescan_volumes(vt, wu), wu, with_selfvol=False,
+                        nrep=t["nrep"])
+    return dict(e_cav=e_cav, f_cav=f_cav, self_volume=sv,
+                e_wu=red["energy"], f_wu=red["dr"])
+
+
+def _tree_err(key, x, ref):
+    """x's distance from ref: each replica's energy relative, else max |x -
+    ref| / max |ref|."""
+    x, ref = x.double(), ref.double()
+    if key.startswith("e_"):
+        return float(((x - ref).abs() / ref.abs()).max())
+    return float((x - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", list(TREE_TOPOLOGIES))
+def test_tree_kernels_match_the_twin(cuda, fixed_topologies, name, dtype):
+    """The per-level tree kernels on the card against the torch passes on
+    the same fixed topology (1li2, 2clr, the 4-replica 2clr union; the
+    cavity pass over the build topology, the WU pass over its compacted
+    one): in f64 energies to 1e-12 relative, forces and self volumes to
+    1e-10 of their max; in f32 against the f64 twin within
+    TREE_F32_BARS; two calls bitwise equal;
+    each pass 7 rescan, 7 reduce and 1 deposit launch, each a tree.kernel
+    counter, and no row gather."""
+    from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+    from openmm_agbnp_plugin_tpu_torch.utils import profiling
+
+    t = fixed_topologies(name)
+    want = _tree_passes(t, torch.float64, twin=True)
+    before = PK.launch_counts()
+    with profiling.record():
+        profiling.reset()
+        got = _tree_passes(t, dtype, twin=False)
+        sites = [c["site"] for c in profiling.recorded()["counts"]
+                 if c["name"] == "tree.kernel"]
+    after = PK.launch_counts()
+    levels = T.NUM_TREE_LEVELS
+    assert {k: after[k] - before[k] for k in (
+        "tree_rescan", "tree_reduce", "tree_deposit", "take_rows")} == dict(
+        tree_rescan=2 * levels, tree_reduce=2 * levels, tree_deposit=2,
+        take_rows=0)
+    assert sites == (["rescan"] * levels + ["reduce"] * levels
+                     + ["deposit"]) * 2
+    again = _tree_passes(t, dtype, twin=False)
+    for k, v in got.items():
+        assert v.dtype == dtype and bool(torch.isfinite(v).all()), k
+        assert torch.equal(v, again[k]), k
+    assert got["e_cav"].shape == (t["nrep"],)
+    if dtype == torch.float64:
+        bars = dict.fromkeys(got, 1e-10)
+        bars.update(e_cav=1e-12, e_wu=1e-12)
+    else:
+        del got["e_wu"]  # a sum of random-signed gammas: no f32 bar
+        bars = TREE_F32_BARS
+    for k, v in got.items():
+        assert _tree_err(k, v, want[k]) <= bars[k], (
+            k, _tree_err(k, v, want[k]), bars[k])
+
+
+@pytest.mark.parametrize("version", [1, 2])
+def test_scorer_bypasses_the_tree_kernels(cuda, fixture_system, v2_systems,
+                                          version):
+    """The scorer builds its trees each call (version 1 on the fixture,
+    version 2's atomic and MS trees on its first 40 atoms): the
+    topologies carry no per-level kernels' prep, so their tree passes run
+    the torch code, no tree kernel launches and the recorder holds no
+    tree.kernel counter."""
+    from openmm_agbnp_plugin_tpu_torch import AGBNPForce, ConformerScorer
+    from openmm_agbnp_plugin_tpu_torch.utils import profiling
+
+    params, pos = (fixture_system if version == 1
+                   else v2_systems["fixture40"])
+    force = AGBNPForce()
+    force.setVersion(version)
+    for i in range(params.n):
+        force.addParticle(params.radius[i], params.gamma[i], params.alpha[i],
+                          params.charge[i], bool(params.ishydrogen[i]))
+    scorer = ConformerScorer(force, pos, device=cuda)
+    poses = pos[None] + 0.01 * np.random.default_rng(5).standard_normal(
+        (4,) + pos.shape)
+    before = PK.launch_counts()
+    with profiling.record():
+        profiling.reset()
+        energy = scorer.score(poses)["energy"]
+        names = {c["name"] for c in profiling.recorded()["counts"]}
+    after = PK.launch_counts()
+    assert energy.shape == (4,) and bool(torch.isfinite(energy).all())
+    assert "tree.kernel" not in names
+    assert all(after[k] == before[k]
+               for k in ("tree_rescan", "tree_reduce", "tree_deposit"))
+    assert after["take_rows"] > before["take_rows"]

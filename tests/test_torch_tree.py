@@ -7,6 +7,8 @@ rescans agree to 1e-12, and an undersized tree overflows and grows exactly
 as in JAX.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -496,3 +498,147 @@ def test_free_volumes_match_the_oracle(system, all_pairs_build):
     np.testing.assert_allclose(red["self_volume"].numpy(), sv_o, rtol=1e-9,
                                atol=1e-12)
     assert fv_o.sum() > 0 and (fv_o >= -1e-12).all()
+
+
+# ---------------------------------------------------------------------------
+# The per-level kernels' prep of a fixed topology, and the CPU's twin
+# ---------------------------------------------------------------------------
+
+KERNEL_PREP = ("starts", "dep_order", "dep_starts")
+TRPCAGE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "benchmarks", "data", "trpcage_agbnp1.dms")
+
+
+def _has_prep(topo) -> bool:
+    return all(k in topo[0]["bnd"] for k in KERNEL_PREP)
+
+
+def _prepared(name, system, built):
+    """(a prepared topology, its atom count): 1li2's tree, a two-replica
+    union of the fixture, 1li2's tree compacted."""
+    if name == "union2":
+        _, levels, _ = _union_build(system, 2)
+        return T.kernel_prep(T.tree_topology(levels)), 2 * system[0].n
+    levels, natoms = built("1li2")
+    if name == "compact":
+        return T.kernel_prep(T.compact_topology(
+            levels, [l["valid"].shape[0] for l in levels])[0]), natoms
+    return T.kernel_prep(T.tree_topology(levels)), natoms
+
+
+@pytest.mark.parametrize("name", ["1li2", "union2", "compact"])
+def test_kernel_prep_starts_and_deposit_list(system, built, name):
+    """What kernel_prep adds to a topology for the per-level kernels (a
+    tree_topology or compact_topology result): each level's starts are the exclusive cumsum of its lengths,
+    then their total; the deposit list names every valid row once, and
+    applied in plain torch (atom i sums the rows dep_order[dep_starts[i]:
+    dep_starts[i + 1]] in that order) it gives _deposits' result bit for
+    bit."""
+    topo, natoms = _prepared(name, system, built)
+    for lvl in topo:
+        lengths, starts = lvl["bnd"]["lengths"], lvl["bnd"]["starts"]
+        assert starts.dtype == torch.int32
+        assert starts.shape == (lengths.shape[0] + 1,)
+        assert torch.equal(starts[:-1].long(),
+                           torch.cumsum(lengths, 0) - lengths)
+        assert int(starts[-1]) == int(lvl["valid"].sum())
+    bnd = topo[0]["bnd"]
+    order, dstarts = bnd["dep_order"], bnd["dep_starts"]
+    assert order.dtype == dstarts.dtype == torch.int32
+    assert dstarts.shape == (natoms + 1,)
+    deepest_first = topo[::-1]
+    valid = torch.cat([lvl["valid"] for lvl in deepest_first])
+    nvalid = int(valid.sum())
+    assert nvalid > 0 and int(dstarts[-1]) == nvalid
+    assert order.shape == valid.shape
+    assert bool(valid[order[:nvalid].long()].all())
+    assert torch.equal(torch.sort(order[:nvalid].long()).values,
+                       torch.nonzero(valid)[:, 0])
+    rng = np.random.default_rng(4)
+    rows = [torch.as_tensor(rng.normal(size=(lvl["valid"].shape[0], 7)))
+            * lvl["valid"][:, None] for lvl in deepest_first]
+    want = T._deposits(rows, [lvl["bnd"]["atom_dep"]
+                              for lvl in deepest_first], natoms, None)
+    got = T.sorted_segment_sum(torch.cat(rows)[order.long()],
+                               (dstarts[1:] - dstarts[:-1]).long())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nrep", [1, 2])
+def test_prepared_topology_runs_the_twin_on_the_cpu(system, nrep):
+    """On the CPU a prepared topology (kernel_prep, as an MD window's
+    build gives it) still runs the torch passes: the fixed-topology cavity
+    pass and the compacted WU pass give energies, forces and self volumes
+    bitwise those of the same topologies without the prep, no tree kernel
+    is counted and the recorder holds no tree.kernel counter."""
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp_torch as M
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.utils import profiling
+
+    params, pos, aj, at = system
+    reps, levels, _ = _union_build(system, nrep)
+    a = M.union_arrays(at, nrep, pairs=False)
+    p = torch.as_tensor(np.stack(reps)).reshape(-1, 3)
+    topo = T.tree_topology(levels)
+    gam = torch.as_tensor(np.random.default_rng(8).normal(0.0, 10.0,
+                                                          p.shape[0]))
+
+    def passes(tp, prep):
+        out = M.tree_passes(a, p, T.TreeCaps(*CAPS), params.roffset,
+                            topology=prep(tp), nrep=nrep)
+        v1 = out[4]
+        vt, counts = T.compact_topology(T.rescan_volumes(prep(tp), v1),
+                                        [l["valid"].shape[0] // nrep
+                                         for l in tp], nrep=nrep)
+        wu = {**v1, "gamma1i": gam}
+        red = T.reduce_tree(T.rescan_volumes(prep(vt), wu), wu,
+                            with_selfvol=False, nrep=nrep)
+        return [out[0], out[1], out[2], out[6]["energy"], out[7]["dr"],
+                red["energy"], red["dr"], counts]
+
+    before = PK.launch_counts()
+    with profiling.record():
+        profiling.reset()
+        got = passes(topo, T.kernel_prep)
+        kinds = {c["name"] for c in profiling.recorded()["counts"]}
+    assert "tree.kernel" not in kinds
+    after = PK.launch_counts()
+    assert all(after[k] == before[k]
+               for k in ("tree_rescan", "tree_reduce", "tree_deposit"))
+    want = passes(topo, lambda tp: tp)
+    assert got[0].shape == (nrep,)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_only_an_md_window_prepares_its_topology(system, built):
+    """The per-level kernels' prep is made at an MD window's build alone:
+    Simulation.window_build gives its topology and its compacted WU
+    topology kernel_prep (so on the card an MD window's tree passes take
+    the kernel route), while tree_topology and compact_topology give none,
+    nor does AGBNP2's build (its atomic and MS trees keep the torch
+    passes on the card, as every tree built in a call does)."""
+    from openmm_agbnp_plugin_tpu_torch import Simulation, load_dms
+    from openmm_agbnp_plugin_tpu_torch.models import agbnp2_torch as P2
+
+    sim = Simulation(load_dms(TRPCAGE), device="cpu", dtype=torch.float64,
+                     version=1, cutoff=1.0, skin=0.25,
+                     descreen_horizon="cutoff")
+    _, topo, vt, _ = sim.window_build(sim.positions[None], sim.ff_state(),
+                                      sim._ensure_vdw_caps())
+    assert _has_prep(topo) and _has_prep(vt)
+    levels, _ = built("1li2")
+    assert not _has_prep(T.tree_topology(levels))
+    assert not _has_prep(T.compact_topology(
+        levels, [l["valid"].shape[0] for l in levels])[0])
+    params, pos = system[0], system[1]
+    n = 40
+    p40 = type(params)(radius=params.radius[:n], gamma=params.gamma[:n],
+                       alpha=params.alpha[:n], charge=params.charge[:n],
+                       ishydrogen=params.ishydrogen[:n])
+    tm = P2.AGBNP2Model(p40, device="cpu", positions=pos[:n])
+    _, topo2 = P2.agbnp2_energy(tm.arrays, torch.as_tensor(pos[:n]),
+                                ms_pi=tm.ms_pi, ms_pj=tm.ms_pj,
+                                ms_pv=tm.ms_pv, **tm.energy_kwargs(),
+                                build_only=True)
+    assert not _has_prep(topo2["atoms"]) and not _has_prep(topo2["ms"])
