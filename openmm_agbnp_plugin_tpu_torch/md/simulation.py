@@ -484,12 +484,14 @@ class Simulation:
         (topology, counts)) in force_fn's convention (pairs=, topology=),
         counts the 18-entry vector (v2_counts; [R, 18] for replicas)."""
         a = self.agbnp2.arrays if ff is None else ff["a"]
-        with torch.no_grad():
-            mpi, mpj, mpv, cand_nb = ms_candidate_pairs(
-                pos, self.heavy_mask, self.ms_rcut, self.ms_kmax_list)
-            diags, topo = agbnp2_energy(
-                a, pos, ms_pi=mpi, ms_pj=mpj, ms_pv=mpv, build_only=True,
-                **self.agbnp2.energy_kwargs())
+        with profiling.span("window.build"), torch.no_grad():
+            with profiling.span("window.ms_candidates"):
+                mpi, mpj, mpv, cand_nb = ms_candidate_pairs(
+                    pos, self.heavy_mask, self.ms_rcut, self.ms_kmax_list)
+            with profiling.span("window.tree_build"):
+                diags, topo = agbnp2_energy(
+                    a, pos, ms_pi=mpi, ms_pj=mpj, ms_pv=mpv,
+                    build_only=True, **self.agbnp2.energy_kwargs())
         return (mpi, mpj, mpv), (topo, v2_counts(diags, cand_nb))
 
     def _force_fn_v2(self, ms_pairs=None, topology=None, ff=None):
@@ -527,7 +529,9 @@ class Simulation:
             force = -grad
             e = e.detach()
             if mm is not None:
-                e_mm, f_mm = self.mm.forces_of(self.mm.energy, pos, mm, excl)
+                with profiling.span("eval.mm"):
+                    e_mm, f_mm = self.mm.forces_of(self.mm.energy, pos, mm,
+                                                   excl)
                 e = e + e_mm
                 force = force + f_mm
             if vs is not None:
@@ -817,6 +821,8 @@ class Simulation:
                         # the window's host read
                         counts = host_read(wdiag[0], "window.counts")
                         profiling.count_tree_rows(self._tree_rows(counts))
+                        if self.agbnp2 is not None:
+                            self._count_ms_rows(counts)
                         over = self._check_overflow(counts, *wdiag[1:])
                 if over:
                     break
@@ -908,6 +914,20 @@ class Simulation:
         counts = counts[..., :caps.shape[0]]
         return dict(counts=counts,
                     caps=np.tile(caps, counts.shape[:-1] + (1,)))
+
+    def _count_ms_rows(self, counts):
+        """The ms.* and ms_tree.* counters of an AGBNP2 window from its
+        18-entry vector read on the host ([18] or [R, 18]): the MS
+        particles against cap_ms (entry 14) and the MS tree's rows against
+        caps_ms, summed over levels (entries 7-13) and replicas."""
+        if not profiling.active():
+            return
+        m2 = self.agbnp2
+        nrep = counts[..., 14].size
+        profiling.count("ms.particles_valid", int(counts[..., 14].sum()))
+        profiling.count("ms.particles_cap", m2.cap_ms * nrep)
+        profiling.count("ms_tree.rows_valid", int(counts[..., 7:14].sum()))
+        profiling.count("ms_tree.rows_cap", sum(m2.caps_ms.caps) * nrep)
 
     def _check_overflow(self, counts, nbmax, sibs, wu=None,
                         shake=None) -> bool:

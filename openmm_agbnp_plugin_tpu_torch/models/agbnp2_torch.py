@@ -40,6 +40,7 @@ system is a batch of one, its axis dropped.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -50,6 +51,7 @@ from ..ops import tree as T
 from ..ops.gaussians import pol_switchfunc
 from ..ops.kernels import pairs as PK
 from ..ops.neighbors import half_neighbor_pairs, tree_pair_cutoff
+from ..utils import profiling
 from .agbnp_torch import AGBNPModel, _pair_phases_kernel, \
     _pair_phases_plain, arrays_from_numpy, batched_diag_max, \
     prepare_arrays, union_arrays
@@ -236,15 +238,17 @@ class _AtomicCavity(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g1, g2, w_l, w_v):
-        levels_l, levels_v, lvl1_l, lvl1_v, gdr = ctx.rescanned
-        rows = gdr.shape[0] // g1.shape[0]
-        gam_l = {**lvl1_l, "gamma1i": g1.repeat_interleave(rows) * gdr + w_l}
-        gam_v = {**lvl1_v,
-                 "gamma1i": -g2.repeat_interleave(rows) * gdr + w_v}
-        red_l, red_v = T.reduce_tree2(T.rescan_gammas(levels_l, gam_l),
-                                      T.rescan_gammas(levels_v, gam_v),
-                                      gam_l, gam_v, with_selfvol_b=False)
-        return red_l["dr"] + red_v["dr"], None, None, None
+        with profiling.span("eval.tree"):
+            levels_l, levels_v, lvl1_l, lvl1_v, gdr = ctx.rescanned
+            rows = gdr.shape[0] // g1.shape[0]
+            gam_l = {**lvl1_l,
+                     "gamma1i": g1.repeat_interleave(rows) * gdr + w_l}
+            gam_v = {**lvl1_v,
+                     "gamma1i": -g2.repeat_interleave(rows) * gdr + w_v}
+            red_l, red_v = T.reduce_tree2(T.rescan_gammas(levels_l, gam_l),
+                                          T.rescan_gammas(levels_v, gam_v),
+                                          gam_l, gam_v, with_selfvol_b=False)
+            return red_l["dr"] + red_v["dr"], None, None, None
 
 
 def _ms_level1(ms_pos, fv_vdw, fv_large, gamma_ms, ish_ms):
@@ -276,24 +280,27 @@ class _MSCavity(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g2, g1, w):
-        levels_v, levels_l, lvl1_v, lvl1_l, gamma_ms = ctx.rescanned
-        rows = gamma_ms.shape[0] // g2.shape[0]
-        gam_v = {**lvl1_v,
-                 "gamma1i": g2.repeat_interleave(rows) * gamma_ms + w}
-        gam_l = {**lvl1_l, "gamma1i": -g1.repeat_interleave(rows) * gamma_ms}
-        red_v = T.reduce_tree(T.rescan_gammas(levels_v, gam_v), gam_v,
-                              with_selfvol=False, with_dv=True)
-        red_l = T.reduce_tree(T.rescan_gammas(levels_l, gam_l), gam_l,
-                              with_selfvol=False, with_dv=True)
+        with profiling.span("eval.ms"):
+            levels_v, levels_l, lvl1_v, lvl1_l, gamma_ms = ctx.rescanned
+            rows = gamma_ms.shape[0] // g2.shape[0]
+            gam_v = {**lvl1_v,
+                     "gamma1i": g2.repeat_interleave(rows) * gamma_ms + w}
+            gam_l = {**lvl1_l,
+                     "gamma1i": -g1.repeat_interleave(rows) * gamma_ms}
+            red_v = T.reduce_tree(T.rescan_gammas(levels_v, gam_v), gam_v,
+                                  with_selfvol=False, with_dv=True)
+            red_l = T.reduce_tree(T.rescan_gammas(levels_l, gam_l), gam_l,
+                                  with_selfvol=False, with_dv=True)
 
-        def dvol(red, lvl1):
-            gv = lvl1["gv"]
-            pos_v = gv > 0.0
-            return torch.where(pos_v, red["dv"] / torch.where(pos_v, gv, 1.0),
-                               0.0)
+            def dvol(red, lvl1):
+                gv = lvl1["gv"]
+                pos_v = gv > 0.0
+                return torch.where(pos_v,
+                                   red["dv"] / torch.where(pos_v, gv, 1.0),
+                                   0.0)
 
-        return (red_v["dr"] + red_l["dr"], dvol(red_v, lvl1_v),
-                dvol(red_l, lvl1_l), None, None, None, None)
+            return (red_v["dr"] + red_l["dr"], dvol(red_v, lvl1_v),
+                    dvol(red_l, lvl1_l), None, None, None, None)
 
 
 class PairCavity(torch.autograd.Function):
@@ -322,8 +329,10 @@ class PairCavity(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_e, *_):
-        pair_force, wu = ctx.saved_tensors
-        return -g_e[..., None, None] * pair_force, g_e[..., None] * wu, None
+        with profiling.span("eval.pairs"):
+            pair_force, wu = ctx.saved_tensors
+            return (-g_e[..., None, None] * pair_force, g_e[..., None] * wu,
+                    None)
 
 
 def _agbnp2_batch(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
@@ -343,93 +352,111 @@ def _agbnp2_batch(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
     zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
     zeros7 = torch.zeros((nb, 7), dtype=torch.int64, device=dev)
 
-    if topology is None:
-        with torch.no_grad():
-            lvl1 = T.make_level1(pos_u.detach(), au["radii_large"],
-                                 au["vol_large"], gamma_dr, au["ishydrogen"])
-            levels, diag = T.build_tree(lvl1, au["pairs_i"], au["pairs_j"],
-                                        caps, pairs_valid=au["pairs_valid"],
-                                        nrep=nb)
-            topo_atoms = T.tree_topology(levels)
-    else:
-        topo_atoms = topology["atoms"]
-        diag = dict(counts=T.replica_counts(topo_atoms, nb, n),
-                    max_siblings=zeros7, **T.caps_rows(caps, nb, dev))
-    lvl1_args = (au["radii_large"], au["vol_large"], au["radii_vdw"],
-                 au["vol_vdw"], gamma_dr, au["ishydrogen"])
-    e_vol1, e_vol2, sv_large, sv_vdw = _AtomicCavity.apply(
-        pos_u, lvl1_args, topo_atoms, nb)
+    def phase(name):
+        # an evaluation's phases; a window's build_only call records as the
+        # window build that wraps it
+        return contextlib.nullcontext() if build_only else \
+            profiling.span(name)
 
-    # MS particles and free volumes, each replica within its own atoms;
-    # with ms_sub_k > 0 the subtraction is bounded to the atoms inside the
-    # static horizon, the lists built here at a full build and frozen into
-    # the topology for the window
-    ms = ms_particles(pos, a["radii_vdw"], ms_pi, ms_pj, ms_pv, cap_ms,
-                      idx=None if topology is None else topology["ms_idx"],
-                      count=None if topology is None
-                      else topology["ms_count"])
-    nbr = None
-    ms_sub_max = zeros
-    if topology is not None:
-        nbr = topology["ms_nbr"]
-    elif ms_sub_k > 0:
-        with torch.no_grad():
-            idx_n, nvalid_n, ms_sub_max = ms_atom_neighbors(
-                ms["pos"], ms["valid"], pos, a["ishydrogen"] == 0,
-                ms_sub_rcut, ms_sub_k)
-        nbr = (idx_n, nvalid_n)
-    fv_large = ms_free_volumes(ms, pos, a["radii_large"],
-                               sv_large.reshape(nb, n), a["ishydrogen"],
-                               nbr=nbr).reshape(-1)
-    fv_vdw = ms_free_volumes(ms, pos, a["radii_vdw"], sv_vdw.reshape(nb, n),
-                             a["ishydrogen"], nbr=nbr).reshape(-1)
+    with phase("eval.tree"):
+        if topology is None:
+            with torch.no_grad():
+                lvl1 = T.make_level1(pos_u.detach(), au["radii_large"],
+                                     au["vol_large"], gamma_dr,
+                                     au["ishydrogen"])
+                levels, diag = T.build_tree(lvl1, au["pairs_i"],
+                                            au["pairs_j"], caps,
+                                            pairs_valid=au["pairs_valid"],
+                                            nrep=nb)
+                topo_atoms = T.tree_topology(levels)
+        else:
+            topo_atoms = topology["atoms"]
+            diag = dict(counts=T.replica_counts(topo_atoms, nb, n),
+                        max_siblings=zeros7, **T.caps_rows(caps, nb, dev))
+        lvl1_args = (au["radii_large"], au["vol_large"], au["radii_vdw"],
+                     au["vol_vdw"], gamma_dr, au["ishydrogen"])
+        e_vol1, e_vol2, sv_large, sv_vdw = _AtomicCavity.apply(
+            pos_u, lvl1_args, topo_atoms, nb)
 
-    # the MS overlap tree over the union of the replicas' MS particles
-    # (padding particles, past each replica's count, have zero volume):
-    # built (no gradient) or fixed, then both passes
-    gamma_ms = torch.full((nb * cap_ms,), -common_gamma / roffset,
-                          dtype=pos.dtype, device=dev)
-    ish_ms = 1 - ms["valid"].long().reshape(-1)
-    ms_pos = ms["pos"].reshape(-1, 3)
-    if topology is None:
-        with torch.no_grad():
-            lvl1_ms = T.make_level1(ms_pos.detach(), torch.full_like(
-                gamma_ms, SOLVENT_RADIUS), fv_vdw.detach(), gamma_ms, ish_ms)
-            mpi, mpj, mpv, m_nbmax = half_neighbor_pairs(
-                ms["pos"].detach(), ms["valid"],
-                tree_pair_cutoff([SOLVENT_RADIUS]), ms_kmax)
-            mlevels, mdiag = T.build_tree(lvl1_ms, mpi, mpj, caps_ms,
-                                          pairs_valid=mpv, nrep=nb)
-            topo_ms = T.tree_topology(mlevels)
-        # MS-capacity overflow channels ride the diagnostics for the MD
-        # PanicButton: the particle count against cap_ms, the MS-tree
-        # neighbor list, the subtraction lists (each [B])
-        mdiag = {**mdiag, "ms_count": ms["count"], "ms_nbmax": m_nbmax,
-                 "ms_sub_max": ms_sub_max}
-    else:
-        topo_ms = topology["ms"]
-        mdiag = dict(counts=T.replica_counts(topo_ms, nb, cap_ms),
-                     max_siblings=zeros7, **T.caps_rows(caps_ms, nb, dev),
-                     ms_count=ms["count"], ms_nbmax=zeros, ms_sub_max=zeros)
-    topo = dict(atoms=topo_atoms, ms=topo_ms, ms_idx=ms["idx"],
-                ms_count=ms["count"], ms_nbr=nbr)
-    if build_only:
-        return (diag, mdiag), topo
-    e_ms_vdw, e_ms_large, sv_ms = _MSCavity.apply(
-        ms_pos, fv_vdw, fv_large, gamma_ms, ish_ms.to(pos.dtype), topo_ms, nb)
+    with phase("eval.ms"):
+        # MS particles and free volumes, each replica within its own atoms;
+        # with ms_sub_k > 0 the subtraction is bounded to the atoms inside
+        # the static horizon, the lists built here at a full build and
+        # frozen into the topology for the window
+        ms = ms_particles(pos, a["radii_vdw"], ms_pi, ms_pj, ms_pv, cap_ms,
+                          idx=None if topology is None
+                          else topology["ms_idx"],
+                          count=None if topology is None
+                          else topology["ms_count"])
+        nbr = None
+        ms_sub_max = zeros
+        if topology is not None:
+            nbr = topology["ms_nbr"]
+        elif ms_sub_k > 0:
+            with torch.no_grad():
+                idx_n, nvalid_n, ms_sub_max = ms_atom_neighbors(
+                    ms["pos"], ms["valid"], pos, a["ishydrogen"] == 0,
+                    ms_sub_rcut, ms_sub_k)
+            nbr = (idx_n, nvalid_n)
+        fv_large = ms_free_volumes(ms, pos, a["radii_large"],
+                                   sv_large.reshape(nb, n), a["ishydrogen"],
+                                   nbr=nbr).reshape(-1)
+        fv_vdw = ms_free_volumes(ms, pos, a["radii_vdw"],
+                                 sv_vdw.reshape(nb, n), a["ishydrogen"],
+                                 nbr=nbr).reshape(-1)
 
-    # MS self volumes go half to each parent atom of the union (sorted
-    # segment sums: deterministic)
-    off = n * torch.arange(nb, device=dev)[:, None]
-    svadd = (0.5 * T.segment_sum(sv_ms[:, None], (ms["p1"] + off).reshape(-1),
-                                 nb * n)[:, 0]
-             + 0.5 * T.segment_sum(sv_ms[:, None],
-                                   (ms["p2"] + off).reshape(-1),
-                                   nb * n)[:, 0])
-    self_volume = (sv_vdw + svadd).reshape(nb, n)
+        # the MS overlap tree over the union of the replicas' MS particles
+        # (padding particles, past each replica's count, have zero volume):
+        # built (no gradient) or fixed, then both passes
+        gamma_ms = torch.full((nb * cap_ms,), -common_gamma / roffset,
+                              dtype=pos.dtype, device=dev)
+        ish_ms = 1 - ms["valid"].long().reshape(-1)
+        ms_pos = ms["pos"].reshape(-1, 3)
+        if topology is None:
+            with torch.no_grad():
+                lvl1_ms = T.make_level1(ms_pos.detach(), torch.full_like(
+                    gamma_ms, SOLVENT_RADIUS), fv_vdw.detach(), gamma_ms,
+                    ish_ms)
+                mpi, mpj, mpv, m_nbmax = half_neighbor_pairs(
+                    ms["pos"].detach(), ms["valid"],
+                    tree_pair_cutoff([SOLVENT_RADIUS]), ms_kmax)
+                mlevels, mdiag = T.build_tree(lvl1_ms, mpi, mpj, caps_ms,
+                                              pairs_valid=mpv, nrep=nb)
+                topo_ms = T.tree_topology(mlevels)
+            # MS-capacity overflow channels ride the diagnostics for the MD
+            # PanicButton: the particle count against cap_ms, the MS-tree
+            # neighbor list, the subtraction lists (each [B])
+            mdiag = {**mdiag, "ms_count": ms["count"], "ms_nbmax": m_nbmax,
+                     "ms_sub_max": ms_sub_max}
+        else:
+            topo_ms = topology["ms"]
+            mdiag = dict(counts=T.replica_counts(topo_ms, nb, cap_ms),
+                         max_siblings=zeros7,
+                         **T.caps_rows(caps_ms, nb, dev),
+                         ms_count=ms["count"], ms_nbmax=zeros,
+                         ms_sub_max=zeros)
+        topo = dict(atoms=topo_atoms, ms=topo_ms, ms_idx=ms["idx"],
+                    ms_count=ms["count"], ms_nbr=nbr)
+        if build_only:
+            return (diag, mdiag), topo
+        e_ms_vdw, e_ms_large, sv_ms = _MSCavity.apply(
+            ms_pos, fv_vdw, fv_large, gamma_ms, ish_ms.to(pos.dtype),
+            topo_ms, nb)
+
+        # MS self volumes go half to each parent atom of the union (sorted
+        # segment sums: deterministic)
+        off = n * torch.arange(nb, device=dev)[:, None]
+        svadd = (0.5 * T.segment_sum(sv_ms[:, None],
+                                     (ms["p1"] + off).reshape(-1),
+                                     nb * n)[:, 0]
+                 + 0.5 * T.segment_sum(sv_ms[:, None],
+                                       (ms["p2"] + off).reshape(-1),
+                                       nb * n)[:, 0])
+        self_volume = (sv_vdw + svadd).reshape(nb, n)
     s_factor = self_volume / a["vol_vdw_all"]
-    e_pair, br, gb_self, gb_pair, e_vdw = PairCavity.apply(
-        pos, s_factor, functools.partial(pair_phases, a))
+    with phase("eval.pairs"):
+        e_pair, br, gb_self, gb_pair, e_vdw = PairCavity.apply(
+            pos, s_factor, functools.partial(pair_phases, a))
 
     energy = e_vol1 + e_vol2 + e_ms_vdw + e_pair + e_ms_large
     details = dict(e_vol1=e_vol1, e_vol2=e_vol2, e_ms_vdw=e_ms_vdw,

@@ -39,9 +39,16 @@ Spans and counters the package records:
                     reads (wherever it is called), run_md's energies,
                     frames and last counts
   window.build      Simulation.window_build, with window.neighbors,
-                    window.tree_build and window.compact inside
-  eval.tree         the tree passes (tree_passes)
-  eval.pairs        the pair phases (kernel, plain or sharded route)
+                    window.tree_build and window.compact inside; an AGBNP2
+                    window's build (_v2_build), with window.ms_candidates
+                    and window.tree_build (both trees, the MS compaction)
+  eval.tree         the tree passes (tree_passes; AGBNP2's atomic passes
+                    and their reverse rule)
+  eval.ms           AGBNP2's MS stage: the MS particles, their free
+                    volumes, both MS tree passes and their reverse rule,
+                    the self volumes returned to the parents
+  eval.pairs        the pair phases (kernel, plain or sharded route; with
+                    AGBNP2's reverse rule)
   eval.wu           the WU gamma-rescan force pass
   eval.mm           the MM terms the pair sweeps do not carry
   score.call        ConformerScorer.score (request: the scorer's call index)
@@ -49,6 +56,11 @@ Spans and counters the package records:
   host_read         counter: one blocking device-to-host read, with its site
   tree.rows_valid   counter: the overlap tree's valid rows of an evaluation,
   tree.rows_cap     and its capacity rows, summed over levels and replicas
+  ms.particles_valid, ms.particles_cap
+                    counters: an AGBNP2 window's MS particles and cap_ms
+  ms_tree.rows_valid, ms_tree.rows_cap
+                    counters: its MS tree's valid and capacity rows,
+                    summed over levels (both at the window's read)
   tree.kernel       counter: one launch of a fixed-topology tree kernel
                     (ops/kernels/tree.py), site rescan, reduce or deposit
   comm.<kind>       counter: one collective of the sharded passes (its bytes;

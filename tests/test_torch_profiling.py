@@ -352,3 +352,120 @@ def test_comm_log_is_a_tap_of_the_recorder():
     PR.reset()
     assert [(c["name"], c["n"]) for c in rec["counts"]] == [
         ("comm.all_gather", 48)]
+
+
+# --- AGBNP2 (version 2) windows -----------------------------------------
+
+# host reads of one AGBNP2 window of run_md(report_interval=EVERY), site by
+# site: the window's read of its 18-entry vector (the ms.* and ms_tree.*
+# counters ride it), then run_md's check, energies and frame
+V2_WINDOW_READS = {"window.counts": 1}
+V2_RUN_MD_READS = {"overflow_report.counts": 1, "run_md.energies": 1,
+                   "run_md.frame": 1}
+
+
+@pytest.fixture(scope="module")
+def v2_record():
+    """A two-window run_md of trp-cage in AGBNP2, recorded, after a window
+    that grows the MS capacities (so the recorded run retries none)."""
+    sim = Simulation(load_dms(DMS), device="cpu", version=2, cutoff=1.0,
+                     dtype=torch.float64)
+    sim.run_md(EVERY, neighbor_every=EVERY,
+               generator=torch.Generator().manual_seed(1))
+    PR.reset()
+    with PR.record():
+        out = sim.run_md(2 * EVERY, neighbor_every=EVERY,
+                         report_interval=EVERY,
+                         generator=torch.Generator().manual_seed(0))
+    rec = PR.recorded()
+    PR.reset()
+    assert out["regrows"] == 0
+    return sim, rec
+
+
+def test_v2_window_spans(v2_record):
+    """A window: its build (MS candidates, both trees and the MS
+    compaction), then steps whose evaluation records the atomic tree, the
+    MS stage, the pair phases (each forward and its reverse rule) and the
+    MM terms."""
+    _, rec = v2_record
+    assert rec["dropped"] == 0
+    windows = [s for s in rec["spans"] if s["name"] == "md.window"]
+    # the warm-up took window 0
+    assert [w["request"] for w in windows] == [1, 2]
+    for w in windows:
+        kids = collections.Counter(s["name"]
+                                   for s in _children(rec, w["id"]))
+        assert kids == {"window.build": 1, "md.step": EVERY,
+                        "md.host_read": 1}
+        build = next(s for s in _children(rec, w["id"])
+                     if s["name"] == "window.build")
+        assert [s["name"] for s in _children(rec, build["id"])] == [
+            "window.ms_candidates", "window.tree_build"]
+        assert not _children(rec, _children(rec, build["id"])[1]["id"])
+        for step in (s for s in _children(rec, w["id"])
+                     if s["name"] == "md.step"):
+            assert collections.Counter(
+                s["name"] for s in _children(rec, step["id"])) == {
+                "eval.tree": 2, "eval.ms": 2, "eval.pairs": 2, "eval.mm": 1}
+
+
+def test_v2_ms_counters_are_the_window_vector(v2_record):
+    """ms.* and ms_tree.* of the recorded run's first window (request 1)
+    are its build's 18-entry vector at the DMS positions against the
+    capacities; the reads are as many as before the counters, site by
+    site."""
+    sim, rec = v2_record
+    got = {(c["name"], c["request"]): c["n"] for c in rec["counts"]
+           if c["name"].startswith("ms")}
+    names = ("ms.particles_valid", "ms.particles_cap", "ms_tree.rows_valid",
+             "ms_tree.rows_cap")
+    assert set(got) == {(n, k) for n in names for k in (1, 2)}
+    _, (_, counts) = sim._v2_build(sim.positions)
+    m2 = sim.agbnp2
+    assert got["ms.particles_valid", 1] == int(counts[14]) > 0
+    assert got["ms.particles_cap", 1] == m2.cap_ms
+    assert got["ms_tree.rows_valid", 1] == int(counts[7:14].sum()) > 0
+    assert got["ms_tree.rows_cap", 1] == sum(m2.caps_ms.caps)
+    reads = [c for c in rec["counts"] if c["name"] == "host_read"]
+    for k in (1, 2):
+        assert collections.Counter(c["site"] for c in reads
+                                   if c["request"] == k) == V2_WINDOW_READS
+    want = collections.Counter()
+    for _ in range(2):
+        want.update(V2_WINDOW_READS)
+        want.update(V2_RUN_MD_READS)
+    want.update(CALL_READS)
+    assert collections.Counter(c["site"] for c in reads) == want
+
+
+# HAND_SPANS with AGBNP2's MS stage where the WU pass was (20 ns of idle)
+V2_HAND_SPANS = [dict(s, name="eval.ms") if s["name"] == "eval.wu" else s
+                 for s in HAND_SPANS]
+V2_HAND_COUNTS = [dict(name="ms.particles_valid", n=30),
+                  dict(name="ms.particles_cap", n=100),
+                  dict(name="ms.particles_valid", n=50),
+                  dict(name="ms.particles_cap", n=100),
+                  dict(name="ms_tree.rows_valid", n=5),
+                  dict(name="ms_tree.rows_cap", n=200),
+                  dict(name="ms_tree.rows_valid", n=15),
+                  dict(name="ms_tree.rows_cap", n=200)]
+
+
+@pytest.mark.parametrize("name,want", [
+    ("device.idle_ms.ms", 20e-6 / 2 * 0.5),
+    ("ms.particle_fill_pct", 40.0),
+    ("ms_tree.row_fill_pct", 5.0),
+])
+def test_ms_metric_readers(monkeypatch, name, want):
+    """The MS stage's readers; None on a record without AGBNP2 (no eval.ms
+    span, no ms counters: the recording of versions 0 and 1)."""
+    mod = _reader(name)
+    hand = dict(spans=V2_HAND_SPANS, counts=HAND_COUNTS + V2_HAND_COUNTS,
+                dropped=0)
+    monkeypatch.setattr(PR, "recorded", lambda: hand)
+    assert mod.read(dict(DATA, kind="md")) == pytest.approx(want, rel=1e-12)
+    assert mod.read(dict(DATA, kind="score")) is None
+    v1 = dict(spans=HAND_SPANS, counts=HAND_COUNTS, dropped=0)
+    monkeypatch.setattr(PR, "recorded", lambda: v1)
+    assert mod.read(dict(DATA, kind="md")) is None
