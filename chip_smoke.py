@@ -251,7 +251,16 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      without the kernels' prep) in turns in one process, the tree
      kernels' launches and tree.kernel counters a step.
 
-    python3 chip_smoke.py --only N      (N = 25, 31, 32 or 33)
+34. one CUDA graph a rebuild window (md/graphs.py): 1li2 and 2clr MD
+     (run_md's runner) and 4 x 2clr replicas (ReplicaEnsemble), each a
+     warm-up window then GRAPH_STEPS timed steps, eager (capturable
+     declined) and graphed in turns (eager, graph, graph, eager) in one
+     process: wall and CUDA-event ms a step, every turn's trajectory,
+     energies and diagnostics bitwise the first's and its launch tallies
+     equal; a 1li2 window step run eagerly and captured and replayed
+     under set_sync_debug_mode("error").
+
+    python3 chip_smoke.py --only N      (N = 25, 31, 32, 33 or 34)
 
 builds the kernels and runs phase N alone.
 
@@ -4925,6 +4934,158 @@ def log_phase_times():
         if name.startswith("phase_") and callable(fn):
             globals()[name] = timed(fn)
 
+GRAPH_STEPS = 160       # [34] timed steps a turn (four rebuild windows)
+GRAPH_TURNS = ("eager", "graph", "graph", "eager")
+GRAPH_CASES = (("1li2", 1), ("2clr", 1), ("2clr", 4))
+
+
+@contextlib.contextmanager
+def eager_windows():
+    """Rebuild windows inside run their steps eagerly (md/graphs.py's
+    capturable declines)."""
+    from openmm_agbnp_plugin_tpu_torch.md import graphs
+
+    real = graphs.capturable
+    graphs.capturable = lambda *a: False
+    try:
+        yield
+    finally:
+        graphs.capturable = real
+
+
+def same_bits(x, y, what):
+    """x and y (nested tuples, lists and tensors) equal bit for bit."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: not bitwise equal")
+    elif isinstance(x, (tuple, list)):
+        for k, (a, b) in enumerate(zip(x, y)):
+            same_bits(a, b, f"{what}[{k}]")
+    elif x != y:
+        raise AssertionError(f"{what}: {x!r} != {y!r}")
+
+
+def phase_graphs(dev, card):
+    """Phase 34: one CUDA graph a rebuild window (md/graphs.py).  For each
+    of GRAPH_CASES, a runner's warm-up window and then GRAPH_STEPS timed
+    steps from the same start and noise, eager and graphed in turns:
+    wall and CUDA-event ms a step, every turn's results bitwise the first
+    turn's, the launch tallies equal; then one 1li2 window step eagerly
+    and as a captured and replayed graph under set_sync_debug_mode(
+    "error"), bitwise each other.  Returns the graphed turns' launches of
+    the 1li2 case."""
+    import statistics
+
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble
+    from openmm_agbnp_plugin_tpu_torch.md import graphs
+    from openmm_agbnp_plugin_tpu_torch.md.integrators import \
+        langevin_middle_step
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import \
+        worst_replica
+    from openmm_agbnp_plugin_tpu_torch.utils import profiling
+
+    log(f"[34] torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
+    first_launches = None
+    for name, nrep in GRAPH_CASES:
+        sim = md_sim(dev, name)
+        label = name if nrep == 1 else f"{nrep} x {name}"
+        if nrep == 1:
+            run = sim.make_langevin_runner(neighbor_every=NEIGHBOR_EVERY)
+
+            def go(steps, seed):
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                pos, vel, e, diag = run(sim.positions, sim.velocities,
+                                        steps, generator=gen)
+                return (pos, vel, e, diag), diag
+        else:
+            ens = ReplicaEnsemble(sim, nrep)
+            run = ens.make_runner(neighbor_every=NEIGHBOR_EVERY)
+
+            def go(steps, seed):
+                states, out = run(ens.initial_states(jitter=1e-3,
+                                                     seed=seed), steps)
+                return (states[0], states[1], *out), worst_replica(out[1:])
+
+        ms = dict(eager=[], graph=[])
+        first = None
+        for turn in GRAPH_TURNS:
+            ctx = eager_windows() if turn == "eager" else \
+                contextlib.nullcontext()
+            with ctx:
+                go(NEIGHBOR_EVERY, 1)
+                torch.cuda.synchronize()
+                PK.reset_launch_counts()
+                profiling.reset()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                with profiling.record():
+                    t0 = time.perf_counter()
+                    ev[0].record()
+                    out, diag = go(GRAPH_STEPS, 2)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / GRAPH_STEPS
+                rec = profiling.recorded()
+                profiling.reset()
+            launches = PK.launch_counts()
+            replays = sum(c["n"] for c in rec["counts"]
+                          if c["name"] == "md.graph_replay")
+            want = 0 if turn == "eager" else \
+                GRAPH_STEPS // NEIGHBOR_EVERY * (NEIGHBOR_EVERY - 1)
+            if replays != want:
+                raise AssertionError(f"[34] {label} {turn}: {replays} "
+                                     f"replayed steps, expected {want}")
+            report = sim.overflow_report(*diag)
+            if report:
+                raise AssertionError(f"[34] {label}: overflow {report}")
+            ms[turn].append((wall, ev[0].elapsed_time(ev[1]) / GRAPH_STEPS))
+            if first is None:
+                first = (out, launches)
+            else:
+                same_bits(first[0], out, f"[34] {label} {turn}")
+                if launches != first[1]:
+                    raise AssertionError(
+                        f"[34] {label} {turn}: launches {launches} != "
+                        f"{first[1]}")
+            if first_launches is None and turn == "graph":
+                first_launches = launches
+        med = {t: (statistics.median(w for w, _ in v),
+                   statistics.median(c for _, c in v)) for t, v in ms.items()}
+        turns = {t: [(round(w, 4), round(c, 4)) for w, c in v]
+                 for t, v in ms.items()}
+        log(f"[34] {label}: ms a step (wall, CUDA events) by turn {turns}; "
+            f"median eager {med['eager'][0]:.4f} / graph "
+            f"{med['graph'][0]:.4f} wall, "
+            f"x{med['eager'][0] / med['graph'][0]:.3f}; every turn bitwise "
+            f"the first, launches equal; {card}")
+    sim = md_sim(dev, "1li2")
+    ff = sim.ff_state()
+    pos, vel = sim.positions, sim.velocities
+    pairs, topo, vt, _ = sim.window_build(pos[None], ff,
+                                          sim._ensure_vdw_caps())
+    step = langevin_middle_step(
+        sim.force_fn(pairs=pairs, topology=topo, ff=ff, vdw_topology=vt),
+        sim.masses, 0.001, 300.0, 1.0)
+    noise = torch.randn(pos.shape, generator=torch.Generator(device=dev)
+                        .manual_seed(1), dtype=pos.dtype, device=dev)
+    step(pos, vel, noise)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want = step(pos, vel, noise)
+        got = graphs.StepGraph(step, pos, vel, noise)(noise)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same_bits(tuple(want[:4]), tuple(got), "[34] the graphed step")
+    log("[34] a 1li2 window step, eager and captured + replayed, ran under "
+        "set_sync_debug_mode('error'): no host sync; bitwise equal")
+    return first_launches
+
 
 def main(argv=None) -> int:
     import argparse
@@ -4932,7 +5093,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", type=int, choices=(25, 31, 32, 33),
+    ap.add_argument("--only", type=int, choices=(25, 31, 32, 33, 34),
                     help="build the kernels and run this phase alone "
                          "(its launches and kernel records, the card's "
                          "line, then {\"ok_phase\": N}; the contract's "
@@ -4960,6 +5121,8 @@ def main(argv=None) -> int:
         elif args.only == 33:
             tree_counts, records = phase_tree_kernels(dev, card)
             paths = dict(tree=tree_counts)
+        elif args.only == 34:
+            paths = dict(graphs=phase_graphs(dev, card))
         else:
             paths = dict(freevol=phase_freevol(dev, card))
         log(f"[{args.only}] passed in {time.perf_counter() - t0:.1f} s")
@@ -4999,6 +5162,7 @@ def main(argv=None) -> int:
     freevol_counts = phase_freevol(dev, card)
     counts["tree"], tree_records = phase_tree_kernels(dev, card)
     kernels.update(tree_records)
+    phase_graphs(dev, card)
     if "jax" in sys.modules or "openmm_agbnp_plugin_tpu" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     # each MD run counts a warm-up and a timed run of its (outer) steps

@@ -21,10 +21,13 @@ sweep, and every MD configuration of the JAX package's benchmark
     PanicButton retry, trajectory frames and exact-resume checkpoints.
 
 The JAX runner's `lax.scan` over the steps of a window is a Python loop
-here.  Per-step overflow counts (tree levels, tile lists, WU-compact rows)
-and the SHAKE residual stay on the device, and the host reads them once
-per window; a window that overflowed (or whose SHAKE missed tolerance)
-stops the run, and its counts come back for the PanicButton regrow.
+here; on the card the plain AGBNP1 Langevin step of a window is captured
+once as a CUDA graph and replayed for the rest of the window
+(md/graphs.py), bitwise the loop.  Per-step overflow counts (tree levels,
+tile lists, WU-compact rows) and the SHAKE residual stay on the device,
+and the host reads them once per window; a window that overflowed (or
+whose SHAKE missed tolerance) stops the run, and its counts come back for
+the PanicButton regrow.
 
 Version 0 (GVolSA) takes the same runner paths without pair phases, the
 MM force field by autograd.  Version 2 (AGBNP2, models/agbnp2_torch.py:
@@ -82,6 +85,7 @@ from ..ops.neighbors import CellGrid, cell_neighbor_pairs, \
     half_neighbor_pairs, host_max_neighbors, tree_pair_cutoff
 from ..utils import profiling
 from ..utils.profiling import host_read
+from . import graphs
 from .constraints import Constraints
 from .forces import MMForceField
 from .integrators import langevin_middle_step, maxwell_boltzmann_velocities, \
@@ -549,7 +553,9 @@ class Simulation:
         and, with vdw_caps, its compacted WU topology (the ancestor closure
         of the vdW-live rows of the build), both with the per-level tree
         kernels' prep (ops/tree.py::kernel_prep: on the card the window's
-        tree passes run one launch a level).  Returns (pairs, topology,
+        tree passes run one launch a level), the topology also with its
+        diag's capacity rows (ops/tree.py::with_caps_rows: a step copies
+        nothing from the host).  Returns (pairs, topology,
         vdw_topology, (build counts [R, 7], neighbor_max [R], sibling
         maxima [R, 7], WU kept rows [R, 7]))."""
         with profiling.span("window.build"):
@@ -566,7 +572,9 @@ class Simulation:
                 levels, bdiag = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
                                              pairs_valid=pv, pair_rows=True,
                                              nrep=nrep, relax=relax)
-                topo = T.kernel_prep(T.tree_topology(levels))
+                topo = T.with_caps_rows(
+                    T.kernel_prep(T.tree_topology(levels)), self.agbnp.caps,
+                    nrep)
             vdw_topo = None
             vdw_counts = torch.zeros((nrep, 7), dtype=torch.int64,
                                      device=pos.device)
@@ -746,14 +754,9 @@ class Simulation:
             """One AGBNP2 window: a build, then fixed-topology steps; only
             the build can overflow, so its counts are the window's."""
             ms_pairs, topo = self._v2_build(pos, ff)
-            step = make_step(ms_pairs, topo)
-            energies, counts, shake = [], None, None
-            for _ in range(ninner):
-                with profiling.span("md.step"):
-                    pos, vel, e, c, sh = step(pos, vel, step_noise(draw))
-                    energies.append(e)
-                    counts = running_max(counts, c)
-                    shake = running_max(shake, sh)
+            pos, vel, energies, counts, shake = graphs.window_steps(
+                make_step(ms_pairs, topo), pos, vel, ninner,
+                lambda: step_noise(draw))
             return pos, vel, energies, self._no_window_diag(counts, shake)
 
         def window(pos, vel, ninner, draw):
@@ -791,14 +794,13 @@ class Simulation:
                         counts = running_max(counts, c)
                         shake = running_max(shake, sh)
             else:
-                step = make_step(pairs, topo, vdw_topo)
-                for _ in range(ninner):
-                    with profiling.span("md.step"):
-                        pos, vel, e, c, sh = step(pos, vel,
-                                                  step_noise(draw))
-                        energies.append(e)
-                        counts = running_max(counts, c)
-                        shake = running_max(shake, sh)
+                # the plain step: one CUDA graph a window where capture is
+                # sound (md/graphs.py)
+                graph = (not mts_inner and mesh is None
+                         and graphs.capturable(self, pos, topo, ninner))
+                pos, vel, energies, counts, shake = graphs.window_steps(
+                    make_step(pairs, topo, vdw_topo), pos, vel, ninner,
+                    lambda: step_noise(draw), graph)
             if build_counts is not None:
                 counts = T.merge_counts(counts, build_counts)
             return pos, vel, energies, (counts, nbmax, sib_max, vdw_counts,

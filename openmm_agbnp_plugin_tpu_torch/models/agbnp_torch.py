@@ -238,7 +238,7 @@ def tree_passes(a: dict, pos, caps: T.TreeCaps, roffset: float,
                                             pos.shape[0] // nrep),
                     max_siblings=torch.zeros((nrep, 7), dtype=torch.int64,
                                              device=dev),
-                    **T.caps_rows(caps, nrep, dev))
+                    **T.topology_caps_rows(topology, caps, nrep, dev))
         levels_large, levels_vdw = T.rescan_volumes2(topology, lvl1_large,
                                                      lvl1_vdw)
         red1, red2 = T.reduce_tree2(levels_large, levels_vdw,

@@ -724,6 +724,26 @@ def caps_rows(caps: TreeCaps, nrep: int, device) -> dict:
                                   device=device).repeat(nrep, 1))
 
 
+def with_caps_rows(topology, caps: TreeCaps, nrep: int):
+    """The topology carrying caps_rows(caps, nrep) on its first level, made
+    once a window (Simulation.window_build) so that a fixed-topology step
+    copies nothing from the host (topology_caps_rows)."""
+    first = topology[0]
+    rows = caps_rows(caps, nrep, first["valid"].device)
+    return ({**first, "bnd": {**first["bnd"],
+                              "caps_rows": ((caps, nrep), rows)}},
+            *topology[1:])
+
+
+def topology_caps_rows(topology, caps: TreeCaps, nrep: int, device) -> dict:
+    """caps_rows(caps, nrep, device): the rows the topology carries for
+    these caps (with_caps_rows), else made now."""
+    held = topology[0]["bnd"].get("caps_rows")
+    if held is not None and held[0] == (caps, nrep):
+        return held[1]
+    return caps_rows(caps, nrep, device)
+
+
 def replica_counts(levels, nrep: int, natoms: int):
     """Valid rows of each level per replica, [nrep, 7], of a union tree
     over nrep replicas of natoms atoms each (the counts a fixed topology

@@ -8,7 +8,8 @@ lists are built in one pass (ops/neighbors.py), their overlap trees are one
 tree over the disjoint union of their atoms (ops/tree.py, nrep), the pair
 sweeps run the kernels' replica axis (one launch for all replicas), and
 the Langevin step moves [R, N, 3] arrays.  A step of R replicas therefore
-launches about as many kernels as a step of one.
+launches about as many kernels as a step of one; on the card a window's
+steps after its first replay one CUDA graph (md/graphs.py).
 
 Each replica has its own torch.Generator (seeded seed + r, as the JAX
 package keys replica r with PRNGKey(seed + r)), or the runner takes the
@@ -42,6 +43,7 @@ import time
 
 import torch
 
+from ..md import graphs
 from ..md.integrators import langevin_middle_step, running_max
 from ..ops import tree as T
 from ..utils import profiling
@@ -155,13 +157,10 @@ def run_window(sim, ff, pos, vel, ninner, temps, draw, dt, friction,
         fn = _replay_first(fn, start[1])
     step = langevin_middle_step(fn, sim.masses, dt, temps, friction,
                                 constraints=sim.constraints)
-    energies, counts, shake = [], None, None
-    for _ in range(ninner):
-        with profiling.span("md.step"):
-            pos, vel, e, c, sh = step(pos, vel, draw())
-            energies.append(e)
-            counts = running_max(counts, c)
-            shake = running_max(shake, sh)
+    # one CUDA graph a window where capture is sound (md/graphs.py)
+    pos, vel, energies, counts, shake = graphs.window_steps(
+        step, pos, vel, ninner, draw,
+        graphs.capturable(sim, pos, topo, ninner))
     counts = T.merge_counts(counts, bcounts)
     return (pos, vel, energies, (counts, nbmax, sibs, vdw_counts, shake),
             (pairs, topo, vdw_topo))

@@ -35,6 +35,11 @@ Spans and counters the package records:
                     index), in the Langevin and replica runners
   md.step           one integrator step of a window (a WU-impulse block of
                     k steps is one)
+  md.graph_capture  span: the capture of a window's step into a CUDA graph
+                    (md/graphs.py), inside that step's md.step; counter:
+                    one a capture
+  md.graph_replay   counter: one step of a window run as a replay of its
+                    graph
   md.host_read      a window's read of its diagnostics, overflow_report's
                     reads (wherever it is called), run_md's energies,
                     frames and last counts
@@ -119,6 +124,7 @@ class Recorder:
         self.depth = 0          # open record() blocks
         self.taps = []          # [(name prefix, live list)]
         self.spans, self.counts, self.dropped = [], [], 0
+        self.held = None        # hold()'s list while a block holds counters
         self._ids = itertools.count()
         self._local = threading.local()
 
@@ -182,7 +188,11 @@ def active() -> bool:
 def count(name: str, n=1, site=None, **detail):
     """Record counter `name` (n: its amount; site: where in the code;
     detail: further fields of the record).  Kept in the buffer while
-    recording is on, and in every open tap whose prefix starts `name`."""
+    recording is on, and in every open tap whose prefix starts `name`;
+    inside hold(), kept in its list instead."""
+    if _REC.held is not None:
+        _REC.held.append((name, n, site, detail))
+        return
     on = _REC.depth or _profiler_enabled()
     if not on and not _REC.taps:
         return
@@ -197,6 +207,25 @@ def count(name: str, n=1, site=None, **detail):
         buf.append(item)
     if on:
         _REC.keep(_REC.counts, item)
+
+
+@contextlib.contextmanager
+def hold():
+    """Counters made inside the block go to the list it yields, not to
+    the buffer or a tap: a CUDA graph's capture counts the launches it
+    records, which run only when it is replayed (count_again)."""
+    outer, _REC.held = _REC.held, []
+    try:
+        yield _REC.held
+    finally:
+        _REC.held = outer
+
+
+def count_again(held: list):
+    """Make the counters a hold() block held, now."""
+    if active():
+        for name, n, site, detail in held:
+            count(name, n, site, **detail)
 
 
 def host_read(x, site: str):
