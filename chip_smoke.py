@@ -3116,8 +3116,8 @@ def phase_per_step_v2(dev, card):
     from openmm_agbnp_plugin_tpu_torch import (ReplicaEnsemble, Simulation,
                                                TemperatureREMD)
     from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
-    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import (
-        diag_max, worst_replica)
+    from openmm_agbnp_plugin_tpu_torch.models.capacity import WindowDiag
+    from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import worst_replica
     from openmm_agbnp_plugin_tpu_torch.parallel.remd import geometric_ladder
 
     d, _ = system("1li2")
@@ -3158,8 +3158,8 @@ def phase_per_step_v2(dev, card):
         counts = PK.launch_counts()
         for k, v in counts.items():
             path_counts[k] = path_counts.get(k, 0) + v
-        report = sim.overflow_report(*worst_replica(diag_max(diag_w,
-                                                             diag_t)))
+        report = sim.overflow_report(*worst_replica(
+            WindowDiag(*diag_w).merge(diag_t)))
         energies = torch.cat([e_w, e_t], dim=1).double().cpu()
         runs[r] = energies
         log(f"[24] per-step v2, R = {r} x 1li2: {ms:.3f} ms/step, "

@@ -19,7 +19,7 @@ the batch in one evaluation too (AGBNP2Model.batched_energy_forces: each
 pose's MS candidates found on the device, both overlap trees over the
 poses' unions, the dense kernels' replica axis), with the capacities
 shared and regrown from the 18-entry overflow counts of the worst pose
-(_regrow_v2, JAX's rule).
+(models/capacity.py::regrow_v2, JAX's rule).
 
 With mesh (a `replica` mesh, parallel/sharding.py::replica_mesh, one rank
 a process), the batch is padded to a multiple of the mesh size with copies
@@ -37,10 +37,10 @@ import numpy as np
 import torch
 
 from ..md.minimize import make_fire_runner
+from ..models import capacity
 from ..models.agbnp2_torch import AGBNP2Model, ms_candidate_pairs, \
-    ms_pair_cutoff, v2_counts
+    ms_pair_cutoff
 from ..models.agbnp_torch import AGBNPModel, batched_diag_max
-from ..ops import tree as T
 from ..ops.neighbors import host_max_neighbors
 from ..utils import profiling
 from .force import AGBNPForce, NonbondedMethod
@@ -124,7 +124,7 @@ class ConformerScorer:
             poses = (pos if pos.dim() == 3 else pos[None]).numpy()
             seen = max(host_max_neighbors(p, heavy, self._ms_rcut)
                        for p in poses)
-            self._ms_kmax_list = int(np.ceil(seen * 1.5 / 16) * 16)
+            self._ms_kmax_list = capacity.kmax_for(seen)
 
     def _build(self, params):
         if self._is_v2:
@@ -243,9 +243,9 @@ class ConformerScorer:
             pairs = ms_candidate_pairs(pos, self._heavy, self._ms_rcut,
                                        self._ms_kmax_list)
             out = self._model.batched_energy_forces(pos, ms_pairs=pairs[:3])
-            counts = self._mesh.gather(v2_counts(out["diags"], pairs[3])) \
-                if self._mesh is not None else v2_counts(out["diags"],
-                                                         pairs[3])
+            counts = capacity.v2_counts(out["diags"], pairs[3])
+            if self._mesh is not None:
+                counts = self._mesh.gather(counts)
             if not self._regrow_v2(
                     torch.amax(counts, dim=0).cpu().numpy()):
                 break
@@ -260,44 +260,14 @@ class ConformerScorer:
 
     def _regrow_v2(self, c, headroom: float = 1.3) -> bool:
         """The PanicButton of version 2 scoring over the 18-entry counts c
-        (v2_counts, the batch's maxima), JAX's rule (api/scoring.py:
-        195-236): both trees' levels grow to at least double when
-        overflowed and past the counts x headroom, 128-aligned; cap_ms past
-        1.5 x the particles; the MS tree's, the candidate lists' and the
-        subtraction lists' widths past 1.5 x their maxima, 16-aligned.
+        (the batch's maxima on the host): JAX's rule, capacity.regrow_v2.
         Returns True if the model was rebuilt (a re-score is needed)."""
-        m2 = self._model
-        over = bool((c[:7] > np.asarray(m2.caps.caps)).any()
-                    or (c[7:14] > np.asarray(m2.caps_ms.caps)).any()
-                    or int(c[14]) > m2.cap_ms or int(c[15]) > m2.ms_kmax
-                    or int(c[16]) > self._ms_kmax_list
-                    or int(c[17]) > m2.ms_sub_k)
-        if not over:
+        if not capacity.v2_channels(c, self._model, self._ms_kmax_list):
             return False
-
-        def r(x, align=128):
-            return max(align, int(np.ceil(x / align)) * align)
-
-        def k16(x):
-            return int(np.ceil(int(x) * 1.5 / 16) * 16)
-
-        def grow_caps(old, counts):
-            return T.TreeCaps(
-                caps=tuple(max(c0, 2 * c0 if int(k) > c0 else c0,
-                               r(int(k) * headroom))
-                           for c0, k in zip(old.caps, counts)),
-                offs=old.offs)
-
-        if int(c[16]) > self._ms_kmax_list:
-            self._ms_kmax_list = k16(c[16])
-        self._model = self._build_v2(
-            self._force.to_params(), caps=grow_caps(m2.caps, c[:7]),
-            caps_ms=grow_caps(m2.caps_ms, c[7:14]),
-            cap_ms=(r(int(c[14]) * 1.5) if int(c[14]) > m2.cap_ms
-                    else m2.cap_ms),
-            ms_kmax=k16(c[15]) if int(c[15]) > m2.ms_kmax else m2.ms_kmax,
-            ms_sub_k=(k16(c[17]) if int(c[17]) > m2.ms_sub_k
-                      else m2.ms_sub_k))
+        caps = capacity.regrow_v2(c, self._model, self._ms_kmax_list,
+                                  headroom)
+        self._ms_kmax_list = caps.pop("ms_kmax_list")
+        self._model = self._build_v2(self._force.to_params(), **caps)
         return True
 
     def refine(self, positions, maxiter: int = 200, **fire_kw):

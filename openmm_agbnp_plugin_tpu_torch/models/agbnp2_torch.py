@@ -55,6 +55,7 @@ from ..utils import profiling
 from .agbnp_torch import AGBNPModel, _pair_phases_kernel, \
     _pair_phases_plain, arrays_from_numpy, batched_diag_max, \
     prepare_arrays, union_arrays
+from . import capacity
 from .constants import AGBNP2_RADIUS_INCREMENT, ANG3, KFC, PI, \
     SOLVENT_RADIUS, VOLMINA, sphere_volume
 from .params import AGBNPParams
@@ -556,18 +557,6 @@ def ms_candidate_pairs(pos, heavy, rcut: float, kmax: int):
     return pi, pj, pv, nbmax
 
 
-def v2_counts(diags, cand_nb):
-    """AGBNP2's 18-entry overflow vector ([B, 18] for replicas): the atomic
-    tree's level counts [7], the MS tree's [7], then the MS particle count,
-    the MS tree's neighbor maximum, the MS candidate list's maximum and the
-    MS subtraction lists' maximum (JAX md/simulation.py's countsvec)."""
-    d0, d1 = diags
-    return torch.cat([d0["counts"].long(), d1["counts"].long(),
-                      torch.stack([d1["ms_count"], d1["ms_nbmax"], cand_nb,
-                                   d1["ms_sub_max"]], dim=-1).long()],
-                     dim=-1)
-
-
 def ms_candidates(pos, params: AGBNPParams):
     """The heavy pairs i < j within ms_pair_cutoff at pos (host numpy):
     (pi, pj) int64."""
@@ -603,7 +592,7 @@ def ms_sub_width(pos, params: AGBNPParams, pi, pj, rcut: float,
         dm = np.linalg.norm(mpos[s:s + 2048, None, :] - ph[None, :, :],
                             axis=-1)
         seen = max(seen, int((dm < rcut).sum(axis=1).max()))
-    return min(int(np.ceil(seen * 1.5 / 16) * 16), int(heavy.sum()))
+    return min(capacity.kmax_for(seen), int(heavy.sum()))
 
 
 class AGBNP2Model:
@@ -663,7 +652,7 @@ class AGBNP2Model:
 
         pi, pj = self.set_positions(pos)
         self.cap_ms = (cap_ms if cap_ms is not None else
-                       max(128, int(np.ceil(len(pi) * ms_boost / 128)) * 128))
+                       capacity.grow_past(len(pi), ms_boost, 128, 128))
         self.ms_kmax = ms_kmax if ms_kmax is not None else 64
         self.caps_ms = (caps_ms if caps_ms is not None else
                         T.TreeCaps.for_natoms(max(self.cap_ms // 8, 64)))
@@ -691,32 +680,24 @@ class AGBNP2Model:
         """PanicButton over one evaluation's diagnostics (agbnp2_energy's
         (diag, ms_diag), from tree builds; a batch's are reduced to its
         worst replica): double each overflowed level or sibling window of
-        either tree, and grow cap_ms, the MS tree's neighbor width and the
-        MS subtraction width past the counts seen, as the Simulation's
-        regrow does.  Returns True if a re-evaluation is needed."""
+        either tree (capacity.grow_tree), and widen cap_ms, the MS tree's
+        neighbor width and the MS subtraction width past the counts that
+        overflowed them.  Returns True if a re-evaluation is needed."""
         d0, d1 = diags
         if torch.as_tensor(d0["counts"]).dim() == 2:
             d0, d1 = batched_diag_max(d0), batched_diag_max(d1)
-        over = False
-        for name, d in (("caps", d0), ("caps_ms", d1)):
-            ov = T.check_overflow(d)
-            if ov["any"]:
-                setattr(self, name, getattr(self, name).grow(
-                    [bool(c) for c in ov["cap_overflow"]],
-                    [bool(b) for b in ov["sib_overflow"][:-1]]))
-                over = True
         count, nbmax, sub_max = (int(d1[k]) for k in
                                  ("ms_count", "ms_nbmax", "ms_sub_max"))
-        if count > self.cap_ms:
-            self.cap_ms = int(np.ceil(count * 1.5 / 128)) * 128
-            over = True
-        if nbmax > self.ms_kmax:
-            self.ms_kmax = int(np.ceil(nbmax * 1.5 / 16)) * 16
-            over = True
-        if 0 < self.ms_sub_k < sub_max:
-            self.ms_sub_k = int(np.ceil(sub_max * 1.5 / 16)) * 16
-            over = True
-        return over
+        old = (self.caps, self.caps_ms, self.cap_ms, self.ms_kmax,
+               self.ms_sub_k)
+        self.caps = capacity.grow_tree(self.caps, d0)
+        self.caps_ms = capacity.grow_tree(self.caps_ms, d1)
+        self.cap_ms = capacity.widened(self.cap_ms, count, 128)
+        self.ms_kmax = capacity.widened(self.ms_kmax, nbmax)
+        if self.ms_sub_k:  # the subtraction lists exist only then
+            self.ms_sub_k = capacity.widened(self.ms_sub_k, sub_max)
+        return old != (self.caps, self.caps_ms, self.cap_ms, self.ms_kmax,
+                       self.ms_sub_k)
 
     def energy_kwargs(self) -> dict:
         """agbnp2_energy's static arguments for this model."""

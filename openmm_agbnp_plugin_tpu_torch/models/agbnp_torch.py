@@ -39,6 +39,7 @@ from ..ops.kernels import pairs as PK
 from ..ops.kernels import tiles as TL
 from ..ops.neighbors import CellGrid, cell_neighbor_pairs, \
     half_neighbor_pairs, host_max_neighbors, tree_pair_cutoff
+from . import capacity
 from .constants import AGBNP_I4LOOKUP_MAXA, AGBNP_I4LOOKUP_NA, \
     DIELECTRIC_FACTOR, PIFAC, sphere_volume
 from .i4_tables import I4LookupTables
@@ -672,7 +673,7 @@ class AGBNPModel:
             heavy = np.asarray(params.ishydrogen) == 0
             seen = host_max_neighbors(np.asarray(positions), heavy,
                                       self.neighbor_rcut)
-            self.neighbor_kmax = int(np.ceil(seen * 1.5 / 16) * 16)
+            self.neighbor_kmax = capacity.kmax_for(seen)
             if params.n > 3000:
                 self.neighbor_grid = CellGrid(np.asarray(positions),
                                               self.neighbor_rcut,
@@ -723,14 +724,8 @@ class AGBNPModel:
                 break
         else:
             raise RuntimeError("tree sizing did not converge")
-        counts = diag["counts"].cpu().numpy()
-        sibs = diag["max_siblings"].cpu().numpy()
-        offs_boost = max(boost, 1.6)
-        return T.TreeCaps(
-            caps=tuple(max(128, int(np.ceil(int(c) * boost / 128)) * 128)
-                       for c in counts),
-            offs=tuple(int(max(4, np.ceil(max(int(s) - 1, 1) * offs_boost)))
-                       for s in sibs[:-1]))
+        return capacity.size_tree(diag["counts"].cpu().numpy(),
+                                  diag["max_siblings"].cpu().numpy(), boost)
 
     def update_params(self, params: AGBNPParams) -> bool:
         """Parameter-only update (updateParametersInContext, reference
@@ -786,20 +781,17 @@ class AGBNPModel:
         heff = (AGBNP_I4LOOKUP_MAXA if self.descreen_horizon is None
                 else min(self.descreen_horizon, AGBNP_I4LOOKUP_MAXA))
 
-        def budget(count, ntot):
-            return int(min(max(8, np.ceil(count * 1.5 / 8) * 8), ntot))
-
         nti = self.pair_pad // tile
         ntj = pos_h.shape[1] // tile
         cb = TL.host_tile_count(pos_p, rvalid, pos_h, hvalid, tile, heff,
                                 box=boxv)
-        lb = budget(cb, nti * ntj)
+        lb = min(capacity.grow_past(cb, 1.5, 8, 8), nti * ntj)
         lg = None
         if self.cutoff is not None:
             cg = TL.host_tile_count(pos_p, rvalid, pos_p, rvalid, tile,
                                     float(self.cutoff), triangular=True,
                                     box=boxv)
-            lg = budget(cg, nti * (nti + 1) // 2)
+            lg = min(capacity.grow_past(cg, 1.5, 8, 8), nti * (nti + 1) // 2)
         return (lb, lg)
 
     def _evaluate(self, pos, wu_mode: str) -> dict:
@@ -853,46 +845,23 @@ class AGBNPModel:
         return out["energy"]
 
     def check_and_grow(self, diag) -> bool:
-        """PanicButton: grow capacities if the last evaluation overflowed
-        (tree levels, sibling windows, neighbor width, tile budgets).
-        Returns True if a re-evaluation is needed.
-
-        A neighbor overflow also doubles the cell grid's capacity: the grid
-        reports a cell overflow as kmax + 1 through the same channel, and
-        growing kmax alone would never clear it (the JAX model keeps its
-        grid there; its Simulation grows it, md/simulation.py:935-942)."""
-        ov = T.check_overflow(diag)
-        nb_over = ("neighbor_max" in diag
-                   and int(diag["neighbor_max"]) > self.neighbor_kmax > 0)
-        tiles_over = self.grow_pair_tiles(diag.get("pair_tile_counts"))
-        if not ov["any"] and not nb_over and not tiles_over:
-            return False
-        if ov["any"]:
-            self.caps = self.caps.grow(
-                [bool(c) for c in ov["cap_overflow"]],
-                [bool(s) for s in ov["sib_overflow"][:-1]])
-        if nb_over:
-            if self.neighbor_grid is not None:
+        """PanicButton (JAX models/agbnp_jax.py::check_and_grow): double
+        each overflowed tree level and sibling window, widen the neighbor
+        width (where the model builds a list) and the tile budgets past
+        the counts that overflowed them.  Returns True if a re-evaluation
+        is needed.  A neighbor overflow also doubles the cell grid's
+        capacity: the grid reports a cell overflow as kmax + 1 through the
+        same channel (the JAX model keeps its grid; its Simulation grows
+        it, md/simulation.py:935-942)."""
+        nbmax, seen = diag.get("neighbor_max"), diag.get("pair_tile_counts")
+        old = (self.caps, self.neighbor_kmax, self.pair_tiles)
+        self.caps = capacity.grow_tree(self.caps, diag)
+        if nbmax is not None and self.neighbor_kmax:
+            self.neighbor_kmax = capacity.widened(self.neighbor_kmax,
+                                                  int(nbmax))
+            if self.neighbor_kmax != old[1] and self.neighbor_grid is not None:
                 self.neighbor_grid = self.neighbor_grid.grown()
-            self.neighbor_kmax = int(np.ceil(
-                int(diag["neighbor_max"]) * 1.5 / 16) * 16)
-        return True
-
-    def grow_pair_tiles(self, counts) -> bool:
-        """Grow the interacting-tile-list budgets past measured in-range
-        counts [born, gb].  Returns True (and updates self.pair_tiles) on
-        overflow."""
-        if self.pair_tiles is None or counts is None:
-            return False
-        cb, cg = (int(x) for x in np.asarray(torch.as_tensor(counts).cpu()))
-        lb, lg = self.pair_tiles
-        over = False
-        if cb > lb:
-            lb = max(8, int(np.ceil(cb * 1.5 / 8) * 8))
-            over = True
-        if lg is not None and cg > lg:
-            lg = max(8, int(np.ceil(cg * 1.5 / 8) * 8))
-            over = True
-        if over:
-            self.pair_tiles = (lb, lg)
-        return over
+        if seen is not None:
+            self.pair_tiles = capacity.grow_tiles(
+                self.pair_tiles, np.asarray(torch.as_tensor(seen).cpu()))
+        return (self.caps, self.neighbor_kmax, self.pair_tiles) != old

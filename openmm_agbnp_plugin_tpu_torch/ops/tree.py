@@ -753,19 +753,6 @@ def replica_counts(levels, nrep: int, natoms: int):
         nrep) for l in levels], dim=-1)
 
 
-def merge_counts(a, b):
-    """Elementwise max of two overflow-count vectors, zero-padding the
-    shorter (along the last axis: per-replica rows [R, C] merge row by
-    row)."""
-    a = a.long()
-    b = b.long()
-    if a.shape[-1] < b.shape[-1]:
-        a = torch.nn.functional.pad(a, (0, b.shape[-1] - a.shape[-1]))
-    elif b.shape[-1] < a.shape[-1]:
-        b = torch.nn.functional.pad(b, (0, a.shape[-1] - b.shape[-1]))
-    return torch.maximum(a, b)
-
-
 def check_overflow(diag) -> dict:
     """Host-side PanicButton check of one system's diag (levels on the
     last axis). Returns numpy bools per level.  The diag's leaves may be

@@ -44,8 +44,8 @@ import time
 import torch
 
 from ..md import graphs
-from ..md.integrators import langevin_middle_step, running_max
-from ..ops import tree as T
+from ..md.integrators import langevin_middle_step
+from ..models.capacity import WindowDiag
 from ..utils import profiling
 
 
@@ -82,8 +82,8 @@ def gather_replicas(mesh, x):
 
 
 def gather_diag(mesh, diag):
-    """A replica diagnostics tuple with every rank's replicas."""
-    return tuple(gather_replicas(mesh, x) for x in diag)
+    """A replica WindowDiag with every rank's replicas."""
+    return WindowDiag(*(gather_replicas(mesh, x) for x in diag))
 
 
 def noise_source(shape, dtype, device, generators, noise):
@@ -106,11 +106,6 @@ def noise_source(shape, dtype, device, generators, noise):
         return out
 
     return draw
-
-
-def diag_max(a, b):
-    """Elementwise maxima of two replica diagnostics tuples."""
-    return b if a is None else tuple(running_max(x, y) for x, y in zip(a, b))
 
 
 def window_start(sim, ff, pos, vdw_caps=None, vdw_relax: float = 0.5):
@@ -146,12 +141,12 @@ def run_window(sim, ff, pos, vel, ninner, temps, draw, dt, friction,
     whose build and force the window takes instead of computing them
     again (the same values: the build and the evaluation are
     deterministic).  Returns (pos, vel, energies [ninner] of [R], the
-    window's diagnostics (counts [R, C], neighbor_max [R], sibling maxima
-    [R, 7], WU kept rows [R, 7], SHAKE residual [R] or None without
-    constraints), its build (pairs, topology, vdw_topology))."""
+    window's diagnostics (a WindowDiag: counts [R, C], neighbor_max [R],
+    sibling maxima [R, 7], WU kept rows [R, 7], SHAKE residual [R] or None
+    without constraints), its build (pairs, topology, vdw_topology))."""
     build = (sim.window_build(pos, ff, vdw_caps, vdw_relax)
              if start is None else start[0])
-    pairs, topo, vdw_topo, (bcounts, nbmax, sibs, vdw_counts) = build
+    pairs, topo, vdw_topo, bdiag = build
     fn = _window_force_fn(sim, ff, build)
     if start is not None:
         fn = _replay_first(fn, start[1])
@@ -161,9 +156,8 @@ def run_window(sim, ff, pos, vel, ninner, temps, draw, dt, friction,
     pos, vel, energies, counts, shake = graphs.window_steps(
         step, pos, vel, ninner, draw,
         graphs.capturable(sim, pos, topo, ninner))
-    counts = T.merge_counts(counts, bcounts)
-    return (pos, vel, energies, (counts, nbmax, sibs, vdw_counts, shake),
-            (pairs, topo, vdw_topo))
+    return (pos, vel, energies, WindowDiag(*bdiag).merge(
+        WindowDiag(counts, None, None, None, shake)), (pairs, topo, vdw_topo))
 
 
 def run_steps(sim, ff, pos, vel, nsteps, temps, draw, dt, friction):
@@ -174,20 +168,16 @@ def run_steps(sim, ff, pos, vel, nsteps, temps, draw, dt, friction):
     neighbor, sibling and WU entries, the SHAKE residual)."""
     step = langevin_middle_step(sim.force_fn(ff=ff), sim.masses, dt, temps,
                                 friction, constraints=sim.constraints)
-    energies, counts, shake = [], None, None
-    for _ in range(nsteps):
-        pos, vel, e, c, sh = step(pos, vel, draw())
-        energies.append(e)
-        counts = running_max(counts, c)
-        shake = running_max(shake, sh)
-    z = torch.zeros((pos.shape[0], 7), dtype=torch.int64, device=pos.device)
-    return pos, vel, energies, (counts, z[:, 0], z, z, shake)
+    pos, vel, energies, counts, shake = graphs.window_steps(step, pos, vel,
+                                                            nsteps, draw)
+    return pos, vel, energies, WindowDiag.quiet(counts, shake)
 
 
 def worst_replica(diag):
-    """A replica runner's diagnostics reduced to the worst replica, in the
-    form Simulation.overflow_report takes."""
-    return tuple(None if x is None else torch.amax(x, dim=0) for x in diag)
+    """A replica runner's diagnostics on the host (one read,
+    WindowDiag.read) reduced to the worst replica, in the form
+    Simulation.overflow_report and _regrow take."""
+    return WindowDiag(*diag).read("worst_replica").worst()
 
 
 class ReplicaEnsemble:
@@ -296,16 +286,12 @@ class ReplicaEnsemble:
                         vdw_caps, vdw_relax)
                     energies.extend(es)
                     wdiag = gather_diag(mesh, wdiag)
-                    diag = diag_max(diag, wdiag)
+                    diag = wdiag if diag is None else diag.merge(wdiag)
                     done += ninner
-                    with profiling.span("md.host_read"):
-                        # the window's host read: every replica's counts,
-                        # the worst replica decides
-                        counts = profiling.host_read(wdiag[0],
-                                                     "window.counts")
-                        profiling.count_tree_rows(sim._tree_rows(counts))
-                        over = sim._check_overflow(
-                            counts.max(axis=0), *worst_replica(wdiag[1:]))
+                    # the window's host read: every replica's
+                    # diagnostics, the worst replica decides
+                    over = sim._check_overflow(
+                        *sim._read_window(wdiag).worst())
                 if over:
                     break
             return (pos, vel, gens), (

@@ -45,10 +45,10 @@ import numpy as np
 import torch
 
 from ..md.integrators import KB
-from ..ops.tree import merge_counts
-from .ensemble import diag_max, check_replica_sim, gather_diag, \
-    gather_replicas, noise_source, replica_block, replica_generators, \
-    run_window, window_start, worst_replica
+from ..models.capacity import WindowDiag
+from .ensemble import check_replica_sim, gather_diag, gather_replicas, \
+    noise_source, replica_block, replica_generators, run_window, \
+    window_start, worst_replica
 
 
 def geometric_ladder(t_min: float, t_max: float, n: int):
@@ -192,7 +192,7 @@ class TemperatureREMD:
                     dt, friction, vdw_caps, vdw_relax,
                     start=start if k == 0 else None)
                 energies.extend(es)
-                diag = diag_max(diag, wdiag)
+                diag = wdiag if diag is None else diag.merge(wdiag)
             if rem:
                 ev = sim.force_fn(pairs=build[0], topology=build[1], ff=ff,
                                   vdw_topology=build[2],
@@ -203,14 +203,11 @@ class TemperatureREMD:
                 # positions, and the force there, give the exchange energy
                 start = window_start(sim, ff, pos, vdw_caps, vdw_relax)
                 ev = start[1]
-                bc, nb, sb, wc = start[0][3]
-                diag = (merge_counts(diag[0], bc), torch.maximum(diag[1], nb),
-                        torch.maximum(diag[2], sb), torch.maximum(diag[3], wc),
-                        diag[4])
+                diag = diag.merge(start[0][3])
             # the exchange evaluation's tile counts are checked too
             U = gather_replicas(mesh, ev[0])
-            diag = gather_diag(mesh, (merge_counts(diag[0], ev[-1]),
-                                      *diag[1:]))
+            diag = gather_diag(mesh, diag.merge(
+                WindowDiag(ev[-1], None, None, None)))
             new_rung, accept = attempt_swaps(u, rung, U, betas, parity)
             # accepted swap: momenta rescaled to the new bath temperature
             vel = vel * torch.sqrt(temps[new_rung[blk]]
@@ -229,9 +226,9 @@ class TemperatureREMD:
                 pos, vel, rung, accept, U, es, cdiag, start = cycle(
                     pos, vel, rung, draw, u, c % 2, start)
                 energies.extend(es)
-                diag = diag_max(diag, cdiag)
+                diag = cdiag if diag is None else diag.merge(cdiag)
                 rep = sim.overflow_report(*worst_replica(cdiag))
-                if rep:  # the cycle's host read
+                if rep:  # the cycle's one host read
                     raise RuntimeError(
                         f"capacity overflow in cycle {c} of T-REMD: {rep}; "
                         "regrow the Simulation's capacities and rerun")

@@ -40,9 +40,9 @@ Spans and counters the package records:
                     one a capture
   md.graph_replay   counter: one step of a window run as a replay of its
                     graph
-  md.host_read      a window's read of its diagnostics, overflow_report's
-                    reads (wherever it is called), run_md's energies,
-                    frames and last counts
+  md.host_read      WindowDiag.read (models/capacity.py: a window's one
+                    read; worst_replica, overflow_report, _regrow given
+                    device tensors), run_md's energies and frames
   window.build      Simulation.window_build, with window.neighbors,
                     window.tree_build and window.compact inside; an AGBNP2
                     window's build (_v2_build), with window.ms_candidates

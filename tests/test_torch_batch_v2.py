@@ -27,7 +27,8 @@ from openmm_agbnp_plugin_tpu_torch import (AGBNPForce, AGBNPParams,
                                            ConformerScorer, load_dms,
                                            load_gaussvol_dat)
 from openmm_agbnp_plugin_tpu_torch.models.agbnp2_torch import \
-    ms_candidate_pairs, v2_counts
+    ms_candidate_pairs
+from openmm_agbnp_plugin_tpu_torch.models.capacity import V2, v2_counts
 from openmm_agbnp_plugin_tpu_torch.ops import neighbors as NB_MODULE
 from openmm_agbnp_plugin_tpu_torch.ops.neighbors import half_neighbor_pairs
 
@@ -160,7 +161,7 @@ def test_bounded_ms_subtraction_batch():
                                bounded._ms_rcut, bounded._ms_kmax_list)
     out = bounded.model.batched_energy_forces(poses, ms_pairs=pairs[:3])
     counts = v2_counts(out["diags"], pairs[3])
-    assert 0 < int(counts[:, 17].min()) <= nheavy
+    assert 0 < int(counts[:, V2.MS_SUBTRACTION_K].min()) <= nheavy
     m = bounded.model
     for b in range(NB):
         m.set_positions(poses[b])
@@ -239,13 +240,13 @@ def test_regrow_v2_is_jax_rule():
     quiet = np.zeros(18, np.int64)
     assert not tsc._regrow_v2(quiet) and not jsc._regrow_v2(quiet)
     c = np.zeros(18, np.int64)
-    c[:7] = np.asarray(tm.caps.caps) // 2
+    c[V2.TREE] = np.asarray(tm.caps.caps) // 2
     c[1] = tm.caps.caps[1] + 5          # an overflowed atomic level
-    c[7:14] = np.asarray(tm.caps_ms.caps) // 3
+    c[V2.MS_TREE] = np.asarray(tm.caps_ms.caps) // 3
     c[9] = tm.caps_ms.caps[2] * 3       # an MS level far past its cap
-    c[14] = tm.cap_ms + 300
-    c[15] = tm.ms_kmax + 7
-    c[16] = tsc._ms_kmax_list + 9
+    c[V2.MS_COUNT] = tm.cap_ms + 300
+    c[V2.MS_TREE_KMAX] = tm.ms_kmax + 7
+    c[V2.MS_CANDIDATE_KMAX] = tsc._ms_kmax_list + 9
     assert tsc._regrow_v2(c) and jsc._regrow_v2(c)
     jm, tm = jsc._model, tsc.model
     assert tm.caps.caps == tuple(jm.caps.caps)
@@ -253,5 +254,5 @@ def test_regrow_v2_is_jax_rule():
     assert tm.caps_ms.caps == tuple(jm.caps_ms.caps)
     assert (tm.cap_ms, tm.ms_kmax, tm.ms_sub_k, tsc._ms_kmax_list) == (
         jm.cap_ms, jm.ms_kmax, jm.ms_sub_k, jsc._ms_kmax_list)
-    assert tm.cap_ms > c[14] and tm.ms_kmax > c[15]
-    assert tsc._ms_kmax_list > c[16]
+    assert tm.cap_ms > c[V2.MS_COUNT] and tm.ms_kmax > c[V2.MS_TREE_KMAX]
+    assert tsc._ms_kmax_list > c[V2.MS_CANDIDATE_KMAX]

@@ -1574,7 +1574,8 @@ def test_batched_v2_on_card_against_each_pose(cuda, v2_systems, nb):
     host candidates) at the capacities the batch grew to: energy to 1e-6
     relative, forces to 1e-5 of max|f|."""
     from openmm_agbnp_plugin_tpu_torch.models.agbnp2_torch import (
-        AGBNP2Model, ms_candidate_pairs, ms_pair_cutoff, v2_counts)
+        AGBNP2Model, ms_candidate_pairs, ms_pair_cutoff)
+    from openmm_agbnp_plugin_tpu_torch.models.capacity import V2, v2_counts
 
     params, pos = v2_systems["fixture264"]
     m = AGBNP2Model(params, device=cuda, dtype=torch.float32, positions=pos)
@@ -1593,7 +1594,7 @@ def test_batched_v2_on_card_against_each_pose(cuda, v2_systems, nb):
     for k in ("born_sums", "gb_pair", "descreening"):
         assert counts[k] == 1, (k, counts)
     c = v2_counts(out["diags"], pairs[3])
-    assert c.shape == (nb, 18) and int(c[:, 16].max()) <= 256
+    assert c.shape == (nb, 18) and int(c[:, V2.MS_CANDIDATE_KMAX].max()) <= 256
     assert out["energy"].shape == (nb,) and out["force"].shape == x.shape
     for b in range(nb):
         m.set_positions(poses[b])

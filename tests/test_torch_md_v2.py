@@ -22,6 +22,7 @@ from openmm_agbnp_plugin_tpu.md.simulation import Simulation as JaxSimulation
 from openmm_agbnp_plugin_tpu.ops import tree as JT
 from openmm_agbnp_plugin_tpu_torch import Simulation, load_dms
 from openmm_agbnp_plugin_tpu_torch.models.agbnp2_torch import AGBNP2Model
+from openmm_agbnp_plugin_tpu_torch.models.capacity import V2
 from openmm_agbnp_plugin_tpu_torch.ops import tree as T
 
 torch.set_num_threads(2)
@@ -86,7 +87,7 @@ def test_v2_force_fn_is_the_model_plus_mm(sim_v2):
         f.abs().max())
     assert counts.shape == (18,) and not sim.overflow_report(
         counts, 0, torch.zeros(7))
-    assert int(counts[14]) > 0  # MS particles made
+    assert int(counts[V2.MS_COUNT]) > 0  # MS particles made
 
 
 def test_v2_window_rescan_and_runs(sim_v2):

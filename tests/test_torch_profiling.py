@@ -18,6 +18,7 @@ import torch
 
 from openmm_agbnp_plugin_tpu_torch import AGBNPForce, ConformerScorer, \
     Simulation, load_dms
+from openmm_agbnp_plugin_tpu_torch.models.capacity import V2
 from openmm_agbnp_plugin_tpu_torch.ops import tree as T
 from openmm_agbnp_plugin_tpu_torch.utils import profiling as PR
 
@@ -32,14 +33,10 @@ EVERY = 2
 SLACK_NS = 50_000
 
 # host reads of one rebuild window of run_md(report_interval=EVERY), site by
-# site: the window's own check, then run_md's check, energies and frame
-WINDOW_READS = {"window.counts": 1, "overflow_report.sibs": 1,
-                "overflow_report.neighbor_max": 1, "overflow_report.wu": 1}
-RUN_MD_READS = {"overflow_report.counts": 1, "overflow_report.sibs": 1,
-                "overflow_report.neighbor_max": 1, "overflow_report.wu": 1,
-                "run_md.energies": 1, "run_md.frame": 1}
-# once a run_md call, after its last window
-CALL_READS = {"run_md.counts_max": 1, "run_md.neighbor_max": 1}
+# site: the window's one read of its diagnostics (whose verdict run_md
+# takes), then run_md's energies and frame
+WINDOW_READS = {"window.diag": 1}
+RUN_MD_READS = {"run_md.energies": 1, "run_md.frame": 1}
 
 
 def _sim():
@@ -96,9 +93,8 @@ def test_spans_nest_with_parent_and_request(md_record):
                 == ["eval.mm", "eval.pairs", "eval.tree", "eval.wu"]
         read = next(s for s in _children(rec, w["id"])
                     if s["name"] == "md.host_read")
-        # overflow_report's own span inside the window's read
-        assert [s["name"] for s in _children(rec, read["id"])] == [
-            "md.host_read"]
+        # the window's one read, with no span of its own inside
+        assert not _children(rec, read["id"])
 
 
 def test_host_reads_of_a_window_site_by_site(md_record):
@@ -113,9 +109,33 @@ def test_host_reads_of_a_window_site_by_site(md_record):
     for _ in range(2):
         want.update(WINDOW_READS)
         want.update(RUN_MD_READS)
-    want.update(CALL_READS)
     assert collections.Counter(c["site"] for c in reads) == want
-    assert sum(want.values()) == 2 * 10 + 2
+    assert sum(want.values()) == 2 * 3
+
+
+def test_replica_window_reads_its_diagnostics_once():
+    """A ReplicaEnsemble window of R = 2 replicas makes one host read of
+    its diagnostics, every replica's at once, in its md.host_read span."""
+    from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble
+
+    ens = ReplicaEnsemble(_sim(), 2)
+    run = ens.make_runner(neighbor_every=EVERY)
+    states = ens.initial_states(jitter=1e-3, seed=4)
+    PR.reset()
+    with PR.record():
+        _, (energies, *diag) = run(states, 2 * EVERY)
+    rec = PR.recorded()
+    PR.reset()
+    assert energies.shape == (2, 2 * EVERY)
+    windows = [s for s in rec["spans"] if s["name"] == "md.window"]
+    assert len(windows) == 2
+    reads = [c for c in rec["counts"] if c["name"] == "host_read"]
+    for w in windows:
+        assert [c["site"] for c in reads
+                if c["request"] == w["request"]] == ["window.diag"]
+        assert collections.Counter(s["name"] for s in _children(
+            rec, w["id"]))["md.host_read"] == 1
+    assert len(reads) == 2
 
 
 def test_tree_rows_are_tree_stats_counts_and_caps(md_record):
@@ -357,11 +377,10 @@ def test_comm_log_is_a_tap_of_the_recorder():
 # --- AGBNP2 (version 2) windows -----------------------------------------
 
 # host reads of one AGBNP2 window of run_md(report_interval=EVERY), site by
-# site: the window's read of its 18-entry vector (the ms.* and ms_tree.*
-# counters ride it), then run_md's check, energies and frame
-V2_WINDOW_READS = {"window.counts": 1}
-V2_RUN_MD_READS = {"overflow_report.counts": 1, "run_md.energies": 1,
-                   "run_md.frame": 1}
+# site: the window's one read of its diagnostics (the ms.* and ms_tree.*
+# counters ride it), then run_md's energies and frame
+V2_WINDOW_READS = {"window.diag": 1}
+V2_RUN_MD_READS = {"run_md.energies": 1, "run_md.frame": 1}
 
 
 @pytest.fixture(scope="module")
@@ -423,9 +442,9 @@ def test_v2_ms_counters_are_the_window_vector(v2_record):
     assert set(got) == {(n, k) for n in names for k in (1, 2)}
     _, (_, counts) = sim._v2_build(sim.positions)
     m2 = sim.agbnp2
-    assert got["ms.particles_valid", 1] == int(counts[14]) > 0
+    assert got["ms.particles_valid", 1] == int(counts[V2.MS_COUNT]) > 0
     assert got["ms.particles_cap", 1] == m2.cap_ms
-    assert got["ms_tree.rows_valid", 1] == int(counts[7:14].sum()) > 0
+    assert got["ms_tree.rows_valid", 1] == int(counts[V2.MS_TREE].sum()) > 0
     assert got["ms_tree.rows_cap", 1] == sum(m2.caps_ms.caps)
     reads = [c for c in rec["counts"] if c["name"] == "host_read"]
     for k in (1, 2):
@@ -435,7 +454,6 @@ def test_v2_ms_counters_are_the_window_vector(v2_record):
     for _ in range(2):
         want.update(V2_WINDOW_READS)
         want.update(V2_RUN_MD_READS)
-    want.update(CALL_READS)
     assert collections.Counter(c["site"] for c in reads) == want
 
 
