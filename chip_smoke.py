@@ -252,13 +252,14 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      kernels' launches and tree.kernel counters a step.
 
 34. one CUDA graph a rebuild window (md/graphs.py): 1li2 and 2clr MD
-     (run_md's runner) and 4 x 2clr replicas (ReplicaEnsemble), each a
-     warm-up window then GRAPH_STEPS timed steps, eager (capturable
-     declined) and graphed in turns (eager, graph, graph, eager) in one
-     process: wall and CUDA-event ms a step, every turn's trajectory,
+     (run_md's runner), 4 x 2clr replicas (ReplicaEnsemble) and 1li2 in
+     AGBNP2 (run_md's runner, window_v2), each a warm-up window then
+     GRAPH_STEPS timed steps, eager (capturable declined) and graphed in
+     turns (eager, graph, graph, eager) in one process: wall and
+     CUDA-event ms a step, the replayed steps, every turn's trajectory,
      energies and diagnostics bitwise the first's and its launch tallies
-     equal; a 1li2 window step run eagerly and captured and replayed
-     under set_sync_debug_mode("error").
+     equal; a 1li2 window step of AGBNP1 and of AGBNP2 run eagerly and
+     captured and replayed under set_sync_debug_mode("error").
 
     python3 chip_smoke.py --only N      (N = 25, 31, 32, 33 or 34)
 
@@ -1614,6 +1615,24 @@ def md_sim(dev, name, **kw):
     return Simulation(d, device=dev, version=1, cutoff=1.0,
                       dtype=torch.float32, skin=0.25,
                       descreen_horizon="cutoff", **kw)
+
+
+def v2_sim(dev, name, grow: bool = True):
+    """The port's Simulation of a system in AGBNP2 in the 1li2-md-v2
+    cell's setting: f32, CutoffNonPeriodic 1 nm, skin 0.25 nm; with grow,
+    its capacities grown by one run_md window first (JAX's MS-tree
+    neighbor width, 64, is short for 1li2), as the cell's warm-up grows
+    them."""
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch import Simulation
+
+    d, _ = system(name)
+    sim = Simulation(d, device=dev, version=2, cutoff=1.0,
+                     dtype=torch.float32, skin=0.25)
+    if grow:
+        sim.run_md(NEIGHBOR_EVERY, neighbor_every=NEIGHBOR_EVERY)
+    return sim
 
 
 def run_md(dev, card, name, steps, label, sim=None, bench=None, **kw):
@@ -4936,7 +4955,8 @@ def log_phase_times():
 
 GRAPH_STEPS = 160       # [34] timed steps a turn (four rebuild windows)
 GRAPH_TURNS = ("eager", "graph", "graph", "eager")
-GRAPH_CASES = (("1li2", 1), ("2clr", 1), ("2clr", 4))
+GRAPH_CASES = (("1li2", 1, 1), ("2clr", 1, 1), ("2clr", 4, 1),
+               ("1li2", 1, 2))     # (system, replicas, AGBNP version)
 
 
 @contextlib.contextmanager
@@ -4971,11 +4991,11 @@ def phase_graphs(dev, card):
     """Phase 34: one CUDA graph a rebuild window (md/graphs.py).  For each
     of GRAPH_CASES, a runner's warm-up window and then GRAPH_STEPS timed
     steps from the same start and noise, eager and graphed in turns:
-    wall and CUDA-event ms a step, every turn's results bitwise the first
-    turn's, the launch tallies equal; then one 1li2 window step eagerly
-    and as a captured and replayed graph under set_sync_debug_mode(
-    "error"), bitwise each other.  Returns the graphed turns' launches of
-    the 1li2 case."""
+    wall and CUDA-event ms a step, the replayed steps, every turn's
+    results bitwise the first turn's, the launch tallies equal; then one
+    1li2 window step of AGBNP1 and one of AGBNP2 eagerly and as a captured
+    and replayed graph under set_sync_debug_mode("error"), bitwise each
+    other.  Returns the graphed turns' launches of the 1li2 case."""
     import statistics
 
     import torch
@@ -4991,9 +5011,10 @@ def phase_graphs(dev, card):
 
     log(f"[34] torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
     first_launches = None
-    for name, nrep in GRAPH_CASES:
-        sim = md_sim(dev, name)
+    for name, nrep, version in GRAPH_CASES:
+        sim = md_sim(dev, name) if version == 1 else v2_sim(dev, name)
         label = name if nrep == 1 else f"{nrep} x {name}"
+        label += "" if version == 1 else f" v{version}"
         if nrep == 1:
             run = sim.make_langevin_runner(neighbor_every=NEIGHBOR_EVERY)
 
@@ -5012,6 +5033,7 @@ def phase_graphs(dev, card):
                 return (states[0], states[1], *out), worst_replica(out[1:])
 
         ms = dict(eager=[], graph=[])
+        replayed = {}
         first = None
         for turn in GRAPH_TURNS:
             ctx = eager_windows() if turn == "eager" else \
@@ -5036,6 +5058,7 @@ def phase_graphs(dev, card):
                           if c["name"] == "md.graph_replay")
             want = 0 if turn == "eager" else \
                 GRAPH_STEPS // NEIGHBOR_EVERY * (NEIGHBOR_EVERY - 1)
+            replayed[turn] = replays
             if replays != want:
                 raise AssertionError(f"[34] {label} {turn}: {replays} "
                                      f"replayed steps, expected {want}")
@@ -5060,30 +5083,38 @@ def phase_graphs(dev, card):
         log(f"[34] {label}: ms a step (wall, CUDA events) by turn {turns}; "
             f"median eager {med['eager'][0]:.4f} / graph "
             f"{med['graph'][0]:.4f} wall, "
-            f"x{med['eager'][0] / med['graph'][0]:.3f}; every turn bitwise "
-            f"the first, launches equal; {card}")
-    sim = md_sim(dev, "1li2")
-    ff = sim.ff_state()
-    pos, vel = sim.positions, sim.velocities
-    pairs, topo, vt, _ = sim.window_build(pos[None], ff,
-                                          sim._ensure_vdw_caps())
-    step = langevin_middle_step(
-        sim.force_fn(pairs=pairs, topology=topo, ff=ff, vdw_topology=vt),
-        sim.masses, 0.001, 300.0, 1.0)
-    noise = torch.randn(pos.shape, generator=torch.Generator(device=dev)
-                        .manual_seed(1), dtype=pos.dtype, device=dev)
-    step(pos, vel, noise)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        want = step(pos, vel, noise)
-        got = graphs.StepGraph(step, pos, vel, noise)(noise)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    same_bits(tuple(want[:4]), tuple(got), "[34] the graphed step")
-    log("[34] a 1li2 window step, eager and captured + replayed, ran under "
-        "set_sync_debug_mode('error'): no host sync; bitwise equal")
+            f"x{med['eager'][0] / med['graph'][0]:.3f}; {replayed['graph']} "
+            f"replayed of {GRAPH_STEPS} steps a graphed turn; every turn "
+            f"bitwise the first, launches equal; {card}")
+    for sim, label in ((md_sim(dev, "1li2"), "1li2"),
+                       (v2_sim(dev, "1li2", grow=False), "1li2 v2")):
+        ff = sim.ff_state()
+        pos, vel = sim.positions, sim.velocities
+        if sim.agbnp2 is not None:
+            pairs, topo = sim._v2_build(pos, ff)
+            fn = sim.force_fn(pairs=pairs, topology=topo, ff=ff)
+        else:
+            pairs, topo, vt, _ = sim.window_build(pos[None], ff,
+                                                  sim._ensure_vdw_caps())
+            fn = sim.force_fn(pairs=pairs, topology=topo, ff=ff,
+                              vdw_topology=vt)
+        step = langevin_middle_step(fn, sim.masses, 0.001, 300.0, 1.0)
+        noise = torch.randn(pos.shape, generator=torch.Generator(device=dev)
+                            .manual_seed(1), dtype=pos.dtype, device=dev)
+        step(pos, vel, noise)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            want = step(pos, vel, noise)
+            got = graphs.StepGraph(step, pos, vel, noise)(noise)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        same_bits(tuple(want[:4]), tuple(got), f"[34] the graphed {label} "
+                  "step")
+        log(f"[34] a {label} window step, eager and captured + replayed, "
+            "ran under set_sync_debug_mode('error'): no host sync; bitwise "
+            "equal")
     return first_launches
 
 

@@ -1,11 +1,13 @@
 """One CUDA graph a rebuild window for the plain Langevin step.
 
 Inside a rebuild window of the AGBNP1 runners (Simulation's Langevin
-runner, parallel/ensemble.py::run_window) every shape is fixed by the
-capacities and the window's topology, no step reads the device back, and
-every kernel, PyTorch's and csrc/'s, launches on the current stream.  On
-the card the host's enqueue of the step's ~665 kernels sets the pace, not
-the device (PERF.md §5).  So a window of ninner steps runs as:
+runner, parallel/ensemble.py::run_window) and of AGBNP2's (the Langevin
+runner's window_v2) every shape is fixed by the capacities and the
+window's topology, no step reads the device back or copies from the host,
+and every kernel, PyTorch's and csrc/'s, launches on the current stream.
+On the card the host's enqueue of the step's ~665 kernels (AGBNP2's
+~4,900) sets the pace, not the device (PERF.md §5).  So a window of
+ninner steps runs as:
 
   1. its first step eagerly, as before (lazy set-up; T-REMD's first step
      takes the force window_start evaluated);
@@ -46,11 +48,16 @@ _STREAMS: dict = {}
 
 def capturable(sim, pos, topology, ninner: int) -> bool:
     """Whether a window of ninner plain Langevin steps of sim runs as a
-    captured graph: positions on a card, AGBNP1 on a window topology with
-    the tree kernels' prep (ops/tree.py::kernel_prep), no constraints (the
-    SHAKE fallback reads the host), two steps or more.  The caller rules
-    out MTS, the WU impulse and the atoms mesh, whose steps are not
-    langevin_middle_step's."""
+    captured graph: positions on a card, no constraints (the SHAKE
+    fallback reads the host), two steps or more, and AGBNP1 on a window
+    topology with the tree kernels' prep (ops/tree.py::kernel_prep) or
+    AGBNP2 on a _v2_build topology, which carries its fixed-topology
+    diagnostics (models/agbnp2_torch.py::fixed_topology_diags).  The
+    caller rules out MTS, the WU impulse and the atoms mesh, whose steps
+    are not langevin_middle_step's (AGBNP2's Simulation refuses them)."""
+    if sim.agbnp2 is not None:
+        return (pos.is_cuda and ninner >= 2 and sim.constraints is None
+                and topology is not None and "diags" in topology[0])
     return (pos.is_cuda and ninner >= 2 and sim.agbnp2 is None
             and sim.agbnp.version == 1 and sim.constraints is None
             and topology is not None and "dep_order" in topology[0]["bnd"])

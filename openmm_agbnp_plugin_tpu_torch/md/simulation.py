@@ -21,8 +21,8 @@ sweep, and every MD configuration of the JAX package's benchmark
     PanicButton retry, trajectory frames and exact-resume checkpoints.
 
 The JAX runner's `lax.scan` over the steps of a window is a Python loop
-here; on the card the plain AGBNP1 Langevin step of a window is captured
-once as a CUDA graph and replayed for the rest of the window
+here; on the card the plain Langevin step of an AGBNP1 or AGBNP2 window
+is captured once as a CUDA graph and replayed for the rest of the window
 (md/graphs.py), bitwise the loop.  Per-step overflow counts (tree levels,
 tile lists, WU-compact rows) and the SHAKE residual stay on the device,
 and the host reads them once per window; a window that overflowed (or
@@ -470,7 +470,10 @@ class Simulation:
         compaction at pos ([N, 3], or [R, N, 3] for replicas), from MS
         candidate pairs found on the device.  Returns (ms_pairs,
         (topology, counts)) in force_fn's convention (pairs=, topology=),
-        counts the 18-entry vector (capacity.V2; [R, 18] for replicas)."""
+        counts the 18-entry vector (capacity.V2; [R, 18] for replicas).
+        The topology carries the diagnostics of its fixed-topology steps
+        (agbnp2_torch.fixed_topology_diags): a step copies nothing from the
+        host and counts no rows."""
         a = self.agbnp2.arrays if ff is None else ff["a"]
         with profiling.span("window.build"), torch.no_grad():
             with profiling.span("window.ms_candidates"):
@@ -725,12 +728,14 @@ class Simulation:
             return run_strict
 
         def window_v2(pos, vel, ninner, draw):
-            """One AGBNP2 window: a build, then fixed-topology steps; only
+            """One AGBNP2 window: a build, then fixed-topology steps, one
+            CUDA graph a window where capture is sound (md/graphs.py); only
             the build can overflow, so its counts are the window's."""
             ms_pairs, topo = self._v2_build(pos, ff)
             pos, vel, energies, counts, shake = graphs.window_steps(
                 make_step(ms_pairs, topo), pos, vel, ninner,
-                lambda: step_noise(draw))
+                lambda: step_noise(draw),
+                graphs.capturable(self, pos, topo, ninner))
             return pos, vel, energies, WindowDiag.quiet(counts, shake)
 
         def window(pos, vel, ninner, draw):

@@ -336,6 +336,26 @@ class PairCavity(torch.autograd.Function):
                     None)
 
 
+def fixed_topology_diags(topo, caps: T.TreeCaps, caps_ms: T.TreeCaps,
+                         natoms: int, cap_ms: int):
+    """(diag, ms_diag) of every evaluation on topo, an agbnp2_energy
+    topology of nb replicas: both trees' valid rows per replica against
+    their capacities and the frozen MS count; zero sibling maxima and
+    neighbor and subtraction widths (a rescan builds nothing).  Made once,
+    with the topology, so that a fixed-topology evaluation neither counts
+    rows nor copies capacity rows from the host (the MD window's step is
+    captured as a CUDA graph, md/graphs.py)."""
+    count = topo["ms_count"]
+    nb, dev = count.shape[0], count.device
+    zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
+    zeros7 = torch.zeros((nb, 7), dtype=torch.int64, device=dev)
+    return (dict(counts=T.replica_counts(topo["atoms"], nb, natoms),
+                 max_siblings=zeros7, **T.caps_rows(caps, nb, dev)),
+            dict(counts=T.replica_counts(topo["ms"], nb, cap_ms),
+                 max_siblings=zeros7, **T.caps_rows(caps_ms, nb, dev),
+                 ms_count=count, ms_nbmax=zeros, ms_sub_max=zeros))
+
+
 def _agbnp2_batch(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
                   roffset: float, ms_pi, ms_pj, ms_pv, cap_ms: int,
                   ms_kmax: int, common_gamma: float, pair_phases,
@@ -350,8 +370,6 @@ def _agbnp2_batch(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
     au = union_arrays(a, nb, pairs=topology is None)
     pos_u = pos.reshape(-1, 3)
     gamma_dr = au["gamma"] / roffset
-    zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
-    zeros7 = torch.zeros((nb, 7), dtype=torch.int64, device=dev)
 
     def phase(name):
         # an evaluation's phases; a window's build_only call records as the
@@ -372,8 +390,7 @@ def _agbnp2_batch(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
                 topo_atoms = T.tree_topology(levels)
         else:
             topo_atoms = topology["atoms"]
-            diag = dict(counts=T.replica_counts(topo_atoms, nb, n),
-                        max_siblings=zeros7, **T.caps_rows(caps, nb, dev))
+            diag = topology["diags"][0]
         lvl1_args = (au["radii_large"], au["vol_large"], au["radii_vdw"],
                      au["vol_vdw"], gamma_dr, au["ishydrogen"])
         e_vol1, e_vol2, sv_large, sv_vdw = _AtomicCavity.apply(
@@ -389,8 +406,7 @@ def _agbnp2_batch(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
                           else topology["ms_idx"],
                           count=None if topology is None
                           else topology["ms_count"])
-        nbr = None
-        ms_sub_max = zeros
+        nbr, ms_sub_max = None, None
         if topology is not None:
             nbr = topology["ms_nbr"]
         elif ms_sub_k > 0:
@@ -427,17 +443,19 @@ def _agbnp2_batch(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
             # MS-capacity overflow channels ride the diagnostics for the MD
             # PanicButton: the particle count against cap_ms, the MS-tree
             # neighbor list, the subtraction lists (each [B])
+            if ms_sub_max is None:
+                ms_sub_max = torch.zeros(nb, dtype=torch.int64, device=dev)
             mdiag = {**mdiag, "ms_count": ms["count"], "ms_nbmax": m_nbmax,
                      "ms_sub_max": ms_sub_max}
+            topo = dict(atoms=topo_atoms, ms=topo_ms, ms_idx=ms["idx"],
+                        ms_count=ms["count"], ms_nbr=nbr)
+            if with_topology or build_only:
+                topo["diags"] = fixed_topology_diags(topo, caps, caps_ms, n,
+                                                     cap_ms)
         else:
+            topo = topology
             topo_ms = topology["ms"]
-            mdiag = dict(counts=T.replica_counts(topo_ms, nb, cap_ms),
-                         max_siblings=zeros7,
-                         **T.caps_rows(caps_ms, nb, dev),
-                         ms_count=ms["count"], ms_nbmax=zeros,
-                         ms_sub_max=zeros)
-        topo = dict(atoms=topo_atoms, ms=topo_ms, ms_idx=ms["idx"],
-                    ms_count=ms["count"], ms_nbr=nbr)
+            mdiag = topology["diags"][1]
         if build_only:
             return (diag, mdiag), topo
         e_ms_vdw, e_ms_large, sv_ms = _MSCavity.apply(
@@ -489,7 +507,8 @@ def agbnp2_energy(a: dict, pos, caps: T.TreeCaps, caps_ms: T.TreeCaps,
     fixed-topology rescans and reuses the frozen MS compaction and
     subtraction lists: the stale-topology MD window (volumes exact at the
     current positions, node sets from the build).  The candidates must
-    then be the ones the topology was built from.
+    then be the ones the topology was built from, and the diagnostics are
+    the ones the topology carries (fixed_topology_diags).
 
     Returns (energy, (diag, ms_diag), details), plus the topology with
     with_topology=True.  build_only=True returns ((diag, ms_diag),

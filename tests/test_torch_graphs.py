@@ -1,12 +1,15 @@
 """One CUDA graph a rebuild window (md/graphs.py): where it engages, what a
 window carries for it, and that a graphed window is the eager one.
 
-CPU tests: the graph declines off the card and off the plain AGBNP1
-Langevin step, a window's topology carries its capacity rows, and, with
-a stand-in graph that records the captured step and runs it again at each
-replay, the window loop's energies, counts and launch tallies.  The
-`cuda` tests hold graphed windows bitwise to eager ones on the card
-(eager: `capturable` patched to decline) and run them with
+CPU tests: the graph declines off the card and off the plain Langevin
+step of AGBNP1's and AGBNP2's windows, a window's topology carries its
+capacity rows (AGBNP2's: its steps' diagnostics, so that a step reads
+nothing back and copies nothing from the host), and, with a stand-in
+graph that records the captured step and runs it again at each replay,
+the window loop's energies, counts and launch tallies.  The `cuda` tests
+hold graphed windows bitwise to eager ones on the card (eager:
+`capturable` patched to decline), eager AGBNP2 windows to each other, and
+run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_graphs.py
 """
@@ -18,6 +21,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble, Simulation, \
     TemperatureREMD, load_dms
@@ -74,13 +78,40 @@ def test_capturable_on_the_plain_agbnp1_window_only(trpcage):
     # no window topology, or one without the tree kernels' prep
     assert not graphs.capturable(sim, ON_CARD, None, 40)
     assert not graphs.capturable(sim, ON_CARD, bare, 40)
-    # AGBNP2, version 0, constraints
+    # AGBNP2 on this window topology (not a _v2_build one), version 0,
+    # constraints
     assert not graphs.capturable(_stand_in(agbnp2=object()), ON_CARD, topo,
                                  40)
     assert not graphs.capturable(_stand_in(version=0), ON_CARD, topo, 40)
     assert not graphs.capturable(_stand_in(constraints=object()), ON_CARD,
                                  topo, 40)
     assert graphs.capturable(_stand_in(), ON_CARD, topo, 40)
+
+
+@pytest.fixture(scope="module")
+def sim_v2(trpcage):
+    return Simulation(trpcage, device="cpu", version=2, dtype=torch.float64)
+
+
+def test_capturable_on_the_agbnp2_window(sim_v2):
+    sim = sim_v2
+    pos = sim.positions
+    _, topo = sim._v2_build(pos)
+    assert graphs.capturable(sim, ON_CARD, topo, 40)
+    assert not graphs.capturable(sim, pos, topo, 40)
+    assert not graphs.capturable(sim, ON_CARD, topo, 1)
+    assert not graphs.capturable(sim, ON_CARD, None, 40)
+    # a topology without its fixed-topology diagnostics
+    bare = ({k: v for k, v in topo[0].items() if k != "diags"}, topo[1])
+    assert not graphs.capturable(sim, ON_CARD, bare, 40)
+    assert not graphs.capturable(_stand_in(agbnp2=object(),
+                                           constraints=object()),
+                                 ON_CARD, topo, 40)
+    assert graphs.capturable(_stand_in(agbnp2=object()), ON_CARD, topo, 40)
+    # MTS: AGBNP2's runner refuses it before a window
+    with pytest.raises(ValueError, match="MTS"):
+        sim.make_langevin_runner(mts_inner=2)(
+            pos, sim.velocities, 2, generator=torch.Generator().manual_seed(0))
 
 
 @pytest.fixture
@@ -107,10 +138,15 @@ def spy(monkeypatch):
     (dict(wu_every=2), []),
     (dict(rebuild_topology=False), [False, False, False]),
     (dict(constraints=True), [False, False, False]),
+    (dict(version=2), [True, True, False]),
+    (dict(version=2, constraints=True), [False, False, False]),
 ])
 def test_runner_graphs_only_the_plain_step(trpcage, spy, opts, want):
     cons = opts.pop("constraints", False)
-    sim = _sim(trpcage, constraints=cons)
+    version = opts.pop("version", 1)
+    sim = (_sim(trpcage, constraints=cons) if version == 1 else
+           Simulation(trpcage, device="cpu", version=2, dtype=torch.float64,
+                      constraints=cons))
     run = sim.make_langevin_runner(neighbor_every=EVERY, **opts)
     # two whole windows and a 1-step remainder window
     run(sim.positions, sim.velocities, 2 * EVERY + 1,
@@ -174,6 +210,59 @@ def test_window_caps_rows_are_caps_rows(trpcage, nrep):
             assert torch.equal(got[k], v), k
     # the compacted WU topology and a bare one carry none
     assert "caps_rows" not in vt[0]["bnd"]
+
+
+class _HostTraffic(TorchDispatchMode):
+    """The ops that read a value to the host or make a tensor from host
+    data: on a card a sync or a copy from the host, which a CUDA graph's
+    capture refuses."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten._local_scalar_dense.default,
+                    torch.ops.aten.lift_fresh.default):
+            self.seen.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_v2_window_carries_its_step_diagnostics(sim_v2, monkeypatch):
+    sim, m2 = sim_v2, sim_v2.agbnp2
+    ff = sim.ff_state()
+    pos, vel = sim.positions, sim.velocities
+    ms_pairs, (topo, counts) = sim._v2_build(pos, ff)
+    d0, d1 = topo["diags"]
+    # the fixed-topology steps' diagnostics: the valid rows, the caps rows,
+    # the frozen MS count, zeros for what a rescan does not build
+    want = ((topo["atoms"], pos.shape[0], m2.caps, d0),
+            (topo["ms"], m2.cap_ms, m2.caps_ms, d1))
+    for levels, natoms, caps, d in want:
+        assert torch.equal(d["counts"], T.replica_counts(levels, 1, natoms))
+        for k, v in T.caps_rows(caps, 1, pos.device).items():
+            assert torch.equal(d[k], v), k
+        assert not d["max_siblings"].any()
+    assert d1["ms_count"] is topo["ms_count"]
+    assert not d1["ms_nbmax"].any() and not d1["ms_sub_max"].any()
+    step = langevin_middle_step(
+        sim.force_fn(pairs=ms_pairs, topology=(topo, counts), ff=ff),
+        sim.masses, 0.001, 300.0, 1.0)
+    noise = torch.randn(pos.shape, dtype=pos.dtype,
+                        generator=torch.Generator().manual_seed(1))
+    want = step(pos, vel, noise)
+
+    def refused(*args, **kw):
+        raise AssertionError("a fixed-topology step made diagnostics")
+
+    monkeypatch.setattr(T, "caps_rows", refused)
+    monkeypatch.setattr(T, "replica_counts", refused)
+    with _HostTraffic() as seen:
+        got = step(pos, vel, noise)
+    assert seen.seen == []
+    for x, y in zip(want[:4], got[:4]):
+        assert torch.equal(x, y)
+    assert got[3] is counts
 
 
 # --- the window loop with a stand-in graph -----------------------------------
@@ -288,6 +377,62 @@ def test_replayed_window_is_the_eager_window(tape, ninner):
     assert cap["parent"] == steps[1]["id"]
 
 
+def _taped(step):
+    """step for the stand-in graph: inside a capture it records a call of
+    itself on the static tensors and returns them with output buffers;
+    each replay makes that call and writes its results into them, as a
+    graph's kernels write their fixed outputs."""
+    def run(pos, vel, noise):
+        if _Tape.capturing is None:
+            return step(pos, vel, noise)
+        _, _, e, c, _ = step(pos.clone(), vel.clone(), torch.zeros_like(noise))
+        e, c = torch.empty_like(e), torch.empty_like(c)
+
+        def replay():
+            p, v, e_new, c_new, _ = step(pos, vel, noise)
+            for out, x in ((pos, p), (vel, v), (e, e_new), (c, c_new)):
+                out.copy_(x)
+
+        _Tape.capturing.ops.append(replay)
+        return pos, vel, e, c, None
+
+    return run
+
+
+def test_replayed_v2_window_is_the_eager_window(sim_v2, tape, monkeypatch):
+    sim = sim_v2
+    real_steps, real_cap = graphs.window_steps, graphs.capturable
+    monkeypatch.setattr(graphs, "window_steps",
+                        lambda step, *a: real_steps(_taped(step), *a))
+
+    def windows(graph):
+        # two whole 3-step windows and a 1-step remainder window
+        monkeypatch.setattr(graphs, "capturable", lambda s, pos, topo, n:
+                            graph and real_cap(s, ON_CARD, topo, n))
+        run = sim.make_langevin_runner(neighbor_every=3)
+        PK.reset_launch_counts()
+        PR.reset()
+        with PR.record():
+            out = run(sim.positions, sim.velocities, 7,
+                      generator=torch.Generator().manual_seed(0))
+        rec = PR.recorded()
+        PR.reset()
+        return out, PK.launch_counts(), rec
+
+    (p0, v0, e0, d0), n0, r0 = windows(False)
+    (p1, v1, e1, d1), n1, r1 = windows(True)
+    assert torch.equal(p0, p1) and torch.equal(v0, v1)
+    assert torch.equal(e0, e1) and len(set(e1.tolist())) == 7
+    for x, y in zip(d0, d1):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert not sim.overflow_report(*d1)
+    assert n1 == n0
+    assert (_counts(r0, "md.graph_capture"), _counts(r0, "md.graph_replay")) \
+        == (0, 0)
+    assert (_counts(r1, "md.graph_capture"), _counts(r1, "md.graph_replay")) \
+        == (2, 4)
+
+
 def test_a_graph_keeps_its_pool_for_the_next(tape):
     _toy_window(True, 3)
     pool, first = graphs._POOLS[None]
@@ -350,11 +495,21 @@ def cuda():
 NE = 40  # the benchmark's rebuild window
 
 
-def _card_sim(dev, name, **kw):
+def _card_sim(dev, name, version=1, **kw):
     return Simulation(load_dms(os.path.join(DATA, f"{name}_agbnp1.dms")),
                       device=dev, dtype=torch.float32, skin=0.25,
-                      descreen_horizon="cutoff", version=1, cutoff=1.0,
+                      descreen_horizon="cutoff", version=version, cutoff=1.0,
                       **kw)
+
+
+@pytest.fixture(scope="module")
+def v2_1li2(cuda):
+    """1li2 in AGBNP2 with its capacities grown by one run_md window (JAX's
+    MS-tree neighbor width, 64, is short for 1li2), as the benchmark's
+    warm-up grows them."""
+    sim = _card_sim(cuda, "1li2", version=2)
+    sim.run_md(NE, neighbor_every=NE)
+    return sim
 
 
 @contextlib.contextmanager
@@ -426,6 +581,42 @@ def test_graphed_windows_are_the_eager_windows(cuda, name, kw):
 
 
 @pytest.mark.cuda
+def test_eager_v2_windows_repeat_bitwise(v2_1li2):
+    # what holds a graphed AGBNP2 window to the eager one bit for bit
+    sim = v2_1li2
+    run = sim.make_langevin_runner(neighbor_every=NE)
+
+    def window():
+        return run(sim.positions, sim.velocities, NE,
+                   generator=torch.Generator(device=sim.device)
+                   .manual_seed(7))
+
+    with _eager():
+        first = window()
+        again = window()
+    _same(first, again)
+
+
+@pytest.mark.cuda
+def test_graphed_v2_windows_are_the_eager_windows(v2_1li2):
+    sim = v2_1li2
+    run = sim.make_langevin_runner(neighbor_every=NE)
+
+    def windows():
+        # two whole windows and a 1-step remainder window (no capture)
+        return run(sim.positions, sim.velocities, 2 * NE + 1,
+                   generator=torch.Generator(device=sim.device)
+                   .manual_seed(7))
+
+    r0, r1, n0, n1, g1 = _both(windows)
+    _same(r0, r1)
+    assert bool(torch.isfinite(r1[2]).all())
+    assert not sim.overflow_report(*r1[3])
+    assert n1 == n0 and n0["take_rows"] > 0 and n0["born_sums"] > 0
+    assert g1 == (2, 2 * (NE - 1))
+
+
+@pytest.mark.cuda
 def test_graphed_ensemble_is_the_eager_ensemble(cuda):
     sim = _card_sim(cuda, "2clr")
     ens = ReplicaEnsemble(sim, 4)
@@ -459,9 +650,11 @@ def test_graphed_remd_is_the_eager_remd(cuda):
 
 
 @pytest.mark.cuda
-def test_graphed_run_md_regrow_is_the_eager_one(cuda):
-    # capacities at the DMS state's own counts: a window overflows and
-    # run_md regrows and reruns it; the graphs follow the new caps
+@pytest.mark.parametrize("version", [1, 2])
+def test_graphed_run_md_regrow_is_the_eager_one(cuda, version):
+    # capacities at the DMS state's own counts (AGBNP2: the MS-tree
+    # neighbor width sized short): a window overflows and run_md regrows
+    # and reruns it; the graphs follow the new caps
     def md(sim):
         out = sim.run_md(4 * NE, neighbor_every=NE, report_interval=NE,
                          generator=torch.Generator(device=cuda)
@@ -471,10 +664,10 @@ def test_graphed_run_md_regrow_is_the_eager_one(cuda):
                                     "tree_counts_max")}
 
     with _eager():
-        r0 = md(_card_sim(cuda, "1li2", caps_boost=1.0))
+        r0 = md(_card_sim(cuda, "1li2", version, caps_boost=1.0))
     PR.reset()
     with PR.record():
-        r1 = md(_card_sim(cuda, "1li2", caps_boost=1.0))
+        r1 = md(_card_sim(cuda, "1li2", version, caps_boost=1.0))
     rec = PR.recorded()
     PR.reset()
     assert r0["regrows"] >= 1
@@ -482,16 +675,28 @@ def test_graphed_run_md_regrow_is_the_eager_one(cuda):
     assert _counts(rec, "md.graph_capture") == 4 + r1["regrows"]
 
 
-@pytest.mark.cuda
-def test_graphed_step_makes_no_host_sync(cuda):
-    sim = _card_sim(cuda, "1li2")
+def _window_step(sim):
+    """The plain Langevin step of a window from sim's positions: AGBNP1 on
+    window_build's topologies, AGBNP2 on _v2_build's."""
     ff = sim.ff_state()
+    pos = sim.positions
+    if sim.agbnp2 is not None:
+        pairs, topo = sim._v2_build(pos, ff)
+        fn = sim.force_fn(pairs=pairs, topology=topo, ff=ff)
+    else:
+        pairs, topo, vt, _ = sim.window_build(pos[None], ff,
+                                              sim._ensure_vdw_caps())
+        fn = sim.force_fn(pairs=pairs, topology=topo, ff=ff,
+                          vdw_topology=vt)
+    return langevin_middle_step(fn, sim.masses, 0.001, 300.0, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2])
+def test_graphed_step_makes_no_host_sync(cuda, version):
+    sim = _card_sim(cuda, "1li2", version)
     pos, vel = sim.positions, sim.velocities
-    pairs, topo, vt, _ = sim.window_build(pos[None], ff,
-                                          sim._ensure_vdw_caps())
-    step = langevin_middle_step(
-        sim.force_fn(pairs=pairs, topology=topo, ff=ff, vdw_topology=vt),
-        sim.masses, 0.001, 300.0, 1.0)
+    step = _window_step(sim)
     noise = torch.randn(pos.shape, generator=torch.Generator(device=cuda)
                         .manual_seed(1), dtype=pos.dtype, device=cuda)
     step(pos, vel, noise)
