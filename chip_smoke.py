@@ -72,7 +72,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
   8. bench.py's headline configuration on 1li2 (mts_wu4: the WU pass as
      an r-RESPA impulse every 4 steps, vdW-compact, tile lists): the
      compacted WU force against the full pass at a window start, a window
-     of k=1 impulse blocks against the plain fused step, then 200 timed
+     of k=1 impulse steps against the plain fused step, then 200 timed
      steps after an equal warm-up with the checks of 6-7;
   9. bench.py's mts4fs_constraints configuration on 1li2 (4 fs outer
      step, 2 bonded substeps, SHAKE/RATTLE, rebuilds every 10 outer
@@ -252,8 +252,10 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      kernels' launches and tree.kernel counters a step.
 
 34. one CUDA graph a rebuild window (md/graphs.py): 1li2 and 2clr MD
-     (run_md's runner), 4 x 2clr replicas (ReplicaEnsemble) and 1li2 in
-     AGBNP2 (run_md's runner, window_v2), each a warm-up window then
+     (run_md's runner), 4 x 2clr replicas (ReplicaEnsemble), 1li2 in
+     AGBNP2 (run_md's runner, window_v2) and 1li2 with the WU impulse
+     every 4 steps (wu4: two graphs a window, replayed in turns), each a
+     warm-up window then
      GRAPH_STEPS timed steps, eager (capturable declined) and graphed in
      turns (eager, graph, graph, eager) in one process: wall and
      CUDA-event ms a step, the replayed steps, every turn's trajectory,
@@ -1761,7 +1763,7 @@ def phase_mts_wu4(dev, card):
     import torch
 
     from openmm_agbnp_plugin_tpu_torch.md.integrators import (
-        langevin_middle_step, wu_impulse_langevin_block)
+        langevin_middle_step, wu_impulse_langevin_steps)
 
     sim = md_sim(dev, "1li2")
     pos0, vel0 = sim.positions, sim.velocities
@@ -1779,27 +1781,27 @@ def phase_mts_wu4(dev, card):
     if not rel <= KERNEL_TOL:
         raise AssertionError(f"compacted WU force differs: {rel:.3e}")
 
-    # one window of WU impulse blocks with k=1 against the plain fused
+    # one window of WU impulse steps with k=1 against the plain fused
     # step, on the same noise
     gen = torch.Generator(device=dev).manual_seed(1)
     noise = [torch.randn(pos0.shape, generator=gen, dtype=pos0.dtype,
                          device=dev) for _ in range(NEIGHBOR_EVERY)]
     args = (sim.masses, 0.001, 300.0, 1.0)
     plain = langevin_middle_step(sim.force_fn(vdw_topology=vt, **mk), *args)
-    block = wu_impulse_langevin_block(
+    [impulse] = wu_impulse_langevin_steps(
         sim.force_fn(wu_mode="split", vdw_topology=vt, **mk),
-        sim.force_fn(wu_mode="skip", vdw_topology=vt, **mk), *args, 1)
+        sim.force_fn(wu_mode="skip", vdw_topology=vt, **mk), *args, 1)(1)
     p0, v0, p1, v1 = pos0, vel0, pos0, vel0
     for xi in noise:
         p0, v0, *_ = plain(p0, v0, xi)
-        p1, v1, *_ = block(p1, v1, [xi])
+        p1, v1, *_ = impulse(p1, v1, xi)
     rel_p, _ = rel_err(p1, p0)
     rel_v, _ = rel_err(v1, v0)
     bitwise = bool(torch.equal(p0, p1)) and bool(torch.equal(v0, v1))
-    log(f"[8] {NEIGHBOR_EVERY} steps of WU impulse blocks (k=1) vs the plain "
+    log(f"[8] {NEIGHBOR_EVERY} WU impulse steps (k=1) vs the plain "
         f"fused step: pos {rel_p:.3e}, vel {rel_v:.3e}, bitwise {bitwise}")
     if not (rel_p <= KERNEL_TOL and rel_v <= KERNEL_TOL):
-        raise AssertionError("the k=1 WU impulse block left the plain step")
+        raise AssertionError("the k=1 WU impulse step left the plain step")
 
     sim, counts, _ = run_md(dev, card, "1li2", MTS_WU4_STEPS, "[8]",
                             sim=sim, bench=dict(wu_every=4))
@@ -4955,8 +4957,10 @@ def log_phase_times():
 
 GRAPH_STEPS = 160       # [34] timed steps a turn (four rebuild windows)
 GRAPH_TURNS = ("eager", "graph", "graph", "eager")
-GRAPH_CASES = (("1li2", 1, 1), ("2clr", 1, 1), ("2clr", 4, 1),
-               ("1li2", 1, 2))     # (system, replicas, AGBNP version)
+GRAPH_CASES = (("1li2", 1, 1, 1), ("2clr", 1, 1, 1), ("2clr", 4, 1, 1),
+               ("1li2", 1, 2, 1), ("1li2", 1, 1, 4))
+# (system, replicas, AGBNP version, wu_every): the last, the WU impulse
+# every 4 steps, two step kinds a window, each captured once
 
 
 @contextlib.contextmanager
@@ -4991,7 +4995,8 @@ def phase_graphs(dev, card):
     """Phase 34: one CUDA graph a rebuild window (md/graphs.py).  For each
     of GRAPH_CASES, a runner's warm-up window and then GRAPH_STEPS timed
     steps from the same start and noise, eager and graphed in turns:
-    wall and CUDA-event ms a step, the replayed steps, every turn's
+    wall and CUDA-event ms a step, the replayed steps (a window's first
+    step of each step kind eager, its second captured), every turn's
     results bitwise the first turn's, the launch tallies equal; then one
     1li2 window step of AGBNP1 and one of AGBNP2 eagerly and as a captured
     and replayed graph under set_sync_debug_mode("error"), bitwise each
@@ -5011,12 +5016,14 @@ def phase_graphs(dev, card):
 
     log(f"[34] torch {torch.__version__}, CUDA {torch.version.cuda}, {card}")
     first_launches = None
-    for name, nrep, version in GRAPH_CASES:
+    for name, nrep, version, wu in GRAPH_CASES:
         sim = md_sim(dev, name) if version == 1 else v2_sim(dev, name)
         label = name if nrep == 1 else f"{nrep} x {name}"
         label += "" if version == 1 else f" v{version}"
+        label += "" if wu == 1 else f" wu{wu}"
         if nrep == 1:
-            run = sim.make_langevin_runner(neighbor_every=NEIGHBOR_EVERY)
+            run = sim.make_langevin_runner(neighbor_every=NEIGHBOR_EVERY,
+                                           wu_every=wu)
 
             def go(steps, seed):
                 gen = torch.Generator(device=dev).manual_seed(seed)
@@ -5056,8 +5063,9 @@ def phase_graphs(dev, card):
             launches = PK.launch_counts()
             replays = sum(c["n"] for c in rec["counts"]
                           if c["name"] == "md.graph_replay")
+            kinds = 1 if wu == 1 else 2
             want = 0 if turn == "eager" else \
-                GRAPH_STEPS // NEIGHBOR_EVERY * (NEIGHBOR_EVERY - 1)
+                GRAPH_STEPS // NEIGHBOR_EVERY * (NEIGHBOR_EVERY - kinds)
             replayed[turn] = replays
             if replays != want:
                 raise AssertionError(f"[34] {label} {turn}: {replays} "

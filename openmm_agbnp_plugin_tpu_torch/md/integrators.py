@@ -5,7 +5,7 @@ and VerletIntegrator for energy-conservation checks (reference
 example/t4lysozyme_benchmark.py:21, example/test_agbnp.py:58-64).  The
 steps here are the JAX package's (md/integrators.py): middle-scheme
 Langevin (BAOAB family), its r-RESPA variants (the MTS step and the WU
-impulse block) and velocity Verlet, each optionally constrained
+impulse steps) and velocity Verlet, each optionally constrained
 (md/constraints.py: RATTLE after every kick, SHAKE against the pre-drift
 positions plus the implied velocity fix-up after every drift).
 
@@ -25,6 +25,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..utils import profiling
 
 KB = 0.00831446261815324  # kJ/mol/K
 
@@ -172,23 +174,28 @@ def mts_langevin_step(slow_force_fn, fast_force_fn, masses, dt, temp,
     return step
 
 
-def wu_impulse_langevin_block(split_force_fn, skip_force_fn, masses, dt,
+def wu_impulse_langevin_steps(split_force_fn, skip_force_fn, masses, dt,
                               temp, friction, k: int, constraints=None):
-    """k-step middle-Langevin block with the WU self-volume-gradient force
-    applied as an r-RESPA impulse at block start (the `mts_wu` option).
+    """Middle-Langevin steps with the WU self-volume-gradient force applied
+    as an r-RESPA impulse every k steps (the `mts_wu` option).
 
     The WU gamma-rescan force pass differentiates switched self volumes,
     which change on the neighbor-rebuild timescale, so it is an r-RESPA slow
-    class at period k*dt: the first step of the block kicks with
-    force + k*force_wu, the other k-1 steps skip the pass.  With k=1 this is
-    langevin_middle_step with the fused force, bit for bit.
+    class at period k*dt: the first step of each k-step block is the
+    impulse step, which kicks with force + k*force_wu, and the other k-1
+    steps skip the pass.  With k=1 the impulse step is langevin_middle_step
+    with the fused force, bit for bit.
 
     split_force_fn(pos) -> (e, force_without_wu, force_wu, counts)
     skip_force_fn(pos)  -> (e, force_without_wu, counts)
 
-    Returns block(pos, vel, noise [k, N, 3]) -> (pos, vel, energies [k],
-    counts_max, shake).  The energies are exact: the WU pass adds force
-    only.  The whole impulse lands at block start rather than as symmetric
+    Returns schedule(nsteps) -> a list of nsteps steps, each step(pos, vel,
+    noise [N, 3]) -> (pos, vel, energy, counts, shake): blocks of k steps
+    from the first, a remainder block of nsteps % k closing the list (its
+    impulse weighs its own length).  Steps of one kind are one callable,
+    so md/graphs.py captures one graph a kind.  Each impulse step counts
+    md.wu_impulse.  The energies are exact: the WU pass adds force only.
+    The whole impulse lands at block start rather than as symmetric
     half-kicks, so the splitting is not NVE-grade time-symmetric.
     """
     a = math.exp(-friction * dt)
@@ -196,23 +203,34 @@ def wu_impulse_langevin_block(split_force_fn, skip_force_fn, masses, dt,
     inv_m = 1.0 / masses[:, None]
     sigma = torch.sqrt(KB * temp * inv_m)
 
-    def block(pos, vel, noise):
-        es = []
-        counts = None
-        shake = None
-        for i in range(k):
-            if i == 0:
-                e, force, f_wu, c = split_force_fn(pos)
-                force = force + k * f_wu
-            else:
-                e, force, c = skip_force_fn(pos)
-            es.append(e)
-            counts = c if counts is None else torch.maximum(counts, c)
-            pos, vel, shake = _ovrvo(pos, vel, force, noise[i], dt, inv_m,
-                                     a, b, sigma, constraints, shake)
-        return pos, vel, torch.stack(es), counts, shake
+    def impulse(j):
+        def step(pos, vel, noise):
+            e, force, f_wu, c = split_force_fn(pos)
+            profiling.count("md.wu_impulse")
+            pos, vel, shake = _ovrvo(pos, vel, force + j * f_wu, noise, dt,
+                                     inv_m, a, b, sigma, constraints, None)
+            return pos, vel, e, c, shake
 
-    return block
+        return step
+
+    def skip(pos, vel, noise):
+        e, force, c = skip_force_fn(pos)
+        pos, vel, shake = _ovrvo(pos, vel, force, noise, dt, inv_m, a, b,
+                                 sigma, constraints, None)
+        return pos, vel, e, c, shake
+
+    impulses = {}
+
+    def schedule(nsteps: int):
+        out = []
+        for start in range(0, nsteps, k):
+            j = min(k, nsteps - start)
+            if j not in impulses:
+                impulses[j] = impulse(j)
+            out += [impulses[j]] + [skip] * (j - 1)
+        return out
+
+    return schedule
 
 
 def mts_verlet_step(slow_force_fn, fast_force_fn, masses, dt, inner: int,

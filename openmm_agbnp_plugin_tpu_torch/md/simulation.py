@@ -22,8 +22,9 @@ sweep, and every MD configuration of the JAX package's benchmark
 
 The JAX runner's `lax.scan` over the steps of a window is a Python loop
 here; on the card the plain Langevin step of an AGBNP1 or AGBNP2 window
-is captured once as a CUDA graph and replayed for the rest of the window
-(md/graphs.py), bitwise the loop.  Per-step overflow counts (tree levels,
+(and each step kind of an AGBNP1 WU impulse window) is captured once as a
+CUDA graph and replayed for the rest of the window (md/graphs.py),
+bitwise the loop.  Per-step overflow counts (tree levels,
 tile lists, WU-compact rows) and the SHAKE residual stay on the device,
 and the host reads them once per window; a window that overflowed (or
 whose SHAKE missed tolerance) stops the run, and its counts come back for
@@ -92,7 +93,7 @@ from .constraints import Constraints
 from .forces import MMForceField
 from .integrators import langevin_middle_step, maxwell_boltzmann_velocities, \
     mts_langevin_step, running_max, velocity_verlet_step, \
-    wu_impulse_langevin_block
+    wu_impulse_langevin_steps
 from .vsites import project_positions, spread_forces
 
 
@@ -391,7 +392,7 @@ class Simulation:
 
         def agbnp_part(pos):
             # the WU force comes back apart and is added last, so the fused
-            # force is bit for bit what the WU impulse block adds up at k=1
+            # force is bit for bit what the WU impulse step adds up at k=1
             out = energy_forces(a, pos, caps=m.caps, version=m.version,
                                 roffset=m.params.roffset,
                                 ntypes_j=m.ntypes_j, cutoff=m.cutoff,
@@ -752,32 +753,24 @@ class Simulation:
                 pairs, topo, vdw_topo = (pi, pj, pv), None, None
                 z = torch.zeros(7, dtype=torch.int64, device=pos.device)
                 bdiag = WindowDiag(None, nbmax, z, z)
-            energies, counts, shake = [], None, None
             if wu_every > 1:
+                # the WU impulse schedule: an impulse step every wu_every
+                # steps from the window's start, skip steps between
                 mk = dict(pairs=pairs, topology=topo, ff=ff,
                           vdw_topology=vdw_topo)
-                split_fn = self.force_fn(wu_mode="split", **mk)
-                skip_fn = self.force_fn(wu_mode="skip", **mk)
-                nblk, remk = divmod(ninner, wu_every)
-                blocks = {}
-                for k in [wu_every] * nblk + ([remk] if remk else []):
-                    if k not in blocks:
-                        blocks[k] = wu_impulse_langevin_block(
-                            split_fn, skip_fn, masses, dt, temperature,
-                            friction, k, constraints=cons)
-                    with profiling.span("md.step"):
-                        pos, vel, es, c, sh = blocks[k](pos, vel, draw(k))
-                        energies.extend(es.unbind(0))
-                        counts = running_max(counts, c)
-                        shake = running_max(shake, sh)
+                step = wu_impulse_langevin_steps(
+                    self.force_fn(wu_mode="split", **mk),
+                    self.force_fn(wu_mode="skip", **mk), masses, dt,
+                    temperature, friction, wu_every,
+                    constraints=cons)(ninner)
             else:
-                # the plain step: one CUDA graph a window where capture is
-                # sound (md/graphs.py)
-                graph = (not mts_inner and mesh is None
-                         and graphs.capturable(self, pos, topo, ninner))
-                pos, vel, energies, counts, shake = graphs.window_steps(
-                    make_step(pairs, topo, vdw_topo), pos, vel, ninner,
-                    lambda: step_noise(draw), graph)
+                step = make_step(pairs, topo, vdw_topo)
+            # one CUDA graph a window (a step kind) where capture is sound
+            # (md/graphs.py)
+            graph = (not mts_inner and mesh is None
+                     and graphs.capturable(self, pos, topo, ninner))
+            pos, vel, energies, counts, shake = graphs.window_steps(
+                step, pos, vel, ninner, lambda: step_noise(draw), graph)
             return pos, vel, energies, bdiag.merge(
                 WindowDiag(counts, None, None, None, shake))
 
@@ -969,7 +962,7 @@ class Simulation:
                seed=0, neighbor_every: int = 20, segment: int | None = None,
                max_regrow: int = 8, pos=None, vel=None, generator=None,
                mts_inner: int = 0, report_interval: int = 0, reporter=None,
-               checkpoint_path: str | None = None):
+               checkpoint_path: str | None = None, wu_every: int = 1):
         """Langevin MD with automatic PanicButton recovery.
 
         Runs in segments; when a segment overflowed any capacity channel
@@ -994,6 +987,11 @@ class Simulation:
         generator=restore_generator(ck), ...)` (same dt, segment and
         neighbor_every) reproduces the uninterrupted trajectory bitwise.
         `generator` (advanced in place) overrides the seed.
+
+        wu_every > 1 applies the WU force as an r-RESPA impulse every
+        wu_every steps (make_langevin_runner; version 1 rebuild windows
+        without MTS): the blocks restart at every window's start, so
+        retries, frames and resumes see the same trajectory.
         """
         if report_interval:
             if segment is not None and segment != report_interval:
@@ -1014,7 +1012,7 @@ class Simulation:
         def runner():
             return self.make_langevin_runner(
                 dt, temperature, friction, neighbor_every=neighbor_every,
-                mts_inner=mts_inner)
+                mts_inner=mts_inner, wu_every=wu_every)
 
         run = runner()
         if generator is None:
@@ -1057,7 +1055,8 @@ class Simulation:
                                 meta=dict(dt=dt, temperature=temperature,
                                           friction=friction,
                                           neighbor_every=neighbor_every,
-                                          segment=segment, nsteps=nsteps))
+                                          segment=segment, nsteps=nsteps,
+                                          wu_every=wu_every))
             if report_interval:
                 with profiling.span("md.host_read"):
                     frames.append(host_read(pos, "run_md.frame"))

@@ -33,13 +33,15 @@ Spans and counters the package records:
                     set-up (ff_state, the WU-compact caps)
   md.window         a rebuild window (request: the Simulation's window
                     index), in the Langevin and replica runners
-  md.step           one integrator step of a window (a WU-impulse block of
-                    k steps is one)
+  md.step           one integrator step of a window (each step of a WU
+                    impulse window too)
   md.graph_capture  span: the capture of a window's step into a CUDA graph
                     (md/graphs.py), inside that step's md.step; counter:
                     one a capture
   md.graph_replay   counter: one step of a window run as a replay of its
                     graph
+  md.wu_impulse     counter: one WU impulse step (md/integrators.py::
+                    wu_impulse_langevin_steps; a replay counts it again)
   md.host_read      WindowDiag.read (models/capacity.py: a window's one
                     read; worst_replica, overflow_report, _regrow given
                     device tensors), run_md's energies and frames

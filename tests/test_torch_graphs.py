@@ -1,15 +1,16 @@
 """One CUDA graph a rebuild window (md/graphs.py): where it engages, what a
 window carries for it, and that a graphed window is the eager one.
 
-CPU tests: the graph declines off the card and off the plain Langevin
-step of AGBNP1's and AGBNP2's windows, a window's topology carries its
-capacity rows (AGBNP2's: its steps' diagnostics, so that a step reads
-nothing back and copies nothing from the host), and, with a stand-in
-graph that records the captured step and runs it again at each replay,
-the window loop's energies, counts and launch tallies.  The `cuda` tests
-hold graphed windows bitwise to eager ones on the card (eager:
-`capturable` patched to decline), eager AGBNP2 windows to each other, and
-run them with
+CPU tests: the graph declines off the card and off the steps it takes
+(the plain Langevin step of AGBNP1's and AGBNP2's windows, AGBNP1's WU
+impulse schedule), a window's topology carries its capacity rows
+(AGBNP2's: its steps' diagnostics, so that a step reads nothing back and
+copies nothing from the host), and, with a stand-in graph that records
+the captured step and runs it again at each replay, the window loop's
+energies, counts, launch tallies and a WU window's counters step by
+step.  The `cuda` tests hold graphed windows bitwise to eager ones on the
+card (eager: `capturable` patched to decline), eager AGBNP2 windows to
+each other, and run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_graphs.py
 """
@@ -26,7 +27,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble, Simulation, \
     TemperatureREMD, load_dms
 from openmm_agbnp_plugin_tpu_torch.md import graphs
-from openmm_agbnp_plugin_tpu_torch.md.integrators import langevin_middle_step
+from openmm_agbnp_plugin_tpu_torch.md.integrators import \
+    langevin_middle_step, wu_impulse_langevin_steps
 from openmm_agbnp_plugin_tpu_torch.ops import tree as T
 from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
 from openmm_agbnp_plugin_tpu_torch.utils import profiling as PR
@@ -135,7 +137,7 @@ def spy(monkeypatch):
 @pytest.mark.parametrize("opts,want", [
     (dict(), [True, True, False]),
     (dict(mts_inner=2), [False, False, False]),
-    (dict(wu_every=2), []),
+    (dict(wu_every=2), [True, True, False]),
     (dict(rebuild_topology=False), [False, False, False]),
     (dict(constraints=True), [False, False, False]),
     (dict(version=2), [True, True, False]),
@@ -389,7 +391,12 @@ def _taped(step):
         e, c = torch.empty_like(e), torch.empty_like(c)
 
         def replay():
-            p, v, e_new, c_new, _ = step(pos, vel, noise)
+            # a replay runs the captured kernels, not the step's Python: its
+            # counters and launch tallies are the capture's, held
+            launches = dict(PK.LAUNCHES)
+            with PR.hold():
+                p, v, e_new, c_new, _ = step(pos, vel, noise)
+            PK.LAUNCHES.update(launches)
             for out, x in ((pos, p), (vel, v), (e, e_new), (c, c_new)):
                 out.copy_(x)
 
@@ -431,6 +438,71 @@ def test_replayed_v2_window_is_the_eager_window(sim_v2, tape, monkeypatch):
         == (0, 0)
     assert (_counts(r1, "md.graph_capture"), _counts(r1, "md.graph_replay")) \
         == (2, 4)
+
+
+def _taped_schedule(step):
+    """_taped for window_steps' step: a step, or a schedule of them whose
+    steps of one kind stay one callable."""
+    if not isinstance(step, list):
+        return _taped(step)
+    kinds = {}
+    for st in step:
+        if st not in kinds:
+            kinds[st] = _taped(st)
+    return [kinds[st] for st in step]
+
+
+def test_replayed_wu_window_is_the_eager_window(trpcage, tape, monkeypatch):
+    """The WU impulse schedule (wu_every=2) in 6-step windows and a 3-step
+    remainder window: a step kind's first step eager, its second captured,
+    the rest replayed, the two kinds' graphs in turns; one md.step span a
+    step, an md.wu_impulse counter an impulse step, replayed or not."""
+    sim = _sim(trpcage)
+    real_steps, real_cap = graphs.window_steps, graphs.capturable
+    monkeypatch.setattr(graphs, "window_steps", lambda step, *a:
+                        real_steps(_taped_schedule(step), *a))
+
+    def windows(graph):
+        monkeypatch.setattr(graphs, "capturable", lambda s, pos, topo, n:
+                            graph and real_cap(s, ON_CARD, topo, n))
+        run = sim.make_langevin_runner(neighbor_every=6, wu_every=2)
+        PK.reset_launch_counts()
+        PR.reset()
+        with PR.record():
+            out = run(sim.positions, sim.velocities, 15,
+                      generator=torch.Generator().manual_seed(0))
+        rec = PR.recorded()
+        PR.reset()
+        return out, PK.launch_counts(), rec
+
+    (p0, v0, e0, d0), n0, r0 = windows(False)
+    (p1, v1, e1, d1), n1, r1 = windows(True)
+    assert torch.equal(p0, p1) and torch.equal(v0, v1)
+    assert torch.equal(e0, e1) and len(set(e1.tolist())) == 15
+    for x, y in zip(d0, d1):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert n1 == n0
+    # by step: an impulse every other step from each window's start (the
+    # remainder window's last one of weight 1); the replays from each
+    # 6-step window's third step, none in the 3-step window
+    impulse = [1, 0, 1, 0, 1, 0] * 2 + [1, 0, 1]
+    replay = [0, 0, 1, 1, 1, 1] * 2 + [0, 0, 0]
+    for rec, want_replay in ((r0, [0] * 15), (r1, replay)):
+        steps = [sp for sp in rec["spans"] if sp["name"] == "md.step"]
+        assert len(steps) == 15
+
+        def by_step(name):
+            ids = [sp["id"] for sp in steps]
+            out = [0] * 15
+            for c in rec["counts"]:
+                if c["name"] == name:
+                    out[ids.index(c["span"])] += c["n"]
+            return out
+
+        assert by_step("md.wu_impulse") == impulse
+        assert by_step("md.graph_replay") == want_replay
+    assert _counts(r1, "md.graph_capture") == 4
+    assert _counts(r0, "md.graph_capture") == 0
 
 
 def test_a_graph_keeps_its_pool_for_the_next(tape):
@@ -673,6 +745,85 @@ def test_graphed_run_md_regrow_is_the_eager_one(cuda, version):
     assert r0["regrows"] >= 1
     _same(r0, r1)
     assert _counts(rec, "md.graph_capture") == 4 + r1["regrows"]
+
+
+@pytest.mark.cuda
+def test_graphed_wu_run_md_is_the_eager_one(cuda):
+    """run_md(wu_every=4) over two 40-step windows and a 2-step remainder
+    window (an impulse of weight 2, then a skip step), from capacities at
+    the DMS state's own counts, so that a window overflows and run_md
+    regrows and reruns it: graphed, bitwise the eager run, with the same
+    launch tallies.  A 40-step window captures its impulse and its skip
+    step and replays the two graphs in turns, 38 steps; the 2-step window
+    takes no graph."""
+    def md():
+        sim = _card_sim(cuda, "1li2", caps_boost=1.0)
+        out = sim.run_md(2 * NE + 2, neighbor_every=NE, report_interval=NE,
+                         wu_every=4, generator=torch.Generator(device=cuda)
+                         .manual_seed(3))
+        return {k: out[k] for k in ("final_pos", "final_vel", "energies",
+                                    "frames", "regrows",
+                                    "tree_counts_max")}
+
+    out = []
+    for eager in (True, False):
+        PK.reset_launch_counts()
+        PR.reset()
+        with PR.record(), (_eager() if eager
+                           else contextlib.nullcontext()):
+            res = md()
+            torch.cuda.synchronize()
+        out.append((res, PK.launch_counts(), PR.recorded()))
+    PR.reset()
+    (r0, n0, rec0), (r1, n1, rec) = out
+    assert r1["regrows"] >= 1
+    _same(r0, r1)
+    assert bool(np.isfinite(r1["energies"]).all())
+    assert n1 == n0 and n0["tree_rescan"] > 0
+    windows = [sp["id"] for sp in rec["spans"] if sp["name"] == "md.window"]
+    steps = [sum(sp["parent"] == w and sp["name"] == "md.step"
+                 for sp in rec["spans"]) for w in windows]
+    assert sorted(set(steps)) == [2, NE] and steps[-1] == 2
+    whole = steps.count(NE)
+    assert whole == 2 + r1["regrows"]
+    assert _counts(rec, "md.graph_capture") == 2 * whole
+    assert _counts(rec, "md.graph_replay") == (NE - 2) * whole
+    assert _counts(rec, "md.wu_impulse") == NE // 4 * whole + 1
+    assert _counts(rec0, "md.wu_impulse") == _counts(rec, "md.wu_impulse")
+    assert _counts(rec0, "md.graph_replay") == 0
+
+
+@pytest.mark.cuda
+def test_graphed_wu_window_makes_no_host_sync(cuda):
+    """A 40-step WU impulse window of 1li2 (wu_every=4), eagerly and with
+    its two step kinds captured and replayed in turns, under
+    set_sync_debug_mode("error"): no host sync, and bitwise equal."""
+    sim = _card_sim(cuda, "1li2")
+    ff = sim.ff_state()
+    pos, vel = sim.positions, sim.velocities
+    pairs, topo, vt, _ = sim.window_build(pos[None], ff,
+                                          sim._ensure_vdw_caps())
+    mk = dict(pairs=pairs, topology=topo, ff=ff, vdw_topology=vt)
+    schedule = wu_impulse_langevin_steps(
+        sim.force_fn(wu_mode="split", **mk),
+        sim.force_fn(wu_mode="skip", **mk), sim.masses, 0.001, 300.0, 1.0,
+        4)(NE)
+    assert len(set(schedule)) == 2
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    noise = [torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
+                         device=cuda) for _ in range(NE)]
+    # both kinds' lazy set-up, eagerly
+    graphs.window_steps(schedule[:2], pos, vel, 2, iter(noise).__next__)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager, graphed = (graphs.window_steps(schedule, pos, vel, NE,
+                                              iter(noise).__next__, graph)
+                          for graph in (False, True))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _same(eager, graphed)
 
 
 def _window_step(sim):

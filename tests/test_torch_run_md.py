@@ -121,6 +121,37 @@ def test_run_md_resume_from_checkpoint_is_bitwise(reference_run, tmp_path):
                                   reference_run["energies"][6:])
 
 
+def test_run_md_wu4_resumes_bitwise_and_regrows(tmp_path):
+    """run_md(wu_every=4) on 6-step windows (an impulse of weight 4, then
+    one of weight 2 closing each window): stopped at step 6 with a
+    checkpoint and resumed, bitwise the uninterrupted run; at undersized
+    capacities it regrows and retries onto the same trajectory."""
+    kw = dict(neighbor_every=6, segment=6, seed=3, wu_every=4)
+    whole = _sim().run_md(12, **kw)
+    path = str(tmp_path / "wu4.ckpt.npz")
+    _sim().run_md(6, checkpoint_path=path, **kw)
+    ck = load_checkpoint(path)
+    assert ck["step"] == 6 and ck["meta"]["wu_every"] == 4
+    rest = _sim().run_md(6, pos=ck["positions"], vel=ck["velocities"],
+                         generator=restore_generator(ck), **kw)
+    assert torch.equal(rest["final_pos"], whole["final_pos"])
+    assert torch.equal(rest["final_vel"], whole["final_vel"])
+    np.testing.assert_array_equal(rest["energies"], whole["energies"][6:])
+    sim = _sim(caps=T.TreeCaps(caps=(256, 256, 256, 256, 128, 128, 128),
+                               offs=(8, 8, 8, 8, 4, 4)), kmax=16)
+    sim._vdw_caps = (0.5, (8,) * 7)
+    out = sim.run_md(12, **kw)
+    assert out["regrows"] >= 1 and whole["regrows"] == 0
+    np.testing.assert_allclose(out["final_pos"].numpy(),
+                               whole["final_pos"].numpy(), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(out["energies"], whole["energies"],
+                               rtol=1e-12)
+    # the impulse moved the trajectory off the strict one
+    strict = _sim().run_md(12, **{**kw, "wu_every": 1})
+    assert not torch.equal(strict["final_pos"], whole["final_pos"])
+
+
 def test_run_md_frames_to_dcd(reference_run, tmp_path):
     seen = []
     out = _sim().run_md(12, neighbor_every=3, report_interval=6, seed=3,
