@@ -251,17 +251,21 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      without the kernels' prep) in turns in one process, the tree
      kernels' launches and tree.kernel counters a step.
 
-34. one CUDA graph a rebuild window (md/graphs.py): 1li2 and 2clr MD
-     (run_md's runner), 4 x 2clr replicas (ReplicaEnsemble), 1li2 in
-     AGBNP2 (run_md's runner, window_v2) and 1li2 with the WU impulse
-     every 4 steps (wu4: two graphs a window, replayed in turns), each a
-     warm-up window then
-     GRAPH_STEPS timed steps, eager (capturable declined) and graphed in
-     turns (eager, graph, graph, eager) in one process: wall and
-     CUDA-event ms a step, the replayed steps, every turn's trajectory,
-     energies and diagnostics bitwise the first's and its launch tallies
-     equal; a 1li2 window step of AGBNP1 and of AGBNP2 run eagerly and
-     captured and replayed under set_sync_debug_mode("error").
+34. a runner's CUDA graphs, kept across its rebuild windows
+     (md/graphs.py): 1li2 and 2clr MD (run_md's runner), 4 x 2clr
+     replicas (ReplicaEnsemble), 1li2 in AGBNP2 (run_md's runner,
+     window_v2) and 1li2 with the WU impulse every 4 steps (wu4: two
+     graphs, replayed in turns), each a warm-up window (the graphed
+     turns' first capturing) then GRAPH_STEPS timed steps, eager
+     (capturable declined) and graphed in turns (eager, graph, graph,
+     eager) in one process: wall and CUDA-event ms a step, the replayed
+     steps (all of a graphed turn's), every turn's trajectory, energies
+     and diagnostics bitwise the first's and its launch tallies equal;
+     then 1li2 and 1li2 wu4 over GRAPH_KEEP_WINDOWS windows from a fresh
+     runner, graphs kept against captured anew every window, in turns:
+     ms a step, captures and reuses counted, bitwise; a 1li2 window step
+     of AGBNP1 and of AGBNP2 run eagerly and captured and replayed under
+     set_sync_debug_mode("error").
 
     python3 chip_smoke.py --only N      (N = 25, 31, 32, 33 or 34)
 
@@ -4960,7 +4964,10 @@ GRAPH_TURNS = ("eager", "graph", "graph", "eager")
 GRAPH_CASES = (("1li2", 1, 1, 1), ("2clr", 1, 1, 1), ("2clr", 4, 1, 1),
                ("1li2", 1, 2, 1), ("1li2", 1, 1, 4))
 # (system, replicas, AGBNP version, wu_every): the last, the WU impulse
-# every 4 steps, two step kinds a window, each captured once
+# every 4 steps, two step kinds, each captured once
+GRAPH_KEEP_WINDOWS = 10  # [34] windows a turn of the kept-graph cases
+GRAPH_KEEP_TURNS = ("anew", "kept", "kept", "anew")
+GRAPH_KEEP_CASES = (("1li2", 1), ("1li2", 4))  # (system, wu_every)
 
 
 @contextlib.contextmanager
@@ -4975,6 +4982,26 @@ def eager_windows():
         yield
     finally:
         graphs.capturable = real
+
+
+@contextlib.contextmanager
+def capture_every_window():
+    """A runner's windows capture their graphs anew, one capture a step
+    kind a window, as before the graphs were kept across windows
+    (md/graphs.py's WindowGraphs forgets its slots at every window)."""
+    from openmm_agbnp_plugin_tpu_torch.md import graphs
+
+    real = graphs.WindowGraphs.bind
+
+    def bind(self, make, inputs):
+        self.key = None
+        return real(self, make, inputs)
+
+    graphs.WindowGraphs.bind = bind
+    try:
+        yield
+    finally:
+        graphs.WindowGraphs.bind = real
 
 
 def same_bits(x, y, what):
@@ -4992,15 +5019,17 @@ def same_bits(x, y, what):
 
 
 def phase_graphs(dev, card):
-    """Phase 34: one CUDA graph a rebuild window (md/graphs.py).  For each
-    of GRAPH_CASES, a runner's warm-up window and then GRAPH_STEPS timed
-    steps from the same start and noise, eager and graphed in turns:
-    wall and CUDA-event ms a step, the replayed steps (a window's first
-    step of each step kind eager, its second captured), every turn's
-    results bitwise the first turn's, the launch tallies equal; then one
-    1li2 window step of AGBNP1 and one of AGBNP2 eagerly and as a captured
-    and replayed graph under set_sync_debug_mode("error"), bitwise each
-    other.  Returns the graphed turns' launches of the 1li2 case."""
+    """Phase 34: a runner's CUDA graphs, kept across its windows
+    (md/graphs.py).  For each of GRAPH_CASES, a runner's warm-up window
+    and then GRAPH_STEPS timed steps from the same start and noise, eager
+    and graphed in turns: wall and CUDA-event ms a step, the replayed
+    steps (every timed step of a graphed turn: the first graphed turn's
+    warm-up window captured the graphs), every turn's results bitwise the
+    first turn's, the launch tallies equal; for each of GRAPH_KEEP_CASES,
+    phase_kept_graphs; then one 1li2 window step of AGBNP1 and one of
+    AGBNP2 eagerly and as a captured and replayed graph under
+    set_sync_debug_mode("error"), bitwise each other.  Returns the
+    graphed turns' launches of the 1li2 case."""
     import statistics
 
     import torch
@@ -5063,9 +5092,7 @@ def phase_graphs(dev, card):
             launches = PK.launch_counts()
             replays = sum(c["n"] for c in rec["counts"]
                           if c["name"] == "md.graph_replay")
-            kinds = 1 if wu == 1 else 2
-            want = 0 if turn == "eager" else \
-                GRAPH_STEPS // NEIGHBOR_EVERY * (NEIGHBOR_EVERY - kinds)
+            want = 0 if turn == "eager" else GRAPH_STEPS
             replayed[turn] = replays
             if replays != want:
                 raise AssertionError(f"[34] {label} {turn}: {replays} "
@@ -5094,6 +5121,8 @@ def phase_graphs(dev, card):
             f"x{med['eager'][0] / med['graph'][0]:.3f}; {replayed['graph']} "
             f"replayed of {GRAPH_STEPS} steps a graphed turn; every turn "
             f"bitwise the first, launches equal; {card}")
+    for name, wu in GRAPH_KEEP_CASES:
+        phase_kept_graphs(dev, card, name, wu)
     for sim, label in ((md_sim(dev, "1li2"), "1li2"),
                        (v2_sim(dev, "1li2", grow=False), "1li2 v2")):
         ff = sim.ff_state()
@@ -5124,6 +5153,75 @@ def phase_graphs(dev, card):
             "ran under set_sync_debug_mode('error'): no host sync; bitwise "
             "equal")
     return first_launches
+
+
+def phase_kept_graphs(dev, card, name, wu):
+    """[34]'s kept-graph case: GRAPH_KEEP_WINDOWS windows of a system
+    (wu_every wu) from its DMS state, after a run_md of the same
+    trajectory that grows its capacities, a fresh runner a turn, the
+    graphs kept across the windows or captured anew every window in
+    turns (GRAPH_KEEP_TURNS): wall and CUDA-event ms a step, the captures
+    (the step kinds once, or every window) and reuses (every window after
+    the first, or none) counted, every turn bitwise the first."""
+    import statistics
+
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.utils import profiling
+
+    sim = md_sim(dev, name)
+    label = name + ("" if wu == 1 else f" wu{wu}")
+    steps = GRAPH_KEEP_WINDOWS * NEIGHBOR_EVERY
+    kinds = 1 if wu == 1 else 2
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(3)
+
+    sim.run_md(steps, neighbor_every=NEIGHBOR_EVERY, wu_every=wu,
+               generator=gen())
+    ms = dict(anew=[], kept=[])
+    first = None
+    for turn in GRAPH_KEEP_TURNS:
+        run = sim.make_langevin_runner(neighbor_every=NEIGHBOR_EVERY,
+                                       wu_every=wu)
+        ctx = capture_every_window() if turn == "anew" else \
+            contextlib.nullcontext()
+        torch.cuda.synchronize()
+        profiling.reset()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with ctx, profiling.record():
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = run(sim.positions, sim.velocities, steps, generator=gen())
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        rec = profiling.recorded()
+        profiling.reset()
+        got = tuple(sum(c["n"] for c in rec["counts"] if c["name"] == k)
+                    for k in ("md.graph_capture", "md.graph_reuse"))
+        want = ((kinds, GRAPH_KEEP_WINDOWS - 1) if turn == "kept"
+                else (kinds * GRAPH_KEEP_WINDOWS, 0))
+        if got != want:
+            raise AssertionError(f"[34] {label} {turn}: captures, reuses "
+                                 f"{got}, expected {want}")
+        report = sim.overflow_report(*out[3])
+        if report:
+            raise AssertionError(f"[34] {label} {turn}: overflow {report}")
+        ms[turn].append((wall, ev[0].elapsed_time(ev[1]) / steps))
+        if first is None:
+            first = out
+        else:
+            same_bits(first, out, f"[34] {label} {turn}")
+    med = {t: statistics.median(w for w, _ in v) for t, v in ms.items()}
+    turns = {t: [(round(w, 4), round(c, 4)) for w, c in v]
+             for t, v in ms.items()}
+    log(f"[34] {label}, {GRAPH_KEEP_WINDOWS} windows of {NEIGHBOR_EVERY} "
+        f"steps from a fresh runner: ms a step (wall, CUDA events) by turn "
+        f"{turns}; median captured anew {med['anew']:.4f} / kept "
+        f"{med['kept']:.4f} wall, x{med['anew'] / med['kept']:.3f}; "
+        f"captures {kinds * GRAPH_KEEP_WINDOWS} / {kinds}, reuses 0 / "
+        f"{GRAPH_KEEP_WINDOWS - 1}; every turn bitwise the first; {card}")
 
 
 def main(argv=None) -> int:

@@ -23,8 +23,9 @@ sweep, and every MD configuration of the JAX package's benchmark
 The JAX runner's `lax.scan` over the steps of a window is a Python loop
 here; on the card the plain Langevin step of an AGBNP1 or AGBNP2 window
 (and each step kind of an AGBNP1 WU impulse window) is captured once as a
-CUDA graph and replayed for the rest of the window (md/graphs.py),
-bitwise the loop.  Per-step overflow counts (tree levels,
+CUDA graph in a runner's first window and replayed for the rest of its
+windows, each window's build copied into the graph's inputs
+(md/graphs.py), bitwise the loop.  Per-step overflow counts (tree levels,
 tile lists, WU-compact rows) and the SHAKE residual stay on the device,
 and the host reads them once per window; a window that overflowed (or
 whose SHAKE missed tolerance) stops the run, and its counts come back for
@@ -721,23 +722,45 @@ class Simulation:
                            noise=None):
                 draw = self._noise_source(pos, generator, noise)
                 pos, vel, energies, counts, shake = graphs.window_steps(
-                    make_step(), pos, vel, nsteps, lambda: step_noise(draw))
+                    lambda _: graphs.every_step(make_step()), (), pos, vel,
+                    nsteps, lambda: step_noise(draw))
                 diag = WindowDiag.quiet(counts, shake)
                 self._run_host = diag.read("window.diag")
                 return pos, vel, torch.stack(energies), diag
 
             return run_strict
 
+        # the runner's CUDA graphs, kept across its windows (md/graphs.py)
+        held = graphs.WindowGraphs()
+
         def window_v2(pos, vel, ninner, draw):
-            """One AGBNP2 window: a build, then fixed-topology steps, one
-            CUDA graph a window where capture is sound (md/graphs.py); only
-            the build can overflow, so its counts are the window's."""
+            """One AGBNP2 window: a build, then fixed-topology steps as
+            replays of the runner's graph where capture is sound
+            (md/graphs.py); only the build can overflow, so its counts are
+            the window's."""
             ms_pairs, topo = self._v2_build(pos, ff)
             pos, vel, energies, counts, shake = graphs.window_steps(
-                make_step(ms_pairs, topo), pos, vel, ninner,
+                lambda b: graphs.every_step(make_step(*b[1:])),
+                (self.agbnp, ms_pairs, topo), pos, vel, ninner,
                 lambda: step_noise(draw),
-                graphs.capturable(self, pos, topo, ninner))
+                held if graphs.capturable(self, pos, topo, ninner) else None)
             return pos, vel, energies, WindowDiag.quiet(counts, shake)
+
+        def schedule(build):
+            """The steps of a window over its build (model, pairs,
+            topology, WU topology); the model leads, so that a regrown one
+            takes new graphs."""
+            _, pairs, topo, vdw_topo = build
+            if wu_every > 1:
+                # the WU impulse schedule: an impulse step every wu_every
+                # steps from the window's start, skip steps between
+                mk = dict(pairs=pairs, topology=topo, ff=ff,
+                          vdw_topology=vdw_topo)
+                return wu_impulse_langevin_steps(
+                    self.force_fn(wu_mode="split", **mk),
+                    self.force_fn(wu_mode="skip", **mk), masses, dt,
+                    temperature, friction, wu_every, constraints=cons)
+            return graphs.every_step(make_step(pairs, topo, vdw_topo))
 
         def window(pos, vel, ninner, draw):
             """One rebuild window: (pos, vel, energies, window diag)."""
@@ -753,24 +776,12 @@ class Simulation:
                 pairs, topo, vdw_topo = (pi, pj, pv), None, None
                 z = torch.zeros(7, dtype=torch.int64, device=pos.device)
                 bdiag = WindowDiag(None, nbmax, z, z)
-            if wu_every > 1:
-                # the WU impulse schedule: an impulse step every wu_every
-                # steps from the window's start, skip steps between
-                mk = dict(pairs=pairs, topology=topo, ff=ff,
-                          vdw_topology=vdw_topo)
-                step = wu_impulse_langevin_steps(
-                    self.force_fn(wu_mode="split", **mk),
-                    self.force_fn(wu_mode="skip", **mk), masses, dt,
-                    temperature, friction, wu_every,
-                    constraints=cons)(ninner)
-            else:
-                step = make_step(pairs, topo, vdw_topo)
-            # one CUDA graph a window (a step kind) where capture is sound
-            # (md/graphs.py)
+            # the runner's graphs (a step kind each) where capture is sound
             graph = (not mts_inner and mesh is None
                      and graphs.capturable(self, pos, topo, ninner))
             pos, vel, energies, counts, shake = graphs.window_steps(
-                step, pos, vel, ninner, lambda: step_noise(draw), graph)
+                schedule, (self.agbnp, pairs, topo, vdw_topo), pos, vel,
+                ninner, lambda: step_noise(draw), held if graph else None)
             return pos, vel, energies, bdiag.merge(
                 WindowDiag(counts, None, None, None, shake))
 

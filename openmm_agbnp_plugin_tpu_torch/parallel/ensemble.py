@@ -8,8 +8,9 @@ lists are built in one pass (ops/neighbors.py), their overlap trees are one
 tree over the disjoint union of their atoms (ops/tree.py, nrep), the pair
 sweeps run the kernels' replica axis (one launch for all replicas), and
 the Langevin step moves [R, N, 3] arrays.  A step of R replicas therefore
-launches about as many kernels as a step of one; on the card a window's
-steps after its first replay one CUDA graph (md/graphs.py).
+launches about as many kernels as a step of one; on the card the steps
+replay one CUDA graph, captured in the runner's first window and kept for
+its later windows, across its run calls (md/graphs.py).
 
 Each replica has its own torch.Generator (seeded seed + r, as the JAX
 package keys replica r with PRNGKey(seed + r)), or the runner takes the
@@ -118,7 +119,7 @@ def window_start(sim, ff, pos, vdw_caps=None, vdw_relax: float = 0.5):
 
 
 def _window_force_fn(sim, ff, build):
-    pairs, topo, vdw_topo, _ = build
+    pairs, topo, vdw_topo = build[:3]
     return sim.force_fn(pairs=pairs, topology=topo, ff=ff,
                         vdw_topology=vdw_topo)
 
@@ -135,27 +136,37 @@ def _replay_first(fn, first):
 
 
 def run_window(sim, ff, pos, vel, ninner, temps, draw, dt, friction,
-               vdw_caps=None, vdw_relax: float = 0.5, start=None):
+               vdw_caps=None, vdw_relax: float = 0.5, start=None,
+               held=None):
     """One rebuild window of ninner Langevin steps for R replicas, replica
     r at bath temperature temps[r].  start: window_start's result at pos,
     whose build and force the window takes instead of computing them
     again (the same values: the build and the evaluation are
-    deterministic).  Returns (pos, vel, energies [ninner] of [R], the
-    window's diagnostics (a WindowDiag: counts [R, C], neighbor_max [R],
-    sibling maxima [R, 7], WU kept rows [R, 7], SHAKE residual [R] or None
-    without constraints), its build (pairs, topology, vdw_topology))."""
+    deterministic).  held: the runner's md.graphs.WindowGraphs, whose
+    graphs the window replays where capture is sound and no start is
+    given (its steps' temperatures must be the runner's); else the window
+    captures graphs of its own.  Returns (pos, vel, energies [ninner] of
+    [R], the window's diagnostics (a WindowDiag: counts [R, C],
+    neighbor_max [R], sibling maxima [R, 7], WU kept rows [R, 7], SHAKE
+    residual [R] or None without constraints), its build (pairs,
+    topology, vdw_topology))."""
     build = (sim.window_build(pos, ff, vdw_caps, vdw_relax)
              if start is None else start[0])
     pairs, topo, vdw_topo, bdiag = build
-    fn = _window_force_fn(sim, ff, build)
-    if start is not None:
-        fn = _replay_first(fn, start[1])
-    step = langevin_middle_step(fn, sim.masses, dt, temps, friction,
-                                constraints=sim.constraints)
-    # one CUDA graph a window where capture is sound (md/graphs.py)
+
+    def schedule(inputs):
+        fn = _window_force_fn(sim, ff, inputs[1:])
+        if start is not None:
+            fn = _replay_first(fn, start[1])
+        return graphs.every_step(langevin_middle_step(
+            fn, sim.masses, dt, temps, friction,
+            constraints=sim.constraints))
+
+    if held is None or start is not None:
+        held = graphs.WindowGraphs()
     pos, vel, energies, counts, shake = graphs.window_steps(
-        step, pos, vel, ninner, draw,
-        graphs.capturable(sim, pos, topo, ninner))
+        schedule, (sim.agbnp, pairs, topo, vdw_topo), pos, vel, ninner,
+        draw, held if graphs.capturable(sim, pos, topo, ninner) else None)
     return (pos, vel, energies, WindowDiag(*bdiag).merge(
         WindowDiag(counts, None, None, None, shake)), (pairs, topo, vdw_topo))
 
@@ -168,8 +179,8 @@ def run_steps(sim, ff, pos, vel, nsteps, temps, draw, dt, friction):
     neighbor, sibling and WU entries, the SHAKE residual)."""
     step = langevin_middle_step(sim.force_fn(ff=ff), sim.masses, dt, temps,
                                 friction, constraints=sim.constraints)
-    pos, vel, energies, counts, shake = graphs.window_steps(step, pos, vel,
-                                                            nsteps, draw)
+    pos, vel, energies, counts, shake = graphs.window_steps(
+        lambda _: graphs.every_step(step), (), pos, vel, nsteps, draw)
     return pos, vel, energies, WindowDiag.quiet(counts, shake)
 
 
@@ -274,6 +285,8 @@ class ReplicaEnsemble:
         with profiling.span("md.runner_setup"):
             vdw_caps = (sim._ensure_vdw_caps(vdw_relax) if vdw_compact
                         else None)
+        # the runner's CUDA graphs, kept across its windows and run calls
+        held = graphs.WindowGraphs()
 
         def run(states, nsteps: int, noise=None):
             pos, vel, gens, draw = states_draw(states, noise)
@@ -283,7 +296,7 @@ class ReplicaEnsemble:
                 with profiling.span("md.window", next(sim._window_ids)):
                     pos, vel, es, wdiag, _ = run_window(
                         sim, ff, pos, vel, ninner, temps, draw, dt, friction,
-                        vdw_caps, vdw_relax)
+                        vdw_caps, vdw_relax, held=held)
                     energies.extend(es)
                     wdiag = gather_diag(mesh, wdiag)
                     diag = wdiag if diag is None else diag.merge(wdiag)

@@ -35,11 +35,14 @@ Spans and counters the package records:
                     index), in the Langevin and replica runners
   md.step           one integrator step of a window (each step of a WU
                     impulse window too)
-  md.graph_capture  span: the capture of a window's step into a CUDA graph
+  md.graph_capture  span: the capture of a step kind into a CUDA graph
                     (md/graphs.py), inside that step's md.step; counter:
-                    one a capture
+                    one a capture (once a step kind a runner)
   md.graph_replay   counter: one step of a window run as a replay of its
                     graph
+  md.graph_reuse    counter: one a window that replays the graphs of an
+                    earlier window of its runner, its build copied into
+                    the graphs' inputs
   md.wu_impulse     counter: one WU impulse step (md/integrators.py::
                     wu_impulse_langevin_steps; a replay counts it again)
   md.host_read      WindowDiag.read (models/capacity.py: a window's one

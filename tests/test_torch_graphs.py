@@ -1,16 +1,20 @@
-"""One CUDA graph a rebuild window (md/graphs.py): where it engages, what a
-window carries for it, and that a graphed window is the eager one.
+"""A runner's CUDA graphs, one a step kind, kept across its rebuild windows
+(md/graphs.py): where they engage, what a window carries for them, and
+that graphed windows are the eager ones.
 
-CPU tests: the graph declines off the card and off the steps it takes
+CPU tests: the graphs decline off the card and off the steps they take
 (the plain Langevin step of AGBNP1's and AGBNP2's windows, AGBNP1's WU
-impulse schedule), a window's topology carries its capacity rows
-(AGBNP2's: its steps' diagnostics, so that a step reads nothing back and
-copies nothing from the host), and, with a stand-in graph that records
-the captured step and runs it again at each replay, the window loop's
-energies, counts, launch tallies and a WU window's counters step by
-step.  The `cuda` tests hold graphed windows bitwise to eager ones on the
-card (eager: `capturable` patched to decline), eager AGBNP2 windows to
-each other, and run them with
+impulse schedule), a runner keeps one set across its windows (T-REMD one a
+window), a window's topology carries its capacity rows (AGBNP2's: its
+steps' diagnostics, so that a step reads nothing back and copies nothing
+from the host), and, with a stand-in graph that records the captured step
+and runs it again at each replay, the window loop's energies, counts,
+launch tallies, captures and reuses and a WU window's counters step by
+step, a build of another layout recaptured, and a window's outputs kept
+apart from the graphs the next window replays.  The `cuda` tests hold
+graphed windows bitwise to eager ones on the card (eager: `capturable`
+patched to decline), eager AGBNP2 windows to each other, and run them
+with
 
     python -m pytest --noconftest -m cuda tests/test_torch_graphs.py
 """
@@ -118,14 +122,15 @@ def test_capturable_on_the_agbnp2_window(sim_v2):
 
 @pytest.fixture
 def spy(monkeypatch):
-    """The `graph` each window_steps call is given, with `capturable`
-    reading the positions as on a card; the steps run eagerly."""
+    """The WindowGraphs each window_steps call is given (None: eager), with
+    `capturable` reading the positions as on a card; the steps run
+    eagerly."""
     seen = []
     real_steps, real_cap = graphs.window_steps, graphs.capturable
 
-    def steps(step, pos, vel, ninner, noise, graph=False):
-        seen.append(graph)
-        return real_steps(step, pos, vel, ninner, noise)
+    def steps(make, inputs, pos, vel, ninner, noise, held=None):
+        seen.append(held)
+        return real_steps(make, inputs, pos, vel, ninner, noise)
 
     monkeypatch.setattr(graphs, "window_steps", steps)
     monkeypatch.setattr(graphs, "capturable",
@@ -153,25 +158,33 @@ def test_runner_graphs_only_the_plain_step(trpcage, spy, opts, want):
     # two whole windows and a 1-step remainder window
     run(sim.positions, sim.velocities, 2 * EVERY + 1,
         generator=torch.Generator().manual_seed(0))
-    assert spy == want
+    assert [h is not None for h in spy] == want
+    # the runner's windows share its graphs
+    assert len({id(h) for h in spy if h is not None}) <= 1
 
 
 def test_replica_runners_graph_their_windows(trpcage, spy):
     sim = _sim(trpcage)
     ens = ReplicaEnsemble(sim, 2)
-    ens.make_runner(neighbor_every=EVERY)(ens.initial_states(jitter=1e-3),
-                                          2 * EVERY + 1)
-    assert spy == [True, True, False]
+    run = ens.make_runner(neighbor_every=EVERY)
+    states = run(ens.initial_states(jitter=1e-3), 2 * EVERY + 1)[0]
+    run(states, EVERY)
+    assert [h is not None for h in spy] == [True, True, False, True]
+    # one set of graphs for the runner, across its run calls
+    assert spy[0] is spy[1] is spy[3]
     spy.clear()
     remd = TemperatureREMD(sim, [300.0, 320.0])
     states, xgen = remd.initial_states(jitter=1e-3)
     remd.make_runner(steps_per_cycle=EVERY, neighbor_every=EVERY)(
         states, xgen, 2)
-    assert spy == [True, True]
+    # a cycle's window takes the force of the cycle before and the rungs'
+    # temperatures: graphs of its own
+    assert [h is not None for h in spy] == [True, True]
+    assert spy[0] is not spy[1]
     spy.clear()
     # the per-step path: its steps run eagerly through the same loop
     ens.make_runner(neighbor_every=0)(ens.initial_states(jitter=1e-3), 2)
-    assert spy == [False]
+    assert spy == [None]
 
 
 def test_off_the_card_no_graph_is_recorded(trpcage):
@@ -300,23 +313,30 @@ def _launch(op):
         op()
 
 
-def _toy_step(pos, vel, noise):
-    """An integrator step that updates pos and vel in place, in two
-    launches, and returns a fresh energy and counts."""
-    e = torch.empty((), dtype=pos.dtype)
-    c = torch.empty(2, dtype=torch.int64)
+def _toy_make(build):
+    """The toy's schedule over a window's build: an integrator step that
+    updates pos and vel in place, in two launches, its kick adding the
+    build's k, and returns a fresh energy and counts."""
+    k = build["k"]
 
-    def kick():
-        vel.mul_(0.5).add_(noise)
+    def step(pos, vel, noise):
+        e = torch.empty((), dtype=pos.dtype)
+        c = torch.empty(3, dtype=torch.int64)
 
-    def drift():
-        pos.add_(0.1 * vel)
-        e.copy_((pos * pos).sum())
-        c.copy_(torch.stack([(pos > 0).sum(), (vel > 0).sum()]))
+        def kick():
+            vel.mul_(0.5).add_(noise).add_(k)
 
-    _launch(kick)
-    _launch(drift)
-    return pos, vel, e, c, None
+        def drift():
+            pos.add_(0.1 * vel)
+            e.copy_((pos * pos).sum())
+            c.copy_(torch.stack([(pos > 0).sum(), (vel > 0).sum(),
+                                 (noise > 1).sum()]))
+
+        _launch(kick)
+        _launch(drift)
+        return pos, vel, e, c, None
+
+    return graphs.every_step(step)
 
 
 @pytest.fixture
@@ -339,21 +359,43 @@ def tape(monkeypatch):
     monkeypatch.setattr(graphs, "_STREAMS", {})
 
 
-def _toy_window(graph, ninner):
+def _toy_run(held, ks, ninner):
+    """Windows of ninner toy steps, one a build k in ks, through
+    window_steps with held (a WindowGraphs; None: eagerly), each an
+    md.window span.  Returns each window's returned (pos, vel, energies,
+    counts), their copies taken as the window returned, the launch
+    tallies and the record."""
     gen = torch.Generator().manual_seed(3)
     pos = torch.randn(5, 3, generator=gen, dtype=torch.float64)
     vel = torch.zeros_like(pos)
-    noise = [torch.randn(5, 3, generator=gen, dtype=torch.float64)
-             for _ in range(ninner)]
-    it = iter(noise)
+    noise = iter([torch.randn(5, 3, generator=gen, dtype=torch.float64)
+                  for _ in range(len(ks) * ninner)])
+    outs, copies = [], []
     PK.reset_launch_counts()
     PR.reset()
     with PR.record():
-        out = graphs.window_steps(_toy_step, pos.clone(), vel.clone(),
-                                  ninner, lambda: next(it), graph)
+        for k in ks:
+            with PR.span("md.window"):
+                pos, vel, e, c, s = graphs.window_steps(
+                    _toy_make, dict(k=k), pos, vel, ninner,
+                    lambda: next(noise), held)
+            assert s is None
+            outs.append((pos, vel, e, c))
+            copies.append((pos.clone(), vel.clone(),
+                           [x.clone() for x in e], c.clone()))
     rec = PR.recorded()
     PR.reset()
-    return out, PK.launch_counts(), rec
+    return outs, copies, PK.launch_counts(), rec
+
+
+def _toy_window(graph, ninner):
+    """One window of the toy, k zero: ((pos, vel, energies, counts,
+    None), launch tallies, record)."""
+    held = graphs.WindowGraphs() if graph else None
+    _, [out], n, rec = _toy_run(held, [torch.zeros(5, 3,
+                                                   dtype=torch.float64)],
+                                ninner)
+    return (*out, None), n, rec
 
 
 @pytest.mark.parametrize("ninner", [2, 5])
@@ -372,11 +414,74 @@ def test_replayed_window_is_the_eager_window(tape, ninner):
     assert _counts(r1, "tree.kernel") == _counts(r0, "tree.kernel")
     assert _counts(r1, "md.graph_capture") == 1
     assert _counts(r1, "md.graph_replay") == ninner - 1
+    assert _counts(r1, "md.graph_reuse") == 0
     assert _counts(r0, "md.graph_capture") == 0
     steps = [s for s in r1["spans"] if s["name"] == "md.step"]
     assert len(steps) == ninner
     (cap,) = [s for s in r1["spans"] if s["name"] == "md.graph_capture"]
     assert cap["parent"] == steps[1]["id"]
+
+
+def _toy_ks(shapes):
+    gen = torch.Generator().manual_seed(5)
+    return [0.1 * torch.randn(sh, generator=gen, dtype=torch.float64)
+            for sh in shapes]
+
+
+@pytest.mark.parametrize("ninner", [2, 4])
+def test_kept_graphs_are_the_eager_windows(tape, ninner):
+    """Four windows, each with its own build: the graph captured in the
+    first replays every step of the next three over their builds, copied
+    into its inputs, bitwise the eager windows."""
+    ks = _toy_ks([(5, 3)] * 4)
+    _, want, n0, r0 = _toy_run(None, ks, ninner)
+    _, got, n1, r1 = _toy_run(graphs.WindowGraphs(), ks, ninner)
+    for w, (x, y) in enumerate(zip(want, got)):
+        for a, b in zip((x[0], x[1], *x[2], x[3]), (y[0], y[1], *y[2],
+                                                     y[3])):
+            assert torch.equal(a, b), w
+    assert n1 == n0 and _counts(r1, "tree.kernel") == \
+        _counts(r0, "tree.kernel")
+    assert _counts(r1, "md.graph_capture") == 1
+    assert _counts(r1, "md.graph_reuse") == 3
+    assert _counts(r1, "md.graph_replay") == 4 * ninner - 1
+    windows = [s["id"] for s in r1["spans"] if s["name"] == "md.window"]
+    reuses = [c["span"] for c in r1["counts"] if c["name"] ==
+              "md.graph_reuse"]
+    assert reuses == windows[1:]
+
+
+def test_kept_graphs_recapture_a_build_of_another_layout(tape):
+    """A build whose layout differs from the slots' (here k's shape in
+    the third window) takes fresh slots and a new capture, which the
+    fourth window reuses; bitwise the eager windows throughout."""
+    ks = _toy_ks([(5, 3), (5, 3), (1, 3), (1, 3)])
+    _, want, _, _ = _toy_run(None, ks, 3)
+    held = graphs.WindowGraphs()
+    _, got, _, rec = _toy_run(held, ks, 3)
+    for x, y in zip(want, got):
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+        assert all(torch.equal(a, b) for a, b in zip(x[2], y[2]))
+        assert torch.equal(x[3], y[3])
+    assert _counts(rec, "md.graph_capture") == 2
+    assert _counts(rec, "md.graph_reuse") == 2
+    assert _counts(rec, "md.graph_replay") == 2 * 2 + 2 * 3
+    # the key sees strides too: a transposed build of k's shape
+    k = ks[-1].expand(5, 3).t().contiguous().t()
+    assert graphs._layout(dict(k=k))[0] != graphs._layout(
+        dict(k=ks[-1].expand(5, 3).contiguous()))[0]
+
+
+def test_a_windows_outputs_outlive_the_next_window(tape):
+    """What a window returns (pos, vel, its energies and counts) is its
+    own: the next window's replays, which rewrite the graph's static
+    tensors and outputs, leave it as it was."""
+    ks = _toy_ks([(5, 3)] * 3)
+    outs, copies, _, _ = _toy_run(graphs.WindowGraphs(), ks, 3)
+    for (p, v, e, c), (p0, v0, e0, c0) in zip(outs, copies):
+        assert torch.equal(p, p0) and torch.equal(v, v0)
+        assert all(torch.equal(a, b) for a, b in zip(e, e0))
+        assert torch.equal(c, c0)
 
 
 def _taped(step):
@@ -406,88 +511,107 @@ def _taped(step):
     return run
 
 
-def test_replayed_v2_window_is_the_eager_window(sim_v2, tape, monkeypatch):
-    sim = sim_v2
+def _taped_make(make):
+    """make for the stand-in graph: its schedules' steps _taped, the
+    steps of one kind one callable across windows."""
+    def taped_make(inputs):
+        schedule, kinds = make(inputs), {}
+
+        def taped(ninner):
+            out = []
+            for st in schedule(ninner):
+                if st not in kinds:
+                    kinds[st] = _taped(st)
+                out.append(kinds[st])
+            return out
+
+        return taped
+
+    return taped_make
+
+
+def _runner_windows(monkeypatch, sim, graph, nsteps, **kw):
+    """make_langevin_runner(**kw)'s run of nsteps from sim's state on the
+    stand-in graph (graph: capturable reads the positions as on a card;
+    else it declines): (its output, launch tallies, record)."""
     real_steps, real_cap = graphs.window_steps, graphs.capturable
-    monkeypatch.setattr(graphs, "window_steps",
-                        lambda step, *a: real_steps(_taped(step), *a))
+    monkeypatch.setattr(graphs, "window_steps", lambda make, *a:
+                        real_steps(_taped_make(make), *a))
+    monkeypatch.setattr(graphs, "capturable", lambda s, pos, topo, n:
+                        graph and real_cap(s, ON_CARD, topo, n))
+    run = sim.make_langevin_runner(**kw)
+    PK.reset_launch_counts()
+    PR.reset()
+    with PR.record():
+        out = run(sim.positions, sim.velocities, nsteps,
+                  generator=torch.Generator().manual_seed(0))
+    rec = PR.recorded()
+    PR.reset()
+    monkeypatch.setattr(graphs, "window_steps", real_steps)
+    monkeypatch.setattr(graphs, "capturable", real_cap)
+    return out, PK.launch_counts(), rec
 
-    def windows(graph):
-        # two whole 3-step windows and a 1-step remainder window
-        monkeypatch.setattr(graphs, "capturable", lambda s, pos, topo, n:
-                            graph and real_cap(s, ON_CARD, topo, n))
-        run = sim.make_langevin_runner(neighbor_every=3)
-        PK.reset_launch_counts()
-        PR.reset()
-        with PR.record():
-            out = run(sim.positions, sim.velocities, 7,
-                      generator=torch.Generator().manual_seed(0))
-        rec = PR.recorded()
-        PR.reset()
-        return out, PK.launch_counts(), rec
 
-    (p0, v0, e0, d0), n0, r0 = windows(False)
-    (p1, v1, e1, d1), n1, r1 = windows(True)
+def _same_runs(r0, r1, nsteps):
+    (p0, v0, e0, d0), (p1, v1, e1, d1) = r0, r1
     assert torch.equal(p0, p1) and torch.equal(v0, v1)
-    assert torch.equal(e0, e1) and len(set(e1.tolist())) == 7
+    assert torch.equal(e0, e1) and len(set(e1.tolist())) == nsteps
     for x, y in zip(d0, d1):
         assert (x is None and y is None) or torch.equal(x, y)
-    assert not sim.overflow_report(*d1)
+
+
+def test_runner_keeps_its_graph_across_windows(trpcage, tape, monkeypatch):
+    """Four 2-step windows of the plain step: the first window's graph
+    replays every step of the next three, bitwise the eager runner."""
+    sim = _sim(trpcage)
+    kw = dict(neighbor_every=2)
+    r0, n0, rec0 = _runner_windows(monkeypatch, sim, False, 8, **kw)
+    r1, n1, rec = _runner_windows(monkeypatch, sim, True, 8, **kw)
+    _same_runs(r0, r1, 8)
+    assert not sim.overflow_report(*r1[3])
     assert n1 == n0
-    assert (_counts(r0, "md.graph_capture"), _counts(r0, "md.graph_replay")) \
-        == (0, 0)
-    assert (_counts(r1, "md.graph_capture"), _counts(r1, "md.graph_replay")) \
-        == (2, 4)
+    assert _counts(rec, "md.graph_capture") == 1
+    assert _counts(rec, "md.graph_reuse") == 3
+    assert _counts(rec, "md.graph_replay") == 7
+    assert _counts(rec0, "md.graph_replay") == 0
 
 
-def _taped_schedule(step):
-    """_taped for window_steps' step: a step, or a schedule of them whose
-    steps of one kind stay one callable."""
-    if not isinstance(step, list):
-        return _taped(step)
-    kinds = {}
-    for st in step:
-        if st not in kinds:
-            kinds[st] = _taped(st)
-    return [kinds[st] for st in step]
+def test_replayed_v2_window_is_the_eager_window(sim_v2, tape, monkeypatch):
+    # two whole 3-step windows and a 1-step remainder window, which runs
+    # eagerly: the second window replays the first's graph
+    sim = sim_v2
+    (r0, n0, rec0), (r1, n1, rec1) = (
+        _runner_windows(monkeypatch, sim, graph, 7, neighbor_every=3)
+        for graph in (False, True))
+    _same_runs(r0, r1, 7)
+    assert not sim.overflow_report(*r1[3])
+    assert n1 == n0
+    assert (_counts(rec0, "md.graph_capture"),
+            _counts(rec0, "md.graph_replay")) == (0, 0)
+    assert (_counts(rec1, "md.graph_capture"),
+            _counts(rec1, "md.graph_replay"),
+            _counts(rec1, "md.graph_reuse")) == (1, 5, 1)
 
 
 def test_replayed_wu_window_is_the_eager_window(trpcage, tape, monkeypatch):
     """The WU impulse schedule (wu_every=2) in 6-step windows and a 3-step
-    remainder window: a step kind's first step eager, its second captured,
-    the rest replayed, the two kinds' graphs in turns; one md.step span a
-    step, an md.wu_impulse counter an impulse step, replayed or not."""
+    remainder window: in the first window a step kind's first step eager,
+    its second captured and replayed with the rest; the later windows
+    replay the kept graphs from their first step, the remainder block's
+    impulse captured where it first occurs; one md.step span a step, an
+    md.wu_impulse counter an impulse step, replayed or not."""
     sim = _sim(trpcage)
-    real_steps, real_cap = graphs.window_steps, graphs.capturable
-    monkeypatch.setattr(graphs, "window_steps", lambda step, *a:
-                        real_steps(_taped_schedule(step), *a))
-
-    def windows(graph):
-        monkeypatch.setattr(graphs, "capturable", lambda s, pos, topo, n:
-                            graph and real_cap(s, ON_CARD, topo, n))
-        run = sim.make_langevin_runner(neighbor_every=6, wu_every=2)
-        PK.reset_launch_counts()
-        PR.reset()
-        with PR.record():
-            out = run(sim.positions, sim.velocities, 15,
-                      generator=torch.Generator().manual_seed(0))
-        rec = PR.recorded()
-        PR.reset()
-        return out, PK.launch_counts(), rec
-
-    (p0, v0, e0, d0), n0, r0 = windows(False)
-    (p1, v1, e1, d1), n1, r1 = windows(True)
-    assert torch.equal(p0, p1) and torch.equal(v0, v1)
-    assert torch.equal(e0, e1) and len(set(e1.tolist())) == 15
-    for x, y in zip(d0, d1):
-        assert (x is None and y is None) or torch.equal(x, y)
+    kw = dict(neighbor_every=6, wu_every=2)
+    r0, n0, rec0 = _runner_windows(monkeypatch, sim, False, 15, **kw)
+    r1, n1, rec1 = _runner_windows(monkeypatch, sim, True, 15, **kw)
+    _same_runs(r0, r1, 15)
     assert n1 == n0
     # by step: an impulse every other step from each window's start (the
-    # remainder window's last one of weight 1); the replays from each
-    # 6-step window's third step, none in the 3-step window
+    # remainder window's last one of weight 1); the replays from the
+    # first window's third step on
     impulse = [1, 0, 1, 0, 1, 0] * 2 + [1, 0, 1]
-    replay = [0, 0, 1, 1, 1, 1] * 2 + [0, 0, 0]
-    for rec, want_replay in ((r0, [0] * 15), (r1, replay)):
+    replay = [0, 0] + [1] * 13
+    for rec, want_replay in ((rec0, [0] * 15), (rec1, replay)):
         steps = [sp for sp in rec["spans"] if sp["name"] == "md.step"]
         assert len(steps) == 15
 
@@ -501,8 +625,13 @@ def test_replayed_wu_window_is_the_eager_window(trpcage, tape, monkeypatch):
 
         assert by_step("md.wu_impulse") == impulse
         assert by_step("md.graph_replay") == want_replay
-    assert _counts(r1, "md.graph_capture") == 4
-    assert _counts(r0, "md.graph_capture") == 0
+        assert by_step("md.graph_capture") == (
+            [0] * 15 if rec is rec0 else [0, 0, 1, 1] + [0] * 10 + [1])
+    # once a step kind (impulse 2, skip, impulse 1); every window after the
+    # first reuses
+    assert _counts(rec1, "md.graph_capture") == 3
+    assert _counts(rec1, "md.graph_reuse") == 2
+    assert _counts(rec0, "md.graph_capture") == 0
 
 
 def test_a_graph_keeps_its_pool_for_the_next(tape):
@@ -597,7 +726,7 @@ def _eager():
 
 def _both(fn):
     """(eager result, graphed result, their launch tallies, the graphed
-    run's captures and replays)."""
+    run's captures, replays and reuses)."""
     out = []
     for eager in (True, False):
         PK.reset_launch_counts()
@@ -609,10 +738,11 @@ def _both(fn):
         rec = PR.recorded()
         out.append((res, PK.launch_counts(),
                     (_counts(rec, "md.graph_capture"),
-                     _counts(rec, "md.graph_replay"))))
+                     _counts(rec, "md.graph_replay"),
+                     _counts(rec, "md.graph_reuse"))))
     PR.reset()
     (r0, n0, g0), (r1, n1, g1) = out
-    assert g0 == (0, 0)
+    assert g0 == (0, 0, 0)
     return r0, r1, n0, n1, g1
 
 
@@ -641,7 +771,8 @@ def test_graphed_windows_are_the_eager_windows(cuda, name, kw):
     run = sim.make_langevin_runner(neighbor_every=NE)
 
     def windows():
-        # two whole windows and a 1-step remainder window (no capture)
+        # two whole windows, the second replaying the first's graph, and a
+        # 1-step remainder window, eager
         return run(sim.positions, sim.velocities, 2 * NE + 1,
                    generator=torch.Generator(device=cuda).manual_seed(7))
 
@@ -649,7 +780,7 @@ def test_graphed_windows_are_the_eager_windows(cuda, name, kw):
     _same(r0, r1)
     assert bool(torch.isfinite(r1[2]).all())
     assert n1 == n0 and n0["tree_rescan"] > 0
-    assert g1 == (2, 2 * (NE - 1))
+    assert g1 == (1, 2 * NE - 1, 1)
 
 
 @pytest.mark.cuda
@@ -675,7 +806,8 @@ def test_graphed_v2_windows_are_the_eager_windows(v2_1li2):
     run = sim.make_langevin_runner(neighbor_every=NE)
 
     def windows():
-        # two whole windows and a 1-step remainder window (no capture)
+        # two whole windows, the second replaying the first's graph, and a
+        # 1-step remainder window, eager
         return run(sim.positions, sim.velocities, 2 * NE + 1,
                    generator=torch.Generator(device=sim.device)
                    .manual_seed(7))
@@ -685,22 +817,29 @@ def test_graphed_v2_windows_are_the_eager_windows(v2_1li2):
     assert bool(torch.isfinite(r1[2]).all())
     assert not sim.overflow_report(*r1[3])
     assert n1 == n0 and n0["take_rows"] > 0 and n0["born_sums"] > 0
-    assert g1 == (2, 2 * (NE - 1))
+    assert g1 == (1, 2 * NE - 1, 1)
 
 
 @pytest.mark.cuda
 def test_graphed_ensemble_is_the_eager_ensemble(cuda):
+    """4 x 2clr: a runner's windows over three run calls, a window each
+    after the first's two (as the benchmark drives it), replay the graph
+    its first window captured."""
     sim = _card_sim(cuda, "2clr")
     ens = ReplicaEnsemble(sim, 4)
     run = ens.make_runner(neighbor_every=NE)
 
     def windows():
-        states, out = run(ens.initial_states(jitter=1e-3, seed=11), 2 * NE)
-        return states[:2], out
+        states = ens.initial_states(jitter=1e-3, seed=11)
+        outs = []
+        for steps in (2 * NE, NE, NE):
+            states, out = run(states, steps)
+            outs.append((states[:2], out))
+        return outs
 
     r0, r1, n0, n1, g1 = _both(windows)
     _same(r0, r1)
-    assert n1 == n0 and g1 == (2, 2 * (NE - 1))
+    assert n1 == n0 and g1 == (1, 4 * NE - 1, 3)
 
 
 @pytest.mark.cuda
@@ -718,7 +857,8 @@ def test_graphed_remd_is_the_eager_remd(cuda):
 
     r0, r1, n0, n1, g1 = _both(cycles)
     _same(r0, r1)
-    assert n1 == n0 and g1 == (2, 2 * (NE - 1))
+    # a cycle's window captures graphs of its own
+    assert n1 == n0 and g1 == (2, 2 * (NE - 1), 0)
 
 
 @pytest.mark.cuda
@@ -726,7 +866,8 @@ def test_graphed_remd_is_the_eager_remd(cuda):
 def test_graphed_run_md_regrow_is_the_eager_one(cuda, version):
     # capacities at the DMS state's own counts (AGBNP2: the MS-tree
     # neighbor width sized short): a window overflows and run_md regrows
-    # and reruns it; the graphs follow the new caps
+    # and reruns it with a new runner, which captures anew; each runner's
+    # later windows replay its graph
     def md(sim):
         out = sim.run_md(4 * NE, neighbor_every=NE, report_interval=NE,
                          generator=torch.Generator(device=cuda)
@@ -744,7 +885,12 @@ def test_graphed_run_md_regrow_is_the_eager_one(cuda, version):
     PR.reset()
     assert r0["regrows"] >= 1
     _same(r0, r1)
-    assert _counts(rec, "md.graph_capture") == 4 + r1["regrows"]
+    runners = 1 + r1["regrows"]
+    assert _counts(rec, "md.graph_capture") == runners
+    # 4 + regrows windows, each runner's first capturing
+    assert _counts(rec, "md.graph_reuse") == 3
+    assert _counts(rec, "md.graph_replay") == (4 + r1["regrows"]) * NE \
+        - runners
 
 
 @pytest.mark.cuda
@@ -752,10 +898,11 @@ def test_graphed_wu_run_md_is_the_eager_one(cuda):
     """run_md(wu_every=4) over two 40-step windows and a 2-step remainder
     window (an impulse of weight 2, then a skip step), from capacities at
     the DMS state's own counts, so that a window overflows and run_md
-    regrows and reruns it: graphed, bitwise the eager run, with the same
-    launch tallies.  A 40-step window captures its impulse and its skip
-    step and replays the two graphs in turns, 38 steps; the 2-step window
-    takes no graph."""
+    regrows and reruns it with a new runner: graphed, bitwise the eager
+    run, with the same launch tallies.  A runner's first 40-step window
+    captures its impulse and its skip step and replays the two graphs in
+    turns, 38 steps; its later windows replay them from their first step,
+    the 2-step window capturing its impulse of weight 2 at once."""
     def md():
         sim = _card_sim(cuda, "1li2", caps_boost=1.0)
         out = sim.run_md(2 * NE + 2, neighbor_every=NE, report_interval=NE,
@@ -785,12 +932,36 @@ def test_graphed_wu_run_md_is_the_eager_one(cuda):
                  for sp in rec["spans"]) for w in windows]
     assert sorted(set(steps)) == [2, NE] and steps[-1] == 2
     whole = steps.count(NE)
+    runners = 1 + r1["regrows"]
     assert whole == 2 + r1["regrows"]
-    assert _counts(rec, "md.graph_capture") == 2 * whole
-    assert _counts(rec, "md.graph_replay") == (NE - 2) * whole
+    assert _counts(rec, "md.graph_capture") == 2 * runners + 1
+    assert _counts(rec, "md.graph_reuse") == whole + 1 - runners
+    assert _counts(rec, "md.graph_replay") == NE * whole + 2 - 2 * runners
     assert _counts(rec, "md.wu_impulse") == NE // 4 * whole + 1
     assert _counts(rec0, "md.wu_impulse") == _counts(rec, "md.wu_impulse")
     assert _counts(rec0, "md.graph_replay") == 0
+
+
+def _window_make(sim, ff, wu):
+    """(make, build): a 1li2 window's schedule over its build, the plain
+    step (wu 1) or the WU impulse schedule, and build(pos) -> the
+    window's inputs at pos."""
+    def make(inputs):
+        _, pairs, topo, vt = inputs
+        mk = dict(pairs=pairs, topology=topo, ff=ff, vdw_topology=vt)
+        if wu == 1:
+            return graphs.every_step(langevin_middle_step(
+                sim.force_fn(**mk), sim.masses, 0.001, 300.0, 1.0))
+        return wu_impulse_langevin_steps(
+            sim.force_fn(wu_mode="split", **mk),
+            sim.force_fn(wu_mode="skip", **mk), sim.masses, 0.001, 300.0,
+            1.0, wu)
+
+    def build(pos):
+        return (sim.agbnp, *sim.window_build(pos[None], ff,
+                                             sim._ensure_vdw_caps())[:3])
+
+    return make, build
 
 
 @pytest.mark.cuda
@@ -799,31 +970,88 @@ def test_graphed_wu_window_makes_no_host_sync(cuda):
     its two step kinds captured and replayed in turns, under
     set_sync_debug_mode("error"): no host sync, and bitwise equal."""
     sim = _card_sim(cuda, "1li2")
-    ff = sim.ff_state()
+    make, build = _window_make(sim, sim.ff_state(), 4)
     pos, vel = sim.positions, sim.velocities
-    pairs, topo, vt, _ = sim.window_build(pos[None], ff,
-                                          sim._ensure_vdw_caps())
-    mk = dict(pairs=pairs, topology=topo, ff=ff, vdw_topology=vt)
-    schedule = wu_impulse_langevin_steps(
-        sim.force_fn(wu_mode="split", **mk),
-        sim.force_fn(wu_mode="skip", **mk), sim.masses, 0.001, 300.0, 1.0,
-        4)(NE)
-    assert len(set(schedule)) == 2
+    inputs = build(pos)
+    assert len(set(make(inputs)(NE))) == 2
     gen = torch.Generator(device=cuda).manual_seed(1)
     noise = [torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
                          device=cuda) for _ in range(NE)]
     # both kinds' lazy set-up, eagerly
-    graphs.window_steps(schedule[:2], pos, vel, 2, iter(noise).__next__)
+    graphs.window_steps(make, inputs, pos, vel, 2, iter(noise).__next__)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        eager, graphed = (graphs.window_steps(schedule, pos, vel, NE,
-                                              iter(noise).__next__, graph)
-                          for graph in (False, True))
+        eager, graphed = (graphs.window_steps(make, inputs, pos, vel, NE,
+                                              iter(noise).__next__, held)
+                          for held in (None, graphs.WindowGraphs()))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     _same(eager, graphed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wu", [1, 4])
+def test_kept_graph_window_makes_no_host_sync(cuda, wu):
+    """A runner's second 1li2 window (the plain step, and wu_every=4) from
+    its build's end to its last step under set_sync_debug_mode("error"):
+    the build copied into the first window's slots, every step a replay of
+    its graphs; bitwise the eager window."""
+    sim = _card_sim(cuda, "1li2")
+    make, build = _window_make(sim, sim.ff_state(), wu)
+    pos, vel = sim.positions, sim.velocities
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    noise = [torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
+                         device=cuda) for _ in range(2 * NE)]
+    held = graphs.WindowGraphs()
+    p1, v1, *_ = graphs.window_steps(make, build(pos), pos, vel, NE,
+                                     iter(noise[:NE]).__next__, held)
+    inputs = build(p1)
+    torch.cuda.synchronize()
+    PR.reset()
+    with PR.record():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graphs.window_steps(make, inputs, p1, v1, NE,
+                                      iter(noise[NE:]).__next__, held)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    rec = PR.recorded()
+    PR.reset()
+    torch.cuda.synchronize()
+    assert (_counts(rec, "md.graph_reuse"), _counts(rec, "md.graph_replay"),
+            _counts(rec, "md.graph_capture")) == (1, NE, 0)
+    want = graphs.window_steps(make, inputs, p1, v1, NE,
+                               iter(noise[NE:]).__next__)
+    _same(want, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,wu", [(1, 1), (1, 4), (2, 1)])
+def test_kept_graphs_run_md_is_the_eager_one(cuda, v2_1li2, version, wu):
+    """run_md over four 40-step windows of 1li2 (the plain step, wu_every=4
+    and AGBNP2) at capacities an eager run of the same trajectory grew:
+    graphed, bitwise the eager run, the graphs captured once a step kind
+    and every window after the first a reuse."""
+    sim = v2_1li2 if version == 2 else _card_sim(cuda, "1li2")
+
+    def md():
+        out = sim.run_md(4 * NE, neighbor_every=NE, report_interval=NE,
+                         wu_every=wu, generator=torch.Generator(
+                             device=cuda).manual_seed(4))
+        return {k: out[k] for k in ("final_pos", "final_vel", "energies",
+                                    "frames", "regrows",
+                                    "tree_counts_max")}
+
+    with _eager():
+        md()
+    r0, r1, n0, n1, g1 = _both(md)
+    assert r0["regrows"] == 0
+    _same(r0, r1)
+    assert bool(np.isfinite(r1["energies"]).all())
+    kinds = 1 if wu == 1 else 2
+    assert n1 == n0 and g1 == (kinds, 4 * NE - kinds, 3)
 
 
 def _window_step(sim):
