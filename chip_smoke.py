@@ -78,7 +78,11 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      step, 2 bonded substeps, SHAKE/RATTLE, rebuilds every 10 outer
      steps): 100 timed outer steps after an equal warm-up, the SHAKE
      residual channel clean and the final constraint violation within the
-     float32 floor 3.6e-6;
+     float32 floor 3.6e-6; a replayed outer step's device ms and its
+     parts' (the slow and fast classes, SHAKE, RATTLE, each captured and
+     replayed alone); then run_md of 100 outer steps, eager and graphed
+     in turns as 34's (eager, graph, graph, eager): ms an outer step,
+     md.graph_step_pct, every turn bitwise the first;
  10. checks that SHAKE, RATTLE and the WU compaction make no host sync
      (torch.cuda.set_sync_debug_mode("error"));
  11. checks that run_md resumed from its step-40 checkpoint reproduces the
@@ -267,7 +271,7 @@ Builds the CUDA kernels from openmm_agbnp_plugin_tpu_torch/csrc, then:
      of AGBNP1 and of AGBNP2 run eagerly and captured and replayed under
      set_sync_debug_mode("error").
 
-    python3 chip_smoke.py --only N      (N = 25, 31, 32, 33 or 34)
+    python3 chip_smoke.py --only N      (N = 9, 25, 31, 32, 33 or 34)
 
 builds the kernels and runs phase N alone.
 
@@ -384,6 +388,7 @@ MD_STEPS = 400
 MD_STEPS_2CLR = 200
 MTS_WU4_STEPS = 400   # [8], after an equal warm-up
 MTS4_STEPS = 100      # [9], 4 fs outer steps, after an equal warm-up
+MTS4_TURNS = ("eager", "graph", "graph", "eager")  # [9]'s run_md turns
 RESUME_STEPS = 40     # [11]: the checkpoint's step, and the steps resumed
 SHAKE_LIMIT = 3.6e-6  # 30 eps of float32, the constraint tolerance floor
 NEIGHBOR_EVERY = 40
@@ -437,6 +442,25 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """cuda_time_ms of one replay of fn() captured as a CUDA graph (after
+    one eager call, captured on a side stream)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        fn()
+        graph.capture_end()
+    main.wait_stream(side)
+    return cuda_time_ms(graph.replay, reps)
 
 
 def system(name):
@@ -1816,11 +1840,26 @@ def phase_mts_wu4(dev, card):
 
 
 def phase_mts4_constraints(dev, card):
-    """Phase 9: bench.py's mts4fs_constraints configuration on 1li2."""
+    """Phase 9: bench.py's mts4fs_constraints configuration on 1li2: the
+    benchmark_langevin run (the SHAKE limit), a replayed outer step's
+    device ms and its parts' (graph_ms), then MTS4_TURNS run_md
+    calls of MTS4_STEPS outer steps from the same start and noise, each a
+    fresh runner (its first window's first step eager, its second
+    captured, every later step a replay), eager and graphed in turns as
+    [34]'s: wall and CUDA-event ms an outer step, md.graph_step_pct (the
+    replayed steps over the md.step spans), every turn bitwise the first
+    with the same launch tallies."""
+    import statistics
+
+    import torch
+
+    from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+    from openmm_agbnp_plugin_tpu_torch.utils import profiling
+
     sim = md_sim(dev, "1li2", constraints=True)
+    mts = dict(dt=0.004, mts_inner=2, neighbor_every=10)
     sim, counts, r = run_md(dev, card, "1li2", MTS4_STEPS, "[9]", sim=sim,
-                            bench=dict(dt=0.004, mts_inner=2,
-                                       neighbor_every=10))
+                            bench=mts)
     cons = sim.constraints
     viol = float(cons.max_violation(r["final_pos"].double()))
     log(f"[9] (times per 4 fs outer step) SHAKE: {cons.n_constraints} "
@@ -1831,6 +1870,96 @@ def phase_mts4_constraints(dev, card):
     if not viol <= SHAKE_LIMIT:
         raise AssertionError(f"constraint violation {viol:.3e}")
     check_list_launches(counts, MTS4_STEPS, "[9]")
+
+    # a replayed outer step's device time by part, each part captured and
+    # replayed alone at a window's start
+    from openmm_agbnp_plugin_tpu_torch.md.integrators import \
+        mts_langevin_step
+
+    pos, vel = sim.positions, sim.velocities
+    ff = sim.ff_state()
+    pairs, topo, vt, _ = sim.window_build(pos[None], ff,
+                                          sim._ensure_vdw_caps())
+    slow, fast = sim.force_fn(pairs=pairs, topology=topo, ff=ff, split=True,
+                              vdw_topology=vt)
+    step = mts_langevin_step(slow, fast, sim.masses, mts["dt"], 300.0, 1.0,
+                             mts["mts_inner"], constraints=cons)
+    noise = torch.randn((mts["mts_inner"],) + tuple(pos.shape),
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        dtype=pos.dtype, device=dev)
+    drifted = pos + 0.002 * vel
+    part = {k: graph_ms(fn) for k, fn in (
+        ("step", lambda: step(pos, vel, noise)),
+        ("slow", lambda: slow(pos)),
+        ("fast", lambda: fast(pos)),
+        ("shake", lambda: cons.shake(drifted, pos)),
+        ("rattle", lambda: cons.velocities(pos, vel)))}
+    calls = dict(slow=1, fast=mts["mts_inner"], shake=mts["mts_inner"],
+                 rattle=mts["mts_inner"] + 1)
+    share = {k: 100.0 * n * part[k] / part["step"] for k, n in calls.items()}
+    log(f"[9] a replayed outer step's device ms {part['step']:.4f}; by part "
+        f"(ms a call x calls a step, % of the step): "
+        + ", ".join(f"{k} {part[k]:.4f} x {n} = {share[k]:.1f}%"
+                    for k, n in calls.items())
+        + f"; constraints (SHAKE + RATTLE) "
+        f"{share['shake'] + share['rattle']:.1f}%; {card}")
+
+    every = mts["neighbor_every"]
+    ms = dict(eager=[], graph=[])
+    pct = {}
+    first = None
+    for turn in MTS4_TURNS:
+        ctx = eager_windows() if turn == "eager" else \
+            contextlib.nullcontext()
+        torch.cuda.synchronize()
+        PK.reset_launch_counts()
+        profiling.reset()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with ctx, profiling.record():
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = sim.run_md(MTS4_STEPS, report_interval=every,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(2), **mts)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / MTS4_STEPS
+        rec = profiling.recorded()
+        profiling.reset()
+        launches = PK.launch_counts()
+        steps = sum(sp["name"] == "md.step" for sp in rec["spans"])
+        replays = sum(c["n"] for c in rec["counts"]
+                      if c["name"] == "md.graph_replay")
+        pct[turn] = 100.0 * replays / steps
+        want = 0 if turn == "eager" else MTS4_STEPS - 1
+        if out["regrows"] or replays != want:
+            raise AssertionError(f"[9] {turn}: regrows {out['regrows']}, "
+                                 f"{replays} replayed steps, expected {want}")
+        viol = float(cons.max_violation(out["final_pos"].double()))
+        if not viol <= SHAKE_LIMIT:
+            raise AssertionError(f"[9] {turn}: constraint violation "
+                                 f"{viol:.3e}")
+        ms[turn].append((wall, ev[0].elapsed_time(ev[1]) / MTS4_STEPS))
+        res = (out["final_pos"], out["final_vel"],
+               torch.as_tensor(out["energies"]),
+               torch.as_tensor(out["frames"]))
+        if first is None:
+            first = (res, launches)
+        else:
+            same_bits(first[0], res, f"[9] {turn}")
+            if launches != first[1]:
+                raise AssertionError(f"[9] {turn}: launches {launches} != "
+                                     f"{first[1]}")
+    med = {t: statistics.median(w for w, _ in v) for t, v in ms.items()}
+    turns = {t: [(round(w, 4), round(c, 4)) for w, c in v]
+             for t, v in ms.items()}
+    log(f"[9] 1li2 4 fs MTS + SHAKE/RATTLE, run_md of {MTS4_STEPS} outer "
+        f"steps a turn (windows of {every}): ms an outer "
+        f"step (wall, CUDA events) by turn {turns}; median eager "
+        f"{med['eager']:.4f} / graph {med['graph']:.4f} wall, "
+        f"x{med['eager'] / med['graph']:.3f}; md.graph_step_pct "
+        f"{pct['graph']:.2f} graphed, {pct['eager']:.2f} eager; every turn "
+        f"bitwise the first, launches equal; {card}")
     return counts
 
 
@@ -4972,16 +5101,19 @@ GRAPH_KEEP_CASES = (("1li2", 1), ("1li2", 4))  # (system, wu_every)
 
 @contextlib.contextmanager
 def eager_windows():
-    """Rebuild windows inside run their steps eagerly (md/graphs.py's
-    capturable declines)."""
+    """Rebuild windows inside run their steps and their builds eagerly
+    (md/graphs.py's capturable declines; a runner's BuildGraph runs each
+    build as it comes)."""
     from openmm_agbnp_plugin_tpu_torch.md import graphs
 
-    real = graphs.capturable
+    real, call = graphs.capturable, graphs.BuildGraph.__call__
     graphs.capturable = lambda *a: False
+    graphs.BuildGraph.__call__ = lambda self, build, pos: build(pos)
     try:
         yield
     finally:
         graphs.capturable = real
+        graphs.BuildGraph.__call__ = call
 
 
 @contextlib.contextmanager
@@ -5147,7 +5279,7 @@ def phase_graphs(dev, card):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        same_bits(tuple(want[:4]), tuple(got), f"[34] the graphed {label} "
+        same_bits(tuple(want), tuple(got), f"[34] the graphed {label} "
                   "step")
         log(f"[34] a {label} window step, eager and captured + replayed, "
             "ran under set_sync_debug_mode('error'): no host sync; bitwise "
@@ -5230,7 +5362,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", type=int, choices=(25, 31, 32, 33, 34),
+    ap.add_argument("--only", type=int, choices=(9, 25, 31, 32, 33, 34),
                     help="build the kernels and run this phase alone "
                          "(its launches and kernel records, the card's "
                          "line, then {\"ok_phase\": N}; the contract's "
@@ -5260,6 +5392,8 @@ def main(argv=None) -> int:
             paths = dict(tree=tree_counts)
         elif args.only == 34:
             paths = dict(graphs=phase_graphs(dev, card))
+        elif args.only == 9:
+            paths = dict(mts4fs=phase_mts4_constraints(dev, card))
         else:
             paths = dict(freevol=phase_freevol(dev, card))
         log(f"[{args.only}] passed in {time.perf_counter() - t0:.1f} s")

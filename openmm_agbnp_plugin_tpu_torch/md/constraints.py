@@ -13,12 +13,21 @@ convergence).
 Where JAX iterates SHAKE under a lax.while_loop on a device-side residual,
 the star path here runs a fixed number of Newton sweeps (`sweeps`) and
 returns the final residual as a device tensor: no host read inside an MD
-step.  The MD runner reads the residual once per window and refuses a
-window whose SHAKE did not reach tolerance, as it refuses an overflow
-(md/simulation.py: the `shake_residual` channel, regrown by adding sweeps).
+step, so a constrained step is captured in its window's CUDA graph
+(md/graphs.py), the residual a static output of it.  The MD runner reads
+the residual once per window and refuses a window whose SHAKE did not
+reach tolerance, as it refuses an overflow (md/simulation.py: the
+`shake_residual` channel, regrown by adding sweeps; run_md then builds a
+new runner, whose graphs are captured with the new sweep count).
 Tables that are not a star forest take the global Jacobi iteration, whose
 convergence test reads the host once per sweep: the slow path, kept for
-generality (no shipped .dms needs it).
+generality (no shipped .dms needs it), and never captured.
+
+The recorder (utils/profiling.py) gets a span md.shake around each SHAKE
+call and md.rattle around each RATTLE call, and a counter
+constraints.shake_sweeps whose n is the sweeps a SHAKE call ran (`sweeps`
+on the star path; under a CUDA graph it is held at the capture and
+counted again at each replay).
 
 The star path's scatters have unique indices (one cluster per heavy atom,
 each hydrogen in one cluster), so a plain indexed add is deterministic;
@@ -41,6 +50,7 @@ import numpy as np
 import torch
 
 from ..ops.tree import batched_segment_sum
+from ..utils import profiling
 
 _KMAX = 3  # constraint_ah1..3: at most 3 hydrogens per heavy atom
 # Newton sweeps of the star-cluster SHAKE: from a 2 fs drift the residual
@@ -214,6 +224,7 @@ class Constraints:
         rref = x_ref[..., cx, None, :] - x_ref[..., ch, :]  # [.., ncl, K, 3]
         eye = torch.eye(_KMAX, dtype=x.dtype, device=x.device)
         pad = mask[:, :, None] & mask[:, None, :]
+        profiling.count("constraints.shake_sweeps", self.sweeps)
         for _ in range(self.sweeps):
             diff, r, d2 = self._residual_clustered(x)
             # A_ij = 2 [imX (r_i . rref_j) + delta_ij imH_i (r_i . rref_i)]
@@ -285,11 +296,13 @@ class Constraints:
             r = x[..., a, :] - x[..., b, :]
             return torch.sum(r * r, dim=-1) - d2, r
 
+        sweeps = 0
         for _ in range(self.max_iter):
             diff, r = residual(x)
             active = torch.amax(torch.abs(diff) / d2, dim=-1) > tol2
             if not bool(torch.any(active)):  # host
                 break
+            sweeps += 1
             rr = torch.sum(r * rref, dim=-1)
             # if the bond rotated past perpendicular the linearized step is
             # invalid; fall back to the current direction
@@ -298,6 +311,7 @@ class Constraints:
             dx = g[..., None] * rref
             x = self._frozen(active, self._scatter_pairs(
                 x, -ima[:, None] * dx, imb[:, None] * dx), x)
+        profiling.count("constraints.shake_sweeps", sweeps)
         diff, _ = residual(x)
         return x, 0.5 * torch.amax(torch.abs(diff) / d2, dim=-1)
 
@@ -330,9 +344,10 @@ class Constraints:
         x [N, 3]; compare with tolerance(x.dtype))."""
         if self.n_constraints == 0:
             return x, x.new_zeros(x.shape[:-2])
-        if self.clusters is not None:
-            return self._positions_clustered(x, x_ref)
-        return self._positions_jacobi(x, x_ref)
+        with profiling.span("md.shake"):
+            if self.clusters is not None:
+                return self._positions_clustered(x, x_ref)
+            return self._positions_jacobi(x, x_ref)
 
     def positions(self, x, x_ref):
         """SHAKE without the residual (the JAX package's API)."""
@@ -343,9 +358,10 @@ class Constraints:
         constraint directions so d/dt |r|^2 = 0."""
         if self.n_constraints == 0:
             return v
-        if self.clusters is not None:
-            return self._velocities_clustered(x, v)
-        return self._velocities_jacobi(x, v)
+        with profiling.span("md.rattle"):
+            if self.clusters is not None:
+                return self._velocities_clustered(x, v)
+            return self._velocities_jacobi(x, v)
 
     def max_violation(self, x):
         """Worst relative distance error (diagnostic): a 0-d tensor for x

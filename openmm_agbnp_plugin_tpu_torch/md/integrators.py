@@ -147,7 +147,9 @@ def mts_langevin_step(slow_force_fn, fast_force_fn, masses, dt, temp,
 
     slow_force_fn(pos) -> (energy, force, *aux); fast_force_fn(pos) ->
     (energy, force).  Returns step(pos, vel, noise [inner, N, 3]) ->
-    (pos, vel, energy_slow + energy_fast_at_start, *aux, shake).  With
+    (pos, vel, energy_slow + energy_fast_at_start, *aux, shake); noise
+    may be a list of inner draws or one tensor (the runner stacks them, a
+    CUDA graph's static noise).  Each substep counts md.mts_substep.  With
     inner=1 the net kick at the same x and the same noise reproduce
     langevin_middle_step with the summed force.
     """
@@ -165,6 +167,7 @@ def mts_langevin_step(slow_force_fn, fast_force_fn, masses, dt, temp,
         e_fast0 = None
         shake = None
         for i in range(inner):
+            profiling.count("md.mts_substep")
             e_fast, f_fast = fast_force_fn(pos)
             e_fast0 = e_fast if e_fast0 is None else e_fast0
             pos, vel, shake = _ovrvo(pos, vel, f_fast, noise[i], delta, inv_m,

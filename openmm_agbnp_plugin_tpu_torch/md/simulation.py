@@ -22,9 +22,10 @@ sweep, and every MD configuration of the JAX package's benchmark
 
 The JAX runner's `lax.scan` over the steps of a window is a Python loop
 here; on the card the plain Langevin step of an AGBNP1 or AGBNP2 window
-(and each step kind of an AGBNP1 WU impulse window) is captured once as a
-CUDA graph in a runner's first window and replayed for the rest of its
-windows, each window's build copied into the graph's inputs
+(and each step kind of an AGBNP1 WU impulse window, and AGBNP1's r-RESPA
+MTS step), with or without the star-cluster SHAKE/RATTLE, is captured
+once as a CUDA graph in a runner's first window and replayed for the rest
+of its windows, each window's build copied into the graph's inputs
 (md/graphs.py), bitwise the loop.  Per-step overflow counts (tree levels,
 tile lists, WU-compact rows) and the SHAKE residual stay on the device,
 and the host reads them once per window; a window that overflowed (or
@@ -444,7 +445,8 @@ class Simulation:
                 return energy, spread(force), counts
 
             def fast_fn(pos):
-                e, f = self.mm.bonded_and_14_forces(project(pos), mm)
+                with profiling.span("eval.fast"):
+                    e, f = self.mm.bonded_and_14_forces(project(pos), mm)
                 return e, spread(f)
 
             return slow_fn, fast_fn
@@ -534,7 +536,7 @@ class Simulation:
         return fn
 
     def window_build(self, pos, ff, vdw_caps=None, vdw_relax: float = 0.5,
-                     relax=None):
+                     relax=None, graph=None):
         """A rebuild window's start for R replicas pos [R, N, 3] of the
         system (R = 1 for the Simulation's own windows): their neighbor
         lists, the overlap-tree topology of their disjoint union (relax:
@@ -546,36 +548,51 @@ class Simulation:
         diag's capacity rows (ops/tree.py::with_caps_rows: a step copies
         nothing from the host).  Returns (pairs, topology,
         vdw_topology, (build counts [R, 7], neighbor_max [R], sibling
-        maxima [R, 7], WU kept rows [R, 7]))."""
+        maxima [R, 7], WU kept rows [R, 7])).  graph: the Langevin
+        runner's md/graphs.py::BuildGraph, which on a card runs the first
+        build eagerly, captures it, and replays it at every later call; a
+        replay's outputs are the graph's, its diagnostics copied, as they
+        outlive the next window's replay."""
         with profiling.span("window.build"):
-            nrep = pos.shape[0]
-            a = union_arrays(ff["a"], nrep, pairs=False)
-            with profiling.span("window.neighbors"):
-                pi, pj, pv, nbmax = self.neighbor_fn(
-                    pos, self.heavy_mask, self.rcut_list, self.kmax)
-            pos_t = pos.reshape(-1, 3)
-            gdr = a["gamma"] / self.agbnp.params.roffset
-            with profiling.span("window.tree_build"):
-                lvl1 = T.make_level1(pos_t, a["radii_large"], a["vol_large"],
-                                     gdr, a["ishydrogen"])
-                levels, bdiag = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
-                                             pairs_valid=pv, pair_rows=True,
-                                             nrep=nrep, relax=relax)
-                topo = T.with_caps_rows(
-                    T.kernel_prep(T.tree_topology(levels)), self.agbnp.caps,
-                    nrep)
-            vdw_topo = None
-            vdw_counts = torch.zeros((nrep, 7), dtype=torch.int64,
-                                     device=pos.device)
-            if vdw_caps is not None:
-                with profiling.span("window.compact"):
-                    lvl1v = T.make_level1(pos_t, a["radii_vdw"],
-                                          a["vol_vdw"], -gdr,
-                                          a["ishydrogen"])
-                    vdw_topo, vdw_counts = T.compact_topology(
-                        T.rescan_volumes(topo, lvl1v), vdw_caps,
-                        relax=vdw_relax, nrep=nrep)
-                    vdw_topo = T.kernel_prep(vdw_topo)
+            if graph is None:
+                return self._window_build(pos, ff, vdw_caps, vdw_relax,
+                                          relax)
+            out = graph(lambda p: self._window_build(p, ff, vdw_caps,
+                                                     vdw_relax, relax), pos)
+            if graph.replayed:
+                out = (*out[:3], tuple(x.clone() for x in out[3]))
+            return out
+
+    def _window_build(self, pos, ff, vdw_caps, vdw_relax, relax):
+        """window_build's work, eager."""
+        nrep = pos.shape[0]
+        a = union_arrays(ff["a"], nrep, pairs=False)
+        with profiling.span("window.neighbors"):
+            pi, pj, pv, nbmax = self.neighbor_fn(
+                pos, self.heavy_mask, self.rcut_list, self.kmax)
+        pos_t = pos.reshape(-1, 3)
+        gdr = a["gamma"] / self.agbnp.params.roffset
+        with profiling.span("window.tree_build"):
+            lvl1 = T.make_level1(pos_t, a["radii_large"], a["vol_large"],
+                                 gdr, a["ishydrogen"])
+            levels, bdiag = T.build_tree(lvl1, pi, pj, self.agbnp.caps,
+                                         pairs_valid=pv, pair_rows=True,
+                                         nrep=nrep, relax=relax)
+            topo = T.with_caps_rows(
+                T.kernel_prep(T.tree_topology(levels)), self.agbnp.caps,
+                nrep)
+        vdw_topo = None
+        vdw_counts = torch.zeros((nrep, 7), dtype=torch.int64,
+                                 device=pos.device)
+        if vdw_caps is not None:
+            with profiling.span("window.compact"):
+                lvl1v = T.make_level1(pos_t, a["radii_vdw"],
+                                      a["vol_vdw"], -gdr,
+                                      a["ishydrogen"])
+                vdw_topo, vdw_counts = T.compact_topology(
+                    T.rescan_volumes(topo, lvl1v), vdw_caps,
+                    relax=vdw_relax, nrep=nrep)
+                vdw_topo = T.kernel_prep(vdw_topo)
         return ((pi, pj, pv), topo, vdw_topo,
                 (bdiag["counts"], nbmax, bdiag["max_siblings"], vdw_counts))
 
@@ -714,8 +731,10 @@ class Simulation:
                 masses, dt, temperature, friction, constraints=cons)
 
         def step_noise(draw):
+            # an MTS step's draws, one a substep, as one [inner, N, 3]
+            # tensor (a CUDA graph's static noise, md/graphs.py)
             xi = draw(nsub)
-            return xi if mts_inner else xi[0]
+            return torch.stack(xi) if mts_inner else xi[0]
 
         if neighbor_every <= 0:
             def run_strict(pos, vel, nsteps: int, generator=None,
@@ -730,8 +749,11 @@ class Simulation:
 
             return run_strict
 
-        # the runner's CUDA graphs, kept across its windows (md/graphs.py)
+        # the runner's CUDA graphs, kept across its windows (md/graphs.py):
+        # the steps' and, on a card but not on the atoms mesh, the build's
         held = graphs.WindowGraphs()
+        built = (graphs.BuildGraph()
+                 if mesh is None and self.device.type == "cuda" else None)
 
         def window_v2(pos, vel, ninner, draw):
             """One AGBNP2 window: a build, then fixed-topology steps as
@@ -768,7 +790,8 @@ class Simulation:
                 return window_v2(pos, vel, ninner, draw)
             if rebuild_topology:
                 pairs, topo, vdw_topo, bdiag = self.window_build(
-                    pos[None], ff, vdw_caps, vdw_relax, topology_relax)
+                    pos[None], ff, vdw_caps, vdw_relax, topology_relax,
+                    graph=built)
                 # one system: the build's one replica row
                 bdiag = WindowDiag(*(x[0] for x in bdiag))
             else:
@@ -777,8 +800,8 @@ class Simulation:
                 z = torch.zeros(7, dtype=torch.int64, device=pos.device)
                 bdiag = WindowDiag(None, nbmax, z, z)
             # the runner's graphs (a step kind each) where capture is sound
-            graph = (not mts_inner and mesh is None
-                     and graphs.capturable(self, pos, topo, ninner))
+            graph = mesh is None and graphs.capturable(self, pos, topo,
+                                                       ninner)
             pos, vel, energies, counts, shake = graphs.window_steps(
                 schedule, (self.agbnp, pairs, topo, vdw_topo), pos, vel,
                 ninner, lambda: step_noise(draw), held if graph else None)

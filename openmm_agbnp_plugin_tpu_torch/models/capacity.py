@@ -114,26 +114,33 @@ class WindowDiag(NamedTuple):
         return WindowDiag(*map(_max, (a, *self[1:]), (b, *other[1:])))
 
     def read(self, site: str) -> "WindowDiag":
-        """On the host, in an md.host_read span: the integer channels
-        packed into one vector and read at once (one host_read at site),
-        the SHAKE residual, a float, in a second."""
+        """On the host, in an md.host_read span: the integer channels and
+        the SHAKE residual packed into one vector and read at once (one
+        host_read at site), the residual carried as the bits of its
+        float64 value (on the host a float64 of the same value)."""
         ints = [x for x in self[:4] if isinstance(x, torch.Tensor)]
-        if not ints and not isinstance(self.shake, torch.Tensor):
+        shake = self.shake
+        if isinstance(shake, torch.Tensor):
+            # its float64 bits ride the integer vector: no second read
+            ints.append(shake.to(torch.float64).view(torch.int64))
+        elif shake is not None:
+            shake = np.asarray(shake)
+        if not ints:
             return WindowDiag(*(None if x is None else np.asarray(x)
                                 for x in self))
         with profiling.span("md.host_read"):
-            if ints:
-                dev = ints[0].device
-                flat = profiling.host_read(torch.cat(
-                    [x.reshape(-1).to(dev, torch.int64) for x in ints]), site)
-                parts = iter(np.split(
-                    flat, np.cumsum([x.numel() for x in ints])[:-1]))
+            dev = ints[0].device
+            flat = profiling.host_read(torch.cat(
+                [x.reshape(-1).to(dev, torch.int64) for x in ints]), site)
+            parts = iter(np.split(
+                flat, np.cumsum([x.numel() for x in ints])[:-1]))
             out = [next(parts).reshape(x.shape)
                    if isinstance(x, torch.Tensor)
                    else None if x is None else np.asarray(x)
                    for x in self[:4]]
-            shake = (None if self.shake is None
-                     else profiling.host_read(self.shake, site + ".shake"))
+            if isinstance(self.shake, torch.Tensor):
+                shake = next(parts).view(np.float64).reshape(
+                    self.shake.shape)
         return WindowDiag(*out, shake)
 
     def worst(self) -> "WindowDiag":

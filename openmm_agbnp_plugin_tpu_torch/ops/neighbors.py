@@ -92,6 +92,18 @@ class CellGrid:
         self.stencil = np.array([(dx, dy, dz) for dx in (-1, 0, 1)
                                  for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
                                 np.int32)
+        self._on = {}  # device -> (dims, stencil) tensors (on)
+
+    def on(self, device):
+        """(dims, stencil) as int64 tensors on device, made from the host
+        once a device and kept: a neighbor build after its first copies
+        nothing from the host (md/graphs.py::BuildGraph captures it)."""
+        device = torch.device(device)
+        if device not in self._on:
+            self._on[device] = tuple(torch.as_tensor(x, dtype=torch.int64,
+                                                     device=device)
+                                     for x in (self.dims, self.stencil))
+        return self._on[device]
 
     def grown(self) -> "CellGrid":
         """Doubled cell capacity (PanicButton regrow)."""
@@ -100,6 +112,7 @@ class CellGrid:
         g.margin = self.margin
         g.ccap = self.ccap * 2
         g.ncells, g.stencil = self.ncells, self.stencil
+        g._on = self._on
         return g
 
 
@@ -125,7 +138,7 @@ def cell_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int,
     n = pos.shape[1]
     nt = nb * n
     dev = pos.device
-    dims = torch.as_tensor(grid.dims, dtype=torch.int64, device=dev)
+    dims, stencil = grid.on(dev)
     ncells, ccap = grid.ncells, grid.ccap
     heavy = heavy_mask[None, :]
 
@@ -143,7 +156,10 @@ def cell_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int,
     rows = ncells + 1
     cid = (cid + rows * torch.arange(nb, device=dev)[:, None]).reshape(-1)
 
-    counts = torch.bincount(cid, minlength=nb * rows)
+    # bincount would read its length from the device; every id is below
+    # nb * rows
+    counts = torch.zeros(nb * rows, dtype=torch.int64,
+                         device=dev).index_add_(0, cid, torch.ones_like(cid))
     starts = torch.cumsum(counts, 0) - counts
     order = torch.argsort(cid, stable=True)
     cid_o = cid[order]
@@ -155,12 +171,11 @@ def cell_neighbor_pairs(pos, heavy_mask, rcut: float, kmax: int,
                        device=dev)
     table[slot] = order
     table = table.reshape(nb, rows, ccap)
-    table[:, ncells] = nt
+    table[:, ncells].fill_(nt)
     table = table.reshape(nb * rows, ccap)
 
     # 27-cell stencil; out-of-grid stencil cells point at the trash row
-    nbr = c[:, :, None, :] + torch.as_tensor(
-        grid.stencil, dtype=torch.int64, device=dev)[None, None, :, :]
+    nbr = c[:, :, None, :] + stencil[None, None, :, :]
     in_grid = torch.all((nbr >= 0) & (nbr < dims), dim=-1)
     nbr_cid = (nbr[..., 0] * dims[1] + nbr[..., 1]) * dims[2] + nbr[..., 2]
     nbr_cid = torch.where(in_grid, nbr_cid, ncells)

@@ -716,12 +716,24 @@ def build_tree(level1, pairs_i, pairs_j, caps: TreeCaps, pairs_valid=None,
     return tuple(levels), diag
 
 
+# (caps, offs, nrep, device) -> caps_rows' tensors
+_CAPS_ROWS: dict = {}
+
+
 def caps_rows(caps: TreeCaps, nrep: int, device) -> dict:
     """The diag's capacity leaves, caps and sibling windows (offs), one
-    [7] row per replica."""
-    return dict(caps=torch.tensor(caps.caps, device=device).repeat(nrep, 1),
-                offs=torch.tensor(caps.offs + (0,),
-                                  device=device).repeat(nrep, 1))
+    [7] row per replica: made from the host once a (caps, nrep, device)
+    and kept, so that a window build after its first copies nothing from
+    the host (md/graphs.py::BuildGraph captures it).  Read-only."""
+    device = torch.device(device)
+    key = (caps.caps, caps.offs, nrep, device)
+    rows = _CAPS_ROWS.get(key)
+    if rows is None:
+        rows = _CAPS_ROWS[key] = dict(
+            caps=torch.tensor(caps.caps, device=device).repeat(nrep, 1),
+            offs=torch.tensor(caps.offs + (0,),
+                              device=device).repeat(nrep, 1))
+    return dict(rows)
 
 
 def with_caps_rows(topology, caps: TreeCaps, nrep: int):

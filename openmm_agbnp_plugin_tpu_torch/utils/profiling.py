@@ -45,6 +45,13 @@ Spans and counters the package records:
                     the graphs' inputs
   md.wu_impulse     counter: one WU impulse step (md/integrators.py::
                     wu_impulse_langevin_steps; a replay counts it again)
+  md.mts_substep    counter: one fast substep of an r-RESPA MTS step
+                    (md/integrators.py; a replay counts it again)
+  md.shake          SHAKE (md/constraints.py Constraints.shake)
+  md.rattle         RATTLE (Constraints.velocities)
+  constraints.shake_sweeps
+                    counter: a SHAKE call's sweeps, as its n (the star
+                    path's fixed Newton sweeps; a replay counts it again)
   md.host_read      WindowDiag.read (models/capacity.py: a window's one
                     read; worst_replica, overflow_report, _regrow given
                     device tensors), run_md's energies and frames
@@ -61,6 +68,8 @@ Spans and counters the package records:
                     AGBNP2's reverse rule)
   eval.wu           the WU gamma-rescan force pass
   eval.mm           the MM terms the pair sweeps do not carry
+  eval.fast         the fast class of an MTS step: the bonded and 1-4
+                    terms (force_fn(split=True)'s fast_fn)
   score.call        ConformerScorer.score (request: the scorer's call index)
   score.host_read   the scorer's read of the batch's diagnostics
   host_read         counter: one blocking device-to-host read, with its site

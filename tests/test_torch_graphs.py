@@ -4,17 +4,22 @@ that graphed windows are the eager ones.
 
 CPU tests: the graphs decline off the card and off the steps they take
 (the plain Langevin step of AGBNP1's and AGBNP2's windows, AGBNP1's WU
-impulse schedule), a runner keeps one set across its windows (T-REMD one a
-window), a window's topology carries its capacity rows (AGBNP2's: its
-steps' diagnostics, so that a step reads nothing back and copies nothing
-from the host), and, with a stand-in graph that records the captured step
-and runs it again at each replay, the window loop's energies, counts,
-launch tallies, captures and reuses and a WU window's counters step by
-step, a build of another layout recaptured, and a window's outputs kept
-apart from the graphs the next window replays.  The `cuda` tests hold
-graphed windows bitwise to eager ones on the card (eager: `capturable`
-patched to decline), eager AGBNP2 windows to each other, and run them
-with
+impulse schedule and r-RESPA MTS step, each with or without the
+star-cluster SHAKE/RATTLE; not the Jacobi fallback), a runner keeps one
+set across its windows (T-REMD one a window), a window's topology
+carries its capacity rows (AGBNP2's: its steps' diagnostics, so that a
+step reads nothing back and copies nothing from the host), and, with a
+stand-in graph that records the captured step and runs it again at each
+replay, the window loop's energies, counts, launch tallies, captures and
+reuses, a WU window's counters step by step and an MTS window's substeps,
+SHAKE sweeps and SHAKE residual, a build of another layout recaptured,
+a window's outputs kept apart from the graphs the next window replays,
+and a build captured once and replayed over later positions.  The `cuda`
+tests hold graphed windows bitwise to eager ones on the card (eager:
+`capturable` patched to decline and the build graph to run each build;
+the 4 fs protocol's SHAKE residual too, and its regrow's new graphs), a
+build's replay to its eager build with no host sync, eager AGBNP2
+windows to each other, and run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_graphs.py
 """
@@ -26,15 +31,19 @@ import types
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from openmm_agbnp_plugin_tpu_torch import ReplicaEnsemble, Simulation, \
     TemperatureREMD, load_dms
 from openmm_agbnp_plugin_tpu_torch.md import graphs
+from openmm_agbnp_plugin_tpu_torch.md.constraints import Constraints
 from openmm_agbnp_plugin_tpu_torch.md.integrators import \
-    langevin_middle_step, wu_impulse_langevin_steps
+    langevin_middle_step, mts_langevin_step, wu_impulse_langevin_steps
 from openmm_agbnp_plugin_tpu_torch.ops import tree as T
+from openmm_agbnp_plugin_tpu_torch.ops.neighbors import CellGrid
 from openmm_agbnp_plugin_tpu_torch.ops.kernels import pairs as PK
+from openmm_agbnp_plugin_tpu_torch.parallel.ensemble import worst_replica
 from openmm_agbnp_plugin_tpu_torch.utils import profiling as PR
 
 torch.set_num_threads(2)
@@ -69,6 +78,17 @@ def _stand_in(version=1, agbnp2=None, constraints=None):
                                  agbnp2=agbnp2, constraints=constraints)
 
 
+def _jacobi(dms):
+    """dms's X-H constraints with one more, H-H, that makes them no star
+    forest: the Jacobi fallback, which reads the host every sweep."""
+    idx = np.concatenate([dms.constraint_idx, dms.constraint_idx[:2, 1][
+        None]])
+    d = np.concatenate([dms.constraint_d, [0.16]])
+    cons = Constraints(idx, d, dms.masses, device="cpu")
+    assert cons.clusters is None
+    return cons
+
+
 def test_capturable_on_the_plain_agbnp1_window_only(trpcage):
     sim = _sim(trpcage)
     ff = sim.ff_state()
@@ -84,14 +104,20 @@ def test_capturable_on_the_plain_agbnp1_window_only(trpcage):
     # no window topology, or one without the tree kernels' prep
     assert not graphs.capturable(sim, ON_CARD, None, 40)
     assert not graphs.capturable(sim, ON_CARD, bare, 40)
-    # AGBNP2 on this window topology (not a _v2_build one), version 0,
-    # constraints
+    # AGBNP2 on this window topology (not a _v2_build one), version 0
     assert not graphs.capturable(_stand_in(agbnp2=object()), ON_CARD, topo,
                                  40)
     assert not graphs.capturable(_stand_in(version=0), ON_CARD, topo, 40)
-    assert not graphs.capturable(_stand_in(constraints=object()), ON_CARD,
-                                 topo, 40)
     assert graphs.capturable(_stand_in(), ON_CARD, topo, 40)
+    # constraints: the star-cluster path (fixed sweeps, no host read), not
+    # the Jacobi fallback
+    star = _sim(trpcage, constraints=True)
+    assert star.constraints.clusters is not None
+    assert graphs.capturable(star, ON_CARD, topo, 40)
+    assert graphs.capturable(_stand_in(constraints=star.constraints),
+                             ON_CARD, topo, 40)
+    assert not graphs.capturable(_stand_in(constraints=_jacobi(trpcage)),
+                                 ON_CARD, topo, 40)
 
 
 @pytest.fixture(scope="module")
@@ -110,8 +136,11 @@ def test_capturable_on_the_agbnp2_window(sim_v2):
     # a topology without its fixed-topology diagnostics
     bare = ({k: v for k, v in topo[0].items() if k != "diags"}, topo[1])
     assert not graphs.capturable(sim, ON_CARD, bare, 40)
+    cons = Constraints.from_dms(sim.dms, device="cpu")
+    assert graphs.capturable(_stand_in(agbnp2=object(), constraints=cons),
+                             ON_CARD, topo, 40)
     assert not graphs.capturable(_stand_in(agbnp2=object(),
-                                           constraints=object()),
+                                           constraints=_jacobi(sim.dms)),
                                  ON_CARD, topo, 40)
     assert graphs.capturable(_stand_in(agbnp2=object()), ON_CARD, topo, 40)
     # MTS: AGBNP2's runner refuses it before a window
@@ -141,12 +170,13 @@ def spy(monkeypatch):
 
 @pytest.mark.parametrize("opts,want", [
     (dict(), [True, True, False]),
-    (dict(mts_inner=2), [False, False, False]),
+    (dict(mts_inner=2), [True, True, False]),
     (dict(wu_every=2), [True, True, False]),
     (dict(rebuild_topology=False), [False, False, False]),
-    (dict(constraints=True), [False, False, False]),
+    (dict(constraints=True), [True, True, False]),
+    (dict(mts_inner=2, constraints=True), [True, True, False]),
     (dict(version=2), [True, True, False]),
-    (dict(version=2, constraints=True), [False, False, False]),
+    (dict(version=2, constraints=True), [True, True, False]),
 ])
 def test_runner_graphs_only_the_plain_step(trpcage, spy, opts, want):
     cons = opts.pop("constraints", False)
@@ -241,6 +271,26 @@ class _HostTraffic(TorchDispatchMode):
                     torch.ops.aten.lift_fresh.default):
             self.seen.append(str(func))
         return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["dense", "grid"])
+def test_a_later_window_build_makes_no_tensor_from_host_data(trpcage, grid):
+    """A window build after the first (what a BuildGraph captures) makes
+    no tensor from host data: the caps rows and the cell grid's dims and
+    stencil are made once and kept; the same build, bitwise."""
+    sim = _sim(trpcage)
+    if grid:
+        sim._set_grid(None, CellGrid(np.asarray(trpcage.positions),
+                                     sim.rcut_list,
+                                     heavy_mask=np.asarray(sim.heavy_mask)))
+    ff, caps = sim.ff_state(), sim._ensure_vdw_caps()
+    pos = sim.positions[None]
+    first = sim.window_build(pos, ff, caps)
+    with _HostTraffic() as seen:
+        again = sim.window_build(pos, ff, caps)
+    assert [f for f in seen.seen if "lift_fresh" in f] == []
+    for x, y in zip(_pytree.tree_leaves(first), _pytree.tree_leaves(again)):
+        assert not isinstance(x, torch.Tensor) or torch.equal(x, y)
 
 
 def test_v2_window_carries_its_step_diagnostics(sim_v2, monkeypatch):
@@ -357,6 +407,7 @@ def tape(monkeypatch):
                         lambda s: contextlib.nullcontext())
     monkeypatch.setattr(graphs, "_POOLS", {})
     monkeypatch.setattr(graphs, "_STREAMS", {})
+    monkeypatch.setattr(graphs, "_upload", lambda graph, stream: None)
 
 
 def _toy_run(held, ks, ninner):
@@ -486,27 +537,32 @@ def test_a_windows_outputs_outlive_the_next_window(tape):
 
 def _taped(step):
     """step for the stand-in graph: inside a capture it records a call of
-    itself on the static tensors and returns them with output buffers;
-    each replay makes that call and writes its results into them, as a
-    graph's kernels write their fixed outputs."""
+    itself on the static tensors and returns them with output buffers
+    (the SHAKE residual's too, where the step has one); each replay makes
+    that call and writes its results into them, as a graph's kernels
+    write their fixed outputs."""
     def run(pos, vel, noise):
         if _Tape.capturing is None:
             return step(pos, vel, noise)
-        _, _, e, c, _ = step(pos.clone(), vel.clone(), torch.zeros_like(noise))
+        _, _, e, c, s = step(pos.clone(), vel.clone(),
+                             torch.zeros_like(noise))
         e, c = torch.empty_like(e), torch.empty_like(c)
+        s = None if s is None else torch.empty_like(s)
 
         def replay():
             # a replay runs the captured kernels, not the step's Python: its
             # counters and launch tallies are the capture's, held
             launches = dict(PK.LAUNCHES)
             with PR.hold():
-                p, v, e_new, c_new, _ = step(pos, vel, noise)
+                p, v, e_new, c_new, s_new = step(pos, vel, noise)
             PK.LAUNCHES.update(launches)
-            for out, x in ((pos, p), (vel, v), (e, e_new), (c, c_new)):
-                out.copy_(x)
+            for out, x in ((pos, p), (vel, v), (e, e_new), (c, c_new),
+                           (s, s_new)):
+                if out is not None:
+                    out.copy_(x)
 
         _Tape.capturing.ops.append(replay)
-        return pos, vel, e, c, None
+        return pos, vel, e, c, s
 
     return run
 
@@ -634,6 +690,100 @@ def test_replayed_wu_window_is_the_eager_window(trpcage, tape, monkeypatch):
     assert _counts(rec0, "md.graph_capture") == 0
 
 
+def test_replayed_mts_window_is_the_eager_window(trpcage, tape,
+                                                  monkeypatch):
+    """The 4 fs protocol's step (r-RESPA, mts_inner=2, with the X-H
+    constraints) in 3-step windows and a 1-step remainder window: the
+    first window's second step captured and replayed, every later step
+    of a whole window replayed, bitwise the eager runner, the windows' SHAKE
+    residual included; by step, replayed or not, one md.step span, two
+    md.mts_substep counters and two SHAKE calls of the star path's
+    sweeps."""
+    sim = _sim(trpcage, constraints=True)
+    sweeps = sim.constraints.sweeps
+    kw = dict(neighbor_every=3, mts_inner=2, dt=0.004)
+    r0, n0, rec0 = _runner_windows(monkeypatch, sim, False, 7, **kw)
+    r1, n1, rec1 = _runner_windows(monkeypatch, sim, True, 7, **kw)
+    _same_runs(r0, r1, 7)
+    assert r1[3].shake is not None and float(r1[3].shake) > 0
+    assert not sim.overflow_report(*r1[3])
+    assert n1 == n0
+    for rec, replay in ((rec0, [0] * 7), (rec1, [0, 1, 1, 1, 1, 1, 0])):
+        steps = [sp["id"] for sp in rec["spans"] if sp["name"] == "md.step"]
+        assert len(steps) == 7
+        parent = {sp["id"]: sp["parent"] for sp in rec["spans"]}
+
+        def by_step(name):
+            # a counter in a span inside its step (md.shake) is the step's
+            out = [0] * 7
+            for c in rec["counts"]:
+                if c["name"] == name:
+                    at = c["span"]
+                    while at not in steps:
+                        at = parent[at]
+                    out[steps.index(at)] += c["n"]
+            return out
+
+        assert by_step("md.mts_substep") == [2] * 7
+        assert by_step("constraints.shake_sweeps") == [2 * sweeps] * 7
+        assert by_step("md.graph_replay") == replay
+    assert (_counts(rec1, "md.graph_capture"),
+            _counts(rec1, "md.graph_reuse")) == (1, 1)
+    # the spans of the eager steps' constraints and fast class
+    names = [sp["name"] for sp in rec0["spans"]]
+    assert names.count("md.shake") == 14 and names.count("eval.fast") == 14
+    assert names.count("md.rattle") == 7 * 3
+
+
+def _toy_build(pos):
+    """A stand-in window build: one launch writing fresh outputs, a
+    positions-like tensor and diagnostics, from pos."""
+    out = torch.empty_like(pos)
+    n = torch.empty((), dtype=torch.int64)
+
+    def op():
+        out.copy_(2.0 * pos + 1.0)
+        n.copy_((pos > 0).sum())
+
+    _launch(op)
+    return out, (n,)
+
+
+def test_build_graph_replays_the_build(tape):
+    """Four windows' builds through a BuildGraph: the first eager, then
+    captured, the next three replays over their own positions copied in;
+    each the eager build's, launch tallies and held counters the eager
+    builds'."""
+    gen = torch.Generator().manual_seed(7)
+    xs = [torch.randn(5, 3, generator=gen, dtype=torch.float64)
+          for _ in range(4)]
+
+    def builds(graph):
+        PK.reset_launch_counts()
+        PR.reset()
+        outs, captured = [], []
+        with PR.record():
+            for x in xs:
+                o, (n,) = (graph(_toy_build, x) if graph is not None
+                           else _toy_build(x))
+                outs.append((o.clone(), n.clone()))
+                captured.append(graph is not None and graph.replayed)
+        rec = PR.recorded()
+        PR.reset()
+        return outs, captured, PK.launch_counts(), rec
+
+    want, _, n0, r0 = builds(None)
+    got, captured, n1, r1 = builds(graphs.BuildGraph())
+    for (a, b), (c, d) in zip(want, got):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    assert captured == [False, True, True, True]
+    assert n1 == n0 and n0["tree_rescan"] == 4
+    assert _counts(r1, "tree.kernel") == _counts(r0, "tree.kernel") == 4
+    assert _counts(r1, "window.build_capture") == 1
+    assert _counts(r1, "window.build_replay") == 3
+    assert sum(s["name"] == "window.build_capture" for s in r1["spans"]) == 1
+
+
 def test_a_graph_keeps_its_pool_for_the_next(tape):
     _toy_window(True, 3)
     pool, first = graphs._POOLS[None]
@@ -715,13 +865,16 @@ def v2_1li2(cuda):
 
 @contextlib.contextmanager
 def _eager():
-    """Windows inside run eagerly: capturable declines."""
-    real = graphs.capturable
+    """Windows inside run eagerly: capturable declines, and a runner's
+    BuildGraph runs each build as it comes."""
+    real, call = graphs.capturable, graphs.BuildGraph.__call__
     graphs.capturable = lambda *a: False
+    graphs.BuildGraph.__call__ = lambda self, build, pos: build(pos)
     try:
         yield
     finally:
         graphs.capturable = real
+        graphs.BuildGraph.__call__ = call
 
 
 def _both(fn):
@@ -840,6 +993,29 @@ def test_graphed_ensemble_is_the_eager_ensemble(cuda):
     r0, r1, n0, n1, g1 = _both(windows)
     _same(r0, r1)
     assert n1 == n0 and g1 == (1, 4 * NE - 1, 3)
+
+
+@pytest.mark.cuda
+def test_graphed_constrained_ensemble_is_the_eager_ensemble(cuda):
+    """2 x 1li2 with the X-H constraints (the star path, a SHAKE residual
+    [R] a window): the runner's graphs replay its windows, bitwise the
+    eager ensemble, the residual included."""
+    sim = _card_sim(cuda, "1li2", constraints=True)
+    sim.run_md(4 * NE, neighbor_every=NE)  # capacities grown
+    ens = ReplicaEnsemble(sim, 2)
+    run = ens.make_runner(neighbor_every=NE)
+
+    def windows():
+        states, out = run(ens.initial_states(jitter=1e-3, seed=13), 2 * NE)
+        return states[:2], out
+
+    r0, r1, n0, n1, g1 = _both(windows)
+    _same(r0, r1)
+    assert not sim.overflow_report(*worst_replica(r1[1][1:]))
+    shake = r1[1][-1]
+    assert shake is not None and shake.shape == (2,)
+    assert float(shake.max()) <= sim.constraints.tolerance(torch.float32)
+    assert n1 == n0 and g1 == (1, 2 * NE - 1, 1)
 
 
 @pytest.mark.cuda
@@ -1054,6 +1230,240 @@ def test_kept_graphs_run_md_is_the_eager_one(cuda, v2_1li2, version, wu):
     assert n1 == n0 and g1 == (kinds, 4 * NE - kinds, 3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["1li2", "2clr"])
+def test_build_replay_makes_no_host_sync(cuda, name):
+    """A BuildGraph over a Simulation's window build (1li2's dense
+    neighbor candidates, 2clr's cell grid): its third call, a replay over
+    other positions, under set_sync_debug_mode("error"), is the eager
+    build of those positions, bitwise."""
+    sim = _card_sim(cuda, name)
+    ff, caps = sim.ff_state(), sim._ensure_vdw_caps()
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xs = [(sim.positions + 1e-3 * torch.randn(
+        sim.positions.shape, generator=gen, dtype=sim.dtype,
+        device=cuda))[None] for _ in range(3)]
+
+    def build(p):
+        return sim._window_build(p, ff, caps, 0.5, None)
+
+    held = graphs.BuildGraph()
+    for x in xs[:2]:
+        held(build, x)
+    assert held.replayed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = held(build, xs[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _same(build(xs[2]), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(neighbor_every=NE),
+                                dict(dt=0.004, mts_inner=2,
+                                     neighbor_every=10)],
+                         ids=["plain", "mts4fs"])
+def test_graphed_build_run_md_is_the_eager_one(cuda, kw):
+    """run_md over four windows of 1li2 (the plain step; the 4 fs
+    protocol, constrained): the build eager in the first window and
+    captured after it, replayed in the other three, bitwise the run with
+    eager builds and eager steps."""
+    cons = "mts_inner" in kw
+    sim = _card_sim(cuda, "1li2", constraints=cons)
+    every = kw["neighbor_every"]
+
+    def md():
+        out = sim.run_md(4 * every, report_interval=every, **kw,
+                         generator=torch.Generator(device=cuda).manual_seed(6))
+        return {k: out[k] for k in ("final_pos", "final_vel", "energies",
+                                    "frames", "regrows", "tree_counts_max")}
+
+    with _eager():
+        md()
+    PR.reset()
+    with PR.record():
+        graphed = md()
+        torch.cuda.synchronize()
+    rec = PR.recorded()
+    PR.reset()
+    with _eager():
+        eager = md()
+    assert graphed["regrows"] == 0
+    _same(eager, graphed)
+    assert (_counts(rec, "window.build_capture"),
+            _counts(rec, "window.build_replay")) == (1, 3)
+
+
+MTS_NE = 10  # the 4 fs protocol's rebuild window, in outer steps
+MTS = dict(dt=0.004, mts_inner=2, neighbor_every=MTS_NE)
+
+
+def _mts_make(sim, ff):
+    """(make, build) as _window_make's for the 4 fs protocol's step: the
+    r-RESPA MTS step (mts_inner=2) with sim's constraints."""
+    _, build = _window_make(sim, ff, 1)
+
+    def make(inputs):
+        _, pairs, topo, vt = inputs
+        slow, fast = sim.force_fn(pairs=pairs, topology=topo, ff=ff,
+                                  split=True, vdw_topology=vt)
+        return graphs.every_step(mts_langevin_step(
+            slow, fast, sim.masses, 0.004, 300.0, 1.0, 2,
+            constraints=sim.constraints))
+
+    return make, build
+
+
+@pytest.mark.cuda
+def test_graphed_mts_windows_are_the_eager_windows(cuda):
+    """The 4 fs protocol on 1li2 (r-RESPA, mts_inner=2, the X-H
+    constraints on the star path): a runner's two whole 10-step windows,
+    the first capturing its step and the second replaying it, and a
+    1-step remainder window, eager: bitwise the eager runner, the
+    windows' SHAKE residual included, with the same launch tallies."""
+    sim = _card_sim(cuda, "1li2", constraints=True)
+    sim.run_md(4 * MTS_NE, report_interval=MTS_NE, **MTS)
+    run = sim.make_langevin_runner(**MTS)
+
+    def windows():
+        return run(sim.positions, sim.velocities, 2 * MTS_NE + 1,
+                   generator=torch.Generator(device=cuda).manual_seed(7))
+
+    r0, r1, n0, n1, g1 = _both(windows)
+    _same(r0, r1)
+    shake = r1[3].shake
+    assert shake is not None and 0 < float(shake) <= \
+        sim.constraints.tolerance(torch.float32)
+    assert not sim.overflow_report(*r1[3])
+    assert n1 == n0 and n0["tree_rescan"] > 0
+    assert g1 == (1, 2 * MTS_NE - 1, 1)
+
+
+@pytest.mark.cuda
+def test_graphed_mts_run_md_is_the_eager_one(cuda):
+    """run_md of the 4 fs protocol over four windows at capacities an
+    eager run grew: graphed, bitwise the eager run; the graph captured
+    once, every window after the first a reuse; one packed host read a
+    window besides run_md's energies and frame; two md.mts_substep
+    counters and 2 x the sweeps of constraints.shake_sweeps a step."""
+    sim = _card_sim(cuda, "1li2", constraints=True)
+
+    def md():
+        out = sim.run_md(4 * MTS_NE, report_interval=MTS_NE,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(4), **MTS)
+        return {k: out[k] for k in ("final_pos", "final_vel", "energies",
+                                    "frames", "regrows",
+                                    "tree_counts_max")}
+
+    with _eager():
+        md()
+    PR.reset()
+    with PR.record():
+        r1 = md()
+    rec = PR.recorded()
+    PR.reset()
+    with _eager():
+        r0 = md()
+    assert r0["regrows"] == 0
+    _same(r0, r1)
+    assert bool(np.isfinite(r1["energies"]).all())
+    assert (_counts(rec, "md.graph_capture"), _counts(rec, "md.graph_reuse"),
+            _counts(rec, "md.graph_replay")) == (1, 3, 4 * MTS_NE - 1)
+    steps = 4 * MTS_NE
+    assert sum(sp["name"] == "md.step" for sp in rec["spans"]) == steps
+    assert _counts(rec, "md.mts_substep") == 2 * steps
+    assert _counts(rec, "constraints.shake_sweeps") == \
+        2 * steps * sim.constraints.sweeps
+    assert _counts(rec, "host_read") == 3 * 4
+    viol = float(sim.constraints.max_violation(
+        torch.as_tensor(r1["final_pos"]).double()))
+    assert viol <= sim.constraints.tolerance(torch.float32)
+
+
+@pytest.mark.cuda
+def test_kept_mts_window_makes_no_host_sync(cuda):
+    """A runner's second window of the 4 fs protocol on 1li2 from its
+    build's end to its last step under set_sync_debug_mode("error"): the
+    build copied into the first window's slots, every step a replay;
+    bitwise the eager window, its SHAKE residual included."""
+    sim = _card_sim(cuda, "1li2", constraints=True)
+    make, build = _mts_make(sim, sim.ff_state())
+    pos, vel = sim.positions, sim.velocities
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    noise = [torch.randn((2,) + tuple(pos.shape), generator=gen,
+                         dtype=pos.dtype, device=cuda)
+             for _ in range(2 * MTS_NE)]
+    held = graphs.WindowGraphs()
+    p1, v1, *_ = graphs.window_steps(make, build(pos), pos, vel, MTS_NE,
+                                     iter(noise[:MTS_NE]).__next__, held)
+    inputs = build(p1)
+    torch.cuda.synchronize()
+    PR.reset()
+    with PR.record():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graphs.window_steps(make, inputs, p1, v1, MTS_NE,
+                                      iter(noise[MTS_NE:]).__next__, held)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    rec = PR.recorded()
+    PR.reset()
+    torch.cuda.synchronize()
+    assert (_counts(rec, "md.graph_reuse"), _counts(rec, "md.graph_replay"),
+            _counts(rec, "md.graph_capture")) == (1, MTS_NE, 0)
+    want = graphs.window_steps(make, inputs, p1, v1, MTS_NE,
+                               iter(noise[MTS_NE:]).__next__)
+    assert got[4] is not None
+    _same(want, got)
+
+
+@pytest.mark.cuda
+def test_shake_regrow_takes_new_graphs(cuda):
+    """1li2 under the 4 fs protocol with one SHAKE sweep, too few: the
+    first window misses the tolerance, run_md gives SHAKE more sweeps and
+    reruns the window with a new runner, which captures its graph anew
+    with the new sweep count; bitwise the eager run of the same."""
+    def md():
+        sim = _card_sim(cuda, "1li2", constraints=True)
+        sim.constraints.sweeps = 1
+        PR.reset()
+        with PR.record():
+            out = sim.run_md(3 * MTS_NE, report_interval=MTS_NE,
+                             generator=torch.Generator(device=cuda)
+                             .manual_seed(5), **MTS)
+        rec = PR.recorded()
+        PR.reset()
+        keep = {k: out[k] for k in ("final_pos", "final_vel", "energies",
+                                    "frames", "regrows")}
+        return keep, rec, sim.constraints.sweeps
+
+    with _eager():
+        r0, rec0, sweeps0 = md()
+    r1, rec, sweeps = md()
+    _same(r0, r1)
+    assert r1["regrows"] >= 1 and sweeps == sweeps0 > 1
+    runners = 1 + r1["regrows"]
+    assert _counts(rec, "md.graph_capture") == runners
+    # a step's sweeps, by window: the first runner's 1 a SHAKE call, the
+    # last runner's the regrown count
+    parent = {sp["id"]: sp["parent"] for sp in rec["spans"]}
+    windows = [sp["id"] for sp in rec["spans"] if sp["name"] == "md.window"]
+    by_window = dict.fromkeys(windows, 0)
+    for c in rec["counts"]:
+        if c["name"] == "constraints.shake_sweeps":
+            at = c["span"]
+            while at not in by_window:
+                at = parent[at]
+            by_window[at] += c["n"]
+    assert by_window[windows[0]] == MTS_NE * 2 * 1
+    assert by_window[windows[-1]] == MTS_NE * 2 * sweeps
+    assert _counts(rec0, "constraints.shake_sweeps") == \
+        _counts(rec, "constraints.shake_sweeps")
+
+
 def _window_step(sim):
     """The plain Langevin step of a window from sim's positions: AGBNP1 on
     window_build's topologies, AGBNP2 on _v2_build's."""
@@ -1088,4 +1498,4 @@ def test_graphed_step_makes_no_host_sync(cuda, version):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    _same(tuple(want[:4]), tuple(got))
+    _same(tuple(want), tuple(got))
